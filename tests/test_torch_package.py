@@ -1,0 +1,104 @@
+"""Package rules of the PyTorch/CUDA port (flash_attention_tpu_torch).
+
+  * Nothing in the port, nor chip_smoke.py, imports jax or the JAX
+    package (AST walk over every .py file).
+  * Entry points default to device="cuda"; on a host without a card that
+    default raises instead of dropping to the CPU.
+  * Features that later slices port raise NotImplementedError instead
+    of being accepted and ignored.
+"""
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+import flash_attention_tpu_torch
+from flash_attention_tpu_torch.models.llama import LlamaConfig, init_params
+from flash_attention_tpu_torch.ops.flash import (
+    flash_attention,
+    flash_attention_fwd,
+)
+from flash_attention_tpu_torch.runtime.engine import Engine
+from flash_attention_tpu_torch.runtime.kv_cache import LayeredPagedKVCache
+from flash_attention_tpu_torch.utils.convert import params_from_jax
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = pathlib.Path(flash_attention_tpu_torch.__file__).resolve().parent
+FORBIDDEN = ("jax", "flash_attention_tpu", "jaxlib")
+CFG = LlamaConfig.tiny(dtype=torch.float32)
+
+
+def _imported_roots(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and node.level == 0:
+            yield node.module
+
+
+def _sources():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10 and all(f.exists() for f in files)
+    return files
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    for mod in _imported_roots(path):
+        root = mod.split(".")[0]
+        assert root not in FORBIDDEN, f"{path} imports {mod}"
+
+
+def test_default_device_is_cuda_and_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(CFG, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LayeredPagedKVCache(n_layers=1, kv_heads=1, head_dim=64,
+                            num_pages=2, page_size=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_jax({"w": [[1.0]]})
+    params = init_params(CFG, seed=0, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(params, CFG, num_pages=4, page_size=16)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(prefill_chunk=32), dict(prefix_cache=True),
+    dict(speculative_k=2), dict(draft_fn=lambda h, k: h[:k]),
+    dict(mesh=object()), dict(kv_quant_dtype=torch.int8),
+], ids=lambda kw: next(iter(kw)))
+def test_engine_unported_features_raise(kw):
+    params = init_params(CFG, seed=0, device="cpu")
+    with pytest.raises(NotImplementedError, match="slice"):
+        Engine(params, CFG, num_pages=4, page_size=16, device="cpu", **kw)
+
+
+def test_unported_model_features_raise():
+    windowed = LlamaConfig.tiny(dtype=torch.float32, window=64)
+    params = init_params(windowed, seed=0, device="cpu")
+    with pytest.raises(NotImplementedError, match="window"):
+        Engine(params, windowed, num_pages=4, page_size=16, device="cpu")
+    params = init_params(CFG, seed=0, device="cpu")
+    params["layers"][0]["router"] = torch.zeros(1)
+    with pytest.raises(NotImplementedError, match="MoE"):
+        Engine(params, CFG, num_pages=4, page_size=16, device="cpu")
+
+
+def test_unported_attention_options_raise():
+    q = torch.zeros(1, 2, 8, 64)
+    with pytest.raises(NotImplementedError):
+        flash_attention_fwd(q, q, q, causal=True, window=4)
+    with pytest.raises(NotImplementedError):
+        flash_attention_fwd(q, q, q, segment_ids=(0, 0))
+    with pytest.raises(NotImplementedError):
+        flash_attention_fwd(q, q.to(torch.int8), q.to(torch.int8))
+    with pytest.raises(NotImplementedError, match="backward"):
+        flash_attention(q.requires_grad_(), q, q, causal=True)
