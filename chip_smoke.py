@@ -7,10 +7,12 @@ Phases, each fatal on failure:
   1. build   compile the port's CUDA kernels (csrc/*.cu) and the native
              page allocator from the sources in this checkout;
   2. check   hold each kernel against its plain PyTorch version on the
-             card in bf16 at the serving shapes, and in fp16/bf16 at small
-             shapes for its other instantiations (the low-precision gate:
-             kernel error <= 3x the plain version's error in the same
-             dtype against an fp32 reference, LSE within 1e-3);
+             card in bf16 at the serving shapes (B1, B4) and the training
+             shape (B2, B3), and in fp16/bf16 at small shapes for its
+             other instantiations (the low-precision gate: kernel error
+             <= 3x the plain version's error in the same dtype against an
+             fp32 reference, LSE within 1e-3); B2/B3 must also give
+             identical bits on a rerun;
   3. time    each kernel, its plain version and (where one exists) the
              one PyTorch call that computes the same function, with CUDA
              events; the bound is the larger of bytes / 3.35 TB/s and
@@ -20,7 +22,13 @@ Phases, each fatal on failure:
              kernel launches, and hold every greedy transcript to a
              teacher-forced forward with plain attention;
   5. profile a few decode steps of the same engine with torch.profiler:
-             device time by kernel and the device's busy share.
+             device time by kernel and the device's busy share;
+  6. train   the Trainer on LlamaConfig.llama3_1b at full width and depth
+             (bf16, remat, AdamW) at batch 4 x 2048 from a seeded token
+             shard: 8 steps with finite, falling loss and exactly 32 B1 /
+             16 B2 / 16 B3 launches a step, an exact resume from a
+             checkpoint, one profiled step (device time by kernel), and
+             the kernel path held to the plain path.
 
 Prints information lines, then one JSON line describing the kernels,
 then the card's name and power limit, and last one JSON line
@@ -100,6 +108,16 @@ def randn(rng, shape, dtype, std=1.0):
         rng.normal(0.0, std, shape).astype(np.float32)).to("cuda", dtype)
 
 
+def fp32_copy(params) -> dict:
+    """A detached fp32 copy of a Llama parameter dict: the weights of the
+    fp32 reference forward the bf16 paths are held to."""
+    return {"embed": params["embed"].detach().float(),
+            "lm_head": params["lm_head"].detach().float(),
+            "final_norm": params["final_norm"].detach().float(),
+            "layers": [{k: w.detach().float() for k, w in layer.items()}
+                       for layer in params["layers"]]}
+
+
 # --- phase 2/3: kernels ---------------------------------------------------
 
 
@@ -158,6 +176,142 @@ def check_flash(rng, flush, results):
             max_abs_err=err_vs_plain, ms=ms, plain_ms=plain_ms,
             bound_ms=bms, bound_by=by, library_ms=lib_ms,
             shape=f"q(1,{hq},{t},{d}) kv(1,{hkv},{t},{d}) causal bf16")
+
+
+def _bwd_gate(what, got, hi, lo):
+    """The low-precision gate on (dq, dk, dv): each kernel gradient's
+    error against the fp32 reference within 3x the plain version's in
+    the same dtype (floored at one ulp), all finite. Returns the
+    kernel's max-abs difference from the plain version per gradient."""
+    from flash_attention_tpu_torch.utils.metrics import (
+        max_abs_error, verify_low_precision,
+    )
+
+    parts, failed = [], []
+    for name, g, g_hi, g_lo in zip(("dq", "dk", "dv"), got, hi, lo):
+        ok, kerr, berr = verify_low_precision(g, g_hi, g_lo)
+        finite = bool(torch.isfinite(g.float()).all())
+        parts.append(f"{name} kernel_err={kerr:.3e} plain_err={berr:.3e}"
+                     + ("" if finite else " NOT FINITE"))
+        if not (ok and finite):
+            failed.append(name)
+    log(f"check {what}: " + "; ".join(parts))
+    if failed:
+        raise AssertionError(f"{what}: {failed} failed the gate")
+    return [max_abs_error(g, g_lo) for g, g_lo in zip(got, lo)]
+
+
+def _bwd_case(rng, dt, b, hq, hkv, nq, nk, d, causal, offset=None):
+    """Kernel, bf16/fp16 plain and fp32 plain backward of one case, with
+    the forward's o and LSE from B1 (the kernel path) or from the plain
+    forward (the plain paths). The kernel runs twice: both runs must
+    give identical bits."""
+    from flash_attention_tpu_torch.ops import flash
+
+    q = randn(rng, (b, hq, nq, d), dt)
+    k = randn(rng, (b, hkv, nk, d), dt)
+    v = randn(rng, (b, hkv, nk, d), dt)
+    do = randn(rng, (b, hq, nq, d), dt)
+    sc = 1.0 / math.sqrt(d)
+    off = nk - nq if offset is None else offset
+    kw = dict(causal=causal, scale=sc, offset=off)
+    # The private launchers take any offset (negative ones make rows that
+    # see no key); the public API rejects causal offsets below 0.
+    o, lse = flash._flash_fwd_cuda(q, k, v, **kw)
+    got = flash._flash_bwd_cuda(q, k, v, o, lse, do, **kw)
+    again = flash._flash_bwd_cuda(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
+    o_lo, lse_lo = flash.flash_attention_fwd_plain(q, k, v, **kw)
+    lo = flash.flash_attention_bwd_plain(q, k, v, o_lo, lse_lo, do, **kw)
+    f32 = [x.float() for x in (q, k, v, do)]
+    o_hi, lse_hi = flash.flash_attention_fwd_plain(*f32[:3], **kw)
+    hi = flash.flash_attention_bwd_plain(*f32[:3], o_hi, lse_hi, f32[3],
+                                         **kw)
+    torch.cuda.synchronize()
+    if not deterministic:
+        raise AssertionError("B2/B3 gave different bits on a rerun")
+    return (q, k, v, o, lse, do), got, hi, lo
+
+
+def check_flash_bwd(rng, flush, results):
+    """B2 and B3 at the training shape of the 1B model (batch 4, 2048
+    tokens, 16 q / 8 kv heads of 128, causal, bf16): gate, determinism,
+    times. B1 is timed at the same shape (its training launches)."""
+    from flash_attention_tpu_torch.ops import flash
+
+    b, hq, hkv, t, d = 4, 16, 8, 2048, 128
+    sc = 1.0 / math.sqrt(d)
+    kw = dict(causal=True, scale=sc, offset=0)
+    (q, k, v, o, lse, do), got, hi, lo = _bwd_case(
+        rng, torch.bfloat16, b, hq, hkv, t, t, d, True)
+    errs = _bwd_gate(f"B2/B3 flash_bwd q({b},{hq},{t},{d}) "
+                     f"kv({b},{hkv},{t},{d}) causal bf16, deterministic",
+                     got, hi, lo)
+    delta = flash._bwd_delta(o, do)
+
+    def dq_kernel():
+        flash._bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
+
+    def dkv_kernel():
+        flash._bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
+
+    def plain_bwd():
+        flash.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+
+    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qr, kr, vr, is_causal=True, enable_gqa=True)
+
+    def library_bwd():
+        torch.autograd.grad(out, (qr, kr, vr), do, retain_graph=True)
+
+    def fwd_kernel():
+        flash.flash_attention_fwd(q, k, v, causal=True)
+
+    def fwd_plain():
+        flash.flash_attention_fwd_plain(q, k, v, **kw)
+
+    def fwd_library():
+        torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
+
+    ms_dq, ms_dkv = time_ms(dq_kernel, flush), time_ms(dkv_kernel, flush)
+    plain_ms, lib_ms = time_ms(plain_bwd, flush), time_ms(library_bwd, flush)
+    del out
+    (f2, b2), (f3, b3) = flash.bwd_cost(b, hq, hkv, t, t, d, True, 2)
+    bound2, by2 = bound_ms(f2, b2)
+    bound3, by3 = bound_ms(f3, b3)
+    log(f"time  B2 flash_bwd_dq: kernel_ms={ms_dq:.4f} bound_ms="
+        f"{bound2:.4f} ({by2}) achieved={f2 / (ms_dq * 1e-3) / 1e12:.1f} "
+        f"TFLOP/s")
+    log(f"time  B3 flash_bwd_dkv: kernel_ms={ms_dkv:.4f} bound_ms="
+        f"{bound3:.4f} ({by3}) achieved={f3 / (ms_dkv * 1e-3) / 1e12:.1f} "
+        f"TFLOP/s")
+    log(f"time  B2+B3: kernel_ms={ms_dq + ms_dkv:.4f} plain_ms="
+        f"{plain_ms:.4f} library_ms={lib_ms:.4f} (autograd.grad through "
+        f"SDPA(is_causal, enable_gqa): dq, dk, dv together)")
+    shape = f"q({b},{hq},{t},{d}) kv({b},{hkv},{t},{d}) causal bf16"
+    note = ("plain_ms and library_ms compute dq, dk and dv together "
+            "(flash_attention_bwd_plain; autograd.grad through SDPA): "
+            "compare them with B2 + B3")
+    results["bwd_dq"] = dict(
+        max_abs_err=errs[0], ms=ms_dq, plain_ms=plain_ms, bound_ms=bound2,
+        bound_by=by2, library_ms=lib_ms, shape=shape, note=note)
+    results["bwd_dkv"] = dict(
+        max_abs_err=max(errs[1:]), ms=ms_dkv, plain_ms=plain_ms,
+        bound_ms=bound3, bound_by=by3, library_ms=lib_ms, shape=shape,
+        note=note)
+
+    ms = time_ms(fwd_kernel, flush)
+    p_ms, l_ms = time_ms(fwd_plain, flush), time_ms(fwd_library, flush)
+    flops, nbytes = flash.fwd_cost(b, hq, hkv, t, t, d, True, 2)
+    bms, by = bound_ms(flops, nbytes)
+    log(f"time  B1 flash_fwd at the training shape: kernel_ms={ms:.4f} "
+        f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} bound_ms={bms:.4f} "
+        f"({by}) achieved={flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+    results["flash_train"] = dict(ms=ms, plain_ms=p_ms, library_ms=l_ms,
+                                  bound_ms=bms, bound_by=by, shape=shape)
 
 
 def check_paged(rng, flush, results):
@@ -301,13 +455,7 @@ def serve() -> dict:
     # logits are within e of the fp32 ones too, the token it chose has
     # a plain-forward logit within 4e of the plain-forward max.
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-    params32 = {
-        "embed": params["embed"].float(),
-        "lm_head": params["lm_head"].float(),
-        "final_norm": params["final_norm"].float(),
-        "layers": [{k: w.float() for k, w in layer.items()}
-                   for layer in params["layers"]],
-    }
+    params32 = fp32_copy(params)
 
     def plain_attn(q, k, v):
         return attention_reference(q, k, v, causal=True)
@@ -318,8 +466,10 @@ def serve() -> dict:
         c = by_id[req.request_id]
         t = len(req.prompt)
         toks = torch.tensor(req.prompt + c.tokens[:-1], device="cuda")[None]
-        lg = forward(params, toks, cfg, attn_impl=plain_attn)[0, t - 1:]
-        lg32 = forward(params32, toks, cfg32, attn_impl=plain_attn)[0, t - 1:]
+        with torch.no_grad():
+            lg = forward(params, toks, cfg, attn_impl=plain_attn)[0, t - 1:]
+            lg32 = forward(params32, toks, cfg32,
+                           attn_impl=plain_attn)[0, t - 1:]
         err = max(err, float((lg.float() - lg32).abs().max()))
         chosen = lg.float()[torch.arange(len(c.tokens)), torch.tensor(
             c.tokens, device="cuda")]
@@ -355,11 +505,20 @@ def profile_decode(eng, prompts, request_cls) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     eng.run()
+    report_profile(prof, wall, steps, "decode steps")
+
+
+def report_profile(prof, wall, steps, what) -> None:
+    """Device time by kernel over a profiled window of `steps` steps and
+    the device's busy share of its wall time."""
     rows = []
     for evt in prof.key_averages():
         # Kernel events only: CPU-side ops also carry the device time of
-        # the kernels they launched, which would count it twice.
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        # the kernels they launched, and device-side annotation ranges
+        # (e.g. Optimizer.step) span kernels listed on their own; either
+        # would count that time twice.
+        if evt.device_type != torch.autograd.DeviceType.CUDA \
+                or getattr(evt, "is_user_annotation", False):
             continue
         dev_us = getattr(evt, "self_device_time_total",
                          getattr(evt, "self_cuda_time_total", 0))
@@ -370,12 +529,212 @@ def profile_decode(eng, prompts, request_cls) -> None:
     if not rows:
         log("profile: the profiler recorded no device time (not measured)")
         return
-    log(f"profile: {steps} decode steps, wall {wall * 1e3 / steps:.3f} "
+    log(f"profile: {steps} {what}, wall {wall * 1e3 / steps:.3f} "
         f"ms/step, device busy {busy_us / 1e3 / steps:.3f} ms/step = "
         f"{busy_us / 1e6 / wall:.3f} of wall")
     for dev_us, key, count in rows[:10]:
         log(f"profile:   {dev_us / 1e3 / steps:8.4f} ms/step  "
             f"{count // steps:5d} launches/step  {key[:90]}")
+
+
+# --- phase 6: train ----------------------------------------------------------
+
+
+class _PlainFlash(torch.autograd.Function):
+    """Causal attention through the plain forward and backward versions
+    (flash_attention_fwd_plain / flash_attention_bwd_plain) on any
+    device: the reference the kernel path is held to."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        from flash_attention_tpu_torch.ops import flash
+
+        ctx.scale = 1.0 / math.sqrt(q.shape[-1])
+        o, lse = flash.flash_attention_fwd_plain(
+            q, k, v, causal=True, scale=ctx.scale, offset=0)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        from flash_attention_tpu_torch.ops import flash
+
+        q, k, v, o, lse = ctx.saved_tensors
+        return flash.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, causal=True, scale=ctx.scale, offset=0)
+
+
+def _loss_and_grad_norm(params, tokens, cfg, attn_impl):
+    from flash_attention_tpu_torch.models.llama import loss_fn, param_leaves
+
+    leaves = param_leaves(params)
+    loss = loss_fn(params, tokens, cfg, remat=True, attn_impl=attn_impl)
+    grads = torch.autograd.grad(loss, leaves)
+    norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    return float(loss.detach()), float(norm)
+
+
+def compare_train_paths(params, cfg, tokens) -> None:
+    """One loss and gradient at batch 1 x 2048 through the kernels (B1,
+    B2, B3), through the plain versions in bf16, and through the plain
+    versions on an fp32 copy of the same weights. The kernel path's loss
+    and gradient-norm errors against fp32 must stay within 3x the bf16
+    plain path's (floored at one bf16 ulp), the rule the kernels are
+    held to one by one."""
+    import dataclasses
+
+    from flash_attention_tpu_torch.models.llama import param_leaves
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    lk, gk = _loss_and_grad_norm(params, tokens, cfg, None)
+    lp, gp = _loss_and_grad_norm(params, tokens, cfg, _PlainFlash.apply)
+    params32 = fp32_copy(params)
+    for leaf in param_leaves(params32):
+        leaf.requires_grad_(True)
+    l32, g32 = _loss_and_grad_norm(params32, tokens, cfg32,
+                                   _PlainFlash.apply)
+    del params32
+    ulp = torch.finfo(torch.bfloat16).eps
+    loss_tol = 3 * max(abs(lp - l32), ulp * abs(l32))
+    norm_tol = 3 * max(abs(gp / g32 - 1), ulp)
+    log(f"train: kernel vs plain at batch 1 x {tokens.shape[1] - 1}: "
+        f"loss kernel={lk:.6f} plain_bf16={lp:.6f} fp32={l32:.6f}; "
+        f"|kernel - fp32|={abs(lk - l32):.3e} tolerance={loss_tol:.3e} "
+        f"(3 x max(|plain_bf16 - fp32|, bf16 ulp x loss)); grad norm "
+        f"kernel={gk:.6f} plain_bf16={gp:.6f} fp32={g32:.6f}; "
+        f"|kernel/fp32 - 1|={abs(gk / g32 - 1):.3e} "
+        f"tolerance={norm_tol:.3e} (3 x max(|plain_bf16/fp32 - 1|, "
+        f"bf16 ulp))")
+    if not (math.isfinite(lk) and math.isfinite(gk)
+            and abs(lk - l32) <= loss_tol
+            and abs(gk / g32 - 1) <= norm_tol):
+        raise AssertionError("the kernel training path left the bf16 band")
+
+
+def train() -> dict:
+    """Train LlamaConfig.llama3_1b at full width and depth (bf16, remat,
+    AdamW lr 1e-4 with weight_decay 1e-4 passed explicitly) on a seeded
+    token shard read through BatchLoader at batch 4 x 2048: 8 steps on
+    one repeated batch, exactly 32 B1 / 16 B2 / 16 B3 launches per step,
+    finite and falling loss, then checkpoint and exact resume, then the
+    kernel path against the plain path. Returns the launch counts of
+    the 8 steps."""
+    import functools
+    import pathlib
+    import tempfile
+
+    from flash_attention_tpu_torch.models.llama import (
+        LlamaConfig, param_leaves,
+    )
+    from flash_attention_tpu_torch.models.trainer import (
+        Trainer, TrainerConfig,
+    )
+    from flash_attention_tpu_torch.ops import flash
+    from flash_attention_tpu_torch.utils.data import (
+        BatchLoader, TokenShardDataset, write_token_shard,
+    )
+
+    cfg = LlamaConfig.llama3_1b(dtype=torch.bfloat16)
+    batch, seq, steps = 4, 2048, 8
+    opt = functools.partial(torch.optim.AdamW, lr=1e-4, weight_decay=1e-4)
+    rng = np.random.default_rng(SEED + 2)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        tmp = pathlib.Path(tmp)
+        (tmp / "data").mkdir()
+        write_token_shard(tmp / "data" / "000.tok", rng.integers(
+            0, cfg.vocab_size, 2 * batch * (seq + 1)))
+        ds = TokenShardDataset(tmp / "data", seq_len=seq + 1)
+        loader = BatchLoader(ds, batch=batch, seed=SEED)
+        first, second = next(loader), next(loader)
+        loader.close()
+
+        tc = TrainerConfig(ckpt_dir=str(tmp / "ckpt"), ckpt_every=10 ** 9,
+                           remat=True)
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, opt, trainer_cfg=tc, seed=SEED)
+        torch.cuda.synchronize()
+        log(f"train: llama3_1b Trainer (bf16 params, remat, AdamW lr 1e-4 "
+            f"weight_decay 1e-4) built in {time.perf_counter() - t0:.2f} s;"
+            f" batch {batch} x seq {seq} from a seeded token shard via "
+            f"BatchLoader")
+        torch.cuda.reset_peak_memory_stats()
+        flash.flash_fwd_launches = 0
+        flash.flash_bwd_dq_launches = 0
+        flash.flash_bwd_dkv_launches = 0
+        losses, times, per_step = [], [], []
+        for _ in range(steps):
+            before = (flash.flash_fwd_launches, flash.flash_bwd_dq_launches,
+                      flash.flash_bwd_dkv_launches)
+            t0 = time.perf_counter()
+            loss = tr.train_step(first)
+            losses.append(float(loss))          # syncs
+            times.append(time.perf_counter() - t0)
+            per_step.append(tuple(
+                a - b for a, b in zip((flash.flash_fwd_launches,
+                                       flash.flash_bwd_dq_launches,
+                                       flash.flash_bwd_dkv_launches),
+                                      before)))
+        launches = {"flash": flash.flash_fwd_launches,
+                    "bwd_dq": flash.flash_bwd_dq_launches,
+                    "bwd_dkv": flash.flash_bwd_dkv_launches}
+        peak = torch.cuda.max_memory_allocated()
+        step_s = statistics.median(times[1:])
+        log(f"train: losses {[round(x, 4) for x in losses]}")
+        log(f"train: {steps} steps, first {times[0] * 1e3:.1f} ms, median "
+            f"of the rest {step_s * 1e3:.1f} ms/step = "
+            f"{batch * seq / step_s:.0f} tokens/s; peak "
+            f"max_memory_allocated {peak / 2**30:.2f} GiB")
+        log(f"train: launches per step (B1, B2, B3) {per_step}; want "
+            f"({2 * cfg.n_layers}, {cfg.n_layers}, {cfg.n_layers})")
+        if any(p != (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
+               for p in per_step):
+            raise AssertionError("kernel launch counts off the train step")
+        if not all(math.isfinite(x) for x in losses) \
+                or not losses[-1] < losses[0]:
+            raise AssertionError("training loss is not finite and falling")
+
+        tr.save()
+        resumed = Trainer(cfg, opt, trainer_cfg=tc, seed=SEED + 1)
+        if resumed.step_num != steps:
+            raise AssertionError(f"resumed at step {resumed.step_num}")
+        same_state = all(
+            torch.equal(a, b) for a, b in zip(
+                param_leaves(tr.optimizer.state_dict()["state"]),
+                param_leaves(resumed.optimizer.state_dict()["state"]),
+                strict=True))
+        la = float(tr.train_step(second))
+        lb = float(resumed.train_step(second))
+        # The step after that also reads the restored optimizer state
+        # and the first resumed update (shown, not gated).
+        la2 = float(tr.train_step(first))
+        lb2 = float(resumed.train_step(first))
+        log(f"train: checkpoint at step {steps} resumed into a fresh "
+            f"Trainer (other init seed): optimizer state identical "
+            f"{same_state}; step {steps + 1} loss {la:.6f} vs {lb:.6f}; "
+            f"step {steps + 2} loss {la2:.6f} vs {lb2:.6f}")
+        if not same_state or la != lb:
+            raise AssertionError("resume is not exact")
+        del resumed
+    profile_train_step(tr, second)
+    torch.cuda.empty_cache()
+    one = torch.as_tensor(first[:1], device="cuda")
+    compare_train_paths(tr.params, cfg, one)
+    return launches
+
+
+def profile_train_step(tr, tokens) -> None:
+    """Where a train step's time goes: torch.profiler over one step,
+    device time by kernel and the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        tr.train_step(tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report_profile(prof, wall, 1, "train step")
 
 
 def check_variants(rng) -> None:
@@ -445,6 +804,27 @@ def check_variants(rng) -> None:
             raise AssertionError("B4 variant failed its gate")
     torch.cuda.synchronize()
 
+    # B2/B3: (dtype, b, hq, hkv, nq, nk, d, causal, offset); each also
+    # checks that a rerun gives identical bits.
+    for dt, b, hq, hkv, nq, nk, d, causal, offset in (
+            (torch.float16, 2, 4, 2, 256, 256, 128, True, None),
+            (torch.bfloat16, 2, 4, 2, 200, 200, 64, True, None),
+            (torch.bfloat16, 1, 4, 4, 300, 300, 128, False, None),
+            (torch.bfloat16, 1, 8, 2, 1000, 1000, 128, True, None),
+            (torch.bfloat16, 1, 4, 2, 100, 333, 128, True, None),
+            (torch.float16, 1, 4, 4, 77, 131, 64, False, None),
+            (torch.bfloat16, 1, 2, 1, 130, 130, 128, True, -70)):
+        _, got, hi, lo = _bwd_case(rng, dt, b, hq, hkv, nq, nk, d, causal,
+                                   offset)
+        off = nk - nq if offset is None else offset
+        _bwd_gate(f"B2/B3 variant {dt} q({hq},{nq},{d}) kv({hkv},{nk}) "
+                  f"causal={causal} offset={off}", got, hi, lo)
+        if offset is not None and offset < 0:
+            # Rows 0..-offset-1 see no key: zero dq, nothing in dk/dv.
+            if not bool((got[0][:, :, :-offset] == 0).all()):
+                raise AssertionError("B2 gave a dead row a gradient")
+    torch.cuda.synchronize()
+
 
 def check_kernels() -> dict:
     flush = L2Flush()
@@ -453,6 +833,8 @@ def check_kernels() -> dict:
     check_flash(rng, flush, results)
     torch.cuda.synchronize()
     check_paged(rng, flush, results)
+    torch.cuda.synchronize()
+    check_flash_bwd(rng, flush, results)
     torch.cuda.synchronize()
     check_variants(rng)
     return results
@@ -477,11 +859,25 @@ def main() -> int:
     results = check_kernels()
     launches = serve()
     torch.cuda.synchronize()
+    trained = train()
+    torch.cuda.synchronize()
     kernels = [
         dict(name="flash_fwd (B1)", route="cuda",
              source="flash_attention_tpu_torch/csrc/flash_fwd.cu",
              replaces="flash_attention_tpu/ops/flash.py:259",
-             launches=launches["flash"], **results[("flash", 512)]),
+             launches=launches["flash"] + trained["flash"],
+             launches_by_path={"serve": launches["flash"],
+                               "train": trained["flash"]},
+             **results[("flash", 512)],
+             at_train_shape=results["flash_train"]),
+        dict(name="flash_bwd_dq (B2)", route="cuda",
+             source="flash_attention_tpu_torch/csrc/flash_bwd.cu",
+             replaces="flash_attention_tpu/ops/flash.py:716",
+             launches=trained["bwd_dq"], **results["bwd_dq"]),
+        dict(name="flash_bwd_dkv (B3)", route="cuda",
+             source="flash_attention_tpu_torch/csrc/flash_bwd.cu",
+             replaces="flash_attention_tpu/ops/flash.py:773",
+             launches=trained["bwd_dkv"], **results["bwd_dkv"]),
         dict(name="paged_decode (B4)", route="cuda",
              source="flash_attention_tpu_torch/csrc/paged_decode.cu",
              replaces="flash_attention_tpu/ops/paged.py:37",

@@ -9,11 +9,13 @@ passes device="cpu"; CPU tensors take the plain versions.
 
 Layering (bottom-up):
     config.py   shape helpers, kernel tile constants, device resolution
-    utils/      error metrics and gates, JAX-layout weight conversion
+    utils/      error metrics and gates, JAX-layout weight conversion,
+                token shards and batch loader, checkpoints
     csrc/       CUDA sources of the kernels (built at first use)
-    ops/        kernel wrappers + plain versions: flash forward, paged
-                decode, exact references
-    models/     Llama-class model (prefill and paged decode), sampling
+    ops/        kernel wrappers + plain versions: flash forward and
+                backward, paged decode, exact references
+    models/     Llama-class model (prefill, paged decode, loss and train
+                step), sampling, the Trainer
     runtime/    native page allocator, paged KV cache, serving engine
 """
 

@@ -3,8 +3,9 @@
 The JAX package searches block sizes against the TPU's VMEM budget
 (`flash_attention_tpu/config.py`). On Hopper the kernels use fixed tiles
 sized to shared memory and registers instead (compile-time constants of
-csrc/*.cu: B1 64-row q and kv tiles, B4 256 threads per (sequence, kv
-head)); what the Python wrappers must check against is mirrored here.
+csrc/*.cu: B1, B2 and B3 64-row q and kv tiles, B4 256 threads per
+(sequence, kv head)); what the Python wrappers must check against is
+mirrored here.
 """
 
 from __future__ import annotations

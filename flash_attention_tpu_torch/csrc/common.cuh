@@ -56,6 +56,23 @@ __device__ __forceinline__ uint4 pack8(const float* in) {
   return raw;
 }
 
+// Rows [r0, r0 + kRows) of a row-major [n, D] matrix into shared memory
+// (row stride ld elements) with 16-byte loads by kThreads threads; rows
+// past n are written as zeros, so ragged edges need no host padding.
+template <typename T, int D, int kRows, int kThreads>
+__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
+                                          int r0, int n, int tid) {
+  constexpr int kVecPerRow = D / 8;
+  for (int i = tid; i < kRows * kVecPerRow; i += kThreads) {
+    const int r = i / kVecPerRow;
+    const int c = (i % kVecPerRow) * 8;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (r0 + r < n)
+      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c);
+    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+  }
+}
+
 }  // namespace fa
 
 extern "C" const char* fa_error_string(int code);

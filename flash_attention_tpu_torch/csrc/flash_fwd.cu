@@ -64,15 +64,7 @@ struct Smem {
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
                                           int r0, int n, int tid) {
-  constexpr int kVecPerRow = D / 8;
-  for (int i = tid; i < 64 * kVecPerRow; i += kThreads) {
-    const int r = i / kVecPerRow;
-    const int c = (i % kVecPerRow) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
+  fa::load_rows<T, D, 64, kThreads>(dst, ld, src, r0, n, tid);
 }
 
 template <typename T, int D>

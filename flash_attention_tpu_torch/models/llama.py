@@ -1,16 +1,18 @@
 """Llama-class decoder-only transformer in PyTorch (port of
-`flash_attention_tpu/models/llama.py`, serving path).
+`flash_attention_tpu/models/llama.py`, serving and dense training
+paths).
 
 Architecture: RMSNorm -> GQA attention (interleaved RoPE on q/k) ->
 residual -> RMSNorm -> SwiGLU MLP -> residual; untied output head.
 Parameters are a plain dict in the JAX package's layout (wq [d, H, hd],
 wk/wv [d, Hkv, hd], wo [H, hd, d], w_gate/w_up [d, ffn], w_down
 [ffn, d], embed [vocab, d], lm_head [d, vocab]), so JAX trees carry
-across unchanged (utils/convert.py). Prefill attention runs the B1
-flash kernel; decode attention runs the B4 paged kernel over the
-read-only pages plus plain attention over the dense hot tail, merged by
-their log-sum-exps. The dense projections are torch matmuls, as the
-JAX package leaves them to XLA.
+across unchanged (utils/convert.py). Prefill and training attention run
+the B1 flash kernel, and its backward the B2/B3 kernels; decode
+attention runs the B4 paged kernel over the read-only pages plus plain
+attention over the dense hot tail, merged by their log-sum-exps. The
+dense projections are torch matmuls, as the JAX package leaves them to
+XLA.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from flash_attention_tpu_torch.config import resolve_device
 from flash_attention_tpu_torch.ops.flash import flash_attention
@@ -189,24 +192,78 @@ def _mlp_block(layer, x, cfg):
     return _mm("btf,fd->btd", F.silu(gate) * up, layer["w_down"])
 
 
-@torch.no_grad()
 def forward(params, tokens, cfg: LlamaConfig, *, positions=None,
-            attn_impl=None):
-    """Logits [B, T, vocab] for token ids [B, T] (causal prefill path).
-    `attn_impl(q, k, v)` replaces the flash kernel (e.g. a plain
-    reference for teacher-forced checks)."""
+            remat: bool = False, attn_impl=None):
+    """Logits [B, T, vocab] for token ids [B, T] (causal training /
+    prefill path). Differentiable: it builds an autograd graph when a
+    parameter requires grad (call it under torch.no_grad() for
+    inference). `remat` recomputes each layer's activations in the
+    backward pass instead of keeping them (torch.utils.checkpoint, the
+    port of jax.checkpoint). `attn_impl(q, k, v)` replaces the flash
+    kernels (e.g. a plain reference for teacher-forced checks)."""
     t = tokens.shape[1]
     if positions is None:
         positions = torch.arange(t, dtype=torch.int32,
                                  device=tokens.device)
     x = params["embed"][tokens]
-    for layer in params["layers"]:
+
+    def layer_fn(x, layer):
         a, _ = _attention_block(layer, x, cfg, positions,
                                 attn_impl=attn_impl)
         x = x + a
-        x = x + _mlp_block(layer, x, cfg)
+        return x + _mlp_block(layer, x, cfg)
+
+    for layer in params["layers"]:
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                layer_fn, x, layer, use_reentrant=False)
+        else:
+            x = layer_fn(x, layer)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _mm("btd,dv->btv", x, params["lm_head"])
+
+
+def loss_fn(params, tokens, cfg: LlamaConfig, *, remat: bool = False,
+            attn_impl=None):
+    """Mean next-token cross-entropy over tokens [B, T] (fp32 logits for
+    the softmax), a 0-d fp32 tensor."""
+    tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
+    logits = forward(params, tokens[:, :-1], cfg, remat=remat,
+                     attn_impl=attn_impl).float()
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           tokens[:, 1:].reshape(-1))
+
+
+def param_leaves(params) -> list:
+    """The parameter tensors in a fixed order (dict keys sorted, list
+    entries in order), independent of how the dict was built: the order
+    an optimizer and its state_dict see."""
+    if isinstance(params, dict):
+        return [t for key in sorted(params)
+                for t in param_leaves(params[key])]
+    if isinstance(params, (list, tuple)):
+        return [t for item in params for t in param_leaves(item)]
+    return [params]
+
+
+def make_train_step(cfg: LlamaConfig, *, remat: bool = False):
+    """step(params, optimizer, tokens) -> loss: one optimizer step on the
+    next-token loss. `optimizer` is a torch.optim.Optimizer over
+    param_leaves(params), which must require grad.
+
+    The JAX step returns new (params, opt_state) trees; this one updates
+    the parameters and the optimizer's state in place, so a step holds
+    one copy of each instead of two. The loss comes back as a 0-d
+    tensor on the parameters' device, without a host sync."""
+
+    def step(params, optimizer, tokens):
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(params, tokens, cfg, remat=remat)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
 
 
 # --- decode path ----------------------------------------------------------

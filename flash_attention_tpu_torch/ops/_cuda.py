@@ -44,6 +44,12 @@ _SIGNATURES = {
     # dtype, stream
     "fa_flash_fwd": [_vp, _vp, _vp, _vp, _vp] + [_i32] * 8
     + [_f32, _i32, _vp],
+    # q, k, v, do, lse, delta, dq, B, Hq, Hkv, Nq, Nk, D, causal,
+    # offset, scale, dtype, stream
+    "fa_flash_bwd_dq": [_vp] * 7 + [_i32] * 8 + [_f32, _i32, _vp],
+    # q, k, v, do, lse, delta, dk, dv, B, Hq, Hkv, Nq, Nk, D, causal,
+    # offset, scale, dtype, stream
+    "fa_flash_bwd_dkv": [_vp] * 8 + [_i32] * 8 + [_f32, _i32, _vp],
     # q, k_pool, v_pool, page_table, lengths, o, lse, B, Hq, Hkv,
     # num_pages, page_size, table_width, D, scale, dtype, stream
     "fa_paged_decode": [_vp] * 7 + [_i32] * 7 + [_f32, _i32, _vp],

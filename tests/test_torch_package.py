@@ -4,8 +4,9 @@
     package (AST walk over every .py file).
   * Entry points default to device="cuda"; on a host without a card that
     default raises instead of dropping to the CPU.
-  * Features that later slices port raise NotImplementedError instead
-    of being accepted and ignored.
+  * Features that later slices port (engine options, attention options,
+    trainer families) raise NotImplementedError instead of being
+    accepted and ignored.
 """
 
 import ast
@@ -16,6 +17,7 @@ import torch
 
 import flash_attention_tpu_torch
 from flash_attention_tpu_torch.models.llama import LlamaConfig, init_params
+from flash_attention_tpu_torch.models.trainer import Trainer
 from flash_attention_tpu_torch.ops.flash import (
     flash_attention,
     flash_attention_fwd,
@@ -68,6 +70,8 @@ def test_default_device_is_cuda_and_raises_without_a_card():
     params = init_params(CFG, seed=0, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         Engine(params, CFG, num_pages=4, page_size=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(CFG, torch.optim.SGD)
 
 
 @pytest.mark.parametrize("kw", [
@@ -93,6 +97,8 @@ def test_unported_model_features_raise():
 
 
 def test_unported_attention_options_raise():
+    """Window, segment ids and quantized KV raise; the backward is ported
+    (B2/B3), so inputs that require grad get finite gradients."""
     q = torch.zeros(1, 2, 8, 64)
     with pytest.raises(NotImplementedError):
         flash_attention_fwd(q, q, q, causal=True, window=4)
@@ -100,5 +106,20 @@ def test_unported_attention_options_raise():
         flash_attention_fwd(q, q, q, segment_ids=(0, 0))
     with pytest.raises(NotImplementedError):
         flash_attention_fwd(q, q.to(torch.int8), q.to(torch.int8))
-    with pytest.raises(NotImplementedError, match="backward"):
-        flash_attention(q.requires_grad_(), q, q, causal=True)
+    gen = torch.Generator().manual_seed(0)
+    qkv = [torch.randn(1, 2, 8, 64, generator=gen, requires_grad=True)
+           for _ in range(3)]
+    flash_attention(*qkv, causal=True).square().sum().backward()
+    for t in qkv:
+        assert t.grad is not None and t.grad.shape == t.shape
+        assert bool(torch.isfinite(t.grad).all()) and t.grad.abs().sum() > 0
+
+
+@pytest.mark.parametrize("kw, slice_name", [
+    (dict(family="pipeline"), "multi-device"),
+    (dict(family="moe"), "MoE"),
+    (dict(mesh=object()), "multi-device"),
+], ids=["pipeline", "moe", "mesh"])
+def test_trainer_unported_families_raise(kw, slice_name):
+    with pytest.raises(NotImplementedError, match=f"{slice_name} slice"):
+        Trainer(CFG, torch.optim.SGD, device="cpu", **kw)
