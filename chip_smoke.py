@@ -28,7 +28,20 @@ Phases, each fatal on failure:
              shard: 8 steps with finite, falling loss and exactly 32 B1 /
              16 B2 / 16 B3 launches a step, an exact resume from a
              checkpoint, one profiled step (device time by kernel), and
-             the kernel path held to the plain path.
+             the kernel path held to the plain path;
+  7. serve8b the Engine on LlamaConfig.llama3_8b at full width and depth
+             on int4 (B7) and int8 (B6) weights drawn on the card by
+             init_quantized_params: 16 greedy requests, exact launch
+             counts, transcripts held to a teacher-forced forward on the
+             dequantized weights; 8 profiled decode steps; the same
+             requests on bf16 weights as the cuBLAS yardstick;
+  8. generate sampling.generate on the int4 8B tree (B5 attention,
+             exact launch counts, the same teacher-forced band).
+The 1B serve phase also runs one prefill with FA_TPU_DENSE_PALLAS_MM=1
+(B8: exactly 7 launches per layer + 1, logits within the bf16 gate of
+the cuBLAS path). Kernel checks (phase 2) cover B5 at the generate
+shape and B6 (int8, e4m3, e5m2), B7 and B8 at the 8B decode (M = 16)
+and prefill (M = 1024) shapes, ragged shapes and fp16.
 
 Prints information lines, then one JSON line describing the kernels,
 then the card's name and power limit, and last one JSON line
@@ -38,6 +51,7 @@ no CUDA device is present or any phase fails.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -480,12 +494,52 @@ def serve() -> dict:
         f"per request {[round(g, 4) for g in gaps]}")
     if not all(np.isfinite(gaps)) or max(gaps) > delta:
         raise AssertionError("a transcript left the teacher-forced band")
+    launches["dense"] = dense_pallas_path(params, params32, cfg, cfg32,
+                                          plain_attn)
     del params32
     profile_decode(eng, prompts, Request)
     return launches
 
 
-def profile_decode(eng, prompts, request_cls) -> None:
+def dense_pallas_path(params, params32, cfg, cfg32, plain_attn) -> int:
+    """B8 on the model path: one prefill_kv of the 1B model at T = 512
+    with FA_TPU_DENSE_PALLAS_MM=1 (read per call by models/llama.py _mm)
+    launches B8 exactly 7 times per layer plus once for the lm_head, and
+    its last-token logits stay within the bf16 gate of the default
+    (cuBLAS) path against the fp32 plain-attention forward. Returns the
+    B8 launches."""
+    import os
+
+    from flash_attention_tpu_torch.models.llama import forward, prefill_kv
+    from flash_attention_tpu_torch.ops import quant_matmul as qm
+    from flash_attention_tpu_torch.utils.metrics import verify_low_precision
+
+    rng = np.random.default_rng(SEED + 3)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (1, 512))).cuda()
+    default = prefill_kv(params, tokens, cfg)[0]
+    os.environ["FA_TPU_DENSE_PALLAS_MM"] = "1"
+    try:
+        qm.dense_matmul_launches = 0
+        got = prefill_kv(params, tokens, cfg)[0]
+        torch.cuda.synchronize()
+        launches = qm.dense_matmul_launches
+    finally:
+        del os.environ["FA_TPU_DENSE_PALLAS_MM"]
+    with torch.no_grad():
+        ref = forward(params32, tokens, cfg32, attn_impl=plain_attn)[:, -1]
+    ok, kerr, berr = verify_low_precision(got, ref, default)
+    want = 7 * cfg.n_layers + 1
+    log(f"b8 path: prefill_kv T=512 with FA_TPU_DENSE_PALLAS_MM=1: B8 "
+        f"launches {launches} (want {want}); last-token logit error vs "
+        f"fp32 {kerr:.4e}, default cuBLAS path's {berr:.4e} (gate 3x)")
+    if launches != want or not ok:
+        raise AssertionError("the B8 path failed its gate")
+    return launches
+
+
+def profile_decode(eng, prompts, request_cls,
+                   what: str = "decode steps") -> None:
     """Where a decode step's time goes: torch.profiler over 8 engine
     decode steps of the same 8 prompts (after their prefill), device
     time by kernel and the device's busy share of the window."""
@@ -505,7 +559,7 @@ def profile_decode(eng, prompts, request_cls) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     eng.run()
-    report_profile(prof, wall, steps, "decode steps")
+    report_profile(prof, wall, steps, what)
 
 
 def report_profile(prof, wall, steps, what) -> None:
@@ -535,6 +589,230 @@ def report_profile(prof, wall, steps, what) -> None:
     for dev_us, key, count in rows[:10]:
         log(f"profile:   {dev_us / 1e3 / steps:8.4f} ms/step  "
             f"{count // steps:5d} launches/step  {key[:90]}")
+
+
+# --- phase 7: serve 8B on quantized weights, generate ---------------------
+
+# One prompt over 1024 tokens: its prefill bucket (2048 rows) takes the
+# wide dequantize path for the layer products.
+PROMPT_LENS_8B = [256, 300, 333, 400, 480, 512, 600, 640, 700, 777, 800,
+                  900, 960, 1000, 1024, 1100]
+
+def _counters() -> dict:
+    """name -> (module, attribute) of every serving kernel's launch
+    count."""
+    from flash_attention_tpu_torch.ops import (
+        decode, flash, paged, quant_matmul,
+    )
+
+    return {"flash": (flash, "flash_fwd_launches"),
+            "paged": (paged, "paged_decode_launches"),
+            "decode": (decode, "decode_launches"),
+            "quant": (quant_matmul, "quant_matmul_launches"),
+            "int4": (quant_matmul, "int4_matmul_launches"),
+            "dense": (quant_matmul, "dense_matmul_launches")}
+
+
+def reset_counts() -> None:
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    return {key: getattr(mod, attr)
+            for key, (mod, attr) in _counters().items()}
+
+
+def teacher_forced(params, cfg, prompts, transcripts, what) -> None:
+    """Hold greedy transcripts to a teacher-forced forward with plain
+    attention on the dequantized weights (PR 1's band): e = max |bf16 -
+    fp32| logit error of that forward over the generated positions; the
+    token each transcript chose must have a bf16 plain-forward logit
+    within 4e of the max. Each layer is dequantized inside the forward
+    (an fp32 copy of the 8B model would take 32 GB)."""
+    from flash_attention_tpu_torch.models.llama import (
+        _attention_block, _mlp_block, rmsnorm,
+    )
+    from flash_attention_tpu_torch.models.quantized import QUANT_LEAF_TYPES
+    from flash_attention_tpu_torch.ops.reference import attention_reference
+
+    def plain_attn(q, k, v):
+        return attention_reference(q, k, v, causal=True)
+
+    seqs = [list(p) + list(t[:-1]) for p, t in zip(prompts, transcripts)]
+    width = max(len(x) for x in seqs)
+    tokens = torch.zeros((len(seqs), width), dtype=torch.long,
+                         device="cuda")
+    for i, x in enumerate(seqs):
+        tokens[i, :len(x)] = torch.tensor(x, device="cuda")
+    rows = torch.stack([torch.arange(len(p) - 1, len(p) - 1 + len(t))
+                        for p, t in zip(prompts, transcripts)]).cuda()
+    chosen = torch.tensor([list(t) for t in transcripts], device="cuda")
+    positions = torch.arange(width, dtype=torch.int32, device="cuda")
+
+    def dense(w, dtype):
+        return (w.dequant(dtype) if isinstance(w, QUANT_LEAF_TYPES)
+                else w.to(dtype))
+
+    @torch.no_grad()
+    def logits(dtype):
+        x = params["embed"][tokens].to(dtype)
+        for layer in params["layers"]:
+            lay = {k: dense(w, dtype) for k, w in layer.items()}
+            a, _ = _attention_block(lay, x, cfg, positions,
+                                    attn_impl=plain_attn)
+            x = x + a
+            x = x + _mlp_block(lay, x, cfg)
+        x = rmsnorm(x, params["final_norm"].to(dtype), cfg.norm_eps)
+        last = x[torch.arange(len(seqs), device="cuda")[:, None], rows]
+        return (last @ dense(params["lm_head"], dtype)).float()
+
+    lg = logits(torch.bfloat16)
+    err = float((lg - logits(torch.float32)).abs().max())
+    gaps = (lg.amax(-1) - lg.gather(-1, chosen[..., None])[..., 0]).amax(-1)
+    gaps = gaps.tolist()
+    delta = 4.0 * err
+    log(f"{what}: teacher-forced check: bf16 logit error e={err:.4f}, "
+        f"delta=4e={delta:.4f}, worst chosen-token gap to the max logit "
+        f"per request {[round(g, 4) for g in gaps]}")
+    if not all(np.isfinite(gaps)) or max(gaps) > delta:
+        raise AssertionError(f"{what}: a transcript left the "
+                             f"teacher-forced band")
+
+
+def serve_8b(kind: str) -> dict:
+    """Serve 16 greedy requests (prompts of 256-1100 tokens, 32 new
+    tokens each) on LlamaConfig.llama3_8b at full width and depth from
+    seeded random weights: "int4" and "int8" trees from
+    init_quantized_params (drawn on the card), or the "bf16" init_params
+    tree as the yardstick (decode tok/s and a profile only). For the
+    quantized trees, gate on exact B7 / B6 launches (7 per layer + the
+    lm_head per decode step and per prefill bucket of at most 1024 rows;
+    1 for the lm_head of a wider prefill), B1 / B4 as in the 1B phase,
+    and hold every transcript to the teacher-forced band. int4 also
+    profiles 8 decode steps and runs the generate phase."""
+    from flash_attention_tpu_torch.models.llama import (
+        LlamaConfig, init_params,
+    )
+    from flash_attention_tpu_torch.models.quantized import (
+        init_quantized_params, logical_param_count, params_nbytes,
+    )
+    from flash_attention_tpu_torch.runtime.engine import (
+        Engine, Request, _bucket,
+    )
+
+    cfg = LlamaConfig.llama3_8b(dtype=torch.bfloat16)
+    what = f"serve8b[{kind}]"
+    t0 = time.perf_counter()
+    if kind == "bf16":
+        params = init_params(cfg, seed=SEED)
+    else:
+        params = init_quantized_params(
+            cfg, SEED, "int4" if kind == "int4" else torch.int8)
+    torch.cuda.synchronize()
+    log(f"{what}: llama3_8b ({cfg.n_layers} layers, dim {cfg.dim}, "
+        f"{cfg.n_heads}q/{cfg.n_kv_heads}kv x {cfg.head_dim}, ffn "
+        f"{cfg.ffn_dim}, vocab {cfg.vocab_size}) "
+        f"{logical_param_count(params) / 1e9:.3f} B logical params, "
+        f"{params_nbytes(params) / 1e9:.3f} GB of weights, seed {SEED}, "
+        f"built on the card in {time.perf_counter() - t0:.2f} s")
+    eng = Engine(params, cfg, max_batch=16, num_pages=96, page_size=256,
+                 tail_size=16, seed=SEED)
+    eng.run([Request(prompt=[1, 2, 3], max_new_tokens=2)])    # warm-up
+    torch.cuda.synchronize()
+
+    rng = np.random.default_rng(SEED + 4)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in PROMPT_LENS_8B]
+    reqs = [Request(prompt=p, max_new_tokens=32) for p in prompts]
+    eng.stats = type(eng.stats)()
+    reset_counts()
+    t0 = time.perf_counter()
+    comps = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_counts()
+    st = eng.stats
+    log(f"{what}: {len(comps)} completions in {wall:.3f} s; prefill "
+        f"{st.prefill_tokens} tokens in {st.prefill_s:.4f} s; decode "
+        f"{st.decode_tokens} tokens in {st.decode_steps} steps, "
+        f"{st.decode_s:.4f} s = {st.decode_tokens_per_s:.1f} tok/s; "
+        f"ttft {st.ttft_percentiles()}; launches {got}")
+    out = dict(decode_tok_s=st.decode_tokens_per_s, prefill_s=st.prefill_s,
+               ttft=st.ttft_percentiles(), decode_steps=st.decode_steps,
+               launches=got)
+    if sorted(c.request_id for c in comps) != sorted(
+            r.request_id for r in reqs) or any(
+            len(c.tokens) != 32 or c.finish_reason != "length"
+            for c in comps):
+        raise AssertionError(f"{what}: incomplete transcripts")
+    if kind != "bf16":
+        per = 7 * cfg.n_layers + 1
+        small = sum(_bucket(n) <= 1024 for n in PROMPT_LENS_8B)
+        want = per * (st.decode_steps + small) + (len(reqs) - small)
+        mine, other = (("int4", "quant") if kind == "int4"
+                       else ("quant", "int4"))
+        want_all = dict(got, **{mine: want, other: 0, "dense": 0,
+                                "decode": 0,
+                                "flash": cfg.n_layers * len(reqs),
+                                "paged": cfg.n_layers * st.decode_steps})
+        log(f"{what}: want launches {want_all} ({per} per decode step and "
+            f"per prefill of at most 1024 rows: {small} prefills, "
+            f"{st.decode_steps} steps; 1 per wider prefill)")
+        if got != want_all or st.decode_steps == 0:
+            raise AssertionError(f"{what}: kernel launch counts off the "
+                                 f"serving path")
+        by_id = {c.request_id: c for c in comps}
+        teacher_forced(params, cfg, prompts,
+                       [by_id[r.request_id].tokens for r in reqs], what)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if kind != "int8":
+        profile_decode(eng, prompts, Request, f"{kind} 8B decode steps")
+    if kind == "int4":
+        out["generate"] = generate_8b(params, cfg, eng, Request)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def generate_8b(params, cfg, eng, request_cls) -> dict:
+    """sampling.generate on the int4 8B tree: 4 prompts of 512 tokens, 32
+    new tokens. B5 launches once per layer per decode step (31 steps);
+    B7 7 per layer + the lm_head per decode step and once for the
+    prefill's lm_head (its 2048-row layer products take the wide path).
+    Transcripts are held to the teacher-forced band; how many equal the
+    engine's on the same prompts is reported."""
+    from flash_attention_tpu_torch.models.sampling import generate
+
+    rng = np.random.default_rng(SEED + 5)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 512))
+    new = 32
+    reset_counts()
+    t0 = time.perf_counter()
+    out = generate(params, torch.from_numpy(prompts).cuda(), cfg,
+                   max_new_tokens=new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_counts()
+    steps = new - 1
+    per = 7 * cfg.n_layers + 1
+    want = dict(got, decode=cfg.n_layers * steps, int4=per * steps + 1,
+                flash=cfg.n_layers, paged=0, quant=0, dense=0)
+    transcripts = out.tolist()
+    log(f"generate: 4 x 512-token prompts, {new} new tokens in "
+        f"{wall:.3f} s ({4 * new / wall:.1f} tok/s including prefill); "
+        f"launches {got} (want {want})")
+    if got != want or out.shape != (4, new):
+        raise AssertionError("generate: kernel launch counts off the path")
+    teacher_forced(params, cfg, prompts.tolist(), transcripts, "generate")
+    comps = eng.run([request_cls(prompt=p, max_new_tokens=new)
+                     for p in prompts.tolist()])
+    same = sum(c.tokens == t for c, t in zip(comps, transcripts))
+    log(f"generate: {same} of 4 transcripts equal the int4 engine's on the "
+        f"same prompts (reported, not gated)")
+    return dict(launches=got, wall_s=wall, equal_to_engine=same)
 
 
 # --- phase 6: train ----------------------------------------------------------
@@ -826,6 +1104,182 @@ def check_variants(rng) -> None:
     torch.cuda.synchronize()
 
 
+# Std of the stored codes of each weight kind as init_quantized_params
+# draws them (uniform int8, N(0, (qmax/4)^2) fp8).
+CODE_STD = {torch.int8: 127.0 / math.sqrt(3.0),
+            torch.float8_e4m3fn: 448.0 / 4,
+            torch.float8_e5m2: 57344.0 / 4}
+
+
+def rand_weight(kind, k, f, gen):
+    """A random [k, f] weight on the card in `kind` storage (int8, the
+    fp8 formats, "int4" packed or "dense" bf16), drawn as
+    init_quantized_params draws them with per-channel scales spread
+    around 1/sqrt(k) / code std. Returns (the product's weight args, the
+    dense bf16 weight they stand for: the library yardstick's)."""
+    from flash_attention_tpu_torch.ops import quant_matmul as qm
+
+    def spread(*shape):
+        return 0.5 + torch.rand(shape, generator=gen, device="cuda")
+
+    if kind == "dense":
+        w = (torch.randn((k, f), generator=gen, device="cuda")
+             / math.sqrt(k)).to(torch.bfloat16)
+        return (w,), w
+    if kind == "int4":
+        packed = torch.randint(0, 256, (k // 2, f), generator=gen,
+                               device="cuda", dtype=torch.uint8)
+        packed = packed.view(torch.int8)
+        scales = spread(k // qm.INT4_GROUP, f) / (4.64 * math.sqrt(k))
+        return (packed, scales), qm.int4_dequant(packed, scales,
+                                                 torch.bfloat16)
+    if kind == torch.int8:
+        q = torch.randint(-127, 128, (k, f), generator=gen, device="cuda",
+                          dtype=torch.int8)
+    else:
+        qmax = 4 * CODE_STD[kind]
+        q = (torch.randn((k, f), generator=gen, device="cuda")
+             * CODE_STD[kind]).clamp_(-qmax, qmax).to(kind)
+    scale = spread(f) / (CODE_STD[kind] * math.sqrt(k))
+    return (q, scale), (q.float() * scale).to(torch.bfloat16)
+
+
+def _matmul_fns(kind):
+    """(kernel wrapper, plain version, cost) of the product for a weight
+    kind."""
+    from flash_attention_tpu_torch.ops import quant_matmul as qm
+
+    if kind == "int4":
+        return qm.int4_matmul, qm.int4_matmul_plain, qm.int4_matmul_cost
+    if kind == "dense":
+        return qm.dense_matmul, qm.dense_matmul_plain, qm.dense_matmul_cost
+    return qm.quant_matmul, qm.quant_matmul_plain, qm.quant_matmul_cost
+
+
+MATMUL_KINDS = {"B6 int8": torch.int8, "B6 e4m3": torch.float8_e4m3fn,
+                "B6 e5m2": torch.float8_e5m2, "B7 int4": "int4",
+                "B8 dense": "dense"}
+
+
+def check_quant_matmul(flush, results):
+    """B6 (int8, e4m3, e5m2), B7 and B8 against their plain versions
+    under the low-precision gate at the 8B decode shapes (M = 16) and
+    prefill shapes (M = 1024) of w_gate/w_up (4096 x 14336) and w_down
+    (14336 x 4096), a ragged shape and fp16; timed at the 8B shapes
+    beside their bound, their plain time and torch.matmul on the dense
+    bf16 weight of the same shape (the product the quantized weight
+    replaces; for B8 the same function)."""
+    from flash_attention_tpu_torch.utils.metrics import (
+        max_abs_error, verify_low_precision,
+    )
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    timed = [(16, 4096, 14336), (16, 14336, 4096), (1024, 4096, 14336),
+             (1024, 14336, 4096)]
+    for label, kind in MATMUL_KINDS.items():
+        fn, plain, cost = _matmul_fns(kind)
+        ragged = (3, 384, 257) if kind == "int4" else (3, 130, 257)
+        cases = [(m, k, f, torch.bfloat16) for m, k, f in timed] + [
+            (*ragged, torch.bfloat16), (16, 512, 384, torch.float16)]
+        rows = []
+        for m, k, f, dt in cases:
+            args, wdense = rand_weight(kind, k, f, gen)
+            if kind == "dense":
+                args = (args[0].to(dt),)
+            x = (torch.randn((m, k), generator=gen, device="cuda")).to(dt)
+            got = fn(x, *args)
+            torch.cuda.synchronize()
+            lo = plain(x, *args)
+            hi = plain(x.float(), *((args[0].float(),) if kind == "dense"
+                                    else args))
+            ok, kerr, berr = verify_low_precision(got, hi, lo)
+            finite = bool(torch.isfinite(got.float()).all())
+            log(f"check {label} {m}x{k}x{f} {dt}: kernel_err={kerr:.3e} "
+                f"plain_err={berr:.3e} finite={finite}")
+            if not (ok and finite):
+                raise AssertionError(f"{label} failed its gate at "
+                                     f"{m}x{k}x{f} {dt}")
+            if (m, k, f) not in timed:
+                continue
+            wd = wdense.to(dt)
+            ms = time_ms(lambda: fn(x, *args), flush)
+            plain_ms = time_ms(lambda: plain(x, *args), flush)
+            lib_ms = time_ms(lambda: torch.matmul(x, wd), flush)
+            flops, nbytes = cost(m, k, f)
+            bms, by = bound_ms(flops, nbytes)
+            log(f"time  {label} {m}x{k}x{f}: kernel_ms={ms:.4f} plain_ms="
+                f"{plain_ms:.4f} library_ms={lib_ms:.4f} (torch.matmul, "
+                f"dense bf16 weight) bound_ms={bms:.4f} ({by}) achieved="
+                f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s "
+                f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+            rows.append(dict(shape=f"x({m},{k}) w({k},{f}) bf16 x",
+                             max_abs_err=max_abs_error(got, lo), ms=ms,
+                             plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                             library_ms=lib_ms))
+            del args, wdense, wd
+        results[label] = rows
+
+
+def check_decode(rng, flush, results):
+    """B5 at the generate phase's last step (4 sequences of 543 live
+    positions in a 640-position cache, 32 q / 8 kv heads of 128, bf16),
+    plus a ragged bf16 case with length-0 and length-S rows and an fp16
+    D = 64 case; the generate shape is timed beside its bound, its plain
+    time and SDPA (enable_gqa) with a length mask."""
+    from flash_attention_tpu_torch.ops import decode as dec
+    from flash_attention_tpu_torch.utils.metrics import (
+        max_abs_error, verify_low_precision,
+    )
+
+    for dt, b, hq, hkv, s, d, lens in (
+            (torch.bfloat16, 4, 32, 8, 640, 128, [543] * 4),
+            (torch.bfloat16, 4, 32, 8, 640, 128, [0, 640, 1, 300]),
+            (torch.float16, 3, 8, 2, 384, 64, [384, 0, 257])):
+        q = randn(rng, (b, hq, d), dt)
+        k = randn(rng, (b, hkv, s, d), dt)
+        v = randn(rng, (b, hkv, s, d), dt)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        sc = 1.0 / math.sqrt(d)
+        o = dec.flash_decode(q, k, v, lengths)
+        torch.cuda.synchronize()
+        lo = dec.flash_decode_plain(q, k, v, lengths, scale=sc)
+        hi = dec.flash_decode_plain(q.float(), k.float(), v.float(),
+                                    lengths, scale=sc)
+        ok, kerr, berr = verify_low_precision(o, hi, lo)
+        dead = [i for i, n in enumerate(lens) if n == 0]
+        dead_ok = all(bool((o[i] == 0).all()) for i in dead)
+        log(f"check B5 decode {dt} q({b},{hq},{d}) cache({b},{hkv},{s},{d}) "
+            f"lens={lens}: kernel_err={kerr:.3e} plain_err={berr:.3e} "
+            f"dead_rows_zero={dead_ok}")
+        if not (ok and dead_ok and bool(torch.isfinite(o.float()).all())):
+            raise AssertionError("B5 decode failed its gate")
+        if lens != [543] * 4:
+            continue
+        mask = (torch.arange(s, device="cuda")[None, :]
+                < lengths[:, None])[:, None, None, :]
+        q4 = q[:, :, None]
+        ms = time_ms(lambda: dec.flash_decode(q, k, v, lengths), flush)
+        plain_ms = time_ms(
+            lambda: dec.flash_decode_plain(q, k, v, lengths, scale=sc),
+            flush)
+        lib_ms = time_ms(lambda: torch.nn.functional
+                         .scaled_dot_product_attention(
+                             q4, k, v, attn_mask=mask, enable_gqa=True),
+                         flush)
+        flops, nbytes = dec.decode_cost(lens, hq, hkv, d, 2)
+        bms, by = bound_ms(flops, nbytes)
+        log(f"time  B5 decode: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={lib_ms:.4f} (SDPA enable_gqa, length mask) "
+            f"bound_ms={bms:.4f} ({by}) achieved="
+            f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
+        results["decode"] = dict(
+            max_abs_err=max_abs_error(o, lo), ms=ms, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by, library_ms=lib_ms,
+            shape=f"q({b},{hq},{d}) cache({b},{hkv},{s},{d}) lens {lens} "
+                  f"bf16")
+
+
 def check_kernels() -> dict:
     flush = L2Flush()
     rng = np.random.default_rng(SEED)
@@ -837,6 +1291,10 @@ def check_kernels() -> dict:
     check_flash_bwd(rng, flush, results)
     torch.cuda.synchronize()
     check_variants(rng)
+    check_decode(rng, flush, results)
+    torch.cuda.synchronize()
+    check_quant_matmul(flush, results)
+    torch.cuda.synchronize()
     return results
 
 
@@ -861,13 +1319,31 @@ def main() -> int:
     torch.cuda.synchronize()
     trained = train()
     torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    q8 = {kind: serve_8b(kind) for kind in ("int4", "int8", "bf16")}
+    log(f"serve8b: decode tok/s at batch 16 -- int4 "
+        f"{q8['int4']['decode_tok_s']:.1f}, int8 "
+        f"{q8['int8']['decode_tok_s']:.1f}, bf16 (cuBLAS yardstick) "
+        f"{q8['bf16']['decode_tok_s']:.1f}")
+    l4, l8 = q8["int4"]["launches"], q8["int8"]["launches"]
+    lg = q8["int4"]["generate"]["launches"]
+
+    def matmul_entry(label, **extra):
+        rows = results[label]
+        return dict(rows[0], at_shapes=rows[1:], **extra)
+
     kernels = [
         dict(name="flash_fwd (B1)", route="cuda",
              source="flash_attention_tpu_torch/csrc/flash_fwd.cu",
              replaces="flash_attention_tpu/ops/flash.py:259",
-             launches=launches["flash"] + trained["flash"],
-             launches_by_path={"serve": launches["flash"],
-                               "train": trained["flash"]},
+             launches=launches["flash"] + trained["flash"] + l4["flash"]
+             + l8["flash"] + lg["flash"],
+             launches_by_path={"serve_1b": launches["flash"],
+                               "train_1b": trained["flash"],
+                               "serve_8b_int4": l4["flash"],
+                               "serve_8b_int8": l8["flash"],
+                               "generate_8b_int4": lg["flash"]},
              **results[("flash", 512)],
              at_train_shape=results["flash_train"]),
         dict(name="flash_bwd_dq (B2)", route="cuda",
@@ -881,7 +1357,36 @@ def main() -> int:
         dict(name="paged_decode (B4)", route="cuda",
              source="flash_attention_tpu_torch/csrc/paged_decode.cu",
              replaces="flash_attention_tpu/ops/paged.py:37",
-             launches=launches["paged"], **results["paged"]),
+             launches=launches["paged"] + l4["paged"] + l8["paged"],
+             launches_by_path={"serve_1b": launches["paged"],
+                               "serve_8b_int4": l4["paged"],
+                               "serve_8b_int8": l8["paged"]},
+             **results["paged"]),
+        dict(name="decode (B5)", route="cuda",
+             source="flash_attention_tpu_torch/csrc/decode.cu",
+             replaces="flash_attention_tpu/ops/decode.py:71",
+             launches=lg["decode"],
+             launches_by_path={"generate_8b_int4": lg["decode"]},
+             **results["decode"]),
+        matmul_entry("B6 int8", name="quant_matmul (B6)", route="cuda",
+                     source="flash_attention_tpu_torch/csrc/quant_matmul.cu",
+                     replaces="flash_attention_tpu/ops/quant_matmul.py:41",
+                     launches=l8["quant"],
+                     launches_by_path={"serve_8b_int8": l8["quant"]},
+                     fp8=dict(e4m3=results["B6 e4m3"],
+                              e5m2=results["B6 e5m2"])),
+        matmul_entry("B7 int4", name="int4_matmul (B7)", route="cuda",
+                     source="flash_attention_tpu_torch/csrc/quant_matmul.cu",
+                     replaces="flash_attention_tpu/ops/quant_matmul.py:214",
+                     launches=l4["int4"] + lg["int4"],
+                     launches_by_path={"serve_8b_int4": l4["int4"],
+                                       "generate_8b_int4": lg["int4"]}),
+        matmul_entry("B8 dense", name="dense_matmul (B8)", route="cuda",
+                     source="flash_attention_tpu_torch/csrc/quant_matmul.cu",
+                     replaces="flash_attention_tpu/ops/quant_matmul.py:141",
+                     launches=launches["dense"],
+                     launches_by_path={"prefill_1b_dense_pallas_mm":
+                                       launches["dense"]}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     log(card)

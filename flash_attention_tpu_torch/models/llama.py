@@ -8,11 +8,14 @@ Parameters are a plain dict in the JAX package's layout (wq [d, H, hd],
 wk/wv [d, Hkv, hd], wo [H, hd, d], w_gate/w_up [d, ffn], w_down
 [ffn, d], embed [vocab, d], lm_head [d, vocab]), so JAX trees carry
 across unchanged (utils/convert.py). Prefill and training attention run
-the B1 flash kernel, and its backward the B2/B3 kernels; decode
+the B1 flash kernel, and its backward the B2/B3 kernels; paged decode
 attention runs the B4 paged kernel over the read-only pages plus plain
-attention over the dense hot tail, merged by their log-sum-exps. The
-dense projections are torch matmuls, as the JAX package leaves them to
-XLA.
+attention over the dense hot tail, merged by their log-sum-exps;
+contiguous-cache decode (`decode_step`, used by `sampling.generate`)
+runs B5. Weight products go through `_mm`: dense weights are torch
+matmuls, as the JAX package leaves them to XLA (or B8 under
+FA_TPU_DENSE_PALLAS_MM), quantized weights (models/quantized.py) run the
+B6 / B7 kernels.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import os
 
 import numpy as np
 import torch
@@ -27,8 +31,14 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from flash_attention_tpu_torch.config import resolve_device
+from flash_attention_tpu_torch.models.quantized import (
+    QUANT_LEAF_TYPES,
+    _weight_einsum,
+)
+from flash_attention_tpu_torch.ops.decode import flash_decode
 from flash_attention_tpu_torch.ops.flash import flash_attention
 from flash_attention_tpu_torch.ops.paged import paged_flash_decode
+from flash_attention_tpu_torch.ops.quant_matmul import dense_matmul
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,9 +145,41 @@ def init_params(cfg: LlamaConfig, seed: int = 0, *, device="cuda") -> dict:
 
 
 def _mm(spec, x, w):
-    """Dense weight product (cuBLAS on the card, as XLA's dot on the
-    TPU). Quantized weights arrive with a later slice."""
+    """Weight einsum, dispatched on the weight's type as in the JAX
+    package: a QuantizedWeight or Int4Weight (models/quantized.py) runs
+    its fused-dequant kernel (B6 / B7) for at most 1024 activation rows;
+    a dense tensor runs torch.einsum (cuBLAS on the card, as XLA's dot on
+    the TPU) -- or, with FA_TPU_DENSE_PALLAS_MM set (read per call), the
+    weight-streaming kernel B8 for at most 1024 rows. Other weight types
+    (the MoE expert stacks) arrive with the MoE slice."""
+    if isinstance(w, QUANT_LEAF_TYPES):
+        return w.einsum(spec, x)
+    if not isinstance(w, torch.Tensor):
+        raise NotImplementedError(
+            f"{type(w).__name__} weights arrive with the MoE slice")
+    if os.environ.get("FA_TPU_DENSE_PALLAS_MM") and w.ndim >= 2:
+        return _weight_einsum(_DensePallasWeight(w, spec), spec, x)
     return torch.einsum(spec, x, w)
+
+
+class _DensePallasWeight:
+    """Gives a dense weight the quantized-weight einsum protocol
+    (orig_shape / n_contract / _matmul2d), so _weight_einsum's 2D
+    normalisation is reused: skinny activations stream through B8
+    (ops/quant_matmul.py dense_matmul), wide ones stay on torch.matmul."""
+
+    def __init__(self, w, spec):
+        ins, _ = spec.split("->")
+        xs, ws = ins.split(",")
+        self.orig_shape = tuple(w.shape)
+        self.n_contract = sum(1 for c in ws if c in xs)
+        k = math.prod(w.shape[: self.n_contract])
+        self._w2 = w.reshape(k, -1)
+
+    def _matmul2d(self, x2):
+        if x2.shape[0] <= 1024:
+            return dense_matmul(x2, self._w2)
+        return x2 @ self._w2
 
 
 def rmsnorm(x, w, eps):
@@ -396,3 +438,97 @@ def decode_step_paged_multi(params, tokens, cfg: LlamaConfig, k_pages,
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = _mm("btd,dv->btv", x, params["lm_head"])
     return logits, k_tails, v_tails
+
+
+# --- contiguous-cache decode (sampling.generate) ---------------------------
+
+
+def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=None,
+                  *, device="cuda"):
+    """Contiguous per-layer caches [(k, v)] of [B, Hkv, S, D] zeros
+    (paged serving uses runtime/kv_cache.py instead)."""
+    dev = resolve_device(device)
+    shape = (batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    dtype = dtype or cfg.dtype
+    return [(torch.zeros(shape, dtype=dtype, device=dev),
+             torch.zeros(shape, dtype=dtype, device=dev))
+            for _ in range(cfg.n_layers)]
+
+
+@torch.no_grad()
+def prefill(params, tokens, cfg: LlamaConfig, cache):
+    """Run the prompt [B, T] through the model, writing its K/V into
+    positions [0, T) of `cache` IN PLACE (the JAX version returns updated
+    copies). Returns (logits at the last token [B, vocab], cache,
+    lengths [B] int32)."""
+    b, t = tokens.shape
+    positions = torch.arange(t, dtype=torch.int32, device=tokens.device)
+    x = params["embed"][tokens]
+    for layer, (ck, cv) in zip(params["layers"], cache):
+        a, (k, v) = _attention_block(layer, x, cfg, positions)
+        ck[:, :, :t] = k.to(ck.dtype)
+        cv[:, :, :t] = v.to(cv.dtype)
+        x = x + a
+        x = x + _mlp_block(layer, x, cfg)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = _mm("bd,dv->bv", x[:, -1], params["lm_head"])
+    lengths = torch.full((b,), t, dtype=torch.int32, device=tokens.device)
+    return logits, cache, lengths
+
+
+def _xla_cache_attention(q, ck, cv, lengths, scale, window=None):
+    """Masked attention of q [B, Hq, D] over contiguous caches
+    [B, Hkv, S, D], visible positions [max(0, len - window), len), in
+    plain torch (fp32 softmax). The JAX package keeps this path out of
+    its Pallas kernel so XLA can scatter into the cache in place; here it
+    is `decode_step(use_flash=False)`."""
+    b, hq, d = q.shape
+    hkv = ck.shape[1]
+    qg = q.reshape(b, hkv, hq // hkv, d).float()
+    s = torch.einsum("bhgd,bhsd->bhgs", qg, ck.float()) * scale
+    col = torch.arange(ck.shape[2], device=q.device)[None, None, None, :]
+    lens = lengths.long()[:, None, None, None]
+    bad = col >= lens
+    if window is not None:
+        bad = bad | (col < lens - window)
+    p = torch.softmax(s.masked_fill(bad, float("-inf")), dim=-1)
+    o = torch.einsum("bhgs,bhsd->bhgd", p, cv.float())
+    return o.reshape(b, hq, d)
+
+
+@torch.no_grad()
+def decode_step(params, token, cfg: LlamaConfig, cache, lengths, *,
+                use_flash: bool = True):
+    """One decode step over token [B] with the contiguous cache: the new
+    token's K/V is written at position lengths[b] of each layer's cache
+    IN PLACE (the JAX version returns updated copies), then attention
+    runs B5 (ops/decode.py flash_decode) over lengths + 1 positions, or
+    plain torch with use_flash=False. Returns (logits [B, vocab], cache,
+    lengths + 1)."""
+    b = token.shape[0]
+    positions = lengths[:, None]                      # [B, 1]
+    x = params["embed"][token][:, None]               # [B, 1, D]
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    bidx = torch.arange(b, device=token.device)
+    pos = lengths.long()
+    for layer, (ck, cv) in zip(params["layers"], cache):
+        h = rmsnorm(x, layer["attn_norm"], cfg.norm_eps)
+        q = _mm("btd,dhk->bhtk", h, layer["wq"])
+        k = _mm("btd,dhk->bhtk", h, layer["wk"])
+        v = _mm("btd,dhk->bhtk", h, layer["wv"])
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        ck[bidx, :, pos] = k[:, :, 0].to(ck.dtype)
+        cv[bidx, :, pos] = v[:, :, 0].to(cv.dtype)
+        if use_flash:
+            o = flash_decode(q[:, :, 0].contiguous(), ck, cv, lengths + 1,
+                             window=cfg.window)[:, :, None]
+        else:
+            o = _xla_cache_attention(
+                q[:, :, 0], ck, cv, lengths + 1, scale,
+                window=cfg.window).to(x.dtype)[:, :, None]
+        x = x + _mm("bhtk,hkd->btd", o, layer["wo"])
+        x = x + _mlp_block(layer, x, cfg)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = _mm("bd,dv->bv", x[:, 0], params["lm_head"])
+    return logits, cache, lengths + 1

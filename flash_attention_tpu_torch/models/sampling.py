@@ -47,3 +47,34 @@ def sample(logits, generator: torch.Generator | None = None, *,
     probs = torch.softmax(logits, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
         torch.int32)
+
+
+def generate(params, prompt_tokens, cfg, *, max_new_tokens: int,
+             max_len: int | None = None, temperature: float = 0.0,
+             top_k: int = 0, top_p: float = 0.0,
+             generator: torch.Generator | None = None):
+    """Simple generate loop over the contiguous cache: prefill, then one
+    decode_step (attention on B5) per further token -- a Python loop in
+    place of the JAX version's lax.scan. prompt_tokens: [B, T] on the
+    parameters' device. Returns int32 [B, max_new_tokens]."""
+    from flash_attention_tpu_torch.models.llama import (
+        decode_step, init_kv_cache, prefill,
+    )
+
+    b, t = prompt_tokens.shape
+    if max_len is None:
+        max_len = t + max_new_tokens
+    max_len = -(-max_len // 128) * 128    # the JAX package's cache length
+    device = params["embed"].device
+    cache = init_kv_cache(cfg, b, max_len, device=device)
+    tokens = torch.as_tensor(prompt_tokens, device=device).long()
+    logits, cache, lengths = prefill(params, tokens, cfg, cache)
+    kw = dict(temperature=temperature, top_k=top_k, top_p=top_p)
+    tok = sample(logits, generator, **kw)
+    out = [tok]
+    for _ in range(max_new_tokens - 1):
+        logits, cache, lengths = decode_step(params, tok.long(), cfg, cache,
+                                             lengths)
+        tok = sample(logits, generator, **kw)
+        out.append(tok)
+    return torch.stack(out, dim=1)

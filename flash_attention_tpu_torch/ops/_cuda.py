@@ -35,6 +35,11 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float16: 0, torch.bfloat16: 1}
 
+# Weight storage codes of csrc/quant_matmul.cu: a dense weight in the
+# activation's own dtype, int8, the two fp8 formats, packed int4.
+WEIGHT_CODES = {"dense": 0, torch.int8: 1, torch.float8_e4m3fn: 2,
+                torch.float8_e5m2: 3, "int4": 4}
+
 _lock = threading.Lock()
 _lib = None
 
@@ -53,6 +58,10 @@ _SIGNATURES = {
     # q, k_pool, v_pool, page_table, lengths, o, lse, B, Hq, Hkv,
     # num_pages, page_size, table_width, D, scale, dtype, stream
     "fa_paged_decode": [_vp] * 7 + [_i32] * 7 + [_f32, _i32, _vp],
+    # q, k, v, lengths, o, B, Hq, Hkv, S, D, scale, dtype, stream
+    "fa_decode": [_vp] * 5 + [_i32] * 5 + [_f32, _i32, _vp],
+    # x, w, scale (or NULL), y, M, K, F, weight code, dtype, stream
+    "fa_quant_matmul": [_vp] * 4 + [_i32] * 5 + [_vp],
 }
 
 

@@ -24,7 +24,7 @@ from flash_attention_tpu_torch.config import (
     cdiv,
 )
 from flash_attention_tpu_torch.ops import _cuda
-from flash_attention_tpu_torch.ops.flash import INIT_M
+from flash_attention_tpu_torch.ops.decode import flash_decode_plain
 
 DEFAULT_PAGE_SIZE = 256
 
@@ -43,29 +43,14 @@ def _gather(pool, page_table):
 
 def paged_flash_decode_plain(q, k_pool, v_pool, page_table, lengths, *,
                              scale):
-    """B4's function in plain PyTorch: gather the pages, fp32 masked
-    softmax over positions < lengths[b], probabilities rounded to the
-    input dtype for the PV product (the kernel's numerics). Returns
+    """B4's function in plain PyTorch: gather the pages, then B5's plain
+    version over them (fp32 masked softmax over positions < lengths[b],
+    probabilities rounded to the input dtype for the PV product). Returns
     (o [B, Hq, D] in q's dtype, lse [B, Hq] fp32); a length-0 row gives
     O = 0 and LSE = INIT_M * scale."""
-    b, hq, d = q.shape
-    hkv = k_pool.shape[0]
-    k = _gather(k_pool, page_table)
-    v = _gather(v_pool, page_table)
-    qg = q.reshape(b, hkv, hq // hkv, d).float()
-    s = torch.einsum("bhgd,bhsd->bhgs", qg, k) * scale
-    col = torch.arange(s.shape[-1], device=s.device)
-    s = s.masked_fill(col >= lengths.long()[:, None, None, None],
-                      float("-inf"))
-    m = s.amax(dim=-1, keepdim=True)
-    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    p = torch.exp(s - m_safe)
-    l = p.sum(dim=-1, keepdim=True)
-    l_safe = torch.where(l > 0, l, torch.ones_like(l))
-    o = torch.einsum("bhgs,bhsd->bhgd", p.to(q.dtype).float(), v) / l_safe
-    lse = torch.where(l > 0, m_safe + torch.log(l_safe),
-                      torch.full_like(l, INIT_M * scale))
-    return o.reshape(b, hq, d).to(q.dtype), lse.reshape(b, hq)
+    return flash_decode_plain(q, _gather(k_pool, page_table),
+                              _gather(v_pool, page_table), lengths,
+                              scale=scale, return_lse=True)
 
 
 def _paged_decode_cuda(q, k_pool, v_pool, page_table, lengths, *, scale):

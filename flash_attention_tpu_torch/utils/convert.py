@@ -6,6 +6,13 @@ wk/wv [d, Hkv, hd], wo [H, hd, d], w_gate/w_up [d, ffn], w_down
 converts leaf by leaf with no transposes. The caller hands over numpy
 arrays (e.g. `jax.tree.map(np.asarray, params)`); this module imports
 neither JAX nor the JAX package.
+
+After that map a quantized weight of the JAX package is still its class,
+now holding numpy leaves. It is recognised by its fields: q / scale /
+orig_shape / n_contract becomes a `QuantizedWeight`, packed / scales /
+orig_shape / n_contract an `Int4Weight` (models/quantized.py). The MoE
+expert stacks (the same leaves without n_contract) arrive with the MoE
+slice and raise.
 """
 
 from __future__ import annotations
@@ -14,20 +21,36 @@ import numpy as np
 import torch
 
 from flash_attention_tpu_torch.config import resolve_device
+from flash_attention_tpu_torch.models.quantized import (
+    Int4Weight,
+    QuantizedWeight,
+)
+
+# ml_dtypes' numpy dtypes with no numpy counterpart: reinterpret the
+# payload through an unsigned view of the same width.
+_VIEWED = {
+    "bfloat16": (np.uint16, torch.bfloat16),
+    "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+    "float8_e5m2": (np.uint8, torch.float8_e5m2),
+}
 
 
 def _leaf(x, device: torch.device) -> torch.Tensor:
     arr = np.array(x)          # a private, writable copy
-    if arr.dtype.name == "bfloat16":
-        # numpy has no native bfloat16; reinterpret the 16-bit payload.
-        return torch.from_numpy(arr.view(np.uint16)).view(
-            torch.bfloat16).to(device)
+    if arr.dtype.name in _VIEWED:
+        raw, dtype = _VIEWED[arr.dtype.name]
+        return torch.from_numpy(arr.view(raw)).view(dtype).to(device)
     return torch.from_numpy(arr).to(device)
 
 
+def _has(node, *fields) -> bool:
+    return all(hasattr(node, f) for f in fields)
+
+
 def params_from_jax(tree, device="cuda"):
-    """Nested dicts/lists/tuples of numpy arrays -> the same structure of
-    torch tensors on `device`, dtypes preserved."""
+    """Nested dicts/lists/tuples of numpy arrays (and quantized weights
+    holding them) -> the same structure of torch tensors (and the port's
+    weight classes) on `device`, dtypes preserved."""
     dev = resolve_device(device)
 
     def conv(node):
@@ -35,6 +58,21 @@ def params_from_jax(tree, device="cuda"):
             return {k: conv(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(conv(v) for v in node)
+        if _has(node, "q", "scale", "orig_shape", "n_contract"):
+            return QuantizedWeight(
+                q=_leaf(node.q, dev), scale=_leaf(node.scale, dev),
+                orig_shape=tuple(node.orig_shape),
+                n_contract=int(node.n_contract))
+        if _has(node, "packed", "scales", "orig_shape", "n_contract"):
+            return Int4Weight(
+                packed=_leaf(node.packed, dev),
+                scales=_leaf(node.scales, dev),
+                orig_shape=tuple(node.orig_shape),
+                n_contract=int(node.n_contract))
+        if _has(node, "q", "scale") or _has(node, "packed", "scales"):
+            raise NotImplementedError(
+                f"{type(node).__name__} (an expert stack) arrives with the "
+                "MoE slice")
         return _leaf(node, dev)
 
     return conv(tree)

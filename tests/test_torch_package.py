@@ -123,3 +123,61 @@ def test_unported_attention_options_raise():
 def test_trainer_unported_families_raise(kw, slice_name):
     with pytest.raises(NotImplementedError, match=f"{slice_name} slice"):
         Trainer(CFG, torch.optim.SGD, device="cpu", **kw)
+
+
+def test_unported_decode_options_raise():
+    """B5's windowed and quantized-cache branches arrive with their
+    slices: the generate path raises on a windowed model, flash_decode
+    on an int8 / fp8 cache."""
+    from flash_attention_tpu_torch.models.llama import (
+        decode_step, init_kv_cache,
+    )
+    from flash_attention_tpu_torch.ops.decode import flash_decode
+
+    windowed = LlamaConfig.tiny(dtype=torch.float32, window=64)
+    params = init_params(windowed, seed=0, device="cpu")
+    cache = init_kv_cache(windowed, 1, 128, device="cpu")
+    lengths = torch.tensor([3], dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="window slice"):
+        decode_step(params, torch.tensor([1]), windowed, cache, lengths)
+    q = torch.zeros(1, 4, 64)
+    for dt in (torch.int8, torch.float8_e5m2):
+        kv = torch.zeros(1, 2, 128, 64, dtype=dt)
+        with pytest.raises(NotImplementedError, match="quantized-KV slice"):
+            flash_decode(q, kv, kv, lengths)
+
+
+def test_expert_stack_weights_raise():
+    """MoE expert stacks (a JAX QuantizedExpertStack / Int4ExpertStack
+    after jax.tree.map(np.asarray, ...)) arrive with the MoE slice: the
+    converter and the weight product both raise."""
+    import dataclasses
+
+    import numpy as np
+
+    from flash_attention_tpu_torch.models.llama import _mm
+
+    @dataclasses.dataclass
+    class QuantizedExpertStack:
+        q: object
+        scale: object
+
+        @property
+        def orig_shape(self):
+            return tuple(self.q.shape)
+
+    @dataclasses.dataclass
+    class Int4ExpertStack:
+        packed: object
+        scales: object
+        logical_k: int
+
+    stacks = [QuantizedExpertStack(np.zeros((2, 8, 4), np.int8),
+                                   np.ones((2, 4), np.float32)),
+              Int4ExpertStack(np.zeros((2, 64, 4), np.int8),
+                              np.ones((2, 1, 4), np.float32), 128)]
+    for stack in stacks:
+        with pytest.raises(NotImplementedError, match="MoE slice"):
+            params_from_jax({"layers": [{"w_up": stack}]}, device="cpu")
+        with pytest.raises(NotImplementedError, match="MoE slice"):
+            _mm("etd,edf->etf", torch.zeros(2, 3, 8), stack)
