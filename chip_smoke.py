@@ -36,12 +36,25 @@ Phases, each fatal on failure:
              dequantized weights; 8 profiled decode steps; the same
              requests on bf16 weights as the cuBLAS yardstick;
   8. generate sampling.generate on the int4 8B tree (B5 attention,
-             exact launch counts, the same teacher-forced band).
+             exact launch counts, the same teacher-forced band);
+  9. mixtral  the Engine on MoEConfig.mixtral_8x7b (dropless routing) at
+             full width and depth on int4 and int8 weights drawn on the
+             card by init_quantized_moe_params, then the int4 tree with
+             FA_TPU_GROUPED_MIN_TOKENS=1 (B9 at every decode step), then
+             bf16 weights at 16 layers (the one-card depth): 8 greedy
+             requests of 300-4600 tokens, exact B9 / B7 / B6 / B1 / B4
+             launch counts, transcripts held to a teacher-forced forward
+             with plain attention and a plain per-expert MoE, 8 profiled
+             decode steps each; between the int4 runs, one int4 MoE layer
+             timed through the one-hot cubes and the grouped path at
+             16-8192 tokens (the card's crossover, reported).
 The 1B serve phase also runs one prefill with FA_TPU_DENSE_PALLAS_MM=1
 (B8: exactly 7 launches per layer + 1, logits within the bf16 gate of
 the cuBLAS path). Kernel checks (phase 2) cover B5 at the generate
 shape and B6 (int8, e4m3, e5m2), B7 and B8 at the 8B decode (M = 16)
-and prefill (M = 1024) shapes, ragged shapes and fp16.
+and prefill (M = 1024) shapes, ragged shapes and fp16, and B9 on all five
+storages at Mixtral's expert shapes with 16 and 8192 expert-sorted rows,
+a ragged shape, a base band with rows past the data, and fp16.
 
 Prints information lines, then one JSON line describing the kernels,
 then the card's name and power limit, and last one JSON line
@@ -602,7 +615,7 @@ def _counters() -> dict:
     """name -> (module, attribute) of every serving kernel's launch
     count."""
     from flash_attention_tpu_torch.ops import (
-        decode, flash, paged, quant_matmul,
+        decode, flash, grouped, paged, quant_matmul,
     )
 
     return {"flash": (flash, "flash_fwd_launches"),
@@ -610,7 +623,8 @@ def _counters() -> dict:
             "decode": (decode, "decode_launches"),
             "quant": (quant_matmul, "quant_matmul_launches"),
             "int4": (quant_matmul, "int4_matmul_launches"),
-            "dense": (quant_matmul, "dense_matmul_launches")}
+            "dense": (quant_matmul, "dense_matmul_launches"),
+            "grouped": (grouped, "grouped_matmul_launches")}
 
 
 def reset_counts() -> None:
@@ -623,58 +637,74 @@ def read_counts() -> dict:
             for key, (mod, attr) in _counters().items()}
 
 
-def teacher_forced(params, cfg, prompts, transcripts, what) -> None:
+def teacher_forced(params, cfg, prompts, transcripts, what,
+                   mlp=None) -> None:
     """Hold greedy transcripts to a teacher-forced forward with plain
     attention on the dequantized weights (PR 1's band): e = max |bf16 -
     fp32| logit error of that forward over the generated positions; the
     token each transcript chose must have a bf16 plain-forward logit
     within 4e of the max. Each layer is dequantized inside the forward
-    (an fp32 copy of the 8B model would take 32 GB)."""
+    (an fp32 copy of the 8B model would take 32 GB) and each sequence
+    runs alone (the plain attention of a 4600-token sequence holds 3 GB
+    of fp32 scores). `mlp(layer, x, cfg)` replaces the FFN block (the
+    plain MoE of the Mixtral phases); the router stays fp32."""
     from flash_attention_tpu_torch.models.llama import (
         _attention_block, _mlp_block, rmsnorm,
     )
-    from flash_attention_tpu_torch.models.quantized import QUANT_LEAF_TYPES
+    from flash_attention_tpu_torch.models.quantized import (
+        EXPERT_STACK_TYPES, QUANT_LEAF_TYPES,
+    )
     from flash_attention_tpu_torch.ops.reference import attention_reference
+
+    mlp = mlp or _mlp_block
 
     def plain_attn(q, k, v):
         return attention_reference(q, k, v, causal=True)
 
-    seqs = [list(p) + list(t[:-1]) for p, t in zip(prompts, transcripts)]
-    width = max(len(x) for x in seqs)
-    tokens = torch.zeros((len(seqs), width), dtype=torch.long,
-                         device="cuda")
-    for i, x in enumerate(seqs):
-        tokens[i, :len(x)] = torch.tensor(x, device="cuda")
-    rows = torch.stack([torch.arange(len(p) - 1, len(p) - 1 + len(t))
-                        for p, t in zip(prompts, transcripts)]).cuda()
-    chosen = torch.tensor([list(t) for t in transcripts], device="cuda")
-    positions = torch.arange(width, dtype=torch.int32, device="cuda")
+    def dense(name, w, dtype):
+        if isinstance(w, QUANT_LEAF_TYPES + EXPERT_STACK_TYPES):
+            return w.dequant(dtype)
+        return w if name == "router" else w.to(dtype)
 
-    def dense(w, dtype):
-        return (w.dequant(dtype) if isinstance(w, QUANT_LEAF_TYPES)
-                else w.to(dtype))
-
-    @torch.no_grad()
-    def logits(dtype):
-        x = params["embed"][tokens].to(dtype)
+    dtypes = (torch.bfloat16, torch.float32)
+    dev = params["embed"].device
+    seqs = [torch.tensor(list(p) + list(t[:-1]), device=dev)[None]
+            for p, t in zip(prompts, transcripts)]
+    xs = {dt: [params["embed"][s].to(dt) for s in seqs] for dt in dtypes}
+    with torch.no_grad():
         for layer in params["layers"]:
-            lay = {k: dense(w, dtype) for k, w in layer.items()}
-            a, _ = _attention_block(lay, x, cfg, positions,
-                                    attn_impl=plain_attn)
-            x = x + a
-            x = x + _mlp_block(lay, x, cfg)
-        x = rmsnorm(x, params["final_norm"].to(dtype), cfg.norm_eps)
-        last = x[torch.arange(len(seqs), device="cuda")[:, None], rows]
-        return (last @ dense(params["lm_head"], dtype)).float()
-
-    lg = logits(torch.bfloat16)
-    err = float((lg - logits(torch.float32)).abs().max())
+            for dt in dtypes:
+                lay = {k: dense(k, w, dt) for k, w in layer.items()}
+                for i, s in enumerate(seqs):
+                    pos = torch.arange(s.shape[1], dtype=torch.int32,
+                                       device=dev)
+                    x = xs[dt][i]
+                    a, _ = _attention_block(lay, x, cfg, pos,
+                                            attn_impl=plain_attn)
+                    x = x + a
+                    xs[dt][i] = x + mlp(lay, x, cfg)
+                del lay
+        logits = {}
+        for dt in dtypes:
+            head = dense("lm_head", params["lm_head"], dt)
+            norm = params["final_norm"].to(dt)
+            logits[dt] = torch.stack([
+                (rmsnorm(x[0, len(p) - 1:len(p) - 1 + len(t)], norm,
+                         cfg.norm_eps) @ head).float()
+                for x, p, t in zip(xs[dt], prompts, transcripts)])
+    lg = logits[torch.bfloat16]
+    diff = (lg - logits[torch.float32]).abs()
+    err = float(diff.max())
+    chosen = torch.tensor([list(t) for t in transcripts], device=dev)
     gaps = (lg.amax(-1) - lg.gather(-1, chosen[..., None])[..., 0]).amax(-1)
     gaps = gaps.tolist()
+    agree = float((logits[torch.float32].argmax(-1) == chosen).float().mean())
     delta = 4.0 * err
-    log(f"{what}: teacher-forced check: bf16 logit error e={err:.4f}, "
-        f"delta=4e={delta:.4f}, worst chosen-token gap to the max logit "
-        f"per request {[round(g, 4) for g in gaps]}")
+    log(f"{what}: teacher-forced check: bf16 logit error e={err:.4f} "
+        f"(mean {float(diff.mean()):.4f}), delta=4e={delta:.4f}, worst "
+        f"chosen-token gap to the max logit per request "
+        f"{[round(g, 4) for g in gaps]}; chosen = fp32 argmax at "
+        f"{agree:.3f} of positions (reported)")
     if not all(np.isfinite(gaps)) or max(gaps) > delta:
         raise AssertionError(f"{what}: a transcript left the "
                              f"teacher-forced band")
@@ -753,7 +783,7 @@ def serve_8b(kind: str) -> dict:
         mine, other = (("int4", "quant") if kind == "int4"
                        else ("quant", "int4"))
         want_all = dict(got, **{mine: want, other: 0, "dense": 0,
-                                "decode": 0,
+                                "decode": 0, "grouped": 0,
                                 "flash": cfg.n_layers * len(reqs),
                                 "paged": cfg.n_layers * st.decode_steps})
         log(f"{what}: want launches {want_all} ({per} per decode step and "
@@ -799,7 +829,7 @@ def generate_8b(params, cfg, eng, request_cls) -> dict:
     steps = new - 1
     per = 7 * cfg.n_layers + 1
     want = dict(got, decode=cfg.n_layers * steps, int4=per * steps + 1,
-                flash=cfg.n_layers, paged=0, quant=0, dense=0)
+                flash=cfg.n_layers, paged=0, quant=0, dense=0, grouped=0)
     transcripts = out.tolist()
     log(f"generate: 4 x 512-token prompts, {new} new tokens in "
         f"{wall:.3f} s ({4 * new / wall:.1f} tok/s including prefill); "
@@ -813,6 +843,208 @@ def generate_8b(params, cfg, eng, request_cls) -> dict:
     log(f"generate: {same} of 4 transcripts equal the int4 engine's on the "
         f"same prompts (reported, not gated)")
     return dict(launches=got, wall_s=wall, equal_to_engine=same)
+
+
+# --- phase 9: serve Mixtral-8x7B (MoE, dropless) on B9 ---------------------
+
+# Two prompts in buckets of at most 1024 rows (attention products on
+# B7 / B6, one-hot MoE), one in the 2048 bucket (the wide dequantize
+# path and the one-hot cubes), four in the 4096 bucket and one in the
+# 8192 bucket (the MoE on B9: 8192 and 16384 expert-sorted rows).
+PROMPT_LENS_MIXTRAL = [300, 640, 1000, 1500, 2200, 2900, 3600, 4600]
+
+
+def moe_mlp_plain(layer, x, cfg):
+    """The dropless MoE FFN in plain PyTorch, expert by expert: each
+    token's top-k experts by softmax probability of the fp32 router
+    logits (torch.topk), gates renormalised; no sort, no one-hot cubes,
+    no kernel. The teacher-forced reference of the Mixtral phases."""
+    from flash_attention_tpu_torch.models.llama import rmsnorm
+
+    b, t, d = x.shape
+    flat = rmsnorm(x, layer["mlp_norm"], cfg.norm_eps).reshape(b * t, d)
+    probs = torch.softmax(flat.float() @ layer["router"], dim=-1)
+    gates, experts = torch.topk(probs, cfg.top_k, dim=-1)
+    gates = gates / gates.sum(dim=-1, keepdim=True)
+    y = torch.zeros_like(flat)
+    for e in range(cfg.n_experts):
+        tok, slot = torch.nonzero(experts == e, as_tuple=True)
+        if tok.numel():
+            h = flat[tok]
+            a = (torch.nn.functional.silu(h @ layer["w_gate"][e])
+                 * (h @ layer["w_up"][e]))
+            y.index_add_(0, tok, (a @ layer["w_down"][e])
+                         * gates[tok, slot, None].to(y.dtype))
+    return y.reshape(b, t, d)
+
+
+def crossover(layer, cfg) -> list:
+    """One Mixtral MoE layer on int4 stacks through the drop-free one-hot
+    cubes (moe_mlp, capacity = n) and through the grouped path
+    (moe_mlp_grouped: sort + B9) at dispatches of 16-8192 tokens: where
+    the grouped path starts to win on this card. The dispatch threshold
+    stays the JAX package's 4096 (reported, not changed)."""
+    from flash_attention_tpu_torch.models.moe import moe_mlp, moe_mlp_grouped
+
+    flush = L2Flush()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 7)
+    rows = []
+    for n in (16, 512, 2048, 4096, 8192):
+        x = torch.randn((1, n, cfg.dim), generator=gen,
+                        device="cuda").to(cfg.dtype)
+        onehot = time_ms(lambda: moe_mlp(layer, x, cfg, capacity=n), flush,
+                         iters=5, warmup=1)
+        grouped = time_ms(lambda: moe_mlp_grouped(layer, x, cfg), flush,
+                          iters=5, warmup=1)
+        log(f"crossover: n={n} tokens: one-hot {onehot:.3f} ms, grouped "
+            f"{grouped:.3f} ms (one int4 Mixtral MoE layer; grouped/one-hot "
+            f"{grouped / onehot:.3f})")
+        rows.append(dict(n=n, onehot_ms=onehot, grouped_ms=grouped))
+        del x
+        torch.cuda.empty_cache()
+    return rows
+
+
+def serve_mixtral(kind, params, cfg, forced=False) -> dict:
+    """Serve 8 greedy requests (prompts of 300-4600 tokens, 32 new tokens
+    each) on a Mixtral tree with the Engine (max_batch 8, pages of 256,
+    tail 16); `forced` sets FA_TPU_GROUPED_MIN_TOKENS=1 for the run (the
+    grouped path at every dispatch, decode included). Gates: exact
+    launch counts of B9, B7 / B6, B1 and B4 worked out from the code, and
+    every transcript inside the teacher-forced band (plain attention,
+    plain dropless MoE, weights dequantized one layer at a time).
+    Profiles 8 decode steps. Returns the run's numbers."""
+    import os
+
+    from flash_attention_tpu_torch.models.moe import dropless_dispatch_path
+    from flash_attention_tpu_torch.runtime.engine import (
+        Engine, Request, _bucket,
+    )
+
+    what = f"serve_mixtral[{kind}{' forced' if forced else ''}]"
+    if forced:
+        os.environ["FA_TPU_GROUPED_MIN_TOKENS"] = "1"
+    try:
+        eng = Engine(params, cfg, max_batch=8, num_pages=96, page_size=256,
+                     tail_size=16, seed=SEED)
+        eng.run([Request(prompt=[1, 2, 3], max_new_tokens=2)])  # warm-up
+        torch.cuda.synchronize()
+        rng = np.random.default_rng(SEED + 6)
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+                   for n in PROMPT_LENS_MIXTRAL]
+        reqs = [Request(prompt=p, max_new_tokens=32) for p in prompts]
+        eng.stats = type(eng.stats)()
+        reset_counts()
+        t0 = time.perf_counter()
+        comps = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        st = eng.stats
+        # The profile below runs more steps on this engine's stats.
+        out = dict(decode_tok_s=st.decode_tokens_per_s,
+                   prefill_s=st.prefill_s, ttft=st.ttft_percentiles(),
+                   decode_steps=st.decode_steps, launches=got)
+        buckets = [_bucket(n) for n in PROMPT_LENS_MIXTRAL]
+        grouped_prefills = sum(dropless_dispatch_path(b) == "grouped"
+                               for b in buckets)
+        grouped_steps = (st.decode_steps if dropless_dispatch_path(
+            eng.max_batch) == "grouped" else 0)
+        log(f"{what}: {len(comps)} completions in {wall:.3f} s; prefill "
+            f"{st.prefill_tokens} tokens in {st.prefill_s:.4f} s; decode "
+            f"{st.decode_tokens} tokens in {st.decode_steps} steps, "
+            f"{st.decode_s:.4f} s = {st.decode_tokens_per_s:.1f} tok/s; "
+            f"ttft {st.ttft_percentiles()}; launches {got}")
+        if sorted(c.request_id for c in comps) != sorted(
+                r.request_id for r in reqs) or any(
+                len(c.tokens) != 32 or c.finish_reason != "length"
+                for c in comps):
+            raise AssertionError(f"{what}: incomplete transcripts")
+        n = cfg.n_layers
+        per = 4 * n + 1          # wq, wk, wv, wo per layer + the lm_head
+        small = sum(b <= 1024 for b in buckets)
+        want_q = per * (st.decode_steps + small) + (len(reqs) - small)
+        quant = {"int4": ("int4", "quant"), "int8": ("quant", "int4")}
+        mine, other = quant.get(kind, ("quant", "int4"))
+        want = dict(got, **{mine: want_q if kind in quant else 0, other: 0,
+                            "dense": 0, "decode": 0,
+                            "grouped": 3 * n * (grouped_prefills
+                                                + grouped_steps),
+                            "flash": n * len(reqs),
+                            "paged": n * st.decode_steps})
+        log(f"{what}: want launches {want} (B9 3 per MoE layer per grouped "
+            f"dispatch: {grouped_prefills} prefills, {grouped_steps} decode "
+            f"steps; B7/B6 {per} per decode step and per prefill of at most "
+            f"1024 rows ({small}), 1 per wider prefill)")
+        if got != want or st.decode_steps == 0:
+            raise AssertionError(f"{what}: kernel launch counts off the "
+                                 f"serving path")
+        by_id = {c.request_id: c for c in comps}
+        out["transcripts"] = [by_id[r.request_id].tokens for r in reqs]
+        teacher_forced(params, cfg, prompts, out["transcripts"], what,
+                       mlp=moe_mlp_plain)
+        gc.collect()
+        torch.cuda.empty_cache()
+        profile_decode(eng, prompts, Request, f"{what} decode steps")
+    finally:
+        if forced:
+            del os.environ["FA_TPU_GROUPED_MIN_TOKENS"]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mixtral() -> dict:
+    """Phase 9: Mixtral-8x7B (MoEConfig.mixtral_8x7b, dropless routing)
+    at full width and depth on int4 and int8 trees from
+    init_quantized_moe_params, the int4 tree again with the grouped path
+    forced, and a bf16 tree at the one-card depth of 16 layers; between
+    the int4 runs the crossover report. Returns each run's numbers."""
+    from flash_attention_tpu_torch.models.moe import (
+        MoEConfig, init_moe_params,
+    )
+    from flash_attention_tpu_torch.models.quantized import (
+        init_quantized_moe_params, logical_param_count, params_nbytes,
+    )
+
+    out = {}
+    for kind in ("int4", "int8", "bf16"):
+        layers = 16 if kind == "bf16" else None
+        cfg = MoEConfig.mixtral_8x7b(
+            routing="dropless", dtype=torch.bfloat16,
+            **({} if layers is None else {"n_layers": layers}))
+        t0 = time.perf_counter()
+        if kind == "bf16":
+            params = init_moe_params(cfg, seed=SEED)
+        else:
+            params = init_quantized_moe_params(
+                cfg, SEED, "int4" if kind == "int4" else torch.int8)
+        torch.cuda.synchronize()
+        log(f"mixtral[{kind}]: MoEConfig.mixtral_8x7b ({cfg.n_layers} "
+            f"layers, dim {cfg.dim}, {cfg.n_heads}q/{cfg.n_kv_heads}kv x "
+            f"{cfg.head_dim}, ffn {cfg.ffn_dim}, {cfg.n_experts} experts "
+            f"top-{cfg.top_k}, vocab {cfg.vocab_size}, dropless) "
+            f"{logical_param_count(params) / 1e9:.3f} B logical params, "
+            f"{params_nbytes(params) / 1e9:.3f} GB of weights, seed {SEED}, "
+            f"built on the card in {time.perf_counter() - t0:.2f} s")
+        key = "bf16_16" if kind == "bf16" else kind
+        out[key] = serve_mixtral(kind, params, cfg)
+        if kind == "int4":
+            out["crossover"] = crossover(params["layers"][0], cfg)
+            out["int4_forced"] = serve_mixtral(kind, params, cfg,
+                                               forced=True)
+            same = sum(a == b for a, b in zip(
+                out["int4"]["transcripts"], out["int4_forced"]["transcripts"]))
+            log(f"mixtral[int4]: {same} of 8 forced-grouped transcripts "
+                f"equal the default run's (reported, not gated: the two "
+                f"dropless paths agree only to rounding)")
+            out["int4_forced"]["equal_to_default"] = same
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 # --- phase 6: train ----------------------------------------------------------
@@ -1221,6 +1453,138 @@ def check_quant_matmul(flush, results):
         results[label] = rows
 
 
+# B9 storages: the dense bf16 stack and the quantized ones.
+GROUPED_KINDS = {"B9 dense": "dense", "B9 int8": torch.int8,
+                 "B9 e4m3": torch.float8_e4m3fn,
+                 "B9 e5m2": torch.float8_e5m2, "B9 int4": "int4"}
+N_EXPERTS = 8
+
+
+def rand_stack(kind, e, k, f, gen):
+    """A random [e, k, f] expert stack on the card in `kind` storage, one
+    rand_weight per expert. Returns the product's weight args."""
+    per = [rand_weight(kind, k, f, gen)[0] for _ in range(e)]
+    return tuple(torch.stack(parts) for parts in zip(*per))
+
+
+def skewed_sizes(rng, m, e):
+    """Group sizes summing to m, skewed (Dirichlet 0.5 shares) with
+    expert 3 empty, as int32 on the card."""
+    p = rng.dirichlet(np.full(e, 0.5))
+    p[3] = 0.0
+    sizes = rng.multinomial(m, p / p.sum())
+    return torch.tensor(sizes, dtype=torch.int32, device="cuda")
+
+
+def _grouped_fns(kind):
+    """(kernel wrapper, plain version, cost storage) of B9 for a kind."""
+    from flash_attention_tpu_torch.ops import grouped as gm
+
+    if kind == "int4":
+        return gm.grouped_int4_matmul, gm.grouped_int4_matmul_plain, "int4"
+    if kind == "dense":
+        return gm.grouped_matmul, gm.grouped_matmul_plain, "dense"
+    return (gm.grouped_quant_matmul, gm.grouped_quant_matmul_plain,
+            "int8" if kind == torch.int8 else "fp8")
+
+
+def library_grouped(x, sizes, w, flush):
+    """torch._grouped_mm on the dense bf16 stack with the same int32
+    offsets: the library yardstick, timed only (never called by the
+    port). Returns (ms or None, what was timed or why not)."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, "torch._grouped_mm is absent from this torch"
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    try:
+        fn(x, w, offs=offs)
+        torch.cuda.synchronize()
+    except RuntimeError as exc:
+        return None, f"torch._grouped_mm refused: {str(exc)[:200]}"
+    return (time_ms(lambda: fn(x, w, offs=offs), flush),
+            "torch._grouped_mm, dense bf16 stack")
+
+
+def check_grouped(flush, results):
+    """B9 on every storage (dense bf16, int8, e4m3, e5m2, int4) against
+    its plain version under the low-precision gate, at Mixtral's w_gate
+    (K 4096, F 14336) and w_down (K 14336, F 4096) with M = 16 (a forced
+    decode step: batch 8 x top-2) and M = 8192 (a 4096-token prefill
+    bucket x top-2) expert-sorted rows over 8 experts, group sizes
+    skewed from the seed with one empty expert; plus a ragged shape, a
+    band with base > 0 and rows past the data (which must come back
+    exactly zero), and fp16. The Mixtral shapes are timed beside their
+    bound, the plain version and torch._grouped_mm on the dense bf16
+    stack of the same shape."""
+    from flash_attention_tpu_torch.ops.grouped import grouped_cost
+    from flash_attention_tpu_torch.utils.metrics import (
+        max_abs_error, verify_low_precision,
+    )
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 8)
+    rng = np.random.default_rng(SEED + 8)
+    e = N_EXPERTS
+    timed = [(16, 4096, 14336), (16, 14336, 4096), (8192, 4096, 14336),
+             (8192, 14336, 4096)]
+    library = {}
+    for label, kind in GROUPED_KINDS.items():
+        fn, plain, storage = _grouped_fns(kind)
+        ragged = (100, 384, 257) if kind == "int4" else (100, 130, 257)
+        cases = [(m, k, f, torch.bfloat16, 0, m) for m, k, f in timed] + [
+            (*ragged, torch.bfloat16, 0, 100),
+            (200, 256, 192, torch.bfloat16, 37, 120),
+            (64, 512, 384, torch.float16, 0, 64)]
+        rows = []
+        for m, k, f, dt, base, live in cases:
+            args = rand_stack(kind, e, k, f, gen)
+            if kind == "dense":
+                args = (args[0].to(dt),)
+            x = torch.randn((m, k), generator=gen, device="cuda").to(dt)
+            sizes = skewed_sizes(rng, live, e)
+            got = fn(x, sizes, *args, base=base)
+            torch.cuda.synchronize()
+            lo = plain(x, sizes, *args, base=base)
+            hi = plain(x.float(), sizes,
+                       *((args[0].float(),) if kind == "dense" else args),
+                       base=base)
+            ok, kerr, berr = verify_low_precision(got, hi, lo)
+            finite = bool(torch.isfinite(got.float()).all())
+            dead = bool((got[:base] == 0).all()) and bool(
+                (got[base + live:] == 0).all())
+            log(f"check {label} {m}x{k}x{f} {dt} sizes "
+                f"{sizes.tolist()} base {base}: kernel_err={kerr:.3e} "
+                f"plain_err={berr:.3e} finite={finite} "
+                f"rows_outside_zero={dead}")
+            if not (ok and finite and dead):
+                raise AssertionError(f"{label} failed its gate at "
+                                     f"{m}x{k}x{f} {dt} base {base}")
+            if (m, k, f) not in timed:
+                continue
+            ms = time_ms(lambda: fn(x, sizes, *args), flush)
+            plain_ms = time_ms(lambda: plain(x, sizes, *args), flush)
+            if kind == "dense":
+                library[(m, k, f)] = library_grouped(x, sizes, args[0],
+                                                     flush)
+            lib_ms, lib_what = library[(m, k, f)]
+            flops, nbytes = grouped_cost(m, k, f, int((sizes > 0).sum()),
+                                         storage)
+            bms, by = bound_ms(flops, nbytes)
+            log(f"time  {label} {m}x{k}x{f}: kernel_ms={ms:.4f} plain_ms="
+                f"{plain_ms:.4f} library_ms={lib_ms} ({lib_what}) "
+                f"bound_ms={bms:.4f} ({by}) achieved="
+                f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s "
+                f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+            rows.append(dict(shape=f"x({m},{k}) w({e},{k},{f}) bf16 x, "
+                                   f"sizes {sizes.tolist()}",
+                             max_abs_err=max_abs_error(got, lo), ms=ms,
+                             plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                             library_ms=lib_ms, library=lib_what))
+            del args, x, got, lo, hi
+        results[label] = rows
+        torch.cuda.empty_cache()
+
+
 def check_decode(rng, flush, results):
     """B5 at the generate phase's last step (4 sequences of 543 live
     positions in a 640-position cache, 32 q / 8 kv heads of 128, bf16),
@@ -1295,6 +1659,8 @@ def check_kernels() -> dict:
     torch.cuda.synchronize()
     check_quant_matmul(flush, results)
     torch.cuda.synchronize()
+    check_grouped(flush, results)
+    torch.cuda.synchronize()
     return results
 
 
@@ -1328,6 +1694,19 @@ def main() -> int:
         f"{q8['bf16']['decode_tok_s']:.1f}")
     l4, l8 = q8["int4"]["launches"], q8["int8"]["launches"]
     lg = q8["int4"]["generate"]["launches"]
+    mix = mixtral()
+    log(f"mixtral: decode tok/s at batch 8 -- int4 "
+        f"{mix['int4']['decode_tok_s']:.1f}, int8 "
+        f"{mix['int8']['decode_tok_s']:.1f}, int4 forced-grouped "
+        f"{mix['int4_forced']['decode_tok_s']:.1f}, bf16 16 layers "
+        f"{mix['bf16_16']['decode_tok_s']:.1f}")
+    mpaths = {"serve_mixtral_int4": mix["int4"]["launches"],
+              "serve_mixtral_int8": mix["int8"]["launches"],
+              "serve_mixtral_int4_forced": mix["int4_forced"]["launches"],
+              "serve_mixtral16_bf16": mix["bf16_16"]["launches"]}
+
+    def mix_by_path(key):
+        return {path: got[key] for path, got in mpaths.items()}
 
     def matmul_entry(label, **extra):
         rows = results[label]
@@ -1338,12 +1717,14 @@ def main() -> int:
              source="flash_attention_tpu_torch/csrc/flash_fwd.cu",
              replaces="flash_attention_tpu/ops/flash.py:259",
              launches=launches["flash"] + trained["flash"] + l4["flash"]
-             + l8["flash"] + lg["flash"],
+             + l8["flash"] + lg["flash"]
+             + sum(mix_by_path("flash").values()),
              launches_by_path={"serve_1b": launches["flash"],
                                "train_1b": trained["flash"],
                                "serve_8b_int4": l4["flash"],
                                "serve_8b_int8": l8["flash"],
-                               "generate_8b_int4": lg["flash"]},
+                               "generate_8b_int4": lg["flash"],
+                               **mix_by_path("flash")},
              **results[("flash", 512)],
              at_train_shape=results["flash_train"]),
         dict(name="flash_bwd_dq (B2)", route="cuda",
@@ -1357,10 +1738,12 @@ def main() -> int:
         dict(name="paged_decode (B4)", route="cuda",
              source="flash_attention_tpu_torch/csrc/paged_decode.cu",
              replaces="flash_attention_tpu/ops/paged.py:37",
-             launches=launches["paged"] + l4["paged"] + l8["paged"],
+             launches=launches["paged"] + l4["paged"] + l8["paged"]
+             + sum(mix_by_path("paged").values()),
              launches_by_path={"serve_1b": launches["paged"],
                                "serve_8b_int4": l4["paged"],
-                               "serve_8b_int8": l8["paged"]},
+                               "serve_8b_int8": l8["paged"],
+                               **mix_by_path("paged")},
              **results["paged"]),
         dict(name="decode (B5)", route="cuda",
              source="flash_attention_tpu_torch/csrc/decode.cu",
@@ -1371,22 +1754,43 @@ def main() -> int:
         matmul_entry("B6 int8", name="quant_matmul (B6)", route="cuda",
                      source="flash_attention_tpu_torch/csrc/quant_matmul.cu",
                      replaces="flash_attention_tpu/ops/quant_matmul.py:41",
-                     launches=l8["quant"],
-                     launches_by_path={"serve_8b_int8": l8["quant"]},
+                     launches=l8["quant"]
+                     + mpaths["serve_mixtral_int8"]["quant"],
+                     launches_by_path={
+                         "serve_8b_int8": l8["quant"],
+                         "serve_mixtral_int8":
+                             mpaths["serve_mixtral_int8"]["quant"]},
                      fp8=dict(e4m3=results["B6 e4m3"],
                               e5m2=results["B6 e5m2"])),
         matmul_entry("B7 int4", name="int4_matmul (B7)", route="cuda",
                      source="flash_attention_tpu_torch/csrc/quant_matmul.cu",
                      replaces="flash_attention_tpu/ops/quant_matmul.py:214",
-                     launches=l4["int4"] + lg["int4"],
-                     launches_by_path={"serve_8b_int4": l4["int4"],
-                                       "generate_8b_int4": lg["int4"]}),
+                     launches=l4["int4"] + lg["int4"]
+                     + mpaths["serve_mixtral_int4"]["int4"]
+                     + mpaths["serve_mixtral_int4_forced"]["int4"],
+                     launches_by_path={
+                         "serve_8b_int4": l4["int4"],
+                         "generate_8b_int4": lg["int4"],
+                         "serve_mixtral_int4":
+                             mpaths["serve_mixtral_int4"]["int4"],
+                         "serve_mixtral_int4_forced":
+                             mpaths["serve_mixtral_int4_forced"]["int4"]}),
         matmul_entry("B8 dense", name="dense_matmul (B8)", route="cuda",
                      source="flash_attention_tpu_torch/csrc/quant_matmul.cu",
                      replaces="flash_attention_tpu/ops/quant_matmul.py:141",
                      launches=launches["dense"],
                      launches_by_path={"prefill_1b_dense_pallas_mm":
                                        launches["dense"]}),
+        # Headline: int4 at the 4096-token prefill bucket (8192 sorted
+        # rows) of w_gate, where B9 runs on the default path.
+        dict(name="grouped_matmul (B9)", route="cuda",
+             source="flash_attention_tpu_torch/csrc/grouped_matmul.cu",
+             replaces="flash_attention_tpu/ops/grouped.py:132",
+             launches=sum(mix_by_path("grouped").values()),
+             launches_by_path=mix_by_path("grouped"),
+             **results["B9 int4"][2],
+             at_shapes={label: results[label] for label in GROUPED_KINDS},
+             crossover=mix["crossover"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     log(card)

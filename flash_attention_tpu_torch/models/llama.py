@@ -15,7 +15,8 @@ contiguous-cache decode (`decode_step`, used by `sampling.generate`)
 runs B5. Weight products go through `_mm`: dense weights are torch
 matmuls, as the JAX package leaves them to XLA (or B8 under
 FA_TPU_DENSE_PALLAS_MM), quantized weights (models/quantized.py) run the
-B6 / B7 kernels.
+B6 / B7 kernels. A layer with a `router` is an MoE layer
+(models/moe.py), whose expert products run the grouped kernel B9.
 """
 
 from __future__ import annotations
@@ -150,13 +151,15 @@ def _mm(spec, x, w):
     its fused-dequant kernel (B6 / B7) for at most 1024 activation rows;
     a dense tensor runs torch.einsum (cuBLAS on the card, as XLA's dot on
     the TPU) -- or, with FA_TPU_DENSE_PALLAS_MM set (read per call), the
-    weight-streaming kernel B8 for at most 1024 rows. Other weight types
-    (the MoE expert stacks) arrive with the MoE slice."""
+    weight-streaming kernel B8 for at most 1024 rows. MoE expert stacks
+    never come here: models/moe.py `_expert_stack_mm` runs them."""
     if isinstance(w, QUANT_LEAF_TYPES):
         return w.einsum(spec, x)
     if not isinstance(w, torch.Tensor):
         raise NotImplementedError(
-            f"{type(w).__name__} weights arrive with the MoE slice")
+            f"_mm takes a tensor or a quantized weight, not "
+            f"{type(w).__name__} (expert stacks go through "
+            f"models/moe.py _expert_stack_mm)")
     if os.environ.get("FA_TPU_DENSE_PALLAS_MM") and w.ndim >= 2:
         return _weight_einsum(_DensePallasWeight(w, spec), spec, x)
     return torch.einsum(spec, x, w)
@@ -224,10 +227,25 @@ def _attention_block(layer, x, cfg, positions, attn_impl=None):
 
 
 def _mlp_block(layer, x, cfg):
-    """Dense SwiGLU FFN (mixture-of-experts layers arrive with a later
-    slice)."""
+    """FFN block. A layer carrying a `router` key is a mixture-of-experts
+    layer (models/moe.py; `cfg` is then a MoEConfig): this is what lets
+    every path (forward, prefill_kv, decode_step_paged_multi, prefill,
+    decode_step) run MoE models without a parallel code path. Dropless
+    routing dispatches by size: at least GROUPED_MIN_TOKENS tokens
+    (FA_TPU_GROUPED_MIN_TOKENS, read per call) sort by expert and run the
+    grouped kernel B9, smaller dispatches -- every decode step -- the
+    drop-free one-hot cubes (capacity = n)."""
     if "router" in layer:
-        raise NotImplementedError("MoE layers arrive with the MoE slice")
+        from flash_attention_tpu_torch.models.moe import (
+            dropless_dispatch_path, moe_mlp, moe_mlp_grouped,
+        )
+
+        if getattr(cfg, "routing", "capacity") == "dropless":
+            n = x.shape[0] * x.shape[1]
+            if dropless_dispatch_path(n) == "grouped":
+                return moe_mlp_grouped(layer, x, cfg)[0]
+            return moe_mlp(layer, x, cfg, capacity=n)[0]
+        return moe_mlp(layer, x, cfg)[0]
     h = rmsnorm(x, layer["mlp_norm"], cfg.norm_eps)
     gate = _mm("btd,df->btf", h, layer["w_gate"])
     up = _mm("btd,df->btf", h, layer["w_up"])

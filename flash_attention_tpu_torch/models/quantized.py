@@ -18,9 +18,13 @@ bytes. Above that, as in the JAX package, the weight is dequantized once
 and the product goes to a dense matmul, where the tensor cores and not
 the bytes are the limit: a dispatch by shape, not a fallback.
 
-The MoE expert stacks (`QuantizedExpertStack`, `Int4ExpertStack`,
-`quantize_moe_params`, `init_quantized_moe_params`) arrive with the MoE
-slice and `expand_param_shardings` with the multi-device slice.
+The MoE expert stacks hold one weight per expert, [E, K, F] (contraction
+in the middle): `QuantizedExpertStack` (int8 / fp8 q [E, K, F], fp32
+scales [E, F]) and `Int4ExpertStack` (packed [E, K/2, F], scales
+[E, K/128, F]). They never reach `_mm`: models/moe.py `_expert_stack_mm`
+runs them through the grouped kernel B9 (ops/grouped.py) or, on the
+one-hot path, dequantizes them whole, as the JAX package does.
+`expand_param_shardings` arrives with the multi-device slice.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import numpy as np
 import torch
 
 from flash_attention_tpu_torch.config import resolve_device
-from flash_attention_tpu_torch.ops.quant import _QMAX, tile_to_f32
+from flash_attention_tpu_torch.ops.quant import _QMAX, widen_scaled
 from flash_attention_tpu_torch.ops.quant_matmul import (
     INT4_GROUP,
     int4_dequant,
@@ -62,15 +66,14 @@ class QuantizedWeight:
         return self.q.numel() * self.q.element_size() + self.scale.numel() * 4
 
     def dequant(self, dtype=torch.bfloat16):
-        w = tile_to_f32(self.q) * self.scale[None, :]
-        return w.to(dtype).reshape(self.orig_shape)
+        return widen_scaled(self.q, self.scale, dtype).reshape(
+            self.orig_shape)
 
     def _matmul2d(self, x2):
         if x2.shape[0] <= _KERNEL_MAX_ROWS:
             return quant_matmul(x2, self.q, self.scale)
         # Wide products: dequantize, then a dense matmul (JAX: jnp.dot).
-        wdq = (tile_to_f32(self.q) * self.scale[None, :]).to(x2.dtype)
-        return x2 @ wdq
+        return x2 @ widen_scaled(self.q, self.scale, x2.dtype)
 
     def einsum(self, spec, x):
         """torch.einsum(spec, x, dense weight) with the fused dequant."""
@@ -106,6 +109,51 @@ class Int4Weight:
 
 
 QUANT_LEAF_TYPES = (QuantizedWeight, Int4Weight)
+
+
+@dataclasses.dataclass
+class QuantizedExpertStack:
+    """Per-expert int8 / fp8 weights q [E, K, F] with per-(expert,
+    output channel) fp32 scales [E, F]."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+    @property
+    def orig_shape(self) -> tuple:
+        return tuple(self.q.shape)
+
+    @property
+    def nbytes(self) -> int:
+        return self.q.numel() + self.scale.numel() * 4
+
+    def dequant(self, dtype=torch.bfloat16):
+        return widen_scaled(self.q, self.scale[:, None, :], dtype)
+
+
+@dataclasses.dataclass
+class Int4ExpertStack:
+    """Per-expert packed int4 weights [E, K/2, F] (row-pair nibbles) with
+    group-wise fp32 scales [E, K/INT4_GROUP, F]; logical_k = K."""
+
+    packed: torch.Tensor
+    scales: torch.Tensor
+    logical_k: int
+
+    @property
+    def orig_shape(self) -> tuple:
+        e, _, f = self.packed.shape
+        return (e, self.logical_k, f)
+
+    @property
+    def nbytes(self) -> int:
+        return self.packed.numel() + self.scales.numel() * 4
+
+    def dequant(self, dtype=torch.bfloat16):
+        return int4_dequant(self.packed, self.scales, dtype)
+
+
+EXPERT_STACK_TYPES = (QuantizedExpertStack, Int4ExpertStack)
 
 
 def _weight_einsum(w, spec, x):
@@ -174,6 +222,88 @@ def quantize_params(params: dict, *, quantize_lm_head: bool = True,
     return out
 
 
+def quantize_expert_stack(w, dtype=torch.int8):
+    """Quantize an [E, K, F] expert stack (contraction in the middle) on
+    w's device, with the JAX package's arithmetic and bytes: int8 rounds
+    half to even, fp8 clips to the finite maximum and converts (round to
+    nearest even), "int4" quantizes per 128 rows and channel.
+    int8 / fp8 -> QuantizedExpertStack, "int4" -> Int4ExpertStack."""
+    w = torch.as_tensor(w).detach().float()
+    e, k, f = w.shape
+    if dtype == "int4":
+        if k % INT4_GROUP:
+            raise ValueError(f"K={k} must be a multiple of {INT4_GROUP}")
+        g = w.reshape(e, k // INT4_GROUP, INT4_GROUP, f)
+        scale = torch.clamp_min(g.abs().amax(dim=2) / 7.0, 1e-12)
+        q = torch.clamp(torch.round(g / scale[:, :, None, :]), -7, 7
+                        ).to(torch.int32).reshape(e, k, f)
+        lo = q[:, 0::2] & 0xF
+        hi = q[:, 1::2] & 0xF
+        packed = ((hi << 4) | lo).to(torch.uint8).view(torch.int8)
+        return Int4ExpertStack(packed=packed, scales=scale, logical_k=k)
+    if dtype not in _QMAX:
+        raise TypeError(f"dtype must be int8, fp8 or 'int4', got {dtype}")
+    qmax = _QMAX[dtype]
+    scale = torch.clamp_min(w.abs().amax(dim=1) / qmax, 1e-12)   # [E, F]
+    q = w / scale[:, None, :]
+    if dtype == torch.int8:
+        q = torch.round(q)
+    return QuantizedExpertStack(q=torch.clamp(q, -qmax, qmax).to(dtype),
+                                scale=scale)
+
+
+_EXPERT_STACK_KEYS = ("w_gate", "w_up", "w_down")
+
+
+def quantize_moe_params(params: dict, *, quantize_lm_head: bool = True,
+                        dtype=torch.int8) -> dict:
+    """Weight-only quantization of an MoE parameter dict
+    (models/moe.py init_moe_params): attention projections as in
+    quantize_params, expert stacks per expert, the router stays fp32."""
+    out = dict(params)
+    out["layers"] = [
+        {name: (quantize_expert_stack(w, dtype=dtype)
+                if name in _EXPERT_STACK_KEYS
+                else quantize_tensor(w, _LAYER_SPECS[name], dtype=dtype)
+                if name in _LAYER_SPECS else w)
+         for name, w in layer.items()}
+        for layer in params["layers"]
+    ]
+    if quantize_lm_head:
+        out["lm_head"] = quantize_tensor(params["lm_head"], 1, dtype=dtype)
+    return out
+
+
+def _draw_quantized(gen, dev, dtype, lead, kk, f, fan_in):
+    """Random codes and constant scales for a quantized weight of logical
+    shape [*lead, kk, f] whose dequantized values have std
+    ~1/sqrt(fan_in). Returns (codes, scales): int4 packed [*lead, kk/2,
+    f] with scales [*lead, kk/128, f]; int8 / fp8 [*lead, kk, f] with
+    scales [*lead, f]."""
+    if dtype == "int4":
+        # Random packed nibbles; uniform int4 in [-8, 7] has std ~4.64,
+        # so a constant scale restores 1/sqrt(fan_in).
+        packed = torch.randint(0, 256, (*lead, kk // 2, f), generator=gen,
+                               device=dev, dtype=torch.uint8)
+        scales = torch.full((*lead, kk // INT4_GROUP, f),
+                            1.0 / (4.64 * math.sqrt(fan_in)),
+                            dtype=torch.float32, device=dev)
+        return packed.view(torch.int8), scales
+    if dtype == torch.int8:
+        q = torch.randint(-127, 128, (*lead, kk, f), generator=gen,
+                          device=dev, dtype=torch.int8)
+        # Uniform int8 has std 127/sqrt(3).
+        s = math.sqrt(3.0) / (127.0 * math.sqrt(fan_in))
+    else:
+        # fp8: N(0, (qmax/4)^2) values (4-sigma clip range).
+        qmax = _QMAX[dtype]
+        w = torch.randn((*lead, kk, f), generator=gen, device=dev,
+                        dtype=torch.float32) * (qmax / 4)
+        q = w.clamp_(-qmax, qmax).to(dtype)
+        s = 4.0 / (qmax * math.sqrt(fan_in))
+    return q, torch.full((*lead, f), s, dtype=torch.float32, device=dev)
+
+
 def init_quantized_params(cfg, seed: int = 0, dtype=torch.int8, *,
                           device="cuda") -> dict:
     """A quantized parameter dict drawn directly on `device` from a
@@ -181,11 +311,25 @@ def init_quantized_params(cfg, seed: int = 0, dtype=torch.int8, *,
     at 8B). Statistics match quantize_params(init_params(...)): the
     dequantized weights have std ~ 1/sqrt(fan_in). The draws differ from
     jax.random's for the same seed."""
+    return _init_quantized(cfg, seed, dtype, device, moe=False)
+
+
+def init_quantized_moe_params(cfg, seed: int = 0, dtype="int4", *,
+                              device="cuda") -> dict:
+    """init_quantized_params for an MoE model (models/moe.py MoEConfig):
+    expert stacks drawn as QuantizedExpertStack / Int4ExpertStack codes
+    with constant scales (dequantized std ~ 1/sqrt(fan_in)), the router
+    dense fp32. A Mixtral-8x7B bf16 tree (93 GB) fits no card; its int4
+    tree is 25 GB. Each storage draws its own codes (fp8 as fp8), where
+    the JAX package draws int8 codes for every dtype but int4."""
+    return _init_quantized(cfg, seed, dtype, device, moe=True)
+
+
+def _init_quantized(cfg, seed, dtype, device, *, moe: bool) -> dict:
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    d, hd = cfg.dim, cfg.head_dim
-    qmax = 7.0 if dtype == "int4" else _QMAX[dtype]
+    d, hd, ffn = cfg.dim, cfg.head_dim, cfg.ffn_dim
 
     def dense(shape, fan_in):
         w = torch.randn(shape, generator=gen, device=dev,
@@ -195,31 +339,17 @@ def init_quantized_params(cfg, seed: int = 0, dtype=torch.int8, *,
     def qdense(shape, fan_in, n_contract):
         kk = math.prod(shape[:n_contract])
         f = math.prod(shape[n_contract:])
+        codes, scales = _draw_quantized(gen, dev, dtype, (), kk, f, fan_in)
+        cls = Int4Weight if dtype == "int4" else QuantizedWeight
+        return cls(codes, scales, orig_shape=tuple(shape),
+                   n_contract=n_contract)
+
+    def qstack(kk, f, fan_in):
+        e = cfg.n_experts
+        codes, scales = _draw_quantized(gen, dev, dtype, (e,), kk, f, fan_in)
         if dtype == "int4":
-            # Random packed nibbles; uniform int4 in [-8, 7] has std
-            # ~4.64, so a constant scale restores 1/sqrt(fan_in).
-            packed = torch.randint(0, 256, (kk // 2, f), generator=gen,
-                                   device=dev, dtype=torch.uint8)
-            scales = torch.full((kk // INT4_GROUP, f),
-                                1.0 / (4.64 * math.sqrt(fan_in)),
-                                dtype=torch.float32, device=dev)
-            return Int4Weight(packed=packed.view(torch.int8), scales=scales,
-                              orig_shape=tuple(shape),
-                              n_contract=n_contract)
-        if dtype == torch.int8:
-            q = torch.randint(-127, 128, (kk, f), generator=gen, device=dev,
-                              dtype=torch.int8)
-            # Uniform int8 has std 127/sqrt(3).
-            s = math.sqrt(3.0) / (127.0 * math.sqrt(fan_in))
-        else:
-            # fp8: N(0, (qmax/4)^2) values (4-sigma clip range).
-            w = torch.randn((kk, f), generator=gen, device=dev,
-                            dtype=torch.float32) * (qmax / 4)
-            q = w.clamp_(-qmax, qmax).to(dtype)
-            s = 4.0 / (qmax * math.sqrt(fan_in))
-        scale = torch.full((f,), s, dtype=torch.float32, device=dev)
-        return QuantizedWeight(q=q, scale=scale, orig_shape=tuple(shape),
-                               n_contract=n_contract)
+            return Int4ExpertStack(codes, scales, logical_k=kk)
+        return QuantizedExpertStack(codes, scales)
 
     def ones(n):
         return torch.ones(n, dtype=cfg.dtype, device=dev)
@@ -228,17 +358,26 @@ def init_quantized_params(cfg, seed: int = 0, dtype=torch.int8, *,
     lm_head = qdense((d, cfg.vocab_size), d, 1)
     layers = []
     for _ in range(cfg.n_layers):
-        layers.append({
+        layer = {
             "attn_norm": ones(d),
             "wq": qdense((d, cfg.n_heads, hd), d, 1),
             "wk": qdense((d, cfg.n_kv_heads, hd), d, 1),
             "wv": qdense((d, cfg.n_kv_heads, hd), d, 1),
             "wo": qdense((cfg.n_heads, hd, d), cfg.n_heads * hd, 2),
             "mlp_norm": ones(d),
-            "w_gate": qdense((d, cfg.ffn_dim), d, 1),
-            "w_up": qdense((d, cfg.ffn_dim), d, 1),
-            "w_down": qdense((cfg.ffn_dim, d), cfg.ffn_dim, 1),
-        })
+        }
+        if moe:
+            # The router stays fp32: gate order is precision-sensitive.
+            layer["router"] = torch.randn(
+                (d, cfg.n_experts), generator=gen, device=dev,
+                dtype=torch.float32) / math.sqrt(d)
+            layer.update(w_gate=qstack(d, ffn, d), w_up=qstack(d, ffn, d),
+                         w_down=qstack(ffn, d, ffn))
+        else:
+            layer.update(w_gate=qdense((d, ffn), d, 1),
+                         w_up=qdense((d, ffn), d, 1),
+                         w_down=qdense((ffn, d), ffn, 1))
+        layers.append(layer)
     return {"embed": embed, "layers": layers, "final_norm": ones(d),
             "lm_head": lm_head}
 
@@ -261,9 +400,10 @@ def params_nbytes(params) -> int:
 
 
 def logical_param_count(params) -> int:
-    """Number of logical model parameters: a quantized weight counts its
-    unpacked orig_shape (an int4 8B tree is still an 8B model), a dense
-    tensor its size."""
+    """Number of logical model parameters: a quantized weight or expert
+    stack counts its unpacked orig_shape (an int4 8B tree is still an 8B
+    model), a dense tensor its size."""
     return sum(math.prod(leaf.orig_shape)
-               if isinstance(leaf, QUANT_LEAF_TYPES) else leaf.numel()
+               if isinstance(leaf, QUANT_LEAF_TYPES + EXPERT_STACK_TYPES)
+               else leaf.numel()
                for leaf in _leaves(params))

@@ -66,7 +66,8 @@ class Trainer:
                 "family='pipeline' arrives with the multi-device slice")
         if family == "moe":
             raise NotImplementedError(
-                "family='moe' arrives with the MoE slice")
+                "family='moe' (MoE training: expert-parallel mesh, "
+                "capacity routing) arrives with the multi-device slice")
         if mesh is not None or tp_size is not None:
             raise NotImplementedError(
                 "sharded training (mesh=, tp_size=) arrives with the "

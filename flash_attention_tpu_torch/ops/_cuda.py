@@ -35,7 +35,7 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float16: 0, torch.bfloat16: 1}
 
-# Weight storage codes of csrc/quant_matmul.cu: a dense weight in the
+# Weight storage codes of csrc/matmul_core.cuh: a dense weight in the
 # activation's own dtype, int8, the two fp8 formats, packed int4.
 WEIGHT_CODES = {"dense": 0, torch.int8: 1, torch.float8_e4m3fn: 2,
                 torch.float8_e5m2: 3, "int4": 4}
@@ -62,6 +62,9 @@ _SIGNATURES = {
     "fa_decode": [_vp] * 5 + [_i32] * 5 + [_f32, _i32, _vp],
     # x, w, scale (or NULL), y, M, K, F, weight code, dtype, stream
     "fa_quant_matmul": [_vp] * 4 + [_i32] * 5 + [_vp],
+    # x, w, scale (or NULL), offsets, y, M, K, F, E, weight code, dtype,
+    # stream
+    "fa_grouped_matmul": [_vp] * 5 + [_i32] * 6 + [_vp],
 }
 
 

@@ -36,6 +36,21 @@ def tile_to_f32(tile: torch.Tensor) -> torch.Tensor:
     return tile.float()
 
 
+def widen_scaled(codes: torch.Tensor, scale: torch.Tensor,
+                 dtype) -> torch.Tensor:
+    """codes (int8 / fp8 values, or int4 nibbles unpacked to int8) times
+    `scale` (broadcast) in fp32, rounded once to `dtype`: the
+    dequantization of every quantized weight. int8 codes take one pass
+    (torch multiplies in fp32 and rounds on the store); fp8 codes widen
+    first, as torch does not promote fp8."""
+    if codes.dtype != torch.int8:
+        codes = tile_to_f32(codes)
+    scale = scale.float()
+    out = torch.empty(torch.broadcast_shapes(codes.shape, scale.shape),
+                      dtype=dtype, device=codes.device)
+    return torch.mul(codes, scale, out=out)
+
+
 def tile_to_bf16(tile: torch.Tensor) -> torch.Tensor:
     """Widen to bfloat16; exact, since every int8 value and every finite
     e4m3 / e5m2 value is a bfloat16 number."""

@@ -31,7 +31,11 @@ import numpy as np
 import torch
 
 from flash_attention_tpu_torch.ops import _cuda
-from flash_attention_tpu_torch.ops.quant import _QMAX, tile_to_f32
+from flash_attention_tpu_torch.ops.quant import (
+    _QMAX,
+    tile_to_f32,
+    widen_scaled,
+)
 
 INT4_GROUP = 128   # logical K rows per int4 scale group
 
@@ -54,23 +58,26 @@ def quant_matmul_plain(x, w_q, w_scale):
 
 
 def int4_unpack(packed: torch.Tensor) -> torch.Tensor:
-    """Packed int4 [K/2, F] (int8 or uint8 bytes) -> int32 [K, F]: byte j
-    gives row 2j (low nibble) and row 2j + 1 (high nibble), each a
-    two's-complement nibble in -8..7."""
-    u = packed.view(torch.uint8).to(torch.int32)
-    lo = ((u & 0xF) ^ 8) - 8
-    hi = (((u >> 4) & 0xF) ^ 8) - 8
-    kp2, f = u.shape
-    return torch.stack([lo, hi], dim=1).reshape(2 * kp2, f)
+    """Packed int4 [..., K/2, F] (int8 or uint8 bytes) -> int8 [..., K, F]:
+    byte j gives row 2j (low nibble) and row 2j + 1 (high nibble), each a
+    two's-complement nibble in -8..7, sign-extended by arithmetic shifts
+    of the byte (no int32 copy: the MoE one-hot path unpacks whole
+    expert stacks)."""
+    b = packed.view(torch.int8)
+    *lead, kp2, f = b.shape
+    return torch.stack([(b << 4) >> 4, b >> 4], dim=-2).reshape(
+        *lead, 2 * kp2, f)
 
 
 def int4_dequant(packed, scales, dtype):
-    """[K, F] weights in `dtype`: each value times its group scale in
-    fp32, then one rounding (the kernel's numerics)."""
-    q = int4_unpack(packed).float()
-    k, f = q.shape
-    w = q.reshape(k // INT4_GROUP, INT4_GROUP, f) * scales.float()[:, None]
-    return w.reshape(k, f).to(dtype)
+    """[..., K, F] weights in `dtype` from packed [..., K/2, F] and scales
+    [..., K/128, F]: each value times its group scale in fp32, then one
+    rounding (the kernel's numerics)."""
+    q = int4_unpack(packed)
+    *lead, k, f = q.shape
+    w = widen_scaled(q.reshape(*lead, k // INT4_GROUP, INT4_GROUP, f),
+                     scales[..., None, :], dtype)
+    return w.reshape(*lead, k, f)
 
 
 def int4_matmul_plain(x, w_packed, w_scales):

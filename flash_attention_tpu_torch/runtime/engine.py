@@ -22,7 +22,8 @@ Design (as in the JAX engine):
 Features of the JAX engine that later slices port raise
 NotImplementedError here: chunked prefill, the prefix cache,
 speculative decoding and draft models, tensor-parallel serving (mesh),
-quantized KV pools, sliding-window and MoE models. The XLA warm-up
+quantized KV pools and sliding-window models. MoE models serve through
+the same path (models/llama.py `_mlp_block`). The XLA warm-up
 helpers (precompile_*) have no counterpart: PyTorch compiles nothing.
 """
 
@@ -142,8 +143,6 @@ class Engine:
             (kv_quant_dtype is not None, "kv_quant_dtype",
              "the quantized-KV slice"),
             (cfg.window is not None, "cfg.window", "the window slice"),
-            (any("router" in layer for layer in params["layers"]),
-             "MoE layers", "the MoE slice"),
         ]
         for bad, what, slice_name in unported:
             if bad:

@@ -10,9 +10,10 @@ neither JAX nor the JAX package.
 After that map a quantized weight of the JAX package is still its class,
 now holding numpy leaves. It is recognised by its fields: q / scale /
 orig_shape / n_contract becomes a `QuantizedWeight`, packed / scales /
-orig_shape / n_contract an `Int4Weight` (models/quantized.py). The MoE
-expert stacks (the same leaves without n_contract) arrive with the MoE
-slice and raise.
+orig_shape / n_contract an `Int4Weight` (models/quantized.py); the MoE
+expert stacks, q / scale without n_contract a `QuantizedExpertStack`,
+packed / scales / logical_k an `Int4ExpertStack`. Dense expert stacks
+[E, K, F] and the fp32 router are plain arrays.
 """
 
 from __future__ import annotations
@@ -22,7 +23,9 @@ import torch
 
 from flash_attention_tpu_torch.config import resolve_device
 from flash_attention_tpu_torch.models.quantized import (
+    Int4ExpertStack,
     Int4Weight,
+    QuantizedExpertStack,
     QuantizedWeight,
 )
 
@@ -69,10 +72,13 @@ def params_from_jax(tree, device="cuda"):
                 scales=_leaf(node.scales, dev),
                 orig_shape=tuple(node.orig_shape),
                 n_contract=int(node.n_contract))
-        if _has(node, "q", "scale") or _has(node, "packed", "scales"):
-            raise NotImplementedError(
-                f"{type(node).__name__} (an expert stack) arrives with the "
-                "MoE slice")
+        if _has(node, "q", "scale"):
+            return QuantizedExpertStack(q=_leaf(node.q, dev),
+                                        scale=_leaf(node.scale, dev))
+        if _has(node, "packed", "scales", "logical_k"):
+            return Int4ExpertStack(packed=_leaf(node.packed, dev),
+                                   scales=_leaf(node.scales, dev),
+                                   logical_k=int(node.logical_k))
         return _leaf(node, dev)
 
     return conv(tree)

@@ -5,8 +5,8 @@
   * Entry points default to device="cuda"; on a host without a card that
     default raises instead of dropping to the CPU.
   * Features that later slices port (engine options, attention options,
-    trainer families) raise NotImplementedError instead of being
-    accepted and ignored.
+    trainer families, expert-parallel MoE placements) raise
+    NotImplementedError instead of being accepted and ignored.
 """
 
 import ast
@@ -86,14 +86,37 @@ def test_engine_unported_features_raise(kw):
 
 
 def test_unported_model_features_raise():
+    """Windowed models raise; MoE models serve (the MoE slice): an
+    Engine over a tiny_moe tree constructs on the CPU."""
+    from flash_attention_tpu_torch.models.moe import (
+        MoEConfig, init_moe_params,
+    )
+
     windowed = LlamaConfig.tiny(dtype=torch.float32, window=64)
     params = init_params(windowed, seed=0, device="cpu")
     with pytest.raises(NotImplementedError, match="window"):
         Engine(params, windowed, num_pages=4, page_size=16, device="cpu")
-    params = init_params(CFG, seed=0, device="cpu")
-    params["layers"][0]["router"] = torch.zeros(1)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        Engine(params, CFG, num_pages=4, page_size=16, device="cpu")
+    moe = MoEConfig.tiny_moe(dtype=torch.float32, routing="dropless")
+    eng = Engine(init_moe_params(moe, seed=0, device="cpu"), moe,
+                 num_pages=4, page_size=16, device="cpu")
+    assert eng.cfg is moe and "router" in eng.params["layers"][0]
+
+
+@pytest.mark.parametrize("kw", [dict(ep_axis="ep"),
+                                dict(expert_shard_axis="tp")],
+                         ids=["ep_axis", "expert_shard_axis"])
+def test_moe_placements_raise(kw):
+    """Expert-parallel placements arrive with the multi-device slice."""
+    from flash_attention_tpu_torch.models import moe
+
+    cfg = moe.MoEConfig.tiny_moe(dtype=torch.float32)
+    layer = moe.init_moe_params(cfg, seed=0, device="cpu")["layers"][0]
+    x = torch.zeros(1, 4, cfg.dim)
+    with pytest.raises(NotImplementedError, match="multi-device slice"):
+        moe.moe_mlp(layer, x, cfg, **kw)
+    if "expert_shard_axis" in kw:
+        with pytest.raises(NotImplementedError, match="multi-device slice"):
+            moe.moe_mlp_grouped(layer, x, cfg, **kw)
 
 
 def test_unported_attention_options_raise():
@@ -117,7 +140,7 @@ def test_unported_attention_options_raise():
 
 @pytest.mark.parametrize("kw, slice_name", [
     (dict(family="pipeline"), "multi-device"),
-    (dict(family="moe"), "MoE"),
+    (dict(family="moe"), "multi-device"),
     (dict(mesh=object()), "multi-device"),
 ], ids=["pipeline", "moe", "mesh"])
 def test_trainer_unported_families_raise(kw, slice_name):
@@ -149,13 +172,18 @@ def test_unported_decode_options_raise():
 
 def test_expert_stack_weights_raise():
     """MoE expert stacks (a JAX QuantizedExpertStack / Int4ExpertStack
-    after jax.tree.map(np.asarray, ...)) arrive with the MoE slice: the
-    converter and the weight product both raise."""
+    after jax.tree.map(np.asarray, ...)) convert to the port's stack
+    classes by their fields; the dense weight product `_mm` still raises
+    on them (they run through models/moe.py _expert_stack_mm)."""
     import dataclasses
 
     import numpy as np
 
     from flash_attention_tpu_torch.models.llama import _mm
+    from flash_attention_tpu_torch.models.quantized import (
+        Int4ExpertStack as PortInt4Stack,
+        QuantizedExpertStack as PortQuantStack,
+    )
 
     @dataclasses.dataclass
     class QuantizedExpertStack:
@@ -176,8 +204,11 @@ def test_expert_stack_weights_raise():
                                    np.ones((2, 4), np.float32)),
               Int4ExpertStack(np.zeros((2, 64, 4), np.int8),
                               np.ones((2, 1, 4), np.float32), 128)]
-    for stack in stacks:
-        with pytest.raises(NotImplementedError, match="MoE slice"):
-            params_from_jax({"layers": [{"w_up": stack}]}, device="cpu")
-        with pytest.raises(NotImplementedError, match="MoE slice"):
-            _mm("etd,edf->etf", torch.zeros(2, 3, 8), stack)
+    for stack, cls, shape in zip(stacks, (PortQuantStack, PortInt4Stack),
+                                 ((2, 8, 4), (2, 128, 4))):
+        got = params_from_jax({"layers": [{"w_up": stack}]},
+                              device="cpu")["layers"][0]["w_up"]
+        assert isinstance(got, cls) and got.orig_shape == shape
+        assert got.dequant(torch.float32).shape == shape
+        with pytest.raises(NotImplementedError, match="_expert_stack_mm"):
+            _mm("etd,edf->etf", torch.zeros(2, 3, 8), got)
