@@ -47,14 +47,33 @@ Phases, each fatal on failure:
              with plain attention and a plain per-expert MoE, 8 profiled
              decode steps each; between the int4 runs, one int4 MoE layer
              timed through the one-hot cubes and the grouped path at
-             16-8192 tokens (the card's crossover, reported).
+             16-8192 tokens (the card's crossover, reported);
+ 10. mistral  the Engine on LlamaConfig.mistral_7b (sliding window 4096)
+             at full width and depth in bf16, weights drawn on the card:
+             8 greedy requests of 700-12000 tokens in two waves (the
+             second's four share a 3072-token prefix with a finished
+             first-wave request), served with monolithic prefill and
+             again with prefill_chunk=512 and the prefix cache (the
+             rolling-buffer path); exact B1 / B4 launch counts, every
+             transcript held to a teacher-forced forward with plain
+             windowed attention, live pages of every windowed sequence
+             within pages_for(window + page + tail) at every step, the
+             prefix-cache accounting exact; 8 profiled decode steps; then
+             sampling.generate on 4 x 5000-token prompts (B5's window).
 The 1B serve phase also runs one prefill with FA_TPU_DENSE_PALLAS_MM=1
 (B8: exactly 7 launches per layer + 1, logits within the bf16 gate of
-the cuBLAS path). Kernel checks (phase 2) cover B5 at the generate
+the cuBLAS path) and serves its requests again with prefill_chunk=256
+and the prefix cache (B1 with segment ids, 2 launches per layer per
+chunk dispatch). Kernel checks (phase 2) cover B5 at the generate
 shape and B6 (int8, e4m3, e5m2), B7 and B8 at the 8B decode (M = 16)
-and prefill (M = 1024) shapes, ragged shapes and fp16, and B9 on all five
+and prefill (M = 1024) shapes, ragged shapes and fp16, B9 on all five
 storages at Mixtral's expert shapes with 16 and 8192 expert-sorted rows,
-a ragged shape, a base band with rows past the data, and fp16.
+a ragged shape, a base band with rows past the data, and fp16, and the
+window and segment-id branches at Mistral's shapes: B1's chunk-prefix
+attention (segment ids), roll-buffer attention (offset, window, segment
+ids) and windowed self-attention, B4 with window starts and 1 or 4
+folded positions, B5 with a window (rows that see nothing must come
+back O = 0 with LSE = INIT_M * scale).
 
 Prints information lines, then one JSON line describing the kernels,
 then the card's name and power limit, and last one JSON line
@@ -64,6 +83,7 @@ no CUDA device is present or any phase fails.
 
 from __future__ import annotations
 
+import copy
 import gc
 import json
 import math
@@ -419,7 +439,6 @@ def serve() -> dict:
     from flash_attention_tpu_torch.models.llama import (
         LlamaConfig, forward, init_params,
     )
-    from flash_attention_tpu_torch.ops import flash, paged
     from flash_attention_tpu_torch.ops.reference import attention_reference
     from flash_attention_tpu_torch.runtime.engine import Engine, Request
 
@@ -447,14 +466,13 @@ def serve() -> dict:
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
     reqs = [Request(prompt=p, max_new_tokens=32) for p in prompts]
     eng.stats = type(eng.stats)()
-    flash.flash_fwd_launches = 0
-    paged.paged_decode_launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     comps = eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash": flash.flash_fwd_launches,
-                "paged": paged.paged_decode_launches}
+    got = read_counts()
+    launches = {"flash": got["flash"], "paged": got["paged"]}
     st = eng.stats
     log(f"serve: {len(comps)} completions in {wall:.3f} s; prefill "
         f"{st.prefill_tokens} tokens in {st.prefill_s:.4f} s; decode "
@@ -467,9 +485,10 @@ def serve() -> dict:
     want_paged = cfg.n_layers * st.decode_steps
     log(f"serve: launches flash_fwd={launches['flash']} (want "
         f"{want_flash} = {cfg.n_layers}/prefill), paged_decode="
-        f"{launches['paged']} (want {want_paged} = {cfg.n_layers}/step)")
+        f"{launches['paged']} (want {want_paged} = {cfg.n_layers}/step); "
+        f"branch launches {[got[k] for k in NO_BRANCHES]} (want 0)")
     if launches["flash"] != want_flash or launches["paged"] != want_paged \
-            or st.decode_steps == 0:
+            or any(got[k] for k in NO_BRANCHES) or st.decode_steps == 0:
         raise AssertionError("kernel launch counts off the serving path")
     if sorted(c.request_id for c in comps) != sorted(
             r.request_id for r in reqs) or any(
@@ -510,8 +529,44 @@ def serve() -> dict:
     launches["dense"] = dense_pallas_path(params, params32, cfg, cfg32,
                                           plain_attn)
     del params32
+    launches["chunked"] = serve_chunked_1b(params, cfg, prompts)
     profile_decode(eng, prompts, Request)
     return launches
+
+
+def serve_chunked_1b(params, cfg, prompts) -> dict:
+    """The 1B serve phase's requests again with prefill_chunk=256 and the
+    prefix cache (prefill_chunk_step: B1 with segment ids), then four
+    prompts sharing the first 512 tokens of the 700-token one (cached at
+    its install). Gates: 32 B1 per chunk dispatch and 16 B4 per decode
+    step, every page back, prefix_cached_tokens > 0 and prefill tokens
+    equal to the prompts' minus the cached ones, and the teacher-forced
+    band. Returns the launch counts."""
+    rng = np.random.default_rng(SEED + 10)
+    shared = prompts[-1][:512]
+    waves = [[(p, 32) for p in prompts],
+             [(shared + rng.integers(0, cfg.vocab_size, k).tolist(), 32)
+              for k in (60, 150, 240, 300)]]
+    n = cfg.n_layers
+    _, run = serve_stack(
+        "serve[chunked 256 + prefix cache]", params, cfg, waves,
+        dict(max_batch=8, num_pages=64, page_size=256, tail_size=16,
+             prefill_chunk=256, prefix_cache=True),
+        lambda st: dict(flash=2 * n * st.prefill_chunks,
+                        flash_seg=n * st.prefill_chunks,
+                        paged=n * st.decode_steps))
+    st = run["stats"]
+    total = sum(len(p) for w in waves for p, _ in w)
+    log(f"serve[chunked]: prefix cache {st.prefix_cached_tokens} tokens, "
+        f"prefill tokens {st.prefill_tokens} of {total} prompt tokens")
+    if not (st.prefix_cached_tokens > 0
+            and st.prefill_tokens == total - st.prefix_cached_tokens):
+        raise AssertionError("serve[chunked]: prefix-cache accounting off")
+    teacher_forced(params, cfg, [p for w in waves for p, _ in w],
+                   run["transcripts"], "serve[chunked]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run["launches"]
 
 
 def dense_pallas_path(params, params32, cfg, cfg32, plain_attn) -> int:
@@ -619,12 +674,24 @@ def _counters() -> dict:
     )
 
     return {"flash": (flash, "flash_fwd_launches"),
+            "flash_seg": (flash, "flash_fwd_segment_launches"),
+            "flash_win": (flash, "flash_fwd_window_launches"),
             "paged": (paged, "paged_decode_launches"),
+            "paged_win": (paged, "paged_decode_window_launches"),
             "decode": (decode, "decode_launches"),
+            "decode_win": (decode, "decode_window_launches"),
             "quant": (quant_matmul, "quant_matmul_launches"),
             "int4": (quant_matmul, "int4_matmul_launches"),
             "dense": (quant_matmul, "dense_matmul_launches"),
             "grouped": (grouped, "grouped_matmul_launches")}
+
+
+# The branch counters (each launch also counts in its kernel's total): B1
+# with segment ids, B1 with a window, B4 with window starts, B5 with a
+# window. Zero on every path that serves a model without a window or
+# chunked prefill.
+NO_BRANCHES = dict.fromkeys(("flash_seg", "flash_win", "paged_win",
+                             "decode_win"), 0)
 
 
 def reset_counts() -> None:
@@ -638,7 +705,7 @@ def read_counts() -> dict:
 
 
 def teacher_forced(params, cfg, prompts, transcripts, what,
-                   mlp=None) -> None:
+                   mlp=None, attn=None) -> None:
     """Hold greedy transcripts to a teacher-forced forward with plain
     attention on the dequantized weights (PR 1's band): e = max |bf16 -
     fp32| logit error of that forward over the generated positions; the
@@ -647,7 +714,8 @@ def teacher_forced(params, cfg, prompts, transcripts, what,
     (an fp32 copy of the 8B model would take 32 GB) and each sequence
     runs alone (the plain attention of a 4600-token sequence holds 3 GB
     of fp32 scores). `mlp(layer, x, cfg)` replaces the FFN block (the
-    plain MoE of the Mixtral phases); the router stays fp32."""
+    plain MoE of the Mixtral phases); the router stays fp32. `attn(q, k,
+    v)` replaces the plain causal attention (the windowed phases)."""
     from flash_attention_tpu_torch.models.llama import (
         _attention_block, _mlp_block, rmsnorm,
     )
@@ -660,6 +728,8 @@ def teacher_forced(params, cfg, prompts, transcripts, what,
 
     def plain_attn(q, k, v):
         return attention_reference(q, k, v, causal=True)
+
+    plain_attn = attn or plain_attn
 
     def dense(name, w, dtype):
         if isinstance(w, QUANT_LEAF_TYPES + EXPERT_STACK_TYPES):
@@ -782,10 +852,11 @@ def serve_8b(kind: str) -> dict:
         want = per * (st.decode_steps + small) + (len(reqs) - small)
         mine, other = (("int4", "quant") if kind == "int4"
                        else ("quant", "int4"))
-        want_all = dict(got, **{mine: want, other: 0, "dense": 0,
-                                "decode": 0, "grouped": 0,
-                                "flash": cfg.n_layers * len(reqs),
-                                "paged": cfg.n_layers * st.decode_steps})
+        want_all = dict(got, **NO_BRANCHES,
+                        **{mine: want, other: 0, "dense": 0,
+                           "decode": 0, "grouped": 0,
+                           "flash": cfg.n_layers * len(reqs),
+                           "paged": cfg.n_layers * st.decode_steps})
         log(f"{what}: want launches {want_all} ({per} per decode step and "
             f"per prefill of at most 1024 rows: {small} prefills, "
             f"{st.decode_steps} steps; 1 per wider prefill)")
@@ -828,8 +899,9 @@ def generate_8b(params, cfg, eng, request_cls) -> dict:
     got = read_counts()
     steps = new - 1
     per = 7 * cfg.n_layers + 1
-    want = dict(got, decode=cfg.n_layers * steps, int4=per * steps + 1,
-                flash=cfg.n_layers, paged=0, quant=0, dense=0, grouped=0)
+    want = dict(got, **NO_BRANCHES, decode=cfg.n_layers * steps,
+                int4=per * steps + 1, flash=cfg.n_layers, paged=0, quant=0,
+                dense=0, grouped=0)
     transcripts = out.tolist()
     log(f"generate: 4 x 512-token prompts, {new} new tokens in "
         f"{wall:.3f} s ({4 * new / wall:.1f} tok/s including prefill); "
@@ -967,7 +1039,8 @@ def serve_mixtral(kind, params, cfg, forced=False) -> dict:
         want_q = per * (st.decode_steps + small) + (len(reqs) - small)
         quant = {"int4": ("int4", "quant"), "int8": ("quant", "int4")}
         mine, other = quant.get(kind, ("quant", "int4"))
-        want = dict(got, **{mine: want_q if kind in quant else 0, other: 0,
+        want = dict(got, **NO_BRANCHES,
+                    **{mine: want_q if kind in quant else 0, other: 0,
                             "dense": 0, "decode": 0,
                             "grouped": 3 * n * (grouped_prefills
                                                 + grouped_steps),
@@ -1045,6 +1118,297 @@ def mixtral() -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+# --- phase 10: Mistral-7B, the windowed serving stack ------------------------
+
+MISTRAL_PREFIX = 3072            # the shared system prompt (12 pages of 256)
+# Prompt lengths of the two waves; every second-wave prompt and the last
+# of the first wave are the shared prefix plus a suffix of this length.
+MISTRAL_WAVES = ((12000, 5000, 700, 428), (1000, 128, 2000, 5000))
+MISTRAL_ENGINE = dict(max_batch=8, num_pages=192, page_size=256,
+                      tail_size=16)
+MISTRAL_CHUNK = 512
+GENERATE_WINDOWED_PROMPT = 5000
+
+
+def windowed_plain_attn(window, block=1024):
+    """Plain windowed causal attention (ops/reference.py, fp32 scores) in
+    query blocks of `block` rows, each against only the key rows its
+    window can reach: a 12k-token sequence never holds its full score
+    matrix."""
+    from flash_attention_tpu_torch.ops.reference import attention_reference
+
+    def attn(q, k, v):
+        t = q.shape[2]
+        out = []
+        for r0 in range(0, t, block):
+            r1 = min(t, r0 + block)
+            lo = max(0, r0 - window + 1)
+            out.append(attention_reference(
+                q[:, :, r0:r1], k[:, :, lo:r1], v[:, :, lo:r1], causal=True,
+                window=window))
+        return torch.cat(out, dim=2)
+
+    return attn
+
+
+def serve_waves(eng, waves, request_cls, poll=None) -> list:
+    """Submit each wave of (prompt, max_new_tokens) and step the engine
+    until it drains before the next; `poll(eng)` after every step.
+    Returns the completions in submission order."""
+    out = []
+    for wave in waves:
+        reqs = [request_cls(prompt=p, max_new_tokens=n) for p, n in wave]
+        for r in reqs:
+            eng.submit(r)
+        done = []
+        while eng.pending or eng.prefilling or eng.num_active:
+            done += eng.step()
+            if poll is not None:
+                poll(eng)
+        by_id = {c.request_id: c for c in done}
+        out += [by_id[r.request_id] for r in reqs]
+    return out
+
+
+def live_page_poll(peaks, from_first_flush=False):
+    """A poll that records each live sequence's stored pages per step.
+    With `from_first_flush` a sequence is recorded only once a tail
+    flush (which evicts the pages below the window) has run while it was
+    live -- the monolithic install pages in the whole prompt, as the JAX
+    engine's does. A slot's tail shrinks only at a flush. Sequences are
+    told apart by request and branch (the engine reuses seq ids)."""
+    last_tail, flushed = {}, set()
+
+    def poll(eng):
+        for s in eng.slots:
+            if s is None:
+                continue
+            key = (s.request.request_id, s.branch)
+            if s.tail < last_tail.get(key, 0):
+                flushed.add(key)
+            last_tail[key] = s.tail
+            if from_first_flush and key not in flushed:
+                continue
+            peaks.append(eng.cache.pages_for(
+                max(eng.cache.length(s.seq_id), 1))
+                - eng.cache.allocator.base(s.seq_id))
+    return poll
+
+
+def serve_stack(what, params, cfg, waves, engine_kw, counts_fn, poll=None):
+    """One engine run of `waves` with its launch counts, stats and
+    transcripts. `counts_fn(stats)` gives the wanted launch counts from
+    the run's decode steps and chunk dispatches; they must be exact, the
+    transcripts complete and every page back at the end."""
+    from flash_attention_tpu_torch.runtime.engine import Engine, Request
+
+    eng = Engine(params, cfg, seed=SEED, **engine_kw)
+    eng.run([Request(prompt=[1, 2, 3], max_new_tokens=2)])     # warm-up
+    torch.cuda.synchronize()
+    free0 = eng.cache.free_pages
+    eng.stats = type(eng.stats)()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    comps = serve_waves(eng, waves, Request, poll)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_counts()
+    st = eng.stats
+    want = dict(got, **NO_BRANCHES,
+                **{k: 0 for k in ("decode", "quant", "int4", "dense",
+                                  "grouped")})
+    want.update(counts_fn(st))
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{what}: {len(comps)} completions in {wall:.3f} s; prefill "
+        f"{st.prefill_tokens} tokens ({st.prefix_cached_tokens} from the "
+        f"prefix cache, {st.prefill_chunks} chunk dispatches) in "
+        f"{st.prefill_s:.4f} s; decode {st.decode_tokens} tokens in "
+        f"{st.decode_steps} steps, {st.decode_s:.4f} s = "
+        f"{st.decode_tokens_per_s:.1f} tok/s; ttft "
+        f"{st.ttft_percentiles()}; peak pages {st.peak_pages}; "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB; launches {got} "
+        f"(want {want})")
+    if got != want or st.decode_steps == 0:
+        raise AssertionError(f"{what}: kernel launch counts off the path")
+    if any(len(c.tokens) != n or c.finish_reason != "length"
+           for c, (_, n) in zip(comps, [x for w in waves for x in w])):
+        raise AssertionError(f"{what}: incomplete transcripts")
+    if eng.cache.free_pages != free0:
+        raise AssertionError(f"{what}: {free0 - eng.cache.free_pages} "
+                             f"pages not returned")
+    return eng, dict(transcripts=[c.tokens for c in comps], launches=got,
+                     stats=copy.deepcopy(st), wall_s=wall,
+                     peak_bytes=peak)
+
+
+def mistral() -> dict:
+    """Phase 10: LlamaConfig.mistral_7b (sliding window 4096) at full
+    width and depth in bf16, weights drawn on the card. Eight greedy
+    requests of 700-12000 tokens in two waves (the second wave's four
+    share the 3072-token prefix of a first-wave request, which has
+    finished by then), served with monolithic prefill and again with
+    prefill_chunk=512 and the prefix cache (the rolling-buffer path);
+    then windowed generate. Gates: exact B1 / B4 / B5 launch counts,
+    every transcript inside the teacher-forced band of a plain windowed
+    forward, live pages within the O(window) bound (the chunked run's at
+    every step, the monolithic run's from each sequence's first tail
+    flush on), every page back, prefix_cached_tokens > 0 and prefill
+    tokens lower by exactly that much."""
+    from flash_attention_tpu_torch.models.llama import LlamaConfig, init_params
+    from flash_attention_tpu_torch.runtime.engine import Request
+
+    cfg = LlamaConfig.mistral_7b(dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in [params["embed"], params["lm_head"]]
+                   + [w for layer in params["layers"]
+                      for w in layer.values()])
+    log(f"mistral: mistral_7b ({cfg.n_layers} layers, dim {cfg.dim}, "
+        f"{cfg.n_heads}q/{cfg.n_kv_heads}kv x {cfg.head_dim}, ffn "
+        f"{cfg.ffn_dim}, vocab {cfg.vocab_size}, window {cfg.window}) "
+        f"{n_params / 1e9:.3f} B params bf16 from seed {SEED} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(SEED + 8)
+
+    def draw(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    prefix = draw(MISTRAL_PREFIX)
+    new = 32
+    first, second = MISTRAL_WAVES
+    waves = [[(draw(k), new) for k in first[:-1]]
+             + [(prefix + draw(first[-1]), new)],
+             [(prefix + draw(k), new) for k in second]]
+    prompts = [p for w in waves for p, _ in w]
+    log(f"mistral: prompts {[len(p) for p in prompts]} (the last four "
+        f"share the fourth's {MISTRAL_PREFIX}-token prefix; "
+        f"{sum(len(p) > cfg.window for p in prompts)} deeper than the "
+        f"window, {sum(len(p) < cfg.window < len(p) + new for p in prompts)}"
+        f" crossing it while decoding)")
+    n = cfg.n_layers
+    base_kw = MISTRAL_ENGINE
+    mono_peaks, chunk_peaks = [], []
+    eng_m, mono = serve_stack(
+        "mistral[monolithic]", params, cfg, waves, base_kw,
+        lambda st: dict(flash=n * len(prompts), flash_win=n * len(prompts),
+                        paged=n * st.decode_steps,
+                        paged_win=n * st.decode_steps),
+        poll=live_page_poll(mono_peaks, from_first_flush=True))
+    eng_c, chunked = serve_stack(
+        f"mistral[chunked {MISTRAL_CHUNK} + prefix cache]", params, cfg,
+        waves, dict(base_kw, prefill_chunk=MISTRAL_CHUNK, prefix_cache=True),
+        lambda st: dict(flash=2 * n * st.prefill_chunks,
+                        flash_win=2 * n * st.prefill_chunks,
+                        flash_seg=n * st.prefill_chunks,
+                        paged=n * st.decode_steps,
+                        paged_win=n * st.decode_steps),
+        poll=live_page_poll(chunk_peaks))
+    profile_chunked_prefill(eng_c, prompts[0], Request)
+    del eng_c
+    bound = eng_m.cache.pages_for(cfg.window + eng_m.cache.page_size
+                                  + eng_m.cache.tail_size)
+    sm, sc = mono["stats"], chunked["stats"]
+    log(f"mistral: live pages per windowed sequence (bound {bound} = "
+        f"pages_for(window + page + tail)): chunked max {max(chunk_peaks)} "
+        f"over {len(chunk_peaks)} polls, every step; monolithic max "
+        f"{max(mono_peaks)} over {len(mono_peaks)} polls, from each "
+        f"sequence's first flush on (the install pages in the whole prompt); "
+        f"prefix cache {sc.prefix_cached_tokens} tokens, prefill tokens "
+        f"{sm.prefill_tokens} -> {sc.prefill_tokens}")
+    if max(chunk_peaks) > bound or max(mono_peaks) > bound:
+        raise AssertionError("mistral: a windowed sequence held more than "
+                             "O(window) pages")
+    if not (sc.prefix_cached_tokens > 0 and sc.prefill_tokens
+            == sm.prefill_tokens - sc.prefix_cached_tokens):
+        raise AssertionError("mistral: prefix-cache accounting is off")
+    same = sum(a == b for a, b in zip(mono["transcripts"],
+                                      chunked["transcripts"]))
+    log(f"mistral: {same} of {len(prompts)} chunked transcripts equal the "
+        f"monolithic run's (reported, not gated: the LSE merges of chunked "
+        f"prefill round differently in bf16); ttft monolithic "
+        f"{sm.ttft_percentiles()}, chunked {sc.ttft_percentiles()} "
+        f"(indicative); decode tok/s {sm.decode_tokens_per_s:.1f} / "
+        f"{sc.decode_tokens_per_s:.1f}")
+    pairs = {}
+    for run in (mono, chunked):
+        for p, t in zip(prompts, run["transcripts"]):
+            pairs.setdefault((tuple(p), tuple(t)), (p, t))
+    attn = windowed_plain_attn(cfg.window)
+    teacher_forced(params, cfg, [p for p, _ in pairs.values()],
+                   [t for _, t in pairs.values()], "mistral", attn=attn)
+    gc.collect()
+    torch.cuda.empty_cache()
+    profile_decode(eng_m, prompts, Request, "mistral decode steps")
+    del eng_m
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = generate_windowed(params, cfg, attn)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(monolithic=mono, chunked=chunked, equal=same,
+                generate=gen, chunk_peak_pages=max(chunk_peaks),
+                mono_peak_pages=max(mono_peaks))
+
+
+def profile_chunked_prefill(eng, prompt, request_cls) -> None:
+    """Where a chunk dispatch's time goes: torch.profiler over 4
+    prefill-only engine steps of one long prompt on an otherwise idle
+    engine (each step is one chunk dispatch), after the first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng.submit(request_cls(prompt=prompt, max_new_tokens=2))
+    eng.step()
+    torch.cuda.synchronize()
+    steps = 4
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    eng.run()
+    report_profile(prof, wall, steps,
+                   f"chunk dispatches of {eng.prefill_chunk} (one "
+                   f"{len(prompt)}-token prompt)")
+
+
+def generate_windowed(params, cfg, attn) -> dict:
+    """sampling.generate on the Mistral tree: 4 prompts of 5000 tokens,
+    32 new tokens: one windowed B1 per layer for the prefill, B5's window
+    branch once per layer per decode step; the teacher-forced band."""
+    from flash_attention_tpu_torch.models.sampling import generate
+
+    rng = np.random.default_rng(SEED + 9)
+    prompts = rng.integers(0, cfg.vocab_size, (4, GENERATE_WINDOWED_PROMPT))
+    new = 32
+    reset_counts()
+    t0 = time.perf_counter()
+    out = generate(params, torch.from_numpy(prompts).cuda(), cfg,
+                   max_new_tokens=new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_counts()
+    want = dict(got, decode=cfg.n_layers * (new - 1),
+                decode_win=cfg.n_layers * (new - 1), flash=cfg.n_layers,
+                flash_win=cfg.n_layers, flash_seg=0, paged=0, paged_win=0,
+                quant=0, int4=0, dense=0, grouped=0)
+    log(f"generate[windowed]: 4 x {prompts.shape[1]}-token prompts, {new} "
+        f"new tokens in "
+        f"{wall:.3f} s ({4 * new / wall:.1f} tok/s including prefill); "
+        f"launches {got} (want {want})")
+    if got != want or out.shape != (4, new):
+        raise AssertionError("generate[windowed]: kernel launch counts off "
+                             "the path")
+    teacher_forced(params, cfg, prompts.tolist(), out.tolist(),
+                   "generate[windowed]", attn=attn)
+    return dict(launches=got, wall_s=wall)
 
 
 # --- phase 6: train ----------------------------------------------------------
@@ -1644,6 +2008,244 @@ def check_decode(rng, flush, results):
                   f"bf16")
 
 
+# --- phase 2/3: the window and segment-id branches (B1, B4, B5) -------------
+
+MISTRAL_WINDOW = 4096
+# Mistral's rolling prefill buffer at page 256, chunk 512 (engine.py
+# _wbuf: the window rounded to pages, one page of eviction slack, one
+# chunk of padding shift).
+ROLL_BUFFER = 4096 + 256 + 512
+
+
+def _lse_gate(lse, lse_hi, scale):
+    """(max LSE error over rows that see something, dead rows' LSE all
+    INIT_M * scale): dead rows are those of the fp32 reference."""
+    from flash_attention_tpu_torch.ops.flash import INIT_M
+
+    dead = lse_hi <= INIT_M * scale / 2
+    err = float((lse - lse_hi).abs()[~dead].max()) if bool((~dead).any()) \
+        else 0.0
+    dead_ok = bool(torch.isfinite(lse).all()) and bool(torch.allclose(
+        lse[dead], torch.full_like(lse[dead], INIT_M * scale), rtol=1e-6))
+    return err, dead, dead_ok
+
+
+def _b1_branch(rng, flush, results, key, what, nq, nk, mask_kw, lib_mask,
+               timed=True, hq=32, hkv=8, d=128):
+    """One B1 branch check: kernel vs its bf16 plain version vs the fp32
+    plain version (3x gate, LSE within 1e-3 on live rows, dead rows O = 0
+    and LSE = INIT_M * scale), then times beside the bound, the plain
+    version and SDPA with the same boolean mask (timed only)."""
+    from flash_attention_tpu_torch.ops import flash
+    from flash_attention_tpu_torch.utils.metrics import (
+        max_abs_error, verify_low_precision,
+    )
+
+    scale = 1.0 / math.sqrt(d)
+    q = randn(rng, (1, hq, nq, d), torch.bfloat16)
+    k = randn(rng, (1, hkv, nk, d), torch.bfloat16)
+    v = randn(rng, (1, hkv, nk, d), torch.bfloat16)
+    kw = dict(scale=scale, **mask_kw)
+    kw.setdefault("offset", nk - nq)
+    o, lse = flash.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    o_lo, _ = flash.flash_attention_fwd_plain(q, k, v, **kw)
+    o_hi, lse_hi = flash.flash_attention_fwd_plain(q.float(), k.float(),
+                                                   v.float(), **kw)
+    torch.cuda.synchronize()
+    ok, kerr, berr = verify_low_precision(o, o_hi, o_lo)
+    lse_err, dead, dead_ok = _lse_gate(lse, lse_hi, scale)
+    dead_ok = dead_ok and bool((o[dead[..., None].expand_as(o)] == 0).all())
+    log(f"check B1 {what}: kernel_err={kerr:.3e} bf16_plain_err={berr:.3e} "
+        f"lse_err={lse_err:.3e} dead_rows={int(dead.sum())} "
+        f"dead_rows_ok={dead_ok}")
+    if not (ok and dead_ok and lse_err <= 1e-3
+            and bool(torch.isfinite(o.float()).all())):
+        raise AssertionError(f"B1 {what} failed its gate")
+    err_vs_plain = max_abs_error(o, o_lo)
+    del o_lo, o_hi, lse_hi
+    torch.cuda.empty_cache()
+    if not timed:
+        return
+    mask = lib_mask.to("cuda")
+    ms = time_ms(lambda: flash.flash_attention_fwd(q, k, v, **kw), flush)
+    plain_ms = time_ms(lambda: flash.flash_attention_fwd_plain(q, k, v, **kw),
+                       flush, iters=5, warmup=1)
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True), flush)
+    flops, nbytes = flash.fwd_cost(
+        1, hq, hkv, nq, nk, d, kw.get("causal", False), 2,
+        offset=kw["offset"], window=kw.get("window"),
+        segment_ids=kw.get("segment_ids"))
+    bms, by = bound_ms(flops, nbytes)
+    log(f"time  B1 {what}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={lib_ms:.4f} (SDPA, boolean attn_mask) bound_ms="
+        f"{bms:.4f} ({by}) achieved={flops / (ms * 1e-3) / 1e12:.1f} "
+        f"TFLOP/s over visible pairs")
+    results[key] = dict(
+        max_abs_err=err_vs_plain, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=lib_ms,
+        shape=f"q(1,{hq},{nq},{d}) kv(1,{hkv},{nk},{d}) {what} bf16")
+    torch.cuda.empty_cache()
+
+
+def check_flash_branches(rng, flush, results):
+    """B1's segment-id and window branches at Mistral's serving shapes:
+    the chunked-prefill prefix attention (q 512 rows against an
+    8192-row buffer, columns >= prefix_len hidden by segment ids, at
+    prefix_len 0 / 3000 / 8192), the rolling-buffer attention (causal,
+    offset = W_b, window 4096, segment ids hiding the unfilled front, at
+    prefix 0 / 2000 / 12000) and windowed self-attention at T = 8192."""
+    from flash_attention_tpu_torch.ops.flash import SegmentIds
+
+    hq, nq = 32, 512
+    zeros = torch.zeros((1, nq), dtype=torch.int32, device="cuda")
+    for prefix in (0, 3000, 8192):
+        nk = 8192
+        kv = (torch.arange(nk, device="cuda")[None] >= prefix).to(torch.int32)
+        mask = (kv == 0)[:, None, None, :].expand(1, 1, nq, nk)
+        _b1_branch(rng, flush, results, ("flash_seg", prefix),
+                   f"chunk prefix (segment ids, prefix_len {prefix})", nq, nk,
+                   dict(causal=False, segment_ids=SegmentIds(zeros, kv)),
+                   mask)
+    w_b, win = ROLL_BUFFER, MISTRAL_WINDOW
+    row = torch.arange(nq, device="cuda")[:, None]
+    col = torch.arange(w_b, device="cuda")[None, :]
+    band = (col <= row + w_b) & (col > row + w_b - win)
+    for prefix in (0, 2000, 12000):
+        kv = (torch.arange(w_b, device="cuda")[None]
+              < w_b - prefix).to(torch.int32)
+        mask = (band & (kv == 0))[None, None]
+        _b1_branch(rng, flush, results, ("flash_roll", prefix),
+                   f"roll buffer (offset {w_b}, window {win}, prefix "
+                   f"{prefix})", nq, w_b,
+                   dict(causal=True, offset=w_b, window=win,
+                        segment_ids=SegmentIds(zeros, kv)), mask)
+    t = 8192
+    row = torch.arange(t, device="cuda")[:, None]
+    col = torch.arange(t, device="cuda")[None, :]
+    mask = ((col <= row) & (col > row - win))[None, None]
+    _b1_branch(rng, flush, results, "flash_window",
+               f"windowed self-attention T={t} window {win}", t, t,
+               dict(causal=True, window=win), mask)
+
+
+def check_paged_window(rng, flush, results):
+    """B4 with per-sequence window starts (some negative, one past a
+    short row's length) at batch 8, Mistral's 32 q / 8 kv heads, pages of
+    256, with 1 and 4 folded query positions."""
+    from flash_attention_tpu_torch.ops import paged
+    from flash_attention_tpu_torch.utils.metrics import (
+        max_abs_error, verify_low_precision,
+    )
+
+    b, hkv, d, ps = 8, 8, 128, 256
+    lengths = np.array([4400, 4300, 300, 4110, 1, 2000, 4600, 3000],
+                       np.int32)
+    starts = np.array([300, 220, -3780, 30, 5, -2080, 520, -1080], np.int32)
+    need = [-(-int(n) // ps) for n in lengths]
+    width = 24
+    num_pages = 1 + sum(need) + 3
+    perm = rng.permutation(np.arange(1, num_pages))
+    table = np.zeros((b, width), np.int32)
+    at = 0
+    for i, n in enumerate(need):
+        table[i, :n] = perm[at:at + n]
+        at += n
+    kp = randn(rng, (hkv, num_pages, ps, d), torch.bfloat16)
+    vp = randn(rng, (hkv, num_pages, ps, d), torch.bfloat16)
+    tbl, lens, st = (torch.from_numpy(x).cuda()
+                     for x in (table, lengths, starts))
+    scale = 1.0 / math.sqrt(d)
+    for spread in (1, 4):
+        hq = 32 * spread
+        q = randn(rng, (b, hq, d), torch.bfloat16)
+        kw = dict(window_starts=st, qpos_spread=spread, return_lse=True)
+        o, lse = paged.paged_flash_decode(q, kp, vp, tbl, lens, **kw)
+        torch.cuda.synchronize()
+        pkw = dict(scale=scale, starts=st, qpos_spread=spread)
+        o_lo, _ = paged.paged_flash_decode_plain(q, kp, vp, tbl, lens, **pkw)
+        o_hi, lse_hi = paged.paged_flash_decode_plain(
+            q.float(), kp.float(), vp.float(), tbl, lens, **pkw)
+        torch.cuda.synchronize()
+        ok, kerr, berr = verify_low_precision(o, o_hi, o_lo)
+        lse_err, dead, dead_ok = _lse_gate(lse, lse_hi, scale)
+        dead_ok = dead_ok and bool((o[dead] == 0).all())
+        log(f"check B4 paged_decode window starts {starts.tolist()} "
+            f"qpos_spread={spread}: kernel_err={kerr:.3e} bf16_plain_err="
+            f"{berr:.3e} lse_err={lse_err:.3e} dead_rows={int(dead.sum())} "
+            f"dead_rows_ok={dead_ok}")
+        if not (ok and dead_ok and lse_err <= 1e-3):
+            raise AssertionError("B4 windowed paged_decode failed its gate")
+        ms = time_ms(lambda: paged.paged_flash_decode(q, kp, vp, tbl, lens,
+                                                      **kw), flush)
+        plain_ms = time_ms(lambda: paged.paged_flash_decode_plain(
+            q, kp, vp, tbl, lens, **pkw), flush)
+        flops, nbytes = paged.paged_decode_cost(
+            lengths, hq, hkv, d, 2, ps, starts=starts, qpos_spread=spread)
+        bms, by = bound_ms(flops, nbytes)
+        log(f"time  B4 paged_decode window starts qpos_spread={spread}: "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=null "
+            f"bound_ms={bms:.4f} ({by}) achieved="
+            f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
+        results[("paged_win", spread)] = dict(
+            max_abs_err=max_abs_error(o, o_lo), ms=ms, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by, library_ms=None,
+            shape=f"q({b},{hq},{d}) pools({hkv},{num_pages},{ps},{d}) lens "
+                  f"{lengths.tolist()} starts {starts.tolist()} bf16")
+
+
+def check_decode_window(rng, flush, results):
+    """B5's window branch at the windowed generate phase's last step (4
+    sequences of 5031 live positions in a 5120-position cache, window
+    4096, 32 q / 8 kv heads of 128, bf16), timed beside its bound, its
+    plain version and SDPA with the window mask."""
+    from flash_attention_tpu_torch.ops import decode as dec
+    from flash_attention_tpu_torch.utils.metrics import (
+        max_abs_error, verify_low_precision,
+    )
+
+    b, hq, hkv, s, d, win = 4, 32, 8, 5120, 128, MISTRAL_WINDOW
+    lens = [5031, 5031, 4000, 100]
+    q = randn(rng, (b, hq, d), torch.bfloat16)
+    k = randn(rng, (b, hkv, s, d), torch.bfloat16)
+    v = randn(rng, (b, hkv, s, d), torch.bfloat16)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    sc = 1.0 / math.sqrt(d)
+    o = dec.flash_decode(q, k, v, lengths, window=win)
+    torch.cuda.synchronize()
+    starts = lengths - win
+    lo = dec.flash_decode_plain(q, k, v, lengths, scale=sc, starts=starts)
+    hi = dec.flash_decode_plain(q.float(), k.float(), v.float(), lengths,
+                                scale=sc, starts=starts)
+    ok, kerr, berr = verify_low_precision(o, hi, lo)
+    log(f"check B5 decode window {win} q({b},{hq},{d}) cache({b},{hkv},{s},"
+        f"{d}) lens={lens}: kernel_err={kerr:.3e} plain_err={berr:.3e}")
+    if not (ok and bool(torch.isfinite(o.float()).all())):
+        raise AssertionError("B5 windowed decode failed its gate")
+    pos = torch.arange(s, device="cuda")[None, :]
+    mask = ((pos < lengths[:, None]) & (pos >= starts[:, None]))[
+        :, None, None, :]
+    q4 = q[:, :, None]
+    ms = time_ms(lambda: dec.flash_decode(q, k, v, lengths, window=win),
+                 flush)
+    plain_ms = time_ms(lambda: dec.flash_decode_plain(
+        q, k, v, lengths, scale=sc, starts=starts), flush)
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k, v, attn_mask=mask, enable_gqa=True), flush)
+    flops, nbytes = dec.decode_cost(lens, hq, hkv, d, 2, window=win)
+    bms, by = bound_ms(flops, nbytes)
+    log(f"time  B5 decode window {win}: kernel_ms={ms:.4f} plain_ms="
+        f"{plain_ms:.4f} library_ms={lib_ms:.4f} (SDPA enable_gqa, window "
+        f"mask) bound_ms={bms:.4f} ({by}) achieved="
+        f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
+    results["decode_win"] = dict(
+        max_abs_err=max_abs_error(o, lo), ms=ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=lib_ms,
+        shape=f"q({b},{hq},{d}) cache({b},{hkv},{s},{d}) lens {lens} "
+              f"window {win} bf16")
+
+
 def check_kernels() -> dict:
     flush = L2Flush()
     rng = np.random.default_rng(SEED)
@@ -1660,6 +2262,10 @@ def check_kernels() -> dict:
     check_quant_matmul(flush, results)
     torch.cuda.synchronize()
     check_grouped(flush, results)
+    torch.cuda.synchronize()
+    check_flash_branches(rng, flush, results)
+    check_paged_window(rng, flush, results)
+    check_decode_window(rng, flush, results)
     torch.cuda.synchronize()
     return results
 
@@ -1680,26 +2286,51 @@ def main() -> int:
     secs = _cuda.build(verbose=True)
     log(f"build: kernels built in {secs:.2f} s "
         f"(phase {time.perf_counter() - t0:.2f} s)")
-    results = check_kernels()
-    launches = serve()
-    torch.cuda.synchronize()
-    trained = train()
-    torch.cuda.synchronize()
+    phase_s = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        phase_s[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    results = timed("check", check_kernels)
+    launches = timed("serve_1b", serve)
+    trained = timed("train_1b", train)
     gc.collect()
     torch.cuda.empty_cache()
-    q8 = {kind: serve_8b(kind) for kind in ("int4", "int8", "bf16")}
+    q8 = timed("serve_8b", lambda: {
+        kind: serve_8b(kind) for kind in ("int4", "int8", "bf16")})
     log(f"serve8b: decode tok/s at batch 16 -- int4 "
         f"{q8['int4']['decode_tok_s']:.1f}, int8 "
         f"{q8['int8']['decode_tok_s']:.1f}, bf16 (cuBLAS yardstick) "
         f"{q8['bf16']['decode_tok_s']:.1f}")
     l4, l8 = q8["int4"]["launches"], q8["int8"]["launches"]
     lg = q8["int4"]["generate"]["launches"]
-    mix = mixtral()
+    mix = timed("mixtral", mixtral)
     log(f"mixtral: decode tok/s at batch 8 -- int4 "
         f"{mix['int4']['decode_tok_s']:.1f}, int8 "
         f"{mix['int8']['decode_tok_s']:.1f}, int4 forced-grouped "
         f"{mix['int4_forced']['decode_tok_s']:.1f}, bf16 16 layers "
         f"{mix['bf16_16']['decode_tok_s']:.1f}")
+    mis = timed("mistral", mistral)
+    log(f"phase seconds: {phase_s}")
+    mm, mc = mis["monolithic"], mis["chunked"]
+    log(f"mistral: decode tok/s at batch 8 -- monolithic "
+        f"{mm['stats'].decode_tokens_per_s:.1f}, chunked "
+        f"{mc['stats'].decode_tokens_per_s:.1f}; ttft p50/p90 monolithic "
+        f"{mm['stats'].ttft_percentiles()}, chunked "
+        f"{mc['stats'].ttft_percentiles()}")
+    wpaths = {"serve_mistral_monolithic": mm["launches"],
+              "serve_mistral_chunked": mc["launches"],
+              "generate_mistral_windowed": mis["generate"]["launches"]}
+    cpaths = {"serve_1b_chunked": launches["chunked"]}
+    bpaths = {**cpaths, **wpaths}        # the paths that reach the branches
+
+    def by_path(paths, key):
+        return {path: got[key] for path, got in paths.items()}
+
     mpaths = {"serve_mixtral_int4": mix["int4"]["launches"],
               "serve_mixtral_int8": mix["int8"]["launches"],
               "serve_mixtral_int4_forced": mix["int4_forced"]["launches"],
@@ -1718,15 +2349,40 @@ def main() -> int:
              replaces="flash_attention_tpu/ops/flash.py:259",
              launches=launches["flash"] + trained["flash"] + l4["flash"]
              + l8["flash"] + lg["flash"]
-             + sum(mix_by_path("flash").values()),
+             + sum(mix_by_path("flash").values())
+             + sum(by_path(wpaths, "flash").values())
+             + sum(by_path(cpaths, "flash").values()),
              launches_by_path={"serve_1b": launches["flash"],
                                "train_1b": trained["flash"],
                                "serve_8b_int4": l4["flash"],
                                "serve_8b_int8": l8["flash"],
                                "generate_8b_int4": lg["flash"],
-                               **mix_by_path("flash")},
+                               **mix_by_path("flash"),
+                               **by_path(wpaths, "flash"),
+                               **by_path(cpaths, "flash")},
              **results[("flash", 512)],
              at_train_shape=results["flash_train"]),
+        # B1's branches, each with the launches its own counter saw on
+        # the paths (a roll-buffer launch takes both).
+        dict(name="flash_fwd (B1 segment ids)", route="cuda",
+             source="flash_attention_tpu_torch/csrc/flash_fwd.cu",
+             replaces="flash_attention_tpu/ops/flash.py:259",
+             launches=sum(by_path(bpaths, "flash_seg").values()),
+             launches_by_path=by_path(bpaths, "flash_seg"),
+             **results[("flash_seg", 3000)],
+             at_shapes={f"chunk prefix, prefix_len {k}":
+                        results[("flash_seg", k)] for k in (0, 8192)}),
+        dict(name="flash_fwd (B1 window)", route="cuda",
+             source="flash_attention_tpu_torch/csrc/flash_fwd.cu",
+             replaces="flash_attention_tpu/ops/flash.py:259",
+             launches=sum(by_path(bpaths, "flash_win").values()),
+             launches_by_path=by_path(bpaths, "flash_win"),
+             **results[("flash_roll", 12000)],
+             at_shapes={**{f"roll buffer, prefix {k}":
+                           results[("flash_roll", k)]
+                           for k in (0, 2000)},
+                        "windowed self-attention T=8192":
+                            results["flash_window"]}),
         dict(name="flash_bwd_dq (B2)", route="cuda",
              source="flash_attention_tpu_torch/csrc/flash_bwd.cu",
              replaces="flash_attention_tpu/ops/flash.py:716",
@@ -1739,18 +2395,37 @@ def main() -> int:
              source="flash_attention_tpu_torch/csrc/paged_decode.cu",
              replaces="flash_attention_tpu/ops/paged.py:37",
              launches=launches["paged"] + l4["paged"] + l8["paged"]
-             + sum(mix_by_path("paged").values()),
+             + sum(mix_by_path("paged").values())
+             + sum(by_path(wpaths, "paged").values())
+             + sum(by_path(cpaths, "paged").values()),
              launches_by_path={"serve_1b": launches["paged"],
                                "serve_8b_int4": l4["paged"],
                                "serve_8b_int8": l8["paged"],
-                               **mix_by_path("paged")},
+                               **mix_by_path("paged"),
+                               **by_path(wpaths, "paged"),
+                               **by_path(cpaths, "paged")},
              **results["paged"]),
+        dict(name="paged_decode (B4 window starts)", route="cuda",
+             source="flash_attention_tpu_torch/csrc/paged_decode.cu",
+             replaces="flash_attention_tpu/ops/paged.py:37",
+             launches=sum(by_path(bpaths, "paged_win").values()),
+             launches_by_path=by_path(bpaths, "paged_win"),
+             **results[("paged_win", 1)],
+             at_qpos_spread_4=results[("paged_win", 4)]),
         dict(name="decode (B5)", route="cuda",
              source="flash_attention_tpu_torch/csrc/decode.cu",
              replaces="flash_attention_tpu/ops/decode.py:71",
-             launches=lg["decode"],
-             launches_by_path={"generate_8b_int4": lg["decode"]},
+             launches=lg["decode"] + wpaths["generate_mistral_windowed"][
+                 "decode"],
+             launches_by_path={"generate_8b_int4": lg["decode"],
+                               **by_path(wpaths, "decode")},
              **results["decode"]),
+        dict(name="decode (B5 window)", route="cuda",
+             source="flash_attention_tpu_torch/csrc/decode.cu",
+             replaces="flash_attention_tpu/ops/decode.py:71",
+             launches=sum(by_path(bpaths, "decode_win").values()),
+             launches_by_path=by_path(bpaths, "decode_win"),
+             **results["decode_win"]),
         matmul_entry("B6 int8", name="quant_matmul (B6)", route="cuda",
                      source="flash_attention_tpu_torch/csrc/quant_matmul.cu",
                      replaces="flash_attention_tpu/ops/quant_matmul.py:41",

@@ -13,6 +13,15 @@
 // over its share of the chunk's tokens. Per-thread partial sums are added
 // in a fixed order at the end, so results are deterministic. A length-0
 // row writes O = 0 and, where asked, LSE = INIT_M * scale.
+//
+// Sliding window (the TPU kernels' `windowed` branches, paged.py:62-66,
+// :124-130 and decode.py:88-111): row r sees only positions >= start +
+// (r % spread) -- `spread` folded query positions, t fastest, each one
+// position later than the last. Chunks entirely below `start` are never
+// read; a row whose window holds nothing exports O = 0 and LSE =
+// INIT_M * scale. The window is a template parameter: the dense
+// instantiation (Windowed = false) ignores start and spread and carries
+// no mask in its score loop.
 #pragma once
 
 #include "common.cuh"
@@ -50,12 +59,12 @@ struct ContiguousChunks {
 
 // q_rows / o_rows: `rows` consecutive rows of D values; lse_rows may be
 // null. Every thread of the block must call it.
-template <typename T, int D, int R, typename Offsets>
+template <bool Windowed, typename T, int D, int R, typename Offsets>
 __device__ __forceinline__ void attend(
     const T* __restrict__ q_rows, const T* __restrict__ kbase,
     const T* __restrict__ vbase, Offsets offsets, int len, int n_chunks,
-    int chunk, int rows, float scale, T* __restrict__ o_rows,
-    float* __restrict__ lse_rows) {
+    int chunk, int rows, float scale, int start, int spread,
+    T* __restrict__ o_rows, float* __restrict__ lse_rows) {
   constexpr int kLanesPerTok = D / 8;               // 16-byte chunks per row
   constexpr int kTokPerPass = kThreads / kLanesPerTok;
   constexpr int kDimGroups = D / 8;
@@ -83,6 +92,13 @@ __device__ __forceinline__ void attend(
   // Phase A/C thread roles.
   const int a_tok = tid / kLanesPerTok, a_chunk = (tid % kLanesPerTok) * 8;
   const int c_tok = tid / kDimGroups, c_chunk = (tid % kDimGroups) * 8;
+  // Lowest visible position of each row, computed once: a modulo by the
+  // runtime spread would otherwise sit in the per-score loop.
+  int lo[Windowed ? R : 1];
+  if constexpr (Windowed) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) lo[r] = start + r % spread;
+  }
   float acc[R][8];
 #pragma unroll
   for (int r = 0; r < R; ++r)
@@ -90,7 +106,7 @@ __device__ __forceinline__ void attend(
     for (int i = 0; i < 8; ++i) acc[r][i] = 0.f;
   __syncthreads();
 
-  for (int p = 0; p < n_chunks; ++p) {
+  for (int p = Windowed ? max(start, 0) / chunk : 0; p < n_chunks; ++p) {
     const int n = min(chunk, len - p * chunk);
     const size_t off = offsets(p);
     const T* kp = kbase + off;
@@ -122,7 +138,12 @@ __device__ __forceinline__ void attend(
 #pragma unroll
             for (int o = kLanesPerTok / 2; o > 0; o >>= 1)
               dot += __shfl_xor_sync(0xffffffffu, dot, o);
-            if (a_chunk == 0 && t < n) ss[r * chunk + t] = dot;
+            if (a_chunk == 0 && t < n) {
+              if constexpr (Windowed)
+                ss[r * chunk + t] = p * chunk + t >= lo[r] ? dot : -INFINITY;
+              else
+                ss[r * chunk + t] = dot;
+            }
           }
         }
       }

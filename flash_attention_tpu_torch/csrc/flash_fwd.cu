@@ -2,11 +2,18 @@
 //
 // Replaces the Pallas TPU kernel flash_attention_tpu/ops/flash.py
 // `_fwd_kernel` (flash.py:259, launched at :631) on the port's serving
-// path (prefill, one launch per layer).
+// path (prefill, one launch per layer; chunked prefill, two per layer)
+// and training forward.
 //
 // Computes O = softmax(scale * Q K^T) V per (batch, q-head) with an
 // online softmax, and exports LSE [B, Hq, Nq] in fp32. GQA maps q head h
-// to kv head h / (Hq / Hkv); causal visibility is col <= row + offset.
+// to kv head h / (Hq / Hkv). The masks of the TPU kernel's _mask_block
+// (flash.py:201-236) combine: causal hides col > row + offset, a sliding
+// window (window > 0, causal only) hides col <= row + offset - window,
+// segment ids (qseg [B, Nq], kvseg [B, Nk], both or neither) hide pairs
+// whose ids differ. offset may exceed Nk - Nq (the rolling-buffer
+// prefill passes offset = Nk). A row that sees nothing exports O = 0
+// and LSE = INIT_M * scale, which every LSE merge weights 0.
 // Ragged Nq and Nk are masked here: tile rows past the end load as zeros
 // and are never stored, so the host pads nothing.
 //
@@ -17,8 +24,11 @@
 // every product on the tensor cores (WMMA 16x16x16 with fp32
 // accumulation) and every intermediate (S, P, the running O) in shared
 // memory, so HBM sees each Q/K/V row once per q tile and O once. The
-// kv loop stops at the causal limit of the tile, so skipped tiles cost
-// nothing.
+// kv loop starts at the first tile inside the window of the tile's first
+// row (_first_window_block, flash.py:160) and stops at the causal limit
+// of its last row, so skipped tiles cost nothing: windowed prefill reads
+// O(window) K/V rows per q tile, not O(Nk). Segment ids are read per K/V
+// tile into shared memory beside it.
 //
 // Layout: one 128-thread block (4 warps) per (q tile of 64 rows, q head,
 // batch). Q fragments stay in registers; 64-row K/V tiles stream through
@@ -56,7 +66,8 @@ struct Smem {
   static constexpr size_t kS = kV + sizeof(T) * kBKV * kLdQ;
   static constexpr size_t kP = kS + sizeof(float) * kBQ * kLdS;
   static constexpr size_t kO = kP + sizeof(T) * kBQ * kLdP;
-  static constexpr size_t kBytes = kO + sizeof(float) * kBQ * kLdO;
+  static constexpr size_t kSeg = kO + sizeof(float) * kBQ * kLdO;
+  static constexpr size_t kBytes = kSeg + sizeof(int) * kBKV;
 };
 
 // rows [r0, r0 + 64) of a [n, D] matrix into shared memory (row stride
@@ -71,8 +82,9 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int Hq, int Hkv, int Nq, int Nk,
-                 int causal, int offset, float scale) {
+                 float* __restrict__ lse, const int* __restrict__ qseg,
+                 const int* __restrict__ kvseg, int Hq, int Hkv, int Nq,
+                 int Nk, int causal, int offset, int window, float scale) {
   using L = Smem<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem + L::kQ);
@@ -81,6 +93,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sS = reinterpret_cast<float*>(smem + L::kS);
   T* sP = reinterpret_cast<T*>(smem + L::kP);
   float* sO = reinterpret_cast<float*>(smem + L::kO);
+  int* sKseg = reinterpret_cast<int*>(smem + L::kSeg);
 
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
@@ -96,6 +109,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row = tid >> 1;          // softmax row owned by this thread pair
   const int half = tid & 1;
   const int qrow = q0 + row;
+  const int my_seg =
+      (kvseg != nullptr && qrow < Nq) ? qseg[(size_t)b * Nq + qrow] : 0;
 
   load_tile<T, D>(sQ, L::kLdQ, qg, q0, Nq, tid);
   for (int i = tid; i < kBQ * D; i += kThreads)
@@ -112,17 +127,24 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m_i = fa::kInitM;
   float l_i = 0.f;
 
-  // kv columns any real row of this tile can see.
-  int kv_end = Nk;
+  // kv columns any real row of this tile can see: from the oldest
+  // column inside the first row's window (rounded down to a tile) to the
+  // last row's causal limit.
+  int kv_begin = 0, kv_end = Nk;
   if (causal) {
     const int last_row = min(q0 + kBQ, Nq) - 1;
     kv_end = min(Nk, last_row + offset + 1);
   }
+  if (window > 0)
+    kv_begin = max(q0 + offset - window + 1, 0) / kBKV * kBKV;
 
-  for (int j0 = 0; j0 < kv_end; j0 += kBKV) {
+  for (int j0 = kv_begin; j0 < kv_end; j0 += kBKV) {
     __syncthreads();   // every warp is done with the previous K/V tile
     load_tile<T, D>(sK, L::kLdQ, kg, j0, Nk, tid);
     load_tile<T, D>(sV, L::kLdQ, vg, j0, Nk, tid);
+    if (kvseg != nullptr)
+      for (int i = tid; i < kBKV; i += kThreads)
+        sKseg[i] = j0 + i < Nk ? kvseg[(size_t)b * Nk + j0 + i] : 0;
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows (unscaled scores).
@@ -150,7 +172,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int jj = 0; jj < kBKV / 2; ++jj) {
       const int col = j0 + c0 + jj;
-      const bool ok = col < Nk && (!causal || col <= qrow + offset);
+      const bool ok = col < Nk && (!causal || col <= qrow + offset) &&
+                      (window <= 0 || col > qrow + offset - window) &&
+                      (kvseg == nullptr || sKseg[c0 + jj] == my_seg);
       sv[jj] = ok ? srow[c0 + jj] : -INFINITY;
       mx = fmaxf(mx, sv[jj]);
     }
@@ -216,9 +240,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int B, int Hq, int Hkv, int Nq, int Nk,
-                   int causal, int offset, float scale,
-                   cudaStream_t stream) {
+                   float* lse, const int* qseg, const int* kvseg, int B,
+                   int Hq, int Hkv, int Nq, int Nk, int causal, int offset,
+                   int window, float scale, cudaStream_t stream) {
   constexpr size_t kBytes = Smem<T, D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -227,35 +251,37 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((Nq + kBQ - 1) / kBQ, Hq, B);
   flash_fwd_kernel<T, D><<<grid, kThreads, kBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, Hq, Hkv, Nq, Nk,
-      causal, offset, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, qseg, kvseg, Hq,
+      Hkv, Nq, Nk, causal, offset, window, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int fa_flash_fwd(const void* q, const void* k, const void* v,
-                            void* o, void* lse, int B, int Hq, int Hkv,
+                            void* o, void* lse, const void* qseg,
+                            const void* kvseg, int B, int Hq, int Hkv,
                             int Nq, int Nk, int D, int causal, int offset,
-                            float scale, int dtype, void* stream) {
+                            int window, float scale, int dtype,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (Hkv <= 0 || Hq % Hkv) return (int)cudaErrorInvalidValue;
+  const int* qs = static_cast<const int*>(qseg);
+  const int* ks = static_cast<const int*>(kvseg);
+  if (Hkv <= 0 || Hq % Hkv || (qs == nullptr) != (ks == nullptr) ||
+      (window > 0 && !causal))
+    return (int)cudaErrorInvalidValue;
+#define FA_FWD_LAUNCH(T, DIM)                                              \
+  return (int)launch<T, DIM>(q, k, v, o, l, qs, ks, B, Hq, Hkv, Nq, Nk,   \
+                             causal, offset, window, scale, s);
   if (dtype == fa::kBFloat16) {
-    if (D == 128)
-      return (int)launch<__nv_bfloat16, 128>(q, k, v, o, l, B, Hq, Hkv, Nq,
-                                             Nk, causal, offset, scale, s);
-    if (D == 64)
-      return (int)launch<__nv_bfloat16, 64>(q, k, v, o, l, B, Hq, Hkv, Nq,
-                                            Nk, causal, offset, scale, s);
+    if (D == 128) FA_FWD_LAUNCH(__nv_bfloat16, 128)
+    if (D == 64) FA_FWD_LAUNCH(__nv_bfloat16, 64)
   } else if (dtype == fa::kFloat16) {
-    if (D == 128)
-      return (int)launch<__half, 128>(q, k, v, o, l, B, Hq, Hkv, Nq, Nk,
-                                      causal, offset, scale, s);
-    if (D == 64)
-      return (int)launch<__half, 64>(q, k, v, o, l, B, Hq, Hkv, Nq, Nk,
-                                     causal, offset, scale, s);
+    if (D == 128) FA_FWD_LAUNCH(__half, 128)
+    if (D == 64) FA_FWD_LAUNCH(__half, 64)
   }
+#undef FA_FWD_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 

@@ -8,11 +8,14 @@ Parameters are a plain dict in the JAX package's layout (wq [d, H, hd],
 wk/wv [d, Hkv, hd], wo [H, hd, d], w_gate/w_up [d, ffn], w_down
 [ffn, d], embed [vocab, d], lm_head [d, vocab]), so JAX trees carry
 across unchanged (utils/convert.py). Prefill and training attention run
-the B1 flash kernel, and its backward the B2/B3 kernels; paged decode
-attention runs the B4 paged kernel over the read-only pages plus plain
-attention over the dense hot tail, merged by their log-sum-exps;
-contiguous-cache decode (`decode_step`, used by `sampling.generate`)
-runs B5. Weight products go through `_mm`: dense weights are torch
+the B1 flash kernel, and its backward the B2/B3 kernels; chunked prefill
+(`prefill_chunk_step`, and `prefill_window_chunk_step` with a rolling
+buffer for sliding-window models) runs B1 twice per layer with segment
+ids and windows, LSE-merged; paged decode attention runs the B4 paged
+kernel over the read-only pages (with per-sequence window starts under a
+window) plus plain attention over the dense hot tail, merged by their
+log-sum-exps; contiguous-cache decode (`decode_step`, used by
+`sampling.generate`) runs B5. Weight products go through `_mm`: dense weights are torch
 matmuls, as the JAX package leaves them to XLA (or B8 under
 FA_TPU_DENSE_PALLAS_MM), quantized weights (models/quantized.py) run the
 B6 / B7 kernels. A layer with a `router` is an MoE layer
@@ -37,7 +40,11 @@ from flash_attention_tpu_torch.models.quantized import (
     _weight_einsum,
 )
 from flash_attention_tpu_torch.ops.decode import flash_decode
-from flash_attention_tpu_torch.ops.flash import flash_attention
+from flash_attention_tpu_torch.ops.flash import (
+    SegmentIds,
+    flash_attention,
+    flash_attention_fwd,
+)
 from flash_attention_tpu_torch.ops.paged import paged_flash_decode
 from flash_attention_tpu_torch.ops.quant_matmul import dense_matmul
 
@@ -52,8 +59,7 @@ class LlamaConfig:
     ffn_dim: int = 14336
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
-    # Sliding-window attention; None = full causal attention. Windowed
-    # models arrive with a later slice (the engine rejects them).
+    # Sliding-window attention; None = full causal attention.
     window: int | None = None
     dtype: torch.dtype = torch.bfloat16
 
@@ -360,6 +366,152 @@ def prefill_kv(params, tokens, cfg: LlamaConfig, *, true_len=None):
     return _lm_head_logits(params, last), torch.stack(ks), torch.stack(vs)
 
 
+def _lse_merge(o_a, lse_a, o_b, lse_b):
+    """Merge two attention partials over disjoint key sets by their
+    fp32 log-sum-exps (a side that saw nothing has LSE INIT_M * scale
+    and weight exactly 0). o: [B, H, T, D]; lse: [B, H, T]."""
+    lse = torch.logaddexp(lse_a, lse_b)
+    return (o_a.float() * torch.exp(lse_a - lse)[..., None]
+            + o_b.float() * torch.exp(lse_b - lse)[..., None])
+
+
+def _last_real_row(x, true_count):
+    idx = (torch.as_tensor(true_count, dtype=torch.long, device=x.device)
+           .expand(x.shape[0]) - 1).clamp(min=0)
+    return x[torch.arange(x.shape[0], device=x.device), idx]
+
+
+@torch.no_grad()
+def prefill_chunk_step(params, tokens, cfg: LlamaConfig, k_bufs, v_bufs,
+                       prefix_len, true_count):
+    """One chunk of an incremental (chunked) prefill, batched across
+    requests (each row at its own prefix depth).
+
+    Attention for a chunk runs B1 twice per layer and LSE-merges them:
+    causal self-attention over the C new rows, and non-causal attention
+    over the whole padded KV buffer [T] with positions >= prefix_len[b]
+    hidden by segment ids (data, not shape: every chunk of every prompt
+    length shares one kernel shape per (B, C, T)).
+
+    tokens: [B, C] ids (garbage-padded past the prompt on the last
+    chunk); k_bufs, v_bufs: [L, B, Hkv, T, D] prompt KV buffers, updated
+    IN PLACE (row b's chunk KV lands at prefix_len[b]; the JAX version
+    returns updated copies); prefix_len, true_count: [B] (or scalar)
+    tokens already processed / real tokens in this chunk (logits are
+    read at row true_count - 1). Returns (logits [B, vocab], k_bufs,
+    v_bufs).
+    """
+    b, c = tokens.shape
+    t_bucket = k_bufs.shape[3]
+    dev = tokens.device
+    prefix_len = torch.as_tensor(prefix_len, dtype=torch.int32,
+                                 device=dev).expand(b).contiguous()
+    ar = torch.arange(c, dtype=torch.int32, device=dev)
+    positions = prefix_len[:, None] + ar[None, :]
+    # Prefix mask: kv ids flip to 1 at prefix_len; q ids stay 0.
+    seg = SegmentIds(
+        torch.zeros((b, c), dtype=torch.int32, device=dev),
+        (torch.arange(t_bucket, dtype=torch.int32, device=dev)[None, :]
+         >= prefix_len[:, None]).to(torch.int32))
+    x = params["embed"][tokens]
+    new_ks, new_vs = [], []
+    for li, layer in enumerate(params["layers"]):
+        h = rmsnorm(x, layer["attn_norm"], cfg.norm_eps)
+        q = _mm("btd,dhk->bhtk", h, layer["wq"])
+        k = _mm("btd,dhk->bhtk", h, layer["wk"])
+        v = _mm("btd,dhk->bhtk", h, layer["wv"])
+        q = rope(q, positions, cfg.rope_theta).contiguous()
+        k = rope(k, positions, cfg.rope_theta).contiguous()
+        v = v.contiguous()
+        new_ks.append(k)
+        new_vs.append(v)
+        o_s, lse_s = flash_attention_fwd(q, k, v, causal=True, offset=0)
+        o_p, lse_p = flash_attention_fwd(
+            q, k_bufs[li].to(q.dtype), v_bufs[li].to(q.dtype), seg,
+            causal=False)
+        o = _lse_merge(o_s, lse_s, o_p, lse_p)
+        x = x + _mm("bhtk,hkd->btd", o.to(x.dtype), layer["wo"])
+        x = x + _mlp_block(layer, x, cfg)
+    # Per-row KV landing offsets: row b's chunk goes to positions
+    # prefix_len[b] + [0, C) of every layer's buffer.
+    bidx = torch.arange(b, device=dev)[:, None]
+    cols = (prefix_len[:, None] + ar[None, :]).long()
+    for bufs, new in ((k_bufs, new_ks), (v_bufs, new_vs)):
+        # Indexed view [B, C, L, Hkv, D] (advanced indices on dims 1, 3).
+        bufs[:, bidx, :, cols, :] = torch.stack(new).permute(
+            1, 3, 0, 2, 4).to(bufs.dtype)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return _lm_head_logits(params, _last_real_row(x, true_count)), \
+        k_bufs, v_bufs
+
+
+@torch.no_grad()
+def prefill_window_chunk_step(params, tokens, cfg: LlamaConfig, k_roll,
+                              v_roll, prefix_len, true_count):
+    """One chunk of an incremental prefill for a sliding-window model,
+    batched across requests.
+
+    The prefill context is a fixed-width rolling buffer holding the last
+    W_b >= window positions, so prefill reads O(window) KV per chunk and
+    the prompt length never enters the shapes. Attention per chunk is B1
+    twice per layer, LSE-merged: causal self-attention over the C new
+    rows with the model window, and attention over the roll buffer,
+    whose column j holds absolute position prefix_len[b] - W_b + j: q row
+    i sees column j iff j >= i + 1 + (W_b - window), the causal kernel
+    with offset = W_b (never masks) and window = window. Columns below
+    position 0 (the buffer not yet full) are hidden by segment ids.
+    After attention the buffer rolls left by C and the chunk's KV
+    appends.
+
+    tokens: [B, C]; k_roll, v_roll: [L, B, Hkv, W_b, D] with W_b >=
+    window and >= C; prefix_len, true_count as in prefill_chunk_step.
+    Returns (logits [B, vocab], k_roll, v_roll) (new buffers).
+    """
+    b, c = tokens.shape
+    w_b = k_roll.shape[3]
+    if cfg.window is None:
+        raise ValueError("prefill_window_chunk_step needs cfg.window")
+    if w_b < cfg.window or w_b < c:
+        raise ValueError(f"roll buffer {w_b} must be >= window "
+                         f"{cfg.window} and chunk {c}")
+    dev = tokens.device
+    prefix_len = torch.as_tensor(prefix_len, dtype=torch.int32,
+                                 device=dev).expand(b).contiguous()
+    positions = prefix_len[:, None] + torch.arange(
+        c, dtype=torch.int32, device=dev)[None, :]
+    seg = SegmentIds(
+        torch.zeros((b, c), dtype=torch.int32, device=dev),
+        (torch.arange(w_b, dtype=torch.int32, device=dev)[None, :]
+         < w_b - prefix_len[:, None]).to(torch.int32))
+    x = params["embed"][tokens]
+    new_ks, new_vs = [], []
+    for li, layer in enumerate(params["layers"]):
+        h = rmsnorm(x, layer["attn_norm"], cfg.norm_eps)
+        q = _mm("btd,dhk->bhtk", h, layer["wq"])
+        k = _mm("btd,dhk->bhtk", h, layer["wk"])
+        v = _mm("btd,dhk->bhtk", h, layer["wv"])
+        q = rope(q, positions, cfg.rope_theta).contiguous()
+        k = rope(k, positions, cfg.rope_theta).contiguous()
+        v = v.contiguous()
+        new_ks.append(k)
+        new_vs.append(v)
+        o_s, lse_s = flash_attention_fwd(q, k, v, causal=True, offset=0,
+                                         window=cfg.window)
+        o_p, lse_p = flash_attention_fwd(
+            q, k_roll[li].to(q.dtype), v_roll[li].to(q.dtype), seg,
+            causal=True, offset=w_b, window=cfg.window)
+        o = _lse_merge(o_s, lse_s, o_p, lse_p)
+        x = x + _mm("bhtk,hkd->btd", o.to(x.dtype), layer["wo"])
+        x = x + _mlp_block(layer, x, cfg)
+    k_roll = torch.cat([k_roll[:, :, :, c:],
+                        torch.stack(new_ks).to(k_roll.dtype)], dim=3)
+    v_roll = torch.cat([v_roll[:, :, :, c:],
+                        torch.stack(new_vs).to(v_roll.dtype)], dim=3)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return _lm_head_logits(params, _last_real_row(x, true_count)), \
+        k_roll, v_roll
+
+
 def _tail_attention(q, kt, vt, tail_pos, scale):
     """Exact fp32 attention of q [B, Hkv, G, T, D] over the dense tail
     kt/vt [B, Hkv, S, D]: query t sees tail rows [0, tail_pos + t].
@@ -407,14 +559,23 @@ def decode_step_paged_multi(params, tokens, cfg: LlamaConfig, k_pages,
     GQA group (t fastest); causality among the new positions lives in
     the tail mask. Dead slots carry paged_lens 0 and tail_pos 0.
 
+    `paged_bases` [B] (default zeros) counts front-evicted tokens of a
+    sliding-window sequence: the page table and paged_lens are in STORED
+    coordinates while RoPE positions are absolute. Under a window the
+    paged kernel gets each sequence's lowest visible stored position,
+    max(paged_lens + tail_pos + 1 - window, 0) (the base cancels), and
+    folded query t adds t in-kernel; the window must exceed the tail, so
+    every tail row stays visible.
+
     Returns (logits [B, T, vocab], k_tails, v_tails).
     """
     if k_scales is not None or v_scales is not None:
         raise NotImplementedError(
             "quantized pools arrive with the quantized-KV slice")
-    if cfg.window is not None:
-        raise NotImplementedError(
-            "sliding-window decode arrives with the window slice")
+    if cfg.window is not None and cfg.window <= k_tails[0].shape[2]:
+        raise ValueError(
+            f"window={cfg.window} must exceed the tail buffer "
+            f"({k_tails[0].shape[2]}) so tail tokens stay visible")
     b, t_new = tokens.shape
     hkv = k_tails[0].shape[1]
     group = cfg.n_heads // cfg.n_kv_heads
@@ -426,6 +587,10 @@ def decode_step_paged_multi(params, tokens, cfg: LlamaConfig, k_pages,
     positions = (paged_bases + paged_lens + tail_pos)[:, None] + ar[None]
     bidx = torch.arange(b, device=tokens.device)[:, None]      # [B, 1]
     trow = tail_pos.long()[:, None] + ar.long()[None]          # [B, T]
+    win_starts = None
+    if cfg.window is not None:
+        win_starts = (paged_lens + tail_pos + 1 - cfg.window).clamp(
+            min=0).to(torch.int32)
     x = params["embed"][tokens]                                # [B, T, D]
     for layer, kp, vp, kt, vt in zip(params["layers"], k_pages, v_pages,
                                      k_tails, v_tails):
@@ -443,13 +608,12 @@ def decode_step_paged_multi(params, tokens, cfg: LlamaConfig, k_pages,
         qg = q.reshape(b, hkv, group, t_new, hd)
         o_p, lse_p = paged_flash_decode(
             qg.reshape(b, hkv * group * t_new, hd), kp, vp, page_tables,
-            paged_lens, scale=scale, qpos_spread=t_new, return_lse=True)
+            paged_lens, scale=scale, window_starts=win_starts,
+            qpos_spread=t_new, return_lse=True)
         o_p = o_p.reshape(b, hkv, group, t_new, hd).float()
         lse_p = lse_p.reshape(b, hkv, group, t_new)
         o_t, lse_t = _tail_attention(qg, kt, vt, tail_pos, scale)
-        lse = torch.logaddexp(lse_p, lse_t)
-        o = (o_p * torch.exp(lse_p - lse)[..., None]
-             + o_t * torch.exp(lse_t - lse)[..., None])
+        o = _lse_merge(o_p, lse_p, o_t, lse_t)
         o = o.reshape(b, hkv * group, t_new, hd).to(x.dtype)
         x = x + _mm("bhtk,hkd->btd", o, layer["wo"])
         x = x + _mlp_block(layer, x, cfg)

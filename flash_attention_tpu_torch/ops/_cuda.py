@@ -45,21 +45,22 @@ _lib = None
 
 _vp, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, o, lse, B, Hq, Hkv, Nq, Nk, D, causal, offset, scale,
-    # dtype, stream
-    "fa_flash_fwd": [_vp, _vp, _vp, _vp, _vp] + [_i32] * 8
-    + [_f32, _i32, _vp],
+    # q, k, v, o, lse, qseg (or NULL), kvseg (or NULL), B, Hq, Hkv, Nq,
+    # Nk, D, causal, offset, window (0 = none), scale, dtype, stream
+    "fa_flash_fwd": [_vp] * 7 + [_i32] * 9 + [_f32, _i32, _vp],
     # q, k, v, do, lse, delta, dq, B, Hq, Hkv, Nq, Nk, D, causal,
     # offset, scale, dtype, stream
     "fa_flash_bwd_dq": [_vp] * 7 + [_i32] * 8 + [_f32, _i32, _vp],
     # q, k, v, do, lse, delta, dk, dv, B, Hq, Hkv, Nq, Nk, D, causal,
     # offset, scale, dtype, stream
     "fa_flash_bwd_dkv": [_vp] * 8 + [_i32] * 8 + [_f32, _i32, _vp],
-    # q, k_pool, v_pool, page_table, lengths, o, lse, B, Hq, Hkv,
-    # num_pages, page_size, table_width, D, scale, dtype, stream
-    "fa_paged_decode": [_vp] * 7 + [_i32] * 7 + [_f32, _i32, _vp],
-    # q, k, v, lengths, o, B, Hq, Hkv, S, D, scale, dtype, stream
-    "fa_decode": [_vp] * 5 + [_i32] * 5 + [_f32, _i32, _vp],
+    # q, k_pool, v_pool, page_table, lengths, window starts (or NULL), o,
+    # lse, B, Hq, Hkv, num_pages, page_size, table_width, D, qpos_spread,
+    # scale, dtype, stream
+    "fa_paged_decode": [_vp] * 8 + [_i32] * 8 + [_f32, _i32, _vp],
+    # q, k, v, lengths, o, B, Hq, Hkv, S, D, window (0 = none), scale,
+    # dtype, stream
+    "fa_decode": [_vp] * 5 + [_i32] * 6 + [_f32, _i32, _vp],
     # x, w, scale (or NULL), y, M, K, F, weight code, dtype, stream
     "fa_quant_matmul": [_vp] * 4 + [_i32] * 5 + [_vp],
     # x, w, scale (or NULL), offsets, y, M, K, F, E, weight code, dtype,

@@ -8,9 +8,10 @@ tensors. A CUDA tensor launches the kernel or raises.
 
 q: [B, Hq, D], one new query per sequence; k, v: [B, Hkv, S, D] dense
 caches; lengths: [B] live positions per sequence. The GQA group of each
-kv head is read together, so each cached row is read once. The
-quantized (int8 / fp8 `QuantizedTensor`) caches and the sliding window
-arrive with the quantized-KV and window slices and raise until then.
+kv head is read together, so each cached row is read once. With a
+sliding window only positions >= lengths[b] - window are visible (and
+read). The quantized (int8 / fp8 `QuantizedTensor`) caches arrive with
+the quantized-KV slice and raise until then.
 """
 
 from __future__ import annotations
@@ -23,24 +24,34 @@ from flash_attention_tpu_torch.config import CUDA_HEAD_DIMS, PAGED_MAX_ROWS
 from flash_attention_tpu_torch.ops import _cuda
 from flash_attention_tpu_torch.ops.flash import INIT_M
 
-# Launches of the B5 kernel (incremented only where it is launched).
+# Launches of the B5 kernel (incremented only where it is launched), and
+# of those, the launches that took its window branch.
 decode_launches = 0
+decode_window_launches = 0
 
 
-def flash_decode_plain(q, k, v, lengths, *, scale, return_lse=False):
+def flash_decode_plain(q, k, v, lengths, *, scale, return_lse=False,
+                       starts=None, qpos_spread=1):
     """B5's function in plain PyTorch: fp32 scores and softmax over
     positions < lengths[b], probabilities rounded to q's dtype for the PV
-    product (the kernel's numerics). Returns o [B, Hq, D] in q's dtype,
-    or (o, lse [B, Hq] fp32) with return_lse; a length-0 row gives O = 0
-    and LSE = INIT_M * scale. k and v may be any float dtype (the paged
-    plain version hands over gathered fp32 copies)."""
+    product (the kernel's numerics). With `starts` [B] (window starts,
+    may be negative) row r of each kv head's group sees only positions
+    >= starts[b] + (r % qpos_spread). Returns o [B, Hq, D] in q's dtype,
+    or (o, lse [B, Hq] fp32) with return_lse; a row that sees nothing
+    gives O = 0 and LSE = INIT_M * scale. k and v may be any float dtype
+    (the paged plain version hands over gathered fp32 copies)."""
     b, hq, d = q.shape
     hkv = k.shape[1]
     qg = q.reshape(b, hkv, hq // hkv, d).float()
     s = torch.einsum("bhgd,bhsd->bhgs", qg, k.float()) * scale
     col = torch.arange(s.shape[-1], device=s.device)
-    s = s.masked_fill(col >= lengths.long()[:, None, None, None],
-                      float("-inf"))
+    bad = col >= lengths.long()[:, None, None, None]
+    if starts is not None:
+        row = torch.arange(hq // hkv, device=s.device) % qpos_spread
+        lo = starts.long().to(s.device)[:, None, None, None] \
+            + row[None, None, :, None]
+        bad = bad | (col < lo)
+    s = s.masked_fill(bad, float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m_safe)
@@ -56,8 +67,8 @@ def flash_decode_plain(q, k, v, lengths, *, scale, return_lse=False):
     return o, lse.reshape(b, hq)
 
 
-def _flash_decode_cuda(q, k, v, lengths, *, scale):
-    global decode_launches
+def _flash_decode_cuda(q, k, v, lengths, *, scale, window=None):
+    global decode_launches, decode_window_launches
     b, hq, d = q.shape
     _, hkv, s, _ = k.shape
     if q.dtype not in _cuda.DTYPE_CODES or k.dtype != q.dtype \
@@ -83,9 +94,10 @@ def _flash_decode_cuda(q, k, v, lengths, *, scale):
         return o
     code = _cuda.lib().fa_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        o.data_ptr(), b, hq, hkv, s, d, scale, _cuda.DTYPE_CODES[q.dtype],
-        _cuda.stream_handle(q.device))
+        o.data_ptr(), b, hq, hkv, s, d, int(window or 0), scale,
+        _cuda.DTYPE_CODES[q.dtype], _cuda.stream_handle(q.device))
     decode_launches += 1
+    decode_window_launches += window is not None
     _cuda.check(code, "decode")
     return o
 
@@ -99,13 +111,14 @@ def flash_decode(q, k, v, lengths, *, scale=None, window=None):
     """Single-step decode attention.
 
     q: [B, Hq, D]; k, v: [B, Hkv, S, D] bf16/fp16 caches (fp32 on the
-    CPU); lengths: [B] int32 live prefix per sequence (<= S). Returns
-    [B, Hq, D] in q's dtype. The TPU kernel's `block_kv` has no
-    counterpart: B5 walks the prefix in chunks of 256 positions.
+    CPU); lengths: [B] int32 live prefix per sequence (<= S); window:
+    attend only positions >= lengths[b] - window (Mistral-style local
+    attention; older chunks are not read). Returns [B, Hq, D] in q's
+    dtype. The TPU kernel's `block_kv` has no counterpart: B5 walks the
+    prefix in chunks of 256 positions.
     """
-    if window is not None:
-        raise NotImplementedError(
-            "windowed decode arrives with the window slice")
+    if window is not None and window < 1:
+        raise ValueError("window must be >= 1")
     if not (_is_dense(k) and _is_dense(v)):
         raise NotImplementedError(
             "quantized caches arrive with the quantized-KV slice")
@@ -121,9 +134,12 @@ def flash_decode(q, k, v, lengths, *, scale=None, window=None):
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     if q.is_cuda:
-        return _flash_decode_cuda(q, k, v, lengths, scale=float(scale))
+        return _flash_decode_cuda(q, k, v, lengths, scale=float(scale),
+                                  window=window)
     if q.device.type == "cpu":
-        return flash_decode_plain(q, k, v, lengths, scale=float(scale))
+        starts = None if window is None else lengths - window
+        return flash_decode_plain(q, k, v, lengths, scale=float(scale),
+                                  starts=starts)
     raise ValueError(f"unsupported device {q.device}")
 
 
@@ -152,11 +168,13 @@ def decode_reference(q, k, v, lengths, *, scale=None, window=None):
     return torch.einsum("bhs,bhsd->bhd", p, vv).to(q.dtype)
 
 
-def decode_cost(lengths, hq, hkv, d, itemsize):
-    """(flops, bytes) B5 must do at least for these lengths: each live
-    position's K and V rows read once per kv head, q and the lengths
-    read once, O written once."""
-    tokens = sum(int(x) for x in lengths)
+def decode_cost(lengths, hq, hkv, d, itemsize, window=None):
+    """(flops, bytes) B5 must do at least for these lengths: each
+    visible position's K and V rows (the last `window` of them under a
+    window) read once per kv head, q and the lengths read once, O
+    written once."""
+    tokens = sum(int(x) if window is None else min(int(x), window)
+                 for x in lengths)
     b = len(lengths)
     flops = 4 * hq * tokens * d
     nbytes = (2 * hkv * tokens * d * itemsize + 2 * b * hq * d * itemsize

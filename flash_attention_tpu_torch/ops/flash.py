@@ -2,20 +2,25 @@
 `flash_attention_tpu/ops/flash.py`).
 
 `flash_attention_fwd` launches the hand-written CUDA kernel
-`csrc/flash_fwd.cu` (B1, the port of the Pallas `_fwd_kernel`);
-`flash_attention_bwd` launches `csrc/flash_bwd.cu` (B2, dQ, the port of
-`_bwd_dq_kernel`, then B3, dK/dV, the port of `_bwd_dkv_kernel`). On CPU
-tensors each runs its plain PyTorch version (`flash_attention_fwd_plain`,
+`csrc/flash_fwd.cu` (B1, the port of the Pallas `_fwd_kernel`, with its
+segment-id and sliding-window branches); `flash_attention_bwd` launches
+`csrc/flash_bwd.cu` (B2, dQ, the port of `_bwd_dq_kernel`, then B3,
+dK/dV, the port of `_bwd_dkv_kernel`). On CPU tensors each runs its
+plain PyTorch version (`flash_attention_fwd_plain`,
 `flash_attention_bwd_plain`). A CUDA tensor never reaches a plain
 version: it launches the kernel or raises. `flash_attention` binds the
 two as a `torch.autograd.Function` (the JAX package's `custom_vjp`).
 
-Sliding windows, segment ids and quantized KV arrive with later slices
-and raise NotImplementedError until then.
+Masks combine as in the JAX kernels: with segment ids a column is
+invisible where the q and kv ids differ; under `causal` where col > row +
+offset; under `window` (which requires causal) where col <= row + offset
+- window. The backward of a windowed or segmented forward and quantized
+KV arrive with later slices and raise NotImplementedError until then.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -37,16 +42,22 @@ INIT_M = -1e37
 flash_fwd_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
+# Launches of B1 that took its segment-id branch, and of B1 that took its
+# window branch (each also counted in flash_fwd_launches).
+flash_fwd_segment_launches = 0
+flash_fwd_window_launches = 0
+
+
+@dataclasses.dataclass
+class SegmentIds:
+    """Segment ids, q [B, Nq] and kv [B, Nk] int32: attention is masked
+    wherever the q and kv ids differ (packed documents; the chunked
+    prefill's prefix mask)."""
+    q: torch.Tensor
+    kv: torch.Tensor
 
 
 def _check_args(q, k, v, segment_ids, causal, scale, offset, window):
-    if segment_ids is not None:
-        raise NotImplementedError(
-            "segment_ids arrive with the chunked-prefill/prefix-cache "
-            "slice")
-    if window is not None:
-        raise NotImplementedError(
-            "sliding-window attention arrives with the window slice")
     if not (k.dtype.is_floating_point and v.dtype.is_floating_point) \
             or k.element_size() == 1:
         raise NotImplementedError(
@@ -70,29 +81,51 @@ def _check_args(q, k, v, segment_ids, causal, scale, offset, window):
         offset = nk - nq
     if causal and offset < 0:
         raise ValueError("causal attention requires Nq <= Nk (offset >= 0)")
+    if window is not None:
+        if not causal:
+            raise ValueError("sliding window requires causal=True")
+        if window < 1:
+            raise ValueError("window must be >= 1")
+    if segment_ids is not None and (
+            tuple(segment_ids.q.shape) != (batch, nq)
+            or tuple(segment_ids.kv.shape) != (batch, nk)):
+        raise ValueError(
+            f"segment id shapes {tuple(segment_ids.q.shape)}/"
+            f"{tuple(segment_ids.kv.shape)} must be ({batch},{nq}) / "
+            f"({batch},{nk})")
     return float(scale), int(offset)
 
 
-def _visible_mask(nq, nk, causal, offset, device):
-    """[Nq, Nk] bool, True where row r sees column c (c <= r + offset
-    when causal), or None when every pair is visible."""
-    if not causal:
-        return None
-    row = torch.arange(nq, device=device)[:, None]
-    col = torch.arange(nk, device=device)[None, :]
-    return col <= row + offset
+def _visible_mask(nq, nk, causal, offset, device, window=None,
+                  segment_ids=None):
+    """Where row r sees column c: [Nq, Nk] bool, [B, 1, Nq, Nk] with
+    segment ids, or None when every pair is visible."""
+    visible = None
+    if causal:
+        row = torch.arange(nq, device=device)[:, None]
+        col = torch.arange(nk, device=device)[None, :]
+        visible = col <= row + offset
+        if window is not None:
+            visible = visible & (col > row + offset - window)
+    if segment_ids is not None:
+        same = (segment_ids.q.to(device)[:, None, :, None]
+                == segment_ids.kv.to(device)[:, None, None, :])
+        visible = same if visible is None else same & visible
+    return visible
 
 
-def flash_attention_fwd_plain(q, k, v, *, causal=False, scale, offset):
+def flash_attention_fwd_plain(q, k, v, *, causal=False, scale, offset,
+                              window=None, segment_ids=None):
     """B1's function in plain PyTorch: fp32 scores and softmax
     statistics, probabilities rounded to the input dtype for the PV
-    product (the kernel's numerics), LSE [B, Hq, Nq] fp32."""
+    product (the kernel's numerics), LSE [B, Hq, Nq] fp32. A row that
+    sees nothing gives O = 0 and LSE = INIT_M * scale."""
     hq, hkv = q.shape[1], k.shape[1]
     kk = torch.repeat_interleave(k, hq // hkv, dim=1).float()
     vv = torch.repeat_interleave(v, hq // hkv, dim=1).float()
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
     visible = _visible_mask(s.shape[-2], s.shape[-1], causal, offset,
-                            s.device)
+                            s.device, window, segment_ids)
     if visible is not None:
         s = s.masked_fill(~visible, float("-inf"))
     m = s.amax(dim=-1, keepdim=True) if s.shape[-1] else \
@@ -126,11 +159,28 @@ def _check_cuda_inputs(kernel, q, k, v, **more):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _flash_fwd_cuda(q, k, v, *, causal, scale, offset):
-    global flash_fwd_launches
+def _segment_ptrs(segment_ids, device):
+    """(q ids, kv ids) data pointers for B1, or (None, None)."""
+    if segment_ids is None:
+        return None, None
+    ptrs = []
+    for name, t in (("q", segment_ids.q), ("kv", segment_ids.kv)):
+        if t.dtype != torch.int32 or t.device != device \
+                or not t.is_contiguous():
+            raise TypeError(f"segment ids ({name}) must be contiguous "
+                            f"int32 on {device}")
+        ptrs.append(t.data_ptr())
+    return tuple(ptrs)
+
+
+def _flash_fwd_cuda(q, k, v, *, causal, scale, offset, window=None,
+                    segment_ids=None):
+    global flash_fwd_launches, flash_fwd_segment_launches
+    global flash_fwd_window_launches
     batch, hq, nq, d = q.shape
     hkv, nk = k.shape[1], k.shape[2]
     _check_cuda_inputs("B1", q, k, v)
+    qseg, kvseg = _segment_ptrs(segment_ids, q.device)
     o = torch.empty_like(q)
     lse = torch.empty((batch, hq, nq), dtype=torch.float32,
                       device=q.device)
@@ -139,9 +189,12 @@ def _flash_fwd_cuda(q, k, v, *, causal, scale, offset):
     lib = _cuda.lib()
     code = lib.fa_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), batch, hq, hkv, nq, nk, d, int(causal), offset,
-        scale, _cuda.DTYPE_CODES[q.dtype], _cuda.stream_handle(q.device))
+        lse.data_ptr(), qseg, kvseg, batch, hq, hkv, nq, nk, d,
+        int(causal), offset, int(window or 0), scale,
+        _cuda.DTYPE_CODES[q.dtype], _cuda.stream_handle(q.device))
     flash_fwd_launches += 1
+    flash_fwd_segment_launches += segment_ids is not None
+    flash_fwd_window_launches += window is not None
     _cuda.check(code, "flash_fwd")
     return o, lse
 
@@ -155,16 +208,19 @@ def flash_attention_fwd(q, k, v, segment_ids=None, *, causal=False,
     save_residuals is False.
 
     q: [B, Hq, Nq, D]; k, v: [B, Hkv, Nk, D] with Hkv | Hq. Causal
-    visibility is col <= row + offset, offset defaulting to Nk - Nq.
+    visibility is col <= row + offset, offset defaulting to Nk - Nq (it
+    may exceed Nk - Nq, as the rolling-buffer prefill's offset = Nk);
+    `window` hides col <= row + offset - window; `segment_ids`
+    (SegmentIds) hide pairs whose ids differ.
     """
     scale, offset = _check_args(q, k, v, segment_ids, causal, scale,
                                 offset, window)
+    kw = dict(causal=causal, scale=scale, offset=offset, window=window,
+              segment_ids=segment_ids)
     if q.is_cuda:
-        o, lse = _flash_fwd_cuda(q, k, v, causal=causal, scale=scale,
-                                 offset=offset)
+        o, lse = _flash_fwd_cuda(q, k, v, **kw)
     elif q.device.type == "cpu":
-        o, lse = flash_attention_fwd_plain(q, k, v, causal=causal,
-                                           scale=scale, offset=offset)
+        o, lse = flash_attention_fwd_plain(q, k, v, **kw)
     else:
         raise ValueError(f"unsupported device {q.device}")
     return o, (lse if save_residuals else None)
@@ -260,6 +316,14 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, *, causal, scale, offset):
     return dq, dk, dv
 
 
+def _no_backward_masks(segment_ids, window):
+    if segment_ids is not None or window is not None:
+        raise NotImplementedError(
+            "the backward of a windowed or segmented forward (B2/B3's "
+            "window and segment-id branches) arrives with the windowed-"
+            "training slice")
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, segment_ids=None, *,
                         causal=False, scale=None, offset=None,
                         window=None):
@@ -267,6 +331,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, segment_ids=None, *,
     fp32 lse [B, Hq, Nq] and the output cotangent do. Launches B2 (dQ)
     then B3 (dK/dV) on CUDA tensors; runs flash_attention_bwd_plain on
     CPU tensors."""
+    _no_backward_masks(segment_ids, window)
     scale, offset = _check_args(q, k, v, segment_ids, causal, scale,
                                 offset, window)
     if q.is_cuda:
@@ -282,24 +347,28 @@ def flash_attention_bwd(q, k, v, o, lse, do, segment_ids=None, *,
 class _FlashAttention(torch.autograd.Function):
     """The port of the JAX `custom_vjp` (flash.py:1056-1090): the
     forward saves q, k, v, o and the fp32 LSE; the backward recomputes
-    P from them (B2, B3)."""
+    P from them (B2, B3). A windowed or segmented forward runs; its
+    backward raises until the windowed-training slice."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, offset):
+    def forward(ctx, q, k, v, causal, scale, offset, window, segment_ids):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale,
-                                     offset=offset, save_residuals=True)
+        o, lse = flash_attention_fwd(q, k, v, segment_ids, causal=causal,
+                                     scale=scale, offset=offset,
+                                     window=window, save_residuals=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale, ctx.offset = causal, scale, offset
+        ctx.window, ctx.segment_ids = window, segment_ids
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(
-            q, k, v, o, lse, do.contiguous(), causal=ctx.causal,
-            scale=ctx.scale, offset=ctx.offset)
-        return dq, dk, dv, None, None, None
+            q, k, v, o, lse, do.contiguous(), ctx.segment_ids,
+            causal=ctx.causal, scale=ctx.scale, offset=ctx.offset,
+            window=ctx.window)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, segment_ids=None, *, causal: bool = False,
@@ -308,30 +377,51 @@ def flash_attention(q, k, v, segment_ids=None, *, causal: bool = False,
     """Differentiable flash attention (public API): B1 forward, B2/B3
     backward on CUDA tensors, their plain versions on CPU tensors.
 
-    q: [B, Hq, Nq, D]; k, v: [B, Hkv, Nk, D] with Hkv | Hq. Causal
-    visibility is col <= row + offset, offset defaulting to Nk - Nq.
+    q: [B, Hq, Nq, D]; k, v: [B, Hkv, Nk, D] with Hkv | Hq. Masks as in
+    flash_attention_fwd. The backward of a windowed or segmented call
+    raises NotImplementedError (the windowed-training slice).
     """
     scale, offset = _check_args(q, k, v, segment_ids, causal, scale,
                                 offset, window)
-    return _FlashAttention.apply(q, k, v, causal, scale, offset)
+    return _FlashAttention.apply(q, k, v, causal, scale, offset, window,
+                                 segment_ids)
 
 
-def _visible_pairs(nq, nk, causal):
-    """(row, col) pairs that attend, with the default offset Nk - Nq."""
+def _visible_counts(batch, nq, nk, causal, offset=None, window=None,
+                    segment_ids=None):
+    """(visible (row, col) pairs, kv columns that some row sees), each
+    summed over the batch: the work these inputs need, not the most the
+    shapes allow."""
+    if offset is None:
+        offset = nk - nq
+    if segment_ids is not None:
+        vis = _visible_mask(nq, nk, causal, offset, segment_ids.q.device,
+                            window, segment_ids)[:, 0]
+        return int(vis.sum()), int(vis.any(dim=1).sum())
     if not causal:
-        return nq * nk
-    offset = nk - nq
-    return sum(max(0, min(nk, r + offset + 1)) for r in range(nq))
+        return batch * nq * nk, batch * nk * (nq > 0)
+    r = torch.arange(nq, dtype=torch.int64)
+    hi = (r + offset + 1).clamp(0, nk)
+    lo = ((r + offset - window + 1).clamp(0, nk) if window is not None
+          else torch.zeros_like(r))
+    n = (hi - lo).clamp(min=0)
+    live = n > 0
+    cols = int(hi[live].max() - lo[live].min()) if bool(live.any()) else 0
+    return batch * int(n.sum()), batch * cols
 
 
-def fwd_cost(batch, hq, hkv, nq, nk, d, causal, itemsize):
+def fwd_cost(batch, hq, hkv, nq, nk, d, causal, itemsize, *, offset=None,
+             window=None, segment_ids=None):
     """(flops, bytes) B1 must do at least: the QK^T and PV products over
-    the visible (row, col) pairs, each input read once, O and LSE written
-    once."""
-    pairs = _visible_pairs(nq, nk, causal)
-    flops = 4 * batch * hq * pairs * d
-    nbytes = (itemsize * batch * d * (2 * hq * nq + 2 * hkv * nk)
+    the visible (row, col) pairs, q and the kv rows some row sees read
+    once (and the segment ids), O and LSE written once."""
+    pairs, cols = _visible_counts(batch, nq, nk, causal, offset, window,
+                                  segment_ids)
+    flops = 4 * hq * pairs * d
+    nbytes = (itemsize * d * (2 * hq * nq * batch + 2 * hkv * cols)
               + 4 * batch * hq * nq)
+    if segment_ids is not None:
+        nbytes += 4 * batch * (nq + nk)
     return flops, nbytes
 
 
@@ -342,7 +432,7 @@ def bwd_cost(batch, hq, hkv, nq, nk, d, causal, itemsize):
     and writing dq once; B3 recomputes S and dP and forms dK and dV (8 D
     FLOPs a pair), reading q, dO, k, v, LSE and delta once and writing
     dk and dv once."""
-    pairs = batch * hq * _visible_pairs(nq, nk, causal)
+    pairs = hq * _visible_counts(batch, nq, nk, causal)[0]
     stats = 8 * batch * hq * nq                  # fp32 LSE and delta
     dq = (6 * d * pairs,
           itemsize * batch * d * (2 * hq * nq + 2 * hkv * nk + hq * nq)
@@ -350,4 +440,3 @@ def bwd_cost(batch, hq, hkv, nq, nk, d, causal, itemsize):
     dkv = (8 * d * pairs,
            itemsize * batch * d * (2 * hq * nq + 4 * hkv * nk) + stats)
     return dq, dkv
-

@@ -1,5 +1,5 @@
 """Continuous-batching serving engine over the paged KV cache (port of
-`flash_attention_tpu/runtime/engine.py`, monolithic-prefill path).
+`flash_attention_tpu/runtime/engine.py`).
 
 Design (as in the JAX engine):
 
@@ -7,24 +7,43 @@ Design (as in the JAX engine):
     live sequence or a dead marker. One decode step advances every slot;
     dead slots carry length 0 and point their page tables at the
     reserved scratch page.
-  * Prefill runs per admitted request, right-padded to a power-of-two
-    bucket (>= 64) so the kernels see the same shapes as the JAX engine;
-    only the real prompt's KV is paged in. The first token samples from
-    the prefill logits. A request with n > 1 prefills once and forks
-    n - 1 branches that share its pages (copy-on-write at flush).
-  * Admission reserves worst-case pages (prompt + max_new_tokens) for
-    every live sequence, so a mid-flight extend can never fail;
-    infeasible requests come back as "rejected" completions.
+  * Monolithic prefill runs per admitted request, right-padded to a
+    power-of-two bucket (>= 64) so the kernels see the same shapes as
+    the JAX engine; only the real prompt's KV is paged in. The first
+    token samples from the prefill logits. A request with n > 1
+    prefills once and forks n - 1 branches that share its pages
+    (copy-on-write at flush).
+  * Chunked prefill (`prefill_chunk`): admitted prompts become
+    _PrefillTasks that advance one chunk per engine step, interleaved
+    with decode under a bounded decode-stall lease; queued tasks of one
+    shape advance in one batched dispatch (models/llama.py
+    `prefill_chunk_step`).
+  * Prefix cache (`prefix_cache`): full prompt pages are registered by
+    token chain hash at install and at finish; a prompt sharing a cached
+    page-aligned prefix reuses those pages and prefills only the suffix
+    through the chunked machinery.
+  * Sliding-window models (`cfg.window`) run the same stack: chunked
+    prefill keeps a fixed-width rolling KV buffer
+    (`prefill_window_chunk_step`, O(window) reads; cached pages seed the
+    buffer), decode passes per-sequence window starts to the paged
+    kernel, and pages below every window are evicted after each flush,
+    so a long sequence holds O(window) pages.
+  * Admission reserves worst-case pages (prompt + max_new_tokens; under
+    a window with the chunked stack, the windowed peak) for every live
+    sequence and task, so a mid-flight extend can never fail; infeasible
+    requests come back as "rejected" completions.
   * New tokens' KV goes to dense per-slot tails, flushed into pages in
     bulk before any tail would overflow. The page-table width of a
     decode step is bucketed to 8, 64 or max_pages.
 
 Features of the JAX engine that later slices port raise
-NotImplementedError here: chunked prefill, the prefix cache,
-speculative decoding and draft models, tensor-parallel serving (mesh),
-quantized KV pools and sliding-window models. MoE models serve through
-the same path (models/llama.py `_mlp_block`). The XLA warm-up
+NotImplementedError here: speculative decoding and draft models,
+tensor-parallel serving (mesh) and quantized KV pools. MoE models serve
+through the same path (models/llama.py `_mlp_block`). The XLA warm-up
 helpers (precompile_*) have no counterpart: PyTorch compiles nothing.
+One departure from the JAX engine: an explicit `prefill_hbm_budget`
+outside the windowed chunked configuration raises ValueError (the JAX
+engine ignores it).
 """
 
 from __future__ import annotations
@@ -42,7 +61,9 @@ from flash_attention_tpu_torch.config import cdiv, resolve_device
 from flash_attention_tpu_torch.models.llama import (
     LlamaConfig,
     decode_step_paged,
+    prefill_chunk_step,
     prefill_kv,
+    prefill_window_chunk_step,
 )
 from flash_attention_tpu_torch.models.sampling import apply_top_p, sample
 from flash_attention_tpu_torch.ops.paged import DEFAULT_PAGE_SIZE
@@ -90,16 +111,43 @@ class _Slot:
 
 
 @dataclasses.dataclass
+class _PrefillTask:
+    """In-flight chunked prefill: the prompt advances `chunk` tokens per
+    engine step while live decode slots keep decoding between chunks."""
+    request: Request
+    prompt: Any                       # np.int32 [T]
+    bucket: int                       # KV-buffer length
+    chunk: int                        # tokens per dispatch
+    done: int                         # tokens processed so far
+    k_bufs: Any                       # [L, 1, Hkv, bucket, D]
+    v_bufs: Any
+    logits: Any                       # last chunk's logits [1, vocab]
+    need_pages: int                   # admission reservation (all forks)
+    worst: int                        # branch-0 reservation
+    branch_worst: int
+    prefix_pages: tuple = ()          # cached pages reused (prefix cache)
+    windowed: bool = False            # k/v_bufs are a rolling window
+                                      # buffer (prefill_window_chunk_step):
+                                      # its content shifts by `chunk` per
+                                      # dispatch (padded_done tracks that)
+    padded_done: int = 0
+    first_token: int | None = None    # sampled with its finishing group
+
+
+@dataclasses.dataclass
 class EngineStats:
     prefill_tokens: int = 0
+    prefix_cached_tokens: int = 0     # prompt tokens served from cache
     decode_tokens: int = 0
     decode_steps: int = 0             # decode_step_paged calls
+    prefill_chunks: int = 0           # chunked-prefill dispatches
     engine_steps: int = 0
     rejected: int = 0
     peak_pages: int = 0
     prefill_s: float = 0.0
     decode_s: float = 0.0
-    flush_s: float = 0.0
+    admit_s: float = 0.0              # _try_admit (incl. prefix probes)
+    flush_s: float = 0.0              # tail flush + window eviction
     ttft_s: list = dataclasses.field(default_factory=list)
 
     @property
@@ -130,19 +178,17 @@ class Engine:
                  tail_size: int | None = None, kv_quant_dtype=None,
                  decode_chunk: int = 1, prefill_chunk: int | None = None,
                  prefix_cache: bool = False, speculative_k: int = 0,
-                 draft_fn=None, draft_params=None, draft_cfg=None,
-                 mesh=None, seed: int = 0, device="cuda"):
+                 max_decode_stall: int = 4, draft_fn=None,
+                 draft_params=None, draft_cfg=None,
+                 prefill_hbm_budget: int | None = None, mesh=None,
+                 seed: int = 0, device="cuda"):
         unported = [
-            (prefill_chunk is not None, "prefill_chunk",
-             "the chunked-prefill slice"),
-            (prefix_cache, "prefix_cache", "the prefix-cache slice"),
             (speculative_k or draft_fn is not None
              or draft_params is not None or draft_cfg is not None,
              "speculative_k / draft_*", "the speculative-decoding slice"),
             (mesh is not None, "mesh", "the multi-device slice"),
             (kv_quant_dtype is not None, "kv_quant_dtype",
              "the quantized-KV slice"),
-            (cfg.window is not None, "cfg.window", "the window slice"),
         ]
         for bad, what, slice_name in unported:
             if bad:
@@ -164,12 +210,67 @@ class Engine:
             dtype=cfg.dtype, device=self.device)
         self.slots: list[_Slot | None] = [None] * max_batch
         self.pending: collections.deque[Request] = collections.deque()
+        self.prefilling: collections.deque[_PrefillTask] = \
+            collections.deque()
         self.stats = EngineStats()
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
+        # Decode-stall lease (see step()): consecutive prefill-only steps
+        # allowed while live decode slots wait.
+        self.max_decode_stall = max(0, int(max_decode_stall))
+        self._decode_stalled = 0
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be >= 1")
+        self.prefill_chunk = prefill_chunk
+        self.prefix_cache = prefix_cache
+        # Prefix buffers are gathered in whole pages into power-of-two
+        # buckets: a non-power-of-two page could leave them short.
+        if prefix_cache and (page_size & (page_size - 1)):
+            raise ValueError(
+                f"prefix_cache requires a power-of-two page_size "
+                f"(got {page_size})")
         self.decode_chunk = max(1, decode_chunk)
         if self.decode_chunk >= self.cache.tail_size:
             raise ValueError("decode_chunk must be < tail_size")
+
+        # Sliding-window models: chunked prefill (and the prefix cache)
+        # use a rolling buffer of the window, rounded out for the
+        # page-aligned eviction base (stored KV at install may reach
+        # window + page_size - 1) and the final chunk's padding shift.
+        self._wbuf = None
+        if cfg.window is not None:
+            if cfg.window <= self.cache.tail_size:
+                raise ValueError(
+                    f"window={cfg.window} must exceed tail_size "
+                    f"({self.cache.tail_size})")
+            if prefill_chunk is not None or prefix_cache:
+                c = 1 << ((prefill_chunk or cfg.window).bit_length() - 1)
+                self._wchunk = min(c, cfg.window)
+                self._wbuf = (cdiv(cfg.window, page_size) * page_size
+                              + page_size + self._wchunk)
+                # Each in-flight windowed task holds two [L, 1, Hkv,
+                # wbuf, D] buffers until it installs; admission budgets
+                # their bytes (default 4 GiB; at least one task always
+                # admits).
+                itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+                self._wbuf_task_bytes = (
+                    2 * cfg.n_layers * cfg.n_kv_heads * self._wbuf
+                    * cfg.head_dim * itemsize)
+                if prefill_hbm_budget is None:
+                    prefill_hbm_budget = 4 << 30
+            peak = self.cache.pages_for(
+                cfg.window + page_size + self.cache.tail_size)
+            if peak > self.max_pages:
+                raise ValueError(
+                    f"max_seq_len {max_seq_len} gives a {self.max_pages}"
+                    f"-page table, smaller than the windowed live peak "
+                    f"({peak} pages); raise max_seq_len/num_pages")
+        if prefill_hbm_budget is not None and self._wbuf is None:
+            raise ValueError(
+                "prefill_hbm_budget bounds the rolling buffers of windowed "
+                "chunked prefill; it needs cfg.window and prefill_chunk "
+                "or prefix_cache")
+        self._prefill_hbm_budget = prefill_hbm_budget
 
     # --- scheduling -------------------------------------------------------
 
@@ -179,6 +280,16 @@ class Engine:
         self.pending.append(request)
         return request.request_id
 
+    def probe_prefix(self, prompt) -> int:
+        """How many prompt tokens the prefix cache would serve for this
+        prompt right now (pages are matched, then released at once)."""
+        if not self.prefix_cache:
+            return 0
+        pages, _ = self.cache.match_prefix(np.asarray(prompt, np.int32))
+        if pages:
+            self.cache.release_pages(pages)
+        return len(pages) * self.cache.page_size
+
     @property
     def num_active(self) -> int:
         return sum(s is not None for s in self.slots)
@@ -186,10 +297,19 @@ class Engine:
     def _reserved_pages(self) -> int:
         """Pages still owed to live sequences under worst-case growth:
         each slot's growth budget (forked branches exclude the shared
-        prompt pages) minus the growth it has already materialized."""
-        owed = 0
+        prompt pages) minus the growth it has already materialized.
+        In-flight chunked prefills hold their full reservation;
+        sliding-window slots account live pages (eviction bounds them
+        at worst_pages)."""
+        owed = sum(t.need_pages for t in self.prefilling)
         for s in self.slots:
             if s is None:
+                continue
+            if self.cfg.window is not None:
+                live = (self.cache.pages_for(
+                    max(self.cache.length(s.seq_id), 1))
+                    - self.cache.allocator.base(s.seq_id))
+                owed += max(0, s.worst_pages - live)
                 continue
             grown = (self.cache.pages_for(
                 max(self.cache.length(s.seq_id), 1))
@@ -200,19 +320,42 @@ class Engine:
             owed += max(0, budget - grown)
         return owed
 
+    def _promised_slots(self) -> int:
+        """Decode slots owed to in-flight chunked prefills."""
+        return sum(max(1, t.request.n) for t in self.prefilling)
+
+    def _zero_bufs(self, length: int):
+        shape = (self.cfg.n_layers, 1, self.cfg.n_kv_heads, length,
+                 self.cfg.head_dim)
+        return (torch.zeros(shape, dtype=self.cfg.dtype, device=self.device),
+                torch.zeros(shape, dtype=self.cfg.dtype, device=self.device))
+
     def _try_admit(self) -> list[Completion]:
         """FIFO admission into free slots, reserving worst-case pages.
         A request with n > 1 prefills ONCE and forks n - 1 times."""
         done = []
         total_usable = self.cache.num_pages - 1   # scratch page reserved
+        ps = self.cache.page_size
+        win = self.cfg.window
+        windowed_stack = win is not None and self._wbuf is not None
         while self.pending:
             req = self.pending[0]
             n = max(1, req.n)
             prompt = np.asarray(req.prompt, np.int32)
             t = len(prompt)
-            worst = self.cache.pages_for(t + req.max_new_tokens)
-            branch_worst = (worst - self.cache.pages_for(max(t, 1))) + 1
-            too_long = t + req.max_new_tokens > self.max_seq_len
+            if windowed_stack:
+                # The windowed install pages in ~window tokens and
+                # eviction bounds live pages, so the context length
+                # drops out of feasibility (O(window) admission).
+                peak = min(t + req.max_new_tokens,
+                           win + ps + self.cache.tail_size)
+                worst = self.cache.pages_for(peak)
+                branch_worst = worst + 1
+                too_long = False
+            else:
+                worst = self.cache.pages_for(t + req.max_new_tokens)
+                branch_worst = (worst - self.cache.pages_for(max(t, 1))) + 1
+                too_long = t + req.max_new_tokens > self.max_seq_len
             need = worst + (n - 1) * branch_worst
             if too_long or n > self.max_batch or need > total_usable:
                 self.pending.popleft()
@@ -227,11 +370,71 @@ class Engine:
                     request_id=req.request_id, prompt_len=t, tokens=[],
                     finish_reason="rejected", error=reason))
                 continue
+            # Prefix-cache probe (pages acquired; released on any
+            # admission failure below). Feasibility above ignored the
+            # discount: a request must fit a cold cache.
+            cached = []
+            if self.prefix_cache:
+                cached, _ = self.cache.match_prefix(prompt)
+                if windowed_stack:
+                    # Cached pages only seed the rolling buffer: cap them
+                    # at its page capacity.
+                    mcap = min(len(cached), self._wbuf // ps)
+                    if mcap < len(cached):
+                        self.cache.release_pages(cached[mcap:])
+                        cached = cached[:mcap]
+            m = len(cached)
+            if not windowed_stack:
+                need -= m
             free_slots = [i for i, s in enumerate(self.slots) if s is None]
-            if (len(free_slots) < n or self.cache.free_pages
-                    - self._reserved_pages() < need):
-                break                       # wait for slots/pages
+            wbuf_over = False
+            if (windowed_stack and self._prefill_hbm_budget is not None
+                    and (self.prefill_chunk is not None or m)):
+                inflight = sum(1 for p in self.prefilling if p.windowed)
+                wbuf_over = (inflight > 0 and
+                             (inflight + 1) * self._wbuf_task_bytes
+                             > self._prefill_hbm_budget)
+            if (len(free_slots) - self._promised_slots() < n
+                    or self.cache.free_pages - self._reserved_pages()
+                    < need or wbuf_over):
+                if cached:
+                    self.cache.release_pages(cached)
+                break                       # wait for slots/pages/memory
             self.pending.popleft()
+            task = dict(request=req, prompt=prompt, done=m * ps,
+                        logits=None, need_pages=need, worst=worst,
+                        branch_worst=branch_worst,
+                        prefix_pages=tuple(cached))
+            if windowed_stack and (self.prefill_chunk is not None or m):
+                wb = self._wbuf
+                if m:
+                    kg, vg = self.cache.gather_pages(cached, m * ps)
+                    kz, vz = self._zero_bufs(wb - m * ps)
+                    kb, vb = torch.cat([kz, kg], 3), torch.cat([vz, vg], 3)
+                    self.stats.prefix_cached_tokens += m * ps
+                else:
+                    kb, vb = self._zero_bufs(wb)
+                self.prefilling.append(_PrefillTask(
+                    bucket=wb, chunk=self._wchunk, k_bufs=kb, v_bufs=vb,
+                    windowed=True, padded_done=m * ps, **task))
+                continue
+            if self.prefill_chunk is not None or m:
+                tb = _bucket(t)
+                if m:
+                    kb, vb = self.cache.gather_pages(cached, tb)
+                    self.stats.prefix_cached_tokens += m * ps
+                else:
+                    kb, vb = self._zero_bufs(tb)
+                # A power-of-two chunk dividing the suffix span keeps
+                # every chunk's rows inside the bucket.
+                span = tb - m * ps
+                chunk = min(self.prefill_chunk or span, span)
+                chunk = 1 << (chunk.bit_length() - 1)
+                while span % chunk:
+                    chunk //= 2
+                self.prefilling.append(_PrefillTask(
+                    bucket=tb, chunk=chunk, k_bufs=kb, v_bufs=vb, **task))
+                continue
 
             tb = _bucket(t)
             padded = np.zeros((1, tb), np.int32)
@@ -245,27 +448,44 @@ class Engine:
             self.stats.prefill_s += time.perf_counter() - t0
             done.extend(self._install_sequences(
                 req, logits, ks[:, 0, :, :t], vs[:, 0, :, :t], t, worst,
-                branch_worst))
+                branch_worst, prompt=prompt))
         return done
 
     def _install_sequences(self, req, logits, ks, vs, t, worst,
-                           branch_worst) -> list[Completion]:
-        """Prompt KV is ready: page it in, fork n - 1 branches, fill
-        decode slots, sample + timestamp the first token."""
+                           branch_worst, prefix_pages=(), prompt=None,
+                           base_tokens=0, first_token=None
+                           ) -> list[Completion]:
+        """Prompt KV is ready: page it in (only the suffix past any
+        cached prefix pages), register its full pages with the prefix
+        cache, fork n - 1 branches, fill decode slots, sample and
+        timestamp the first token. `base_tokens` admits a sliding-window
+        sequence whose below-window front is already evicted (ks/vs then
+        hold positions [base_tokens, t))."""
         done = []
         n = max(1, req.n)
+        ps = self.cache.page_size
         free_slots = [i for i, s in enumerate(self.slots) if s is None]
-        sid = self.cache.add_sequence(ks, vs)
+        if prefix_pages:
+            start = len(prefix_pages) * ps
+            sid = self.cache.add_sequence_prefixed(
+                prefix_pages, ks[:, :, start:], vs[:, :, start:], t)
+        else:
+            sid = self.cache.add_sequence(ks, vs, base_tokens=base_tokens)
+        if self.prefix_cache and prompt is not None and not base_tokens:
+            self.cache.register_prefix(sid, np.asarray(prompt)[:t])
         sids = [sid] + [self.cache.fork_sequence(sid) for _ in range(n - 1)]
-        self.stats.prefill_tokens += t
+        self.stats.prefill_tokens += t - len(prefix_pages) * ps
         ttft = (time.perf_counter() - req.submit_ts
                 if req.submit_ts is not None else None)
         if ttft is not None:
             self.stats.ttft_s.append(ttft)
         for branch, (slot_idx, bsid) in enumerate(zip(free_slots, sids)):
-            first = int(sample(logits[:1], self._gen,
-                               temperature=req.temperature,
-                               top_p=req.top_p)[0])
+            if branch == 0 and first_token is not None:
+                first = first_token
+            else:
+                first = int(sample(logits[:1], self._gen,
+                                   temperature=req.temperature,
+                                   top_p=req.top_p)[0])
             slot = _Slot(request=req, seq_id=bsid, prompt_len=t, length=t,
                          tail=0, next_token=first, generated=[first],
                          branch=branch,
@@ -278,7 +498,109 @@ class Engine:
                 self.slots[slot_idx] = slot
         return done
 
-    def _maybe_finish(self, slot: _Slot) -> Completion | None:
+    def _step_prefill(self) -> list[Completion]:
+        """Advance chunked prefill by up to `prefill_chunk` real tokens of
+        dispatch this engine step; sequences whose final chunk lands
+        install into decode slots at once. Queued tasks sharing a
+        (windowed, bucket, chunk) shape advance as ONE batched dispatch
+        (the largest power-of-two FIFO group, each row at its own prefix
+        offset): a dispatch reads every weight once whatever its rows."""
+        done = []
+        # With chunked prefill off, tasks exist only through the prefix
+        # cache (one dispatch each, chunk = suffix span): drain them all.
+        budget = self.prefill_chunk or float("inf")
+        while self.prefilling and budget > 0:
+            head = self.prefilling[0]
+            key = (head.windowed, head.bucket, head.chunk)
+            group = [t for t in self.prefilling
+                     if (t.windowed, t.bucket, t.chunk) == key]
+            g = 1 << (len(group).bit_length() - 1)
+            group = group[:g]
+            c = head.chunk
+            chunk = np.zeros((g, c), np.int32)
+            starts = np.zeros(g, np.int32)
+            reals = np.zeros(g, np.int32)
+            for i, task in enumerate(group):
+                starts[i] = task.done
+                reals[i] = min(c, len(task.prompt) - task.done)
+                chunk[i, :reals[i]] = task.prompt[
+                    task.done:task.done + reals[i]]
+            if g == 1:
+                kb, vb = head.k_bufs, head.v_bufs
+            else:
+                kb = torch.cat([t.k_bufs for t in group], dim=1)
+                vb = torch.cat([t.v_bufs for t in group], dim=1)
+            fn = (prefill_window_chunk_step if head.windowed
+                  else prefill_chunk_step)
+            t0 = time.perf_counter()
+            # No per-chunk sync: chunk dispatches queue on the device;
+            # the first-token sample at install waits for them.
+            logits, kb, vb = fn(
+                self.params, torch.from_numpy(chunk).to(self.device),
+                self.cfg, kb, vb, torch.from_numpy(starts).to(self.device),
+                torch.from_numpy(reals).to(self.device))
+            self.stats.prefill_s += time.perf_counter() - t0
+            self.stats.prefill_chunks += 1
+            budget -= int(reals.max())
+            fin = []
+            for i, task in enumerate(group):
+                task.logits = logits[i:i + 1]
+                task.k_bufs = kb if g == 1 else kb[:, i:i + 1]
+                task.v_bufs = vb if g == 1 else vb[:, i:i + 1]
+                task.done = int(starts[i] + reals[i])
+                task.padded_done = int(starts[i]) + c
+                if task.done >= len(task.prompt):
+                    self.prefilling.remove(task)
+                    fin.append(task)
+            single = [t_ for t_ in fin if max(1, t_.request.n) == 1]
+            if len(single) > 1:
+                # One batched first-token sample and one readback for the
+                # whole finishing group.
+                temps = np.array([t_.request.temperature for t_ in single],
+                                 np.float32)
+                tps = np.array([t_.request.top_p for t_ in single],
+                               np.float32)
+                toks = self._sample_batch(
+                    torch.cat([t_.logits for t_ in single]), temps,
+                    tps).tolist()
+                for t_, tok in zip(single, toks):
+                    t_.first_token = int(tok)
+            for task in fin:
+                if task.windowed:
+                    done.extend(self._install_windowed(task))
+                    continue
+                t = len(task.prompt)
+                done.extend(self._install_sequences(
+                    task.request, task.logits, task.k_bufs[:, 0, :, :t],
+                    task.v_bufs[:, 0, :, :t], t, task.worst,
+                    task.branch_worst, prefix_pages=task.prefix_pages,
+                    prompt=task.prompt, first_token=task.first_token))
+        return done
+
+    def _install_windowed(self, task: _PrefillTask) -> list[Completion]:
+        """Windowed-prefill install: page in only positions >= the
+        page-aligned eviction base (older ones can never be attended
+        again) and admit the sequence with that base. Cached seed pages
+        were compute-only; release them."""
+        t = len(task.prompt)
+        ps = self.cache.page_size
+        base = max(0, ((t - self.cfg.window) // ps) * ps)
+        # Buffer column of absolute position p: p - padded_done + bucket.
+        off = task.bucket - task.padded_done
+        ks = task.k_bufs[:, 0, :, base + off: t + off]
+        vs = task.v_bufs[:, 0, :, base + off: t + off]
+        if task.prefix_pages:
+            self.cache.release_pages(task.prefix_pages)
+        out = self._install_sequences(
+            task.request, task.logits, ks, vs, t, task.worst,
+            task.branch_worst, prompt=task.prompt, base_tokens=base,
+            first_token=task.first_token)
+        # Cached seed tokens were never prefilled.
+        self.stats.prefill_tokens -= min(len(task.prefix_pages) * ps, t)
+        return out
+
+    def _maybe_finish(self, slot: _Slot,
+                      slot_idx: int | None = None) -> Completion | None:
         req = slot.request
         last = slot.generated[-1]
         if req.eos_id is not None and last == req.eos_id:
@@ -287,6 +609,27 @@ class Engine:
             reason = "length"
         else:
             return None
+        if self.prefix_cache:
+            # Register the full pages of prompt + fed generated tokens
+            # (the last sampled token never was fed), so a multi-turn
+            # prompt extending this transcript hits. Unflushed tail
+            # tokens that complete a new page are flushed first.
+            fed = np.concatenate([
+                np.asarray(req.prompt, np.int32),
+                np.asarray(slot.generated[:-1], np.int32)])
+            paged = max(self.cache.length(slot.seq_id), 0)
+            ps = self.cache.page_size
+            if (slot_idx is not None and slot.tail
+                    and (paged + slot.tail) // ps > paged // ps):
+                counts = [0] * self.max_batch
+                counts[slot_idx] = slot.tail
+                self.cache.flush_tails(
+                    [s.seq_id if s else -1 for s in self.slots], counts)
+                slot.tail = 0
+                paged = max(self.cache.length(slot.seq_id), 0)
+            n_full = min(len(fed), paged) // ps
+            if n_full:
+                self.cache.register_prefix(slot.seq_id, fed[:n_full * ps])
         self.cache.free_sequence(slot.seq_id)
         return Completion(
             request_id=req.request_id, prompt_len=slot.prompt_len,
@@ -313,14 +656,28 @@ class Engine:
     # --- engine step ------------------------------------------------------
 
     def step(self) -> list[Completion]:
-        """One engine iteration: admit, then `decode_chunk` decode steps
-        (sampled tokens feed the next step on the device; one host sync
-        per chunk), collect finished sequences."""
+        """One engine iteration: admit, advance chunked prefill, then
+        `decode_chunk` decode steps (sampled tokens feed the next step on
+        the device; one host sync per chunk), collect finished
+        sequences."""
+        t_step = time.perf_counter()
         done = self._try_admit()
+        self.stats.admit_s += time.perf_counter() - t_step
         used = self.cache.num_pages - self.cache.free_pages
         self.stats.peak_pages = max(self.stats.peak_pages, used)
+        done.extend(self._step_prefill())
         live = [i for i, s in enumerate(self.slots) if s is not None]
         self.stats.engine_steps += 1
+        # Prefill-priority batching under a bounded decode stall: while
+        # prompts are mid-prefill and the batch is not nearly full,
+        # prefer prefilling -- but after `max_decode_stall` consecutive
+        # prefill-only steps a decode step runs regardless.
+        near_full = self.max_batch - max(1, self.max_batch // 8)
+        if (self.prefilling and len(live) < near_full
+                and self._decode_stalled < self.max_decode_stall):
+            self._decode_stalled += 1
+            return done
+        self._decode_stalled = 0
         if not live:
             return done
 
@@ -335,6 +692,13 @@ class Engine:
             for s in self.slots:
                 if s is not None:
                     s.tail = 0
+            if self.cfg.window is not None:
+                # Pages entirely below the next query's window start
+                # can never be read again.
+                for i in live:
+                    sid = self.slots[i].seq_id
+                    self.cache.evict_below(
+                        sid, self.cache.length(sid) + 1 - self.cfg.window)
         self.stats.flush_s += time.perf_counter() - t_flush
 
         tokens = np.zeros(self.max_batch, np.int32)
@@ -388,7 +752,7 @@ class Engine:
                 s.next_token = tok_i
                 s.generated.append(tok_i)
                 accepted += 1
-                fin = self._maybe_finish(s)
+                fin = self._maybe_finish(s, slot_idx=i)
                 if fin is not None:
                     done.append(fin)
                     self.slots[i] = None
@@ -401,6 +765,6 @@ class Engine:
         for r in requests or []:
             self.submit(r)
         out = []
-        while self.pending or self.num_active:
+        while self.pending or self.prefilling or self.num_active:
             out.extend(self.step())
         return sorted(out, key=lambda c: (c.request_id, c.branch))

@@ -9,9 +9,20 @@ writes land harmlessly. New decode tokens go to dense per-slot tails
 ([max_seqs, Hkv, tail_size, D] per layer, written in place by the decode
 step) and move into pages in bulk (`flush_tails`). Torch updates the
 pools in place where the JAX version donates buffers.
+
+Prefix cache: full prompt pages are content-addressed by token chain
+hashes (`page_chain_hashes`, the JAX function's values) in the page
+allocator; `match_prefix` acquires the longest cached prefix,
+`gather_pages` turns cached pages into a dense prefill buffer and
+`add_sequence_prefixed` admits a sequence on them. Sliding-window
+serving evicts whole front pages (`evict_below`); such a sequence keeps
+its absolute length and a page-aligned base (`base_tokens`), and the
+kernel-facing state is in stored coordinates.
 """
 
 from __future__ import annotations
+
+import hashlib
 
 import numpy as np
 import torch
@@ -19,6 +30,23 @@ import torch
 from flash_attention_tpu_torch.config import cdiv, resolve_device
 from flash_attention_tpu_torch.ops.paged import DEFAULT_PAGE_SIZE
 from flash_attention_tpu_torch.runtime.allocator import make_allocator
+
+
+def page_chain_hashes(tokens, page_size: int):
+    """Chain hashes identifying each FULL page of a token sequence for
+    the allocator's prefix cache: hash(page_i) mixes page i's tokens
+    with hash(page_{i-1}), so equal hash <=> equal token PREFIX through
+    page i (not merely an equal page). uint64, 0 reserved as "none"."""
+    tokens = np.ascontiguousarray(np.asarray(tokens, np.int32))
+    out = []
+    prev = b""
+    for i in range(len(tokens) // page_size):
+        d = hashlib.blake2b(
+            prev + tokens[i * page_size:(i + 1) * page_size].tobytes(),
+            digest_size=8).digest()
+        prev = d
+        out.append(int.from_bytes(d, "little") or 1)
+    return np.asarray(out, np.uint64)
 
 
 class LayeredPagedKVCache:
@@ -68,16 +96,100 @@ class LayeredPagedKVCache:
         return torch.as_tensor(np.asarray(arr), dtype=torch.long).to(
             self.device, non_blocking=True)
 
-    def add_sequence(self, ks, vs) -> int:
-        """Admit a sequence with prefill K/V [L, Hkv, T, D]. Returns
-        seq_id; raises MemoryError when the pool/slots are exhausted."""
+    def add_sequence(self, ks, vs, base_tokens: int = 0) -> int:
+        """Admit a sequence with prefill K/V [L, Hkv, T, D]. With
+        `base_tokens` (page-aligned) its first base_tokens positions are
+        treated as already evicted (sliding-window admission: ks/vs hold
+        only positions [base_tokens, base_tokens + T)); length() stays
+        absolute. Returns seq_id; raises MemoryError when the pool/slots
+        are exhausted."""
+        if base_tokens % self.page_size:
+            raise ValueError("base_tokens must be page-aligned")
         t = ks.shape[2]
-        sid = self.allocator.alloc(max(t, 1))
+        sid = self.allocator.alloc(max(base_tokens + t, 1),
+                                   base_pages=base_tokens // self.page_size)
         if sid < 0:
             raise MemoryError("KV pool exhausted")
         if t:
-            self.write(sid, 0, ks, vs)
+            self.write(sid, base_tokens, ks, vs)
         return sid
+
+    # --- sliding-window eviction ---------------------------------------
+
+    def base_tokens(self, seq_id: int) -> int:
+        """Front-evicted tokens of seq (absolute positions below this
+        have no pages)."""
+        return self.allocator.base(seq_id) * self.page_size
+
+    def evict_below(self, seq_id: int, keep_from: int) -> int:
+        """Free whole front pages entirely below absolute position
+        `keep_from` (positions below the attention window can never be
+        read again), never past the paged length. Returns pages freed."""
+        target = max(keep_from, 0) // self.page_size
+        cur = self.allocator.base(seq_id)
+        limit = self.allocator.length(seq_id) // self.page_size
+        n = min(target, limit) - cur
+        if n > 0:
+            self.allocator.pop_front(seq_id, n)
+            return n
+        return 0
+
+    # --- prefix cache -------------------------------------------------
+
+    def add_sequence_prefixed(self, prefix_pages, ks, vs,
+                              total_len: int) -> int:
+        """Admit a sequence whose first len(prefix_pages) * page_size
+        tokens are already resident in cached pages (acquired with
+        match_prefix); ks/vs [L, Hkv, T_suffix, D] hold ONLY the suffix
+        KV, written after the prefix. Raises MemoryError and releases
+        the acquired pages on failure."""
+        sid = self.allocator.alloc_prefixed(max(total_len, 1),
+                                            list(prefix_pages))
+        if sid < 0:
+            self.allocator.cache_release(list(prefix_pages))
+            raise MemoryError("KV pool exhausted")
+        if ks is not None and ks.shape[2]:
+            self.write(sid, len(prefix_pages) * self.page_size, ks, vs)
+        return sid
+
+    def register_prefix(self, seq_id: int, tokens) -> int:
+        """Register the sequence's full pages under the token chain
+        hashes so later prompts sharing the prefix reuse their KV."""
+        hashes = page_chain_hashes(tokens, self.page_size)
+        if not len(hashes):
+            return 0
+        return self.allocator.cache_put(seq_id, hashes)
+
+    def match_prefix(self, tokens):
+        """(acquired_pages, hashes) for the longest cached prefix of
+        `tokens`, capped one page short of covering everything (at least
+        one suffix token must be prefilled to produce the first
+        logits)."""
+        hashes = page_chain_hashes(tokens, self.page_size)
+        cap = max((len(tokens) - 1) // self.page_size, 0)
+        if not cap:
+            return [], hashes
+        return list(self.allocator.cache_match(hashes[:cap])), hashes
+
+    @torch.no_grad()
+    def gather_pages(self, pages, out_len: int):
+        """Dense [L, 1, Hkv, out_len, D] K/V buffers holding the given
+        pages' tokens first, zero past them: the chunked-prefill prefix
+        buffer of a cached prompt (out_len >= len(pages) * page_size)."""
+        n = len(pages) * self.page_size
+        shape = (self.n_layers, 1, self.kv_heads, out_len, self.head_dim)
+        ks = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        vs = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        if pages:
+            idx = self._idx(list(pages))
+            for li in range(self.n_layers):
+                for pools, out in ((self.k_pools, ks), (self.v_pools, vs)):
+                    out[li, 0, :, :n] = pools[li][:, idx].reshape(
+                        self.kv_heads, n, self.head_dim)
+        return ks, vs
+
+    def release_pages(self, pages) -> None:
+        self.allocator.cache_release(list(pages))
 
     def fork_sequence(self, seq_id: int) -> int:
         """Fork: the new sequence shares every page (refcounted); page
@@ -116,6 +228,10 @@ class LayeredPagedKVCache:
         if self.allocator.length(seq_id) < start + t:
             if not self.allocator.extend(seq_id, start + t):
                 raise MemoryError("KV pool exhausted during write")
+        if start // self.page_size < self.allocator.base(seq_id):
+            raise ValueError(
+                f"write at {start} below evicted base "
+                f"({self.base_tokens(seq_id)})")
         table = self._abs_table(seq_id, start + t)
         pos = np.arange(start, start + t)
         page_ids = self._idx(table[pos // self.page_size])

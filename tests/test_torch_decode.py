@@ -80,8 +80,11 @@ def test_flash_decode_reference_and_cost():
 def test_unported_options_raise():
     q, k, v, lengths = _setup(4, 4, 2, 64)
     args = [torch.from_numpy(x) for x in (q, k, v, lengths)]
-    with pytest.raises(NotImplementedError, match="window"):
-        tdec.flash_decode(*args, window=16)
+    with pytest.raises(ValueError, match="window"):
+        tdec.flash_decode(*args, window=0)
+    windowed = tdec.flash_decode(*args, window=16)
+    assert max_abs_error(windowed, tdec.decode_reference(
+        *args, window=16)) <= ATOL
     i8 = args[1].to(torch.int8)
     with pytest.raises(NotImplementedError, match="quantized"):
         tdec.flash_decode(args[0], i8, i8, args[3])

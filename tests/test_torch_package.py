@@ -4,9 +4,11 @@
     package (AST walk over every .py file).
   * Entry points default to device="cuda"; on a host without a card that
     default raises instead of dropping to the CPU.
-  * Features that later slices port (engine options, attention options,
-    trainer families, expert-parallel MoE placements) raise
-    NotImplementedError instead of being accepted and ignored.
+  * Features that later slices port (engine options, the backward of
+    windowed or segmented attention, quantized KV, trainer families,
+    expert-parallel MoE placements) raise NotImplementedError instead of
+    being accepted and ignored; options the port rejects by design raise
+    ValueError.
 """
 
 import ast
@@ -74,28 +76,44 @@ def test_default_device_is_cuda_and_raises_without_a_card():
         Trainer(CFG, torch.optim.SGD)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(prefill_chunk=32), dict(prefix_cache=True),
-    dict(speculative_k=2), dict(draft_fn=lambda h, k: h[:k]),
-    dict(mesh=object()), dict(kv_quant_dtype=torch.int8),
-], ids=lambda kw: next(iter(kw)))
-def test_engine_unported_features_raise(kw):
+@pytest.mark.parametrize("kw, exc, match", [
+    (dict(speculative_k=2), NotImplementedError, "slice"),
+    (dict(draft_fn=lambda h, k: h[:k]), NotImplementedError, "slice"),
+    (dict(mesh=object()), NotImplementedError, "slice"),
+    (dict(kv_quant_dtype=torch.int8), NotImplementedError, "slice"),
+    (dict(kv_quant_dtype=torch.float8_e4m3fn), NotImplementedError,
+     "quantized-KV slice"),
+    (dict(prefill_hbm_budget=1 << 30, prefill_chunk=32), ValueError,
+     "prefill_hbm_budget"),
+], ids=["speculative_k", "draft_fn", "mesh", "kv_quant_dtype",
+        "kv_quant_dtype_fp8", "prefill_hbm_budget"])
+def test_engine_unported_features_raise(kw, exc, match):
+    """Chunked prefill and the prefix cache are ported; speculative
+    decoding, meshes and quantized KV raise; a rolling-buffer budget on
+    a model without a window is refused (the JAX engine ignores it)."""
     params = init_params(CFG, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(exc, match=match):
         Engine(params, CFG, num_pages=4, page_size=16, device="cpu", **kw)
+    Engine(params, CFG, num_pages=4, page_size=16, device="cpu",
+           prefill_chunk=32, prefix_cache=True)
 
 
 def test_unported_model_features_raise():
-    """Windowed models raise; MoE models serve (the MoE slice): an
-    Engine over a tiny_moe tree constructs on the CPU."""
+    """Windowed models serve (the window slice) unless the window does
+    not exceed the tail (ValueError, as the JAX engine); MoE models serve
+    (the MoE slice): Engines over both construct on the CPU."""
     from flash_attention_tpu_torch.models.moe import (
         MoEConfig, init_moe_params,
     )
 
     windowed = LlamaConfig.tiny(dtype=torch.float32, window=64)
     params = init_params(windowed, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="window"):
+    with pytest.raises(ValueError, match="window"):
         Engine(params, windowed, num_pages=4, page_size=16, device="cpu")
+    eng = Engine(params, windowed, num_pages=16, page_size=16,
+                 tail_size=8, prefill_chunk=16, prefix_cache=True,
+                 device="cpu")
+    assert eng._wbuf == 64 + 16 + 16
     moe = MoEConfig.tiny_moe(dtype=torch.float32, routing="dropless")
     eng = Engine(init_moe_params(moe, seed=0, device="cpu"), moe,
                  num_pages=4, page_size=16, device="cpu")
@@ -120,13 +138,27 @@ def test_moe_placements_raise(kw):
 
 
 def test_unported_attention_options_raise():
-    """Window, segment ids and quantized KV raise; the backward is ported
-    (B2/B3), so inputs that require grad get finite gradients."""
+    """Quantized KV and the backward of a windowed or segmented forward
+    raise; windows and segment ids run forward (with their argument
+    checks); the plain backward is ported (B2/B3), so inputs that require
+    grad get finite gradients."""
+    from flash_attention_tpu_torch.ops.flash import (
+        SegmentIds, flash_attention_bwd,
+    )
+
     q = torch.zeros(1, 2, 8, 64)
-    with pytest.raises(NotImplementedError):
-        flash_attention_fwd(q, q, q, causal=True, window=4)
-    with pytest.raises(NotImplementedError):
-        flash_attention_fwd(q, q, q, segment_ids=(0, 0))
+    seg = SegmentIds(torch.zeros(1, 8, dtype=torch.int32),
+                     torch.zeros(1, 8, dtype=torch.int32))
+    o, lse = flash_attention_fwd(q, q, q, seg, causal=True, window=4)
+    assert o.shape == q.shape and bool(torch.isfinite(lse).all())
+    with pytest.raises(ValueError, match="causal"):
+        flash_attention_fwd(q, q, q, window=4)
+    with pytest.raises(ValueError, match="segment id shapes"):
+        flash_attention_fwd(q, q, q, SegmentIds(seg.q[:, :4], seg.kv))
+    with pytest.raises(NotImplementedError, match="windowed-training"):
+        flash_attention_bwd(q, q, q, o, lse, q, causal=True, window=4)
+    with pytest.raises(NotImplementedError, match="windowed-training"):
+        flash_attention_bwd(q, q, q, o, lse, q, seg)
     with pytest.raises(NotImplementedError):
         flash_attention_fwd(q, q.to(torch.int8), q.to(torch.int8))
     gen = torch.Generator().manual_seed(0)
@@ -149,9 +181,9 @@ def test_trainer_unported_families_raise(kw, slice_name):
 
 
 def test_unported_decode_options_raise():
-    """B5's windowed and quantized-cache branches arrive with their
-    slices: the generate path raises on a windowed model, flash_decode
-    on an int8 / fp8 cache."""
+    """B5's quantized-cache branch arrives with its slice: flash_decode
+    raises on an int8 / fp8 cache. Its window branch is ported: the
+    generate path's decode_step runs on a windowed model."""
     from flash_attention_tpu_torch.models.llama import (
         decode_step, init_kv_cache,
     )
@@ -160,9 +192,11 @@ def test_unported_decode_options_raise():
     windowed = LlamaConfig.tiny(dtype=torch.float32, window=64)
     params = init_params(windowed, seed=0, device="cpu")
     cache = init_kv_cache(windowed, 1, 128, device="cpu")
-    lengths = torch.tensor([3], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="window slice"):
-        decode_step(params, torch.tensor([1]), windowed, cache, lengths)
+    lengths = torch.tensor([100], dtype=torch.int32)
+    logits, _, lengths = decode_step(params, torch.tensor([1]), windowed,
+                                     cache, lengths)
+    assert logits.shape == (1, windowed.vocab_size) and int(lengths) == 101
+    assert bool(torch.isfinite(logits).all())
     q = torch.zeros(1, 4, 64)
     for dt in (torch.int8, torch.float8_e5m2):
         kv = torch.zeros(1, 2, 128, 64, dtype=dt)

@@ -107,8 +107,12 @@ def test_paged_decode_reference_and_unported_options():
     out = tpaged.paged_flash_decode(*args)
     ref = tpaged.paged_decode_reference(*args)
     assert max_abs_error(out, ref) <= ATOL
-    with pytest.raises(NotImplementedError):
-        tpaged.paged_flash_decode(*args, window=4)
+    windowed = tpaged.paged_flash_decode(*args, window=4)
+    assert max_abs_error(windowed, tpaged.paged_decode_reference(
+        *args, window=4)) <= ATOL
+    assert max_abs_error(windowed, out) > 1e-3      # the window bites
+    with pytest.raises(ValueError, match="window"):
+        tpaged.paged_flash_decode(*args, window=0)
     with pytest.raises(NotImplementedError):
         tpaged.paged_flash_decode(*args, k_scales=args[1],
                                   v_scales=args[2])
