@@ -34,7 +34,19 @@ Phases, each fatal on failure:
              init_quantized_params: 16 greedy requests, exact launch
              counts, transcripts held to a teacher-forced forward on the
              dequantized weights; 8 profiled decode steps; the same
-             requests on bf16 weights as the cuBLAS yardstick;
+             requests on bf16 weights as the cuBLAS yardstick, then on
+             the same bf16 weights with int8 and with e4m3 KV pages (B4's
+             quantized branch at every decode step; the band widened by
+             the logit gap of a forward whose K/V go through
+             quantize_kv / dequantize_kv), KV bytes and B4's profiled
+             device time per step against the bf16-KV run; the
+             perplexity-delta gate (32 teacher-forced decode steps after
+             a 1024-token prefill through int8 / e4m3 pages against bf16
+             ones, |delta ppl| <= 0.05 max(ppl, 1)); and the
+             quantized-KV API: a 2048-token forward attending int8 K/V
+             through flash_attention_quantized (B1), each layer's last
+             row again through flash_decode (B5) and B4's fold_scales
+             body;
   8. generate sampling.generate on the int4 8B tree (B5 attention,
              exact launch counts, the same teacher-forced band);
   9. mixtral  the Engine on MoEConfig.mixtral_8x7b (dropless routing) at
@@ -58,8 +70,12 @@ Phases, each fatal on failure:
              transcript held to a teacher-forced forward with plain
              windowed attention, live pages of every windowed sequence
              within pages_for(window + page + tail) at every step, the
-             prefix-cache accounting exact; 8 profiled decode steps; then
-             sampling.generate on 4 x 5000-token prompts (B5's window).
+             prefix-cache accounting exact; 8 profiled decode steps; the
+             chunked run again on int8 KV pages (window starts over
+             quantized pools, the requantizing flush, the prefix cache
+             gathering through the scales, eviction of quantized pages)
+             with the widened band; then sampling.generate on 4 x
+             5000-token prompts (B5's window).
 The 1B serve phase also runs one prefill with FA_TPU_DENSE_PALLAS_MM=1
 (B8: exactly 7 launches per layer + 1, logits within the bf16 gate of
 the cuBLAS path) and serves its requests again with prefill_chunk=256
@@ -73,7 +89,16 @@ window and segment-id branches at Mistral's shapes: B1's chunk-prefix
 attention (segment ids), roll-buffer attention (offset, window, segment
 ids) and windowed self-attention, B4 with window starts and 1 or 4
 folded positions, B5 with a window (rows that see nothing must come
-back O = 0 with LSE = INIT_M * scale).
+back O = 0 with LSE = INIT_M * scale), and the int8 / e4m3 / e5m2
+branches: B4 at the 8B decode shape (and its int8 fold_scales body) and
+with window starts at Mistral's shape, B5 at the generate shape and
+windowed, B1 causal at T = 8192, each held to the fp32 reference over
+the dequantized K/V under the same 3x gate (O and LSE) and, row by row,
+to its bf16 plain version (error within 2^-5 of the row's max |O|, LSE
+within 1e-3), on caches whose 128-token blocks differ in scale by
+orders of magnitude; then the probe P2's
+bodies at its shape (batch 64, ctx 4096: bf16, int8, int8 fold_scales,
+int8 at pages of 512) beside their bounds.
 
 Prints information lines, then one JSON line describing the kernels,
 then the card's name and power limit, and last one JSON line
@@ -606,16 +631,21 @@ def dense_pallas_path(params, params32, cfg, cfg32, plain_attn) -> int:
     return launches
 
 
-def profile_decode(eng, prompts, request_cls,
-                   what: str = "decode steps") -> None:
+def profile_decode(eng, prompts, request_cls, what: str = "decode steps",
+                   new: int = 10) -> dict:
     """Where a decode step's time goes: torch.profiler over 8 engine
-    decode steps of the same 8 prompts (after their prefill), device
-    time by kernel and the device's busy share of the window."""
+    decode steps of the same prompts after their prefill (a chunked
+    engine steps until no prompt is left prefilling; `new` tokens per
+    request keep every slot live through the window), device time by
+    kernel and the device's busy share of the window. Returns device ms
+    per step by kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
     for p in prompts:
-        eng.submit(request_cls(prompt=p, max_new_tokens=10))
+        eng.submit(request_cls(prompt=p, max_new_tokens=new))
     eng.step()                      # admission + prefill + first decode
+    while eng.pending or eng.prefilling:
+        eng.step()
     torch.cuda.synchronize()
     steps = 8
     with profile(activities=[ProfilerActivity.CPU,
@@ -627,12 +657,13 @@ def profile_decode(eng, prompts, request_cls,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     eng.run()
-    report_profile(prof, wall, steps, what)
+    return report_profile(prof, wall, steps, what)
 
 
-def report_profile(prof, wall, steps, what) -> None:
+def report_profile(prof, wall, steps, what) -> dict:
     """Device time by kernel over a profiled window of `steps` steps and
-    the device's busy share of its wall time."""
+    the device's busy share of its wall time. Returns device ms per step
+    by kernel name (empty when the profiler saw no device time)."""
     rows = []
     for evt in prof.key_averages():
         # Kernel events only: CPU-side ops also carry the device time of
@@ -650,13 +681,24 @@ def report_profile(prof, wall, steps, what) -> None:
     busy_us = sum(r[0] for r in rows)
     if not rows:
         log("profile: the profiler recorded no device time (not measured)")
-        return
+        return {}
     log(f"profile: {steps} {what}, wall {wall * 1e3 / steps:.3f} "
         f"ms/step, device busy {busy_us / 1e3 / steps:.3f} ms/step = "
         f"{busy_us / 1e6 / wall:.3f} of wall")
     for dev_us, key, count in rows[:10]:
         log(f"profile:   {dev_us / 1e3 / steps:8.4f} ms/step  "
             f"{count // steps:5d} launches/step  {key[:90]}")
+    by_kernel = {}
+    for dev_us, key, _ in rows:
+        by_kernel[key] = by_kernel.get(key, 0.0) + dev_us / 1e3 / steps
+    by_kernel["busy"] = busy_us / 1e3 / steps
+    return by_kernel
+
+
+def kernel_ms(profile: dict, name: str) -> float | None:
+    """Device ms per step of the kernels whose name contains `name`."""
+    hits = [v for k, v in profile.items() if name in k]
+    return sum(hits) if hits else None
 
 
 # --- phase 7: serve 8B on quantized weights, generate ---------------------
@@ -676,10 +718,14 @@ def _counters() -> dict:
     return {"flash": (flash, "flash_fwd_launches"),
             "flash_seg": (flash, "flash_fwd_segment_launches"),
             "flash_win": (flash, "flash_fwd_window_launches"),
+            "flash_quant": (flash, "flash_fwd_quant_launches"),
             "paged": (paged, "paged_decode_launches"),
             "paged_win": (paged, "paged_decode_window_launches"),
+            "paged_quant": (paged, "paged_decode_quant_launches"),
+            "paged_fold": (paged, "paged_decode_fold_launches"),
             "decode": (decode, "decode_launches"),
             "decode_win": (decode, "decode_window_launches"),
+            "decode_quant": (decode, "decode_quant_launches"),
             "quant": (quant_matmul, "quant_matmul_launches"),
             "int4": (quant_matmul, "int4_matmul_launches"),
             "dense": (quant_matmul, "dense_matmul_launches"),
@@ -687,11 +733,13 @@ def _counters() -> dict:
 
 
 # The branch counters (each launch also counts in its kernel's total): B1
-# with segment ids, B1 with a window, B4 with window starts, B5 with a
-# window. Zero on every path that serves a model without a window or
-# chunked prefill.
-NO_BRANCHES = dict.fromkeys(("flash_seg", "flash_win", "paged_win",
-                             "decode_win"), 0)
+# with segment ids, with a window, over int8 / fp8 K/V; B4 with window
+# starts, over int8 / fp8 pools, with the fold_scales body; B5 with a
+# window, over int8 / fp8 caches. Zero on every path that serves a model
+# without a window, chunked prefill or quantized KV.
+NO_BRANCHES = dict.fromkeys(("flash_seg", "flash_win", "flash_quant",
+                             "paged_win", "paged_quant", "paged_fold",
+                             "decode_win", "decode_quant"), 0)
 
 
 def reset_counts() -> None:
@@ -705,7 +753,7 @@ def read_counts() -> dict:
 
 
 def teacher_forced(params, cfg, prompts, transcripts, what,
-                   mlp=None, attn=None) -> None:
+                   mlp=None, attn=None, kv_dtype=None) -> dict:
     """Hold greedy transcripts to a teacher-forced forward with plain
     attention on the dequantized weights (PR 1's band): e = max |bf16 -
     fp32| logit error of that forward over the generated positions; the
@@ -715,12 +763,20 @@ def teacher_forced(params, cfg, prompts, transcripts, what,
     runs alone (the plain attention of a 4600-token sequence holds 3 GB
     of fp32 scores). `mlp(layer, x, cfg)` replaces the FFN block (the
     plain MoE of the Mixtral phases); the router stays fp32. `attn(q, k,
-    v)` replaces the plain causal attention (the windowed phases)."""
+    v)` replaces the plain causal attention (the windowed phases). With
+    `kv_dtype` (a quantized-KV engine) a third, bf16 forward passes each
+    layer's K/V through quantize_kv / dequantize_kv in 128-token blocks
+    from position 0, as the engine's pages hold them; e_kv = max |that -
+    the bf16 forward| and the band is 4(e + e_kv). Returns e, e_kv and
+    the worst gap."""
     from flash_attention_tpu_torch.models.llama import (
         _attention_block, _mlp_block, rmsnorm,
     )
     from flash_attention_tpu_torch.models.quantized import (
         EXPERT_STACK_TYPES, QUANT_LEAF_TYPES,
+    )
+    from flash_attention_tpu_torch.ops.quant import (
+        QUANT_BLOCK, dequantize_kv, quantize_kv,
     )
     from flash_attention_tpu_torch.ops.reference import attention_reference
 
@@ -731,150 +787,337 @@ def teacher_forced(params, cfg, prompts, transcripts, what,
 
     plain_attn = attn or plain_attn
 
+    def qdq(x):
+        t = x.shape[2]
+        xp = torch.nn.functional.pad(x, (0, 0, 0, (-t) % QUANT_BLOCK))
+        return dequantize_kv(quantize_kv(xp, dtype=kv_dtype),
+                             x.dtype)[:, :, :t]
+
+    def kvq_attn(q, k, v):
+        return plain_attn(q, qdq(k), qdq(v))
+
     def dense(name, w, dtype):
         if isinstance(w, QUANT_LEAF_TYPES + EXPERT_STACK_TYPES):
             return w.dequant(dtype)
         return w if name == "router" else w.to(dtype)
 
-    dtypes = (torch.bfloat16, torch.float32)
+    variants = {"bf16": (torch.bfloat16, plain_attn),
+                "fp32": (torch.float32, plain_attn)}
+    if kv_dtype is not None:
+        variants["kvq"] = (torch.bfloat16, kvq_attn)
     dev = params["embed"].device
     seqs = [torch.tensor(list(p) + list(t[:-1]), device=dev)[None]
             for p, t in zip(prompts, transcripts)]
-    xs = {dt: [params["embed"][s].to(dt) for s in seqs] for dt in dtypes}
+    xs = {name: [params["embed"][s].to(dt) for s in seqs]
+          for name, (dt, _) in variants.items()}
     with torch.no_grad():
         for layer in params["layers"]:
-            for dt in dtypes:
+            for name, (dt, fn) in variants.items():
                 lay = {k: dense(k, w, dt) for k, w in layer.items()}
                 for i, s in enumerate(seqs):
                     pos = torch.arange(s.shape[1], dtype=torch.int32,
                                        device=dev)
-                    x = xs[dt][i]
-                    a, _ = _attention_block(lay, x, cfg, pos,
-                                            attn_impl=plain_attn)
+                    x = xs[name][i]
+                    a, _ = _attention_block(lay, x, cfg, pos, attn_impl=fn)
                     x = x + a
-                    xs[dt][i] = x + mlp(lay, x, cfg)
+                    xs[name][i] = x + mlp(lay, x, cfg)
                 del lay
         logits = {}
-        for dt in dtypes:
+        for name, (dt, _) in variants.items():
             head = dense("lm_head", params["lm_head"], dt)
             norm = params["final_norm"].to(dt)
-            logits[dt] = torch.stack([
+            logits[name] = torch.stack([
                 (rmsnorm(x[0, len(p) - 1:len(p) - 1 + len(t)], norm,
                          cfg.norm_eps) @ head).float()
-                for x, p, t in zip(xs[dt], prompts, transcripts)])
-    lg = logits[torch.bfloat16]
-    diff = (lg - logits[torch.float32]).abs()
+                for x, p, t in zip(xs[name], prompts, transcripts)])
+    lg = logits["bf16"]
+    diff = (lg - logits["fp32"]).abs()
     err = float(diff.max())
+    err_kv = (float((logits["kvq"] - lg).abs().max()) if kv_dtype is not None
+              else 0.0)
     chosen = torch.tensor([list(t) for t in transcripts], device=dev)
     gaps = (lg.amax(-1) - lg.gather(-1, chosen[..., None])[..., 0]).amax(-1)
     gaps = gaps.tolist()
-    agree = float((logits[torch.float32].argmax(-1) == chosen).float().mean())
-    delta = 4.0 * err
+    agree = float((logits["fp32"].argmax(-1) == chosen).float().mean())
+    delta = 4.0 * (err + err_kv)
     log(f"{what}: teacher-forced check: bf16 logit error e={err:.4f} "
-        f"(mean {float(diff.mean()):.4f}), delta=4e={delta:.4f}, worst "
-        f"chosen-token gap to the max logit per request "
+        f"(mean {float(diff.mean()):.4f})"
+        + (f", quantized-KV logit gap e_kv={err_kv:.4f}" if kv_dtype
+           is not None else "")
+        + f", delta={'4(e+e_kv)' if kv_dtype is not None else '4e'}="
+        f"{delta:.4f}, worst chosen-token gap to the max logit per request "
         f"{[round(g, 4) for g in gaps]}; chosen = fp32 argmax at "
         f"{agree:.3f} of positions (reported)")
     if not all(np.isfinite(gaps)) or max(gaps) > delta:
         raise AssertionError(f"{what}: a transcript left the "
                              f"teacher-forced band")
+    return dict(e=err, e_kv=err_kv, worst_gap=max(gaps))
 
 
-def serve_8b(kind: str) -> dict:
-    """Serve 16 greedy requests (prompts of 256-1100 tokens, 32 new
-    tokens each) on LlamaConfig.llama3_8b at full width and depth from
-    seeded random weights: "int4" and "int8" trees from
-    init_quantized_params (drawn on the card), or the "bf16" init_params
-    tree as the yardstick (decode tok/s and a profile only). For the
-    quantized trees, gate on exact B7 / B6 launches (7 per layer + the
-    lm_head per decode step and per prefill bucket of at most 1024 rows;
-    1 for the lm_head of a wider prefill), B1 / B4 as in the 1B phase,
-    and hold every transcript to the teacher-forced band. int4 also
-    profiles 8 decode steps and runs the generate phase."""
+KV_KINDS = {"int8": torch.int8, "e4m3": torch.float8_e4m3fn}
+ENGINE_8B = dict(max_batch=16, num_pages=96, page_size=256, tail_size=16)
+
+
+def kv_bytes(cache) -> dict:
+    """Bytes of the KV pages (codes), their scale pools, and what the
+    same pages take in bf16."""
+    codes = 2 * sum(t.numel() * t.element_size() for t in cache.k_pools)
+    scales = (0 if cache.k_scale_pools is None else
+              2 * sum(t.numel() * 4 for t in cache.k_scale_pools))
+    bf16 = 2 * sum(t.numel() * 2 for t in cache.k_pools)
+    return dict(codes=codes, scales=scales, bf16=bf16,
+                hbm_bytes=cache.hbm_bytes)
+
+
+def serve_8b(kind: str, params, cfg, kv=None) -> dict:
+    """Serve 16 greedy requests (prompts of 256-1100 tokens, 32 new tokens
+    each) on LlamaConfig.llama3_8b at full width and depth through
+    serve_stack: "int4" and "int8" weight trees from init_quantized_params
+    (drawn on the card), or "bf16" init_params weights, with bf16 KV or,
+    with `kv`, int8 / e4m3 KV pages. Gates: exact launch counts (B7 / B6
+    7 per layer + the lm_head per decode step and per prefill bucket of
+    at most 1024 rows, 1 for the lm_head of a wider prefill; B1 / B4 as
+    in the 1B phase; with quantized KV every B4 launch on its quantized
+    branch), every page back, and for quantized weights or KV the
+    teacher-forced band. Profiles 8 decode steps (except int8 weights);
+    int4 also runs the generate phase."""
+    from flash_attention_tpu_torch.runtime.engine import Request, _bucket
+
+    kv_name = {v: k for k, v in KV_KINDS.items()}.get(kv)
+    what = f"serve8b[{kind}" + (f", {kv_name} KV]" if kv else "]")
+    rng = np.random.default_rng(SEED + 4)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in PROMPT_LENS_8B]
+    n = cfg.n_layers
+    per = 7 * n + 1
+    small = sum(_bucket(k) <= 1024 for k in PROMPT_LENS_8B)
+
+    def counts(st):
+        want = dict(flash=n * len(prompts), paged=n * st.decode_steps)
+        if kind != "bf16":
+            mine = "int4" if kind == "int4" else "quant"
+            want[mine] = per * (st.decode_steps + small) \
+                + (len(prompts) - small)
+        if kv is not None:
+            want["paged_quant"] = n * st.decode_steps
+        return want
+
+    eng, run = serve_stack(what, params, cfg, [[(p, 32) for p in prompts]],
+                           dict(ENGINE_8B, kv_quant_dtype=kv), counts)
+    st = run["stats"]
+    out = dict(decode_tok_s=st.decode_tokens_per_s, prefill_s=st.prefill_s,
+               ttft=st.ttft_percentiles(), decode_steps=st.decode_steps,
+               launches=run["launches"], peak_bytes=run["peak_bytes"],
+               book_s=st.book_s)
+    if kv is not None:
+        out["kv_bytes"] = kv_bytes(eng.cache)
+        log(f"{what}: KV pages {out['kv_bytes']['codes']} bytes of codes + "
+            f"{out['kv_bytes']['scales']} bytes of scales, against "
+            f"{out['kv_bytes']['bf16']} bytes in bf16 (hbm_bytes, pages "
+            f"and tails without the scales: {out['kv_bytes']['hbm_bytes']})")
+    if kind != "bf16" or kv is not None:
+        out["band"] = teacher_forced(params, cfg, prompts,
+                                     run["transcripts"], what, kv_dtype=kv)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if kind != "int8":
+        prof = profile_decode(eng, prompts, Request, f"{what} decode steps")
+        out["b4_ms_per_step"] = kernel_ms(prof, "paged_decode_kernel")
+        out["busy_ms_per_step"] = prof.get("busy")
+    if kind == "int4":
+        out["generate"] = generate_8b(params, cfg, eng, Request)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ppl_delta_8b(params, cfg, kv) -> dict:
+    """The perplexity-delta gate (tests/test_quant_serving.py:110) at full
+    width: teacher-forced NLL of 32 decode steps after a 1024-token
+    prefill, through a LayeredPagedKVCache with `kv` pages against a
+    bf16 one (tail 16, flushed when full); |delta ppl| <= 0.05 max(ppl,
+    1). B4 runs once per layer per step, on its quantized branch for the
+    quantized cache. With random weights the logits are flat and the
+    perplexity near the vocabulary size."""
+    from flash_attention_tpu_torch.models.llama import (
+        decode_step_paged, prefill_kv,
+    )
+    from flash_attention_tpu_torch.runtime.kv_cache import LayeredPagedKVCache
+
+    t0, steps = 1024, 32
+    rng = np.random.default_rng(SEED + 11)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, t0 + steps + 1)
+                              ).cuda()
+    with torch.no_grad():
+        _, ks, vs = prefill_kv(params, tokens[None, :t0], cfg)
+    nll = {}
+    for name, dt in (("bf16", None), ("quant", kv)):
+        cache = LayeredPagedKVCache(
+            n_layers=cfg.n_layers, kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, num_pages=8, page_size=256, max_seqs=1,
+            tail_size=16, dtype=cfg.dtype, quant_dtype=dt)
+        sid = cache.add_sequence(ks[:, 0], vs[:, 0])
+        reset_counts()
+        out, tail = [], 0
+        for i in range(steps):
+            tables, lens = cache.batch_state([sid], 8)
+            logits, _, _ = decode_step_paged(
+                params, tokens[t0 + i:t0 + i + 1], cfg, cache.k_pools,
+                cache.v_pools, cache.k_tails, cache.v_tails, tables, lens,
+                torch.tensor([tail], dtype=torch.int32, device="cuda"),
+                k_scales=cache.k_scale_pools, v_scales=cache.v_scale_pools)
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            out.append(-logp[0, tokens[t0 + i + 1]])
+            tail += 1
+            if tail >= cache.tail_size:
+                cache.flush_tails([sid], [tail])
+                tail = 0
+        nll[name] = float(torch.stack(out).mean())
+        got = read_counts()
+        want = dict(got, **NO_BRANCHES, paged=cfg.n_layers * steps,
+                    flash=0, decode=0, quant=0, int4=0, dense=0, grouped=0)
+        want["paged_quant"] = cfg.n_layers * steps if dt else 0
+        if got != want:
+            raise AssertionError(f"ppl gate: launches {got}, want {want}")
+        del cache
+    ppl_d, ppl_q = math.exp(nll["bf16"]), math.exp(nll["quant"])
+    delta, limit = abs(ppl_q - ppl_d), 0.05 * max(ppl_d, 1.0)
+    kv_name = {v: k for k, v in KV_KINDS.items()}[kv]
+    log(f"ppl gate[{kv_name} KV]: llama3_8b, {steps} teacher-forced decode "
+        f"steps after a {t0}-token prefill: NLL bf16 KV {nll['bf16']:.5f} "
+        f"(ppl {ppl_d:.2f}), {kv_name} KV {nll['quant']:.5f} (ppl "
+        f"{ppl_q:.2f}); |delta ppl| {delta:.4f} <= {limit:.4f} (random "
+        f"weights: flat logits, ppl near the vocabulary size)")
+    if not delta <= limit:
+        raise AssertionError(f"ppl gate[{kv_name} KV] failed")
+    return dict(nll_bf16=nll["bf16"], nll_quant=nll["quant"], ppl_bf16=ppl_d,
+                ppl_quant=ppl_q, delta=delta, limit=limit)
+
+
+def quant_api_8b(params, cfg) -> dict:
+    """The quantized-KV attention API at full width and depth (no engine
+    path of the JAX package calls it): a 2048-token forward of the bf16
+    llama3_8b whose every layer attends over its K/V quantized to int8 by
+    quantize_kv, through flash_attention_quantized (B1's int8 branch);
+    each layer's last row is recomputed from the same QuantizedTensor
+    caches by flash_decode (B5's int8 branch) and from them as 8 pages of
+    256 by paged_flash_decode with fold_scales (B4's fold body). Gates:
+    exactly one launch of each per layer; the three last rows within
+    0.05 of each other; the logits finite and within 1.0 of the plain
+    forward on the dequantized K/V (a sanity bound: both are bf16). So
+    this phase gates launch counts and the kernels' agreement with each
+    other; each kernel is held to its plain version in phase 2."""
+    from flash_attention_tpu_torch.models.llama import forward
+    from flash_attention_tpu_torch.ops.decode import flash_decode
+    from flash_attention_tpu_torch.ops.flash import flash_attention_quantized
+    from flash_attention_tpu_torch.ops.paged import paged_flash_decode
+    from flash_attention_tpu_torch.ops.quant import dequantize_kv, quantize_kv
+    from flash_attention_tpu_torch.ops.reference import attention_reference
+
+    t = 2048
+    rng = np.random.default_rng(SEED + 12)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, t))).cuda()
+    last_gap = []
+
+    ps = 256
+    table = torch.arange(t // ps, dtype=torch.int32, device="cuda")[None]
+    lengths = torch.full((1,), t, dtype=torch.int32, device="cuda")
+
+    def pages(qt):
+        """A [1, Hkv, T, D] QuantizedTensor as pools of T / ps pages in
+        order (codes [Hkv, T/ps, ps, D], scales [Hkv, T/ps, ps/128, D])."""
+        _, hkv, _, d = qt.shape
+        return (qt.values[0].reshape(hkv, t // ps, ps, d),
+                qt.scales[0].reshape(hkv, t // ps, ps // 128, d))
+
+    def quant_attn(q, k, v):
+        kq, vq = quantize_kv(k), quantize_kv(v)
+        o = flash_attention_quantized(q, kq, vq, causal=True)
+        ql = q[:, :, -1].contiguous()
+        o5 = flash_decode(ql, kq, vq, lengths)
+        (kp, ks), (vp, vs) = pages(kq), pages(vq)
+        o4 = paged_flash_decode(ql, kp, vp, table, lengths, k_scales=ks,
+                                v_scales=vs, fold_scales=True)
+        last_gap.append(max(max_abs(o5, o[:, :, -1]), max_abs(o4, o5)))
+        return o
+
+    def plain_qdq(q, k, v):
+        return attention_reference(q, dequantize_kv(quantize_kv(k)),
+                                   dequantize_kv(quantize_kv(v)),
+                                   causal=True)
+
+    reset_counts()
+    with torch.no_grad():
+        lg = forward(params, tokens, cfg, attn_impl=quant_attn)[0].float()
+    torch.cuda.synchronize()
+    got = read_counts()
+    n = cfg.n_layers
+    want = dict(got, **NO_BRANCHES)
+    want.update(flash=n, flash_quant=n, decode=n, decode_quant=n, paged=n,
+                paged_quant=n, paged_fold=n, quant=0, int4=0, dense=0,
+                grouped=0)
+    with torch.no_grad():
+        ref = forward(params, tokens, cfg, attn_impl=plain_qdq)[0].float()
+    err = float((lg - ref).abs().max())
+    log(f"quant_api[8b int8 KV]: forward T={t}: launches {got} (want "
+        f"{want}); last row of B5 vs B1 and of B4 fold_scales (the cache as "
+        f"{t // ps} pages of {ps}) vs B5, max |diff| {max(last_gap):.3e}; "
+        f"logits "
+        f"vs the plain forward on the dequantized K/V max |diff| {err:.4f}")
+    if got != want or max(last_gap) > 0.05 or not math.isfinite(err) \
+            or err > 1.0:
+        raise AssertionError("quant_api: launch counts or outputs off")
+    return dict(launches=got, b5_vs_b1=max(last_gap), logit_err=err)
+
+
+def serve_8b_phase() -> dict:
+    """Phase 7: llama3_8b on int4 and int8 weights, then on bf16 weights
+    with bf16 KV (the yardstick), int8 KV and e4m3 KV, the perplexity-
+    delta gate for both KV storages and the quantized-KV API drive."""
     from flash_attention_tpu_torch.models.llama import (
         LlamaConfig, init_params,
     )
     from flash_attention_tpu_torch.models.quantized import (
         init_quantized_params, logical_param_count, params_nbytes,
     )
-    from flash_attention_tpu_torch.runtime.engine import (
-        Engine, Request, _bucket,
-    )
 
     cfg = LlamaConfig.llama3_8b(dtype=torch.bfloat16)
-    what = f"serve8b[{kind}]"
-    t0 = time.perf_counter()
-    if kind == "bf16":
-        params = init_params(cfg, seed=SEED)
-    else:
-        params = init_quantized_params(
-            cfg, SEED, "int4" if kind == "int4" else torch.int8)
-    torch.cuda.synchronize()
-    log(f"{what}: llama3_8b ({cfg.n_layers} layers, dim {cfg.dim}, "
-        f"{cfg.n_heads}q/{cfg.n_kv_heads}kv x {cfg.head_dim}, ffn "
-        f"{cfg.ffn_dim}, vocab {cfg.vocab_size}) "
-        f"{logical_param_count(params) / 1e9:.3f} B logical params, "
-        f"{params_nbytes(params) / 1e9:.3f} GB of weights, seed {SEED}, "
-        f"built on the card in {time.perf_counter() - t0:.2f} s")
-    eng = Engine(params, cfg, max_batch=16, num_pages=96, page_size=256,
-                 tail_size=16, seed=SEED)
-    eng.run([Request(prompt=[1, 2, 3], max_new_tokens=2)])    # warm-up
-    torch.cuda.synchronize()
-
-    rng = np.random.default_rng(SEED + 4)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
-               for n in PROMPT_LENS_8B]
-    reqs = [Request(prompt=p, max_new_tokens=32) for p in prompts]
-    eng.stats = type(eng.stats)()
-    reset_counts()
-    t0 = time.perf_counter()
-    comps = eng.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    got = read_counts()
-    st = eng.stats
-    log(f"{what}: {len(comps)} completions in {wall:.3f} s; prefill "
-        f"{st.prefill_tokens} tokens in {st.prefill_s:.4f} s; decode "
-        f"{st.decode_tokens} tokens in {st.decode_steps} steps, "
-        f"{st.decode_s:.4f} s = {st.decode_tokens_per_s:.1f} tok/s; "
-        f"ttft {st.ttft_percentiles()}; launches {got}")
-    out = dict(decode_tok_s=st.decode_tokens_per_s, prefill_s=st.prefill_s,
-               ttft=st.ttft_percentiles(), decode_steps=st.decode_steps,
-               launches=got)
-    if sorted(c.request_id for c in comps) != sorted(
-            r.request_id for r in reqs) or any(
-            len(c.tokens) != 32 or c.finish_reason != "length"
-            for c in comps):
-        raise AssertionError(f"{what}: incomplete transcripts")
-    if kind != "bf16":
-        per = 7 * cfg.n_layers + 1
-        small = sum(_bucket(n) <= 1024 for n in PROMPT_LENS_8B)
-        want = per * (st.decode_steps + small) + (len(reqs) - small)
-        mine, other = (("int4", "quant") if kind == "int4"
-                       else ("quant", "int4"))
-        want_all = dict(got, **NO_BRANCHES,
-                        **{mine: want, other: 0, "dense": 0,
-                           "decode": 0, "grouped": 0,
-                           "flash": cfg.n_layers * len(reqs),
-                           "paged": cfg.n_layers * st.decode_steps})
-        log(f"{what}: want launches {want_all} ({per} per decode step and "
-            f"per prefill of at most 1024 rows: {small} prefills, "
-            f"{st.decode_steps} steps; 1 per wider prefill)")
-        if got != want_all or st.decode_steps == 0:
-            raise AssertionError(f"{what}: kernel launch counts off the "
-                                 f"serving path")
-        by_id = {c.request_id: c for c in comps}
-        teacher_forced(params, cfg, prompts,
-                       [by_id[r.request_id].tokens for r in reqs], what)
-    gc.collect()
-    torch.cuda.empty_cache()
-    if kind != "int8":
-        profile_decode(eng, prompts, Request, f"{kind} 8B decode steps")
-    if kind == "int4":
-        out["generate"] = generate_8b(params, cfg, eng, Request)
-    del eng, params
-    gc.collect()
-    torch.cuda.empty_cache()
+    out = {}
+    for kind in ("int4", "int8", "bf16"):
+        t0 = time.perf_counter()
+        if kind == "bf16":
+            params = init_params(cfg, seed=SEED)
+        else:
+            params = init_quantized_params(
+                cfg, SEED, "int4" if kind == "int4" else torch.int8)
+        torch.cuda.synchronize()
+        log(f"serve8b[{kind}]: llama3_8b ({cfg.n_layers} layers, dim "
+            f"{cfg.dim}, {cfg.n_heads}q/{cfg.n_kv_heads}kv x {cfg.head_dim}, "
+            f"ffn {cfg.ffn_dim}, vocab {cfg.vocab_size}) "
+            f"{logical_param_count(params) / 1e9:.3f} B logical params, "
+            f"{params_nbytes(params) / 1e9:.3f} GB of weights, seed {SEED}, "
+            f"built on the card in {time.perf_counter() - t0:.2f} s")
+        out[kind] = serve_8b(kind, params, cfg)
+        if kind == "bf16":
+            for name, dt in KV_KINDS.items():
+                out[f"kv_{name}"] = serve_8b(kind, params, cfg, kv=dt)
+            out["ppl"] = {name: ppl_delta_8b(params, cfg, dt)
+                          for name, dt in KV_KINDS.items()}
+            out["quant_api"] = quant_api_8b(params, cfg)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    b4 = {k: out[k].get("b4_ms_per_step") for k in ("bf16", "kv_int8",
+                                                     "kv_e4m3")}
+    log(f"serve8b: decode tok/s at batch 16 -- int4 "
+        f"{out['int4']['decode_tok_s']:.1f}, int8 "
+        f"{out['int8']['decode_tok_s']:.1f}, bf16 (cuBLAS yardstick) "
+        f"{out['bf16']['decode_tok_s']:.1f}, bf16 with int8 KV "
+        f"{out['kv_int8']['decode_tok_s']:.1f}, with e4m3 KV "
+        f"{out['kv_e4m3']['decode_tok_s']:.1f}; B4 device ms per decode "
+        f"step (profiled) bf16 / int8 / e4m3 KV {b4}; peak memory GiB "
+        f"{ {k: round(out[k]['peak_bytes'] / 2**30, 2) for k in ('bf16', 'kv_int8', 'kv_e4m3')} }")
     return out
 
 
@@ -980,81 +1223,56 @@ def crossover(layer, cfg) -> list:
 
 def serve_mixtral(kind, params, cfg, forced=False) -> dict:
     """Serve 8 greedy requests (prompts of 300-4600 tokens, 32 new tokens
-    each) on a Mixtral tree with the Engine (max_batch 8, pages of 256,
-    tail 16); `forced` sets FA_TPU_GROUPED_MIN_TOKENS=1 for the run (the
-    grouped path at every dispatch, decode included). Gates: exact
-    launch counts of B9, B7 / B6, B1 and B4 worked out from the code, and
-    every transcript inside the teacher-forced band (plain attention,
-    plain dropless MoE, weights dequantized one layer at a time).
-    Profiles 8 decode steps. Returns the run's numbers."""
+    each) on a Mixtral tree through serve_stack (max_batch 8, pages of
+    256, tail 16); `forced` sets FA_TPU_GROUPED_MIN_TOKENS=1 for the run
+    (the grouped path at every dispatch, decode included). Gates: exact
+    launch counts of B9, B7 / B6, B1 and B4 worked out from the code,
+    every page back, and every transcript inside the teacher-forced band
+    (plain attention, plain dropless MoE, weights dequantized one layer
+    at a time). Profiles 8 decode steps. Returns the run's numbers."""
     import os
 
     from flash_attention_tpu_torch.models.moe import dropless_dispatch_path
-    from flash_attention_tpu_torch.runtime.engine import (
-        Engine, Request, _bucket,
-    )
+    from flash_attention_tpu_torch.runtime.engine import Request, _bucket
 
     what = f"serve_mixtral[{kind}{' forced' if forced else ''}]"
-    if forced:
-        os.environ["FA_TPU_GROUPED_MIN_TOKENS"] = "1"
-    try:
-        eng = Engine(params, cfg, max_batch=8, num_pages=96, page_size=256,
-                     tail_size=16, seed=SEED)
-        eng.run([Request(prompt=[1, 2, 3], max_new_tokens=2)])  # warm-up
-        torch.cuda.synchronize()
-        rng = np.random.default_rng(SEED + 6)
-        prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
-                   for n in PROMPT_LENS_MIXTRAL]
-        reqs = [Request(prompt=p, max_new_tokens=32) for p in prompts]
-        eng.stats = type(eng.stats)()
-        reset_counts()
-        t0 = time.perf_counter()
-        comps = eng.run(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        got = read_counts()
-        st = eng.stats
-        # The profile below runs more steps on this engine's stats.
-        out = dict(decode_tok_s=st.decode_tokens_per_s,
-                   prefill_s=st.prefill_s, ttft=st.ttft_percentiles(),
-                   decode_steps=st.decode_steps, launches=got)
-        buckets = [_bucket(n) for n in PROMPT_LENS_MIXTRAL]
+    rng = np.random.default_rng(SEED + 6)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in PROMPT_LENS_MIXTRAL]
+    engine_kw = dict(max_batch=8, num_pages=96, page_size=256, tail_size=16)
+    n = cfg.n_layers
+    per = 4 * n + 1          # wq, wk, wv, wo per layer + the lm_head
+    buckets = [_bucket(k) for k in PROMPT_LENS_MIXTRAL]
+    small = sum(b <= 1024 for b in buckets)
+
+    def counts(st):
+        # Read inside the run: the dispatch threshold follows the env.
         grouped_prefills = sum(dropless_dispatch_path(b) == "grouped"
                                for b in buckets)
         grouped_steps = (st.decode_steps if dropless_dispatch_path(
-            eng.max_batch) == "grouped" else 0)
-        log(f"{what}: {len(comps)} completions in {wall:.3f} s; prefill "
-            f"{st.prefill_tokens} tokens in {st.prefill_s:.4f} s; decode "
-            f"{st.decode_tokens} tokens in {st.decode_steps} steps, "
-            f"{st.decode_s:.4f} s = {st.decode_tokens_per_s:.1f} tok/s; "
-            f"ttft {st.ttft_percentiles()}; launches {got}")
-        if sorted(c.request_id for c in comps) != sorted(
-                r.request_id for r in reqs) or any(
-                len(c.tokens) != 32 or c.finish_reason != "length"
-                for c in comps):
-            raise AssertionError(f"{what}: incomplete transcripts")
-        n = cfg.n_layers
-        per = 4 * n + 1          # wq, wk, wv, wo per layer + the lm_head
-        small = sum(b <= 1024 for b in buckets)
-        want_q = per * (st.decode_steps + small) + (len(reqs) - small)
-        quant = {"int4": ("int4", "quant"), "int8": ("quant", "int4")}
-        mine, other = quant.get(kind, ("quant", "int4"))
-        want = dict(got, **NO_BRANCHES,
-                    **{mine: want_q if kind in quant else 0, other: 0,
-                            "dense": 0, "decode": 0,
-                            "grouped": 3 * n * (grouped_prefills
-                                                + grouped_steps),
-                            "flash": n * len(reqs),
-                            "paged": n * st.decode_steps})
-        log(f"{what}: want launches {want} (B9 3 per MoE layer per grouped "
-            f"dispatch: {grouped_prefills} prefills, {grouped_steps} decode "
-            f"steps; B7/B6 {per} per decode step and per prefill of at most "
-            f"1024 rows ({small}), 1 per wider prefill)")
-        if got != want or st.decode_steps == 0:
-            raise AssertionError(f"{what}: kernel launch counts off the "
-                                 f"serving path")
-        by_id = {c.request_id: c for c in comps}
-        out["transcripts"] = [by_id[r.request_id].tokens for r in reqs]
+            engine_kw["max_batch"]) == "grouped" else 0)
+        want = dict(flash=n * len(prompts), paged=n * st.decode_steps,
+                    grouped=3 * n * (grouped_prefills + grouped_steps))
+        if kind in ("int4", "int8"):
+            want["int4" if kind == "int4" else "quant"] = \
+                per * (st.decode_steps + small) + (len(prompts) - small)
+        log(f"{what}: B9 3 per MoE layer per grouped dispatch: "
+            f"{grouped_prefills} prefills, {grouped_steps} decode steps; "
+            f"B7/B6 {per} per decode step and per prefill of at most 1024 "
+            f"rows ({small}), 1 per wider prefill")
+        return want
+
+    if forced:
+        os.environ["FA_TPU_GROUPED_MIN_TOKENS"] = "1"
+    try:
+        eng, run = serve_stack(what, params, cfg,
+                               [[(p, 32) for p in prompts]], engine_kw,
+                               counts)
+        st = run["stats"]
+        out = dict(decode_tok_s=st.decode_tokens_per_s,
+                   prefill_s=st.prefill_s, ttft=st.ttft_percentiles(),
+                   decode_steps=st.decode_steps, launches=run["launches"],
+                   transcripts=run["transcripts"])
         teacher_forced(params, cfg, prompts, out["transcripts"], what,
                        mlp=moe_mlp_plain)
         gc.collect()
@@ -1308,9 +1526,54 @@ def mistral() -> dict:
                         paged_win=n * st.decode_steps),
         poll=live_page_poll(chunk_peaks))
     profile_chunked_prefill(eng_c, prompts[0], Request)
+    gc.collect()
+    torch.cuda.empty_cache()
+    prof = profile_decode(eng_c, prompts, Request,
+                          "mistral[chunked] decode steps", new=48)
+    chunked["b4_ms_per_step"] = kernel_ms(prof, "paged_decode_kernel")
     del eng_c
+    gc.collect()
+    torch.cuda.empty_cache()
+    quant_peaks = []
+    eng_q, chunked_q = serve_stack(
+        f"mistral[int8 KV, chunked {MISTRAL_CHUNK} + prefix cache]", params,
+        cfg, waves, dict(base_kw, prefill_chunk=MISTRAL_CHUNK,
+                         prefix_cache=True, kv_quant_dtype=torch.int8),
+        lambda st: dict(flash=2 * n * st.prefill_chunks,
+                        flash_win=2 * n * st.prefill_chunks,
+                        flash_seg=n * st.prefill_chunks,
+                        paged=n * st.decode_steps,
+                        paged_win=n * st.decode_steps,
+                        paged_quant=n * st.decode_steps),
+        poll=live_page_poll(quant_peaks))
+    chunked_q["kv_bytes"] = kv_bytes(eng_q.cache)
+    log(f"mistral[int8 KV]: KV pages {chunked_q['kv_bytes']['codes']} bytes "
+        f"of codes + {chunked_q['kv_bytes']['scales']} bytes of scales, "
+        f"against {chunked_q['kv_bytes']['bf16']} bytes in bf16")
+    sq = chunked_q["stats"]
     bound = eng_m.cache.pages_for(cfg.window + eng_m.cache.page_size
                                   + eng_m.cache.tail_size)
+    if max(quant_peaks) > bound or not (
+            sq.prefix_cached_tokens > 0 and sq.prefill_tokens
+            == sum(len(p_) for p_ in prompts) - sq.prefix_cached_tokens):
+        raise AssertionError("mistral[int8 KV]: live pages or prefix-cache "
+                             "accounting off")
+    log(f"mistral[int8 KV]: live pages max {max(quant_peaks)} (bound "
+        f"{bound}); prefix cache {sq.prefix_cached_tokens} tokens; decode "
+        f"{sq.decode_tokens_per_s:.1f} tok/s; ttft "
+        f"{sq.ttft_percentiles()}")
+    attn_w = windowed_plain_attn(cfg.window)
+    chunked_q["band"] = teacher_forced(
+        params, cfg, prompts, chunked_q["transcripts"], "mistral[int8 KV]",
+        attn=attn_w, kv_dtype=torch.int8)
+    gc.collect()
+    torch.cuda.empty_cache()
+    prof = profile_decode(eng_q, prompts, Request,
+                          "mistral[int8 KV] decode steps", new=48)
+    chunked_q["b4_ms_per_step"] = kernel_ms(prof, "paged_decode_kernel")
+    del eng_q
+    gc.collect()
+    torch.cuda.empty_cache()
     sm, sc = mono["stats"], chunked["stats"]
     log(f"mistral: live pages per windowed sequence (bound {bound} = "
         f"pages_for(window + page + tail)): chunked max {max(chunk_peaks)} "
@@ -1337,12 +1600,18 @@ def mistral() -> dict:
     for run in (mono, chunked):
         for p, t in zip(prompts, run["transcripts"]):
             pairs.setdefault((tuple(p), tuple(t)), (p, t))
-    attn = windowed_plain_attn(cfg.window)
+    attn = attn_w
     teacher_forced(params, cfg, [p for p, _ in pairs.values()],
                    [t for _, t in pairs.values()], "mistral", attn=attn)
     gc.collect()
     torch.cuda.empty_cache()
-    profile_decode(eng_m, prompts, Request, "mistral decode steps")
+    prof = profile_decode(eng_m, prompts, Request, "mistral decode steps")
+    mono["b4_ms_per_step"] = kernel_ms(prof, "paged_decode_kernel")
+    log(f"mistral: B4 device ms per decode step (profiled, chunked + "
+        f"prefix cache, the same requests and new=48) bf16 KV "
+        f"{chunked['b4_ms_per_step']}, int8 KV "
+        f"{chunked_q['b4_ms_per_step']}; monolithic bf16 KV (new=10) "
+        f"{mono['b4_ms_per_step']}")
     del eng_m
     gc.collect()
     torch.cuda.empty_cache()
@@ -1350,8 +1619,8 @@ def mistral() -> dict:
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(monolithic=mono, chunked=chunked, equal=same,
-                generate=gen, chunk_peak_pages=max(chunk_peaks),
+    return dict(monolithic=mono, chunked=chunked, chunked_int8=chunked_q,
+                equal=same, generate=gen, chunk_peak_pages=max(chunk_peaks),
                 mono_peak_pages=max(mono_peaks))
 
 
@@ -1395,10 +1664,11 @@ def generate_windowed(params, cfg, attn) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = read_counts()
-    want = dict(got, decode=cfg.n_layers * (new - 1),
+    want = dict(got, **NO_BRANCHES)
+    want.update(decode=cfg.n_layers * (new - 1),
                 decode_win=cfg.n_layers * (new - 1), flash=cfg.n_layers,
-                flash_win=cfg.n_layers, flash_seg=0, paged=0, paged_win=0,
-                quant=0, int4=0, dense=0, grouped=0)
+                flash_win=cfg.n_layers, paged=0, quant=0, int4=0, dense=0,
+                grouped=0)
     log(f"generate[windowed]: 4 x {prompts.shape[1]}-token prompts, {new} "
         f"new tokens in "
         f"{wall:.3f} s ({4 * new / wall:.1f} tok/s including prefill); "
@@ -2246,6 +2516,375 @@ def check_decode_window(rng, flush, results):
               f"window {win} bf16")
 
 
+# --- phase 2/3: the int8 / fp8 branches (B1, B4, B5) and the P2 bodies -----
+
+QUANT_KINDS = {"int8": torch.int8, "e4m3": torch.float8_e4m3fn,
+               "e5m2": torch.float8_e5m2}
+
+
+def spread_blocks(rng, shape, dim, std=0.25):
+    """bf16 N(0, std^2) values times a random factor in [e^-3, e^3] per
+    128-row block along `dim`: scales that differ by orders of magnitude
+    between blocks, so a kernel that reads the wrong scale row fails its
+    gate."""
+    fshape = list(shape)
+    fshape[dim] //= 128
+    f = torch.from_numpy(np.exp(rng.uniform(-3.0, 3.0, fshape))
+                         .astype(np.float32)).to("cuda")
+    x = randn(rng, shape, torch.float32, std=std)
+    return (x * f.repeat_interleave(128, dim=dim)).to(torch.bfloat16)
+
+
+def quant_pools(pool, dtype):
+    """[Hkv, P, ps, D] -> (codes, scales [Hkv, P, ps/128, D]) through the
+    port's quantizer (ops/quant.py quantize_blocks)."""
+    from flash_attention_tpu_torch.ops.quant import QUANT_BLOCK, quantize_blocks
+
+    h, n, ps, d = pool.shape
+    codes, sc = quantize_blocks(
+        pool.float().reshape(h, n, ps // QUANT_BLOCK, QUANT_BLOCK, d), dtype, 3)
+    return codes.reshape(h, n, ps, d), sc[..., 0, :].contiguous()
+
+
+def paged_setup(rng, lengths, hkv, d, ps, width, spare=3):
+    """A shuffled page table for `lengths` (page 0 the scratch page) and
+    bf16 pools whose 128-token blocks differ in scale by orders of
+    magnitude."""
+    b = len(lengths)
+    need = [-(-int(n) // ps) for n in lengths]
+    num_pages = 1 + sum(need) + spare
+    perm = rng.permutation(np.arange(1, num_pages))
+    table = np.zeros((b, width), np.int32)
+    at = 0
+    for i, n in enumerate(need):
+        table[i, :n] = perm[at:at + n]
+        at += n
+    kp = spread_blocks(rng, (hkv, num_pages, ps, d), 2)
+    vp = spread_blocks(rng, (hkv, num_pages, ps, d), 2)
+    return kp, vp, torch.from_numpy(table).cuda(), num_pages
+
+
+# The kernel against its bf16 plain version (the same roundings: code x
+# scale in fp32 rounded to bf16, probabilities rounded to bf16 before the
+# PV product): each row's max error within this share of the row's max
+# |O| in the fp32 reference (8 bf16 ulps at that magnitude), and each live
+# row's LSE within ROW_LSE_TOL.
+ROW_REL_TOL = 2.0 ** -5
+ROW_LSE_TOL = 1e-3
+
+
+def _quant_gate(what, o, hi, lo, lse=None, lse_hi=None, lse_lo=None,
+                scale=None):
+    """The gates of a quantized branch. (1) The low-precision gate
+    against the fp32 reference over the dequantized K/V: kernel error <=
+    3x the bf16 plain version's, the same for the LSE of rows that see
+    something (+ 1e-3: the bf16 rounding of dequantized K moves scores,
+    and so the LSE, in both), dead rows exact. (2) Row by row against the
+    bf16 plain version, which shares the kernel's roundings: (1) alone
+    is loose where blocks of large scale make the bf16 baseline's error
+    large next to rows of small |O|."""
+    from flash_attention_tpu_torch.utils.metrics import verify_low_precision
+
+    ok, kerr, berr = verify_low_precision(o, hi, lo)
+    row_err = (o.float() - lo.float()).abs().amax(-1)
+    row_max = hi.float().abs().amax(-1)
+    rel = float((row_err / row_max.clamp(min=1e-30)).max())
+    ok = ok and bool((row_err <= ROW_REL_TOL * row_max + 1e-6).all())
+    msg = (f"kernel_err={kerr:.3e} bf16_plain_err={berr:.3e} "
+           f"worst_row_err_vs_bf16_plain/row_max={rel:.3e} "
+           f"(gate {ROW_REL_TOL:.3e})")
+    if lse is not None:
+        lse_err, dead, dead_ok = _lse_gate(lse, lse_hi, scale)
+        lse_base, _, _ = _lse_gate(lse_lo, lse_hi, scale)
+        lse_row, _, _ = _lse_gate(lse, lse_lo, scale)
+        dead_ok = dead_ok and bool((o[dead] == 0).all())
+        ok = (ok and dead_ok and lse_err <= 3 * lse_base + 1e-3
+              and lse_row <= ROW_LSE_TOL)
+        msg += (f" lse_err={lse_err:.3e} bf16_plain_lse_err={lse_base:.3e} "
+                f"lse_vs_bf16_plain={lse_row:.3e} dead_rows="
+                f"{int(dead.sum())} dead_rows_ok={dead_ok}")
+    ok = ok and bool(torch.isfinite(o.float()).all())
+    log(f"check {what}: {msg}")
+    if not ok:
+        raise AssertionError(f"{what} failed its gate")
+
+
+def check_paged_quant(rng, flush, results):
+    """B4 over int8 / e4m3 / e5m2 pools at the 8B decode shape (B = 16,
+    32 q / 8 kv heads of 128, pages of 256, lengths 256-1132), its
+    fold_scales body on int8, and its window starts at Mistral's shape
+    (qpos_spread 1 and 4) over quantized pools; each held to the fp32
+    reference over the dequantized pools, timed beside its bound and
+    plain version (no single PyTorch call attends over a page table)."""
+    from flash_attention_tpu_torch.ops import paged
+
+    b, hq, hkv, d, ps = 16, 32, 8, 128, 256
+    scale = 1.0 / math.sqrt(d)
+    lengths = np.linspace(256, 1132, b).astype(np.int32)
+    kp, vp, tbl, num_pages = paged_setup(rng, lengths, hkv, d, ps, 8)
+    lens = torch.from_numpy(lengths).cuda()
+    q = randn(rng, (b, hq, d), torch.bfloat16)
+    for kind, dt in QUANT_KINDS.items():
+        kc, ks = quant_pools(kp, dt)
+        vc, vs = quant_pools(vp, dt)
+        sc = dict(k_scales=ks, v_scales=vs)
+        bodies = [("default", False)] + ([("fold", True)]
+                                         if kind == "int8" else [])
+        o_hi, lse_hi = paged.paged_flash_decode_plain(
+            q.float(), kc, vc, tbl, lens, scale=scale, **sc)
+        for body, fold in bodies:
+            kw = dict(sc, fold_scales=fold)
+            o, lse = paged.paged_flash_decode(q, kc, vc, tbl, lens,
+                                              return_lse=True, **kw)
+            torch.cuda.synchronize()
+            o_lo, lse_lo = paged.paged_flash_decode_plain(
+                q, kc, vc, tbl, lens, scale=scale, **kw)
+            what = f"B4 paged_decode {kind} {body} B={b} lens " \
+                f"{int(lengths.min())}-{int(lengths.max())}"
+            _quant_gate(what, o, o_hi, o_lo, lse, lse_hi, lse_lo, scale)
+            ms = time_ms(lambda: paged.paged_flash_decode(
+                q, kc, vc, tbl, lens, return_lse=True, **kw), flush)
+            plain_ms = time_ms(lambda: paged.paged_flash_decode_plain(
+                q, kc, vc, tbl, lens, scale=scale, **kw), flush)
+            flops, nbytes = paged.paged_decode_cost(lengths, hq, hkv, d, 2,
+                                                    ps, kv_itemsize=1)
+            bms, by = bound_ms(flops, nbytes)
+            log(f"time  {what}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"library_ms=null bound_ms={bms:.4f} ({by}) achieved="
+                f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
+            results[("paged_q", kind, body)] = dict(
+                max_abs_err=max_abs(o, o_lo), ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=None,
+                shape=f"q({b},{hq},{d}) pools({hkv},{num_pages},{ps},{d}) "
+                      f"{kind} lens {int(lengths.min())}-"
+                      f"{int(lengths.max())} bf16 q")
+
+    # Window starts over quantized pools at Mistral's shape.
+    b = 8
+    lengths = np.array([4400, 4300, 300, 4110, 1, 2000, 4600, 3000],
+                       np.int32)
+    starts = np.array([300, 220, -3780, 30, 5, -2080, 520, -1080], np.int32)
+    kp, vp, tbl, num_pages = paged_setup(rng, lengths, hkv, d, ps, 24)
+    lens, st = (torch.from_numpy(x).cuda() for x in (lengths, starts))
+    for kind, dt in QUANT_KINDS.items():
+        kc, ks = quant_pools(kp, dt)
+        vc, vs = quant_pools(vp, dt)
+        for spread in (1, 4):
+            hq = 32 * spread
+            q = randn(rng, (b, hq, d), torch.bfloat16)
+            kw = dict(k_scales=ks, v_scales=vs)
+            pkw = dict(kw, scale=scale, starts=st, qpos_spread=spread)
+            o, lse = paged.paged_flash_decode(
+                q, kc, vc, tbl, lens, window_starts=st, qpos_spread=spread,
+                return_lse=True, **kw)
+            torch.cuda.synchronize()
+            o_lo, lse_lo = paged.paged_flash_decode_plain(
+                q, kc, vc, tbl, lens, **pkw)
+            o_hi, lse_hi = paged.paged_flash_decode_plain(
+                q.float(), kc, vc, tbl, lens, **pkw)
+            what = (f"B4 paged_decode {kind} window starts qpos_spread="
+                    f"{spread}")
+            _quant_gate(what, o, o_hi, o_lo, lse, lse_hi, lse_lo, scale)
+            if kind != "int8":
+                continue
+            ms = time_ms(lambda: paged.paged_flash_decode(
+                q, kc, vc, tbl, lens, window_starts=st, qpos_spread=spread,
+                return_lse=True, **kw), flush)
+            plain_ms = time_ms(lambda: paged.paged_flash_decode_plain(
+                q, kc, vc, tbl, lens, **pkw), flush)
+            flops, nbytes = paged.paged_decode_cost(
+                lengths, hq, hkv, d, 2, ps, starts=starts,
+                qpos_spread=spread, kv_itemsize=1)
+            bms, by = bound_ms(flops, nbytes)
+            log(f"time  {what}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"library_ms=null bound_ms={bms:.4f} ({by})")
+            results[("paged_q_win", spread)] = dict(
+                max_abs_err=max_abs(o, o_lo), ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=None,
+                shape=f"q({b},{hq},{d}) pools({hkv},{num_pages},{ps},{d}) "
+                      f"int8 lens {lengths.tolist()} starts "
+                      f"{starts.tolist()}")
+
+
+def max_abs(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def quant_cache(rng, shape, dt):
+    """A bf16 cache [B, Hkv, S, D] with block scales spread apart, and
+    its QuantizedTensor in storage dt."""
+    from flash_attention_tpu_torch.ops.quant import quantize_kv
+
+    return quantize_kv(spread_blocks(rng, shape, 2), dtype=dt)
+
+
+def check_decode_quant(rng, flush, results):
+    """B5 over int8 / e4m3 / e5m2 caches at the generate shape (4 x 543
+    live positions of a 640-position cache, 32 q / 8 kv heads of 128) and
+    with Mistral's window (4096 over a 5120-position cache), held to the
+    fp32 reference over the dequantized caches; timed beside the bound,
+    the plain version and SDPA over the dequantized bf16 caches (the
+    dequantization outside the timing)."""
+    from flash_attention_tpu_torch.ops import decode as dec
+    from flash_attention_tpu_torch.ops.quant import dequantize_kv
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for s, lens, win in ((640, [543] * 4, None),
+                         (5120, [5031, 5031, 4000, 100], MISTRAL_WINDOW)):
+        b, hq, hkv, d = 4, 32, 8, 128
+        sc = 1.0 / math.sqrt(d)
+        q = randn(rng, (b, hq, d), torch.bfloat16)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        starts = None if win is None else lengths - win
+        pos = torch.arange(s, device="cuda")[None, :]
+        mask = pos < lengths[:, None]
+        if win is not None:
+            mask = mask & (pos >= starts[:, None])
+        mask = mask[:, None, None, :]
+        for kind, dt in QUANT_KINDS.items():
+            kq = quant_cache(rng, (b, hkv, s, d), dt)
+            vq = quant_cache(rng, (b, hkv, s, d), dt)
+            o = dec.flash_decode(q, kq, vq, lengths, window=win)
+            torch.cuda.synchronize()
+            kb, vb = dequantize_kv(kq), dequantize_kv(vq)
+            lo = dec.flash_decode_plain(q, kb, vb, lengths, scale=sc,
+                                        starts=starts)
+            hi = dec.flash_decode_plain(
+                q.float(), dequantize_kv(kq, torch.float32),
+                dequantize_kv(vq, torch.float32), lengths, scale=sc,
+                starts=starts)
+            what = (f"B5 decode {kind} cache({b},{hkv},{s},{d}) lens {lens}"
+                    + (f" window {win}" if win else ""))
+            _quant_gate(what, o, hi, lo)
+            ms = time_ms(lambda: dec.flash_decode(q, kq, vq, lengths,
+                                                  window=win), flush)
+            plain_ms = time_ms(lambda: dec.flash_decode_plain(
+                q, dequantize_kv(kq), dequantize_kv(vq), lengths, scale=sc,
+                starts=starts), flush)
+            lib_ms = time_ms(lambda: sdpa(q[:, :, None], kb, vb,
+                                          attn_mask=mask, enable_gqa=True),
+                             flush)
+            flops, nbytes = dec.decode_cost(lens, hq, hkv, d, 2, window=win,
+                                            kv_itemsize=1)
+            bms, by = bound_ms(flops, nbytes)
+            log(f"time  {what}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"library_ms={lib_ms:.4f} (SDPA on the dequantized bf16 "
+                f"cache) bound_ms={bms:.4f} ({by}) achieved="
+                f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
+            results[("decode_q", kind, win)] = dict(
+                max_abs_err=max_abs(o, lo), ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                shape=f"q({b},{hq},{d}) cache({b},{hkv},{s},{d}) {kind} "
+                      f"lens {lens}" + (f" window {win}" if win else ""))
+            del kq, vq, kb, vb
+        torch.cuda.empty_cache()
+
+
+def check_flash_quant(rng, flush, results):
+    """B1 over int8 / e4m3 / e5m2 K/V, causal at (1, 32/8, 8192, 128)
+    (flash_attention_quantized's long-context prefill), held to the fp32
+    reference over the dequantized K/V, timed beside the bound, the
+    plain version and SDPA over the dequantized bf16 K/V (dequantization
+    outside the timing)."""
+    from flash_attention_tpu_torch.ops import flash
+    from flash_attention_tpu_torch.ops.quant import dequantize_kv
+
+    b, hq, hkv, t, d = 1, 32, 8, 8192, 128
+    scale = 1.0 / math.sqrt(d)
+    q = randn(rng, (b, hq, t, d), torch.bfloat16)
+    kw = dict(causal=True, scale=scale, offset=0)
+    for kind, dt in QUANT_KINDS.items():
+        kq = quant_cache(rng, (b, hkv, t, d), dt)
+        vq = quant_cache(rng, (b, hkv, t, d), dt)
+        o = flash.flash_attention_quantized(q, kq, vq, causal=True)
+        o_res, lse = flash.flash_attention_fwd(q, kq, vq, causal=True)
+        torch.cuda.synchronize()
+        kb, vb = dequantize_kv(kq), dequantize_kv(vq)
+        lo, lse_lo = flash.flash_attention_fwd_plain(q, kb, vb, **kw)
+        hi, lse_hi = flash.flash_attention_fwd_plain(
+            q.float(), dequantize_kv(kq, torch.float32),
+            dequantize_kv(vq, torch.float32), **kw)
+        torch.cuda.synchronize()
+        what = f"B1 flash_fwd {kind} causal q(1,{hq},{t},{d})"
+        if not torch.equal(o, o_res):
+            raise AssertionError(f"{what}: flash_attention_quantized and "
+                                 f"flash_attention_fwd disagree")
+        _quant_gate(what, o, hi, lo, lse, lse_hi, lse_lo, scale)
+        err = max_abs(o, lo)
+        del lo, hi, o_res, lse, lse_lo, lse_hi
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: flash.flash_attention_quantized(
+            q, kq, vq, causal=True), flush)
+        plain_ms = time_ms(lambda: flash.flash_attention_fwd_plain(
+            q, dequantize_kv(kq), dequantize_kv(vq), **kw), flush, iters=5,
+            warmup=1)
+        lib_ms = time_ms(lambda: torch.nn.functional
+                         .scaled_dot_product_attention(
+                             q, kb, vb, is_causal=True, enable_gqa=True),
+                         flush)
+        flops, nbytes = flash.fwd_cost(b, hq, hkv, t, t, d, True, 2,
+                                       kv_itemsize=1)
+        bms, by = bound_ms(flops, nbytes)
+        log(f"time  {what}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={lib_ms:.4f} (SDPA on the dequantized bf16 K/V) "
+            f"bound_ms={bms:.4f} ({by}) achieved="
+            f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+        results[("flash_q", kind)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=by, library_ms=lib_ms,
+            shape=f"q({b},{hq},{t},{d}) kv({b},{hkv},{t},{d}) {kind} causal")
+        del kq, vq, kb, vb
+        torch.cuda.empty_cache()
+
+
+def check_p2(flush) -> list:
+    """The probe P2 (scripts/probe_paged_int8.py) on B4's own bodies at
+    its shape: batch 64, 32 q / 8 kv heads of 128, every sequence 4088
+    tokens. bf16 pools, int8 with the default body (v0) and with
+    fold_scales (v1) at pages of 256, and the default int8 body at pages
+    of 512 (v3), each beside its bound. (v2, the TPU's overlap of a
+    block's convert with the previous block's dot, has no B4 body.)"""
+    from flash_attention_tpu_torch.ops import paged
+
+    b, hq, hkv, d, ctx = 64, 32, 8, 128, 4096
+    rng = np.random.default_rng(SEED + 10)
+    lengths = np.full(b, ctx - 8, np.int32)
+    lens = torch.from_numpy(lengths).cuda()
+    q = randn(rng, (b, hq, d), torch.bfloat16, std=0.02)
+    rows = []
+    for ps in (256, 512):
+        mp = ctx // ps
+        n = b * mp
+        table = torch.from_numpy(rng.permutation(n).reshape(b, mp)
+                                 .astype(np.int32)).cuda()
+        kp = randn(rng, (hkv, n, ps, d), torch.bfloat16, std=0.02)
+        vp = randn(rng, (hkv, n, ps, d), torch.bfloat16, std=0.02)
+        kc, ks = quant_pools(kp, torch.int8)
+        vc, vs = quant_pools(vp, torch.int8)
+        cases = [("v0 int8", dict(k_scales=ks, v_scales=vs), kc, vc, 1)]
+        if ps == 256:
+            cases = [("bf16", {}, kp, vp, None)] + cases + [
+                ("v1 int8 fold_scales",
+                 dict(k_scales=ks, v_scales=vs, fold_scales=True), kc, vc,
+                 1)]
+        else:
+            cases[0] = ("v3 int8 page 512",) + cases[0][1:]
+        for name, kw, k_, v_, kvi in cases:
+            ms = time_ms(lambda: paged.paged_flash_decode(
+                q, k_, v_, table, lens, **kw), flush)
+            flops, nbytes = paged.paged_decode_cost(
+                lengths, hq, hkv, d, 2, ps, kv_itemsize=kvi)
+            bms, by = bound_ms(flops, nbytes)
+            log(f"p2: {name:22s} page {ps}: kernel_ms={ms:.4f} bound_ms="
+                f"{bms:.4f} ({by}) achieved "
+                f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
+            rows.append(dict(name=name, page=ps, ms=ms, bound_ms=bms,
+                             bound_by=by))
+        del kp, vp, kc, vc
+        torch.cuda.empty_cache()
+    return rows
+
+
 def check_kernels() -> dict:
     flush = L2Flush()
     rng = np.random.default_rng(SEED)
@@ -2266,6 +2905,11 @@ def check_kernels() -> dict:
     check_flash_branches(rng, flush, results)
     check_paged_window(rng, flush, results)
     check_decode_window(rng, flush, results)
+    torch.cuda.synchronize()
+    check_paged_quant(rng, flush, results)
+    check_decode_quant(rng, flush, results)
+    check_flash_quant(rng, flush, results)
+    results["p2"] = check_p2(flush)
     torch.cuda.synchronize()
     return results
 
@@ -2300,14 +2944,11 @@ def main() -> int:
     trained = timed("train_1b", train)
     gc.collect()
     torch.cuda.empty_cache()
-    q8 = timed("serve_8b", lambda: {
-        kind: serve_8b(kind) for kind in ("int4", "int8", "bf16")})
-    log(f"serve8b: decode tok/s at batch 16 -- int4 "
-        f"{q8['int4']['decode_tok_s']:.1f}, int8 "
-        f"{q8['int8']['decode_tok_s']:.1f}, bf16 (cuBLAS yardstick) "
-        f"{q8['bf16']['decode_tok_s']:.1f}")
+    q8 = timed("serve_8b", serve_8b_phase)
     l4, l8 = q8["int4"]["launches"], q8["int8"]["launches"]
     lg = q8["int4"]["generate"]["launches"]
+    kvpaths = {"serve_8b_bf16_kv_int8": q8["kv_int8"]["launches"],
+               "serve_8b_bf16_kv_e4m3": q8["kv_e4m3"]["launches"]}
     mix = timed("mixtral", mixtral)
     log(f"mixtral: decode tok/s at batch 8 -- int4 "
         f"{mix['int4']['decode_tok_s']:.1f}, int8 "
@@ -2322,11 +2963,27 @@ def main() -> int:
         f"{mc['stats'].decode_tokens_per_s:.1f}; ttft p50/p90 monolithic "
         f"{mm['stats'].ttft_percentiles()}, chunked "
         f"{mc['stats'].ttft_percentiles()}")
+    mq = mis["chunked_int8"]
     wpaths = {"serve_mistral_monolithic": mm["launches"],
               "serve_mistral_chunked": mc["launches"],
+              "serve_mistral_chunked_int8_kv": mq["launches"],
               "generate_mistral_windowed": mis["generate"]["launches"]}
     cpaths = {"serve_1b_chunked": launches["chunked"]}
-    bpaths = {**cpaths, **wpaths}        # the paths that reach the branches
+    apaths = {"forward_8b_int8_kv_api": q8["quant_api"]["launches"]}
+    # The paths that reach the branches.
+    bpaths = {**cpaths, **wpaths, **kvpaths, **apaths}
+    log(f"quantized KV: decode tok/s llama3_8b bf16 / int8 / e4m3 KV "
+        f"{q8['bf16']['decode_tok_s']:.1f} / "
+        f"{q8['kv_int8']['decode_tok_s']:.1f} / "
+        f"{q8['kv_e4m3']['decode_tok_s']:.1f}; mistral chunked bf16 / int8 "
+        f"KV {mc['stats'].decode_tokens_per_s:.1f} / "
+        f"{mq['stats'].decode_tokens_per_s:.1f}; B4 device ms per step "
+        f"(profiled) mistral chunked bf16 / int8 KV "
+        f"{mc.get('b4_ms_per_step')} / {mq.get('b4_ms_per_step')}")
+    p2 = results["p2"]
+    log("p2 table (B=64, 32q/8kv, D=128, ctx 4096): " + "; ".join(
+        f"{r['name']} page {r['page']}: {r['ms']:.4f} ms (bound "
+        f"{r['bound_ms']:.4f}, {r['bound_by']})" for r in p2))
 
     def by_path(paths, key):
         return {path: got[key] for path, got in paths.items()}
@@ -2350,16 +3007,14 @@ def main() -> int:
              launches=launches["flash"] + trained["flash"] + l4["flash"]
              + l8["flash"] + lg["flash"]
              + sum(mix_by_path("flash").values())
-             + sum(by_path(wpaths, "flash").values())
-             + sum(by_path(cpaths, "flash").values()),
+             + sum(by_path(bpaths, "flash").values()),
              launches_by_path={"serve_1b": launches["flash"],
                                "train_1b": trained["flash"],
                                "serve_8b_int4": l4["flash"],
                                "serve_8b_int8": l8["flash"],
                                "generate_8b_int4": lg["flash"],
                                **mix_by_path("flash"),
-                               **by_path(wpaths, "flash"),
-                               **by_path(cpaths, "flash")},
+                               **by_path(bpaths, "flash")},
              **results[("flash", 512)],
              at_train_shape=results["flash_train"]),
         # B1's branches, each with the launches its own counter saw on
@@ -2396,14 +3051,12 @@ def main() -> int:
              replaces="flash_attention_tpu/ops/paged.py:37",
              launches=launches["paged"] + l4["paged"] + l8["paged"]
              + sum(mix_by_path("paged").values())
-             + sum(by_path(wpaths, "paged").values())
-             + sum(by_path(cpaths, "paged").values()),
+             + sum(by_path(bpaths, "paged").values()),
              launches_by_path={"serve_1b": launches["paged"],
                                "serve_8b_int4": l4["paged"],
                                "serve_8b_int8": l8["paged"],
                                **mix_by_path("paged"),
-                               **by_path(wpaths, "paged"),
-                               **by_path(cpaths, "paged")},
+                               **by_path(bpaths, "paged")},
              **results["paged"]),
         dict(name="paged_decode (B4 window starts)", route="cuda",
              source="flash_attention_tpu_torch/csrc/paged_decode.cu",
@@ -2415,10 +3068,9 @@ def main() -> int:
         dict(name="decode (B5)", route="cuda",
              source="flash_attention_tpu_torch/csrc/decode.cu",
              replaces="flash_attention_tpu/ops/decode.py:71",
-             launches=lg["decode"] + wpaths["generate_mistral_windowed"][
-                 "decode"],
+             launches=lg["decode"] + sum(by_path(bpaths, "decode").values()),
              launches_by_path={"generate_8b_int4": lg["decode"],
-                               **by_path(wpaths, "decode")},
+                               **by_path(bpaths, "decode")},
              **results["decode"]),
         dict(name="decode (B5 window)", route="cuda",
              source="flash_attention_tpu_torch/csrc/decode.cu",
@@ -2426,6 +3078,44 @@ def main() -> int:
              launches=sum(by_path(bpaths, "decode_win").values()),
              launches_by_path=by_path(bpaths, "decode_win"),
              **results["decode_win"]),
+        # The int8 / fp8 branches, each with its own counter: int8 at the
+        # headline shape, the fp8 storages (and windows) beside it.
+        dict(name="flash_fwd (B1 int8/fp8)", route="cuda",
+             source="flash_attention_tpu_torch/csrc/flash_fwd.cu",
+             replaces="flash_attention_tpu/ops/flash.py:259",
+             launches=sum(by_path(bpaths, "flash_quant").values()),
+             launches_by_path=by_path(bpaths, "flash_quant"),
+             **results[("flash_q", "int8")],
+             at_shapes={k: results[("flash_q", k)]
+                        for k in ("e4m3", "e5m2")}),
+        dict(name="paged_decode (B4 int8/fp8)", route="cuda",
+             source="flash_attention_tpu_torch/csrc/paged_decode.cu",
+             replaces="flash_attention_tpu/ops/paged.py:37",
+             launches=sum(by_path(bpaths, "paged_quant").values()),
+             launches_by_path=by_path(bpaths, "paged_quant"),
+             **results[("paged_q", "int8", "default")],
+             at_shapes={**{k: results[("paged_q", k, "default")]
+                           for k in ("e4m3", "e5m2")},
+                        **{f"int8 window starts qpos_spread {k}":
+                           results[("paged_q_win", k)] for k in (1, 4)}},
+             p2=p2),
+        dict(name="paged_decode (B4 fold_scales)", route="cuda",
+             source="flash_attention_tpu_torch/csrc/paged_decode_int8.cu",
+             replaces="flash_attention_tpu/ops/paged.py:37",
+             launches=sum(by_path(bpaths, "paged_fold").values()),
+             launches_by_path=by_path(bpaths, "paged_fold"),
+             **results[("paged_q", "int8", "fold")]),
+        dict(name="decode (B5 int8/fp8)", route="cuda",
+             source="flash_attention_tpu_torch/csrc/decode.cu",
+             replaces="flash_attention_tpu/ops/decode.py:71",
+             launches=sum(by_path(bpaths, "decode_quant").values()),
+             launches_by_path=by_path(bpaths, "decode_quant"),
+             **results[("decode_q", "int8", None)],
+             at_shapes={**{k: results[("decode_q", k, None)]
+                           for k in ("e4m3", "e5m2")},
+                        **{f"{k} window 4096": results[("decode_q", k,
+                                                        MISTRAL_WINDOW)]
+                           for k in QUANT_KINDS}}),
         matmul_entry("B6 int8", name="quant_matmul (B6)", route="cuda",
                      source="flash_attention_tpu_torch/csrc/quant_matmul.cu",
                      replaces="flash_attention_tpu/ops/quant_matmul.py:41",

@@ -13,10 +13,34 @@ Layering (bottom-up):
                 token shards and batch loader, checkpoints
     csrc/       CUDA sources of the kernels (built at first use)
     ops/        kernel wrappers + plain versions: flash forward and
-                backward, paged decode, exact references
+                backward, paged and contiguous decode, quantized KV,
+                exact references
     models/     Llama-class model (prefill, paged decode, loss and train
                 step), sampling, the Trainer
-    runtime/    native page allocator, paged KV cache, serving engine
+    runtime/    native page allocator, paged KV caches, serving engine
 """
 
+from flash_attention_tpu_torch.ops.flash import (
+    SegmentIds,
+    flash_attention,
+    flash_attention_quantized,
+)
+from flash_attention_tpu_torch.ops.quant import (
+    QuantizedTensor,
+    dequantize_kv,
+    quantize_kv,
+)
+from flash_attention_tpu_torch.ops.reference import attention_reference
+
 __version__ = "0.1.0"
+
+__all__ = [
+    "attention_reference",
+    "flash_attention",
+    "flash_attention_quantized",
+    "SegmentIds",
+    "QuantizedTensor",
+    "quantize_kv",
+    "dequantize_kv",
+    "__version__",
+]

@@ -3,6 +3,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -11,6 +12,13 @@ namespace fa {
 // dtype codes passed from Python (ops/_cuda.py DTYPE_CODES).
 constexpr int kFloat16 = 0;
 constexpr int kBFloat16 = 1;
+
+// Storage codes of the values a kernel reads (ops/_cuda.py STORE_CODES):
+// the compute type itself, int8, fp8 e4m3, fp8 e5m2.
+constexpr int kDense = 0;
+constexpr int kInt8 = 1;
+constexpr int kE4M3 = 2;
+constexpr int kE5M2 = 3;
 
 // Running-max initializer; a row that sees no key exports O = 0 and
 // LSE = INIT_M * scale (finite, weighted 0 by every LSE merge).
@@ -54,6 +62,44 @@ __device__ __forceinline__ uint4 pack8(const float* in) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) v[i] = from_float<T>(in[i]);
   return raw;
+}
+
+// One int8 / fp8 code to float32: exact on every int8 value and every
+// finite fp8 code (the card's native e4m3 / e5m2 conversions). The JAX
+// package's bit-plant widening (ops/quant.py tile_to_f32) gives the same
+// values; quantization never emits NaN / inf codes.
+template <int W>
+__device__ __forceinline__ float widen(unsigned char b);
+template <>
+__device__ __forceinline__ float widen<kInt8>(unsigned char b) {
+  return static_cast<float>(static_cast<signed char>(b));
+}
+template <>
+__device__ __forceinline__ float widen<kE4M3>(unsigned char b) {
+  __nv_fp8_e4m3 v;
+  v.__x = b;
+  return static_cast<float>(v);
+}
+template <>
+__device__ __forceinline__ float widen<kE5M2>(unsigned char b) {
+  __nv_fp8_e5m2 v;
+  v.__x = b;
+  return static_cast<float>(v);
+}
+
+// 8 bytes = 8 int8 / fp8 codes -> 8 floats.
+template <int W>
+__device__ __forceinline__ void widen8(const uint2& raw, float* out) {
+  const unsigned char* b = reinterpret_cast<const unsigned char*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = widen<W>(b[i]);
+}
+
+// x rounded to T and back: the compute-type rounding of a dequantized
+// value (the JAX kernels' `.astype(compute_dtype)` before the product).
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_float<T>(from_float<T>(x));
 }
 
 // Rows [r0, r0 + kRows) of a row-major [n, D] matrix into shared memory

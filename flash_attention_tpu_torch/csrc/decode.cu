@@ -13,8 +13,13 @@
 // read; a length-0 row gives O = 0 (the TPU kernel's l_safe). With a
 // sliding window (window > 0, the TPU kernel's `window` branch,
 // decode.py:88-111) positions < lengths[b] - window are masked and the
-// chunks entirely below it are never read. The quantized (int8 / fp8)
-// branch arrives with its slice; the wrapper raises on it.
+// chunks entirely below it are never read. Quantized caches (the TPU
+// kernel's `quantized` branch with `_dequant`, decode.py:56-68): codes
+// [B, Hkv, S, D] in int8 / e4m3 / e5m2 with fp32 scales [B, Hkv, S / 128,
+// D]; position pos reads scale row scales[b, h, pos / 128, :]; each code
+// is widened, multiplied by its scale in fp32 and rounded to q's type
+// before the product (decode_core.cuh). They compile in decode_quant.cu,
+// apart from the dense instantiations here.
 //
 // What bounds it on the H100: bytes, as for B4. Each live position's K
 // and V rows are read once per kv head (4*D bytes per head in bf16) for
@@ -30,104 +35,26 @@
 // and 8 kv heads, on 132 SMs); splitting a sequence's prefix across
 // blocks with a merge pass is the fast shape and is later work.
 
-#include "decode_core.cuh"
+#include "decode.cuh"
 
-namespace {
-
-using fa::decode::kThreads;
-
-constexpr int kChunk = 256;     // positions per chunk
-
-template <bool Windowed, typename T, int D, int R>
-__global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const int* __restrict__ lengths,
-              T* __restrict__ o, int Hq, int Hkv, int S, int rows,
-              int window, float scale) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int len = max(0, min(lengths[b], S));
-  const int start = Windowed ? len - window : 0;
-  const int n_chunks = (len + kChunk - 1) / kChunk;
-  const size_t qrow0 = (size_t)b * Hq + (size_t)h * rows;
-  const fa::decode::ContiguousChunks chunks{
-      ((size_t)b * Hkv + h) * (size_t)S * D, (size_t)kChunk * D};
-  fa::decode::attend<Windowed, T, D, R>(q + qrow0 * D, k, v, chunks, len,
-                                        n_chunks, kChunk, rows, scale, start,
-                                        1, o + qrow0 * D, nullptr);
-}
-
-// Windowed: window > 0 (the dense instantiation has no mask).
-template <bool Windowed, typename T, int D, int R>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* lengths, void* o, int B, int Hq, int Hkv,
-                   int S, int rows, int window, float scale,
-                   cudaStream_t stream) {
-  const size_t bytes = fa::decode::smem_bytes<D, R>(kChunk);
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_kernel<Windowed, T, D, R>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid(Hkv, B);
-  decode_kernel<Windowed, T, D, R><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(o), Hq, Hkv, S,
-      rows, window, scale);
-  return cudaGetLastError();
-}
-
-// R: the smallest instantiated row bound >= the GQA group
-// (config.PAGED_MAX_ROWS is the largest).
-template <typename T, int D>
-cudaError_t dispatch_rows(const void* q, const void* k, const void* v,
-                          const int* lengths, void* o, int B, int Hq,
-                          int Hkv, int S, int window, float scale,
-                          cudaStream_t stream) {
-  const int rows = Hq / Hkv;
-#define FA_DECODE_LAUNCH(RB)                                             \
-  if (rows <= RB)                                                        \
-    return window > 0                                                    \
-               ? launch<true, T, D, RB>(q, k, v, lengths, o, B, Hq, Hkv, \
-                                        S, rows, window, scale, stream)  \
-               : launch<false, T, D, RB>(q, k, v, lengths, o, B, Hq,     \
-                                         Hkv, S, rows, 0, scale, stream);
-  FA_DECODE_LAUNCH(2)
-  FA_DECODE_LAUNCH(4)
-  FA_DECODE_LAUNCH(8)
-  FA_DECODE_LAUNCH(16)
-#undef FA_DECODE_LAUNCH
-  return cudaErrorInvalidValue;
-}
-
-template <typename T>
-cudaError_t dispatch_dim(const void* q, const void* k, const void* v,
-                         const int* lengths, void* o, int B, int Hq, int Hkv,
-                         int S, int D, int window, float scale,
-                         cudaStream_t stream) {
-  if (D == 128)
-    return dispatch_rows<T, 128>(q, k, v, lengths, o, B, Hq, Hkv, S, window,
-                                 scale, stream);
-  if (D == 64)
-    return dispatch_rows<T, 64>(q, k, v, lengths, o, B, Hq, Hkv, S, window,
-                                scale, stream);
-  return cudaErrorInvalidValue;
-}
-
-}  // namespace
-
+// kv_store: common.cuh kDense / kInt8 / kE4M3 / kE5M2; kscale / vscale
+// null for dense caches (S a multiple of 128 otherwise).
 extern "C" int fa_decode(const void* q, const void* k, const void* v,
+                         const void* kscale, const void* vscale,
                          const void* lengths, void* o, int B, int Hq,
                          int Hkv, int S, int D, int window, float scale,
-                         int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* ln = static_cast<const int*>(lengths);
+                         int dtype, int kv_store, void* stream) {
+  using namespace fa;
   if (Hkv <= 0 || Hq % Hkv || S < 0) return (int)cudaErrorInvalidValue;
-  if (dtype == fa::kBFloat16)
-    return (int)dispatch_dim<__nv_bfloat16>(q, k, v, ln, o, B, Hq, Hkv, S,
-                                            D, window, scale, s);
-  if (dtype == fa::kFloat16)
-    return (int)dispatch_dim<__half>(q, k, v, ln, o, B, Hq, Hkv, S, D,
-                                     window, scale, s);
-  return (int)cudaErrorInvalidValue;
+  if (kv_store != kDense && (kscale == nullptr || vscale == nullptr ||
+                             S % decode::kQuantBlock))
+    return (int)cudaErrorInvalidValue;
+  const contiguous::Args a{q, k, v, static_cast<const float*>(kscale),
+                           static_cast<const float*>(vscale),
+                           static_cast<const int*>(lengths), o, B, Hq, Hkv,
+                           S, window, scale,
+                           static_cast<cudaStream_t>(stream)};
+  if (kv_store == kDense)
+    return (int)contiguous::dispatch<kDense>(a, dtype, D);
+  return (int)contiguous::dispatch_quant(a, dtype, D, kv_store);
 }

@@ -1,0 +1,97 @@
+// The B5 kernel template (decode.cu): one 256-thread block per (kv head,
+// sequence) over the body in decode_core.cuh, walking the contiguous
+// cache in chunks of 256 positions; instantiated per window flag, K/V
+// storage, compute type, head dim and row bound. decode.cu holds the
+// dense instantiations and the C entry point, decode_quant.cu the
+// quantized ones.
+#pragma once
+
+#include "decode_core.cuh"
+
+namespace fa {
+namespace contiguous {
+
+using decode::kThreads;
+
+constexpr int kChunk = 256;     // positions per chunk (two scale rows)
+
+struct Args {
+  const void* q;            // [B, Hq, D] in T
+  const void* k;            // [B, Hkv, S, D] in the storage
+  const void* v;
+  const float* kscale;      // [B, Hkv, S / 128, D], null when dense
+  const float* vscale;
+  const int* lengths;       // [B]
+  void* o;                  // [B, Hq, D] in T
+  int B, Hq, Hkv, S, window;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <bool Windowed, int Store, typename T, int D, int R>
+__global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int rows = a.Hq / a.Hkv;
+  const int len = max(0, min(a.lengths[b], a.S));
+  const int start = Windowed ? len - a.window : 0;
+  const int n_chunks = (len + kChunk - 1) / kChunk;
+  const size_t qrow0 = (size_t)b * a.Hq + (size_t)h * rows;
+  const size_t seq = (size_t)b * a.Hkv + h;
+  const decode::ContiguousChunks chunks{
+      seq * (size_t)a.S * D, (size_t)kChunk * D,
+      seq * (size_t)(a.S / decode::kQuantBlock) * D,
+      (size_t)(kChunk / decode::kQuantBlock) * D};
+  decode::attend<Windowed, Store, false, T, D, R>(
+      static_cast<const T*>(a.q) + qrow0 * D, a.k, a.v, a.kscale, a.vscale,
+      chunks, len, n_chunks, kChunk, rows, a.scale, start, 1,
+      static_cast<T*>(a.o) + qrow0 * D, nullptr);
+}
+
+// Windowed: window > 0 (the other instantiation has no mask).
+template <int Store, typename T, int D, int R>
+cudaError_t launch(const Args& a) {
+  const size_t bytes = decode::smem_bytes<D, R, false>(kChunk);
+  auto kernel = a.window > 0 ? decode_kernel<true, Store, T, D, R>
+                             : decode_kernel<false, Store, T, D, R>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(a.Hkv, a.B), kThreads, bytes, a.stream>>>(a);
+  return cudaGetLastError();
+}
+
+// R: the smallest instantiated row bound >= the GQA group
+// (config.PAGED_MAX_ROWS is the largest); quantized storages instantiate
+// 4 and 16 only, as B4's.
+template <int Store, typename T, int D>
+cudaError_t dispatch_rows(const Args& a) {
+  const int rows = a.Hq / a.Hkv;
+  if constexpr (Store == kDense) {
+    if (rows <= 2) return launch<Store, T, D, 2>(a);
+  }
+  if (rows <= 4) return launch<Store, T, D, 4>(a);
+  if constexpr (Store == kDense) {
+    if (rows <= 8) return launch<Store, T, D, 8>(a);
+  }
+  if (rows <= 16) return launch<Store, T, D, 16>(a);
+  return cudaErrorInvalidValue;
+}
+
+template <int Store>
+cudaError_t dispatch(const Args& a, int dtype, int D) {
+  if (dtype == kBFloat16) {
+    if (D == 128) return dispatch_rows<Store, __nv_bfloat16, 128>(a);
+    if (D == 64) return dispatch_rows<Store, __nv_bfloat16, 64>(a);
+  } else if (dtype == kFloat16) {
+    if (D == 128) return dispatch_rows<Store, __half, 128>(a);
+    if (D == 64) return dispatch_rows<Store, __half, 64>(a);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Defined in decode_quant.cu.
+cudaError_t dispatch_quant(const Args& a, int dtype, int D, int store);
+
+}  // namespace contiguous
+}  // namespace fa

@@ -22,7 +22,29 @@
 // INIT_M * scale. The window is a template parameter: the dense
 // instantiation (Windowed = false) ignores start and spread and carries
 // no mask in its score loop.
+//
+// Quantized K/V (the TPU kernels' int8 / fp8 branches, decode.py:56-68,
+// paged.py:73-115, :135-168): `Store` names the storage of the K/V
+// values (common.cuh kDense / kInt8 / kE4M3 / kE5M2), a template
+// parameter like the window, so the dense instantiations compile as
+// before. A quantized lane loads 8 codes (8 bytes) where a dense one
+// loads 8 values (16 bytes) and widens them in registers; the fp32 scale
+// row of each 128-token block ([D] per block: per (token block, channel)
+// scales) is read by each lane for its 8 channels once per 128 tokens.
+// The default body multiplies each widened code by its scale in fp32 and
+// rounds the product to T before the product with q or p (the JAX
+// kernels' roundings). `Fold` (int8 only, the TPU kernel's fold_scales
+// body, paged.py:73-96, :135-146) moves the scales out of the
+// per-element work: per 128-token block the K scale row multiplies q in
+// fp32, rounded to T (staged in shared memory for the whole block), and
+// each thread's partial PV sum over the block's tokens is multiplied by
+// the V scale row; the int8 codes enter the products unscaled (exact in
+// T). Chunks (pages of a multiple of 128 tokens, or B5's 256-position
+// chunks) hold whole scale blocks, and every token loop below steps by a
+// divisor of 128, so a step never straddles two blocks.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -32,43 +54,99 @@ namespace decode {
 constexpr int kThreads = 256;
 constexpr int kUnroll = 4;      // token loads in flight per thread
 
-template <int D, int R>
+constexpr int kQuantBlock = 128;   // tokens per scale row (QUANT_BLOCK)
+
+// Fold keeps the block's scaled q in shared memory.
+template <int D, int R, bool Fold>
 size_t smem_bytes(int chunk) {
   constexpr int kTokGroups = kThreads / (D / 8);
-  return sizeof(float) * (R * D + R * chunk + kTokGroups * D + 3 * R);
+  return sizeof(float) *
+         (R * D * (Fold ? 2 : 1) + R * chunk + kTokGroups * D + 3 * R);
 }
 
-// Chunk p of a sequence in page-table-indexed pools [Hkv, P, ps, D].
+// Chunk p of a sequence in page-table-indexed pools [Hkv, P, ps, D]
+// (scales [Hkv, P, ps / 128, D]).
 struct PagedChunks {
   const int* table;       // this sequence's page-table row
   size_t head_page0;      // h * num_pages
   size_t page_elems;      // page_size * D
+  size_t page_scales;     // page_size / 128 * D
   __device__ __forceinline__ size_t operator()(int p) const {
     return (head_page0 + table[p]) * page_elems;
   }
+  __device__ __forceinline__ size_t scales(int p) const {
+    return (head_page0 + table[p]) * page_scales;
+  }
 };
 
-// Chunk p of a sequence in a contiguous cache [B, Hkv, S, D].
+// Chunk p of a sequence in a contiguous cache [B, Hkv, S, D] (scales
+// [B, Hkv, S / 128, D]).
 struct ContiguousChunks {
   size_t seq_base;        // ((b * Hkv + h) * S) * D
   size_t chunk_elems;     // chunk * D
+  size_t seq_scales;      // ((b * Hkv + h) * S / 128) * D
+  size_t chunk_scales;    // chunk / 128 * D
   __device__ __forceinline__ size_t operator()(int p) const {
     return seq_base + (size_t)p * chunk_elems;
+  }
+  __device__ __forceinline__ size_t scales(int p) const {
+    return seq_scales + (size_t)p * chunk_scales;
+  }
+};
+
+// The 8 channels [c, c + 8) of a scale row.
+__device__ __forceinline__ void load_scales8(const float* row, float* out) {
+  const float4 a = *reinterpret_cast<const float4*>(row);
+  const float4 b = *reinterpret_cast<const float4*>(row + 4);
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
+
+// Storage of K/V values: the element a row is made of and the 8-value
+// load (16 bytes dense, 8 bytes of codes).
+template <typename T, int Store>
+struct KV {
+  static constexpr bool kQuant = Store != kDense;
+  using Elem = std::conditional_t<kQuant, unsigned char, T>;
+  using Raw = std::conditional_t<kQuant, uint2, uint4>;
+  __device__ __forceinline__ static Raw load(const Elem* p) {
+    return *reinterpret_cast<const Raw*>(p);
+  }
+  __device__ __forceinline__ static Raw zero() { return Raw{}; }
+  // 8 values as float: dense unpacked, codes widened (unscaled).
+  __device__ __forceinline__ static void widen(const Raw& raw, float* out) {
+    if constexpr (kQuant)
+      widen8<Store>(raw, out);
+    else
+      unpack8<T>(raw, out);
   }
 };
 
 // q_rows / o_rows: `rows` consecutive rows of D values; lse_rows may be
-// null. Every thread of the block must call it.
-template <bool Windowed, typename T, int D, int R, typename Offsets>
+// null; kscale / vscale: the scale pools (null when Store is kDense).
+// Every thread of the block must call it.
+template <bool Windowed, int Store, bool Fold, typename T, int D, int R,
+          typename Offsets>
 __device__ __forceinline__ void attend(
-    const T* __restrict__ q_rows, const T* __restrict__ kbase,
-    const T* __restrict__ vbase, Offsets offsets, int len, int n_chunks,
-    int chunk, int rows, float scale, int start, int spread,
+    const T* __restrict__ q_rows, const void* __restrict__ kpool,
+    const void* __restrict__ vpool, const float* __restrict__ kscale,
+    const float* __restrict__ vscale, Offsets offsets, int len,
+    int n_chunks, int chunk, int rows, float scale, int start, int spread,
     T* __restrict__ o_rows, float* __restrict__ lse_rows) {
-  constexpr int kLanesPerTok = D / 8;               // 16-byte chunks per row
+  using S = KV<T, Store>;
+  using Elem = typename S::Elem;
+  using Raw = typename S::Raw;
+  constexpr bool kQuant = S::kQuant;
+  static_assert(!Fold || Store == kInt8, "fold_scales is the int8 body");
+  constexpr int kLanesPerTok = D / 8;               // 8 values per lane
   constexpr int kTokPerPass = kThreads / kLanesPerTok;
   constexpr int kDimGroups = D / 8;
   constexpr int kTokGroups = kThreads / kDimGroups;
+  static_assert(kQuantBlock % (kTokPerPass * kUnroll) == 0 &&
+                    kQuantBlock % (kTokGroups * kUnroll) == 0,
+                "a token step must not straddle two scale blocks");
+  const Elem* kbase = static_cast<const Elem*>(kpool);
+  const Elem* vbase = static_cast<const Elem*>(vpool);
 
   extern __shared__ __align__(16) float smem[];
   float* sq = smem;                                 // [R][D]
@@ -77,6 +155,7 @@ __device__ __forceinline__ void attend(
   float* sm = sred + kTokGroups * D;                // [R] running max
   float* sl = sm + R;                               // [R] running sum
   float* salpha = sl + R;                           // [R] rescale factor
+  float* sqs = salpha + R;                          // [R][D] Fold: q * ks
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -109,29 +188,49 @@ __device__ __forceinline__ void attend(
   for (int p = Windowed ? max(start, 0) / chunk : 0; p < n_chunks; ++p) {
     const int n = min(chunk, len - p * chunk);
     const size_t off = offsets(p);
-    const T* kp = kbase + off;
-    const T* vp = vbase + off;
+    const Elem* kp = kbase + off;
+    const Elem* vp = vbase + off;
+    const float* ksp = kQuant ? kscale + offsets.scales(p) : nullptr;
+    const float* vsp = kQuant ? vscale + offsets.scales(p) : nullptr;
 
     // (A) scores s[r][t] = q_r . k_t (unscaled). The loop bound is
-    // uniform across the block, so every lane reaches the shuffles.
+    // uniform across the block, so every lane reaches the shuffles (and,
+    // under Fold, the barriers).
+    float ksc[kQuant && !Fold ? 8 : 1];
     for (int t0 = 0; t0 < n; t0 += kTokPerPass * kUnroll) {
-      uint4 raw[kUnroll];
+      if constexpr (kQuant) {
+        if (t0 % kQuantBlock == 0) {
+          const float* srow = ksp + (t0 / kQuantBlock) * D;
+          if constexpr (Fold) {
+            __syncthreads();     // every lane is done with the last block
+            for (int i = tid; i < rows * D; i += kThreads)
+              sqs[i] = round_to<T>(sq[i] * srow[i % D]);
+            __syncthreads();
+          } else {
+            load_scales8(srow + a_chunk, ksc);
+          }
+        }
+      }
+      const float* qsrc = Fold ? sqs : sq;
+      Raw raw[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int t = t0 + u * kTokPerPass + a_tok;
-        raw[u] = t < n ? *reinterpret_cast<const uint4*>(
-                             kp + (size_t)t * D + a_chunk)
-                       : make_uint4(0, 0, 0, 0);
+        raw[u] = t < n ? S::load(kp + (size_t)t * D + a_chunk) : S::zero();
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int t = t0 + u * kTokPerPass + a_tok;
         float kf[8];
-        unpack8<T>(raw[u], kf);
+        S::widen(raw[u], kf);
+        if constexpr (kQuant && !Fold) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) kf[i] = round_to<T>(kf[i] * ksc[i]);
+        }
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           if (r < rows) {
-            const float* qq = sq + r * D + a_chunk;
+            const float* qq = qsrc + r * D + a_chunk;
             float dot = 0.f;
 #pragma unroll
             for (int i = 0; i < 8; ++i) dot += qq[i] * kf[i];
@@ -188,27 +287,59 @@ __device__ __forceinline__ void attend(
         for (int i = 0; i < 8; ++i) acc[r][i] *= a;
       }
     }
+    float vsc[kQuant ? 8 : 1];
     for (int t0 = 0; t0 < n; t0 += kTokGroups * kUnroll) {
-      uint4 raw[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int t = t0 + u * kTokGroups + c_tok;
-        raw[u] = t < n ? *reinterpret_cast<const uint4*>(
-                             vp + (size_t)t * D + c_chunk)
-                       : make_uint4(0, 0, 0, 0);
+      if constexpr (kQuant) {
+        if (t0 % kQuantBlock == 0)
+          load_scales8(vsp + (t0 / kQuantBlock) * D + c_chunk, vsc);
       }
+      Raw raw[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int t = t0 + u * kTokGroups + c_tok;
-        if (t < n) {
-          float vf[8];
-          unpack8<T>(raw[u], vf);
+        raw[u] = t < n ? S::load(vp + (size_t)t * D + c_chunk) : S::zero();
+      }
+      if constexpr (Fold) {
+        // Unscaled codes; this thread's partial sum over the step's
+        // tokens (all in one block) is scaled once per channel.
+        float vf[kUnroll][8];
 #pragma unroll
-          for (int r = 0; r < R; ++r) {
-            if (r < rows) {
-              const float pr = ss[r * chunk + t];
+        for (int u = 0; u < kUnroll; ++u) S::widen(raw[u], vf[u]);
 #pragma unroll
-              for (int i = 0; i < 8; ++i) acc[r][i] += pr * vf[i];
+        for (int r = 0; r < R; ++r) {
+          if (r < rows) {
+            float part[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) part[i] = 0.f;
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+              const int t = t0 + u * kTokGroups + c_tok;
+              const float pr = t < n ? ss[r * chunk + t] : 0.f;
+#pragma unroll
+              for (int i = 0; i < 8; ++i) part[i] += pr * vf[u][i];
+            }
+#pragma unroll
+            for (int i = 0; i < 8; ++i) acc[r][i] += part[i] * vsc[i];
+          }
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int t = t0 + u * kTokGroups + c_tok;
+          if (t < n) {
+            float vf[8];
+            S::widen(raw[u], vf);
+            if constexpr (kQuant) {
+#pragma unroll
+              for (int i = 0; i < 8; ++i) vf[i] = round_to<T>(vf[i] * vsc[i]);
+            }
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              if (r < rows) {
+                const float pr = ss[r * chunk + t];
+#pragma unroll
+                for (int i = 0; i < 8; ++i) acc[r][i] += pr * vf[i];
+              }
             }
           }
         }

@@ -19,7 +19,6 @@
 
 #pragma once
 
-#include <cuda_fp8.h>
 #include <mma.h>
 
 #include "common.cuh"
@@ -28,11 +27,13 @@ namespace fa_mm {
 
 using namespace nvcuda;
 
-// Weight storage codes (ops/_cuda.py WEIGHT_CODES).
-constexpr int kDense = 0;
-constexpr int kInt8 = 1;
-constexpr int kE4M3 = 2;
-constexpr int kE5M2 = 3;
+// Weight storage codes (ops/_cuda.py WEIGHT_CODES): the int8 / fp8 codes
+// are common.cuh's, int4 is this body's own.
+using fa::kDense;
+using fa::kE4M3;
+using fa::kE5M2;
+using fa::kInt8;
+using fa::widen;
 constexpr int kInt4 = 4;
 
 constexpr int kGroup = 128;   // int4 rows per scale group (INT4_GROUP)
@@ -72,25 +73,6 @@ __device__ __forceinline__ uint4 load16(const unsigned char* p, int nvalid,
   const int n = min(nvalid, 16);
   for (int i = 0; i < n; ++i) o[i] = p[i];
   return out;
-}
-
-template <int W>
-__device__ __forceinline__ float widen(unsigned char b);
-template <>
-__device__ __forceinline__ float widen<kInt8>(unsigned char b) {
-  return static_cast<float>(static_cast<signed char>(b));
-}
-template <>
-__device__ __forceinline__ float widen<kE4M3>(unsigned char b) {
-  __nv_fp8_e4m3 v;
-  v.__x = b;
-  return static_cast<float>(v);
-}
-template <>
-__device__ __forceinline__ float widen<kE5M2>(unsigned char b) {
-  __nv_fp8_e5m2 v;
-  v.__x = b;
-  return static_cast<float>(v);
 }
 
 // acc += x[rows lo..hi-1 of the tile at m0] @ W[:, f0:f0 + kBN], W one

@@ -34,119 +34,57 @@
 // (decode_core.cuh: scores, online softmax and PV product per page,
 // partial sums added in a fixed order, so results are deterministic).
 //
+// Quantized pools (the TPU kernel's int8 / fp8 branch and its int8
+// fold_scales body, paged.py:73-115, :135-168): codes [Hkv, P, ps, D] in
+// int8 / e4m3 / e5m2 with fp32 scales [Hkv, P, ps / 128, D]; the scale
+// row of position pos of page p is scales[h, p, (pos % ps) / 128, :].
+// They halve the bytes per token (2*Hkv*D codes + 8*Hkv*D/128 scale
+// bytes against 4*Hkv*D in bf16) and add a widening per value; see
+// decode_core.cuh for the two bodies. The storages compile in their own
+// sources (paged_decode_int8.cu, paged_decode_fp8.cu), so the build runs
+// them in parallel and the dense instantiations below are as before.
+//
 // Few blocks (B * Hkv) are in flight at small batch; splitting the pages
 // of a sequence across blocks with a merge pass is the fast shape and is
 // later work.
 
-#include "decode_core.cuh"
+#include "paged_decode.cuh"
 
-namespace {
-
-using fa::decode::kThreads;
-
-template <bool Windowed, typename T, int D, int R>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
-                    const T* __restrict__ vpool,
-                    const int* __restrict__ table,
-                    const int* __restrict__ lengths,
-                    const int* __restrict__ starts, T* __restrict__ o,
-                    float* __restrict__ lse, int Hq, int Hkv, int num_pages,
-                    int page_size, int width, int rows, int spread,
-                    float scale) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int len = lengths[b];
-  const int start = Windowed ? starts[b] : 0;
-  const int n_pages = min((len + page_size - 1) / page_size, width);
-  const size_t qrow0 = (size_t)b * Hq + (size_t)h * rows;
-  const fa::decode::PagedChunks pages{table + (size_t)b * width,
-                                      (size_t)h * num_pages,
-                                      (size_t)page_size * D};
-  fa::decode::attend<Windowed, T, D, R>(q + qrow0 * D, kpool, vpool, pages,
-                                        len, n_pages, page_size, rows, scale,
-                                        start, spread, o + qrow0 * D,
-                                        lse + qrow0);
-}
-
-// Windowed: starts != nullptr (the dense instantiation has no mask).
-template <bool Windowed, typename T, int D, int R>
-cudaError_t launch(const void* q, const void* kpool, const void* vpool,
-                   const int* table, const int* lengths, const int* starts,
-                   void* o, float* lse, int B, int Hq, int Hkv,
-                   int num_pages, int page_size, int width, int rows,
-                   int spread, float scale, cudaStream_t stream) {
-  const size_t bytes = fa::decode::smem_bytes<D, R>(page_size);
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_decode_kernel<Windowed, T, D, R>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid(Hkv, B);
-  paged_decode_kernel<Windowed, T, D, R><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kpool),
-      static_cast<const T*>(vpool), table, lengths, starts,
-      static_cast<T*>(o), lse, Hq, Hkv, num_pages, page_size, width, rows,
-      spread, scale);
-  return cudaGetLastError();
-}
-
-// R: the smallest instantiated row bound >= the rows (config.PAGED_MAX_ROWS
-// is the largest).
-template <typename T, int D>
-cudaError_t dispatch_rows(const void* q, const void* kpool,
-                          const void* vpool, const int* table,
-                          const int* lengths, const int* starts, void* o,
-                          float* lse, int B, int Hq, int Hkv, int num_pages,
-                          int page_size, int width, int spread, float scale,
-                          cudaStream_t stream) {
-  const int rows = Hq / Hkv;
-#define FA_PAGED_LAUNCH(RB)                                                  \
-  if (rows <= RB)                                                            \
-    return starts != nullptr                                                 \
-               ? launch<true, T, D, RB>(q, kpool, vpool, table, lengths,     \
-                                        starts, o, lse, B, Hq, Hkv,          \
-                                        num_pages, page_size, width, rows,   \
-                                        spread, scale, stream)               \
-               : launch<false, T, D, RB>(q, kpool, vpool, table, lengths,    \
-                                         starts, o, lse, B, Hq, Hkv,         \
-                                         num_pages, page_size, width, rows,  \
-                                         1, scale, stream);
-  FA_PAGED_LAUNCH(2)
-  FA_PAGED_LAUNCH(4)
-  FA_PAGED_LAUNCH(8)
-  FA_PAGED_LAUNCH(16)
-#undef FA_PAGED_LAUNCH
-  return cudaErrorInvalidValue;
-}
-
-}  // namespace
-
+// kv_store: common.cuh kDense / kInt8 / kE4M3 / kE5M2; kscale / vscale
+// null for dense pools; fold (int8 only) takes the fold_scales body.
 extern "C" int fa_paged_decode(const void* q, const void* kpool,
-                               const void* vpool, const void* table,
+                               const void* vpool, const void* kscale,
+                               const void* vscale, const void* table,
                                const void* lengths, const void* starts,
                                void* o, void* lse, int B, int Hq, int Hkv,
                                int num_pages, int page_size, int width,
                                int D, int spread, float scale, int dtype,
-                               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* tb = static_cast<const int*>(table);
-  const int* ln = static_cast<const int*>(lengths);
-  const int* st = static_cast<const int*>(starts);
-  float* l = static_cast<float*>(lse);
+                               int kv_store, int fold, void* stream) {
+  using namespace fa;
   if (Hkv <= 0 || Hq % Hkv || page_size <= 0 || width <= 0 || spread < 1 ||
       (Hq / Hkv) % spread)
     return (int)cudaErrorInvalidValue;
-#define FA_PAGED_DISPATCH(T, DIM)                                          \
-  return (int)dispatch_rows<T, DIM>(q, kpool, vpool, tb, ln, st, o, l, B,  \
-                                    Hq, Hkv, num_pages, page_size, width,  \
-                                    spread, scale, s);
-  if (dtype == fa::kBFloat16) {
-    if (D == 128) FA_PAGED_DISPATCH(__nv_bfloat16, 128)
-    if (D == 64) FA_PAGED_DISPATCH(__nv_bfloat16, 64)
-  } else if (dtype == fa::kFloat16) {
-    if (D == 128) FA_PAGED_DISPATCH(__half, 128)
-    if (D == 64) FA_PAGED_DISPATCH(__half, 64)
+  const bool quant = kv_store != kDense;
+  if (quant && (kscale == nullptr || vscale == nullptr ||
+                page_size % decode::kQuantBlock))
+    return (int)cudaErrorInvalidValue;
+  if (fold && kv_store != kInt8) return (int)cudaErrorInvalidValue;
+  const paged::Args a{q, kpool, vpool, static_cast<const float*>(kscale),
+                      static_cast<const float*>(vscale),
+                      static_cast<const int*>(table),
+                      static_cast<const int*>(lengths),
+                      static_cast<const int*>(starts), o,
+                      static_cast<float*>(lse), B, Hq, Hkv, num_pages,
+                      page_size, width, spread, scale,
+                      static_cast<cudaStream_t>(stream)};
+  switch (kv_store) {
+    case kDense:
+      return (int)paged::dispatch<kDense, false>(a, dtype, D);
+    case kInt8:
+      return (int)paged::dispatch_int8(a, dtype, D, fold != 0);
+    case kE4M3:
+    case kE5M2:
+      return (int)paged::dispatch_fp8(a, dtype, D, kv_store);
   }
-#undef FA_PAGED_DISPATCH
   return (int)cudaErrorInvalidValue;
 }

@@ -1,0 +1,101 @@
+// The B4 kernel template (paged_decode.cu): one 256-thread block per
+// (kv head, sequence) over the body in decode_core.cuh, instantiated per
+// window flag, K/V storage, fold flag, compute type, head dim and row
+// bound. paged_decode.cu holds the dense instantiations and the C entry
+// point; paged_decode_int8.cu and paged_decode_fp8.cu the quantized ones.
+#pragma once
+
+#include "decode_core.cuh"
+
+namespace fa {
+namespace paged {
+
+using decode::kThreads;
+
+struct Args {
+  const void* q;            // [B, Hq, D] in T
+  const void* kpool;        // [Hkv, P, ps, D] in the storage
+  const void* vpool;
+  const float* kscale;      // [Hkv, P, ps / 128, D], null when dense
+  const float* vscale;
+  const int* table;         // [B, width]
+  const int* lengths;       // [B]
+  const int* starts;        // [B] window starts, or null
+  void* o;                  // [B, Hq, D] in T
+  float* lse;               // [B, Hq]
+  int B, Hq, Hkv, num_pages, page_size, width, spread;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <bool Windowed, int Store, bool Fold, typename T, int D, int R>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_kernel(const Args a) {
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int rows = a.Hq / a.Hkv;
+  const int len = a.lengths[b];
+  const int start = Windowed ? a.starts[b] : 0;
+  const int n_pages = min((len + a.page_size - 1) / a.page_size, a.width);
+  const size_t qrow0 = (size_t)b * a.Hq + (size_t)h * rows;
+  const decode::PagedChunks pages{
+      a.table + (size_t)b * a.width, (size_t)h * a.num_pages,
+      (size_t)a.page_size * D,
+      (size_t)(a.page_size / decode::kQuantBlock) * D};
+  decode::attend<Windowed, Store, Fold, T, D, R>(
+      static_cast<const T*>(a.q) + qrow0 * D, a.kpool, a.vpool, a.kscale,
+      a.vscale, pages, len, n_pages, a.page_size, rows, a.scale, start,
+      Windowed ? a.spread : 1, static_cast<T*>(a.o) + qrow0 * D,
+      a.lse + qrow0);
+}
+
+// Windowed: starts != nullptr (the other instantiation has no mask).
+template <int Store, bool Fold, typename T, int D, int R>
+cudaError_t launch(const Args& a) {
+  const size_t bytes = decode::smem_bytes<D, R, Fold>(a.page_size);
+  auto kernel = a.starts != nullptr
+                    ? paged_decode_kernel<true, Store, Fold, T, D, R>
+                    : paged_decode_kernel<false, Store, Fold, T, D, R>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(a.Hkv, a.B), kThreads, bytes, a.stream>>>(a);
+  return cudaGetLastError();
+}
+
+// R: the smallest instantiated row bound >= the rows (config
+// .PAGED_MAX_ROWS is the largest). Quantized storages instantiate 4 and
+// 16 only (the serving models' group of 4, and everything up to the
+// bound), which keeps their build short.
+template <int Store, bool Fold, typename T, int D>
+cudaError_t dispatch_rows(const Args& a) {
+  const int rows = a.Hq / a.Hkv;
+  if constexpr (Store == kDense) {
+    if (rows <= 2) return launch<Store, Fold, T, D, 2>(a);
+  }
+  if (rows <= 4) return launch<Store, Fold, T, D, 4>(a);
+  if constexpr (Store == kDense) {
+    if (rows <= 8) return launch<Store, Fold, T, D, 8>(a);
+  }
+  if (rows <= 16) return launch<Store, Fold, T, D, 16>(a);
+  return cudaErrorInvalidValue;
+}
+
+template <int Store, bool Fold>
+cudaError_t dispatch(const Args& a, int dtype, int D) {
+  if (dtype == kBFloat16) {
+    if (D == 128) return dispatch_rows<Store, Fold, __nv_bfloat16, 128>(a);
+    if (D == 64) return dispatch_rows<Store, Fold, __nv_bfloat16, 64>(a);
+  } else if (dtype == kFloat16) {
+    if (D == 128) return dispatch_rows<Store, Fold, __half, 128>(a);
+    if (D == 64) return dispatch_rows<Store, Fold, __half, 64>(a);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Defined in paged_decode_int8.cu and paged_decode_fp8.cu.
+cudaError_t dispatch_int8(const Args& a, int dtype, int D, bool fold);
+cudaError_t dispatch_fp8(const Args& a, int dtype, int D, int store);
+
+}  // namespace paged
+}  // namespace fa

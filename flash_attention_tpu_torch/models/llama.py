@@ -567,11 +567,16 @@ def decode_step_paged_multi(params, tokens, cfg: LlamaConfig, k_pages,
     folded query t adds t in-kernel; the window must exceed the tail, so
     every tail row stays visible.
 
+    `k_scales` / `v_scales` (per-layer [Hkv, P, page_size/128, D] fp32)
+    mark int8 / fp8 pages; they go to the paged kernel beside the pools
+    (its default body, as the JAX step passes no fold_scales).
+
     Returns (logits [B, T, vocab], k_tails, v_tails).
     """
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(
-            "quantized pools arrive with the quantized-KV slice")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales must be given together")
+    if k_scales is None:
+        k_scales = v_scales = [None] * cfg.n_layers
     if cfg.window is not None and cfg.window <= k_tails[0].shape[2]:
         raise ValueError(
             f"window={cfg.window} must exceed the tail buffer "
@@ -592,8 +597,9 @@ def decode_step_paged_multi(params, tokens, cfg: LlamaConfig, k_pages,
         win_starts = (paged_lens + tail_pos + 1 - cfg.window).clamp(
             min=0).to(torch.int32)
     x = params["embed"][tokens]                                # [B, T, D]
-    for layer, kp, vp, kt, vt in zip(params["layers"], k_pages, v_pages,
-                                     k_tails, v_tails):
+    for layer, kp, vp, kt, vt, ksc, vsc in zip(
+            params["layers"], k_pages, v_pages, k_tails, v_tails, k_scales,
+            v_scales):
         h = rmsnorm(x, layer["attn_norm"], cfg.norm_eps)
         q = _mm("btd,dhk->bhtk", h, layer["wq"])
         k = _mm("btd,dhk->bhtk", h, layer["wk"])
@@ -608,8 +614,8 @@ def decode_step_paged_multi(params, tokens, cfg: LlamaConfig, k_pages,
         qg = q.reshape(b, hkv, group, t_new, hd)
         o_p, lse_p = paged_flash_decode(
             qg.reshape(b, hkv * group * t_new, hd), kp, vp, page_tables,
-            paged_lens, scale=scale, window_starts=win_starts,
-            qpos_spread=t_new, return_lse=True)
+            paged_lens, k_scales=ksc, v_scales=vsc, scale=scale,
+            window_starts=win_starts, qpos_spread=t_new, return_lse=True)
         o_p = o_p.reshape(b, hkv, group, t_new, hd).float()
         lse_p = lse_p.reshape(b, hkv, group, t_new)
         o_t, lse_t = _tail_attention(qg, kt, vt, tail_pos, scale)

@@ -35,32 +35,38 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float16: 0, torch.bfloat16: 1}
 
+# Storage codes of int8 / fp8 values (csrc/common.cuh kInt8, kE4M3,
+# kE5M2; 0 is a value in the compute dtype itself).
+STORE_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2, torch.float8_e5m2: 3}
+
 # Weight storage codes of csrc/matmul_core.cuh: a dense weight in the
 # activation's own dtype, int8, the two fp8 formats, packed int4.
-WEIGHT_CODES = {"dense": 0, torch.int8: 1, torch.float8_e4m3fn: 2,
-                torch.float8_e5m2: 3, "int4": 4}
+WEIGHT_CODES = {"dense": 0, **STORE_CODES, "int4": 4}
 
 _lock = threading.Lock()
 _lib = None
 
 _vp, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, o, lse, qseg (or NULL), kvseg (or NULL), B, Hq, Hkv, Nq,
-    # Nk, D, causal, offset, window (0 = none), scale, dtype, stream
-    "fa_flash_fwd": [_vp] * 7 + [_i32] * 9 + [_f32, _i32, _vp],
+    # q, k, v, k scales (or NULL), v scales (or NULL), o, lse, qseg (or
+    # NULL), kvseg (or NULL), B, Hq, Hkv, Nq, Nk, D, causal, offset,
+    # window (0 = none), scale, dtype, kv store, stream
+    "fa_flash_fwd": [_vp] * 9 + [_i32] * 9 + [_f32, _i32, _i32, _vp],
     # q, k, v, do, lse, delta, dq, B, Hq, Hkv, Nq, Nk, D, causal,
     # offset, scale, dtype, stream
     "fa_flash_bwd_dq": [_vp] * 7 + [_i32] * 8 + [_f32, _i32, _vp],
     # q, k, v, do, lse, delta, dk, dv, B, Hq, Hkv, Nq, Nk, D, causal,
     # offset, scale, dtype, stream
     "fa_flash_bwd_dkv": [_vp] * 8 + [_i32] * 8 + [_f32, _i32, _vp],
-    # q, k_pool, v_pool, page_table, lengths, window starts (or NULL), o,
-    # lse, B, Hq, Hkv, num_pages, page_size, table_width, D, qpos_spread,
-    # scale, dtype, stream
-    "fa_paged_decode": [_vp] * 8 + [_i32] * 8 + [_f32, _i32, _vp],
-    # q, k, v, lengths, o, B, Hq, Hkv, S, D, window (0 = none), scale,
-    # dtype, stream
-    "fa_decode": [_vp] * 5 + [_i32] * 6 + [_f32, _i32, _vp],
+    # q, k_pool, v_pool, k scales (or NULL), v scales (or NULL),
+    # page_table, lengths, window starts (or NULL), o, lse, B, Hq, Hkv,
+    # num_pages, page_size, table_width, D, qpos_spread, scale, dtype,
+    # kv store, fold_scales, stream
+    "fa_paged_decode": [_vp] * 10 + [_i32] * 8 + [_f32] + [_i32] * 3
+    + [_vp],
+    # q, k, v, k scales (or NULL), v scales (or NULL), lengths, o, B, Hq,
+    # Hkv, S, D, window (0 = none), scale, dtype, kv store, stream
+    "fa_decode": [_vp] * 7 + [_i32] * 6 + [_f32, _i32, _i32, _vp],
     # x, w, scale (or NULL), y, M, K, F, weight code, dtype, stream
     "fa_quant_matmul": [_vp] * 4 + [_i32] * 5 + [_vp],
     # x, w, scale (or NULL), offsets, y, M, K, F, E, weight code, dtype,

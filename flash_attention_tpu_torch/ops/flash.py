@@ -14,8 +14,16 @@ two as a `torch.autograd.Function` (the JAX package's `custom_vjp`).
 Masks combine as in the JAX kernels: with segment ids a column is
 invisible where the q and kv ids differ; under `causal` where col > row +
 offset; under `window` (which requires causal) where col <= row + offset
-- window. The backward of a windowed or segmented forward and quantized
-KV arrive with later slices and raise NotImplementedError until then.
+- window. The backward of a windowed or segmented forward arrives with a
+later slice and raises NotImplementedError until then.
+
+K and V may be `QuantizedTensor`s (int8 / fp8 codes with fp32 scales
+[B, Hkv, Nk/128, D]) in the forward (`flash_attention_fwd`,
+`flash_attention_quantized`): B1 widens each code times its block's
+scale in fp32 and rounds it to q's dtype as it loads a tile (the JAX
+kernel's `_dequant_tile`), so K/V are read at code width. Gradients
+through a quantized cache are not defined: `flash_attention` and the
+backward take dense K/V only.
 """
 
 from __future__ import annotations
@@ -30,6 +38,13 @@ from flash_attention_tpu_torch.config import (
     SUPPORTED_HEAD_DIMS,
 )
 from flash_attention_tpu_torch.ops import _cuda
+from flash_attention_tpu_torch.ops.quant import (
+    QUANT_BLOCK,
+    QuantizedTensor,
+    check_quant_cuda,
+    dequantize_kv,
+    split_kv,
+)
 
 # Running-max initializer and the LSE of a row that sees nothing: rows
 # with no visible key export O = 0 and a finite LSE of INIT_M * scale,
@@ -42,10 +57,12 @@ INIT_M = -1e37
 flash_fwd_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
-# Launches of B1 that took its segment-id branch, and of B1 that took its
-# window branch (each also counted in flash_fwd_launches).
+# Launches of B1 that took its segment-id branch, of B1 that took its
+# window branch, and of B1 over quantized K/V (each also counted in
+# flash_fwd_launches).
 flash_fwd_segment_launches = 0
 flash_fwd_window_launches = 0
+flash_fwd_quant_launches = 0
 
 
 @dataclasses.dataclass
@@ -57,11 +74,17 @@ class SegmentIds:
     kv: torch.Tensor
 
 
+def _dense_kv(k, v):
+    """Dense K/V for the differentiable paths: quantized ones are
+    forward-only (flash_attention_quantized)."""
+    if isinstance(k, QuantizedTensor) or isinstance(v, QuantizedTensor):
+        raise TypeError("gradients through a quantized K/V cache are not "
+                        "defined: use flash_attention_quantized (forward "
+                        "only)")
+    split_kv(k, v)
+
+
 def _check_args(q, k, v, segment_ids, causal, scale, offset, window):
-    if not (k.dtype.is_floating_point and v.dtype.is_floating_point) \
-            or k.element_size() == 1:
-        raise NotImplementedError(
-            "quantized KV arrives with the quantized-KV slice")
     batch, hq, nq, d = q.shape
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(
@@ -174,12 +197,18 @@ def _segment_ptrs(segment_ids, device):
 
 
 def _flash_fwd_cuda(q, k, v, *, causal, scale, offset, window=None,
-                    segment_ids=None):
+                    segment_ids=None, k_scales=None, v_scales=None):
     global flash_fwd_launches, flash_fwd_segment_launches
-    global flash_fwd_window_launches
+    global flash_fwd_window_launches, flash_fwd_quant_launches
     batch, hq, nq, d = q.shape
     hkv, nk = k.shape[1], k.shape[2]
-    _check_cuda_inputs("B1", q, k, v)
+    quantized = k_scales is not None
+    if quantized:
+        _check_cuda_inputs("B1", q, q, q)
+        store = check_quant_cuda("B1", (k, v), (k_scales, v_scales))
+    else:
+        _check_cuda_inputs("B1", q, k, v)
+        store = 0
     qseg, kvseg = _segment_ptrs(segment_ids, q.device)
     o = torch.empty_like(q)
     lse = torch.empty((batch, hq, nq), dtype=torch.float32,
@@ -188,13 +217,16 @@ def _flash_fwd_cuda(q, k, v, *, causal, scale, offset, window=None,
         return o, lse
     lib = _cuda.lib()
     code = lib.fa_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        k_scales.data_ptr() if quantized else None,
+        v_scales.data_ptr() if quantized else None, o.data_ptr(),
         lse.data_ptr(), qseg, kvseg, batch, hq, hkv, nq, nk, d,
         int(causal), offset, int(window or 0), scale,
-        _cuda.DTYPE_CODES[q.dtype], _cuda.stream_handle(q.device))
+        _cuda.DTYPE_CODES[q.dtype], store, _cuda.stream_handle(q.device))
     flash_fwd_launches += 1
     flash_fwd_segment_launches += segment_ids is not None
     flash_fwd_window_launches += window is not None
+    flash_fwd_quant_launches += quantized
     _cuda.check(code, "flash_fwd")
     return o, lse
 
@@ -207,20 +239,32 @@ def flash_attention_fwd(q, k, v, segment_ids=None, *, causal=False,
     [..., 128] layout is a TPU device and is not kept); lse is None when
     save_residuals is False.
 
-    q: [B, Hq, Nq, D]; k, v: [B, Hkv, Nk, D] with Hkv | Hq. Causal
+    q: [B, Hq, Nq, D]; k, v: [B, Hkv, Nk, D] with Hkv | Hq, dense or
+    both QuantizedTensor (scales [B, Hkv, Nk/128, D]). Causal
     visibility is col <= row + offset, offset defaulting to Nk - Nq (it
     may exceed Nk - Nq, as the rolling-buffer prefill's offset = Nk);
     `window` hides col <= row + offset - window; `segment_ids`
     (SegmentIds) hide pairs whose ids differ.
     """
-    scale, offset = _check_args(q, k, v, segment_ids, causal, scale,
+    kv, vv, ks, vs = split_kv(k, v)
+    scale, offset = _check_args(q, kv, vv, segment_ids, causal, scale,
                                 offset, window)
+    if ks is not None:
+        b, hkv, nk, d = kv.shape
+        want = (b, hkv, nk // QUANT_BLOCK, d)
+        if nk % QUANT_BLOCK or tuple(ks.shape) != want \
+                or tuple(vs.shape) != want:
+            raise ValueError(f"quantized K/V need Nk % {QUANT_BLOCK} == 0 "
+                             f"and scales {want}, got Nk={nk}, "
+                             f"{tuple(ks.shape)} / {tuple(vs.shape)}")
     kw = dict(causal=causal, scale=scale, offset=offset, window=window,
               segment_ids=segment_ids)
     if q.is_cuda:
-        o, lse = _flash_fwd_cuda(q, k, v, **kw)
+        o, lse = _flash_fwd_cuda(q, kv, vv, k_scales=ks, v_scales=vs, **kw)
     elif q.device.type == "cpu":
-        o, lse = flash_attention_fwd_plain(q, k, v, **kw)
+        if ks is not None:
+            kv, vv = dequantize_kv(k, q.dtype), dequantize_kv(v, q.dtype)
+        o, lse = flash_attention_fwd_plain(q, kv, vv, **kw)
     else:
         raise ValueError(f"unsupported device {q.device}")
     return o, (lse if save_residuals else None)
@@ -332,6 +376,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, segment_ids=None, *,
     then B3 (dK/dV) on CUDA tensors; runs flash_attention_bwd_plain on
     CPU tensors."""
     _no_backward_masks(segment_ids, window)
+    _dense_kv(k, v)
     scale, offset = _check_args(q, k, v, segment_ids, causal, scale,
                                 offset, window)
     if q.is_cuda:
@@ -379,12 +424,30 @@ def flash_attention(q, k, v, segment_ids=None, *, causal: bool = False,
 
     q: [B, Hq, Nq, D]; k, v: [B, Hkv, Nk, D] with Hkv | Hq. Masks as in
     flash_attention_fwd. The backward of a windowed or segmented call
-    raises NotImplementedError (the windowed-training slice).
+    raises NotImplementedError (the windowed-training slice); quantized
+    K/V raise TypeError (flash_attention_quantized is forward-only).
     """
+    _dense_kv(k, v)
     scale, offset = _check_args(q, k, v, segment_ids, causal, scale,
                                 offset, window)
     return _FlashAttention.apply(q, k, v, causal, scale, offset, window,
                                  segment_ids)
+
+
+def flash_attention_quantized(q, k, v, *, causal: bool = False,
+                              scale: float | None = None,
+                              offset: int | None = None):
+    """Forward-only flash attention over an int8 / fp8-quantized KV cache
+    (QuantizedTensor k and v): B1 with the dequantization fused into its
+    tile loads, so K/V are read at code width. Returns O [B, Hq, Nq, D]
+    in q's dtype; no autograd."""
+    if not (isinstance(k, QuantizedTensor) and isinstance(v, QuantizedTensor)):
+        raise TypeError("flash_attention_quantized takes QuantizedTensor "
+                        "k and v (ops/quant.py quantize_kv)")
+    with torch.no_grad():
+        o, _ = flash_attention_fwd(q, k, v, causal=causal, scale=scale,
+                                   offset=offset, save_residuals=False)
+    return o
 
 
 def _visible_counts(batch, nq, nk, causal, offset=None, window=None,
@@ -411,14 +474,19 @@ def _visible_counts(batch, nq, nk, causal, offset=None, window=None,
 
 
 def fwd_cost(batch, hq, hkv, nq, nk, d, causal, itemsize, *, offset=None,
-             window=None, segment_ids=None):
+             window=None, segment_ids=None, kv_itemsize=None):
     """(flops, bytes) B1 must do at least: the QK^T and PV products over
     the visible (row, col) pairs, q and the kv rows some row sees read
-    once (and the segment ids), O and LSE written once."""
+    once (and the segment ids), O and LSE written once. With
+    `kv_itemsize` (1 for int8 / fp8 K/V) the kv rows count at that
+    width, plus one fp32 scale row per 128 of them."""
     pairs, cols = _visible_counts(batch, nq, nk, causal, offset, window,
                                   segment_ids)
     flops = 4 * hq * pairs * d
-    nbytes = (itemsize * d * (2 * hq * nq * batch + 2 * hkv * cols)
+    kv_bytes = (itemsize * d * 2 * hkv * cols if kv_itemsize is None
+                else 2 * hkv * d * (kv_itemsize * cols
+                                    + 4 * -(-cols // QUANT_BLOCK)))
+    nbytes = (itemsize * d * 2 * hq * nq * batch + kv_bytes
               + 4 * batch * hq * nq)
     if segment_ids is not None:
         nbytes += 4 * batch * (nq + nk)

@@ -10,6 +10,13 @@ Pool layout: [Hkv, num_pages, page_size, D]; one page id addresses the
 same slot in every head's pool. The page table [B, W] lists each
 sequence's pages; entries past its live pages are never read, so the
 table width W does not decide how much the kernel reads.
+
+Quantized pools hold int8 / fp8 codes with fp32 scales [Hkv, num_pages,
+page_size/128, D] (page_size a multiple of 128): the default body widens
+each code times its scale in fp32 and rounds it to q's dtype before the
+product (the JAX kernel's numerics); `fold_scales` (int8 only) folds the
+K scales into q per 128-token block and the V scales into each block's
+partial PV sum, so the codes enter the products unscaled.
 """
 
 from __future__ import annotations
@@ -24,50 +31,117 @@ from flash_attention_tpu_torch.config import (
     cdiv,
 )
 from flash_attention_tpu_torch.ops import _cuda
-from flash_attention_tpu_torch.ops.decode import flash_decode_plain
+from flash_attention_tpu_torch.ops.decode import (
+    finish_rows,
+    flash_decode_plain,
+    masked_softmax,
+)
+from flash_attention_tpu_torch.ops.quant import (
+    QUANT_BLOCK,
+    check_quant_cuda,
+    dequantize_blocks,
+    is_dense,
+)
 
 DEFAULT_PAGE_SIZE = 256
 
 # Launches of the B4 kernel (incremented only where it is launched), and
-# of those, the launches that took its window-starts branch.
+# of those, the launches that took its window-starts branch, those over
+# quantized pools, and those of the fold_scales body.
 paged_decode_launches = 0
 paged_decode_window_launches = 0
+paged_decode_quant_launches = 0
+paged_decode_fold_launches = 0
 
 
 def _gather(pool, page_table):
-    """[Hkv, P, ps, D] pool -> [B, Hkv, W*ps, D] float32 per-sequence
-    caches, following each table row."""
-    hkv, _, ps, d = pool.shape
+    """[Hkv, P, n, D] pool (pages, or their scale rows) -> [B, Hkv, W*n,
+    D] per-sequence caches in the pool's dtype, following each table
+    row."""
+    hkv, _, n, d = pool.shape
     b, w = page_table.shape
-    g = pool[:, page_table.long()]                 # [Hkv, B, W, ps, D]
-    return g.permute(1, 0, 2, 3, 4).reshape(b, hkv, w * ps, d).float()
+    g = pool[:, page_table.long()]                 # [Hkv, B, W, n, D]
+    return g.permute(1, 0, 2, 3, 4).reshape(b, hkv, w * n, d)
+
+
+def _gather_dequant(pool, scales, page_table, dtype):
+    """Gathered codes times their block's scales in fp32, rounded to
+    `dtype` (the JAX kernel's dequantization)."""
+    codes = _gather(pool, page_table)
+    b, hkv, s, d = codes.shape
+    return dequantize_blocks(
+        codes.reshape(b, hkv, s // QUANT_BLOCK, QUANT_BLOCK, d),
+        _gather(scales, page_table), dtype).reshape(b, hkv, s, d)
+
+
+def _fold_plain(q, kc, vc, ks, vs, lengths, *, scale, starts, qpos_spread):
+    """The fold_scales body in plain PyTorch over gathered int8 codes kc,
+    vc [B, Hkv, S, D] and scales ks, vs [B, Hkv, S/128, D]: per 128-token
+    block, q times the block's K scale row in fp32, rounded to q's dtype,
+    against the unscaled codes; each block's PV partial (probabilities
+    rounded to q's dtype) times the block's V scale row."""
+    b, hq, d = q.shape
+    hkv, s = kc.shape[1], kc.shape[2]
+    g, nb = hq // hkv, s // QUANT_BLOCK
+    qs = (q.float().reshape(b, hkv, g, 1, d) * ks[:, :, None]).to(
+        q.dtype).float()                                # [B, Hkv, G, nb, D]
+    kb = kc.reshape(b, hkv, nb, QUANT_BLOCK, d)
+    sc = torch.einsum("bhgnd,bhntd->bhgnt", qs, kb).reshape(
+        b, hkv, g, s) * scale
+    p, l, lse = masked_softmax(sc, lengths, starts, qpos_spread)
+    pb = p.to(q.dtype).float().reshape(b, hkv, g, nb, QUANT_BLOCK)
+    pv = torch.einsum("bhgnt,bhntd->bhgnd", pb,
+                      vc.reshape(b, hkv, nb, QUANT_BLOCK, d))
+    o = (pv * vs[:, :, None]).sum(dim=3)
+    return finish_rows(o, l, lse, q.shape, q.dtype, scale, True)
 
 
 def paged_flash_decode_plain(q, k_pool, v_pool, page_table, lengths, *,
-                             scale, starts=None, qpos_spread=1):
+                             scale, starts=None, qpos_spread=1,
+                             k_scales=None, v_scales=None,
+                             fold_scales=False):
     """B4's function in plain PyTorch: gather the pages, then B5's plain
     version over them (fp32 masked softmax over positions < lengths[b],
     and >= starts[b] + (r % qpos_spread) for row r of each kv head's
     group when window starts are given; probabilities rounded to the
-    input dtype for the PV product). Returns (o [B, Hq, D] in q's dtype,
-    lse [B, Hq] fp32); a row that sees nothing gives O = 0 and LSE =
-    INIT_M * scale."""
-    return flash_decode_plain(q, _gather(k_pool, page_table),
-                              _gather(v_pool, page_table), lengths,
-                              scale=scale, return_lse=True, starts=starts,
-                              qpos_spread=qpos_spread)
+    pools' dtype for the PV product). Quantized pools are dequantized to
+    q's dtype as they are gathered, or run the fold_scales body. Returns
+    (o [B, Hq, D] in q's dtype, lse [B, Hq] fp32); a row that sees
+    nothing gives O = 0 and LSE = INIT_M * scale."""
+    kw = dict(scale=scale, starts=starts, qpos_spread=qpos_spread)
+    if k_scales is None:
+        k, v = _gather(k_pool, page_table), _gather(v_pool, page_table)
+    elif fold_scales:
+        return _fold_plain(
+            q, *(_gather(t, page_table).float()
+                 for t in (k_pool, v_pool, k_scales, v_scales)),
+            lengths, **kw)
+    else:
+        k = _gather_dequant(k_pool, k_scales, page_table, q.dtype)
+        v = _gather_dequant(v_pool, v_scales, page_table, q.dtype)
+    return flash_decode_plain(q, k, v, lengths, return_lse=True, **kw)
 
 
 def _paged_decode_cuda(q, k_pool, v_pool, page_table, lengths, *, scale,
-                       starts=None, qpos_spread=1):
+                       starts=None, qpos_spread=1, k_scales=None,
+                       v_scales=None, fold_scales=False):
     global paged_decode_launches, paged_decode_window_launches
+    global paged_decode_quant_launches, paged_decode_fold_launches
     b, hq, d = q.shape
     hkv, num_pages, page_size, _ = k_pool.shape
     rows = hq // hkv
-    if q.dtype not in _cuda.DTYPE_CODES or k_pool.dtype != q.dtype \
+    quantized = k_scales is not None
+    if quantized:
+        if q.dtype not in _cuda.DTYPE_CODES:
+            raise TypeError(f"B4 takes fp16/bf16 q (got {q.dtype})")
+        store = check_quant_cuda("B4", (k_pool, v_pool),
+                                 (k_scales, v_scales))
+    elif q.dtype not in _cuda.DTYPE_CODES or k_pool.dtype != q.dtype \
             or v_pool.dtype != q.dtype:
         raise TypeError(f"B4 takes fp16/bf16 q and pools of one dtype "
                         f"(got {q.dtype}, {k_pool.dtype}, {v_pool.dtype})")
+    else:
+        store = 0
     if d not in CUDA_HEAD_DIMS:
         raise NotImplementedError(
             f"B4 is built for head dims {CUDA_HEAD_DIMS}, got {d}")
@@ -96,13 +170,18 @@ def _paged_decode_cuda(q, k_pool, v_pool, page_table, lengths, *, scale,
         return o, lse
     code = _cuda.lib().fa_paged_decode(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scales.data_ptr() if quantized else None,
+        v_scales.data_ptr() if quantized else None,
         page_table.data_ptr(), lengths.data_ptr(),
         None if starts is None else starts.data_ptr(), o.data_ptr(),
         lse.data_ptr(), b, hq, hkv, num_pages, page_size,
         page_table.shape[1], d, qpos_spread, scale,
-        _cuda.DTYPE_CODES[q.dtype], _cuda.stream_handle(q.device))
+        _cuda.DTYPE_CODES[q.dtype], store, int(fold_scales),
+        _cuda.stream_handle(q.device))
     paged_decode_launches += 1
     paged_decode_window_launches += starts is not None
+    paged_decode_quant_launches += quantized
+    paged_decode_fold_launches += fold_scales
     _cuda.check(code, "paged_decode")
     return o, lse
 
@@ -123,7 +202,7 @@ def _window_starts(lengths, window, window_starts):
 def paged_flash_decode(q, k_pool, v_pool, page_table, lengths, *,
                        k_scales=None, v_scales=None, scale=None,
                        window=None, window_starts=None, qpos_spread=1,
-                       return_lse=False):
+                       return_lse=False, fold_scales=False):
     """Decode attention over paged KV pools.
 
     q: [B, Hq, D]; k_pool, v_pool: [Hkv, num_pages, page_size, D];
@@ -134,14 +213,32 @@ def paged_flash_decode(q, k_pool, v_pool, page_table, lengths, *,
     `qpos_spread` consecutive query positions may be folded into the
     head dim (t fastest); under a window folded query t's start is
     window_starts + t, without one the fold changes nothing. Pages
-    entirely below the window are not read. Returns [B, Hq, D], or
-    (o, lse [B, Hq] fp32) with return_lse.
+    entirely below the window are not read. int8 / fp8 pools come with
+    k_scales / v_scales [Hkv, num_pages, page_size/128, D] fp32;
+    `fold_scales` (int8 pools only) takes the fold_scales body. Returns
+    [B, Hq, D], or (o, lse [B, Hq] fp32) with return_lse.
     """
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(
-            "quantized pools arrive with the quantized-KV slice")
+    quantized = k_scales is not None
+    if quantized != (v_scales is not None):
+        raise ValueError("k_scales and v_scales must be given together")
+    if fold_scales and (not quantized or k_pool.dtype != torch.int8):
+        raise ValueError(
+            "fold_scales is the int8 fast path: requires int8 pools with "
+            "k_scales/v_scales")
     b, hq, d = q.shape
-    hkv = k_pool.shape[0]
+    hkv, num_pages, page_size = k_pool.shape[:3]
+    if quantized:
+        want = (hkv, num_pages, page_size // QUANT_BLOCK, d)
+        if page_size % QUANT_BLOCK:
+            raise ValueError(f"page_size must be a multiple of "
+                             f"{QUANT_BLOCK}")
+        if tuple(k_scales.shape) != want or tuple(v_scales.shape) != want:
+            raise ValueError(f"scales must be {want}, got "
+                             f"{tuple(k_scales.shape)} / "
+                             f"{tuple(v_scales.shape)}")
+    elif not (is_dense(k_pool) and is_dense(v_pool)):
+        raise TypeError(f"int8 / fp8 pools need k_scales / v_scales (got "
+                        f"{k_pool.dtype} / {v_pool.dtype} pools)")
     if hq % hkv:
         raise ValueError(f"Hq={hq} must be a multiple of Hkv={hkv}")
     if qpos_spread > 1 and hq % qpos_spread:
@@ -154,7 +251,8 @@ def paged_flash_decode(q, k_pool, v_pool, page_table, lengths, *,
     spread = qpos_spread if starts is not None else 1
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    kw = dict(scale=float(scale), starts=starts, qpos_spread=spread)
+    kw = dict(scale=float(scale), starts=starts, qpos_spread=spread,
+              k_scales=k_scales, v_scales=v_scales, fold_scales=fold_scales)
     if q.is_cuda:
         o, lse = _paged_decode_cuda(q, k_pool, v_pool, page_table,
                                     lengths, **kw)
@@ -167,40 +265,49 @@ def paged_flash_decode(q, k_pool, v_pool, page_table, lengths, *,
 
 
 def paged_decode_reference(q, k_pool, v_pool, page_table, lengths, *,
-                           scale=None, window=None, window_starts=None,
-                           qpos_spread=1):
+                           k_scales=None, v_scales=None, scale=None,
+                           window=None, window_starts=None, qpos_spread=1):
     """Exact fp32 reference: the plain version on fp32 inputs (same
-    masks), output in q's dtype."""
+    masks; quantized pools dequantized to fp32), output in q's dtype."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     starts = _window_starts(lengths, window, window_starts)
-    o, _ = paged_flash_decode_plain(
-        q.float(), k_pool.float(), v_pool.float(), page_table, lengths,
-        scale=float(scale), starts=starts,
-        qpos_spread=qpos_spread if starts is not None else 1)
+    if k_scales is not None:
+        k = _gather_dequant(k_pool, k_scales, page_table, torch.float32)
+        v = _gather_dequant(v_pool, v_scales, page_table, torch.float32)
+    else:
+        k, v = (_gather(t, page_table).float() for t in (k_pool, v_pool))
+    o, _ = flash_decode_plain(
+        q.float(), k, v, lengths, scale=float(scale), return_lse=True,
+        starts=starts, qpos_spread=qpos_spread if starts is not None else 1)
     return o.to(q.dtype)
 
 
 def paged_decode_cost(lengths, hq, hkv, d, itemsize, page_size,
-                      starts=None, qpos_spread=1):
+                      starts=None, qpos_spread=1, kv_itemsize=None):
     """(flops, bytes) B4 must do at least for these lengths (and window
     starts): each position some row sees has its K and V rows read once
     per kv head and does 4 D FLOPs for each row that sees it; q, the
     table entries of the pages read, the lengths (and starts) read once,
-    O and LSE written once."""
+    O and LSE written once. With `kv_itemsize` (1 for int8 / fp8 pools)
+    the K/V rows count at that width, plus the fp32 scale row of every
+    128-token block that holds a position some row sees."""
     lengths = [int(x) for x in lengths]
     b = len(lengths)
     nbytes = 0 if starts is None else 4 * b
     starts = [0] * b if starts is None else [int(x) for x in starts]
     rows = hq // hkv
-    tokens = pages = seen = 0
+    tokens = pages = seen = blocks = 0
     for n, s0 in zip(lengths, starts):
         lo = min(max(s0, 0), n)
         tokens += n - lo
         pages += cdiv(n, page_size) - lo // page_size
+        blocks += cdiv(n, QUANT_BLOCK) - lo // QUANT_BLOCK
         seen += sum(max(0, n - max(s0 + r % qpos_spread, 0))
                     for r in range(rows))
     flops = 4 * hkv * seen * d
-    nbytes += (2 * hkv * tokens * d * itemsize + 2 * b * hq * d * itemsize
-               + 4 * b * hq + 4 * (pages + b))
+    kv_bytes = (2 * hkv * tokens * d * itemsize if kv_itemsize is None
+                else 2 * hkv * d * (tokens * kv_itemsize + 4 * blocks))
+    nbytes += (kv_bytes + 2 * b * hq * d * itemsize + 4 * b * hq
+               + 4 * (pages + b))
     return flops, nbytes

@@ -36,9 +36,17 @@ Design (as in the JAX engine):
     bulk before any tail would overflow. The page-table width of a
     decode step is bucketed to 8, 64 or max_pages.
 
+  * Quantized KV (`kv_quant_dtype` int8 / fp8): pages hold codes with
+    per-(page, 128-token block, channel) scales, the tails stay dense;
+    prompts page in block-aligned, each tail flush requantizes the blocks
+    it touches, and the decode step hands the scale pools to the paged
+    kernel. `cache_dtype` sets the dense pool / tail dtype (default the
+    model's); the CUDA decode kernel takes dense pools only in the
+    model's dtype, so another dense one raises on the card.
+
 Features of the JAX engine that later slices port raise
-NotImplementedError here: speculative decoding and draft models,
-tensor-parallel serving (mesh) and quantized KV pools. MoE models serve
+NotImplementedError here: speculative decoding and draft models, and
+tensor-parallel serving (mesh). MoE models serve
 through the same path (models/llama.py `_mlp_block`). The XLA warm-up
 helpers (precompile_*) have no counterpart: PyTorch compiles nothing.
 One departure from the JAX engine: an explicit `prefill_hbm_budget`
@@ -148,6 +156,7 @@ class EngineStats:
     decode_s: float = 0.0
     admit_s: float = 0.0              # _try_admit (incl. prefix probes)
     flush_s: float = 0.0              # tail flush + window eviction
+    book_s: float = 0.0               # host-side batch assembly
     ttft_s: list = dataclasses.field(default_factory=list)
 
     @property
@@ -174,7 +183,7 @@ class Engine:
 
     def __init__(self, params, cfg: LlamaConfig, *, max_batch: int = 8,
                  num_pages: int = 128, page_size: int = DEFAULT_PAGE_SIZE,
-                 max_seq_len: int | None = None,
+                 max_seq_len: int | None = None, cache_dtype=None,
                  tail_size: int | None = None, kv_quant_dtype=None,
                  decode_chunk: int = 1, prefill_chunk: int | None = None,
                  prefix_cache: bool = False, speculative_k: int = 0,
@@ -187,8 +196,6 @@ class Engine:
              or draft_params is not None or draft_cfg is not None,
              "speculative_k / draft_*", "the speculative-decoding slice"),
             (mesh is not None, "mesh", "the multi-device slice"),
-            (kv_quant_dtype is not None, "kv_quant_dtype",
-             "the quantized-KV slice"),
         ]
         for bad, what, slice_name in unported:
             if bad:
@@ -196,6 +203,12 @@ class Engine:
                     f"Engine: {what} is not ported yet; it arrives with "
                     f"{slice_name}")
         self.device = resolve_device(device)
+        cache_dtype = cache_dtype or cfg.dtype
+        if (self.device.type == "cuda" and kv_quant_dtype is None
+                and cache_dtype != cfg.dtype):
+            raise ValueError(
+                f"cache_dtype={cache_dtype}: the paged decode kernel (B4) "
+                f"takes dense pools only in the model's dtype {cfg.dtype}")
         self.params = params
         self.cfg = cfg
         self.max_batch = max_batch
@@ -207,7 +220,8 @@ class Engine:
             n_layers=cfg.n_layers, kv_heads=cfg.n_kv_heads,
             head_dim=cfg.head_dim, num_pages=num_pages,
             page_size=page_size, max_seqs=max_batch, tail_size=tail_size,
-            dtype=cfg.dtype, device=self.device)
+            dtype=cache_dtype, quant_dtype=kv_quant_dtype,
+            device=self.device)
         self.slots: list[_Slot | None] = [None] * max_batch
         self.pending: collections.deque[Request] = collections.deque()
         self.prefilling: collections.deque[_PrefillTask] = \
@@ -701,6 +715,7 @@ class Engine:
                         sid, self.cache.length(sid) + 1 - self.cfg.window)
         self.stats.flush_s += time.perf_counter() - t_flush
 
+        t_book = time.perf_counter()
         tokens = np.zeros(self.max_batch, np.int32)
         tail_pos = np.zeros(self.max_batch, np.int32)
         temps = np.zeros(self.max_batch, np.float32)
@@ -721,6 +736,7 @@ class Engine:
                 break
         tables, paged_lens = self.cache.batch_state(slot_sids, width)
         bases = self.cache.bases(slot_sids)
+        self.stats.book_s += time.perf_counter() - t_book
 
         t0 = time.perf_counter()
         tok = torch.from_numpy(tokens).to(self.device)
@@ -731,7 +747,8 @@ class Engine:
                 self.params, tok, self.cfg, self.cache.k_pools,
                 self.cache.v_pools, self.cache.k_tails,
                 self.cache.v_tails, tables, paged_lens, tpos + i,
-                paged_bases=bases)
+                k_scales=self.cache.k_scale_pools,
+                v_scales=self.cache.v_scale_pools, paged_bases=bases)
             self.stats.decode_steps += 1
             tok = self._sample_batch(logits, temps, top_ps)
             out.append(tok)

@@ -15,7 +15,9 @@ import pytest
 import torch
 
 from flash_attention_tpu.ops.decode import flash_decode as jax_decode
+from flash_attention_tpu.ops.quant import quantize_kv as jax_quantize_kv
 from flash_attention_tpu_torch.ops import decode as tdec
+from flash_attention_tpu_torch.ops.quant import quantize_kv
 from flash_attention_tpu_torch.utils.metrics import max_abs_error, verify
 
 ATOL = 2e-5
@@ -85,12 +87,15 @@ def test_unported_options_raise():
     windowed = tdec.flash_decode(*args, window=16)
     assert max_abs_error(windowed, tdec.decode_reference(
         *args, window=16)) <= ATOL
-    i8 = args[1].to(torch.int8)
-    with pytest.raises(NotImplementedError, match="quantized"):
-        tdec.flash_decode(args[0], i8, i8, args[3])
-    fp8 = args[1].to(torch.float8_e4m3fn)
-    with pytest.raises(NotImplementedError, match="quantized"):
-        tdec.flash_decode(args[0], fp8, fp8, args[3])
+    # int8 / fp8 caches come as QuantizedTensor (codes with scales);
+    # bare codes carry no scales and raise.
+    for dt in (torch.int8, torch.float8_e4m3fn):
+        qk, qv = (quantize_kv(t, dtype=dt) for t in args[1:3])
+        got = tdec.flash_decode(args[0], qk, qv, args[3])
+        assert max_abs_error(got, tdec.decode_reference(
+            args[0], qk, qv, args[3])) <= ATOL
+        with pytest.raises(TypeError, match="QuantizedTensor"):
+            tdec.flash_decode(args[0], qk.values, qv.values, args[3])
     with pytest.raises(ValueError):
         tdec.flash_decode(args[0][:, :3], *args[1:])
 
@@ -111,3 +116,28 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(case):
             tdec._flash_decode_cuda(q, k.transpose(2, 3).contiguous()
                                     .transpose(2, 3), v, lengths,
                                     scale=0.1)
+
+
+@pytest.mark.parametrize("dt", ["int8", "float8_e5m2"])
+def test_flash_decode_quantized_scale_rows_matches_jax(dt):
+    """B5 over QuantizedTensor caches whose 128-position blocks differ in
+    scale by six orders of magnitude, lengths ending inside, at and past
+    a 256-position chunk: a wrong scale row (block pos // 128 of its
+    own sequence and head) cannot pass. fp32, max-abs <= 2e-5."""
+    rng = np.random.default_rng(7)
+    b, hq, hkv, s, d = 4, 8, 2, 640, 64
+    f = 10.0 ** rng.integers(-3, 4, (b, hkv, s // 128, 1))
+    k, v = (rng.normal(0, 1, (b, hkv, s, d)) * np.repeat(f, 128, axis=2)
+            for _ in range(2))
+    k, v = k.astype(np.float32), v.astype(np.float32)
+    q = rng.normal(0, 0.01, (b, hq, d)).astype(np.float32)
+    lengths = np.asarray([640, 256, 300, 129], np.int32)
+    jk, jv = (jax_quantize_kv(jnp.asarray(x), dtype=getattr(jnp, dt))
+              for x in (k, v))
+    tk, tv = (quantize_kv(torch.from_numpy(x), dtype=getattr(torch, dt))
+              for x in (k, v))
+    want = np.asarray(jax_decode(jnp.asarray(q), jk, jv,
+                                 jnp.asarray(lengths)))
+    got = tdec.flash_decode(torch.from_numpy(q), tk, tv,
+                            torch.from_numpy(lengths))
+    assert max_abs_error(got, want) <= ATOL * float(np.abs(want).max())

@@ -5,10 +5,10 @@
   * Entry points default to device="cuda"; on a host without a card that
     default raises instead of dropping to the CPU.
   * Features that later slices port (engine options, the backward of
-    windowed or segmented attention, quantized KV, trainer families,
-    expert-parallel MoE placements) raise NotImplementedError instead of
-    being accepted and ignored; options the port rejects by design raise
-    ValueError.
+    windowed or segmented attention, trainer families, expert-parallel
+    MoE placements) raise NotImplementedError instead of being accepted
+    and ignored; options the port rejects by design raise ValueError.
+  * Quantized KV constructs (int8 / fp8 engines, cache_dtype, book_s).
 """
 
 import ast
@@ -24,7 +24,7 @@ from flash_attention_tpu_torch.ops.flash import (
     flash_attention,
     flash_attention_fwd,
 )
-from flash_attention_tpu_torch.runtime.engine import Engine
+from flash_attention_tpu_torch.runtime.engine import Engine, Request
 from flash_attention_tpu_torch.runtime.kv_cache import LayeredPagedKVCache
 from flash_attention_tpu_torch.utils.convert import params_from_jax
 
@@ -80,22 +80,66 @@ def test_default_device_is_cuda_and_raises_without_a_card():
     (dict(speculative_k=2), NotImplementedError, "slice"),
     (dict(draft_fn=lambda h, k: h[:k]), NotImplementedError, "slice"),
     (dict(mesh=object()), NotImplementedError, "slice"),
-    (dict(kv_quant_dtype=torch.int8), NotImplementedError, "slice"),
-    (dict(kv_quant_dtype=torch.float8_e4m3fn), NotImplementedError,
-     "quantized-KV slice"),
     (dict(prefill_hbm_budget=1 << 30, prefill_chunk=32), ValueError,
      "prefill_hbm_budget"),
-], ids=["speculative_k", "draft_fn", "mesh", "kv_quant_dtype",
-        "kv_quant_dtype_fp8", "prefill_hbm_budget"])
+], ids=["speculative_k", "draft_fn", "mesh", "prefill_hbm_budget"])
 def test_engine_unported_features_raise(kw, exc, match):
-    """Chunked prefill and the prefix cache are ported; speculative
-    decoding, meshes and quantized KV raise; a rolling-buffer budget on
-    a model without a window is refused (the JAX engine ignores it)."""
+    """Chunked prefill, the prefix cache and quantized KV are ported;
+    speculative decoding and meshes raise; a rolling-buffer budget on a
+    model without a window is refused (the JAX engine ignores it)."""
     params = init_params(CFG, seed=0, device="cpu")
     with pytest.raises(exc, match=match):
         Engine(params, CFG, num_pages=4, page_size=16, device="cpu", **kw)
     Engine(params, CFG, num_pages=4, page_size=16, device="cpu",
            prefill_chunk=32, prefix_cache=True)
+
+
+@pytest.mark.parametrize("dt", [torch.int8, torch.float8_e4m3fn],
+                         ids=["kv_quant_dtype", "kv_quant_dtype_fp8"])
+def test_engine_quantized_kv_constructs(dt):
+    """Quantized KV is ported: the engine builds int8 / fp8 pages with
+    fp32 scale pools of [Hkv, P, page/128, D] and dense tails, and a
+    page size that is not a multiple of 128 is refused."""
+    params = init_params(CFG, seed=0, device="cpu")
+    eng = Engine(params, CFG, num_pages=4, page_size=128, device="cpu",
+                 kv_quant_dtype=dt)
+    cache = eng.cache
+    assert cache.k_pools[0].dtype == dt and cache.quant_dtype == dt
+    assert tuple(cache.k_scale_pools[0].shape) == (
+        CFG.n_kv_heads, 4, 1, CFG.head_dim)
+    assert cache.k_tails[0].dtype == CFG.dtype
+    with pytest.raises(ValueError, match="multiple of 128"):
+        Engine(params, CFG, num_pages=4, page_size=64, device="cpu",
+               kv_quant_dtype=dt)
+
+
+def test_engine_cache_dtype():
+    """cache_dtype sets the dense pool and tail dtype on the CPU; on the
+    card a dense pool dtype B4 does not take raises, naming it."""
+    params = init_params(CFG, seed=0, device="cpu")
+    eng = Engine(params, CFG, num_pages=4, page_size=16, device="cpu",
+                 cache_dtype=torch.bfloat16)
+    assert eng.cache.k_pools[0].dtype == torch.bfloat16
+    assert eng.cache.k_tails[0].dtype == torch.bfloat16
+    (c,) = eng.run([Request(prompt=[1, 2, 3], max_new_tokens=3)])
+    assert len(c.tokens) == 3
+    if not torch.cuda.is_available():
+        return
+    with pytest.raises(ValueError, match="cache_dtype"):
+        Engine(params, CFG, num_pages=4, page_size=16, device="cuda",
+               cache_dtype=torch.float16)
+
+
+def test_engine_stats_book_s():
+    """EngineStats.book_s (host-side batch assembly) starts at 0 and
+    grows with decode steps."""
+    from flash_attention_tpu_torch.runtime.engine import EngineStats
+
+    assert EngineStats().book_s == 0.0
+    params = init_params(CFG, seed=0, device="cpu")
+    eng = Engine(params, CFG, num_pages=4, page_size=16, device="cpu")
+    eng.run([Request(prompt=[1, 2, 3], max_new_tokens=3)])
+    assert eng.stats.book_s > 0.0
 
 
 def test_unported_model_features_raise():
@@ -138,10 +182,10 @@ def test_moe_placements_raise(kw):
 
 
 def test_unported_attention_options_raise():
-    """Quantized KV and the backward of a windowed or segmented forward
-    raise; windows and segment ids run forward (with their argument
-    checks); the plain backward is ported (B2/B3), so inputs that require
-    grad get finite gradients."""
+    """The backward of a windowed or segmented forward raises; bare int8
+    codes (without scales) are refused; windows and segment ids run
+    forward (with their argument checks); the plain backward is ported
+    (B2/B3), so inputs that require grad get finite gradients."""
     from flash_attention_tpu_torch.ops.flash import (
         SegmentIds, flash_attention_bwd,
     )
@@ -159,7 +203,7 @@ def test_unported_attention_options_raise():
         flash_attention_bwd(q, q, q, o, lse, q, causal=True, window=4)
     with pytest.raises(NotImplementedError, match="windowed-training"):
         flash_attention_bwd(q, q, q, o, lse, q, seg)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="QuantizedTensor"):
         flash_attention_fwd(q, q.to(torch.int8), q.to(torch.int8))
     gen = torch.Generator().manual_seed(0)
     qkv = [torch.randn(1, 2, 8, 64, generator=gen, requires_grad=True)
@@ -181,9 +225,9 @@ def test_trainer_unported_families_raise(kw, slice_name):
 
 
 def test_unported_decode_options_raise():
-    """B5's quantized-cache branch arrives with its slice: flash_decode
-    raises on an int8 / fp8 cache. Its window branch is ported: the
-    generate path's decode_step runs on a windowed model."""
+    """B5's quantized-cache and window branches are ported: flash_decode
+    takes QuantizedTensor caches (bare int8 / fp8 codes raise TypeError),
+    and the generate path's decode_step runs on a windowed model."""
     from flash_attention_tpu_torch.models.llama import (
         decode_step, init_kv_cache,
     )
@@ -197,11 +241,15 @@ def test_unported_decode_options_raise():
                                      cache, lengths)
     assert logits.shape == (1, windowed.vocab_size) and int(lengths) == 101
     assert bool(torch.isfinite(logits).all())
+    from flash_attention_tpu_torch.ops.quant import quantize_kv
+
     q = torch.zeros(1, 4, 64)
     for dt in (torch.int8, torch.float8_e5m2):
-        kv = torch.zeros(1, 2, 128, 64, dtype=dt)
-        with pytest.raises(NotImplementedError, match="quantized-KV slice"):
-            flash_decode(q, kv, kv, lengths)
+        kv = quantize_kv(torch.ones(1, 2, 128, 64), dtype=dt)
+        out = flash_decode(q, kv, kv, lengths)
+        assert torch.allclose(out, torch.ones_like(out))
+        with pytest.raises(TypeError, match="QuantizedTensor"):
+            flash_decode(q, kv.values, kv.values, lengths)
 
 
 def test_expert_stack_weights_raise():

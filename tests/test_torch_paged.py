@@ -113,8 +113,66 @@ def test_paged_decode_reference_and_unported_options():
     assert max_abs_error(windowed, out) > 1e-3      # the window bites
     with pytest.raises(ValueError, match="window"):
         tpaged.paged_flash_decode(*args, window=0)
-    with pytest.raises(NotImplementedError):
+    # Quantized pools need pages of a multiple of 128 tokens; int8 / fp8
+    # pools without scales raise.
+    with pytest.raises(ValueError, match="multiple of 128"):
         tpaged.paged_flash_decode(*args, k_scales=args[1],
                                   v_scales=args[2])
+    codes = args[1].to(torch.int8)
+    with pytest.raises(TypeError, match="k_scales"):
+        tpaged.paged_flash_decode(args[0], codes, codes, *args[3:])
     with pytest.raises(ValueError):
         tpaged.paged_flash_decode(*args, qpos_spread=3)   # 3 does not | 4
+
+
+@pytest.mark.parametrize("dt", ["int8", "float8_e5m2"])
+def test_paged_decode_quantized_pages_matches_jax(dt):
+    """B4 over int8 / fp8 pools of 128-token pages whose scale rows
+    differ by six orders of magnitude, shuffled tables, a dead row, and
+    window starts with three folded positions: O and LSE within 2e-5 of
+    the JAX kernel's (relative to the largest output)."""
+    rng = np.random.default_rng(8)
+    hkv, pages, ps, d, hq = 2, 12, 128, 64, 12
+    lengths = np.asarray([0, 5, 300, 640], np.int32)
+    f = 10.0 ** rng.integers(-3, 4, (hkv, pages, 1, 1))
+    pools = [(rng.normal(0, 1, (hkv, pages, ps, d)) * f).astype(np.float32)
+             for _ in range(2)]
+    perm = rng.permutation(np.arange(1, pages))
+    table = np.zeros((4, 6), np.int32)
+    at = 0
+    for i, n in enumerate(lengths):
+        need = -(-int(n) // ps)
+        table[i, :need] = perm[at:at + need]
+        at += need
+    q = rng.normal(0, 0.01, (4, hq, d)).astype(np.float32)
+    starts = np.asarray([0, -3, 100, 333], np.int32)
+    scale = np.float32(127.0 if dt == "int8" else 57344.0)
+    codes, scales = [], []
+    for x in pools:
+        xr = x.reshape(hkv, pages, 1, ps, d)
+        sc = np.maximum(np.abs(xr).max(axis=3) / scale, 1e-8).astype(
+            np.float32)
+        c = xr / sc[:, :, :, None, :]
+        if dt == "int8":
+            c = np.clip(np.round(c), -127, 127)
+        codes.append(torch.from_numpy(c.reshape(hkv, pages, ps, d)
+                                      .astype(np.float32)).to(
+                                          getattr(torch, dt)))
+        scales.append(torch.from_numpy(sc))
+    jcodes = [jnp.asarray(c.float().numpy()).astype(getattr(jnp, dt))
+              for c in codes]
+    o_j, lse_j = jax_paged(
+        jnp.asarray(q), *jcodes, jnp.asarray(table), jnp.asarray(lengths),
+        k_scales=jnp.asarray(scales[0].numpy()),
+        v_scales=jnp.asarray(scales[1].numpy()),
+        window_starts=jnp.asarray(starts), qpos_spread=3, return_lse=True)
+    o_t, lse_t = tpaged.paged_flash_decode(
+        torch.from_numpy(q), *codes, torch.from_numpy(table),
+        torch.from_numpy(lengths), k_scales=scales[0], v_scales=scales[1],
+        window_starts=torch.from_numpy(starts), qpos_spread=3,
+        return_lse=True)
+    o_j, lse_j = np.asarray(o_j), np.asarray(lse_j)
+    assert max_abs_error(o_t, o_j) <= ATOL * float(np.abs(o_j).max())
+    live = lengths > 0
+    assert max_abs_error(lse_t[live], lse_j[live]) <= ATOL
+    assert bool((o_t[0] == 0).all())

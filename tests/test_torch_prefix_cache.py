@@ -7,10 +7,10 @@ against the JAX package.
     pages, gathered buffers, free counts, bases, page tables, lengths
     and live pool contents agree exactly (tests/test_prefix_cache.py:31-90,
     tests/test_window_eviction.py:82-140).
-  * The engine cases of tests/test_prefix_cache.py:103-175 (LlamaConfig
-    .tiny fp32, one tree converted from JAX): greedy transcripts,
-    prefix_cached_tokens and prefill_tokens IDENTICAL to the JAX
-    engine's.
+  * The engine cases of tests/test_prefix_cache.py:103-175 and :187
+    (int8 pools; LlamaConfig.tiny fp32, one tree converted from JAX):
+    greedy transcripts, prefix_cached_tokens and prefill_tokens
+    IDENTICAL to the JAX engine's.
 """
 
 import jax
@@ -249,3 +249,29 @@ def test_probe_prefix_changes_nothing(params):
     free = eng.cache.free_pages
     assert eng.probe_prefix(prompt) == 2 * PAGE == eng.probe_prefix(prompt)
     assert eng.cache.free_pages == free
+
+
+def test_engine_prefix_cache_quantized_pools_matches_jax(params):
+    """:187 -- int8 pools: cached pages hold quantized KV, the gather
+    dequantizes them for the prefix buffer, and the transcripts equal the
+    JAX engine's and the uncached port engine's."""
+    jp, tp = params
+    (prompt,) = _prompts(7, (2 * PAGE + 13,))
+    kw = dict(max_batch=2, num_pages=32, page_size=PAGE)
+    out = []
+    for mod, p, cfg, extra in (
+            (jeng, jp, JCFG, dict(kv_quant_dtype=jnp.int8,
+                                  prefix_cache=True)),
+            (teng, tp, TCFG, dict(kv_quant_dtype=torch.int8,
+                                  prefix_cache=True, device="cpu")),
+            (teng, tp, TCFG, dict(kv_quant_dtype=torch.int8,
+                                  device="cpu"))):
+        eng = mod.Engine(p, cfg, **kw, **extra)
+        reqs = [mod.Request(prompt=prompt, max_new_tokens=5)
+                for _ in range(2)]
+        by_id = {c.request_id: c for c in eng.run(reqs)}
+        out.append(([by_id[r.request_id].tokens for r in reqs], eng.stats))
+    (got_j, st_j), (got_t, st_t), (base, _) = out
+    assert got_t == got_j == base
+    assert st_t.prefix_cached_tokens == st_j.prefix_cached_tokens == 2 * PAGE
+    assert st_t.prefill_tokens == st_j.prefill_tokens
