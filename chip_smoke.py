@@ -53,7 +53,8 @@ Phases, each fatal on failure:
              full width and depth on int4 and int8 weights drawn on the
              card by init_quantized_moe_params, then the int4 tree with
              FA_TPU_GROUPED_MIN_TOKENS=1 (B9 at every decode step), then
-             bf16 weights at 16 layers (the one-card depth): 8 greedy
+             bf16 weights cut to 8 layers (of the 16 that fit one
+             card, to keep the script inside its time limit): 8 greedy
              requests of 300-4600 tokens, exact B9 / B7 / B6 / B1 / B4
              launch counts, transcripts held to a teacher-forced forward
              with plain attention and a plain per-expert MoE, 8 profiled
@@ -75,7 +76,18 @@ Phases, each fatal on failure:
              quantized pools, the requantizing flush, the prefix cache
              gathering through the scales, eviction of quantized pages)
              with the widened band; then sampling.generate on 4 x
-             5000-token prompts (B5's window).
+             5000-token prompts (B5's window);
+ 11. train_mistral  the Trainer on LlamaConfig.mistral_7b (window 4096)
+             at full width cut to 16 layers (58 GB of bf16 state at 32),
+             batch 1 x 8192 from a seeded token shard: 4 steps with
+             finite, falling loss and exactly 32 / 16 / 16 B1 / B2 / B3
+             launches a step, every one on its window branch; an exact
+             resume from a checkpoint; one profiled step; the kernel
+             path held to the plain path over two layers; then one
+             segmented gradient through flash_attention(...,
+             SegmentIds(...), window=4096) at Mistral's shape (one
+             launch each of B1, B2 and B3 with segment ids) and
+             moe_loss_fn forward and backward on MoEConfig.tiny_moe.
 The 1B serve phase also runs one prefill with FA_TPU_DENSE_PALLAS_MM=1
 (B8: exactly 7 launches per layer + 1, logits within the bf16 gate of
 the cuBLAS path) and serves its requests again with prefill_chunk=256
@@ -98,7 +110,13 @@ to its bf16 plain version (error within 2^-5 of the row's max |O|, LSE
 within 1e-3), on caches whose 128-token blocks differ in scale by
 orders of magnitude; then the probe P2's
 bodies at its shape (batch 64, ctx 4096: bf16, int8, int8 fold_scales,
-int8 at pages of 512) beside their bounds.
+int8 at pages of 512) beside their bounds; then B2 / B3's window and
+segment-id branches at Mistral's training shape (q [1, 32, 8192, 128]:
+window 4096, packed documents with the window, and q rows in a
+document no kv column shares, whose dq must be exactly 0), timed beside
+SDPA's backward with the same boolean mask; head dims 32 and 256 on
+B1-B5 (bf16 timed, fp16 and int8 checked); B4 and B5 at 32 and 64 query
+rows per kv head.
 
 Prints information lines, then one JSON line describing the kernels,
 then the card's name and power limit, and last one JSON line
@@ -273,11 +291,37 @@ def _bwd_gate(what, got, hi, lo):
     return [max_abs_error(g, g_lo) for g, g_lo in zip(got, lo)]
 
 
-def _bwd_case(rng, dt, b, hq, hkv, nq, nk, d, causal, offset=None):
+def by_kv_group(fn, q, k, v, *rows, **kw):
+    """fn(q, k, v, *rows, **kw) on one kv head and its group of q heads
+    at a time (rows: per-q-head tensors such as o, lse, do), each output
+    concatenated along the head dim: the same arithmetic per head as one
+    call over all heads, with one group's fp32 score tensors (~1 GB each
+    at T = 8192, where all 32 heads' would be 8.6 GB)."""
+    g = q.shape[1] // k.shape[1]
+    outs = []
+    for h in range(k.shape[1]):
+        heads = slice(h * g, (h + 1) * g)
+        outs.append(fn(q[:, heads], k[:, h:h + 1], v[:, h:h + 1],
+                       *(r[:, heads] for r in rows), **kw))
+    return tuple(torch.cat(x, dim=1) for x in zip(*outs))
+
+
+def plain_fwd_bwd(q, k, v, do, **kw):
+    """The plain forward, then the plain backward on its o and LSE
+    (flash_attention_fwd_plain, flash_attention_bwd_plain), by kv group."""
+    from flash_attention_tpu_torch.ops import flash
+
+    o, lse = by_kv_group(flash.flash_attention_fwd_plain, q, k, v, **kw)
+    return by_kv_group(flash.flash_attention_bwd_plain, q, k, v, o, lse, do,
+                       **kw)
+
+
+def _bwd_case(rng, dt, b, hq, hkv, nq, nk, d, causal, offset=None,
+              **mask):
     """Kernel, bf16/fp16 plain and fp32 plain backward of one case, with
     the forward's o and LSE from B1 (the kernel path) or from the plain
-    forward (the plain paths). The kernel runs twice: both runs must
-    give identical bits."""
+    forward (the plain paths); `mask`: window, segment_ids. The kernel
+    runs twice: both runs must give identical bits."""
     from flash_attention_tpu_torch.ops import flash
 
     q = randn(rng, (b, hq, nq, d), dt)
@@ -286,7 +330,7 @@ def _bwd_case(rng, dt, b, hq, hkv, nq, nk, d, causal, offset=None):
     do = randn(rng, (b, hq, nq, d), dt)
     sc = 1.0 / math.sqrt(d)
     off = nk - nq if offset is None else offset
-    kw = dict(causal=causal, scale=sc, offset=off)
+    kw = dict(causal=causal, scale=sc, offset=off, **mask)
     # The private launchers take any offset (negative ones make rows that
     # see no key); the public API rejects causal offsets below 0.
     o, lse = flash._flash_fwd_cuda(q, k, v, **kw)
@@ -294,12 +338,9 @@ def _bwd_case(rng, dt, b, hq, hkv, nq, nk, d, causal, offset=None):
     again = flash._flash_bwd_cuda(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
     deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
-    o_lo, lse_lo = flash.flash_attention_fwd_plain(q, k, v, **kw)
-    lo = flash.flash_attention_bwd_plain(q, k, v, o_lo, lse_lo, do, **kw)
-    f32 = [x.float() for x in (q, k, v, do)]
-    o_hi, lse_hi = flash.flash_attention_fwd_plain(*f32[:3], **kw)
-    hi = flash.flash_attention_bwd_plain(*f32[:3], o_hi, lse_hi, f32[3],
-                                         **kw)
+    del again
+    lo = plain_fwd_bwd(q, k, v, do, **kw)
+    hi = plain_fwd_bwd(*(x.float() for x in (q, k, v, do)), **kw)
     torch.cuda.synchronize()
     if not deterministic:
         raise AssertionError("B2/B3 gave different bits on a rerun")
@@ -313,77 +354,32 @@ def check_flash_bwd(rng, flush, results):
     from flash_attention_tpu_torch.ops import flash
 
     b, hq, hkv, t, d = 4, 16, 8, 2048, 128
-    sc = 1.0 / math.sqrt(d)
-    kw = dict(causal=True, scale=sc, offset=0)
-    (q, k, v, o, lse, do), got, hi, lo = _bwd_case(
-        rng, torch.bfloat16, b, hq, hkv, t, t, d, True)
+    kw = dict(causal=True, scale=1.0 / math.sqrt(d), offset=0)
+    case, got, hi, lo = _bwd_case(rng, torch.bfloat16, b, hq, hkv, t, t, d,
+                                  True)
     errs = _bwd_gate(f"B2/B3 flash_bwd q({b},{hq},{t},{d}) "
                      f"kv({b},{hkv},{t},{d}) causal bf16, deterministic",
                      got, hi, lo)
-    delta = flash._bwd_delta(o, do)
+    del got, hi, lo
+    timed = _bwd_timed("causal", case, flush, None, **kw)
+    results["bwd_dq"] = dict(timed["dq"], max_abs_err=errs[0])
+    results["bwd_dkv"] = dict(timed["dkv"], max_abs_err=max(errs[1:]))
+    q, k, v = case[:3]
 
-    def dq_kernel():
-        flash._bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
-
-    def dkv_kernel():
-        flash._bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
-
-    def plain_bwd():
-        flash.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
-
-    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
-    out = torch.nn.functional.scaled_dot_product_attention(
-        qr, kr, vr, is_causal=True, enable_gqa=True)
-
-    def library_bwd():
-        torch.autograd.grad(out, (qr, kr, vr), do, retain_graph=True)
-
-    def fwd_kernel():
-        flash.flash_attention_fwd(q, k, v, causal=True)
-
-    def fwd_plain():
-        flash.flash_attention_fwd_plain(q, k, v, **kw)
-
-    def fwd_library():
-        torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)
-
-    ms_dq, ms_dkv = time_ms(dq_kernel, flush), time_ms(dkv_kernel, flush)
-    plain_ms, lib_ms = time_ms(plain_bwd, flush), time_ms(library_bwd, flush)
-    del out
-    (f2, b2), (f3, b3) = flash.bwd_cost(b, hq, hkv, t, t, d, True, 2)
-    bound2, by2 = bound_ms(f2, b2)
-    bound3, by3 = bound_ms(f3, b3)
-    log(f"time  B2 flash_bwd_dq: kernel_ms={ms_dq:.4f} bound_ms="
-        f"{bound2:.4f} ({by2}) achieved={f2 / (ms_dq * 1e-3) / 1e12:.1f} "
-        f"TFLOP/s")
-    log(f"time  B3 flash_bwd_dkv: kernel_ms={ms_dkv:.4f} bound_ms="
-        f"{bound3:.4f} ({by3}) achieved={f3 / (ms_dkv * 1e-3) / 1e12:.1f} "
-        f"TFLOP/s")
-    log(f"time  B2+B3: kernel_ms={ms_dq + ms_dkv:.4f} plain_ms="
-        f"{plain_ms:.4f} library_ms={lib_ms:.4f} (autograd.grad through "
-        f"SDPA(is_causal, enable_gqa): dq, dk, dv together)")
-    shape = f"q({b},{hq},{t},{d}) kv({b},{hkv},{t},{d}) causal bf16"
-    note = ("plain_ms and library_ms compute dq, dk and dv together "
-            "(flash_attention_bwd_plain; autograd.grad through SDPA): "
-            "compare them with B2 + B3")
-    results["bwd_dq"] = dict(
-        max_abs_err=errs[0], ms=ms_dq, plain_ms=plain_ms, bound_ms=bound2,
-        bound_by=by2, library_ms=lib_ms, shape=shape, note=note)
-    results["bwd_dkv"] = dict(
-        max_abs_err=max(errs[1:]), ms=ms_dkv, plain_ms=plain_ms,
-        bound_ms=bound3, bound_by=by3, library_ms=lib_ms, shape=shape,
-        note=note)
-
-    ms = time_ms(fwd_kernel, flush)
-    p_ms, l_ms = time_ms(fwd_plain, flush), time_ms(fwd_library, flush)
+    ms = time_ms(lambda: flash.flash_attention_fwd(q, k, v, causal=True),
+                 flush)
+    p_ms = time_ms(lambda: flash.flash_attention_fwd_plain(q, k, v, **kw),
+                   flush)
+    l_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), flush)
     flops, nbytes = flash.fwd_cost(b, hq, hkv, t, t, d, True, 2)
     bms, by = bound_ms(flops, nbytes)
     log(f"time  B1 flash_fwd at the training shape: kernel_ms={ms:.4f} "
         f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} bound_ms={bms:.4f} "
         f"({by}) achieved={flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
-    results["flash_train"] = dict(ms=ms, plain_ms=p_ms, library_ms=l_ms,
-                                  bound_ms=bms, bound_by=by, shape=shape)
+    results["flash_train"] = dict(
+        ms=ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bms, bound_by=by,
+        shape=f"q({b},{hq},{t},{d}) kv({b},{hkv},{t},{d}) causal bf16")
 
 
 def check_paged(rng, flush, results):
@@ -719,6 +715,12 @@ def _counters() -> dict:
             "flash_seg": (flash, "flash_fwd_segment_launches"),
             "flash_win": (flash, "flash_fwd_window_launches"),
             "flash_quant": (flash, "flash_fwd_quant_launches"),
+            "bwd_dq": (flash, "flash_bwd_dq_launches"),
+            "bwd_dkv": (flash, "flash_bwd_dkv_launches"),
+            "bwd_dq_seg": (flash, "flash_bwd_dq_segment_launches"),
+            "bwd_dkv_seg": (flash, "flash_bwd_dkv_segment_launches"),
+            "bwd_dq_win": (flash, "flash_bwd_dq_window_launches"),
+            "bwd_dkv_win": (flash, "flash_bwd_dkv_window_launches"),
             "paged": (paged, "paged_decode_launches"),
             "paged_win": (paged, "paged_decode_window_launches"),
             "paged_quant": (paged, "paged_decode_quant_launches"),
@@ -733,13 +735,15 @@ def _counters() -> dict:
 
 
 # The branch counters (each launch also counts in its kernel's total): B1
-# with segment ids, with a window, over int8 / fp8 K/V; B4 with window
-# starts, over int8 / fp8 pools, with the fold_scales body; B5 with a
-# window, over int8 / fp8 caches. Zero on every path that serves a model
-# without a window, chunked prefill or quantized KV.
+# with segment ids, with a window, over int8 / fp8 K/V; B2 and B3 with
+# segment ids and with a window; B4 with window starts, over int8 / fp8
+# pools, with the fold_scales body; B5 with a window, over int8 / fp8
+# caches. Zero on every path that serves a model without a window,
+# chunked prefill or quantized KV, and on every serving path for B2/B3.
 NO_BRANCHES = dict.fromkeys(("flash_seg", "flash_win", "flash_quant",
-                             "paged_win", "paged_quant", "paged_fold",
-                             "decode_win", "decode_quant"), 0)
+                             "bwd_dq_seg", "bwd_dkv_seg", "bwd_dq_win",
+                             "bwd_dkv_win", "paged_win", "paged_quant",
+                             "paged_fold", "decode_win", "decode_quant"), 0)
 
 
 def reset_counts() -> None:
@@ -1287,11 +1291,16 @@ def serve_mixtral(kind, params, cfg, forced=False) -> dict:
     return out
 
 
+# Depth of the bf16 Mixtral tree: 16 layers fit one card (93 GB at 32);
+# 8 keep the whole script inside its time limit.
+MIXTRAL_BF16_LAYERS = 8
+
+
 def mixtral() -> dict:
     """Phase 9: Mixtral-8x7B (MoEConfig.mixtral_8x7b, dropless routing)
     at full width and depth on int4 and int8 trees from
     init_quantized_moe_params, the int4 tree again with the grouped path
-    forced, and a bf16 tree at the one-card depth of 16 layers; between
+    forced, and a bf16 tree cut to MIXTRAL_BF16_LAYERS layers; between
     the int4 runs the crossover report. Returns each run's numbers."""
     from flash_attention_tpu_torch.models.moe import (
         MoEConfig, init_moe_params,
@@ -1302,7 +1311,7 @@ def mixtral() -> dict:
 
     out = {}
     for kind in ("int4", "int8", "bf16"):
-        layers = 16 if kind == "bf16" else None
+        layers = MIXTRAL_BF16_LAYERS if kind == "bf16" else None
         cfg = MoEConfig.mixtral_8x7b(
             routing="dropless", dtype=torch.bfloat16,
             **({} if layers is None else {"n_layers": layers}))
@@ -1320,7 +1329,7 @@ def mixtral() -> dict:
             f"{logical_param_count(params) / 1e9:.3f} B logical params, "
             f"{params_nbytes(params) / 1e9:.3f} GB of weights, seed {SEED}, "
             f"built on the card in {time.perf_counter() - t0:.2f} s")
-        key = "bf16_16" if kind == "bf16" else kind
+        key = kind
         out[key] = serve_mixtral(kind, params, cfg)
         if kind == "int4":
             out["crossover"] = crossover(params["layers"][0], cfg)
@@ -1685,17 +1694,19 @@ def generate_windowed(params, cfg, attn) -> dict:
 
 
 class _PlainFlash(torch.autograd.Function):
-    """Causal attention through the plain forward and backward versions
-    (flash_attention_fwd_plain / flash_attention_bwd_plain) on any
-    device: the reference the kernel path is held to."""
+    """Causal attention, under the model's window if it has one, through
+    the plain forward and backward versions (flash_attention_fwd_plain /
+    flash_attention_bwd_plain, by kv group) on any device: the reference
+    the kernel path is held to."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
+    def forward(ctx, q, k, v, window):
         from flash_attention_tpu_torch.ops import flash
 
-        ctx.scale = 1.0 / math.sqrt(q.shape[-1])
-        o, lse = flash.flash_attention_fwd_plain(
-            q, k, v, causal=True, scale=ctx.scale, offset=0)
+        ctx.kw = dict(causal=True, scale=1.0 / math.sqrt(q.shape[-1]),
+                      offset=0, window=window)
+        o, lse = by_kv_group(flash.flash_attention_fwd_plain, q, k, v,
+                             **ctx.kw)
         ctx.save_for_backward(q, k, v, o, lse)
         return o
 
@@ -1704,8 +1715,13 @@ class _PlainFlash(torch.autograd.Function):
         from flash_attention_tpu_torch.ops import flash
 
         q, k, v, o, lse = ctx.saved_tensors
-        return flash.flash_attention_bwd_plain(
-            q, k, v, o, lse, do, causal=True, scale=ctx.scale, offset=0)
+        return by_kv_group(flash.flash_attention_bwd_plain, q, k, v, o, lse,
+                           do, **ctx.kw) + (None,)
+
+
+def plain_attn_for(cfg):
+    """attn_impl(q, k, v) for loss_fn: _PlainFlash under cfg's window."""
+    return lambda q, k, v: _PlainFlash.apply(q, k, v, cfg.window)
 
 
 def _loss_and_grad_norm(params, tokens, cfg, attn_impl):
@@ -1719,7 +1735,7 @@ def _loss_and_grad_norm(params, tokens, cfg, attn_impl):
 
 
 def compare_train_paths(params, cfg, tokens) -> None:
-    """One loss and gradient at batch 1 x 2048 through the kernels (B1,
+    """One loss and gradient at batch 1 x T through the kernels (B1,
     B2, B3), through the plain versions in bf16, and through the plain
     versions on an fp32 copy of the same weights. The kernel path's loss
     and gradient-norm errors against fp32 must stay within 3x the bf16
@@ -1731,12 +1747,12 @@ def compare_train_paths(params, cfg, tokens) -> None:
 
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     lk, gk = _loss_and_grad_norm(params, tokens, cfg, None)
-    lp, gp = _loss_and_grad_norm(params, tokens, cfg, _PlainFlash.apply)
+    lp, gp = _loss_and_grad_norm(params, tokens, cfg, plain_attn_for(cfg))
     params32 = fp32_copy(params)
     for leaf in param_leaves(params32):
         leaf.requires_grad_(True)
     l32, g32 = _loss_and_grad_norm(params32, tokens, cfg32,
-                                   _PlainFlash.apply)
+                                   plain_attn_for(cfg))
     del params32
     ulp = torch.finfo(torch.bfloat16).eps
     loss_tol = 3 * max(abs(lp - l32), ulp * abs(l32))
@@ -1755,33 +1771,57 @@ def compare_train_paths(params, cfg, tokens) -> None:
         raise AssertionError("the kernel training path left the bf16 band")
 
 
-def train() -> dict:
-    """Train LlamaConfig.llama3_1b at full width and depth (bf16, remat,
-    AdamW lr 1e-4 with weight_decay 1e-4 passed explicitly) on a seeded
-    token shard read through BatchLoader at batch 4 x 2048: 8 steps on
-    one repeated batch, exactly 32 B1 / 16 B2 / 16 B3 launches per step,
-    finite and falling loss, then checkpoint and exact resume, then the
-    kernel path against the plain path. Returns the launch counts of
-    the 8 steps."""
+def state_fingerprint(tr) -> list:
+    """Two exact integer sums per tensor of a Trainer's parameters and
+    optimizer state (the bits as integers, plain and position-weighted):
+    equal fingerprints mean equal state, without a second copy of it on
+    the card or the host."""
+    from flash_attention_tpu_torch.models.llama import param_leaves
+
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = []
+    for t in (param_leaves(tr.params)
+              + param_leaves(tr.optimizer.state_dict()["state"])):
+        t = t.detach().reshape(-1)
+        if t.is_floating_point():
+            t = t.view(ints[t.element_size()])
+        x = t.long()
+        w = torch.arange(x.numel(), device=x.device) % 65521 + 1
+        out.append((int(x.sum()), int((x * w).sum())))
+    return out
+
+
+def train(what, cfg, batch, seq, steps, compare_layers=None) -> dict:
+    """Train `cfg` at full width (bf16, remat, AdamW lr 1e-4 with
+    weight_decay 1e-4 passed explicitly) on a seeded token shard read
+    through BatchLoader at batch x seq: `steps` steps on one repeated
+    batch with exactly 2 B1 launches per layer (remat recomputes the
+    forward), 1 B2 and 1 B3 a step, all of them on the window branch
+    under cfg.window and none on it otherwise; finite and falling loss;
+    a checkpoint at the last step resumed exactly into a fresh Trainer
+    (another init seed) after the first is freed (state fingerprints
+    equal, the next step's loss bit-equal); one profiled step; the
+    kernel path against the plain path at batch 1 over the first
+    `compare_layers` layers (all when None). Returns the launch counts
+    of the `steps` steps."""
+    import dataclasses
     import functools
     import pathlib
     import tempfile
 
-    from flash_attention_tpu_torch.models.llama import (
-        LlamaConfig, param_leaves,
-    )
+    from flash_attention_tpu_torch.models.llama import param_leaves
     from flash_attention_tpu_torch.models.trainer import (
         Trainer, TrainerConfig,
     )
-    from flash_attention_tpu_torch.ops import flash
     from flash_attention_tpu_torch.utils.data import (
         BatchLoader, TokenShardDataset, write_token_shard,
     )
 
-    cfg = LlamaConfig.llama3_1b(dtype=torch.bfloat16)
-    batch, seq, steps = 4, 2048, 8
     opt = functools.partial(torch.optim.AdamW, lr=1e-4, weight_decay=1e-4)
     rng = np.random.default_rng(SEED + 2)
+    n, win = cfg.n_layers, cfg.window is not None
+    want_step = dict(flash=2 * n, bwd_dq=n, bwd_dkv=n, flash_win=2 * n * win,
+                     bwd_dq_win=n * win, bwd_dkv_win=n * win)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         tmp = pathlib.Path(tmp)
         (tmp / "data").mkdir()
@@ -1797,72 +1837,81 @@ def train() -> dict:
         t0 = time.perf_counter()
         tr = Trainer(cfg, opt, trainer_cfg=tc, seed=SEED)
         torch.cuda.synchronize()
-        log(f"train: llama3_1b Trainer (bf16 params, remat, AdamW lr 1e-4 "
-            f"weight_decay 1e-4) built in {time.perf_counter() - t0:.2f} s;"
-            f" batch {batch} x seq {seq} from a seeded token shard via "
-            f"BatchLoader")
+        log(f"{what}: Trainer ({n} layers, bf16 params, remat, AdamW lr "
+            f"1e-4 weight_decay 1e-4, window {cfg.window}) built in "
+            f"{time.perf_counter() - t0:.2f} s; batch {batch} x seq {seq} "
+            f"from a seeded token shard via BatchLoader")
         torch.cuda.reset_peak_memory_stats()
-        flash.flash_fwd_launches = 0
-        flash.flash_bwd_dq_launches = 0
-        flash.flash_bwd_dkv_launches = 0
+        reset_counts()
         losses, times, per_step = [], [], []
         for _ in range(steps):
-            before = (flash.flash_fwd_launches, flash.flash_bwd_dq_launches,
-                      flash.flash_bwd_dkv_launches)
+            before = read_counts()
             t0 = time.perf_counter()
             loss = tr.train_step(first)
             losses.append(float(loss))          # syncs
             times.append(time.perf_counter() - t0)
-            per_step.append(tuple(
-                a - b for a, b in zip((flash.flash_fwd_launches,
-                                       flash.flash_bwd_dq_launches,
-                                       flash.flash_bwd_dkv_launches),
-                                      before)))
-        launches = {"flash": flash.flash_fwd_launches,
-                    "bwd_dq": flash.flash_bwd_dq_launches,
-                    "bwd_dkv": flash.flash_bwd_dkv_launches}
+            after = read_counts()
+            per_step.append({k: after[k] - before[k] for k in after})
+        launches = read_counts()
         peak = torch.cuda.max_memory_allocated()
         step_s = statistics.median(times[1:])
-        log(f"train: losses {[round(x, 4) for x in losses]}")
-        log(f"train: {steps} steps, first {times[0] * 1e3:.1f} ms, median "
+        want = dict(per_step[0], **NO_BRANCHES,
+                    **{k: 0 for k in ("paged", "decode", "quant", "int4",
+                                      "dense", "grouped")})
+        want.update(want_step)
+        log(f"{what}: losses {[round(x, 4) for x in losses]}")
+        log(f"{what}: {steps} steps, first {times[0] * 1e3:.1f} ms, median "
             f"of the rest {step_s * 1e3:.1f} ms/step = "
             f"{batch * seq / step_s:.0f} tokens/s; peak "
             f"max_memory_allocated {peak / 2**30:.2f} GiB")
-        log(f"train: launches per step (B1, B2, B3) {per_step}; want "
-            f"({2 * cfg.n_layers}, {cfg.n_layers}, {cfg.n_layers})")
-        if any(p != (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
-               for p in per_step):
-            raise AssertionError("kernel launch counts off the train step")
+        nonzero = [{k: v for k, v in p.items() if v} for p in per_step]
+        log(f"{what}: launches per step {nonzero}; want {want_step}")
+        if any(p != want for p in per_step):
+            raise AssertionError(f"{what}: kernel launch counts off the "
+                                 f"train step")
         if not all(math.isfinite(x) for x in losses) \
                 or not losses[-1] < losses[0]:
-            raise AssertionError("training loss is not finite and falling")
+            raise AssertionError(f"{what}: training loss is not finite and "
+                                 f"falling")
 
+        t0 = time.perf_counter()
         tr.save()
-        resumed = Trainer(cfg, opt, trainer_cfg=tc, seed=SEED + 1)
-        if resumed.step_num != steps:
-            raise AssertionError(f"resumed at step {resumed.step_num}")
-        same_state = all(
-            torch.equal(a, b) for a, b in zip(
-                param_leaves(tr.optimizer.state_dict()["state"]),
-                param_leaves(resumed.optimizer.state_dict()["state"]),
-                strict=True))
+        save_s = time.perf_counter() - t0
+        saved = state_fingerprint(tr)
         la = float(tr.train_step(second))
-        lb = float(resumed.train_step(second))
         # The step after that also reads the restored optimizer state
         # and the first resumed update (shown, not gated).
         la2 = float(tr.train_step(first))
+        profile_train_step(tr, second)
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        resumed = Trainer(cfg, opt, trainer_cfg=tc, seed=SEED + 1)
+        load_s = time.perf_counter() - t0
+        if resumed.step_num != steps:
+            raise AssertionError(f"resumed at step {resumed.step_num}")
+        same_state = state_fingerprint(resumed) == saved
+        lb = float(resumed.train_step(second))
         lb2 = float(resumed.train_step(first))
-        log(f"train: checkpoint at step {steps} resumed into a fresh "
-            f"Trainer (other init seed): optimizer state identical "
+        log(f"{what}: checkpoint at step {steps} (saved in {save_s:.1f} s, "
+            f"restored in {load_s:.1f} s) resumed into a fresh Trainer "
+            f"(other init seed): parameters and optimizer state identical "
             f"{same_state}; step {steps + 1} loss {la:.6f} vs {lb:.6f}; "
             f"step {steps + 2} loss {la2:.6f} vs {lb2:.6f}")
         if not same_state or la != lb:
-            raise AssertionError("resume is not exact")
-        del resumed
-    profile_train_step(tr, second)
+            raise AssertionError(f"{what}: resume is not exact")
+    params = resumed.params
+    del resumed                     # the optimizer state
+    for leaf in param_leaves(params):
+        leaf.grad = None
+    if compare_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=compare_layers)
+        params = dict(params, layers=params["layers"][:compare_layers])
+    gc.collect()
     torch.cuda.empty_cache()
     one = torch.as_tensor(first[:1], device="cuda")
-    compare_train_paths(tr.params, cfg, one)
+    compare_train_paths(params, cfg, one)
     return launches
 
 
@@ -2301,20 +2350,21 @@ def _lse_gate(lse, lse_hi, scale):
 
 
 def _b1_branch(rng, flush, results, key, what, nq, nk, mask_kw, lib_mask,
-               timed=True, hq=32, hkv=8, d=128):
-    """One B1 branch check: kernel vs its bf16 plain version vs the fp32
-    plain version (3x gate, LSE within 1e-3 on live rows, dead rows O = 0
-    and LSE = INIT_M * scale), then times beside the bound, the plain
-    version and SDPA with the same boolean mask (timed only)."""
+               timed=True, hq=32, hkv=8, d=128, dt=torch.bfloat16):
+    """One B1 branch check: kernel vs its bf16 (or `dt`) plain version vs
+    the fp32 plain version (3x gate, LSE within 1e-3 on live rows, dead
+    rows O = 0 and LSE = INIT_M * scale), then times beside the bound,
+    the plain version and SDPA with the same boolean mask (is_causal
+    where lib_mask is None; timed only)."""
     from flash_attention_tpu_torch.ops import flash
     from flash_attention_tpu_torch.utils.metrics import (
         max_abs_error, verify_low_precision,
     )
 
     scale = 1.0 / math.sqrt(d)
-    q = randn(rng, (1, hq, nq, d), torch.bfloat16)
-    k = randn(rng, (1, hkv, nk, d), torch.bfloat16)
-    v = randn(rng, (1, hkv, nk, d), torch.bfloat16)
+    q = randn(rng, (1, hq, nq, d), dt)
+    k = randn(rng, (1, hkv, nk, d), dt)
+    v = randn(rng, (1, hkv, nk, d), dt)
     kw = dict(scale=scale, **mask_kw)
     kw.setdefault("offset", nk - nq)
     o, lse = flash.flash_attention_fwd(q, k, v, **kw)
@@ -2326,7 +2376,7 @@ def _b1_branch(rng, flush, results, key, what, nq, nk, mask_kw, lib_mask,
     ok, kerr, berr = verify_low_precision(o, o_hi, o_lo)
     lse_err, dead, dead_ok = _lse_gate(lse, lse_hi, scale)
     dead_ok = dead_ok and bool((o[dead[..., None].expand_as(o)] == 0).all())
-    log(f"check B1 {what}: kernel_err={kerr:.3e} bf16_plain_err={berr:.3e} "
+    log(f"check B1 {what}: kernel_err={kerr:.3e} plain_err={berr:.3e} "
         f"lse_err={lse_err:.3e} dead_rows={int(dead.sum())} "
         f"dead_rows_ok={dead_ok}")
     if not (ok and dead_ok and lse_err <= 1e-3
@@ -2337,19 +2387,21 @@ def _b1_branch(rng, flush, results, key, what, nq, nk, mask_kw, lib_mask,
     torch.cuda.empty_cache()
     if not timed:
         return
-    mask = lib_mask.to("cuda")
+    mask = None if lib_mask is None else lib_mask.to("cuda")
     ms = time_ms(lambda: flash.flash_attention_fwd(q, k, v, **kw), flush)
     plain_ms = time_ms(lambda: flash.flash_attention_fwd_plain(q, k, v, **kw),
                        flush, iters=5, warmup=1)
     lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, enable_gqa=True), flush)
+        q, k, v, attn_mask=mask, is_causal=mask is None, enable_gqa=True),
+        flush)
     flops, nbytes = flash.fwd_cost(
         1, hq, hkv, nq, nk, d, kw.get("causal", False), 2,
         offset=kw["offset"], window=kw.get("window"),
         segment_ids=kw.get("segment_ids"))
     bms, by = bound_ms(flops, nbytes)
     log(f"time  B1 {what}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"library_ms={lib_ms:.4f} (SDPA, boolean attn_mask) bound_ms="
+        f"library_ms={lib_ms:.4f} (SDPA, "
+        f"{'is_causal' if mask is None else 'boolean attn_mask'}) bound_ms="
         f"{bms:.4f} ({by}) achieved={flops / (ms * 1e-3) / 1e12:.1f} "
         f"TFLOP/s over visible pairs")
     results[key] = dict(
@@ -2885,6 +2937,462 @@ def check_p2(flush) -> list:
     return rows
 
 
+# --- phase 2/3: B2/B3's window and segment ids; head dims 32 / 256; rows --
+
+# Mistral's training row: documents packed into 8192 tokens.
+PACKED_DOCS = (3000, 2500, 1500, 1192)
+# q rows put in a document no kv column belongs to (the dead-row case).
+DEAD_ROWS = (6000, 6500)
+
+
+def packed_ids(lengths=PACKED_DOCS) -> torch.Tensor:
+    """[1, sum(lengths)] int32 segment ids on the card, document i = i."""
+    return torch.repeat_interleave(
+        torch.arange(len(lengths), dtype=torch.int32),
+        torch.tensor(lengths))[None].cuda()
+
+
+def _bwd_timed(what, case, flush, lib_mask, **kw):
+    """Times of B2 and B3 on one case of _bwd_case (kw: its masks) beside
+    their bounds, the plain backward (by kv group) and SDPA's backward
+    (enable_gqa; dq, dk and dv together) with the same boolean mask, or
+    is_causal where lib_mask is None. Returns {"dq": ..., "dkv": ...}
+    entries for the kernels line."""
+    from flash_attention_tpu_torch.ops import flash
+
+    q, k, v, o, lse, do = case
+    b, hq, nq, d = q.shape
+    hkv, nk = k.shape[1], k.shape[2]
+    delta = flash._bwd_delta(o, do)
+    ms_dq = time_ms(lambda: flash._bwd_dq_cuda(q, k, v, do, lse, delta,
+                                               **kw), flush)
+    ms_dkv = time_ms(lambda: flash._bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                 **kw), flush)
+    plain_ms = time_ms(lambda: by_kv_group(
+        flash.flash_attention_bwd_plain, q, k, v, o, lse, do, **kw), flush,
+        iters=3, warmup=1)
+    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qr, kr, vr, attn_mask=lib_mask, is_causal=lib_mask is None,
+        enable_gqa=True)
+    lib_ms = time_ms(lambda: torch.autograd.grad(
+        out, (qr, kr, vr), do, retain_graph=True), flush)
+    del out
+    (f2, b2), (f3, b3) = flash.bwd_cost(
+        b, hq, hkv, nq, nk, d, kw["causal"], q.element_size(),
+        offset=kw["offset"], window=kw.get("window"),
+        segment_ids=kw.get("segment_ids"))
+    bound2, by2 = bound_ms(f2, b2)
+    bound3, by3 = bound_ms(f3, b3)
+    log(f"time  B2 {what}: kernel_ms={ms_dq:.4f} bound_ms={bound2:.4f} "
+        f"({by2}) achieved={f2 / (ms_dq * 1e-3) / 1e12:.1f} TFLOP/s over "
+        f"visible pairs")
+    log(f"time  B3 {what}: kernel_ms={ms_dkv:.4f} bound_ms={bound3:.4f} "
+        f"({by3}) achieved={f3 / (ms_dkv * 1e-3) / 1e12:.1f} TFLOP/s")
+    log(f"time  B2+B3 {what}: kernel_ms={ms_dq + ms_dkv:.4f} plain_ms="
+        f"{plain_ms:.4f} library_ms={lib_ms:.4f} (autograd.grad through "
+        f"SDPA with {'is_causal' if lib_mask is None else 'the mask'}: "
+        f"dq, dk, dv together)")
+    shape = (f"q({b},{hq},{nq},{d}) kv({b},{hkv},{nk},{d}) {what} "
+             f"{str(q.dtype).split('.')[-1]}")
+    note = ("plain_ms and library_ms compute dq, dk and dv together: "
+            "compare them with B2 + B3")
+    return dict(dq=dict(ms=ms_dq, plain_ms=plain_ms, bound_ms=bound2,
+                        bound_by=by2, library_ms=lib_ms, shape=shape,
+                        note=note),
+                dkv=dict(ms=ms_dkv, plain_ms=plain_ms, bound_ms=bound3,
+                         bound_by=by3, library_ms=lib_ms, shape=shape,
+                         note=note))
+
+
+def check_bwd_branches(rng, flush, results):
+    """B2 and B3's window and segment-id branches at Mistral's training
+    shape (q [1, 32, 8192, 128], kv 8 heads, causal, bf16): window 4096;
+    documents of 3000 / 2500 / 1500 / 1192 tokens with window 4096; the
+    same with q rows 6000-6499 in a document no kv column belongs to,
+    whose dq must be exactly 0. Each: the 3x gate on dq, dk and dv
+    against the plain versions (by kv group), identical bits on a
+    rerun; the first two timed beside their bounds, the plain backward
+    and SDPA's backward with the same boolean mask."""
+    from flash_attention_tpu_torch.ops.flash import SegmentIds
+
+    t, hq, hkv, d, win = 8192, 32, 8, 128, MISTRAL_WINDOW
+    ids = packed_ids()
+    dead_q = ids.clone()
+    dead_q[:, DEAD_ROWS[0]:DEAD_ROWS[1]] = len(PACKED_DOCS) + 7
+    row = torch.arange(t, device="cuda")[:, None]
+    col = torch.arange(t, device="cuda")[None, :]
+    band = (col <= row) & (col > row - win)
+    same_doc = ids[0][:, None] == ids[0][None, :]
+    for key, seg, mask in (
+            ("window", None, band),
+            ("segments", SegmentIds(ids, ids), band & same_doc),
+            ("dead_rows", SegmentIds(dead_q, ids), None)):
+        mkw = dict(window=win, segment_ids=seg)
+        what = (f"{key} (window {win}"
+                + ("" if seg is None else ", packed segment ids") + ")")
+        case, got, hi, lo = _bwd_case(rng, torch.bfloat16, 1, hq, hkv, t, t,
+                                      d, True, **mkw)
+        errs = _bwd_gate(f"B2/B3 {what} q(1,{hq},{t},{d}) kv(1,{hkv},{t},"
+                         f"{d}) causal bf16, deterministic", got, hi, lo)
+        del hi, lo
+        if key == "dead_rows":
+            zero = bool((got[0][:, :, DEAD_ROWS[0]:DEAD_ROWS[1]] == 0).all())
+            log(f"check B2 dead rows {DEAD_ROWS}: dq exactly 0 {zero}")
+            if not zero:
+                raise AssertionError("B2 gave a dead row a gradient")
+            continue
+        del got
+        torch.cuda.empty_cache()
+        timed = _bwd_timed(what, case, flush, mask[None, None], causal=True,
+                           scale=1.0 / math.sqrt(d), offset=0, **mkw)
+        timed["dq"]["max_abs_err"] = errs[0]
+        timed["dkv"]["max_abs_err"] = max(errs[1:])
+        results[("bwd", key)] = timed
+        del case
+        torch.cuda.empty_cache()
+
+
+def _paged_case(rng, dt, lengths, hq, hkv, d, ps, starts=None, spread=1,
+                kv_dtype=None):
+    """B4 against its plain versions on a shuffled page table (dense
+    pools in dt, or int8 / fp8 codes of them when kv_dtype is given):
+    the 3x gate on O and LSE, dead rows exact (quantized: _quant_gate).
+    Returns (what, o, o_lo, args of the kernel call, kw)."""
+    from flash_attention_tpu_torch.ops import paged
+    from flash_attention_tpu_torch.utils.metrics import verify_low_precision
+
+    lengths = np.asarray(lengths, np.int32)
+    kp, vp, tbl, num_pages = paged_setup(rng, lengths, hkv, d, ps,
+                                         -(-int(lengths.max()) // ps) + 1)
+    kp, vp = kp.to(dt), vp.to(dt)
+    q = randn(rng, (len(lengths), hq, d), dt)
+    lens = torch.from_numpy(lengths).cuda()
+    st = None if starts is None else torch.tensor(starts, dtype=torch.int32,
+                                                  device="cuda")
+    kw, hi_pools = {}, (kp.float(), vp.float())
+    if kv_dtype is not None:
+        kc, ks = quant_pools(kp, kv_dtype)
+        vc, vs = quant_pools(vp, kv_dtype)
+        kp, vp, hi_pools = kc, vc, (kc, vc)
+        kw = dict(k_scales=ks, v_scales=vs)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = paged.paged_flash_decode(q, kp, vp, tbl, lens, window_starts=st,
+                                      qpos_spread=spread, return_lse=True,
+                                      **kw)
+    torch.cuda.synchronize()
+    pkw = dict(kw, scale=scale, starts=st, qpos_spread=spread)
+    o_lo, lse_lo = paged.paged_flash_decode_plain(q, kp, vp, tbl, lens,
+                                                  **pkw)
+    o_hi, lse_hi = paged.paged_flash_decode_plain(q.float(), *hi_pools, tbl,
+                                                  lens, **pkw)
+    rows = hq // hkv
+    what = (f"B4 {str(dt).split('.')[-1]} d={d} rows={rows} page {ps} "
+            f"lens {lengths.tolist()}"
+            + (f" starts {list(starts)} spread {spread}" if starts else "")
+            + (f" {str(kv_dtype).split('.')[-1]} pools" if kv_dtype else ""))
+    if kv_dtype is not None:
+        _quant_gate(what, o, o_hi, o_lo, lse, lse_hi, lse_lo, scale)
+    else:
+        ok, kerr, berr = verify_low_precision(o, o_hi, o_lo)
+        lse_err, dead, dead_ok = _lse_gate(lse, lse_hi, scale)
+        dead_ok = dead_ok and bool((o[dead] == 0).all())
+        log(f"check {what}: kernel_err={kerr:.3e} plain_err={berr:.3e} "
+            f"lse_err={lse_err:.3e} dead_rows={int(dead.sum())} "
+            f"dead_rows_ok={dead_ok}")
+        if not (ok and dead_ok and lse_err <= 1e-3):
+            raise AssertionError(f"{what} failed its gate")
+    return what, o, o_lo, (q, kp, vp, tbl, lens), dict(
+        kw, window_starts=st, qpos_spread=spread, return_lse=True)
+
+
+def _decode_case(rng, dt, lengths, hq, hkv, d, s, window=None,
+                 kv_dtype=None):
+    """B5 against its plain versions (dense caches in dt, or int8 / fp8
+    QuantizedTensors): the 3x gate, length-0 rows exactly 0. Returns
+    (what, o, o_lo, args of the kernel call, kw)."""
+    from flash_attention_tpu_torch.ops import decode as dec
+    from flash_attention_tpu_torch.ops.quant import dequantize_kv
+    from flash_attention_tpu_torch.utils.metrics import verify_low_precision
+
+    b = len(lengths)
+    q = randn(rng, (b, hq, d), dt)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    starts = None if window is None else lens - window
+    scale = 1.0 / math.sqrt(d)
+    if kv_dtype is None:
+        k = randn(rng, (b, hkv, s, d), dt)
+        v = randn(rng, (b, hkv, s, d), dt)
+        lo_kv, hi_kv = (k, v), (k.float(), v.float())
+    else:
+        k = quant_cache(rng, (b, hkv, s, d), kv_dtype)
+        v = quant_cache(rng, (b, hkv, s, d), kv_dtype)
+        lo_kv = (dequantize_kv(k), dequantize_kv(v))
+        hi_kv = (dequantize_kv(k, torch.float32),
+                 dequantize_kv(v, torch.float32))
+    o = dec.flash_decode(q, k, v, lens, window=window)
+    torch.cuda.synchronize()
+    lo = dec.flash_decode_plain(q, *lo_kv, lens, scale=scale, starts=starts)
+    hi = dec.flash_decode_plain(q.float(), *hi_kv, lens, scale=scale,
+                                starts=starts)
+    what = (f"B5 {str(dt).split('.')[-1]} d={d} rows={hq // hkv} cache "
+            f"{s} lens {list(lengths)}"
+            + (f" window {window}" if window else "")
+            + (f" {str(kv_dtype).split('.')[-1]} cache" if kv_dtype else ""))
+    if kv_dtype is not None:
+        _quant_gate(what, o, hi, lo)
+    else:
+        ok, kerr, berr = verify_low_precision(o, hi, lo)
+        dead_ok = all(bool((o[i] == 0).all())
+                      for i, n in enumerate(lengths) if n == 0)
+        log(f"check {what}: kernel_err={kerr:.3e} plain_err={berr:.3e} "
+            f"dead_rows_zero={dead_ok}")
+        if not (ok and dead_ok and bool(torch.isfinite(o.float()).all())):
+            raise AssertionError(f"{what} failed its gate")
+    return what, o, lo, (q, k, v, lens), dict(window=window)
+
+
+# B4's serving shape of check_paged and B5's generate shape of
+# check_decode, at the other head dims.
+HEAD_DIM_PAGED_LENS = [1, 1500, 0, 600, 255, 257, 1024, 777]
+HEAD_DIM_DECODE_LENS = [543] * 4
+
+
+def check_head_dims(rng, flush, results):
+    """Head dims 32 and 256 on B1-B5 (CUDA_HEAD_DIMS = SUPPORTED_HEAD_DIMS):
+    in bf16 at one timed shape each (B1 / B2 / B3 at the 1B training
+    shape's (1, 16/8, 2048) causal, B4 at check_paged's batch of 8 over
+    pages of 256, B5 at the generate shape) beside the bound, the plain
+    version and the library call; in fp16 at a small shape (B2 / B3 with
+    a window and segment ids, B4 with window starts and folded
+    positions, B5 with a window); and the int8 branches of B1 / B4 / B5
+    at one small shape. Each held to its gate."""
+    from flash_attention_tpu_torch.ops import decode as dec
+    from flash_attention_tpu_torch.ops import flash, paged
+    from flash_attention_tpu_torch.ops.flash import SegmentIds
+    from flash_attention_tpu_torch.ops.quant import dequantize_kv, quantize_kv
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for d in (32, 256):
+        sc = 1.0 / math.sqrt(d)
+        t = 2048
+        _b1_branch(rng, flush, results, ("d", d, "B1"),
+                   f"head dim {d} causal T={t}", t, t, dict(causal=True),
+                   None, hq=16, hkv=8, d=d)
+        _b1_branch(rng, flush, results, None,
+                   f"head dim {d} fp16 window 100 T=300", 300, 300,
+                   dict(causal=True, window=100), None, timed=False, hq=4,
+                   hkv=2, d=d, dt=torch.float16)
+
+        case, got, hi, lo = _bwd_case(rng, torch.bfloat16, 1, 16, 8, t, t, d,
+                                      True)
+        errs = _bwd_gate(f"B2/B3 head dim {d} q(1,16,{t},{d}) kv(1,8,{t},"
+                         f"{d}) causal bf16, deterministic", got, hi, lo)
+        del got, hi, lo
+        timed = _bwd_timed(f"head dim {d} causal", case, flush, None,
+                           causal=True, scale=sc, offset=0)
+        timed["dq"]["max_abs_err"] = errs[0]
+        timed["dkv"]["max_abs_err"] = max(errs[1:])
+        results[("d", d, "B2/B3")] = timed
+        del case
+        seg = (torch.arange(300, device="cuda")[None] >= 137).to(torch.int32)
+        _, got, hi, lo = _bwd_case(rng, torch.float16, 1, 4, 2, 300, 300, d,
+                                   True, window=100,
+                                   segment_ids=SegmentIds(seg, seg))
+        _bwd_gate(f"B2/B3 head dim {d} fp16 window 100 segment ids "
+                  f"q(1,4,300,{d}) kv(1,2,300,{d}), deterministic", got, hi,
+                  lo)
+
+        what, o, lo, args, kw = _paged_case(
+            rng, torch.bfloat16, HEAD_DIM_PAGED_LENS, 32, 8, d, 256)
+        lens_np = np.asarray(HEAD_DIM_PAGED_LENS, np.int32)
+        ms = time_ms(lambda: paged.paged_flash_decode(*args, **kw), flush)
+        plain_ms = time_ms(lambda: paged.paged_flash_decode_plain(
+            *args, scale=sc), flush)
+        bms, by = bound_ms(*paged.paged_decode_cost(lens_np, 32, 8, d, 2,
+                                                    256))
+        log(f"time  {what}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms=null bound_ms={bms:.4f} ({by})")
+        results[("d", d, "B4")] = dict(
+            max_abs_err=max_abs(o, lo), ms=ms, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by, library_ms=None, shape=what)
+        _paged_case(rng, torch.float16, [0, 1, 63, 300], 16, 2, d, 128,
+                    starts=[0, -5, 10, 200], spread=2)
+        _paged_case(rng, torch.bfloat16, [0, 130, 300], 8, 2, d, 128,
+                    kv_dtype=torch.int8)
+
+        what, o, lo, args, kw = _decode_case(
+            rng, torch.bfloat16, HEAD_DIM_DECODE_LENS, 32, 8, d, 640)
+        q, k, v, lens = args
+        mask = (torch.arange(640, device="cuda")[None, :]
+                < lens[:, None])[:, None, None, :]
+        ms = time_ms(lambda: dec.flash_decode(*args), flush)
+        plain_ms = time_ms(lambda: dec.flash_decode_plain(*args, scale=sc),
+                           flush)
+        lib_ms = time_ms(lambda: sdpa(q[:, :, None], k, v, attn_mask=mask,
+                                      enable_gqa=True), flush)
+        bms, by = bound_ms(*dec.decode_cost(HEAD_DIM_DECODE_LENS, 32, 8, d,
+                                            2))
+        log(f"time  {what}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={lib_ms:.4f} (SDPA enable_gqa, length mask) "
+            f"bound_ms={bms:.4f} ({by})")
+        results[("d", d, "B5")] = dict(
+            max_abs_err=max_abs(o, lo), ms=ms, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by, library_ms=lib_ms, shape=what)
+        _decode_case(rng, torch.float16, [384, 0, 257], 8, 2, d, 384,
+                     window=100)
+        _decode_case(rng, torch.bfloat16, [256, 0, 100], 8, 2, d, 256,
+                     kv_dtype=torch.int8)
+
+        # B1 over int8 K/V at this head dim.
+        q = randn(rng, (1, 4, 256, d), torch.bfloat16)
+        kq, vq = (quantize_kv(spread_blocks(rng, (1, 2, 256, d), 2),
+                              dtype=torch.int8) for _ in range(2))
+        o, lse = flash.flash_attention_fwd(q, kq, vq, causal=True)
+        kw = dict(causal=True, scale=sc, offset=0)
+        o_lo, lse_lo = flash.flash_attention_fwd_plain(
+            q, dequantize_kv(kq), dequantize_kv(vq), **kw)
+        o_hi, lse_hi = flash.flash_attention_fwd_plain(
+            q.float(), dequantize_kv(kq, torch.float32),
+            dequantize_kv(vq, torch.float32), **kw)
+        _quant_gate(f"B1 int8 head dim {d} q(1,4,256,{d}) kv(1,2,256,{d}) "
+                    f"causal", o, o_hi, o_lo, lse, lse_hi, lse_lo, sc)
+        torch.cuda.empty_cache()
+
+
+def check_rows(rng):
+    """B4 and B5 at more than 16 query rows per kv head, where the kernel
+    walks its K/V once per group of 16 rows in the one launch:
+    llama3_70b's GQA group of 8 with 4 and 8 folded positions (32 and 64
+    rows) on B4 with window starts, a group of 32 and of 64 on B5 with
+    and without a window, and the int8 branches at 32 rows. Untimed."""
+    hkv, d = 8, 128
+    for spread in (4, 8):
+        _paged_case(rng, torch.bfloat16, [4400, 300, 0, 1500],
+                    8 * hkv * spread, hkv, d, 256,
+                    starts=[300, -3780, 0, 700], spread=spread)
+    _paged_case(rng, torch.float16, [700, 0, 129], 32 * hkv, hkv, 64, 128,
+                starts=[100, 0, -5], spread=4)
+    _paged_case(rng, torch.bfloat16, [700, 0, 129], 32 * hkv, hkv, d, 128,
+                starts=[100, 0, -5], spread=4, kv_dtype=torch.int8)
+    for group in (32, 64):
+        _decode_case(rng, torch.bfloat16, [543, 0, 640, 1], group * 2, 2, d,
+                     640)
+        _decode_case(rng, torch.float16, [543, 0, 640, 1], group * 2, 2, 64,
+                     640, window=200)
+    _decode_case(rng, torch.bfloat16, [543, 0, 640], 64, 2, d, 640,
+                 kv_dtype=torch.int8)
+    torch.cuda.synchronize()
+
+
+# --- phase 11: windowed training, the segmented gradient, moe_loss_fn -----
+
+MISTRAL_TRAIN_LAYERS = 16        # the one-card depth (58 GB of state at 32)
+
+
+def train_1b() -> dict:
+    """LlamaConfig.llama3_1b at full width and depth, batch 4 x 2048,
+    8 steps (train())."""
+    from flash_attention_tpu_torch.models.llama import LlamaConfig
+
+    return train("train", LlamaConfig.llama3_1b(dtype=torch.bfloat16), 4,
+                 2048, 8)
+
+
+def train_mistral() -> dict:
+    """LlamaConfig.mistral_7b at full width (window 4096), cut to 16
+    layers, trained at batch 1 x 8192 (train(): 4 steps, 32 B1 / 16 B2 /
+    16 B3 launches a step, every one on its window branch); the kernel
+    path held to the plain path over the first 2 layers at T = 8192."""
+    from flash_attention_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig.mistral_7b(n_layers=MISTRAL_TRAIN_LAYERS,
+                                 dtype=torch.bfloat16)
+    return train("train_mistral", cfg, 1, 8192, 4, compare_layers=2)
+
+
+def segmented_grad() -> dict:
+    """The segment-id branches through the public API: one
+    flash_attention(q, k, v, SegmentIds(...), causal=True, window=4096)
+    and its gradient at Mistral's shape (q [1, 32, 8192, 128], kv 8
+    heads, bf16) over packed documents, launches counted around it
+    (one each of B1, B2, B3, every one with segment ids and a window);
+    the gradients bit-equal to the direct B2 / B3 launch on the same
+    inputs, and finite."""
+    from flash_attention_tpu_torch.ops import flash
+
+    rng = np.random.default_rng(SEED + 7)
+    t, hq, hkv, d = 8192, 32, 8, 128
+    ids = packed_ids()
+    seg = flash.SegmentIds(ids, ids)
+    kw = dict(causal=True, window=MISTRAL_WINDOW)
+    q, k, v = (randn(rng, (1, h, t, d), torch.bfloat16).requires_grad_()
+               for h in (hq, hkv, hkv))
+    do = randn(rng, (1, hq, t, d), torch.bfloat16)
+    reset_counts()
+    out = flash.flash_attention(q, k, v, seg, **kw)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    with torch.no_grad():
+        o, lse = flash.flash_attention_fwd(q, k, v, seg, **kw)
+        want = flash.flash_attention_bwd(q, k, v, o, lse, do, seg, **kw)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+    one = dict(flash=1, flash_seg=1, flash_win=1, bwd_dq=1, bwd_dkv=1,
+               bwd_dq_seg=1, bwd_dkv_seg=1, bwd_dq_win=1, bwd_dkv_win=1)
+    wanted = dict(dict.fromkeys(counts, 0), **one)
+    log(f"segmented gradient: flash_attention with packed segment ids "
+        f"{list(PACKED_DOCS)} and window {MISTRAL_WINDOW}, q(1,{hq},{t},"
+        f"{d}): launches { {k: v for k, v in counts.items() if v} }; "
+        f"gradients equal to the direct B2 / B3 launch {same}; finite "
+        f"{finite}")
+    if counts != wanted or not (same and finite):
+        raise AssertionError("segmented gradient: launches or gradients off")
+    return counts
+
+
+def moe_loss() -> dict:
+    """moe_loss_fn forward and backward on the card on MoEConfig.tiny_moe
+    in bf16 (capacity routing, remat): finite loss and aux metrics,
+    finite gradients on every leaf, the router's among them; 2 B1
+    launches per layer, 1 B2 and 1 B3 (parity is held on the CPU,
+    tests/test_torch_windowed_train.py)."""
+    from flash_attention_tpu_torch.models.llama import param_leaves
+    from flash_attention_tpu_torch.models.moe import (
+        MoEConfig, init_moe_params, moe_loss_fn,
+    )
+
+    cfg = MoEConfig.tiny_moe(dtype=torch.bfloat16)
+    params = init_moe_params(cfg, seed=SEED)
+    leaves = param_leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    tokens = np.random.default_rng(SEED + 8).integers(
+        0, cfg.vocab_size, (4, 129)).astype(np.int32)
+    reset_counts()
+    loss, metrics = moe_loss_fn(params, tokens, cfg, remat=True)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n = cfg.n_layers
+    wanted = dict(dict.fromkeys(counts, 0), flash=2 * n, bwd_dq=n,
+                  bwd_dkv=n)
+    values = {k: float(v) for k, v in dict(metrics, loss=loss).items()}
+    finite = (all(math.isfinite(x) for x in values.values())
+              and all(bool(torch.isfinite(g.float()).all()) for g in grads))
+    router = sum(float(g.float().abs().sum()) for leaf, g in zip(leaves, grads)
+                 if leaf.dtype == torch.float32 and leaf.dim() == 2
+                 and leaf.shape[1] == cfg.n_experts)
+    log(f"moe_loss: tiny_moe bf16 ({cfg.routing} routing, remat) on "
+        f"tokens (4, 129): {values}; gradients finite {finite}, router "
+        f"gradient |sum| {router:.4e}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    if counts != wanted or not finite or router == 0.0:
+        raise AssertionError("moe_loss: launches, values or gradients off")
+    return counts
+
+
 def check_kernels() -> dict:
     flush = L2Flush()
     rng = np.random.default_rng(SEED)
@@ -2911,6 +3419,9 @@ def check_kernels() -> dict:
     check_flash_quant(rng, flush, results)
     results["p2"] = check_p2(flush)
     torch.cuda.synchronize()
+    check_bwd_branches(rng, flush, results)
+    check_head_dims(rng, flush, results)
+    check_rows(rng)
     return results
 
 
@@ -2941,7 +3452,7 @@ def main() -> int:
 
     results = timed("check", check_kernels)
     launches = timed("serve_1b", serve)
-    trained = timed("train_1b", train)
+    trained = timed("train_1b", train_1b)
     gc.collect()
     torch.cuda.empty_cache()
     q8 = timed("serve_8b", serve_8b_phase)
@@ -2953,9 +3464,17 @@ def main() -> int:
     log(f"mixtral: decode tok/s at batch 8 -- int4 "
         f"{mix['int4']['decode_tok_s']:.1f}, int8 "
         f"{mix['int8']['decode_tok_s']:.1f}, int4 forced-grouped "
-        f"{mix['int4_forced']['decode_tok_s']:.1f}, bf16 16 layers "
-        f"{mix['bf16_16']['decode_tok_s']:.1f}")
+        f"{mix['int4_forced']['decode_tok_s']:.1f}, bf16 "
+        f"{MIXTRAL_BF16_LAYERS} layers {mix['bf16']['decode_tok_s']:.1f}")
     mis = timed("mistral", mistral)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The training paths of the window and segment-id branches of B2/B3.
+    tpaths = {"train_mistral": timed("train_mistral", train_mistral)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    tpaths["segmented_grad_api"] = timed("segmented_grad", segmented_grad)
+    tpaths["moe_loss_tiny"] = timed("moe_loss", moe_loss)
     log(f"phase seconds: {phase_s}")
     mm, mc = mis["monolithic"], mis["chunked"]
     log(f"mistral: decode tok/s at batch 8 -- monolithic "
@@ -2971,7 +3490,7 @@ def main() -> int:
     cpaths = {"serve_1b_chunked": launches["chunked"]}
     apaths = {"forward_8b_int8_kv_api": q8["quant_api"]["launches"]}
     # The paths that reach the branches.
-    bpaths = {**cpaths, **wpaths, **kvpaths, **apaths}
+    bpaths = {**cpaths, **wpaths, **kvpaths, **apaths, **tpaths}
     log(f"quantized KV: decode tok/s llama3_8b bf16 / int8 / e4m3 KV "
         f"{q8['bf16']['decode_tok_s']:.1f} / "
         f"{q8['kv_int8']['decode_tok_s']:.1f} / "
@@ -2991,7 +3510,8 @@ def main() -> int:
     mpaths = {"serve_mixtral_int4": mix["int4"]["launches"],
               "serve_mixtral_int8": mix["int8"]["launches"],
               "serve_mixtral_int4_forced": mix["int4_forced"]["launches"],
-              "serve_mixtral16_bf16": mix["bf16_16"]["launches"]}
+              f"serve_mixtral{MIXTRAL_BF16_LAYERS}_bf16":
+                  mix["bf16"]["launches"]}
 
     def mix_by_path(key):
         return {path: got[key] for path, got in mpaths.items()}
@@ -2999,6 +3519,19 @@ def main() -> int:
     def matmul_entry(label, **extra):
         rows = results[label]
         return dict(rows[0], at_shapes=rows[1:], **extra)
+
+    def head_dims(kernel, part=None):
+        return {f"head dim {d}": (results[("d", d, kernel)] if part is None
+                                  else results[("d", d, kernel)][part])
+                for d in (32, 256)}
+
+    def bwd_entry(name, part, counter, key, replaces):
+        return dict(name=name, route="cuda",
+                    source="flash_attention_tpu_torch/csrc/flash_bwd.cu",
+                    replaces=replaces,
+                    launches=sum(by_path(bpaths, counter).values()),
+                    launches_by_path=by_path(bpaths, counter),
+                    **results[("bwd", key)][part])
 
     kernels = [
         dict(name="flash_fwd (B1)", route="cuda",
@@ -3016,7 +3549,8 @@ def main() -> int:
                                **mix_by_path("flash"),
                                **by_path(bpaths, "flash")},
              **results[("flash", 512)],
-             at_train_shape=results["flash_train"]),
+             at_train_shape=results["flash_train"],
+             at_head_dims=head_dims("B1")),
         # B1's branches, each with the launches its own counter saw on
         # the paths (a roll-buffer launch takes both).
         dict(name="flash_fwd (B1 segment ids)", route="cuda",
@@ -3041,11 +3575,29 @@ def main() -> int:
         dict(name="flash_bwd_dq (B2)", route="cuda",
              source="flash_attention_tpu_torch/csrc/flash_bwd.cu",
              replaces="flash_attention_tpu/ops/flash.py:716",
-             launches=trained["bwd_dq"], **results["bwd_dq"]),
+             launches=trained["bwd_dq"]
+             + sum(by_path(bpaths, "bwd_dq").values()),
+             launches_by_path={"train_1b": trained["bwd_dq"],
+                               **by_path(tpaths, "bwd_dq")},
+             **results["bwd_dq"], at_head_dims=head_dims("B2/B3", "dq")),
         dict(name="flash_bwd_dkv (B3)", route="cuda",
              source="flash_attention_tpu_torch/csrc/flash_bwd.cu",
              replaces="flash_attention_tpu/ops/flash.py:773",
-             launches=trained["bwd_dkv"], **results["bwd_dkv"]),
+             launches=trained["bwd_dkv"]
+             + sum(by_path(bpaths, "bwd_dkv").values()),
+             launches_by_path={"train_1b": trained["bwd_dkv"],
+                               **by_path(tpaths, "bwd_dkv")},
+             **results["bwd_dkv"], at_head_dims=head_dims("B2/B3", "dkv")),
+        # B2 / B3's branches, each with the launches its own counter saw
+        # (the segmented gradient takes both).
+        bwd_entry("flash_bwd_dq (B2 window)", "dq", "bwd_dq_win", "window",
+                  "flash_attention_tpu/ops/flash.py:716"),
+        bwd_entry("flash_bwd_dq (B2 segment ids)", "dq", "bwd_dq_seg",
+                  "segments", "flash_attention_tpu/ops/flash.py:716"),
+        bwd_entry("flash_bwd_dkv (B3 window)", "dkv", "bwd_dkv_win",
+                  "window", "flash_attention_tpu/ops/flash.py:773"),
+        bwd_entry("flash_bwd_dkv (B3 segment ids)", "dkv", "bwd_dkv_seg",
+                  "segments", "flash_attention_tpu/ops/flash.py:773"),
         dict(name="paged_decode (B4)", route="cuda",
              source="flash_attention_tpu_torch/csrc/paged_decode.cu",
              replaces="flash_attention_tpu/ops/paged.py:37",
@@ -3057,7 +3609,7 @@ def main() -> int:
                                "serve_8b_int8": l8["paged"],
                                **mix_by_path("paged"),
                                **by_path(bpaths, "paged")},
-             **results["paged"]),
+             **results["paged"], at_head_dims=head_dims("B4")),
         dict(name="paged_decode (B4 window starts)", route="cuda",
              source="flash_attention_tpu_torch/csrc/paged_decode.cu",
              replaces="flash_attention_tpu/ops/paged.py:37",
@@ -3071,7 +3623,7 @@ def main() -> int:
              launches=lg["decode"] + sum(by_path(bpaths, "decode").values()),
              launches_by_path={"generate_8b_int4": lg["decode"],
                                **by_path(bpaths, "decode")},
-             **results["decode"]),
+             **results["decode"], at_head_dims=head_dims("B5")),
         dict(name="decode (B5 window)", route="cuda",
              source="flash_attention_tpu_torch/csrc/decode.cu",
              replaces="flash_attention_tpu/ops/decode.py:71",

@@ -3,8 +3,9 @@
 The JAX package searches block sizes against the TPU's VMEM budget
 (`flash_attention_tpu/config.py`). On Hopper the kernels use fixed tiles
 sized to shared memory and registers instead (compile-time constants of
-csrc/*.cu: B1, B2 and B3 64-row q and kv tiles, B4 256 threads per
-(sequence, kv head)); what the Python wrappers must check against is
+csrc/*.cu: B1 64-row q and kv tiles, B2 and B3 64-row tiles or 32 at
+D = 256, B4 and B5 256 threads per (sequence, kv head) over groups of at
+most 16 query rows); what the Python wrappers must check against is
 mirrored here.
 """
 
@@ -14,12 +15,9 @@ import torch
 
 SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
 
-# Head dims the CUDA kernels are instantiated for (csrc/*.cu).
-CUDA_HEAD_DIMS = (64, 128)
-
-# B4 (csrc/paged_decode.cu) takes at most this many query rows (GQA
-# group x folded positions) per (sequence, kv head) block.
-PAGED_MAX_ROWS = 16
+# Head dims the CUDA kernels are instantiated for (csrc/*.cu): all of
+# them.
+CUDA_HEAD_DIMS = SUPPORTED_HEAD_DIMS
 
 
 def cdiv(a: int, b: int) -> int:

@@ -18,14 +18,15 @@
 // [B, Hkv, S, D] in int8 / e4m3 / e5m2 with fp32 scales [B, Hkv, S / 128,
 // D]; position pos reads scale row scales[b, h, pos / 128, :]; each code
 // is widened, multiplied by its scale in fp32 and rounded to q's type
-// before the product (decode_core.cuh). They compile in decode_quant.cu,
-// apart from the dense instantiations here.
+// before the product (decode_core.cuh). They compile in decode_int8.cu
+// and decode_fp8.cu, apart from the dense instantiations here.
 //
 // What bounds it on the H100: bytes, as for B4. Each live position's K
 // and V rows are read once per kv head (4*D bytes per head in bf16) for
 // 4*G*D FLOPs -- G/2 FLOPs per byte, far under the ~295 at which the
 // tensor cores would be the limit. The design reads only the live prefix
-// and reads it once for all G rows: one 256-thread block per (kv head,
+// and reads it once for up to 16 of the G rows (a wider group walks it
+// once per 16 rows, in the same launch): one 256-thread block per (kv head,
 // sequence) walks the prefix in chunks of 256 positions with 16-byte
 // loads by neighbouring threads on neighbouring addresses, through the
 // body B4 uses for its pages (decode_core.cuh; the products in fp32 on
@@ -54,7 +55,14 @@ extern "C" int fa_decode(const void* q, const void* k, const void* v,
                            static_cast<const int*>(lengths), o, B, Hq, Hkv,
                            S, window, scale,
                            static_cast<cudaStream_t>(stream)};
-  if (kv_store == kDense)
-    return (int)contiguous::dispatch<kDense>(a, dtype, D);
-  return (int)contiguous::dispatch_quant(a, dtype, D, kv_store);
+  switch (kv_store) {
+    case kDense:
+      return (int)contiguous::dispatch<kDense>(a, dtype, D);
+    case kInt8:
+      return (int)contiguous::dispatch_int8(a, dtype, D);
+    case kE4M3:
+    case kE5M2:
+      return (int)contiguous::dispatch_fp8(a, dtype, D, kv_store);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -2,8 +2,8 @@
 // sequence) over the body in decode_core.cuh, walking the contiguous
 // cache in chunks of 256 positions; instantiated per window flag, K/V
 // storage, compute type, head dim and row bound. decode.cu holds the
-// dense instantiations and the C entry point, decode_quant.cu the
-// quantized ones.
+// dense instantiations and the C entry point, decode_int8.cu and
+// decode_fp8.cu the quantized ones.
 #pragma once
 
 #include "decode_core.cuh"
@@ -42,10 +42,15 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
       seq * (size_t)a.S * D, (size_t)kChunk * D,
       seq * (size_t)(a.S / decode::kQuantBlock) * D,
       (size_t)(kChunk / decode::kQuantBlock) * D};
-  decode::attend<Windowed, Store, false, T, D, R>(
-      static_cast<const T*>(a.q) + qrow0 * D, a.k, a.v, a.kscale, a.vscale,
-      chunks, len, n_chunks, kChunk, rows, a.scale, start, 1,
-      static_cast<T*>(a.o) + qrow0 * D, nullptr);
+  // Groups of at most R rows (a GQA group wider than R takes several).
+  for (int r0 = 0; r0 < rows; r0 += R) {
+    if (r0 > 0) __syncthreads();   // the last group's reduction is read
+    decode::attend<Windowed, Store, false, T, D, R>(
+        static_cast<const T*>(a.q) + (qrow0 + r0) * D, a.k, a.v, a.kscale,
+        a.vscale, chunks, len, n_chunks, kChunk, min(R, rows - r0), r0,
+        a.scale, start, 1, static_cast<T*>(a.o) + (qrow0 + r0) * D,
+        nullptr);
+  }
 }
 
 // Windowed: window > 0 (the other instantiation has no mask).
@@ -61,9 +66,9 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-// R: the smallest instantiated row bound >= the GQA group
-// (config.PAGED_MAX_ROWS is the largest); quantized storages instantiate
-// 4 and 16 only, as B4's.
+// R: the smallest instantiated row bound >= the GQA group, up to 16;
+// a wider group runs in groups of 16 (decode_kernel). Quantized storages
+// instantiate 4 and 16 only, as B4's.
 template <int Store, typename T, int D>
 cudaError_t dispatch_rows(const Args& a) {
   const int rows = a.Hq / a.Hkv;
@@ -74,8 +79,7 @@ cudaError_t dispatch_rows(const Args& a) {
   if constexpr (Store == kDense) {
     if (rows <= 8) return launch<Store, T, D, 8>(a);
   }
-  if (rows <= 16) return launch<Store, T, D, 16>(a);
-  return cudaErrorInvalidValue;
+  return launch<Store, T, D, 16>(a);
 }
 
 template <int Store>
@@ -83,15 +87,20 @@ cudaError_t dispatch(const Args& a, int dtype, int D) {
   if (dtype == kBFloat16) {
     if (D == 128) return dispatch_rows<Store, __nv_bfloat16, 128>(a);
     if (D == 64) return dispatch_rows<Store, __nv_bfloat16, 64>(a);
+    if (D == 256) return dispatch_rows<Store, __nv_bfloat16, 256>(a);
+    if (D == 32) return dispatch_rows<Store, __nv_bfloat16, 32>(a);
   } else if (dtype == kFloat16) {
     if (D == 128) return dispatch_rows<Store, __half, 128>(a);
     if (D == 64) return dispatch_rows<Store, __half, 64>(a);
+    if (D == 256) return dispatch_rows<Store, __half, 256>(a);
+    if (D == 32) return dispatch_rows<Store, __half, 32>(a);
   }
   return cudaErrorInvalidValue;
 }
 
-// Defined in decode_quant.cu.
-cudaError_t dispatch_quant(const Args& a, int dtype, int D, int store);
+// Defined in decode_int8.cu and decode_fp8.cu.
+cudaError_t dispatch_int8(const Args& a, int dtype, int D);
+cudaError_t dispatch_fp8(const Args& a, int dtype, int D, int store);
 
 }  // namespace contiguous
 }  // namespace fa

@@ -12,7 +12,11 @@
 // in; m, l in fp32); (C) each thread accumulates R x 8 output channels
 // over its share of the chunk's tokens. Per-thread partial sums are added
 // in a fixed order at the end, so results are deterministic. A length-0
-// row writes O = 0 and, where asked, LSE = INIT_M * scale.
+// row writes O = 0 and, where asked, LSE = INIT_M * scale. The kernels
+// (B4, B5) call it once per group of at most R rows of a (sequence, kv
+// head): any row count runs in one launch, and K/V are read once per
+// group (the accumulators of R = 16 rows already take 128 registers a
+// thread).
 //
 // Sliding window (the TPU kernels' `windowed` branches, paged.py:62-66,
 // :124-130 and decode.py:88-111): row r sees only positions >= start +
@@ -52,9 +56,16 @@ namespace fa {
 namespace decode {
 
 constexpr int kThreads = 256;
-constexpr int kUnroll = 4;      // token loads in flight per thread
 
 constexpr int kQuantBlock = 128;   // tokens per scale row (QUANT_BLOCK)
+
+// Token loads in flight per thread: 4, or fewer where 4 passes of the
+// block would straddle a scale block (D = 32: 64 tokens a pass).
+template <int D>
+constexpr int unroll() {
+  constexpr int kTokPerPass = kThreads / (D / 8);
+  return kTokPerPass * 4 <= kQuantBlock ? 4 : kQuantBlock / kTokPerPass;
+}
 
 // Fold keeps the block's scaled q in shared memory.
 template <int D, int R, bool Fold>
@@ -122,7 +133,8 @@ struct KV {
   }
 };
 
-// q_rows / o_rows: `rows` consecutive rows of D values; lse_rows may be
+// q_rows / o_rows: `rows` (<= R) consecutive rows of D values, the
+// first of them row `row0` of its (sequence, kv head); lse_rows may be
 // null; kscale / vscale: the scale pools (null when Store is kDense).
 // Every thread of the block must call it.
 template <bool Windowed, int Store, bool Fold, typename T, int D, int R,
@@ -131,8 +143,8 @@ __device__ __forceinline__ void attend(
     const T* __restrict__ q_rows, const void* __restrict__ kpool,
     const void* __restrict__ vpool, const float* __restrict__ kscale,
     const float* __restrict__ vscale, Offsets offsets, int len,
-    int n_chunks, int chunk, int rows, float scale, int start, int spread,
-    T* __restrict__ o_rows, float* __restrict__ lse_rows) {
+    int n_chunks, int chunk, int rows, int row0, float scale, int start,
+    int spread, T* __restrict__ o_rows, float* __restrict__ lse_rows) {
   using S = KV<T, Store>;
   using Elem = typename S::Elem;
   using Raw = typename S::Raw;
@@ -142,6 +154,7 @@ __device__ __forceinline__ void attend(
   constexpr int kTokPerPass = kThreads / kLanesPerTok;
   constexpr int kDimGroups = D / 8;
   constexpr int kTokGroups = kThreads / kDimGroups;
+  constexpr int kUnroll = unroll<D>();
   static_assert(kQuantBlock % (kTokPerPass * kUnroll) == 0 &&
                     kQuantBlock % (kTokGroups * kUnroll) == 0,
                 "a token step must not straddle two scale blocks");
@@ -176,7 +189,7 @@ __device__ __forceinline__ void attend(
   int lo[Windowed ? R : 1];
   if constexpr (Windowed) {
 #pragma unroll
-    for (int r = 0; r < R; ++r) lo[r] = start + r % spread;
+    for (int r = 0; r < R; ++r) lo[r] = start + (row0 + r) % spread;
   }
   float acc[R][8];
 #pragma unroll

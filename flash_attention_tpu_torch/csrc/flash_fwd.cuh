@@ -19,6 +19,8 @@ constexpr int kBQ = 64;       // q rows per block
 constexpr int kBKV = 64;      // kv rows per tile
 constexpr int kThreads = 128;
 
+// At D = 256 the tiles take 194,816 bytes, inside the 227 KB a block
+// may use.
 template <typename T, int D>
 struct Smem {
   static constexpr int kLdQ = D + 8;       // Q/K/V rows (T elements)
@@ -275,9 +277,13 @@ cudaError_t dispatch(const Args& a, int dtype, int D) {
   if (dtype == kBFloat16) {
     if (D == 128) return launch<__nv_bfloat16, 128, Store>(a);
     if (D == 64) return launch<__nv_bfloat16, 64, Store>(a);
+    if (D == 256) return launch<__nv_bfloat16, 256, Store>(a);
+    if (D == 32) return launch<__nv_bfloat16, 32, Store>(a);
   } else if (dtype == kFloat16) {
     if (D == 128) return launch<__half, 128, Store>(a);
     if (D == 64) return launch<__half, 64, Store>(a);
+    if (D == 256) return launch<__half, 256, Store>(a);
+    if (D == 32) return launch<__half, 32, Store>(a);
   }
   return cudaErrorInvalidValue;
 }

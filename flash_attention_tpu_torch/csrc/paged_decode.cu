@@ -24,10 +24,11 @@
 // ceil(lengths[b] / page_size) live entries of page_table[b] (never the
 // table width, whose tail points at a scratch page), from the first page
 // that holds a position inside the window, reads each page's
-// [page_size, D] K and V rows once for all R query rows, with 16-byte
-// loads by neighbouring threads on neighbouring addresses, four tokens'
-// loads in flight per thread. The products run on the CUDA cores in
-// fp32; tensor cores would buy nothing at R <= 16.
+// [page_size, D] K and V rows once for up to 16 query rows (more rows
+// walk the pages once per group of 16, inside the same launch), with
+// 16-byte loads by neighbouring threads on neighbouring addresses, four
+// tokens' loads in flight per thread. The products run on the CUDA cores
+// in fp32; tensor cores would buy nothing at 16 rows.
 //
 // Layout: one block of 256 threads per (kv head, sequence), walking the
 // sequence page by page through the body it shares with B5

@@ -42,11 +42,15 @@ paged_decode_kernel(const Args a) {
       a.table + (size_t)b * a.width, (size_t)h * a.num_pages,
       (size_t)a.page_size * D,
       (size_t)(a.page_size / decode::kQuantBlock) * D};
-  decode::attend<Windowed, Store, Fold, T, D, R>(
-      static_cast<const T*>(a.q) + qrow0 * D, a.kpool, a.vpool, a.kscale,
-      a.vscale, pages, len, n_pages, a.page_size, rows, a.scale, start,
-      Windowed ? a.spread : 1, static_cast<T*>(a.o) + qrow0 * D,
-      a.lse + qrow0);
+  // Groups of at most R rows (more rows than R take several).
+  for (int r0 = 0; r0 < rows; r0 += R) {
+    if (r0 > 0) __syncthreads();   // the last group's reduction is read
+    decode::attend<Windowed, Store, Fold, T, D, R>(
+        static_cast<const T*>(a.q) + (qrow0 + r0) * D, a.kpool, a.vpool,
+        a.kscale, a.vscale, pages, len, n_pages, a.page_size,
+        min(R, rows - r0), r0, a.scale, start, Windowed ? a.spread : 1,
+        static_cast<T*>(a.o) + (qrow0 + r0) * D, a.lse + qrow0 + r0);
+  }
 }
 
 // Windowed: starts != nullptr (the other instantiation has no mask).
@@ -63,10 +67,10 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-// R: the smallest instantiated row bound >= the rows (config
-// .PAGED_MAX_ROWS is the largest). Quantized storages instantiate 4 and
-// 16 only (the serving models' group of 4, and everything up to the
-// bound), which keeps their build short.
+// R: the smallest instantiated row bound >= the rows, up to 16; more
+// rows run in groups of 16 (paged_decode_kernel). Quantized storages
+// instantiate 4 and 16 only (the serving models' group of 4, and
+// everything wider), which keeps their build short.
 template <int Store, bool Fold, typename T, int D>
 cudaError_t dispatch_rows(const Args& a) {
   const int rows = a.Hq / a.Hkv;
@@ -77,8 +81,7 @@ cudaError_t dispatch_rows(const Args& a) {
   if constexpr (Store == kDense) {
     if (rows <= 8) return launch<Store, Fold, T, D, 8>(a);
   }
-  if (rows <= 16) return launch<Store, Fold, T, D, 16>(a);
-  return cudaErrorInvalidValue;
+  return launch<Store, Fold, T, D, 16>(a);
 }
 
 template <int Store, bool Fold>
@@ -86,9 +89,13 @@ cudaError_t dispatch(const Args& a, int dtype, int D) {
   if (dtype == kBFloat16) {
     if (D == 128) return dispatch_rows<Store, Fold, __nv_bfloat16, 128>(a);
     if (D == 64) return dispatch_rows<Store, Fold, __nv_bfloat16, 64>(a);
+    if (D == 256) return dispatch_rows<Store, Fold, __nv_bfloat16, 256>(a);
+    if (D == 32) return dispatch_rows<Store, Fold, __nv_bfloat16, 32>(a);
   } else if (dtype == kFloat16) {
     if (D == 128) return dispatch_rows<Store, Fold, __half, 128>(a);
     if (D == 64) return dispatch_rows<Store, Fold, __half, 64>(a);
+    if (D == 256) return dispatch_rows<Store, Fold, __half, 256>(a);
+    if (D == 32) return dispatch_rows<Store, Fold, __half, 32>(a);
   }
   return cudaErrorInvalidValue;
 }

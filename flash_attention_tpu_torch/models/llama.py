@@ -271,7 +271,11 @@ def forward(params, tokens, cfg: LlamaConfig, *, positions=None,
     if positions is None:
         positions = torch.arange(t, dtype=torch.int32,
                                  device=tokens.device)
-    x = params["embed"][tokens]
+    # F.embedding, not indexing: its gradient sums each token's rows in
+    # a fixed order (an index's backward accumulates in a thread-dependent
+    # order on the CPU, so two runs of one step could differ in the last
+    # bit).
+    x = F.embedding(tokens, params["embed"])
 
     def layer_fn(x, layer):
         a, _ = _attention_block(layer, x, cfg, positions,

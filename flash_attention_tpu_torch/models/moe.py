@@ -20,9 +20,12 @@ Two routings, as in the JAX package:
     (ops/grouped.py) three times; a smaller one, every decode step among
     them, runs the capacity cubes with capacity = n, which drop nothing.
 
-Expert-parallel placements (`ep_axis`, `expert_shard_axis`) raise: they
-arrive with the multi-device slice, with MoE training
-(`moe_loss_fn`, `make_moe_train_step`, `moe_param_shardings`).
+`moe_loss_fn` trains on one device: next-token cross-entropy plus the
+router's load-balance and z losses, differentiable through capacity
+routing (the one-hot einsums; the dropless path's B9 has no backward, in
+the JAX package as here). Expert-parallel placements (`ep_axis`,
+`expert_shard_axis`) raise: they arrive with the multi-device slice,
+with `make_moe_train_step` and `moe_param_shardings`.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import os
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from flash_attention_tpu_torch.config import resolve_device
 from flash_attention_tpu_torch.models.llama import (
@@ -325,17 +329,18 @@ def moe_mlp_grouped(layer, x, cfg: MoEConfig, expert_shard_axis=None):
 
 
 def moe_forward(params, tokens, cfg: MoEConfig, *, positions=None,
-                ep_axis=None):
-    """Logits [B, T, vocab] and the mean aux dict over layers. Dropless
-    routing runs moe_mlp_grouped at every dispatch size, as in the JAX
-    package (the serving paths dispatch by size in `_mlp_block`).
-    Forward only: `remat` arrives with MoE training."""
+                ep_axis=None, remat: bool = False):
+    """Logits [B, T, vocab] and the mean aux dict over layers
+    (load_balance, router_z, dropped_frac). Dropless routing runs
+    moe_mlp_grouped at every dispatch size, as in the JAX package (the
+    serving paths dispatch by size in `_mlp_block`). `remat` recomputes
+    each layer in the backward pass (torch.utils.checkpoint)."""
     if ep_axis is not None:
         raise NotImplementedError(_MULTI_DEVICE)
     t = tokens.shape[1]
     if positions is None:
         positions = torch.arange(t, dtype=torch.int32, device=tokens.device)
-    x = params["embed"][tokens]
+    x = F.embedding(tokens, params["embed"])      # as llama.forward
     totals = {"load_balance": 0.0, "router_z": 0.0, "dropped_frac": 0.0}
 
     def layer_fn(x, layer):
@@ -348,8 +353,30 @@ def moe_forward(params, tokens, cfg: MoEConfig, *, positions=None,
         return x + y, aux
 
     for layer in params["layers"]:
-        x, aux = layer_fn(x, layer)
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                layer_fn, x, layer, use_reentrant=False)
+        else:
+            x, aux = layer_fn(x, layer)
         totals = {key: totals[key] + aux[key] for key in totals}
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = _mm("btd,dv->btv", x, params["lm_head"])
     return logits, {key: v / cfg.n_layers for key, v in totals.items()}
+
+
+def moe_loss_fn(params, tokens, cfg: MoEConfig, *, ep_axis=None,
+                remat: bool = False):
+    """Next-token cross-entropy (fp32 logits) plus load_balance_coef x
+    load_balance + router_z_coef x router_z over tokens [B, T]. Returns
+    (loss, metrics) with metrics {"ce", "load_balance", "router_z",
+    "dropped_frac"}, each a 0-d tensor. Differentiable through capacity
+    routing, the training routing (the MoEConfig default)."""
+    tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
+    logits, aux = moe_forward(params, tokens[:, :-1], cfg, ep_axis=ep_axis,
+                              remat=remat)
+    logits = logits.float()
+    ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                         tokens[:, 1:].reshape(-1))
+    loss = (ce + cfg.load_balance_coef * aux["load_balance"]
+            + cfg.router_z_coef * aux["router_z"])
+    return loss, {"ce": ce, **aux}

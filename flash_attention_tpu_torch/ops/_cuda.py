@@ -14,6 +14,7 @@ non-zero code into an exception.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import pathlib
@@ -52,12 +53,14 @@ _SIGNATURES = {
     # NULL), kvseg (or NULL), B, Hq, Hkv, Nq, Nk, D, causal, offset,
     # window (0 = none), scale, dtype, kv store, stream
     "fa_flash_fwd": [_vp] * 9 + [_i32] * 9 + [_f32, _i32, _i32, _vp],
-    # q, k, v, do, lse, delta, dq, B, Hq, Hkv, Nq, Nk, D, causal,
-    # offset, scale, dtype, stream
-    "fa_flash_bwd_dq": [_vp] * 7 + [_i32] * 8 + [_f32, _i32, _vp],
-    # q, k, v, do, lse, delta, dk, dv, B, Hq, Hkv, Nq, Nk, D, causal,
-    # offset, scale, dtype, stream
-    "fa_flash_bwd_dkv": [_vp] * 8 + [_i32] * 8 + [_f32, _i32, _vp],
+    # q, k, v, do, lse, delta, dq, qseg (or NULL), kvseg (or NULL), B,
+    # Hq, Hkv, Nq, Nk, D, causal, offset, window (0 = none), scale,
+    # dtype, stream
+    "fa_flash_bwd_dq": [_vp] * 9 + [_i32] * 9 + [_f32, _i32, _vp],
+    # q, k, v, do, lse, delta, dk, dv, qseg (or NULL), kvseg (or NULL),
+    # B, Hq, Hkv, Nq, Nk, D, causal, offset, window (0 = none), scale,
+    # dtype, stream
+    "fa_flash_bwd_dkv": [_vp] * 10 + [_i32] * 9 + [_f32, _i32, _vp],
     # q, k_pool, v_pool, k scales (or NULL), v scales (or NULL),
     # page_table, lengths, window starts (or NULL), o, lse, B, Hq, Hkv,
     # num_pages, page_size, table_width, D, qpos_spread, scale, dtype,
@@ -94,32 +97,46 @@ def _stale(sources) -> bool:
 
 def build(verbose: bool = False) -> float:
     """Compile csrc/*.cu into LIB_PATH if it is missing or stale.
-    Returns the seconds spent (0.0 when the library was current)."""
+    Returns the seconds spent (0.0 when the library was current). With
+    `verbose`, prints each source's ptxas report and its compile time."""
     sources = sorted(CSRC.glob("*.cu"))
     if not _stale(sources):
         return 0.0
     t0 = time.perf_counter()
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs, procs = [], []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp, \
+            contextlib.ExitStack() as logs:
+        objs, procs = [], {}
         for src in sources:
             obj = pathlib.Path(tmp) / (src.stem + ".o")
             cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-I", str(CSRC),
                    "-c", str(src), "-o", str(obj)]
             if verbose:
                 cmd += ["-Xptxas", "-v"]
-            procs.append((src, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+            log = logs.enter_context(
+                open(pathlib.Path(tmp) / (src.stem + ".log"), "w+"))
+            procs[src] = (subprocess.Popen(cmd, stdout=log,
+                                           stderr=subprocess.STDOUT), log)
             objs.append(str(obj))
+        done = {}
+        while len(done) < len(procs):
+            for src, (proc, _) in procs.items():
+                if src not in done and proc.poll() is not None:
+                    done[src] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > 900:
+                for proc, _ in procs.values():
+                    proc.kill()
+                raise RuntimeError("nvcc took over 900 s")
+            time.sleep(0.05)
         failed = []
-        for src, proc in procs:
-            out, _ = proc.communicate(timeout=600)
+        for src, (proc, log) in procs.items():
+            log.seek(0)
+            out = log.read()
             if proc.returncode:
                 failed.append(f"{src.name}:\n{out}")
-            elif verbose and out:
-                print(out)
+            elif verbose:
+                print(out + f"nvcc {src.name}: {done[src]:.1f} s", flush=True)
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         tmp_lib = pathlib.Path(tmp) / LIB_PATH.name

@@ -22,7 +22,7 @@ import math
 
 import torch
 
-from flash_attention_tpu_torch.config import CUDA_HEAD_DIMS, PAGED_MAX_ROWS
+from flash_attention_tpu_torch.config import CUDA_HEAD_DIMS
 from flash_attention_tpu_torch.ops import _cuda
 from flash_attention_tpu_torch.ops.flash import INIT_M
 from flash_attention_tpu_torch.ops.quant import (
@@ -114,10 +114,6 @@ def _flash_decode_cuda(q, k, v, lengths, *, scale, window=None,
     if d not in CUDA_HEAD_DIMS:
         raise NotImplementedError(
             f"B5 is built for head dims {CUDA_HEAD_DIMS}, got {d}")
-    if hq // hkv > PAGED_MAX_ROWS:
-        raise NotImplementedError(
-            f"B5 takes at most {PAGED_MAX_ROWS} query heads per kv head, "
-            f"got {hq // hkv}")
     if lengths.dtype != torch.int32:
         raise TypeError("lengths must be int32")
     for name, t in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):

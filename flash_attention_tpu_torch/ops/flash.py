@@ -5,17 +5,17 @@
 `csrc/flash_fwd.cu` (B1, the port of the Pallas `_fwd_kernel`, with its
 segment-id and sliding-window branches); `flash_attention_bwd` launches
 `csrc/flash_bwd.cu` (B2, dQ, the port of `_bwd_dq_kernel`, then B3,
-dK/dV, the port of `_bwd_dkv_kernel`). On CPU tensors each runs its
-plain PyTorch version (`flash_attention_fwd_plain`,
-`flash_attention_bwd_plain`). A CUDA tensor never reaches a plain
-version: it launches the kernel or raises. `flash_attention` binds the
-two as a `torch.autograd.Function` (the JAX package's `custom_vjp`).
+dK/dV, the port of `_bwd_dkv_kernel`, each with the same segment-id and
+window branches). On CPU tensors each runs its plain PyTorch version
+(`flash_attention_fwd_plain`, `flash_attention_bwd_plain`). A CUDA
+tensor never reaches a plain version: it launches the kernel or raises.
+`flash_attention` binds the two as a `torch.autograd.Function` (the JAX
+package's `custom_vjp`).
 
 Masks combine as in the JAX kernels: with segment ids a column is
 invisible where the q and kv ids differ; under `causal` where col > row +
 offset; under `window` (which requires causal) where col <= row + offset
-- window. The backward of a windowed or segmented forward arrives with a
-later slice and raises NotImplementedError until then.
+- window. The backward applies the same masks.
 
 K and V may be `QuantizedTensor`s (int8 / fp8 codes with fp32 scales
 [B, Hkv, Nk/128, D]) in the forward (`flash_attention_fwd`,
@@ -63,6 +63,12 @@ flash_bwd_dkv_launches = 0
 flash_fwd_segment_launches = 0
 flash_fwd_window_launches = 0
 flash_fwd_quant_launches = 0
+# Launches of B2 and of B3 with segment ids and with a window (each also
+# counted in flash_bwd_dq_launches / flash_bwd_dkv_launches).
+flash_bwd_dq_segment_launches = 0
+flash_bwd_dkv_segment_launches = 0
+flash_bwd_dq_window_launches = 0
+flash_bwd_dkv_window_launches = 0
 
 
 @dataclasses.dataclass
@@ -278,10 +284,11 @@ def _bwd_delta(o, do):
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=False,
-                              scale, offset):
+                              scale, offset, window=None, segment_ids=None):
     """B2 and B3's function in plain PyTorch: the recompute backward
     with the kernels' roundings. P = exp(s*scale - lse) is exactly 0 on
-    hidden pairs (by select, so a row that sees no key yields zero
+    hidden pairs (causal, window and segment-id masks as in the
+    forward; by select, so a row that sees no key yields zero
     gradients), dP = dO V^T, dS = P (dP - delta) scale with delta =
     rowsum(dO O) in fp32, dQ = dS K, dK = dS^T Q, dV = P^T dO; P is
     rounded to dO's dtype before the dV product and dS to the input
@@ -297,7 +304,8 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=False,
     delta = _bwd_delta(o, do)
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kk)
     p = torch.exp(s * scale - lse[..., None])
-    visible = _visible_mask(nq, nk, causal, offset, q.device)
+    visible = _visible_mask(nq, nk, causal, offset, q.device, window,
+                            segment_ids)
     if visible is not None:
         p = torch.where(visible, p, torch.zeros_like(p))
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vv)
@@ -311,39 +319,49 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=False,
 
 
 def _launch_bwd(entry, q, k, v, do, lse, delta, outs, *, causal, scale,
-                offset):
+                offset, window=None, segment_ids=None):
     batch, hq, nq, d = q.shape
     hkv, nk = k.shape[1], k.shape[2]
+    qseg, kvseg = _segment_ptrs(segment_ids, q.device)
     return getattr(_cuda.lib(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
-        batch, hq, hkv, nq, nk, d, int(causal), offset, scale,
-        _cuda.DTYPE_CODES[q.dtype], _cuda.stream_handle(q.device))
+        qseg, kvseg, batch, hq, hkv, nq, nk, d, int(causal), offset,
+        int(window or 0), scale, _cuda.DTYPE_CODES[q.dtype],
+        _cuda.stream_handle(q.device))
 
 
-def _bwd_dq_cuda(q, k, v, do, lse, delta, *, causal, scale, offset):
-    """Launch B2; returns dq."""
-    global flash_bwd_dq_launches
+def _bwd_dq_cuda(q, k, v, do, lse, delta, **kw):
+    """Launch B2; returns dq. kw: causal, scale, offset, window,
+    segment_ids."""
+    global flash_bwd_dq_launches, flash_bwd_dq_segment_launches
+    global flash_bwd_dq_window_launches
     dq = torch.empty_like(q)
     code = _launch_bwd("fa_flash_bwd_dq", q, k, v, do, lse, delta, (dq,),
-                       causal=causal, scale=scale, offset=offset)
+                       **kw)
     flash_bwd_dq_launches += 1
+    flash_bwd_dq_segment_launches += kw.get("segment_ids") is not None
+    flash_bwd_dq_window_launches += kw.get("window") is not None
     _cuda.check(code, "flash_bwd_dq")
     return dq
 
 
-def _bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal, scale, offset):
-    """Launch B3; returns (dk, dv)."""
-    global flash_bwd_dkv_launches
+def _bwd_dkv_cuda(q, k, v, do, lse, delta, **kw):
+    """Launch B3; returns (dk, dv). kw as _bwd_dq_cuda's."""
+    global flash_bwd_dkv_launches, flash_bwd_dkv_segment_launches
+    global flash_bwd_dkv_window_launches
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     code = _launch_bwd("fa_flash_bwd_dkv", q, k, v, do, lse, delta,
-                       (dk, dv), causal=causal, scale=scale, offset=offset)
+                       (dk, dv), **kw)
     flash_bwd_dkv_launches += 1
+    flash_bwd_dkv_segment_launches += kw.get("segment_ids") is not None
+    flash_bwd_dkv_window_launches += kw.get("window") is not None
     _cuda.check(code, "flash_bwd_dkv")
     return dk, dv
 
 
-def _flash_bwd_cuda(q, k, v, o, lse, do, *, causal, scale, offset):
+def _flash_bwd_cuda(q, k, v, o, lse, do, *, causal, scale, offset,
+                    window=None, segment_ids=None):
     batch, hq, nq, _ = q.shape
     nk = k.shape[2]
     _check_cuda_inputs("B2/B3", q, k, v, o=o, do=do)
@@ -351,49 +369,42 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, *, causal, scale, offset):
             or lse.device != q.device or not lse.is_contiguous():
         raise ValueError(f"lse must be a contiguous fp32 [B, Hq, Nq] "
                          f"tensor on {q.device}")
+    _segment_ptrs(segment_ids, q.device)
     if not batch * hq * nq * nk:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     delta = _bwd_delta(o, do)
-    kw = dict(causal=causal, scale=scale, offset=offset)
+    kw = dict(causal=causal, scale=scale, offset=offset, window=window,
+              segment_ids=segment_ids)
     dq = _bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
     dk, dv = _bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
     return dq, dk, dv
-
-
-def _no_backward_masks(segment_ids, window):
-    if segment_ids is not None or window is not None:
-        raise NotImplementedError(
-            "the backward of a windowed or segmented forward (B2/B3's "
-            "window and segment-id branches) arrives with the windowed-"
-            "training slice")
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, segment_ids=None, *,
                         causal=False, scale=None, offset=None,
                         window=None):
     """Recompute backward: returns (dq, dk, dv) for the forward's o and
-    fp32 lse [B, Hq, Nq] and the output cotangent do. Launches B2 (dQ)
-    then B3 (dK/dV) on CUDA tensors; runs flash_attention_bwd_plain on
-    CPU tensors."""
-    _no_backward_masks(segment_ids, window)
+    fp32 lse [B, Hq, Nq] and the output cotangent do, under the
+    forward's masks (causal, offset, window, segment_ids). Launches B2
+    (dQ) then B3 (dK/dV) on CUDA tensors; runs flash_attention_bwd_plain
+    on CPU tensors."""
     _dense_kv(k, v)
     scale, offset = _check_args(q, k, v, segment_ids, causal, scale,
                                 offset, window)
+    kw = dict(causal=causal, scale=scale, offset=offset, window=window,
+              segment_ids=segment_ids)
     if q.is_cuda:
-        return _flash_bwd_cuda(q, k, v, o, lse, do, causal=causal,
-                               scale=scale, offset=offset)
+        return _flash_bwd_cuda(q, k, v, o, lse, do, **kw)
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, lse, do,
-                                         causal=causal, scale=scale,
-                                         offset=offset)
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
     raise ValueError(f"unsupported device {q.device}")
 
 
 class _FlashAttention(torch.autograd.Function):
     """The port of the JAX `custom_vjp` (flash.py:1056-1090): the
     forward saves q, k, v, o and the fp32 LSE; the backward recomputes
-    P from them (B2, B3). A windowed or segmented forward runs; its
-    backward raises until the windowed-training slice."""
+    P from them (B2, B3) under the same causal, window and segment-id
+    masks."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, offset, window, segment_ids):
@@ -423,9 +434,8 @@ def flash_attention(q, k, v, segment_ids=None, *, causal: bool = False,
     backward on CUDA tensors, their plain versions on CPU tensors.
 
     q: [B, Hq, Nq, D]; k, v: [B, Hkv, Nk, D] with Hkv | Hq. Masks as in
-    flash_attention_fwd. The backward of a windowed or segmented call
-    raises NotImplementedError (the windowed-training slice); quantized
-    K/V raise TypeError (flash_attention_quantized is forward-only).
+    flash_attention_fwd, in the forward and the backward; quantized K/V
+    raise TypeError (flash_attention_quantized is forward-only).
     """
     _dense_kv(k, v)
     scale, offset = _check_args(q, k, v, segment_ids, causal, scale,
@@ -493,18 +503,24 @@ def fwd_cost(batch, hq, hkv, nq, nk, d, causal, itemsize, *, offset=None,
     return flops, nbytes
 
 
-def bwd_cost(batch, hq, hkv, nq, nk, d, causal, itemsize):
+def bwd_cost(batch, hq, hkv, nq, nk, d, causal, itemsize, *, offset=None,
+             window=None, segment_ids=None):
     """((flops, bytes) of B2, (flops, bytes) of B3): the least each must
     do over the visible (row, col) pairs. B2 recomputes S and dP and
-    forms dQ (6 D FLOPs a pair), reading q, dO, k, v, LSE and delta once
-    and writing dq once; B3 recomputes S and dP and forms dK and dV (8 D
-    FLOPs a pair), reading q, dO, k, v, LSE and delta once and writing
-    dk and dv once."""
-    pairs = hq * _visible_counts(batch, nq, nk, causal)[0]
+    forms dQ (6 D FLOPs a pair), reading q, dO, LSE and delta once and
+    the k, v rows some row sees once, and writing dq once; B3 recomputes
+    S and dP and forms dK and dV (8 D FLOPs a pair), reading the same
+    and writing dk and dv once (and the segment ids, where given)."""
+    pairs, cols = _visible_counts(batch, nq, nk, causal, offset, window,
+                                  segment_ids)
+    pairs *= hq
     stats = 8 * batch * hq * nq                  # fp32 LSE and delta
+    if segment_ids is not None:
+        stats += 4 * batch * (nq + nk)
+    kv_read = itemsize * d * 2 * hkv * cols
     dq = (6 * d * pairs,
-          itemsize * batch * d * (2 * hq * nq + 2 * hkv * nk + hq * nq)
-          + stats)
+          itemsize * batch * d * 3 * hq * nq + kv_read + stats)
     dkv = (8 * d * pairs,
-           itemsize * batch * d * (2 * hq * nq + 4 * hkv * nk) + stats)
+           itemsize * batch * d * (2 * hq * nq + 2 * hkv * nk) + kv_read
+           + stats)
     return dq, dkv

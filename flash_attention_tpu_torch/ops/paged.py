@@ -25,11 +25,7 @@ import math
 
 import torch
 
-from flash_attention_tpu_torch.config import (
-    CUDA_HEAD_DIMS,
-    PAGED_MAX_ROWS,
-    cdiv,
-)
+from flash_attention_tpu_torch.config import CUDA_HEAD_DIMS, cdiv
 from flash_attention_tpu_torch.ops import _cuda
 from flash_attention_tpu_torch.ops.decode import (
     finish_rows,
@@ -145,10 +141,6 @@ def _paged_decode_cuda(q, k_pool, v_pool, page_table, lengths, *, scale,
     if d not in CUDA_HEAD_DIMS:
         raise NotImplementedError(
             f"B4 is built for head dims {CUDA_HEAD_DIMS}, got {d}")
-    if rows > PAGED_MAX_ROWS:
-        raise NotImplementedError(
-            f"B4 takes at most {PAGED_MAX_ROWS} query rows per kv head "
-            f"(GQA group x folded positions), got {rows}")
     if rows % qpos_spread:
         raise ValueError(f"qpos_spread={qpos_spread} must divide the "
                          f"{rows} rows of each kv head")

@@ -174,13 +174,25 @@ def test_bwd_cost_counts_visible_pairs():
 
 
 def test_flash_bwd_unported_options_raise():
-    q = torch.zeros(1, 2, 8, 64)
-    with pytest.raises(NotImplementedError, match="slice"):
-        tflash.flash_attention_bwd(q, q, q, q, q[..., 0], q,
-                                   segment_ids=(0, 0))
-    with pytest.raises(NotImplementedError, match="window"):
-        tflash.flash_attention_bwd(q, q, q, q, q[..., 0], q, causal=True,
-                                   window=4)
+    """Segment ids and a window in flash_attention_bwd (once a raise,
+    now B2/B3's branches): the backward of a segmented, windowed forward
+    equals jax.grad through the JAX package's flash_attention, max-abs
+    <= 5e-5, GQA 4/2 with a document boundary inside a block."""
+    from flash_attention_tpu.ops.flash import SegmentIds as JSegmentIds
+
+    q, k, v, ct = _inputs(13, 1, 4, 2, 256, 256, 64)
+    seg = (np.arange(256)[None] >= 77).astype(np.int32)
+    kw = dict(causal=True, window=100)
+    want = jax.grad(lambda q, k, v: jnp.sum(jax_flash(
+        q, k, v, JSegmentIds(jnp.asarray(seg), jnp.asarray(seg)),
+        block_sizes=BLOCKS, **kw) * ct), argnums=(0, 1, 2))(
+        *(jnp.asarray(x) for x in (q, k, v)))
+    tseg = tflash.SegmentIds(torch.from_numpy(seg), torch.from_numpy(seg))
+    qt, kt, vt, dot = map(torch.from_numpy, (q, k, v, ct))
+    o, lse = tflash.flash_attention_fwd(qt, kt, vt, tseg, **kw)
+    got = tflash.flash_attention_bwd(qt, kt, vt, o, lse, dot, tseg, **kw)
+    for gname, a, ref in zip(("dq", "dk", "dv"), got, want):
+        assert max_abs_error(a, np.asarray(ref)) <= ATOL, gname
 
 
 def _bf16(*shape):
@@ -189,7 +201,7 @@ def _bf16(*shape):
 
 @pytest.mark.parametrize("case, exc", [
     ("fp32", TypeError), ("mixed_dtype", TypeError),
-    ("head_dim_32", NotImplementedError), ("non_contiguous", ValueError),
+    ("head_dim_48", NotImplementedError), ("non_contiguous", ValueError),
     ("lse_dtype", ValueError), ("lse_shape", ValueError),
 ])
 def test_bwd_cuda_wrapper_rejects_what_the_kernels_do_not_take(case, exc):
@@ -204,8 +216,8 @@ def test_bwd_cuda_wrapper_rejects_what_the_kernels_do_not_take(case, exc):
                     do=q.float())
     elif case == "mixed_dtype":
         args["do"] = q.half()
-    elif case == "head_dim_32":
-        q, k = _bf16(1, 4, 64, 32), _bf16(1, 2, 64, 32)
+    elif case == "head_dim_48":
+        q, k = _bf16(1, 4, 64, 48), _bf16(1, 2, 64, 48)
         args.update(q=q, k=k, v=k, o=q, do=q)
     elif case == "non_contiguous":
         args["do"] = _bf16(1, 4, 64, 64).transpose(2, 3)

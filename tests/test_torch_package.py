@@ -182,10 +182,11 @@ def test_moe_placements_raise(kw):
 
 
 def test_unported_attention_options_raise():
-    """The backward of a windowed or segmented forward raises; bare int8
-    codes (without scales) are refused; windows and segment ids run
-    forward (with their argument checks); the plain backward is ported
-    (B2/B3), so inputs that require grad get finite gradients."""
+    """Bare int8 codes (without scales) are refused; windows and segment
+    ids run forward and backward (with their argument checks: the
+    backward of a windowed or segmented forward, once a raise, gives the
+    plain backward's gradients); inputs that require grad get finite
+    gradients."""
     from flash_attention_tpu_torch.ops.flash import (
         SegmentIds, flash_attention_bwd,
     )
@@ -199,10 +200,18 @@ def test_unported_attention_options_raise():
         flash_attention_fwd(q, q, q, window=4)
     with pytest.raises(ValueError, match="segment id shapes"):
         flash_attention_fwd(q, q, q, SegmentIds(seg.q[:, :4], seg.kv))
-    with pytest.raises(NotImplementedError, match="windowed-training"):
-        flash_attention_bwd(q, q, q, o, lse, q, causal=True, window=4)
-    with pytest.raises(NotImplementedError, match="windowed-training"):
-        flash_attention_bwd(q, q, q, o, lse, q, seg)
+    from flash_attention_tpu_torch.ops.flash import (
+        flash_attention_bwd_plain,
+    )
+
+    for kw in (dict(causal=True, window=4), dict(segment_ids=seg)):
+        o, lse = flash_attention_fwd(q, q, q, **kw)
+        got = flash_attention_bwd(q, q, q, o, lse, q, **kw)
+        want = flash_attention_bwd_plain(q, q, q, o, lse, q, scale=0.125,
+                                         offset=0, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="causal"):
+        flash_attention_bwd(q, q, q, o, lse, q, window=4)
     with pytest.raises(TypeError, match="QuantizedTensor"):
         flash_attention_fwd(q, q.to(torch.int8), q.to(torch.int8))
     gen = torch.Generator().manual_seed(0)

@@ -130,16 +130,34 @@ def test_b1_roll_buffer_matches_jax(rng):
 
 
 def test_b1_backward_of_window_or_segments_raises():
-    gen = torch.Generator().manual_seed(0)
-    qkv = [torch.randn(1, 2, 8, 64, generator=gen, requires_grad=True)
-           for _ in range(3)]
-    seg = tflash.SegmentIds(torch.zeros(1, 8, dtype=torch.int32),
-                            torch.zeros(1, 8, dtype=torch.int32))
-    for kw in (dict(window=4), dict(segment_ids=seg)):
+    """The backward of a windowed or segmented forward (once a raise,
+    now B2/B3's window and segment-id branches): gradients through the
+    port's flash_attention equal jax.grad through the JAX package's,
+    max-abs 2e-5, at the model's window over T = 256 and with two
+    packed documents."""
+    from flash_attention_tpu.config import BlockSizes
+    from flash_attention_tpu.ops.flash import flash_attention as jax_flash
+
+    blocks = BlockSizes(block_q=128, block_kv=128, block_q_dq=128,
+                        block_kv_dq=128, block_q_dkv=128, block_kv_dkv=128)
+    rng = np.random.default_rng(3)
+    q, k, v = (rng.normal(0, 0.02, (1, 2, 256, 64)).astype(np.float32)
+               for _ in range(3))
+    ct = rng.normal(0, 1, (1, 2, 256, 64)).astype(np.float32)
+    seg = (np.arange(256)[None] >= 100).astype(np.int32)
+    for kw, jkw in ((dict(window=WINDOW), dict(window=WINDOW)),
+                    (dict(segment_ids=tflash.SegmentIds(
+                        torch.from_numpy(seg), torch.from_numpy(seg))),
+                     dict(segment_ids=JSegmentIds(jnp.asarray(seg),
+                                                  jnp.asarray(seg))))):
+        qkv = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
         out = tflash.flash_attention(*qkv, causal=True, **kw)
-        assert torch.isfinite(out).all()
-        with pytest.raises(NotImplementedError, match="windowed-training"):
-            out.sum().backward()
+        got = torch.autograd.grad((out * torch.from_numpy(ct)).sum(), qkv)
+        want = jax.grad(lambda q, k, v: jnp.sum(jax_flash(
+            q, k, v, causal=True, block_sizes=blocks, **jkw) * ct),
+            argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+        for a, ref in zip(got, want):
+            assert max_abs_error(a, np.asarray(ref)) <= ATOL
 
 
 def test_b1_cost_counts_visible_pairs_only():
