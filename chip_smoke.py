@@ -17,6 +17,21 @@ Phases, each fatal on failure:
              one PyTorch call that computes the same function, with CUDA
              events; the bound is the larger of bytes / 3.35 TB/s and
              FLOPs / 989 TFLOP/s (H100 SXM data sheet);
+  3b. study the kernel-study harness: B10a (FA1, o / m / l), B10b (FA2
+             in-loop, causal and not, GQA 32/8) and B10c (naive two-pass)
+             against their plain versions at q [1, 32, 8192, 128] bf16
+             and at every compiled tile in bf16 / fp16 / fp32 at (1, 8,
+             2048, D = 32..256), with B1 on fp32 inputs (the 3x gate
+             against fp32, fp64 for fp32 inputs; LSE within 1e-3); B1's
+             causal split (flash_attention_fwd_split, band 512 and 2048)
+             against its plain version and single-pass B1; each timed
+             beside its bound (fp32 at the 67 TFLOP/s FFMA rate) and
+             SDPA; then the harness through its entry point: `cli
+             verify` with the reference's defaults, `compare` at
+             1,32,8192,{128,64,32} bf16 (non-causal, then causal) and
+             1,8,2048,128 fp32 (every cross-check pair PASS, no failure
+             but the fixed-tile entries' head-dim ValueError), `perf
+             --causal --bwd` at its defaults, every launch counter exact;
   4. serve   the continuous-batching Engine on LlamaConfig.llama3_1b at
              full width and depth from seeded random weights, counting
              kernel launches, and hold every greedy transcript to a
@@ -50,8 +65,9 @@ Phases, each fatal on failure:
   8. generate sampling.generate on the int4 8B tree (B5 attention,
              exact launch counts, the same teacher-forced band);
   9. mixtral  the Engine on MoEConfig.mixtral_8x7b (dropless routing) at
-             full width and depth on int4 and int8 weights drawn on the
-             card by init_quantized_moe_params, then the int4 tree with
+             full width on int4 and int8 weights drawn on the
+             card by init_quantized_moe_params (int8 cut to 16 of its
+             32 layers for the time limit), then the int4 tree with
              FA_TPU_GROUPED_MIN_TOKENS=1 (B9 at every decode step), then
              bf16 weights cut to 8 layers (of the 16 that fit one
              card, to keep the script inside its time limit): 8 greedy
@@ -708,7 +724,7 @@ def _counters() -> dict:
     """name -> (module, attribute) of every serving kernel's launch
     count."""
     from flash_attention_tpu_torch.ops import (
-        decode, flash, grouped, paged, quant_matmul,
+        decode, flash, grouped, paged, quant_matmul, variants,
     )
 
     return {"flash": (flash, "flash_fwd_launches"),
@@ -731,16 +747,26 @@ def _counters() -> dict:
             "quant": (quant_matmul, "quant_matmul_launches"),
             "int4": (quant_matmul, "int4_matmul_launches"),
             "dense": (quant_matmul, "dense_matmul_launches"),
-            "grouped": (grouped, "grouped_matmul_launches")}
+            "grouped": (grouped, "grouped_matmul_launches"),
+            "flash_fp32": (flash, "flash_fwd_fp32_launches"),
+            "flash_split_bulk": (flash, "flash_fwd_split_bulk_launches"),
+            "flash_split_band": (flash, "flash_fwd_split_band_launches"),
+            "fa1": (variants, "fa1_launches"),
+            "fa2": (variants, "fa2_inloop_launches"),
+            "naive": (variants, "naive_launches")}
 
 
 # The branch counters (each launch also counts in its kernel's total): B1
-# with segment ids, with a window, over int8 / fp8 K/V; B2 and B3 with
-# segment ids and with a window; B4 with window starts, over int8 / fp8
-# pools, with the fold_scales body; B5 with a window, over int8 / fp8
-# caches. Zero on every path that serves a model without a window,
-# chunked prefill or quantized KV, and on every serving path for B2/B3.
+# with segment ids, with a window, over int8 / fp8 K/V, on fp32 inputs,
+# its causal split's bulk and band passes; B2 and B3 with segment ids and
+# with a window; B4 with window starts, over int8 / fp8 pools, with the
+# fold_scales body; B5 with a window, over int8 / fp8 caches; and the
+# study kernels B10a-c. Zero on every path that serves a model without a
+# window, chunked prefill or quantized KV, and on every serving path for
+# B2/B3; the fp32, split and study counters are zero on every model path.
 NO_BRANCHES = dict.fromkeys(("flash_seg", "flash_win", "flash_quant",
+                             "flash_fp32", "flash_split_bulk",
+                             "flash_split_band", "fa1", "fa2", "naive",
                              "bwd_dq_seg", "bwd_dkv_seg", "bwd_dq_win",
                              "bwd_dkv_win", "paged_win", "paged_quant",
                              "paged_fold", "decode_win", "decode_quant"), 0)
@@ -1292,16 +1318,20 @@ def serve_mixtral(kind, params, cfg, forced=False) -> dict:
 
 
 # Depth of the bf16 Mixtral tree: 16 layers fit one card (93 GB at 32);
-# 8 keep the whole script inside its time limit.
+# 8 keep the whole script inside its time limit. The int8 tree (47 GB at
+# full depth, the largest) is cut to 16 of its 32 layers for the same
+# reason; the int4 tree keeps full depth.
 MIXTRAL_BF16_LAYERS = 8
+MIXTRAL_INT8_LAYERS = 16
 
 
 def mixtral() -> dict:
     """Phase 9: Mixtral-8x7B (MoEConfig.mixtral_8x7b, dropless routing)
     at full width and depth on int4 and int8 trees from
-    init_quantized_moe_params, the int4 tree again with the grouped path
-    forced, and a bf16 tree cut to MIXTRAL_BF16_LAYERS layers; between
-    the int4 runs the crossover report. Returns each run's numbers."""
+    init_quantized_moe_params (the int8 tree cut to MIXTRAL_INT8_LAYERS
+    layers), the int4 tree again with the grouped path forced, and a
+    bf16 tree cut to MIXTRAL_BF16_LAYERS layers; between the int4 runs
+    the crossover report. Returns each run's numbers."""
     from flash_attention_tpu_torch.models.moe import (
         MoEConfig, init_moe_params,
     )
@@ -1311,7 +1341,8 @@ def mixtral() -> dict:
 
     out = {}
     for kind in ("int4", "int8", "bf16"):
-        layers = MIXTRAL_BF16_LAYERS if kind == "bf16" else None
+        layers = {"bf16": MIXTRAL_BF16_LAYERS,
+                  "int8": MIXTRAL_INT8_LAYERS}.get(kind)
         cfg = MoEConfig.mixtral_8x7b(
             routing="dropless", dtype=torch.bfloat16,
             **({} if layers is None else {"n_layers": layers}))
@@ -3393,6 +3424,373 @@ def moe_loss() -> dict:
     return counts
 
 
+# --- phase: the kernel-study harness (B10a-c, B1 fp32, B1's split) -------
+
+PEAK_FP32_FLOPS = 67e12         # fp32 FFMA rate outside the tensor cores
+STUDY_SHAPE = (1, 32, 8192, 128)     # benchmarks/perf_1_32_8192_128
+STUDY_GQA_KV = 8                     # B10b's GQA case: 32 q / 8 kv heads
+STUDY_SMALL = (1, 8, 2048)           # fp16 / fp32 (and bf16) at each D
+SPLIT_BANDS = (512, 2048)
+
+
+def _peak(dtype) -> float:
+    return PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+
+
+def _hi(dtype):
+    """The reference dtype of the low-precision gate: fp32 for fp16 /
+    bf16 inputs, fp64 for fp32 ones."""
+    return torch.float64 if dtype == torch.float32 else torch.float32
+
+
+def _study_fns(name, causal=False):
+    """(kernel fn, plain fn) of one study kernel on q, k, v: the plain
+    version tiled as the kernel is (its compiled default tile)."""
+    from flash_attention_tpu_torch.ops import variants
+
+    def tile(q):
+        if name == "B10a":
+            return max(variants.fa1_compiled_tiles(q.dtype, q.shape[-1]),
+                       key=lambda t: t[0] * t[1])
+        return variants.study_tile(q.dtype, q.shape[-1])
+
+    def kern(q, k, v, block_sizes=None):
+        if name == "B10a":
+            return variants.flash_attention_fa1(q, k, v,
+                                                block_sizes=block_sizes)
+        if name == "B10b":
+            return (variants.flash_attention_fa2_inloop(
+                q, k, v, causal=causal, block_sizes=block_sizes),)
+        return (variants.naive_attention_pallas(q, k, v,
+                                                block_sizes=block_sizes),)
+
+    def plain(q, k, v, block_kv=None):
+        sc = q.shape[-1] ** -0.5
+        bkv = block_kv or tile(q)[1]
+        if name == "B10a":
+            return variants.flash_attention_fa1_plain(q, k, v, scale=sc,
+                                                      block_kv=bkv)
+        if name == "B10b":
+            return (variants.flash_attention_fa2_inloop_plain(
+                q, k, v, causal=causal, scale=sc, block_kv=bkv),)
+        return (variants.naive_attention_plain(q, k, v, scale=sc,
+                                               block_kv=bkv),)
+
+    return kern, plain
+
+
+def _study_gate(what, got, hi, lo):
+    """The 3x low-precision gate on O (and, for B10a, LSE = m + log l
+    within 1e-3 of the reference's). Returns the kernel's max-abs
+    difference from the plain version in the same dtype."""
+    from flash_attention_tpu_torch.utils.metrics import (
+        max_abs_error, verify_low_precision,
+    )
+
+    ok, kerr, berr = verify_low_precision(got[0], hi[0], lo[0])
+    finite = bool(torch.isfinite(got[0].float()).all())
+    line = (f"check {what}: kernel_err={kerr:.3e} plain_err={berr:.3e} "
+            f"finite={finite}")
+    if len(got) == 3:
+        lse_err = max_abs_error(got[1] + torch.log(got[2]),
+                                hi[1] + torch.log(hi[2]))
+        line += f" lse_err={lse_err:.3e}"
+        ok = ok and lse_err <= 1e-3
+    log(line)
+    if not (ok and finite):
+        raise AssertionError(f"{what} failed its gate")
+    return max_abs_error(got[0], lo[0])
+
+
+def _study_case(rng, name, dt, b, hq, hkv, n, d, causal=False,
+                block_sizes=None):
+    """Kernel, plain (same dtype) and reference (fp32, fp64 for fp32
+    inputs) of one study kernel on seeded inputs; gated."""
+    kern, plain = _study_fns(name, causal)
+    q = randn(rng, (b, hq, n, d), dt)
+    k = randn(rng, (b, hkv, n, d), dt)
+    v = randn(rng, (b, hkv, n, d), dt)
+    got = kern(q, k, v, block_sizes=block_sizes)
+    torch.cuda.synchronize()
+    bkv = None if block_sizes is None else block_sizes.block_kv
+    lo = plain(q, k, v, bkv)
+    hi = plain(*(x.to(_hi(dt)) for x in (q, k, v)), bkv)
+    torch.cuda.synchronize()
+    tile = "" if block_sizes is None else \
+        f" tile {block_sizes.block_q}x{block_sizes.block_kv}"
+    err = _study_gate(
+        f"{name} {str(dt).split('.')[-1]} q({b},{hq},{n},{d}) kv({hkv})"
+        f"{' causal' if causal else ''}{tile}", got, hi, lo)
+    return (q, k, v), err
+
+
+def _time_study(what, kern, plain, library, q, k, v, flush, flops, nbytes,
+                heavy_plain=False):
+    """CUDA-event medians (L2 flushed) of the kernel, its plain version
+    and the library call, beside the bound at the dtype's peak."""
+    ms = time_ms(kern, flush)
+    plain_ms = (time_ms(plain, flush, iters=2, warmup=1) if heavy_plain
+                else time_ms(plain, flush))
+    lib_ms = time_ms(library, flush)
+    t_ops, t_mem = flops / _peak(q.dtype), nbytes / PEAK_HBM_BYTES
+    bms = max(t_ops, t_mem) * 1e3
+    by = "operations" if t_ops > t_mem else "bytes"
+    log(f"time  {what}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by}) "
+        f"achieved={flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                bound_by=by)
+
+
+def _sdpa(q, k, v, causal=False):
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=q.shape[1] != k.shape[1])
+
+
+def check_study_kernels(rng, flush) -> dict:
+    """B10a (o, m, l), B10b (causal and not, GQA 32/8) and B10c at q [1,
+    32, 8192, 128] bf16 (B10b's GQA at kv [1, 8, 8192, 128]), timed;
+    every compiled tile of each in bf16, fp16 and fp32 at (1, 8, 2048,
+    D) for D in 32..256 (fp32 B1 causal there too), the fp32 kernels at
+    D = 128 timed against the FFMA rate. Gate: 3x the plain version's
+    error in the same dtype against fp32 (fp64 for fp32 inputs)."""
+    from flash_attention_tpu_torch.config import BlockSizes
+    from flash_attention_tpu_torch.ops import flash, variants
+
+    b, h, n, d = STUDY_SHAPE
+    out = {}
+    for name, hkv, causal in (("B10a", h, False), ("B10b", STUDY_GQA_KV,
+                                                   False),
+                              ("B10b", STUDY_GQA_KV, True),
+                              ("B10c", h, False)):
+        (q, k, v), err = _study_case(rng, name, torch.bfloat16, b, h, hkv,
+                                     n, d, causal)
+        kern, plain = _study_fns(name, causal)
+        flops, nbytes = variants.study_cost(
+            b, h, hkv, n, n, d, causal, 2, stats=2 if name == "B10a" else 0)
+        key = (name, causal)
+        out[key] = dict(
+            max_abs_err=err,
+            shape=f"q({b},{h},{n},{d}) kv({b},{hkv},{n},{d})"
+                  f"{' causal' if causal else ''} bf16",
+            **_time_study(f"{name} bf16 q({b},{h},{n},{d}) kv({hkv})"
+                          f"{' causal' if causal else ''}",
+                          lambda: kern(q, k, v), lambda: plain(q, k, v),
+                          lambda: _sdpa(q, k, v, causal), q, k, v, flush,
+                          flops, nbytes, heavy_plain=True))
+        del q, k, v
+    torch.cuda.synchronize()
+
+    b, h, n = STUDY_SMALL
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        for d in (32, 64, 128, 256):
+            for tile in variants.fa1_compiled_tiles(dt, d):
+                _study_case(rng, "B10a", dt, b, h, h, n, d,
+                            block_sizes=BlockSizes(*tile))
+            for causal in (False, True):
+                _study_case(rng, "B10b", dt, b, h, 2, n, d, causal)
+            _study_case(rng, "B10c", dt, b, h, h, n, d)
+            if dt == torch.float32:
+                _flash_fp32_case(rng, b, h, 2, n, d)
+    torch.cuda.synchronize()
+
+    # fp32 timings at D = 128 (the FFMA bodies).
+    d = 128
+    timed = {}
+    for name, causal in (("B10a", False), ("B10b", True), ("B10c", False)):
+        kern, plain = _study_fns(name, causal)
+        q, k, v = (randn(rng, (b, h, n, d), torch.float32) for _ in "qkv")
+        flops, nbytes = variants.study_cost(
+            b, h, h, n, n, d, causal, 4, stats=2 if name == "B10a" else 0)
+        timed[name] = _time_study(
+            f"{name} fp32 q({b},{h},{n},{d}){' causal' if causal else ''}",
+            lambda: kern(q, k, v), lambda: plain(q, k, v),
+            lambda: _sdpa(q, k, v, causal), q, k, v, flush, flops, nbytes)
+    sc = d ** -0.5
+    (q, k, v), err = _flash_fp32_case(rng, b, h, h, n, d)
+    flops, nbytes = flash.fwd_cost(b, h, h, n, n, d, True, 4)
+    out["B1 fp32"] = dict(
+        max_abs_err=err, shape=f"q({b},{h},{n},{d}) causal fp32",
+        **_time_study(
+            f"B1 fp32 q({b},{h},{n},{d}) causal",
+            lambda: flash.flash_attention_fwd(q, k, v, causal=True),
+            lambda: flash.flash_attention_fwd_plain(
+                q, k, v, causal=True, scale=sc, offset=0),
+            lambda: _sdpa(q, k, v, True), q, k, v, flush, flops, nbytes))
+    out["fp32 timings"] = timed
+    return out
+
+
+def _flash_fp32_case(rng, b, hq, hkv, n, d):
+    """B1 on fp32 inputs, causal: the 3x gate against the fp64 plain
+    version (LSE within 1e-3). Returns ((q, k, v), max-abs difference
+    from the fp32 plain version)."""
+    from flash_attention_tpu_torch.ops import flash
+    from flash_attention_tpu_torch.utils.metrics import max_abs_error
+
+    q = randn(rng, (b, hq, n, d), torch.float32)
+    k = randn(rng, (b, hkv, n, d), torch.float32)
+    v = randn(rng, (b, hkv, n, d), torch.float32)
+    sc = d ** -0.5
+    o, lse = flash.flash_attention_fwd(q, k, v, causal=True)
+    lo = flash.flash_attention_fwd_plain(q, k, v, causal=True, scale=sc,
+                                         offset=0)
+    hi = flash.flash_attention_fwd_plain(
+        q.double(), k.double(), v.double(), causal=True, scale=sc, offset=0)
+    torch.cuda.synchronize()
+    err = _study_gate(f"B1 fp32 q({b},{hq},{n},{d}) kv({hkv}) causal",
+                      (o,), hi, lo)
+    lse_err = max_abs_error(lse, hi[1])
+    if lse_err > 1e-3:
+        raise AssertionError(f"B1 fp32 LSE off by {lse_err:.3e}")
+    return (q, k, v), err
+
+
+def check_split(rng, flush) -> dict:
+    """flash_attention_fwd_split (two B1 launches, the bulk and band
+    passes, and the LSE merge) at q [1, 32, 8192, 128] bf16, band 512
+    and 2048: the 3x gate against its plain version (bf16) and fp32
+    reference (by kv group), LSE within 1e-3 of single-pass B1 causal;
+    its public call driven once per band with the counters zeroed (1
+    bulk and 1 band launch each, exactly); timed beside single-pass B1
+    causal and SDPA is_causal."""
+    from flash_attention_tpu_torch.ops import flash
+    from flash_attention_tpu_torch.utils.metrics import (
+        max_abs_error, verify_low_precision,
+    )
+
+    b, h, n, d = STUDY_SHAPE
+    sc = d ** -0.5
+    q, k, v = (randn(rng, (b, h, n, d), torch.bfloat16) for _ in "qkv")
+    o1, lse1 = flash.flash_attention_fwd(q, k, v, causal=True)
+    out = {}
+    for band in SPLIT_BANDS:
+        reset_counts()
+        o, lse = flash.flash_attention_fwd_split(q, k, v, band=band,
+                                                 save_residuals=True)
+        torch.cuda.synchronize()
+        got = read_counts()
+        want = dict(flash=2, flash_split_bulk=1, flash_split_band=1)
+        if {key: got[key] for key in want} != want:
+            raise AssertionError(f"split band {band}: launches {got}")
+        lo = by_kv_group(flash.flash_attention_fwd_split_plain, q, k, v,
+                         scale=sc, band=band)
+        hi = by_kv_group(flash.flash_attention_fwd_split_plain, q.float(),
+                         k.float(), v.float(), scale=sc, band=band)
+        torch.cuda.synchronize()
+        ok, kerr, berr = verify_low_precision(o, hi[0], lo[0])
+        lse_err = max_abs_error(lse, hi[1])
+        vs_single = max_abs_error(lse, lse1)
+        o_single = max_abs_error(o, o1)
+        log(f"check B1 split band {band} q({b},{h},{n},{d}) bf16: "
+            f"kernel_err={kerr:.3e} plain_err={berr:.3e} "
+            f"lse_err={lse_err:.3e} vs single-pass B1: lse {vs_single:.3e} "
+            f"o {o_single:.3e}; launches bulk 1 band 1")
+        if not (ok and lse_err <= 1e-3 and vs_single <= 1e-3):
+            raise AssertionError(f"B1 split band {band} failed its gate")
+        flops, nbytes = flash.fwd_cost(b, h, h, n, n, d, True, 2)
+        out[band] = dict(
+            max_abs_err=max_abs_error(o, lo[0]), launches=2,
+            shape=f"q({b},{h},{n},{d}) causal bf16 band {band}",
+            **_time_study(
+                f"B1 split band {band}",
+                lambda: flash.flash_attention_fwd_split(q, k, v, band=band),
+                lambda: by_kv_group(flash.flash_attention_fwd_split_plain,
+                                    q, k, v, scale=sc, band=band),
+                lambda: _sdpa(q, k, v, True), q, k, v, flush, flops,
+                nbytes, heavy_plain=True))
+        del lo, hi
+    out["single"] = time_ms(
+        lambda: flash.flash_attention_fwd(q, k, v, causal=True), flush)
+    log(f"time  B1 single-pass causal at the split's shape: "
+        f"{out['single']:.4f} ms")
+    return out
+
+
+def _harness_calls(warmup, iters, inner):
+    """Calls utils.bench.measure makes of its function."""
+    return max(warmup, 1) + iters * inner
+
+
+def study_path() -> dict:
+    """The kernel-study harness through its entry point, cli.main: verify
+    with the reference's defaults, compare at the three bf16 perf
+    configs (non-causal, then --causal) and fp32 at 1,8,2048,128, then
+    perf with its defaults and --causal --bwd. Gates: exit codes 0,
+    every cross-check pair PASS, no failure but the fixed-tile entries'
+    head-dim ValueError at a foreign D, and every launch counter exact
+    (bench_attention's calls worked out from its warmup / iters /
+    inner). Returns the counts and the compare results."""
+    from flash_attention_tpu_torch import cli
+
+    reset_counts()
+    if cli.main(["verify"]) != 0:
+        raise AssertionError("cli verify failed")
+    results, cfgs = [], ((1, 32, 8192, 128), (1, 32, 8192, 64),
+                         (1, 32, 8192, 32))
+    for causal in (False, True):
+        for cfg in cfgs:
+            results.append(cli.compare_config(
+                cfg, dtype="bfloat16", causal=causal, warmup=3, iters=5,
+                device=torch.device("cuda")))
+    results.append(cli.compare_config(
+        (1, 8, 2048, 128), dtype="float32", causal=False, warmup=3, iters=5,
+        device=torch.device("cuda")))
+    for res in results:
+        d = res["config"][3]
+        for rep in res["reports"]:
+            log(f"compare {res['config']}: {rep.line()}")
+        bad = [pair for pair, r in res["checks"].items() if not r.passed]
+        for (a, bname), r in res["checks"].items():
+            if not r.passed:
+                log(f"compare {res['config']}: {a} vs {bname} FAIL {r}")
+        for name, (kind, exc, msg) in res["failures"].items():
+            log(f"compare {res['config']}: {name} {kind}: {exc}: {msg}")
+            fixed = {"flash_fixed_d64": 64, "flash_fixed_d32": 32}
+            if not (name in fixed and d != fixed[name] and exc ==
+                    "ValueError" and "fixed to head_dim" in msg):
+                bad.append(name)
+        if bad:
+            raise AssertionError(f"compare {res['config']}: {bad}")
+        log(f"compare {res['config']} {res['dtype']} causal="
+            f"{res['causal']}: {len(res['checks'])} pairs PASS")
+    if cli.main(["perf", "--causal", "--bwd"]) != 0:
+        raise AssertionError("cli perf failed")
+    got = read_counts()
+    call = _harness_calls(3, 5, 5) + 1      # bench_attention + one output
+    verify_calls = 1 + _harness_calls(5, 5, 5)
+    perf_fwd, perf_bwd = _harness_calls(3, 5, 5), _harness_calls(3, 5, 16)
+    fixed_runs = 2 * 2          # d64 at D = 64, d32 at D = 32, both modes
+    want = dict(
+        fa1=verify_calls + 4 * call,          # 3 bf16 + 1 fp32 configs
+        naive=4 * call,
+        fa2=7 * call,                         # 6 bf16 + 1 fp32
+        flash=(7 + fixed_runs) * call + 2 * (perf_fwd + perf_bwd),
+        flash_fp32=call,
+        bwd_dq=2 * perf_bwd, bwd_dkv=2 * perf_bwd,
+        flash_split_bulk=0, flash_split_band=0)
+    have = {key: got[key] for key in want}
+    log(f"study: launches {have}")
+    if have != want:
+        raise AssertionError(f"study launches {have}, expected {want}")
+    return dict(launches=got, compare=results)
+
+
+def study() -> dict:
+    """The study phase: the kernels against their plain versions
+    (check_study_kernels, check_split), then the harness through its
+    entry point (study_path)."""
+    flush = L2Flush()
+    rng = np.random.default_rng(SEED + 9)
+    out = dict(kernels=check_study_kernels(rng, flush),
+               split=check_split(rng, flush))
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["path"] = study_path()
+    return out
+
+
 def check_kernels() -> dict:
     flush = L2Flush()
     rng = np.random.default_rng(SEED)
@@ -3451,6 +3849,10 @@ def main() -> int:
         return out
 
     results = timed("check", check_kernels)
+    st = timed("study", study)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sl, sk, sp = st["path"]["launches"], st["kernels"], st["split"]
     launches = timed("serve_1b", serve)
     trained = timed("train_1b", train_1b)
     gc.collect()
@@ -3462,8 +3864,8 @@ def main() -> int:
                "serve_8b_bf16_kv_e4m3": q8["kv_e4m3"]["launches"]}
     mix = timed("mixtral", mixtral)
     log(f"mixtral: decode tok/s at batch 8 -- int4 "
-        f"{mix['int4']['decode_tok_s']:.1f}, int8 "
-        f"{mix['int8']['decode_tok_s']:.1f}, int4 forced-grouped "
+        f"{mix['int4']['decode_tok_s']:.1f}, int8 {MIXTRAL_INT8_LAYERS} "
+        f"layers {mix['int8']['decode_tok_s']:.1f}, int4 forced-grouped "
         f"{mix['int4_forced']['decode_tok_s']:.1f}, bf16 "
         f"{MIXTRAL_BF16_LAYERS} layers {mix['bf16']['decode_tok_s']:.1f}")
     mis = timed("mistral", mistral)
@@ -3508,7 +3910,8 @@ def main() -> int:
         return {path: got[key] for path, got in paths.items()}
 
     mpaths = {"serve_mixtral_int4": mix["int4"]["launches"],
-              "serve_mixtral_int8": mix["int8"]["launches"],
+              f"serve_mixtral{MIXTRAL_INT8_LAYERS}_int8":
+                  mix["int8"]["launches"],
               "serve_mixtral_int4_forced": mix["int4_forced"]["launches"],
               f"serve_mixtral{MIXTRAL_BF16_LAYERS}_bf16":
                   mix["bf16"]["launches"]}
@@ -3538,10 +3941,11 @@ def main() -> int:
              source="flash_attention_tpu_torch/csrc/flash_fwd.cu",
              replaces="flash_attention_tpu/ops/flash.py:259",
              launches=launches["flash"] + trained["flash"] + l4["flash"]
-             + l8["flash"] + lg["flash"]
+             + l8["flash"] + lg["flash"] + sl["flash"]
              + sum(mix_by_path("flash").values())
              + sum(by_path(bpaths, "flash").values()),
              launches_by_path={"serve_1b": launches["flash"],
+                               "cli_study": sl["flash"],
                                "train_1b": trained["flash"],
                                "serve_8b_int4": l4["flash"],
                                "serve_8b_int8": l8["flash"],
@@ -3575,17 +3979,19 @@ def main() -> int:
         dict(name="flash_bwd_dq (B2)", route="cuda",
              source="flash_attention_tpu_torch/csrc/flash_bwd.cu",
              replaces="flash_attention_tpu/ops/flash.py:716",
-             launches=trained["bwd_dq"]
+             launches=trained["bwd_dq"] + sl["bwd_dq"]
              + sum(by_path(bpaths, "bwd_dq").values()),
              launches_by_path={"train_1b": trained["bwd_dq"],
+                               "cli_perf_bwd": sl["bwd_dq"],
                                **by_path(tpaths, "bwd_dq")},
              **results["bwd_dq"], at_head_dims=head_dims("B2/B3", "dq")),
         dict(name="flash_bwd_dkv (B3)", route="cuda",
              source="flash_attention_tpu_torch/csrc/flash_bwd.cu",
              replaces="flash_attention_tpu/ops/flash.py:773",
-             launches=trained["bwd_dkv"]
+             launches=trained["bwd_dkv"] + sl["bwd_dkv"]
              + sum(by_path(bpaths, "bwd_dkv").values()),
              launches_by_path={"train_1b": trained["bwd_dkv"],
+                               "cli_perf_bwd": sl["bwd_dkv"],
                                **by_path(tpaths, "bwd_dkv")},
              **results["bwd_dkv"], at_head_dims=head_dims("B2/B3", "dkv")),
         # B2 / B3's branches, each with the launches its own counter saw
@@ -3671,12 +4077,12 @@ def main() -> int:
         matmul_entry("B6 int8", name="quant_matmul (B6)", route="cuda",
                      source="flash_attention_tpu_torch/csrc/quant_matmul.cu",
                      replaces="flash_attention_tpu/ops/quant_matmul.py:41",
-                     launches=l8["quant"]
-                     + mpaths["serve_mixtral_int8"]["quant"],
+                     launches=l8["quant"] + mix["int8"]["launches"][
+                         "quant"],
                      launches_by_path={
                          "serve_8b_int8": l8["quant"],
-                         "serve_mixtral_int8":
-                             mpaths["serve_mixtral_int8"]["quant"]},
+                         f"serve_mixtral{MIXTRAL_INT8_LAYERS}_int8":
+                             mix["int8"]["launches"]["quant"]},
                      fp8=dict(e4m3=results["B6 e4m3"],
                               e5m2=results["B6 e5m2"])),
         matmul_entry("B7 int4", name="int4_matmul (B7)", route="cuda",
@@ -3708,6 +4114,42 @@ def main() -> int:
              **results["B9 int4"][2],
              at_shapes={label: results[label] for label in GROUPED_KINDS},
              crossover=mix["crossover"]),
+        # The study kernels and B1's fp32 and split branches, each
+        # with the launches its own counter saw on the study path.
+        dict(name="fa1 (B10a)", route="cuda",
+             source="flash_attention_tpu_torch/csrc/variants_fa1.cu",
+             replaces="flash_attention_tpu/ops/variants.py:80",
+             launches=sl["fa1"], launches_by_path={"cli_study": sl["fa1"]},
+             **sk[("B10a", False)], fp32=sk["fp32 timings"]["B10a"]),
+        dict(name="fa2_inloop (B10b)", route="cuda",
+             source="flash_attention_tpu_torch/csrc/variants_fa2.cu",
+             replaces="flash_attention_tpu/ops/variants.py:216",
+             launches=sl["fa2"], launches_by_path={"cli_study": sl["fa2"]},
+             **sk[("B10b", True)],
+             at_shapes={"non-causal": sk[("B10b", False)]},
+             fp32=sk["fp32 timings"]["B10b"]),
+        dict(name="naive (B10c)", route="cuda",
+             source="flash_attention_tpu_torch/csrc/variants_naive.cu",
+             replaces="flash_attention_tpu/ops/variants.py:349",
+             launches=sl["naive"],
+             launches_by_path={"cli_study": sl["naive"]},
+             **sk[("B10c", False)], fp32=sk["fp32 timings"]["B10c"]),
+        dict(name="flash_fwd (B1 split)", route="cuda",
+             source="flash_attention_tpu_torch/csrc/flash_fwd.cu",
+             replaces="flash_attention_tpu/ops/flash.py:259",
+             launches=sum(sp[band]["launches"] for band in SPLIT_BANDS),
+             launches_by_path={f"flash_attention_fwd_split band {band}":
+                               sp[band]["launches"] for band in SPLIT_BANDS},
+             **{k: v for k, v in sp[SPLIT_BANDS[-1]].items()
+                if k != "launches"},
+             at_shapes={f"band {SPLIT_BANDS[0]}": sp[SPLIT_BANDS[0]]},
+             single_pass_ms=sp["single"]),
+        dict(name="flash_fwd (B1 fp32)", route="cuda",
+             source="flash_attention_tpu_torch/csrc/flash_fwd_f32.cu",
+             replaces="flash_attention_tpu/ops/flash.py:259",
+             launches=sl["flash_fp32"],
+             launches_by_path={"cli_compare_fp32": sl["flash_fp32"]},
+             **sk["B1 fp32"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     log(card)

@@ -10,14 +10,18 @@ passes device="cpu"; CPU tensors take the plain versions.
 Layering (bottom-up):
     config.py   shape helpers, kernel tile constants, device resolution
     utils/      error metrics and gates, JAX-layout weight conversion,
-                token shards and batch loader, checkpoints
+                token shards and batch loader, checkpoints, the
+                benchmark harness (bench.py)
     csrc/       CUDA sources of the kernels (built at first use)
     ops/        kernel wrappers + plain versions: flash forward and
-                backward, paged and contiguous decode, quantized KV,
-                exact references
+                backward (and its causal split), paged and contiguous
+                decode, quantized KV, the study variants (FA1, FA2
+                in-loop, naive) and their registry, exact references
     models/     Llama-class model (prefill, paged decode, loss and train
                 step), sampling, the Trainer
     runtime/    native page allocator, paged KV caches, serving engine
+    cli.py      the kernel-study harness (verify, compare, perf,
+                max-batch, profile)
 """
 
 from flash_attention_tpu_torch.ops.flash import (

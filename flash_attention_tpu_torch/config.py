@@ -11,9 +11,26 @@ mirrored here.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
+
+# The JAX package's lane width (its tiles and the FA1 tile law round to
+# it); the study kernels' plain versions clamp block sizes by it as the
+# JAX kernels do.
+LANES = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSizes:
+    """Query and key/value tile rows of a study kernel (the JAX
+    package's `BlockSizes` keyword, forward fields only). On the CPU the
+    plain versions tile by them; on the card a kernel takes only the
+    tiles it was compiled for and raises ValueError for others."""
+    block_q: int = 64
+    block_kv: int = 64
 
 # Head dims the CUDA kernels are instantiated for (csrc/*.cu): all of
 # them.

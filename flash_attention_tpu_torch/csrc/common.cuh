@@ -9,9 +9,11 @@
 
 namespace fa {
 
-// dtype codes passed from Python (ops/_cuda.py DTYPE_CODES).
+// dtype codes passed from Python (ops/_cuda.py DTYPE_CODES; fp32 only
+// for the kernels that have it, FP32_DTYPE_CODES).
 constexpr int kFloat16 = 0;
 constexpr int kBFloat16 = 1;
+constexpr int kFloat32 = 2;
 
 // Storage codes of the values a kernel reads (ops/_cuda.py STORE_CODES):
 // the compute type itself, int8, fp8 e4m3, fp8 e5m2.
@@ -28,6 +30,10 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <typename T>
 __device__ __forceinline__ float to_float(T x);
 template <>
+__device__ __forceinline__ float to_float<float>(float x) {
+  return x;
+}
+template <>
 __device__ __forceinline__ float to_float<__half>(__half x) {
   return __half2float(x);
 }
@@ -38,6 +44,10 @@ __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
 template <>
 __device__ __forceinline__ __half from_float<__half>(float x) {
   return __float2half_rn(x);
@@ -95,6 +105,27 @@ __device__ __forceinline__ void widen8(const uint2& raw, float* out) {
   for (int i = 0; i < 8; ++i) out[i] = widen<W>(b[i]);
 }
 
+// dst[0, N) = src[0, N) * mul in T (N a multiple of 8; 16-byte stores).
+template <typename T, int N>
+__device__ __forceinline__ void store_scaled(T* dst, const float* src,
+                                             float mul) {
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int d = 0; d < N; d += 4)
+      *reinterpret_cast<float4*>(dst + d) =
+          make_float4(src[d] * mul, src[d + 1] * mul, src[d + 2] * mul,
+                      src[d + 3] * mul);
+  } else {
+#pragma unroll
+    for (int d = 0; d < N; d += 8) {
+      float vals[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) vals[i] = src[d + i] * mul;
+      *reinterpret_cast<uint4*>(dst + d) = pack8<T>(vals);
+    }
+  }
+}
+
 // x rounded to T and back: the compute-type rounding of a dequantized
 // value (the JAX kernels' `.astype(compute_dtype)` before the product).
 template <typename T>
@@ -103,19 +134,106 @@ __device__ __forceinline__ float round_to(float x) {
 }
 
 // Rows [r0, r0 + kRows) of a row-major [n, D] matrix into shared memory
-// (row stride ld elements) with 16-byte loads by kThreads threads; rows
-// past n are written as zeros, so ragged edges need no host padding.
+// (row stride ld elements, a multiple of 16 bytes) with 16-byte loads by
+// kThreads threads; rows past n are written as zeros, so ragged edges
+// need no host padding.
 template <typename T, int D, int kRows, int kThreads>
 __device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
                                           int r0, int n, int tid) {
-  constexpr int kVecPerRow = D / 8;
+  constexpr int kVec = 16 / sizeof(T);   // elements per 16-byte load
+  constexpr int kVecPerRow = D / kVec;
   for (int i = tid; i < kRows * kVecPerRow; i += kThreads) {
     const int r = i / kVecPerRow;
-    const int c = (i % kVecPerRow) * 8;
+    const int c = (i % kVecPerRow) * kVec;
     uint4 val = make_uint4(0, 0, 0, 0);
     if (r0 + r < n)
       val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c);
     *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+  }
+}
+
+// fp32 tile products on the CUDA cores (FFMA, full fp32: no TF32), for
+// the kernels' fp32 instantiations, where the JAX kernels ask the MXU for
+// Precision.HIGHEST. One warp computes a [16, N] block of C from A rows
+// [16, K] in shared memory: lane l owns rows l / 8 + 4 i (i < 4) and
+// columns l % 8 + 8 j, so the four row reads of a step hit four banks and
+// each product is a sequential fp32 sum over k. Columns go in chunks of
+// at most 64 (32 accumulators a lane).
+
+// C[16, N] = A[16, K] B^T, B [N, K] row-major (scores Q K^T).
+template <int N, int K>
+__device__ __forceinline__ void ffma_abt(float* c, int ldc, const float* a,
+                                         int lda, const float* b, int ldb,
+                                         int lane) {
+  constexpr int kNC = N < 64 ? N : 64;
+  const int r0 = lane >> 3, c0 = lane & 7;
+  for (int n0 = 0; n0 < N; n0 += kNC) {
+    float acc[4][kNC / 8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < kNC / 8; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      float av[4], bv[kNC / 8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = a[(r0 + 4 * i) * lda + k];
+#pragma unroll
+      for (int j = 0; j < kNC / 8; ++j)
+        bv[j] = b[(n0 + c0 + 8 * j) * ldb + k];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < kNC / 8; ++j)
+          acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < kNC / 8; ++j)
+        c[(r0 + 4 * i) * ldc + n0 + c0 + 8 * j] = acc[i][j];
+  }
+}
+
+// C[16, N] = alpha_r C + beta_r (A[16, K] B), B [K, N] row-major (P V);
+// alpha, beta: the warp's 16 per-row factors, or null for 1 (C += A B).
+template <int N, int K>
+__device__ __forceinline__ void ffma_ab(float* c, int ldc, const float* a,
+                                        int lda, const float* b, int ldb,
+                                        const float* alpha,
+                                        const float* beta, int lane) {
+  constexpr int kNC = N < 64 ? N : 64;
+  const int r0 = lane >> 3, c0 = lane & 7;
+  for (int n0 = 0; n0 < N; n0 += kNC) {
+    float acc[4][kNC / 8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < kNC / 8; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      float av[4], bv[kNC / 8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = a[(r0 + 4 * i) * lda + k];
+#pragma unroll
+      for (int j = 0; j < kNC / 8; ++j) bv[j] = b[k * ldb + n0 + c0 + 8 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < kNC / 8; ++j)
+          acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + 4 * i;
+      const float al = alpha != nullptr ? alpha[r] : 1.f;
+      const float be = beta != nullptr ? beta[r] : 1.f;
+#pragma unroll
+      for (int j = 0; j < kNC / 8; ++j) {
+        float* cp = c + r * ldc + n0 + c0 + 8 * j;
+        *cp = al * *cp + be * acc[i][j];
+      }
+    }
   }
 }
 

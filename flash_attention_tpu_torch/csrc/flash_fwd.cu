@@ -51,20 +51,39 @@
 // tile lies inside one 128-row scale block. The storages compile in
 // flash_fwd_quant.cu, apart from the dense instantiations here.
 //
+// fp32 inputs (flash_fwd_f32.cu; the JAX kernel runs fp32 at
+// Precision.HIGHEST, flash.py:92-101): dense K/V only. Both products run
+// in full fp32 on the CUDA cores (common.cuh ffma_abt / ffma_ab, no TF32)
+// on the same softmax body; P stays fp32. 64-row fp32 tiles at D = 256
+// would not fit shared memory, so there the q tile is 32 rows (Smem<T,
+// D>::kBQ).
+//
+// The causal split (the TPU kernel's strict_below / diag_band branches,
+// flash.py:122-132, :271-278, driven by flash_attention_fwd_split :664):
+// two launches, each a loop bound in the same body. The bulk pass
+// (split = 1, non-causal) ends each q tile's kv loop at (q0 / band) *
+// band, so it runs mask-free tiles only; the band pass (split = 2,
+// causal) covers [(q0 / band) * band, + band). The LSE merge of the two
+// is elementwise PyTorch (ops/flash.py), as the JAX package does it
+// outside its kernel. Rows with no bulk column export LSE = INIT_M *
+// scale and weigh 0 in the merge.
+//
 // A fast version (TMA loads, wgmma, a producer warp and double-buffered
 // tiles) is later work; this one is simple and right first.
 
 #include "flash_fwd.cuh"
 
 // kv_store: common.cuh kDense / kInt8 / kE4M3 / kE5M2; kscale / vscale
-// null for dense K/V (Nk a multiple of 128 otherwise).
+// null for dense K/V (Nk a multiple of 128 otherwise). split: 0, or the
+// bulk (1, non-causal) or band (2, causal) pass of the causal split,
+// band a multiple of 64 (the q tile).
 extern "C" int fa_flash_fwd(const void* q, const void* k, const void* v,
                             const void* kscale, const void* vscale,
                             void* o, void* lse, const void* qseg,
                             const void* kvseg, int B, int Hq, int Hkv,
                             int Nq, int Nk, int D, int causal, int offset,
-                            int window, float scale, int dtype,
-                            int kv_store, void* stream) {
+                            int window, int split, int band, float scale,
+                            int dtype, int kv_store, void* stream) {
   using namespace fa;
   if (Hkv <= 0 || Hq % Hkv || (qseg == nullptr) != (kvseg == nullptr) ||
       (window > 0 && !causal))
@@ -72,13 +91,21 @@ extern "C" int fa_flash_fwd(const void* q, const void* k, const void* v,
   if (kv_store != kDense &&
       (kscale == nullptr || vscale == nullptr || Nk % 128))
     return (int)cudaErrorInvalidValue;
+  if (split != 0 &&
+      (band <= 0 || band % 64 || window > 0 || qseg != nullptr ||
+       (split == fwd::kSplitBulk) == (causal != 0) ||
+       (split != fwd::kSplitBulk && split != fwd::kSplitBand)))
+    return (int)cudaErrorInvalidValue;
   const fwd::Args a{q, k, v, static_cast<const float*>(kscale),
                     static_cast<const float*>(vscale), o,
                     static_cast<float*>(lse),
                     static_cast<const int*>(qseg),
                     static_cast<const int*>(kvseg), B, Hq, Hkv, Nq, Nk,
-                    causal, offset, window, scale,
+                    causal, offset, window, split, band, scale,
                     static_cast<cudaStream_t>(stream)};
+  if (dtype == kFloat32)
+    return (int)(kv_store == kDense ? fwd::dispatch_f32(a, D)
+                                    : cudaErrorInvalidValue);
   if (kv_store == kDense) return (int)fwd::dispatch<kDense>(a, dtype, D);
   return (int)fwd::dispatch_quant(a, dtype, D, kv_store);
 }

@@ -1,7 +1,7 @@
 // The B1 forward kernel template (flash_fwd.cu), instantiated per
 // compute type, head dim and K/V storage. flash_fwd.cu holds the dense
-// instantiations and the C entry point, flash_fwd_quant.cu the int8 /
-// fp8 ones.
+// fp16 / bf16 instantiations and the C entry point, flash_fwd_quant.cu
+// the int8 / fp8 ones, flash_fwd_f32.cu the fp32 ones (dense K/V only).
 #pragma once
 
 #include <mma.h>
@@ -15,17 +15,20 @@ namespace fwd {
 
 using namespace nvcuda;
 
-constexpr int kBQ = 64;       // q rows per block
 constexpr int kBKV = 64;      // kv rows per tile
-constexpr int kThreads = 128;
 
-// At D = 256 the tiles take 194,816 bytes, inside the 227 KB a block
-// may use.
+// The q row tile is 64 rows (128 threads, a thread pair a row) except
+// for fp32 at D = 256, where 64-row fp32 tiles would take 305 KB: 32
+// rows (64 threads) take 217,344 bytes. At D = 256 the bf16 / fp16 tiles
+// take 194,816 bytes, inside the 227 KB a block may use.
 template <typename T, int D>
 struct Smem {
-  static constexpr int kLdQ = D + 8;       // Q/K/V rows (T elements)
+  static constexpr int kBQ = sizeof(T) == 4 && D > 128 ? 32 : 64;
+  static constexpr int kThreads = 2 * kBQ;
+  static constexpr int kPad = 16 / sizeof(T);   // keeps rows 16-byte aligned
+  static constexpr int kLdQ = D + kPad;    // Q/K/V rows (T elements)
   static constexpr int kLdS = kBKV + 4;    // S rows (floats)
-  static constexpr int kLdP = kBKV + 8;    // P rows (T elements)
+  static constexpr int kLdP = kBKV + kPad; // P rows (T elements)
   static constexpr int kLdO = D + 4;       // O rows (floats)
   static constexpr size_t kQ = 0;
   static constexpr size_t kK = kQ + sizeof(T) * kBQ * kLdQ;
@@ -37,12 +40,13 @@ struct Smem {
   static constexpr size_t kBytes = kSeg + sizeof(int) * kBKV;
 };
 
-// rows [r0, r0 + 64) of a [n, D] matrix into shared memory (row stride
-// ld); rows past n are zero.
-template <typename T, int D>
+// rows [r0, r0 + kRows) of a [n, D] matrix into shared memory (row
+// stride ld); rows past n are zero.
+template <typename T, int D, int kRows = kBKV>
 __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
                                           int r0, int n, int tid) {
-  fa::load_rows<T, D, 64, kThreads>(dst, ld, src, r0, n, tid);
+  fa::load_rows<T, D, kRows, Smem<T, D>::kThreads>(dst, ld, src, r0, n,
+                                                    tid);
 }
 
 // K/V rows [r0, r0 + 64) in storage Store into a T tile: dense rows as
@@ -58,7 +62,7 @@ __device__ __forceinline__ void load_kv_tile(T* dst, int ld, const void* src,
   } else {
     const unsigned char* codes = static_cast<const unsigned char*>(src);
     constexpr int kVecPerRow = D / 8;
-    for (int i = tid; i < kBKV * kVecPerRow; i += kThreads) {
+    for (int i = tid; i < kBKV * kVecPerRow; i += Smem<T, D>::kThreads) {
       const int r = i / kVecPerRow;
       const int c = (i % kVecPerRow) * 8;
       uint4 val = make_uint4(0, 0, 0, 0);
@@ -89,13 +93,102 @@ struct Args {
   const int* qseg;          // [B, Nq] or null
   const int* kvseg;         // [B, Nk] or null
   int B, Hq, Hkv, Nq, Nk, causal, offset, window;
+  // The two passes of the causal split (flash_attention_fwd_split): 0
+  // none; kSplitBulk the mask-free pass over the kv columns below each q
+  // tile's band, [0, (q0 / band) * band); kSplitBand the causal pass
+  // over the band itself, [(q0 / band) * band, + band). band is a
+  // multiple of the q tile.
+  int split, band;
   float scale;
   cudaStream_t stream;
 };
 
+constexpr int kSplitBulk = 1;
+constexpr int kSplitBand = 2;
+
+// S[16, kBKV] = Q K^T (unscaled) for one warp's 16 query rows. fp16 /
+// bf16 keep the warp's Q rows in tensor-core fragments (WMMA 16x16x16,
+// fp32 accumulation); fp32 reads them from shared memory and multiplies
+// on the CUDA cores in full fp32 (fa::ffma_abt).
+template <typename T, int D>
+struct QRows {
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> f[D / 16];
+
+  __device__ __forceinline__ void load(const T* q, int ld) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wmma::load_matrix_sync(f[kk], q + kk * 16, ld);
+  }
+
+  __device__ __forceinline__ void scores(float* s, int lds, const T* k,
+                                         int ldk) {
+#pragma unroll
+    for (int n = 0; n < kBKV / 16; ++n) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf;
+      wmma::fill_fragment(sf, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> kf;
+        wmma::load_matrix_sync(kf, k + (n * 16) * ldk + kk * 16, ldk);
+        wmma::mma_sync(sf, f[kk], kf, sf);
+      }
+      wmma::store_matrix_sync(s + n * 16, sf, lds, wmma::mem_row_major);
+    }
+  }
+};
+
+template <int D>
+struct QRows<float, D> {
+  const float* q;
+  int ld;
+
+  __device__ __forceinline__ void load(const float* q_, int ld_) {
+    q = q_;
+    ld = ld_;
+  }
+
+  __device__ __forceinline__ void scores(float* s, int lds, const float* k,
+                                         int ldk) {
+    fa::ffma_abt<kBKV, D>(s, lds, q, ld, k, ldk, threadIdx.x & 31);
+  }
+};
+
+// O[16, D] += P[16, kBKV] V for one warp's 16 rows (WMMA for fp16 /
+// bf16, FFMA for fp32).
+template <typename T, int D>
+__device__ __forceinline__ void pv_accumulate(float* o, int ldo, const T* p,
+                                              int ldp, const T* v, int ldv) {
+  if constexpr (sizeof(T) == 4) {
+    fa::ffma_ab<D, kBKV>(o, ldo, p, ldp, v, ldv, nullptr, nullptr,
+                         threadIdx.x & 31);
+  } else {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major>
+        pf[kBKV / 16];
+#pragma unroll
+    for (int kk = 0; kk < kBKV / 16; ++kk)
+      wmma::load_matrix_sync(pf[kk], p + kk * 16, ldp);
+#pragma unroll
+    for (int n = 0; n < D / 16; ++n) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> of;
+      float* optr = o + n * 16;
+      wmma::load_matrix_sync(of, optr, ldo, wmma::mem_row_major);
+#pragma unroll
+      for (int kk = 0; kk < kBKV / 16; ++kk) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> vf;
+        wmma::load_matrix_sync(vf, v + (kk * 16) * ldv + n * 16, ldv);
+        wmma::mma_sync(of, pf[kk], vf, of);
+      }
+      wmma::store_matrix_sync(optr, of, ldo, wmma::mem_row_major);
+    }
+  }
+}
+
 template <typename T, int D, int Store>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
+__global__ void __launch_bounds__(Smem<T, D>::kThreads)
+    flash_fwd_kernel(const Args a) {
   using L = Smem<T, D>;
+  constexpr int kBQ = L::kBQ;
+  constexpr int kThreads = L::kThreads;
   using Elem = std::conditional_t<Store == kDense, T, unsigned char>;
   const int Hq = a.Hq, Hkv = a.Hkv, Nq = a.Nq, Nk = a.Nk;
   const int causal = a.causal, offset = a.offset, window = a.window;
@@ -134,16 +227,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
   const int my_seg =
       (kvseg != nullptr && qrow < Nq) ? qseg[(size_t)b * Nq + qrow] : 0;
 
-  load_tile<T, D>(sQ, L::kLdQ, qg, q0, Nq, tid);
+  load_tile<T, D, kBQ>(sQ, L::kLdQ, qg, q0, Nq, tid);
   for (int i = tid; i < kBQ * D; i += kThreads)
     sO[(i / D) * L::kLdO + (i % D)] = 0.f;
   __syncthreads();
 
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> qf[D / 16];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wmma::load_matrix_sync(qf[kk], sQ + (warp * 16) * L::kLdQ + kk * 16,
-                           L::kLdQ);
+  QRows<T, D> qrows;
+  qrows.load(sQ + (warp * 16) * L::kLdQ, L::kLdQ);
 
   const float c = scale * fa::kLog2e;
   float m_i = fa::kInitM;
@@ -159,6 +249,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
   }
   if (window > 0)
     kv_begin = max(q0 + offset - window + 1, 0) / kBKV * kBKV;
+  // The causal split: every row of the tile shares one band.
+  const int band0 = a.split ? q0 / a.band * a.band : 0;
+  if (a.split == kSplitBulk) kv_end = min(kv_end, band0);
+  if (a.split == kSplitBand) {
+    kv_begin = band0;
+    kv_end = min(kv_end, band0 + a.band);
+  }
 
   for (int j0 = kv_begin; j0 < kv_end; j0 += kBKV) {
     __syncthreads();   // every warp is done with the previous K/V tile
@@ -170,20 +267,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows (unscaled scores).
-#pragma unroll
-    for (int n = 0; n < kBKV / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf;
-      wmma::fill_fragment(sf, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, sK + (n * 16) * L::kLdQ + kk * 16,
-                               L::kLdQ);
-        wmma::mma_sync(sf, qf[kk], kf, sf);
-      }
-      wmma::store_matrix_sync(sS + (warp * 16) * L::kLdS + n * 16, sf,
-                              L::kLdS, wmma::mem_row_major);
-    }
+    qrows.scores(sS + (warp * 16) * L::kLdS, L::kLdS, sK, L::kLdQ);
     __syncwarp();
 
     // Online softmax over this thread's half of the row.
@@ -220,26 +304,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
     __syncwarp();
 
     // O += P V for this warp's 16 rows.
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major>
-        pf[kBKV / 16];
-#pragma unroll
-    for (int kk = 0; kk < kBKV / 16; ++kk)
-      wmma::load_matrix_sync(pf[kk], sP + (warp * 16) * L::kLdP + kk * 16,
-                             L::kLdP);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> of;
-      float* optr = sO + (warp * 16) * L::kLdO + n * 16;
-      wmma::load_matrix_sync(of, optr, L::kLdO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kBKV / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> vf;
-        wmma::load_matrix_sync(vf, sV + (kk * 16) * L::kLdQ + n * 16,
-                               L::kLdQ);
-        wmma::mma_sync(of, pf[kk], vf, of);
-      }
-      wmma::store_matrix_sync(optr, of, L::kLdO, wmma::mem_row_major);
-    }
+    pv_accumulate<T, D>(sO + (warp * 16) * L::kLdO, L::kLdO,
+                        sP + (warp * 16) * L::kLdP, L::kLdP, sV, L::kLdQ);
     __syncwarp();
   }
 
@@ -247,13 +313,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
     const float inv = l_i > 0.f ? 1.f / l_i : 0.f;
     const float* orow = sO + row * L::kLdO + half * (D / 2);
     T* og = o + (qbase + qrow) * D + half * (D / 2);
-#pragma unroll
-    for (int d = 0; d < D / 2; d += 8) {
-      float vals[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) vals[i] = orow[d + i] * inv;
-      *reinterpret_cast<uint4*>(og + d) = fa::pack8<T>(vals);
-    }
+    fa::store_scaled<T, D / 2>(og, orow, inv);
     if (half == 0)
       lse[qbase + qrow] =
           l_i > 0.f ? m_i * scale + logf(l_i) : fa::kInitM * scale;
@@ -262,13 +322,15 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
 
 template <typename T, int D, int Store>
 cudaError_t launch(const Args& a) {
-  constexpr size_t kBytes = Smem<T, D>::kBytes;
+  using L = Smem<T, D>;
+  static_assert(L::kBytes <= 232448, "B1 tiles exceed shared memory");
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D, Store>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBytes);
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.Nq + kBQ - 1) / kBQ, a.Hq, a.B);
-  flash_fwd_kernel<T, D, Store><<<grid, kThreads, kBytes, a.stream>>>(a);
+  dim3 grid((a.Nq + L::kBQ - 1) / L::kBQ, a.Hq, a.B);
+  flash_fwd_kernel<T, D, Store>
+      <<<grid, L::kThreads, L::kBytes, a.stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -290,6 +352,8 @@ cudaError_t dispatch(const Args& a, int dtype, int D) {
 
 // Defined in flash_fwd_quant.cu.
 cudaError_t dispatch_quant(const Args& a, int dtype, int D, int store);
+// Defined in flash_fwd_f32.cu: fp32 q / k / v, dense.
+cudaError_t dispatch_f32(const Args& a, int D);
 
 }  // namespace fwd
 }  // namespace fa

@@ -35,6 +35,10 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float16: 0, torch.bfloat16: 1}
+# The kernels that also take fp32 inputs (B1's dense forward and the
+# study kernels B10a-c, products in full fp32 on the CUDA cores) take
+# these codes; every other kernel takes DTYPE_CODES only.
+FP32_DTYPE_CODES = {**DTYPE_CODES, torch.float32: 2}
 
 # Storage codes of int8 / fp8 values (csrc/common.cuh kInt8, kE4M3,
 # kE5M2; 0 is a value in the compute dtype itself).
@@ -51,8 +55,9 @@ _vp, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # q, k, v, k scales (or NULL), v scales (or NULL), o, lse, qseg (or
     # NULL), kvseg (or NULL), B, Hq, Hkv, Nq, Nk, D, causal, offset,
-    # window (0 = none), scale, dtype, kv store, stream
-    "fa_flash_fwd": [_vp] * 9 + [_i32] * 9 + [_f32, _i32, _i32, _vp],
+    # window (0 = none), split (0, 1 bulk, 2 band), band, scale, dtype,
+    # kv store, stream
+    "fa_flash_fwd": [_vp] * 9 + [_i32] * 11 + [_f32, _i32, _i32, _vp],
     # q, k, v, do, lse, delta, dq, qseg (or NULL), kvseg (or NULL), B,
     # Hq, Hkv, Nq, Nk, D, causal, offset, window (0 = none), scale,
     # dtype, stream
@@ -75,6 +80,15 @@ _SIGNATURES = {
     # x, w, scale (or NULL), offsets, y, M, K, F, E, weight code, dtype,
     # stream
     "fa_grouped_matmul": [_vp] * 5 + [_i32] * 6 + [_vp],
+    # q, k, v, o, m, l, B, H, Nq, Nk, D, block_q, block_kv, scale, dtype,
+    # stream
+    "fa_fa1_fwd": [_vp] * 6 + [_i32] * 7 + [_f32, _i32, _vp],
+    # q, k, v, o, B, Hq, Hkv, Nq, Nk, D, block_q, block_kv, causal,
+    # scale, dtype, stream
+    "fa_fa2_inloop_fwd": [_vp] * 4 + [_i32] * 9 + [_f32, _i32, _vp],
+    # q, k, v, o, B, H, Nq, Nk, D, block_q, block_kv, scale, dtype,
+    # stream
+    "fa_naive_fwd": [_vp] * 4 + [_i32] * 7 + [_f32, _i32, _vp],
 }
 
 

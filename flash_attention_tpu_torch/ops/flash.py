@@ -10,7 +10,11 @@ window branches). On CPU tensors each runs its plain PyTorch version
 (`flash_attention_fwd_plain`, `flash_attention_bwd_plain`). A CUDA
 tensor never reaches a plain version: it launches the kernel or raises.
 `flash_attention` binds the two as a `torch.autograd.Function` (the JAX
-package's `custom_vjp`).
+package's `custom_vjp`). B1 also takes fp32 inputs (dense K/V; both
+products in full fp32, as the JAX kernel's Precision.HIGHEST), and
+`flash_attention_fwd_split` runs it as the two passes of the causal
+split (the JAX kernel's `strict_below` / `diag_band` branches); B2 / B3
+take fp16 / bf16 only.
 
 Masks combine as in the JAX kernels: with segment ids a column is
 invisible where the q and kv ids differ; under `causal` where col > row +
@@ -63,6 +67,12 @@ flash_bwd_dkv_launches = 0
 flash_fwd_segment_launches = 0
 flash_fwd_window_launches = 0
 flash_fwd_quant_launches = 0
+# Launches of B1 on fp32 inputs, and of its causal split's bulk and band
+# passes (flash_attention_fwd_split; each also counted in
+# flash_fwd_launches).
+flash_fwd_fp32_launches = 0
+flash_fwd_split_bulk_launches = 0
+flash_fwd_split_band_launches = 0
 # Launches of B2 and of B3 with segment ids and with a window (each also
 # counted in flash_bwd_dq_launches / flash_bwd_dkv_launches).
 flash_bwd_dq_segment_launches = 0
@@ -149,12 +159,20 @@ def flash_attention_fwd_plain(q, k, v, *, causal=False, scale, offset,
     statistics, probabilities rounded to the input dtype for the PV
     product (the kernel's numerics), LSE [B, Hq, Nq] fp32. A row that
     sees nothing gives O = 0 and LSE = INIT_M * scale."""
+    visible = _visible_mask(q.shape[2], k.shape[2], causal, offset,
+                            q.device, window, segment_ids)
+    return _masked_fwd_plain(q, k, v, scale, visible)
+
+
+def _masked_fwd_plain(q, k, v, scale, visible):
+    """flash_attention_fwd_plain under a boolean mask (where row r sees
+    column c; None for every pair). fp64 inputs compute in fp64 (the
+    reference of the fp32 kernel's gate on the card)."""
     hq, hkv = q.shape[1], k.shape[1]
-    kk = torch.repeat_interleave(k, hq // hkv, dim=1).float()
-    vv = torch.repeat_interleave(v, hq // hkv, dim=1).float()
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
-    visible = _visible_mask(s.shape[-2], s.shape[-1], causal, offset,
-                            s.device, window, segment_ids)
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    kk = torch.repeat_interleave(k, hq // hkv, dim=1).to(acc)
+    vv = torch.repeat_interleave(v, hq // hkv, dim=1).to(acc)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), kk) * scale
     if visible is not None:
         s = s.masked_fill(~visible, float("-inf"))
     m = s.amax(dim=-1, keepdim=True) if s.shape[-1] else \
@@ -163,19 +181,23 @@ def flash_attention_fwd_plain(q, k, v, *, causal=False, scale, offset,
     p = torch.exp(s - m_safe)
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l > 0, l, torch.ones_like(l))
-    o = torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype).float(), vv) / l_safe
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype).to(acc), vv) / l_safe
     lse = torch.where(l > 0, m_safe + torch.log(l_safe),
                       torch.full_like(l, INIT_M * scale))[..., 0]
-    return o.to(q.dtype), lse
+    return o.to(q.dtype), lse.float()
 
 
-def _check_cuda_inputs(kernel, q, k, v, **more):
-    """What every CUDA entry point takes: fp16/bf16 q, k, v (and `more`)
-    of one dtype, a built head dim, one device, contiguous."""
+def _check_cuda_inputs(kernel, q, k, v, *, codes=_cuda.DTYPE_CODES,
+                       **more):
+    """What every CUDA entry point takes: q, k, v (and `more`) of one
+    dtype among `codes` (fp16/bf16; fp32 too for the kernels that have
+    it, _cuda.FP32_DTYPE_CODES), a built head dim, one device,
+    contiguous."""
     tensors = dict(q=q, k=k, v=v, **more)
-    if q.dtype not in _cuda.DTYPE_CODES or any(
+    if q.dtype not in codes or any(
             t.dtype != q.dtype for t in tensors.values()):
-        raise TypeError(f"{kernel} takes fp16/bf16 inputs of one dtype "
+        names = "/".join(str(dt).split(".")[-1] for dt in codes)
+        raise TypeError(f"{kernel} takes {names} inputs of one dtype "
                         f"(got {[str(t.dtype) for t in tensors.values()]})")
     if q.shape[-1] not in CUDA_HEAD_DIMS:
         raise NotImplementedError(
@@ -202,10 +224,17 @@ def _segment_ptrs(segment_ids, device):
     return tuple(ptrs)
 
 
+# The split pass codes of csrc/flash_fwd.cuh (kSplitBulk, kSplitBand).
+SPLIT_BULK, SPLIT_BAND = 1, 2
+
+
 def _flash_fwd_cuda(q, k, v, *, causal, scale, offset, window=None,
-                    segment_ids=None, k_scales=None, v_scales=None):
+                    segment_ids=None, k_scales=None, v_scales=None,
+                    split=0, band=0):
     global flash_fwd_launches, flash_fwd_segment_launches
     global flash_fwd_window_launches, flash_fwd_quant_launches
+    global flash_fwd_fp32_launches, flash_fwd_split_bulk_launches
+    global flash_fwd_split_band_launches
     batch, hq, nq, d = q.shape
     hkv, nk = k.shape[1], k.shape[2]
     quantized = k_scales is not None
@@ -213,7 +242,7 @@ def _flash_fwd_cuda(q, k, v, *, causal, scale, offset, window=None,
         _check_cuda_inputs("B1", q, q, q)
         store = check_quant_cuda("B1", (k, v), (k_scales, v_scales))
     else:
-        _check_cuda_inputs("B1", q, k, v)
+        _check_cuda_inputs("B1", q, k, v, codes=_cuda.FP32_DTYPE_CODES)
         store = 0
     qseg, kvseg = _segment_ptrs(segment_ids, q.device)
     o = torch.empty_like(q)
@@ -227,12 +256,16 @@ def _flash_fwd_cuda(q, k, v, *, causal, scale, offset, window=None,
         k_scales.data_ptr() if quantized else None,
         v_scales.data_ptr() if quantized else None, o.data_ptr(),
         lse.data_ptr(), qseg, kvseg, batch, hq, hkv, nq, nk, d,
-        int(causal), offset, int(window or 0), scale,
-        _cuda.DTYPE_CODES[q.dtype], store, _cuda.stream_handle(q.device))
+        int(causal), offset, int(window or 0), split, band, scale,
+        _cuda.FP32_DTYPE_CODES[q.dtype], store,
+        _cuda.stream_handle(q.device))
     flash_fwd_launches += 1
     flash_fwd_segment_launches += segment_ids is not None
     flash_fwd_window_launches += window is not None
     flash_fwd_quant_launches += quantized
+    flash_fwd_fp32_launches += q.dtype == torch.float32
+    flash_fwd_split_bulk_launches += split == SPLIT_BULK
+    flash_fwd_split_band_launches += split == SPLIT_BAND
     _cuda.check(code, "flash_fwd")
     return o, lse
 
@@ -271,6 +304,80 @@ def flash_attention_fwd(q, k, v, segment_ids=None, *, causal=False,
         if ks is not None:
             kv, vv = dequantize_kv(k, q.dtype), dequantize_kv(v, q.dtype)
         o, lse = flash_attention_fwd_plain(q, kv, vv, **kw)
+    else:
+        raise ValueError(f"unsupported device {q.device}")
+    return o, (lse if save_residuals else None)
+
+
+# B1's q tile: the causal split's band must be a multiple of it.
+SPLIT_TILE = 64
+
+
+def _split_masks(n, band, device):
+    """(bulk, band) visibility [N, N] of the causal split: row r's bulk
+    pass sees columns [0, (r // band) * band), its band pass columns
+    [(r // band) * band, r]."""
+    row = torch.arange(n, device=device)[:, None]
+    col = torch.arange(n, device=device)[None, :]
+    start = row // band * band
+    return col < start, (col >= start) & (col <= row)
+
+
+def merge_lse(o_a, lse_a, o_b, lse_b):
+    """Two partial attentions over disjoint column sets merged by their
+    LSEs (fp32, [B, Hq, N]): returns (o in o_a's dtype, lse). A part
+    whose rows saw nothing (LSE = INIT_M * scale) weighs exactly 0.
+    Elementwise, as the JAX package merges outside its kernels
+    (flash.py:697-709)."""
+    m = torch.maximum(lse_a, lse_b)
+    wa, wb = torch.exp(lse_a - m), torch.exp(lse_b - m)
+    den = wa + wb
+    o = ((o_a.float() * wa[..., None] + o_b.float() * wb[..., None])
+         / den[..., None]).to(o_a.dtype)
+    return o, m + torch.log(den)
+
+
+def flash_attention_fwd_split_plain(q, k, v, *, scale, band):
+    """flash_attention_fwd_split's function in plain PyTorch: B1's plain
+    version under the bulk and band masks, then the LSE merge."""
+    bulk, diag = _split_masks(q.shape[2], band, q.device)
+    o_b, lse_b = _masked_fwd_plain(q, k, v, scale, bulk)
+    o_d, lse_d = _masked_fwd_plain(q, k, v, scale, diag)
+    return merge_lse(o_b, lse_b, o_d, lse_d)
+
+
+def flash_attention_fwd_split(q, k, v, *, scale=None, band=2048,
+                              save_residuals=False):
+    """Two-pass causal forward (the JAX package's
+    `flash_attention_fwd_split`, flash.py:664): a mask-free bulk pass
+    over the kv columns below each q tile's `band`-wide diagonal band,
+    then a causal pass over the band only, merged by their LSEs. On CUDA
+    tensors these are two B1 launches (each a kv-loop bound in B1's
+    body: the bulk pass's loop ends at (q0 / band) * band, the band
+    pass's covers [(q0 / band) * band, + band)); on CPU tensors the
+    plain version. Returns (o, lse or None); lse fp32 [B, Hq, N].
+
+    Needs Nq == Nk divisible by `band`, as the JAX function does, and
+    `band` a multiple of B1's 64-row q tile (ValueError otherwise)."""
+    _dense_kv(k, v)
+    nq, nk = q.shape[2], k.shape[2]
+    if nq != nk or nq % band:
+        raise ValueError(
+            f"split forward needs Nq == Nk divisible by band "
+            f"(got {nq}/{nk}, band {band})")
+    if band % SPLIT_TILE:
+        raise ValueError(f"band {band} must be a multiple of B1's "
+                         f"{SPLIT_TILE}-row q tile")
+    scale, _ = _check_args(q, k, v, None, True, scale, 0, None)
+    if q.is_cuda:
+        o_b, lse_b = _flash_fwd_cuda(q, k, v, causal=False, scale=scale,
+                                     offset=0, split=SPLIT_BULK, band=band)
+        o_d, lse_d = _flash_fwd_cuda(q, k, v, causal=True, scale=scale,
+                                     offset=0, split=SPLIT_BAND, band=band)
+        o, lse = merge_lse(o_b, lse_b, o_d, lse_d)
+    elif q.device.type == "cpu":
+        o, lse = flash_attention_fwd_split_plain(q, k, v, scale=scale,
+                                                 band=band)
     else:
         raise ValueError(f"unsupported device {q.device}")
     return o, (lse if save_residuals else None)

@@ -70,3 +70,41 @@ def attention_reference_with_lse(q, k, v, *, causal: bool = False,
     o = torch.einsum("bhqk,bhkd->bhqd", p / l, v)
     return o.to(q.dtype), (m + torch.log(l))[..., 0]
 
+
+
+def attention_baseline(q, k, v, *, causal: bool = False,
+                       scale: float | None = None):
+    """Two-pass exact softmax in fp32 (pass 1 the row max, pass 2 exp,
+    sum and the weighted sum), written as the naive baseline is: a plain
+    einsum, as the JAX package leaves it to XLA (no kernel). Output in
+    q's dtype."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = _scores(q, k, scale)
+    if causal:
+        s = _causal_mask(s, s.shape[-1] - s.shape[-2])
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    v = _expand_kv_heads(v, q.shape[1]).float()
+    return torch.einsum("bhqk,bhkd->bhqd", p / l, v).to(q.dtype)
+
+
+def attention_lowp_baseline(q, k, v, *, causal: bool = False,
+                            scale: float | None = None):
+    """Low-precision baseline with the flash kernels' numerics: fp32
+    scores and softmax statistics, probabilities rounded to the input
+    dtype for the PV product (fp32 accumulation). The yardstick of the
+    3x-error gate for bf16 / fp16 kernels."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = _scores(q, k, scale)
+    if causal:
+        s = _causal_mask(s, s.shape[-1] - s.shape[-2])
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    v = _expand_kv_heads(v, q.shape[1])
+    pv = torch.einsum("bhqk,bhkd->bhqd", (p / l).to(q.dtype).float(),
+                      v.float())
+    return pv.to(q.dtype)

@@ -85,9 +85,15 @@ def verify(candidate, reference, *, pass_threshold: float = PASS_THRESHOLD,
     bits an element only fails when its absolute error also exceeds 3
     ulps of the dtype at the reference's magnitude (rounding noise on
     near-zero elements is not signal)."""
-    info = _float_info(candidate)
-    cand = _np32(candidate)
-    ref = _np32(reference)
+    return _verify_np(_np32(candidate), _float_info(candidate),
+                      _np32(reference), pass_threshold, report_threshold,
+                      max_reported)
+
+
+def _verify_np(cand, info, ref, pass_threshold, report_threshold,
+               max_reported) -> VerifyReport:
+    """verify on float32 arrays; `info` is _float_info of the candidate
+    as given."""
     if cand.shape != ref.shape:
         raise ValueError(f"shape mismatch: {cand.shape} vs {ref.shape}")
     atol = 0.0
@@ -118,6 +124,22 @@ def verify(candidate, reference, *, pass_threshold: float = PASS_THRESHOLD,
         offenders=offenders,
         pass_threshold=pass_threshold,
     )
+
+
+def cross_check(impls: dict, *, pass_threshold: float = PASS_THRESHOLD):
+    """All-pairs comparison of named outputs (the reference's N-way
+    integration test): {(name_a, name_b): VerifyReport} for every
+    unordered pair, name_a the candidate. Each output is copied to the
+    host once."""
+    arrays = {name: (_np32(x), _float_info(x)) for name, x in impls.items()}
+    names = list(arrays)
+    reports = {}
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            reports[(a, b)] = _verify_np(
+                arrays[a][0], arrays[a][1], arrays[b][0], pass_threshold,
+                REPORT_THRESHOLD, 10)
+    return reports
 
 
 def verify_low_precision(candidate, reference_hi, baseline_lo, *,

@@ -51,6 +51,14 @@ def _sources():
     return files
 
 
+def test_ast_rule_covers_the_study_harness():
+    """The import rule walks the kernel-study harness's modules too."""
+    names = {str(p.relative_to(PKG)) for p in _sources()
+             if PKG in p.parents}
+    assert {"cli.py", "ops/variants.py", "ops/dispatch.py",
+            "utils/bench.py"} <= names
+
+
 @pytest.mark.parametrize("path", _sources(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
@@ -303,3 +311,30 @@ def test_expert_stack_weights_raise():
         assert got.dequant(torch.float32).shape == shape
         with pytest.raises(NotImplementedError, match="_expert_stack_mm"):
             _mm("etd,edf->etf", torch.zeros(2, 3, 8), got)
+
+
+@pytest.mark.parametrize("cmd", ["decode-bench", "moe-bench", "train-bench",
+                                 "serve-bench"])
+def test_cli_unported_subcommands_raise(cmd):
+    """The JAX CLI's model benchmarks are registered and refuse to run
+    until the tooling slice ports them."""
+    from flash_attention_tpu_torch import cli
+
+    with pytest.raises(NotImplementedError, match="§A item 6"):
+        cli.main([cmd, "--device", "cpu"])
+
+
+@pytest.mark.parametrize("argv", [["verify"], ["compare"], ["perf"],
+                                  ["profile"], ["max-batch"]],
+                         ids=lambda a: a[0])
+def test_cli_device_cuda_raises_without_a_card(argv):
+    """The CLI defaults to the card; without one it raises instead of
+    running the plain versions on the CPU."""
+    from flash_attention_tpu_torch import cli
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(argv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(argv + ["--device", "cuda"])
