@@ -32,6 +32,22 @@ Phases, each fatal on failure:
              1,8,2048,128 fp32 (every cross-check pair PASS, no failure
              but the fixed-tile entries' head-dim ValueError), `perf
              --causal --bwd` at its defaults, every launch counter exact;
+  3c. fp32_api B1-B9 on fp32 inputs through the public calls
+             (flash_attention forward and backward, paged_flash_decode
+             over fp32 and int8 pools, flash_decode, quant_matmul,
+             int4_matmul, dense_matmul, grouped_matmul,
+             grouped_int4_matmul), every fp32 counter exact;
+  3d. probes the port's probes (flash_attention_tpu_torch/scripts) at
+             the JAX scripts' shapes through their run(): P1's int4
+             unpack variants v1 / v2 (3x gate against the fp32 dequant
+             reference, each against its own plain version), P2's
+             int8 paged bodies with v2 on the tensor cores (the
+             quantized-branch gates on O and LSE), P3's fused int4
+             lm_head + argmax (values on the 3x rule with B7's bf16
+             logits as the baseline, ids equal to the plain version's
+             where the top-2 gap exceeds 4e, exact ties and an
+             all-negative row at every chunk width); launch counts
+             exact;
   4. serve   the continuous-batching Engine on LlamaConfig.llama3_1b at
              full width and depth from seeded random weights, counting
              kernel launches, and hold every greedy transcript to a
@@ -124,15 +140,19 @@ windowed, B1 causal at T = 8192, each held to the fp32 reference over
 the dequantized K/V under the same 3x gate (O and LSE) and, row by row,
 to its bf16 plain version (error within 2^-5 of the row's max |O|, LSE
 within 1e-3), on caches whose 128-token blocks differ in scale by
-orders of magnitude; then the probe P2's
-bodies at its shape (batch 64, ctx 4096: bf16, int8, int8 fold_scales,
-int8 at pages of 512) beside their bounds; then B2 / B3's window and
+orders of magnitude; then B2 / B3's window and
 segment-id branches at Mistral's training shape (q [1, 32, 8192, 128]:
 window 4096, packed documents with the window, and q rows in a
 document no kv column shares, whose dq must be exactly 0), timed beside
 SDPA's backward with the same boolean mask; head dims 32 and 256 on
 B1-B5 (bf16 timed, fp16 and int8 checked); B4 and B5 at 32 and 64 query
-rows per kv head.
+rows per kv head; and B2-B9 on fp32 inputs against fp64 (the 3x gate),
+timed beside their bound at the 67 TFLOP/s FFMA rate or in bytes and
+their library call: B2 / B3 at (1, 8, 2048, D = 64 / 128 / 256) causal
+and with a window and segment ids, B4 at check_paged's shape over fp32
+and int8 pools (and fold_scales), B5 at the generate shape over fp32 and
+int8 caches, B6 / B7 / B8 at 16 and 1024 rows of 4096 x 14336, B9 on
+five storages at Mixtral's expert shapes with 16 rows.
 
 Prints information lines, then one JSON line describing the kernels,
 then the card's name and power limit, and last one JSON line
@@ -155,6 +175,7 @@ import numpy as np
 import torch
 
 PEAK_BF16_FLOPS = 989e12        # dense bf16 tensor-core rate, H100 SXM
+PEAK_FP32_FLOPS = 67e12         # fp32 FFMA rate outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12        # HBM3 bandwidth, H100 SXM
 SEED = 0
 
@@ -171,8 +192,9 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops = flops / PEAK_BF16_FLOPS
+def bound_ms(flops: float, nbytes: float,
+             peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    t_ops = flops / peak
     t_mem = nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops > t_mem
                                      else "bytes")
@@ -334,7 +356,8 @@ def plain_fwd_bwd(q, k, v, do, **kw):
 
 def _bwd_case(rng, dt, b, hq, hkv, nq, nk, d, causal, offset=None,
               **mask):
-    """Kernel, bf16/fp16 plain and fp32 plain backward of one case, with
+    """Kernel, plain (same dtype) and reference (fp32, fp64 for fp32
+    inputs) backward of one case, with
     the forward's o and LSE from B1 (the kernel path) or from the plain
     forward (the plain paths); `mask`: window, segment_ids. The kernel
     runs twice: both runs must give identical bits."""
@@ -356,7 +379,7 @@ def _bwd_case(rng, dt, b, hq, hkv, nq, nk, d, causal, offset=None,
     deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
     del again
     lo = plain_fwd_bwd(q, k, v, do, **kw)
-    hi = plain_fwd_bwd(*(x.float() for x in (q, k, v, do)), **kw)
+    hi = plain_fwd_bwd(*(x.to(_hi(dt)) for x in (q, k, v, do)), **kw)
     torch.cuda.synchronize()
     if not deterministic:
         raise AssertionError("B2/B3 gave different bits on a rerun")
@@ -726,6 +749,10 @@ def _counters() -> dict:
     from flash_attention_tpu_torch.ops import (
         decode, flash, grouped, paged, quant_matmul, variants,
     )
+    from flash_attention_tpu_torch.scripts import (
+        probe_int4_variants as p1, probe_lmhead_argmax as p3,
+        probe_paged_int8 as p2,
+    )
 
     return {"flash": (flash, "flash_fwd_launches"),
             "flash_seg": (flash, "flash_fwd_segment_launches"),
@@ -753,7 +780,19 @@ def _counters() -> dict:
             "flash_split_band": (flash, "flash_fwd_split_band_launches"),
             "fa1": (variants, "fa1_launches"),
             "fa2": (variants, "fa2_inloop_launches"),
-            "naive": (variants, "naive_launches")}
+            "naive": (variants, "naive_launches"),
+            "bwd_dq_fp32": (flash, "flash_bwd_dq_fp32_launches"),
+            "bwd_dkv_fp32": (flash, "flash_bwd_dkv_fp32_launches"),
+            "paged_fp32": (paged, "paged_decode_fp32_launches"),
+            "decode_fp32": (decode, "decode_fp32_launches"),
+            "quant_fp32": (quant_matmul, "quant_matmul_fp32_launches"),
+            "int4_fp32": (quant_matmul, "int4_matmul_fp32_launches"),
+            "dense_fp32": (quant_matmul, "dense_matmul_fp32_launches"),
+            "grouped_fp32": (grouped, "grouped_matmul_fp32_launches"),
+            "p1_v1": (p1, "v1_launches"),
+            "p1_v2": (p1, "v2_launches"),
+            "p2_v2": (p2, "paged_int8_v2_launches"),
+            "p3": (p3, "lmhead_argmax_launches")}
 
 
 # The branch counters (each launch also counts in its kernel's total): B1
@@ -761,15 +800,21 @@ def _counters() -> dict:
 # its causal split's bulk and band passes; B2 and B3 with segment ids and
 # with a window; B4 with window starts, over int8 / fp8 pools, with the
 # fold_scales body; B5 with a window, over int8 / fp8 caches; and the
-# study kernels B10a-c. Zero on every path that serves a model without a
+# study kernels B10a-c; B2-B9 on fp32 inputs; the probes' kernels (P1
+# v1 / v2, P2 v2, P3). Zero on every path that serves a model without a
 # window, chunked prefill or quantized KV, and on every serving path for
-# B2/B3; the fp32, split and study counters are zero on every model path.
+# B2/B3; the fp32, split, study and probe counters are zero on every
+# model path.
+FP32_COUNTERS = ("bwd_dq_fp32", "bwd_dkv_fp32", "paged_fp32", "decode_fp32",
+                 "quant_fp32", "int4_fp32", "dense_fp32", "grouped_fp32")
+PROBE_COUNTERS = ("p1_v1", "p1_v2", "p2_v2", "p3")
 NO_BRANCHES = dict.fromkeys(("flash_seg", "flash_win", "flash_quant",
                              "flash_fp32", "flash_split_bulk",
                              "flash_split_band", "fa1", "fa2", "naive",
                              "bwd_dq_seg", "bwd_dkv_seg", "bwd_dq_win",
                              "bwd_dkv_win", "paged_win", "paged_quant",
-                             "paged_fold", "decode_win", "decode_quant"), 0)
+                             "paged_fold", "decode_win", "decode_quant",
+                             *FP32_COUNTERS, *PROBE_COUNTERS), 0)
 
 
 def reset_counts() -> None:
@@ -2920,54 +2965,6 @@ def check_flash_quant(rng, flush, results):
         torch.cuda.empty_cache()
 
 
-def check_p2(flush) -> list:
-    """The probe P2 (scripts/probe_paged_int8.py) on B4's own bodies at
-    its shape: batch 64, 32 q / 8 kv heads of 128, every sequence 4088
-    tokens. bf16 pools, int8 with the default body (v0) and with
-    fold_scales (v1) at pages of 256, and the default int8 body at pages
-    of 512 (v3), each beside its bound. (v2, the TPU's overlap of a
-    block's convert with the previous block's dot, has no B4 body.)"""
-    from flash_attention_tpu_torch.ops import paged
-
-    b, hq, hkv, d, ctx = 64, 32, 8, 128, 4096
-    rng = np.random.default_rng(SEED + 10)
-    lengths = np.full(b, ctx - 8, np.int32)
-    lens = torch.from_numpy(lengths).cuda()
-    q = randn(rng, (b, hq, d), torch.bfloat16, std=0.02)
-    rows = []
-    for ps in (256, 512):
-        mp = ctx // ps
-        n = b * mp
-        table = torch.from_numpy(rng.permutation(n).reshape(b, mp)
-                                 .astype(np.int32)).cuda()
-        kp = randn(rng, (hkv, n, ps, d), torch.bfloat16, std=0.02)
-        vp = randn(rng, (hkv, n, ps, d), torch.bfloat16, std=0.02)
-        kc, ks = quant_pools(kp, torch.int8)
-        vc, vs = quant_pools(vp, torch.int8)
-        cases = [("v0 int8", dict(k_scales=ks, v_scales=vs), kc, vc, 1)]
-        if ps == 256:
-            cases = [("bf16", {}, kp, vp, None)] + cases + [
-                ("v1 int8 fold_scales",
-                 dict(k_scales=ks, v_scales=vs, fold_scales=True), kc, vc,
-                 1)]
-        else:
-            cases[0] = ("v3 int8 page 512",) + cases[0][1:]
-        for name, kw, k_, v_, kvi in cases:
-            ms = time_ms(lambda: paged.paged_flash_decode(
-                q, k_, v_, table, lens, **kw), flush)
-            flops, nbytes = paged.paged_decode_cost(
-                lengths, hq, hkv, d, 2, ps, kv_itemsize=kvi)
-            bms, by = bound_ms(flops, nbytes)
-            log(f"p2: {name:22s} page {ps}: kernel_ms={ms:.4f} bound_ms="
-                f"{bms:.4f} ({by}) achieved "
-                f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
-            rows.append(dict(name=name, page=ps, ms=ms, bound_ms=bms,
-                             bound_by=by))
-        del kp, vp, kc, vc
-        torch.cuda.empty_cache()
-    return rows
-
-
 # --- phase 2/3: B2/B3's window and segment ids; head dims 32 / 256; rows --
 
 # Mistral's training row: documents packed into 8192 tokens.
@@ -3013,8 +3010,8 @@ def _bwd_timed(what, case, flush, lib_mask, **kw):
         b, hq, hkv, nq, nk, d, kw["causal"], q.element_size(),
         offset=kw["offset"], window=kw.get("window"),
         segment_ids=kw.get("segment_ids"))
-    bound2, by2 = bound_ms(f2, b2)
-    bound3, by3 = bound_ms(f3, b3)
+    bound2, by2 = bound_ms(f2, b2, _peak(q.dtype))
+    bound3, by3 = bound_ms(f3, b3, _peak(q.dtype))
     log(f"time  B2 {what}: kernel_ms={ms_dq:.4f} bound_ms={bound2:.4f} "
         f"({by2}) achieved={f2 / (ms_dq * 1e-3) / 1e12:.1f} TFLOP/s over "
         f"visible pairs")
@@ -3426,7 +3423,6 @@ def moe_loss() -> dict:
 
 # --- phase: the kernel-study harness (B10a-c, B1 fp32, B1's split) -------
 
-PEAK_FP32_FLOPS = 67e12         # fp32 FFMA rate outside the tensor cores
 STUDY_SHAPE = (1, 32, 8192, 128)     # benchmarks/perf_1_32_8192_128
 STUDY_GQA_KV = 8                     # B10b's GQA case: 32 q / 8 kv heads
 STUDY_SMALL = (1, 8, 2048)           # fp16 / fp32 (and bf16) at each D
@@ -3524,24 +3520,6 @@ def _study_case(rng, name, dt, b, hq, hkv, n, d, causal=False,
     return (q, k, v), err
 
 
-def _time_study(what, kern, plain, library, q, k, v, flush, flops, nbytes,
-                heavy_plain=False):
-    """CUDA-event medians (L2 flushed) of the kernel, its plain version
-    and the library call, beside the bound at the dtype's peak."""
-    ms = time_ms(kern, flush)
-    plain_ms = (time_ms(plain, flush, iters=2, warmup=1) if heavy_plain
-                else time_ms(plain, flush))
-    lib_ms = time_ms(library, flush)
-    t_ops, t_mem = flops / _peak(q.dtype), nbytes / PEAK_HBM_BYTES
-    bms = max(t_ops, t_mem) * 1e3
-    by = "operations" if t_ops > t_mem else "bytes"
-    log(f"time  {what}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"library_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by}) "
-        f"achieved={flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                bound_by=by)
-
-
 def _sdpa(q, k, v, causal=False):
     return torch.nn.functional.scaled_dot_product_attention(
         q, k, v, is_causal=causal, enable_gqa=q.shape[1] != k.shape[1])
@@ -3573,11 +3551,11 @@ def check_study_kernels(rng, flush) -> dict:
             max_abs_err=err,
             shape=f"q({b},{h},{n},{d}) kv({b},{hkv},{n},{d})"
                   f"{' causal' if causal else ''} bf16",
-            **_time_study(f"{name} bf16 q({b},{h},{n},{d}) kv({hkv})"
-                          f"{' causal' if causal else ''}",
-                          lambda: kern(q, k, v), lambda: plain(q, k, v),
-                          lambda: _sdpa(q, k, v, causal), q, k, v, flush,
-                          flops, nbytes, heavy_plain=True))
+            **_timed_row(f"{name} bf16 q({b},{h},{n},{d}) kv({hkv})"
+                         f"{' causal' if causal else ''}",
+                         lambda: kern(q, k, v), lambda: plain(q, k, v),
+                         lambda: _sdpa(q, k, v, causal), flush, flops,
+                         nbytes, PEAK_BF16_FLOPS, plain_iters=2))
         del q, k, v
     torch.cuda.synchronize()
 
@@ -3602,21 +3580,23 @@ def check_study_kernels(rng, flush) -> dict:
         q, k, v = (randn(rng, (b, h, n, d), torch.float32) for _ in "qkv")
         flops, nbytes = variants.study_cost(
             b, h, h, n, n, d, causal, 4, stats=2 if name == "B10a" else 0)
-        timed[name] = _time_study(
+        timed[name] = _timed_row(
             f"{name} fp32 q({b},{h},{n},{d}){' causal' if causal else ''}",
             lambda: kern(q, k, v), lambda: plain(q, k, v),
-            lambda: _sdpa(q, k, v, causal), q, k, v, flush, flops, nbytes)
+            lambda: _sdpa(q, k, v, causal), flush, flops, nbytes,
+            PEAK_FP32_FLOPS)
     sc = d ** -0.5
     (q, k, v), err = _flash_fp32_case(rng, b, h, h, n, d)
     flops, nbytes = flash.fwd_cost(b, h, h, n, n, d, True, 4)
     out["B1 fp32"] = dict(
         max_abs_err=err, shape=f"q({b},{h},{n},{d}) causal fp32",
-        **_time_study(
+        **_timed_row(
             f"B1 fp32 q({b},{h},{n},{d}) causal",
             lambda: flash.flash_attention_fwd(q, k, v, causal=True),
             lambda: flash.flash_attention_fwd_plain(
                 q, k, v, causal=True, scale=sc, offset=0),
-            lambda: _sdpa(q, k, v, True), q, k, v, flush, flops, nbytes))
+            lambda: _sdpa(q, k, v, True), flush, flops, nbytes,
+            PEAK_FP32_FLOPS))
     out["fp32 timings"] = timed
     return out
 
@@ -3692,13 +3672,13 @@ def check_split(rng, flush) -> dict:
         out[band] = dict(
             max_abs_err=max_abs_error(o, lo[0]), launches=2,
             shape=f"q({b},{h},{n},{d}) causal bf16 band {band}",
-            **_time_study(
+            **_timed_row(
                 f"B1 split band {band}",
                 lambda: flash.flash_attention_fwd_split(q, k, v, band=band),
                 lambda: by_kv_group(flash.flash_attention_fwd_split_plain,
                                     q, k, v, scale=sc, band=band),
-                lambda: _sdpa(q, k, v, True), q, k, v, flush, flops,
-                nbytes, heavy_plain=True))
+                lambda: _sdpa(q, k, v, True), flush, flops, nbytes,
+                PEAK_BF16_FLOPS, plain_iters=2))
         del lo, hi
     out["single"] = time_ms(
         lambda: flash.flash_attention_fwd(q, k, v, causal=True), flush)
@@ -3791,6 +3771,272 @@ def study() -> dict:
     return out
 
 
+# --- phase 2/3: fp32 on B2-B9 -------------------------------------------------
+
+FP32_BWD_DIMS = (64, 128, 256)       # B2 / B3 at (1, 8, 2048, D) causal
+
+
+def _fp32_gate(what, got, hi, lo):
+    """The 3x gate of an fp32 kernel: its error against the fp64
+    reference within 3x its fp32 plain version's (floored at one fp32
+    ulp), finite. Returns the max-abs difference from the plain
+    version."""
+    from flash_attention_tpu_torch.utils.metrics import (
+        max_abs_error, verify_low_precision,
+    )
+
+    ok, kerr, berr = verify_low_precision(got, hi, lo)
+    finite = bool(torch.isfinite(got.float()).all())
+    log(f"check {what}: kernel_err={kerr:.3e} fp32_plain_err={berr:.3e} "
+        f"finite={finite}")
+    if not (ok and finite):
+        raise AssertionError(f"{what} failed its gate")
+    return max_abs_error(got, lo)
+
+
+def _timed_row(what, kern, plain, library, flush, flops, nbytes, peak,
+               plain_iters=25, lib_what="", **extra):
+    """CUDA-event medians of a kernel, its plain version and the library
+    call (None: no single call), beside the bound at `peak`."""
+    ms = time_ms(kern, flush)
+    plain_ms = time_ms(plain, flush, iters=plain_iters,
+                       warmup=min(3, plain_iters - 1))
+    lib_ms = None if library is None else time_ms(library, flush)
+    bms, by = bound_ms(flops, nbytes, peak)
+    log(f"time  {what}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={lib_ms} {lib_what} bound_ms={bms:.4f} ({by}) "
+        f"achieved={flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s "
+        f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                bound_by=by, **extra)
+
+
+def check_fp32_bwd(rng, flush, results):
+    """B2 / B3 on fp32 inputs (FFMA products): at (1, 8, 2048, D) causal
+    for D = 64, 128, 256, and with a window and packed segment ids at (1,
+    8, 1024, 128); each gradient under the 3x gate against the fp64
+    plain backward, identical bits on a rerun; timed beside the bound at
+    the FFMA rate, the plain backward and SDPA's fp32 backward."""
+    from flash_attention_tpu_torch.ops.flash import SegmentIds
+
+    f32 = torch.float32
+    for d in FP32_BWD_DIMS:
+        case, got, hi, lo = _bwd_case(rng, f32, 1, 8, 8, 2048, 2048, d, True)
+        errs = _bwd_gate(f"B2/B3 q(1,8,2048,{d}) causal fp32, "
+                         f"deterministic", got, hi, lo)
+        del got, hi, lo
+        timed = _bwd_timed("causal", case, flush, None, causal=True,
+                           scale=1.0 / math.sqrt(d), offset=0)
+        results[("fp32", "dq", d)] = dict(timed["dq"], max_abs_err=errs[0])
+        results[("fp32", "dkv", d)] = dict(timed["dkv"],
+                                           max_abs_err=max(errs[1:]))
+        del case
+    t = 1024
+    ids = torch.repeat_interleave(
+        torch.arange(3, dtype=torch.int32), torch.tensor([400, 350, 274]))
+    ids = ids[None].cuda()
+    case, got, hi, lo = _bwd_case(rng, f32, 1, 8, 8, t, t, 128, True,
+                                  window=300, segment_ids=SegmentIds(ids,
+                                                                     ids))
+    errs = _bwd_gate(f"B2/B3 q(1,8,{t},128) causal window 300 + segment "
+                     f"ids fp32, deterministic", got, hi, lo)
+    results[("fp32", "masked")] = errs
+    del case, got, hi, lo
+    torch.cuda.empty_cache()
+
+
+def check_fp32_decode(rng, flush, results):
+    """B4 on an fp32 q at check_paged's shape (8 sequences of 0-1500
+    tokens, 16 q / 8 kv heads of 128, pages of 256) over fp32 pools and
+    over int8 pools (and their fold_scales body), and B5 on an fp32 q at
+    the generate shape over an fp32 cache and an int8 one; each under
+    the 3x gate against the fp64 plain version (dead rows exactly 0),
+    timed beside its bound (bytes), its plain version and, for B5, SDPA
+    in fp32 with a length mask."""
+    from flash_attention_tpu_torch.ops import decode as dec
+    from flash_attention_tpu_torch.ops import paged
+    from flash_attention_tpu_torch.ops.quant import dequantize_kv, quantize_kv
+
+    f32 = torch.float32
+    lengths = np.array([1, 1500, 0, 600, 255, 257, 1024, 777], np.int32)
+    b, hq, hkv, d, ps = 8, 16, 8, 128, 256
+    sc = 1.0 / math.sqrt(d)
+    kp, vp, tbl, num_pages = paged_setup(rng, lengths, hkv, d, ps, 8)
+    kp, vp = kp.float(), vp.float()
+    q = randn(rng, (b, hq, d), f32)
+    lens = torch.from_numpy(lengths).cuda()
+    kc, ks = quant_pools(kp, torch.int8)
+    vc, vs = quant_pools(vp, torch.int8)
+    for what, pools, kw, kvi in (
+            ("fp32 pools", (kp, vp), {}, None),
+            ("int8 pools", (kc, vc), dict(k_scales=ks, v_scales=vs), 1),
+            ("int8 pools fold_scales", (kc, vc),
+             dict(k_scales=ks, v_scales=vs, fold_scales=True), 1)):
+        o = paged.paged_flash_decode(q, *pools, tbl, lens, **kw)
+        lo, _ = paged.paged_flash_decode_plain(q, *pools, tbl, lens,
+                                               scale=sc, **kw)
+        # The fp64 reference over the dequantized pools (fold_scales is
+        # the same function: its reference is the default body's).
+        hi_pools = pools if kvi else tuple(t.double() for t in pools)
+        hi_kw = {k: v for k, v in kw.items() if k != "fold_scales"}
+        hi, _ = paged.paged_flash_decode_plain(q.double(), *hi_pools, tbl,
+                                               lens, scale=sc, **hi_kw)
+        err = _fp32_gate(f"B4 fp32 q({b},{hq},{d}) {what} lens "
+                         f"{lengths.tolist()}", o, hi, lo)
+        if not bool((o[2] == 0).all()):
+            raise AssertionError(f"B4 fp32 {what}: the dead row is not 0")
+        flops, nbytes = paged.paged_decode_cost(lengths, hq, hkv, d, 4, ps,
+                                                kv_itemsize=kvi)
+        results[("fp32", "paged", what)] = _timed_row(
+            f"B4 fp32 {what}", lambda: paged.paged_flash_decode(
+                q, *pools, tbl, lens, **kw),
+            lambda: paged.paged_flash_decode_plain(q, *pools, tbl, lens,
+                                                   scale=sc, **kw),
+            None, flush, flops, nbytes, PEAK_FP32_FLOPS, max_abs_err=err,
+            lib_what="(no single PyTorch call attends over a page table)",
+            shape=f"q({b},{hq},{d}) pools({hkv},{num_pages},{ps},{d}) "
+                  f"{what}")
+    del kp, vp, kc, vc
+    b, s = 4, 640
+    lens = [543] * 4
+    q = randn(rng, (b, 32, d), f32)
+    k = randn(rng, (b, 8, s, d), f32)
+    v = randn(rng, (b, 8, s, d), f32)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(s, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    qk, qv = quantize_kv(k), quantize_kv(v)
+    for what, kv, dense in (("fp32 cache", (k, v), (k, v)),
+                            ("int8 cache", (qk, qv),
+                             (dequantize_kv(qk, f32),
+                              dequantize_kv(qv, f32)))):
+        o = dec.flash_decode(q, *kv, lengths)
+        lo = dec.flash_decode_plain(q, *dense, lengths, scale=sc)
+        hi = dec.flash_decode_plain(q.double(), *(x.double() for x in dense),
+                                    lengths, scale=sc)
+        err = _fp32_gate(f"B5 fp32 q({b},32,{d}) {what} ({b},8,{s},{d}) "
+                         f"lens {lens}", o, hi, lo)
+        flops, nbytes = dec.decode_cost(
+            lens, 32, 8, d, 4, kv_itemsize=None if kv[0] is k else 1)
+        results[("fp32", "decode", what)] = _timed_row(
+            f"B5 fp32 {what}", lambda: dec.flash_decode(q, *kv, lengths),
+            lambda: dec.flash_decode_plain(q, *dense, lengths, scale=sc),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None], *dense, attn_mask=mask, enable_gqa=True),
+            flush, flops, nbytes, PEAK_FP32_FLOPS, max_abs_err=err,
+            lib_what="(SDPA fp32, enable_gqa, length mask, over the "
+                     "(dequantized) fp32 cache)",
+            shape=f"q({b},32,{d}) cache({b},8,{s},{d}) lens {lens} {what}")
+
+
+# fp32 B6-B8 at the 8B decode and prefill shapes of w_gate; B9 at
+# Mixtral's expert shapes with 16 rows.
+FP32_MATMUL_SHAPES = ((16, 4096, 14336), (1024, 4096, 14336))
+FP32_GROUPED_SHAPES = ((16, 4096, 14336), (16, 14336, 4096))
+
+
+def _fp32_weight(kind, k, f, gen):
+    """A random [k, f] weight for fp32 activations: the product's weight
+    args and the exact fp32 weight they stand for (what the kernel
+    multiplies: codes times scales in fp32; for "dense" an fp32 weight)."""
+    from flash_attention_tpu_torch.ops import quant_matmul as qm
+
+    if kind == "dense":
+        w = torch.randn((k, f), generator=gen, device="cuda") / math.sqrt(k)
+        return (w,), w
+    args, _ = rand_weight(kind, k, f, gen)
+    if kind == "int4":
+        return args, qm.int4_dequant(*args, torch.float32)
+    return args, args[0].float() * args[1]
+
+
+def check_fp32_matmul(flush, results):
+    """B6 (int8), B7 (int4) and B8 (an fp32 weight) on fp32 activations
+    at 16 and 1024 rows of 4096 x 14336, and B9 on all five storages at
+    Mixtral's w_gate / w_down with 16 expert-sorted rows over 8 experts:
+    each under the 3x gate against the fp64 product over the exact fp32
+    weight the kernel multiplies, timed beside its bound (the FFMA rate
+    or bytes), the plain version and the library call (torch.matmul in
+    fp32 on the fp32 weight; torch._grouped_mm on the fp32 stack where
+    it takes one)."""
+    from flash_attention_tpu_torch.ops.grouped import grouped_cost
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 12)
+    rng = np.random.default_rng(SEED + 12)
+    f32 = torch.float32
+    for label, kind in (("B6 int8", torch.int8), ("B7 int4", "int4"),
+                        ("B8 dense", "dense")):
+        fn, plain, cost = _matmul_fns(kind)
+        rows = []
+        for m, k, f in FP32_MATMUL_SHAPES:
+            args, w32 = _fp32_weight(kind, k, f, gen)
+            x = torch.randn((m, k), generator=gen, device="cuda")
+            got = fn(x, *args)
+            lo = plain(x, *args)
+            # B6 scales the fp32 sum at the store; B7 / B8 multiply the
+            # exact fp32 weight.
+            hi = ((x.double() @ args[0].double()) * args[1].double()
+                  if kind == torch.int8 else x.double() @ w32.double())
+            err = _fp32_gate(f"{label} fp32 {m}x{k}x{f}", got, hi, lo)
+            del hi
+            flops, nbytes = cost(m, k, f, 4)
+            rows.append(_timed_row(
+                f"{label} fp32 {m}x{k}x{f}", lambda: fn(x, *args),
+                lambda: plain(x, *args), lambda: torch.matmul(x, w32),
+                flush, flops, nbytes, PEAK_FP32_FLOPS, max_abs_err=err,
+                lib_what="(torch.matmul fp32 on the fp32 weight)",
+                shape=f"x({m},{k}) w({k},{f}) fp32 x"))
+            del args, w32, x, got, lo
+        results[("fp32", label)] = rows
+    e = N_EXPERTS
+    for label, kind in GROUPED_KINDS.items():
+        fn, plain, storage = _grouped_fns(kind)
+        rows = []
+        for m, k, f in FP32_GROUPED_SHAPES:
+            per = [_fp32_weight(kind, k, f, gen) for _ in range(e)]
+            args = tuple(torch.stack(t) for t in zip(*(a for a, _ in per)))
+            w32 = torch.stack([w for _, w in per])
+            del per
+            x = torch.randn((m, k), generator=gen, device="cuda")
+            sizes = skewed_sizes(rng, m, e)
+            got = fn(x, sizes, *args)
+            lo = plain(x, sizes, *args)
+            offs = [0] + torch.cumsum(sizes, 0).tolist()
+            hi = torch.zeros((m, f), dtype=torch.float64, device="cuda")
+            for g in range(e):
+                hi[offs[g]:offs[g + 1]] = (x[offs[g]:offs[g + 1]].double()
+                                           @ w32[g].double())
+            err = _fp32_gate(f"{label} fp32 {m}x{k}x{f} sizes "
+                             f"{sizes.tolist()}", got, hi, lo)
+            del hi
+            lib_ms, lib_what = library_grouped(x, sizes, w32, flush)
+            flops, nbytes = grouped_cost(m, k, f, int((sizes > 0).sum()),
+                                         storage, x_itemsize=4)
+            row = _timed_row(
+                f"{label} fp32 {m}x{k}x{f}", lambda: fn(x, sizes, *args),
+                lambda: plain(x, sizes, *args), None, flush, flops, nbytes,
+                PEAK_FP32_FLOPS, max_abs_err=err,
+                shape=f"x({m},{k}) w({e},{k},{f}) fp32 x, sizes "
+                      f"{sizes.tolist()}")
+            row.update(library_ms=lib_ms, library=lib_what)
+            rows.append(row)
+            del args, w32, x, got, lo
+        results[("fp32", label)] = rows
+        torch.cuda.empty_cache()
+
+
+def check_fp32(rng, flush, results):
+    """B2-B9 on fp32 inputs (check_fp32_bwd, check_fp32_decode,
+    check_fp32_matmul)."""
+    check_fp32_bwd(rng, flush, results)
+    torch.cuda.synchronize()
+    check_fp32_decode(rng, flush, results)
+    torch.cuda.synchronize()
+    check_fp32_matmul(flush, results)
+    torch.cuda.synchronize()
+
+
 def check_kernels() -> dict:
     flush = L2Flush()
     rng = np.random.default_rng(SEED)
@@ -3815,12 +4061,360 @@ def check_kernels() -> dict:
     check_paged_quant(rng, flush, results)
     check_decode_quant(rng, flush, results)
     check_flash_quant(rng, flush, results)
-    results["p2"] = check_p2(flush)
     torch.cuda.synchronize()
     check_bwd_branches(rng, flush, results)
     check_head_dims(rng, flush, results)
     check_rows(rng)
+    check_fp32(rng, flush, results)
     return results
+
+
+# --- phase: fp32 through the public entry points ---------------------------
+
+
+def fp32_api() -> dict:
+    """B1-B9 on fp32 inputs through the calls a user makes, with every
+    counter zeroed first: one flash_attention forward and backward at
+    (1, 8, 1024, 128) causal (B1, B2, B3), paged_flash_decode over fp32
+    and int8 pools, flash_decode over an fp32 cache, quant_matmul,
+    int4_matmul and dense_matmul at 16 x 4096 x 4096, grouped_matmul and
+    grouped_int4_matmul over 8 experts. Each fp32 counter must equal its
+    kernel's total; the outputs must be finite."""
+    from flash_attention_tpu_torch.ops import decode as dec
+    from flash_attention_tpu_torch.ops import (
+        flash, grouped, paged, quant_matmul as qm,
+    )
+
+    rng = np.random.default_rng(SEED + 13)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 13)
+    f32 = torch.float32
+    q, k, v = (randn(rng, (1, 8, 1024, 128), f32).requires_grad_()
+               for _ in "qkv")
+    lengths = np.array([700, 0, 1024, 300], np.int32)
+    kp, vp, tbl, _ = paged_setup(rng, lengths, 8, 128, 256, 4)
+    kp, vp = kp.float(), vp.float()
+    kc, ks = quant_pools(kp, torch.int8)
+    vc, vs = quant_pools(vp, torch.int8)
+    lens = torch.from_numpy(lengths).cuda()
+    qp = randn(rng, (4, 16, 128), f32)
+    qd = randn(rng, (4, 32, 128), f32)
+    kd, vd = (randn(rng, (4, 8, 640, 128), f32) for _ in "kv")
+    x = torch.randn((16, 4096), generator=gen, device="cuda")
+    (q8, s8), _ = rand_weight(torch.int8, 4096, 4096, gen)
+    (p4, s4), _ = rand_weight("int4", 4096, 4096, gen)
+    w32 = torch.randn((4096, 4096), generator=gen, device="cuda") / 64.0
+    sizes = torch.tensor([5, 0, 3, 8], dtype=torch.int32, device="cuda")
+    stack = torch.randn((4, 512, 384), generator=gen, device="cuda")
+    p4s, s4s = rand_stack("int4", 4, 512, 384, gen)
+    xg = torch.randn((16, 512), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+
+    reset_counts()
+    o = flash.flash_attention(q, k, v, causal=True)
+    o.backward(torch.ones_like(o))
+    outs = [o, q.grad, k.grad, v.grad,
+            paged.paged_flash_decode(qp, kp, vp, tbl, lens),
+            paged.paged_flash_decode(qp, kc, vc, tbl, lens,
+                                     k_scales=ks, v_scales=vs),
+            dec.flash_decode(qd, kd, vd,
+                             torch.tensor([543] * 4, dtype=torch.int32,
+                                          device="cuda")),
+            qm.quant_matmul(x, q8, s8), qm.int4_matmul(x, p4, s4),
+            qm.dense_matmul(x, w32), grouped.grouped_matmul(xg, sizes, stack),
+            grouped.grouped_int4_matmul(xg, sizes, p4s, s4s)]
+    torch.cuda.synchronize()
+    got = read_counts()
+    want = dict(flash=1, flash_fp32=1, bwd_dq=1, bwd_dkv=1, bwd_dq_fp32=1,
+                bwd_dkv_fp32=1, paged=2, paged_fp32=2, paged_quant=1,
+                decode=1, decode_fp32=1, quant=1, quant_fp32=1, int4=1,
+                int4_fp32=1, dense=1, dense_fp32=1, grouped=2,
+                grouped_fp32=2)
+    have = {key: got[key] for key in want}
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in outs)
+    log(f"fp32_api: launches {have} finite={finite}")
+    if have != want or not finite:
+        raise AssertionError(f"fp32 path launches {have}, expected {want}, "
+                             f"finite={finite}")
+    return got
+
+
+# --- phase: the probes (P1, P2, P3) on their kernels -----------------------
+
+# Calls of fn per time_ms(fn, flush) at its defaults (warm-up + timed).
+TIMED_CALLS = 3 + 25
+
+
+def probe_p1(flush) -> dict:
+    """P1 (flash_attention_tpu_torch.scripts.probe_int4_variants) at the
+    JAX probe's shape through its run(): v1 and v2 each under the 3x gate
+    against the fp32 dequant reference (each against its own plain
+    version's error: v1 rounds b s_b with b up to 15, so its error is
+    larger by design); the launch counts exact."""
+    from flash_attention_tpu_torch.scripts import probe_int4_variants as p1
+    from flash_attention_tpu_torch.utils.metrics import verify_low_precision
+
+    reset_counts()
+    rows = p1.run(timer=lambda fn: time_ms(fn, flush), keep_outputs=True,
+                  out=log)
+    torch.cuda.synchronize()
+    got = read_counts()
+    c = TIMED_CALLS
+    want = dict(p1_v1=1 + c, p1_v2=1 + c, dense=c, quant=c, int4=c)
+    have = {key: got[key] for key in want}
+    log(f"p1: launches {have}")
+    if have != want:
+        raise AssertionError(f"P1 launches {have}, expected {want}")
+    for r in rows:
+        outs = r.pop("outputs", None)
+        if outs is None:
+            continue
+        ok, kerr, berr = verify_low_precision(outs["kernel"],
+                                              outs["reference"],
+                                              outs["plain"])
+        finite = bool(torch.isfinite(outs["kernel"].float()).all())
+        log(f"check P1 v{r['variant']}: kernel_err={kerr:.3e} "
+            f"plain_err={berr:.3e} (vs the fp32 dequant reference) "
+            f"rel {r['rel_err']:.3e} plain rel {r['plain_rel_err']:.3e} "
+            f"finite={finite}")
+        if not (ok and finite):
+            raise AssertionError(f"P1 v{r['variant']} failed its gate")
+    return dict(rows=rows, launches=got)
+
+
+def probe_p2(flush) -> dict:
+    """P2 (flash_attention_tpu_torch.scripts.probe_paged_int8) at the
+    JAX probe's shape through its run(): v2 under the quantized-branch
+    gates (O and LSE on the 3x rule against the fp32 reference over the
+    dequantized pools, row by row against the bf16 plain version); the
+    launch counts exact."""
+    from flash_attention_tpu_torch.scripts import probe_paged_int8 as p2
+
+    reset_counts()
+    rows = p2.run(timer=lambda fn: time_ms(fn, flush), keep_outputs=True,
+                  out=log)
+    torch.cuda.synchronize()
+    got = read_counts()
+    c = TIMED_CALLS
+    want = dict(p2_v2=1 + c, paged=4 * c, paged_quant=3 * c,
+                paged_fold=c)
+    have = {key: got[key] for key in want}
+    log(f"p2: launches {have}")
+    if have != want:
+        raise AssertionError(f"P2 launches {have}, expected {want}")
+    for r in rows:
+        outs = r.pop("outputs", None)
+        if outs is not None:
+            _quant_gate("P2 v2 (B=64, 32q/8kv, D=128, 4088 tokens, int8 "
+                        "pages of 256)", outs["o"], outs["ref_o"],
+                        outs["plain_o"], lse=outs["lse"],
+                        lse_hi=outs["ref_lse"], lse_lo=outs["plain_lse"],
+                        scale=1.0 / math.sqrt(p2.D))
+    return dict(rows=rows, launches=got)
+
+
+def probe_p3(flush) -> dict:
+    """P3 (flash_attention_tpu_torch.scripts.probe_lmhead_argmax) at the
+    JAX probe's shape through its run(): the fused kernel's values under
+    the 3x gate against the fp64 logits' row max, with the path it
+    replaces (B7's bf16 logits, their row max) as the same-precision
+    baseline -- its tensor-core fp32 sums are less exact than the fp32
+    plain version's FFMA sums, which the log reports beside; its ids
+    equal to the plain version's on every row whose top-2 fp32 logit gap
+    exceeds 4e (e the larger of the kernel's and the plain version's
+    value error against fp64); then a crafted head with a row of exact
+    ties (x = 0: every logit 0, id 0) and a row whose logits are all
+    negative, at each chunk width. Launch counts exact."""
+    from flash_attention_tpu_torch.ops import quant_matmul as qm
+    from flash_attention_tpu_torch.scripts import probe_lmhead_argmax as p3
+    from flash_attention_tpu_torch.utils.metrics import verify_low_precision
+
+    reset_counts()
+    rows = p3.run(timer=lambda fn: time_ms(fn, flush), keep_outputs=True,
+                  out=log)
+    torch.cuda.synchronize()
+    got = read_counts()
+    c = TIMED_CALLS
+    want = dict(p3=len(p3.CHUNKS) * (1 + c), int4=1 + c)
+    have = {key: got[key] for key in want}
+    log(f"p3: launches {have}")
+    if have != want:
+        raise AssertionError(f"P3 launches {have}, expected {want}")
+    for r in rows:
+        outs = r.pop("outputs", None)
+        if outs is None:
+            continue
+        x, packed, scales = outs["x"], outs["packed"], outs["scales"]
+        hi = (x.double() @ qm.int4_dequant(packed, scales, torch.bfloat16)
+              .double()).max(-1).values
+        b7 = qm.int4_matmul(x, packed, scales).float().max(-1).values
+        ok, kerr, berr = verify_low_precision(outs["values"], hi, b7)
+        plain_err = float((outs["plain_values"].double() - hi).abs().max())
+        e = max(kerr, plain_err)
+        top2 = outs["logits"].topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 4 * e
+        same = bool((outs["ids"][clear] == outs["plain_ids"][clear]).all())
+        log(f"check P3 values: kernel_err={kerr:.3e} b7_bf16_err={berr:.3e} "
+            f"fp32_plain_err={plain_err:.3e} (vs the fp64 row max); ids "
+            f"equal the plain version's on {int(clear.sum())} of {p3.M} "
+            f"rows with a top-2 gap > 4e (e={e:.3e}): {same}; agreement "
+            f"with B7 + argmax {r['agree']:.3f}")
+        if not (ok and same):
+            raise AssertionError("P3 failed its gate")
+        del hi, b7, top2, outs, x, packed, scales
+    for chunk in p3.CHUNKS:
+        _p3_edge_rows(chunk)
+    return dict(rows=rows, launches=got)
+
+
+def _p3_edge_rows(chunk):
+    """The fused kernel on a crafted lm_head [4096, 5000] at one chunk
+    width: row 0 of x is zero (every logit exactly 0: id 0), row 1 sees
+    only negative logits (x < 0, weights > 0), row 2 a random row; ids
+    and values equal the plain version's."""
+    from flash_attention_tpu_torch.ops import quant_matmul as qm
+    from flash_attention_tpu_torch.scripts import probe_lmhead_argmax as p3
+
+    rng = np.random.default_rng(SEED + 14)
+    k, v = 4096, 5000
+    w = np.abs(rng.normal(0, 0.02, (k, v))).astype(np.float32) + 1e-3
+    packed, scales = (t.cuda() for t in qm.quantize_weight_int4(w))
+    x = torch.from_numpy(np.stack([
+        np.zeros(k), -np.abs(rng.normal(0, 0.5, k)),
+        rng.normal(0, 0.5, k)]).astype(np.float32)).to("cuda",
+                                                      torch.bfloat16)
+    ids, vals = p3.lmhead_argmax(x, packed, scales, chunk=chunk)
+    pids, pvals = p3.lmhead_argmax_plain(x, packed, scales)
+    torch.cuda.synchronize()
+    ok = (torch.equal(ids, pids) and int(ids[0]) == 0
+          and float(vals[0]) == 0.0 and float(vals[1]) < 0
+          and float((vals - pvals).abs().max()) <= 1e-3)
+    log(f"check P3 chunk {chunk} edge rows: ids {ids.tolist()} plain "
+        f"{pids.tolist()} values {vals.tolist()} -> {ok}")
+    if not ok:
+        raise AssertionError(f"P3 chunk {chunk} edge rows differ")
+
+
+def probes() -> dict:
+    """The probes phase: P1, P2, P3 through their run() at the JAX
+    probes' shapes, timed with this script's L2-flushed CUDA events."""
+    flush = L2Flush()
+    out = {}
+    for name, fn in (("p1", probe_p1), ("p2", probe_p2), ("p3", probe_p3)):
+        t = time.perf_counter()
+        out[name] = fn(flush)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"probes: {name} {time.perf_counter() - t:.1f} s")
+    return out
+
+
+def fp32_entries(results, fp32p) -> list:
+    """The kernels line's entries of B2-B9 on fp32 inputs, each with the
+    launches its own fp32 counter saw on the fp32_api path."""
+    def one(name, source, replaces, counter, row, **more):
+        return dict(name=name, route="cuda",
+                    source=f"flash_attention_tpu_torch/csrc/{source}",
+                    replaces=f"flash_attention_tpu/ops/{replaces}",
+                    launches=fp32p[counter],
+                    launches_by_path={"fp32_api": fp32p[counter]},
+                    **row, **more)
+
+    def head_dims(part):
+        return {f"head dim {d}": results[("fp32", part, d)]
+                for d in FP32_BWD_DIMS if d != 128}
+
+    def grouped_at():
+        return {label: results[("fp32", label)] for label in GROUPED_KINDS
+                if label != "B9 int4"}
+
+    masked = results[("fp32", "masked")]
+    return [
+        one("flash_bwd_dq (B2 fp32)", "flash_bwd_f32.cu", "flash.py:716",
+            "bwd_dq_fp32", results[("fp32", "dq", 128)],
+            at_head_dims=head_dims("dq"),
+            masked_window_segments_max_abs_err=masked[0]),
+        one("flash_bwd_dkv (B3 fp32)", "flash_bwd_f32.cu", "flash.py:773",
+            "bwd_dkv_fp32", results[("fp32", "dkv", 128)],
+            at_head_dims=head_dims("dkv"),
+            masked_window_segments_max_abs_err=max(masked[1:])),
+        one("paged_decode (B4 fp32)", "paged_decode_f32.cu", "paged.py:37",
+            "paged_fp32", results[("fp32", "paged", "fp32 pools")],
+            at_shapes={k: results[("fp32", "paged", k)]
+                       for k in ("int8 pools", "int8 pools fold_scales")}),
+        one("decode (B5 fp32)", "decode_f32.cu", "decode.py:71",
+            "decode_fp32", results[("fp32", "decode", "fp32 cache")],
+            at_shapes={"int8 cache": results[("fp32", "decode",
+                                              "int8 cache")]}),
+        one("quant_matmul (B6 fp32)", "matmul_f32.cu", "quant_matmul.py:41",
+            "quant_fp32", results[("fp32", "B6 int8")][0],
+            at_shapes=results[("fp32", "B6 int8")][1:]),
+        one("int4_matmul (B7 fp32)", "matmul_f32.cu", "quant_matmul.py:214",
+            "int4_fp32", results[("fp32", "B7 int4")][0],
+            at_shapes=results[("fp32", "B7 int4")][1:]),
+        one("dense_matmul (B8 fp32)", "matmul_f32.cu", "quant_matmul.py:141",
+            "dense_fp32", results[("fp32", "B8 dense")][0],
+            at_shapes=results[("fp32", "B8 dense")][1:]),
+        one("grouped_matmul (B9 fp32)", "matmul_f32.cu", "grouped.py:132",
+            "grouped_fp32", results[("fp32", "B9 int4")][0],
+            at_shapes={"B9 int4 w_down": results[("fp32", "B9 int4")][1:],
+                       **grouped_at()}),
+    ]
+
+
+def probe_entries(pr) -> list:
+    """The kernels line's entries of the probes' kernels (P1 v1 / v2, P2
+    v2, P3), each with the launches its own counter saw in its probe's
+    run()."""
+    def pick(rows, **match):
+        return next(r for r in rows
+                    if all(r.get(k) == v for k, v in match.items()))
+
+    def fields(r):
+        return {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms")}
+
+    p1, p2, p3 = (pr[k]["rows"] for k in ("p1", "p2", "p3"))
+    entries = []
+    for variant, line in ((1, 87), (2, 125)):
+        r = pick(p1, variant=variant)
+        entries.append(dict(
+            name=f"probe_int4_variants v{variant} (P1)", route="cuda",
+            source="flash_attention_tpu_torch/csrc/probe_int4_variants.cu",
+            replaces=f"scripts/probe_int4_variants.py:{line}",
+            launches=pr["p1"]["launches"][f"p1_v{variant}"],
+            launches_by_path={"probe_int4_variants":
+                              pr["p1"]["launches"][f"p1_v{variant}"]},
+            **fields(r), rel_err=r["rel_err"],
+            plain_rel_err=r["plain_rel_err"],
+            shape="x(32,4096) bf16 w(4096,14336) offset-binary int4",
+            b7_as_built_ms=pick(p1, name="v0 shipped int4_matmul (B7)")
+            ["ms"]))
+    r = next(r for r in p2 if r["name"].startswith("v2 "))
+    entries.append(dict(
+        name="probe_paged_int8 v2 (P2)", route="cuda",
+        source="flash_attention_tpu_torch/csrc/probe_paged_int8.cu",
+        replaces="scripts/probe_paged_int8.py:76",
+        launches=pr["p2"]["launches"]["p2_v2"],
+        launches_by_path={"probe_paged_int8":
+                          pr["p2"]["launches"]["p2_v2"]},
+        **fields(r), ref_max_abs_err=r["ref_max_abs_err"],
+        shape="q(64,32,128) bf16 int8 pools(8,1024,256,128), 4088 tokens",
+        other_bodies={x["name"]: x["ms"] for x in p2 if x is not r}))
+    r = pick(p3, chunk=2048)
+    entries.append(dict(
+        name="probe_lmhead_argmax (P3)", route="cuda",
+        source="flash_attention_tpu_torch/csrc/probe_lmhead_argmax.cu",
+        replaces="scripts/probe_lmhead_argmax.py:40",
+        launches=pr["p3"]["launches"]["p3"],
+        launches_by_path={"probe_lmhead_argmax":
+                          pr["p3"]["launches"]["p3"]},
+        **fields(r), agree_with_b7_argmax=r["agree"],
+        ids_equal_plain=r["plain_agree"],
+        at_chunks={c: pick(p3, chunk=c)["ms"] for c in (1024, 4096)},
+        b7_plus_argmax_ms=p3[0]["ms"],
+        shape="x(32,4096) bf16 lm_head(4096,128256) int4, chunk 2048"))
+    return entries
 
 
 def main() -> int:
@@ -3849,6 +4443,10 @@ def main() -> int:
         return out
 
     results = timed("check", check_kernels)
+    fp32p = timed("fp32_api", fp32_api)
+    pr = timed("probes", probes)
+    gc.collect()
+    torch.cuda.empty_cache()
     st = timed("study", study)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3901,10 +4499,10 @@ def main() -> int:
         f"{mq['stats'].decode_tokens_per_s:.1f}; B4 device ms per step "
         f"(profiled) mistral chunked bf16 / int8 KV "
         f"{mc.get('b4_ms_per_step')} / {mq.get('b4_ms_per_step')}")
-    p2 = results["p2"]
+    p2 = pr["p2"]["rows"]
     log("p2 table (B=64, 32q/8kv, D=128, ctx 4096): " + "; ".join(
-        f"{r['name']} page {r['page']}: {r['ms']:.4f} ms (bound "
-        f"{r['bound_ms']:.4f}, {r['bound_by']})" for r in p2))
+        f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, "
+        f"{r['bound_by']})" for r in p2))
 
     def by_path(paths, key):
         return {path: got[key] for path, got in paths.items()}
@@ -4147,9 +4745,12 @@ def main() -> int:
         dict(name="flash_fwd (B1 fp32)", route="cuda",
              source="flash_attention_tpu_torch/csrc/flash_fwd_f32.cu",
              replaces="flash_attention_tpu/ops/flash.py:259",
-             launches=sl["flash_fp32"],
-             launches_by_path={"cli_compare_fp32": sl["flash_fp32"]},
+             launches=sl["flash_fp32"] + fp32p["flash_fp32"],
+             launches_by_path={"cli_compare_fp32": sl["flash_fp32"],
+                               "fp32_api": fp32p["flash_fp32"]},
              **sk["B1 fp32"]),
+        *fp32_entries(results, fp32p),
+        *probe_entries(pr),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     log(card)

@@ -32,6 +32,9 @@
 // body B4 uses for its pages (decode_core.cuh; the products in fp32 on
 // the CUDA cores, partial sums added in a fixed order).
 //
+// q may be fp16, bf16 or fp32 (a dense cache then in q's dtype); the fp32
+// instantiations compile in decode_f32.cu.
+//
 // B * Hkv blocks are in flight (32 at the generate shape of 4 sequences
 // and 8 kv heads, on 132 SMs); splitting a sequence's prefix across
 // blocks with a merge pass is the fast shape and is later work.
@@ -55,6 +58,7 @@ extern "C" int fa_decode(const void* q, const void* k, const void* v,
                            static_cast<const int*>(lengths), o, B, Hq, Hkv,
                            S, window, scale,
                            static_cast<cudaStream_t>(stream)};
+  if (dtype == kFloat32) return (int)contiguous::dispatch_f32(a, D, kv_store);
   switch (kv_store) {
     case kDense:
       return (int)contiguous::dispatch<kDense>(a, dtype, D);

@@ -2,8 +2,8 @@
 // sequence) over the body in decode_core.cuh, walking the contiguous
 // cache in chunks of 256 positions; instantiated per window flag, K/V
 // storage, compute type, head dim and row bound. decode.cu holds the
-// dense instantiations and the C entry point, decode_int8.cu and
-// decode_fp8.cu the quantized ones.
+// dense fp16 / bf16 instantiations and the C entry point, decode_int8.cu
+// and decode_fp8.cu the quantized ones, decode_f32.cu those of an fp32 q.
 #pragma once
 
 #include "decode_core.cuh"
@@ -68,39 +68,42 @@ cudaError_t launch(const Args& a) {
 
 // R: the smallest instantiated row bound >= the GQA group, up to 16;
 // a wider group runs in groups of 16 (decode_kernel). Quantized storages
-// instantiate 4 and 16 only, as B4's.
+// and fp32 instantiate 4 and 16 only, as B4's.
 template <int Store, typename T, int D>
 cudaError_t dispatch_rows(const Args& a) {
+  constexpr bool kAllRows = Store == kDense && sizeof(T) == 2;
   const int rows = a.Hq / a.Hkv;
-  if constexpr (Store == kDense) {
+  if constexpr (kAllRows) {
     if (rows <= 2) return launch<Store, T, D, 2>(a);
   }
   if (rows <= 4) return launch<Store, T, D, 4>(a);
-  if constexpr (Store == kDense) {
+  if constexpr (kAllRows) {
     if (rows <= 8) return launch<Store, T, D, 8>(a);
   }
   return launch<Store, T, D, 16>(a);
 }
 
+template <int Store, typename T>
+cudaError_t dispatch_d(const Args& a, int D) {
+  if (D == 128) return dispatch_rows<Store, T, 128>(a);
+  if (D == 64) return dispatch_rows<Store, T, 64>(a);
+  if (D == 256) return dispatch_rows<Store, T, 256>(a);
+  if (D == 32) return dispatch_rows<Store, T, 32>(a);
+  return cudaErrorInvalidValue;
+}
+
 template <int Store>
 cudaError_t dispatch(const Args& a, int dtype, int D) {
-  if (dtype == kBFloat16) {
-    if (D == 128) return dispatch_rows<Store, __nv_bfloat16, 128>(a);
-    if (D == 64) return dispatch_rows<Store, __nv_bfloat16, 64>(a);
-    if (D == 256) return dispatch_rows<Store, __nv_bfloat16, 256>(a);
-    if (D == 32) return dispatch_rows<Store, __nv_bfloat16, 32>(a);
-  } else if (dtype == kFloat16) {
-    if (D == 128) return dispatch_rows<Store, __half, 128>(a);
-    if (D == 64) return dispatch_rows<Store, __half, 64>(a);
-    if (D == 256) return dispatch_rows<Store, __half, 256>(a);
-    if (D == 32) return dispatch_rows<Store, __half, 32>(a);
-  }
+  if (dtype == kBFloat16) return dispatch_d<Store, __nv_bfloat16>(a, D);
+  if (dtype == kFloat16) return dispatch_d<Store, __half>(a, D);
   return cudaErrorInvalidValue;
 }
 
 // Defined in decode_int8.cu and decode_fp8.cu.
 cudaError_t dispatch_int8(const Args& a, int dtype, int D);
 cudaError_t dispatch_fp8(const Args& a, int dtype, int D, int store);
+// Defined in decode_f32.cu: an fp32 q over any storage.
+cudaError_t dispatch_f32(const Args& a, int D, int store);
 
 }  // namespace contiguous
 }  // namespace fa

@@ -46,6 +46,12 @@
 // T). Chunks (pages of a multiple of 128 tokens, or B5's 256-position
 // chunks) hold whole scale blocks, and every token loop below steps by a
 // divisor of 128, so a step never straddles two blocks.
+//
+// The compute type T (q, O, and dense K/V) is fp16, bf16 or fp32, as the
+// JAX kernels take all three: the products are fp32 on the CUDA cores in
+// every type, so fp32 only changes the loads (8 dense fp32 values are two
+// 16-byte loads; codes are the same 8 bytes) and makes every rounding to
+// T exact.
 #pragma once
 
 #include <type_traits>
@@ -113,23 +119,32 @@ __device__ __forceinline__ void load_scales8(const float* row, float* out) {
   out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
 }
 
+// 8 dense fp32 values: two 16-byte loads (4 values each).
+struct alignas(16) Raw32 {
+  uint4 lo, hi;
+};
+
 // Storage of K/V values: the element a row is made of and the 8-value
-// load (16 bytes dense, 8 bytes of codes).
+// load (16 bytes of fp16 / bf16, 32 of fp32, 8 bytes of codes).
 template <typename T, int Store>
 struct KV {
   static constexpr bool kQuant = Store != kDense;
   using Elem = std::conditional_t<kQuant, unsigned char, T>;
-  using Raw = std::conditional_t<kQuant, uint2, uint4>;
+  using Raw = std::conditional_t<
+      kQuant, uint2, std::conditional_t<sizeof(T) == 4, Raw32, uint4>>;
   __device__ __forceinline__ static Raw load(const Elem* p) {
     return *reinterpret_cast<const Raw*>(p);
   }
   __device__ __forceinline__ static Raw zero() { return Raw{}; }
-  // 8 values as float: dense unpacked, codes widened (unscaled).
+  // 8 values as float: dense converted, codes widened (unscaled).
   __device__ __forceinline__ static void widen(const Raw& raw, float* out) {
-    if constexpr (kQuant)
+    if constexpr (kQuant) {
       widen8<Store>(raw, out);
-    else
-      unpack8<T>(raw, out);
+    } else {
+      const T* v = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) out[i] = to_float<T>(v[i]);
+    }
   }
 };
 

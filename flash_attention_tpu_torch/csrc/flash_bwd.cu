@@ -1,8 +1,9 @@
 // B2 and B3: the recompute backward of flash attention for Hopper
 // (sm_90a), the backward of B1 (flash_fwd.cu). The kernel templates and
 // what they compute are in flash_bwd.cuh; this file holds the unmasked
-// instantiations and the C entry points, flash_bwd_masked.cu the window /
-// segment-id instantiations, so the build compiles them in parallel.
+// fp16 / bf16 instantiations and the C entry points, flash_bwd_masked.cu
+// the window / segment-id instantiations and flash_bwd_f32.cu those of
+// fp32 inputs, so the build compiles them in parallel.
 
 #include "flash_bwd.cuh"
 
@@ -46,6 +47,8 @@ extern "C" int fa_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (!make_args(&a, q, k, v, dout, lse, delta, qseg, kvseg, B, Hq, Hkv, Nq,
                  Nk, causal, offset, window, scale, stream))
     return (int)cudaErrorInvalidValue;
+  if (dtype == fa::kFloat32)
+    return (int)dispatch_dq_f32(D, masked(a), a, dq);
   if (masked(a)) return (int)dispatch_dq_masked(dtype, D, a, dq);
   return (int)dispatch<Dq, false>(dtype, D, a, dq);
 }
@@ -62,6 +65,8 @@ extern "C" int fa_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (!make_args(&a, q, k, v, dout, lse, delta, qseg, kvseg, B, Hq, Hkv, Nq,
                  Nk, causal, offset, window, scale, stream))
     return (int)cudaErrorInvalidValue;
+  if (dtype == fa::kFloat32)
+    return (int)dispatch_dkv_f32(D, masked(a), a, dk, dv);
   if (masked(a)) return (int)dispatch_dkv_masked(dtype, D, a, dk, dv);
   return (int)dispatch<Dkv, false>(dtype, D, a, dk, dv);
 }

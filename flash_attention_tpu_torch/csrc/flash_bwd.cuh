@@ -1,7 +1,7 @@
 // The B2 / B3 kernel templates (flash_bwd.cu), instantiated per compute
-// type, head dim and mask flag. flash_bwd.cu holds the unmasked
-// instantiations and the C entry points, flash_bwd_masked.cu the window /
-// segment-id ones.
+// type, head dim and mask flag. flash_bwd.cu holds the unmasked fp16 /
+// bf16 instantiations and the C entry points, flash_bwd_masked.cu the
+// window / segment-id ones, flash_bwd_f32.cu both for fp32 inputs.
 //
 // B2 (dQ) replaces the Pallas TPU kernel flash_attention_tpu/ops/flash.py
 // `_bwd_dq_kernel` (flash.py:716, launched at :949); B3 (dK/dV) replaces
@@ -46,7 +46,9 @@
 // visible pair against ~135 MB of traffic -- ~760 (B2) and ~1020 (B3)
 // FLOPs/byte, far above the card's ~295 bf16 FLOPs/byte, so both are
 // operation-bound. The design keeps every product on the tensor cores
-// (WMMA 16x16x16, bf16/fp16 in, fp32 accumulate) and every intermediate
+// (WMMA 16x16x16, bf16/fp16 in, fp32 accumulate; fp32 inputs take the
+// FFMA warp tiles of common.cuh instead, full fp32 as the JAX kernels'
+// Precision.HIGHEST, at the card's 67 TFLOP/s) and every intermediate
 // (S, dP, P, dS and the fp32 accumulators) in shared memory, so device
 // memory sees each input row once per tile pass and each gradient once.
 // Tiles that see nothing are never loaded: B2's kv loop runs from the
@@ -62,11 +64,13 @@
 // warp-level synchronisation is needed between the loads of the streamed
 // tiles. The accumulators (dQ; dK and dV) live in shared memory, not in
 // WMMA fragments: at D = 128 two accumulators in fragments would take
-// 128 registers a thread. kTile is 64 rows up to D = 128; B3's shared
-// memory is 190,976 bytes at D = 128, past the 48 KB default, so the
-// launch raises the kernel's dynamic limit first (the card allows 227
-// KB). At D = 256 64-row tiles would take 380 KB, so the tiles are 32
-// rows (148,736 bytes for B3).
+// 128 registers a thread. kTile is 64 rows up to 256 bytes of head dim
+// a row (D = 128 in bf16 / fp16, D = 64 in fp32); B3's shared memory is
+// 190,976 bytes at bf16 D = 128, past the 48 KB default, so the launch
+// raises the kernel's dynamic limit first (the card allows 227 KB).
+// Wider rows take 32-row tiles: 148,736 bytes for B3 at bf16 D = 256,
+// 120,064 at fp32 D = 128 and 218,368 at fp32 D = 256 (64-row fp32 tiles
+// would take 272,896 bytes at D = 128).
 //
 // A fast version (wgmma, TMA, a producer warp, double-buffered tiles,
 // accumulators in registers) is later work; this one is simple and
@@ -84,11 +88,13 @@ using namespace nvcuda;
 
 template <typename T, int D>
 struct Layout {
-  static constexpr int kTile = D > 128 ? 32 : 64;   // q and kv tile rows
+  // q and kv tile rows: 64 up to 256 bytes of head dim a row, else 32.
+  static constexpr int kTile = sizeof(T) * D > 256 ? 32 : 64;
   static constexpr int kThreads = 2 * kTile;        // a thread pair a row
-  static constexpr int kLdT = D + 8;        // Q/K/V/dO tile rows (T)
+  static constexpr int kPad = 16 / sizeof(T);       // keeps rows 16-byte
+  static constexpr int kLdT = D + kPad;     // Q/K/V/dO tile rows (T)
   static constexpr int kLdS = kTile + 4;    // S and dP tiles (float)
-  static constexpr int kLdP = kTile + 8;    // P and dS tiles (T)
+  static constexpr int kLdP = kTile + kPad; // P and dS tiles (T)
   static constexpr int kLdA = D + 4;        // fp32 accumulators
   static constexpr size_t kT = sizeof(T) * kTile * kLdT;
   static constexpr size_t kS = sizeof(float) * kTile * kLdS;
@@ -113,63 +119,73 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int r0,
 
 // C[16, kTile] = A[16, D] B^T for one warp: A row-major (stride kLdT), B
 // [kTile, D] row-major (read as a col-major D x kTile operand), C fp32
-// (stride kLdS).
+// (stride kLdS). WMMA for fp16 / bf16, FFMA for fp32.
 template <typename T, int D>
 __device__ __forceinline__ void mm_abt(float* c, const T* a, const T* b) {
   using L = Layout<T, D>;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> af[D / 16];
+  if constexpr (sizeof(T) == 4) {
+    fa::ffma_abt<L::kTile, D>(c, L::kLdS, a, L::kLdT, b, L::kLdT,
+                              threadIdx.x & 31);
+  } else {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major>
+        af[D / 16];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wmma::load_matrix_sync(af[kk], a + kk * 16, L::kLdT);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wmma::load_matrix_sync(af[kk], a + kk * 16, L::kLdT);
 #pragma unroll
-  for (int n = 0; n < L::kTile / 16; ++n) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> cf;
-    wmma::fill_fragment(cf, 0.f);
+    for (int n = 0; n < L::kTile / 16; ++n) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> cf;
+      wmma::fill_fragment(cf, 0.f);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> bf;
-      wmma::load_matrix_sync(bf, b + (n * 16) * L::kLdT + kk * 16, L::kLdT);
-      wmma::mma_sync(cf, af[kk], bf, cf);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> bf;
+        wmma::load_matrix_sync(bf, b + (n * 16) * L::kLdT + kk * 16,
+                               L::kLdT);
+        wmma::mma_sync(cf, af[kk], bf, cf);
+      }
+      wmma::store_matrix_sync(c + n * 16, cf, L::kLdS,
+                              wmma::mem_row_major);
     }
-    wmma::store_matrix_sync(c + n * 16, cf, L::kLdS, wmma::mem_row_major);
   }
 }
 
 // C[16, D] += A[16, kTile] B for one warp: A row-major (stride kLdP), B
-// [kTile, D] row-major (stride kLdT), C fp32 (stride kLdA).
+// [kTile, D] row-major (stride kLdT), C fp32 (stride kLdA). WMMA for
+// fp16 / bf16, FFMA for fp32.
 template <typename T, int D>
 __device__ __forceinline__ void mm_ab_acc(float* c, const T* a,
                                           const T* b) {
   using L = Layout<T, D>;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major>
-      af[L::kTile / 16];
+  if constexpr (sizeof(T) == 4) {
+    fa::ffma_ab<D, L::kTile>(c, L::kLdA, a, L::kLdP, b, L::kLdT, nullptr,
+                             nullptr, threadIdx.x & 31);
+  } else {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major>
+        af[L::kTile / 16];
 #pragma unroll
-  for (int kk = 0; kk < L::kTile / 16; ++kk)
-    wmma::load_matrix_sync(af[kk], a + kk * 16, L::kLdP);
+    for (int kk = 0; kk < L::kTile / 16; ++kk)
+      wmma::load_matrix_sync(af[kk], a + kk * 16, L::kLdP);
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> cf;
-    wmma::load_matrix_sync(cf, c + n * 16, L::kLdA, wmma::mem_row_major);
+    for (int n = 0; n < D / 16; ++n) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> cf;
+      wmma::load_matrix_sync(cf, c + n * 16, L::kLdA, wmma::mem_row_major);
 #pragma unroll
-    for (int kk = 0; kk < L::kTile / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> bf;
-      wmma::load_matrix_sync(bf, b + (kk * 16) * L::kLdT + n * 16, L::kLdT);
-      wmma::mma_sync(cf, af[kk], bf, cf);
+      for (int kk = 0; kk < L::kTile / 16; ++kk) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> bf;
+        wmma::load_matrix_sync(bf, b + (kk * 16) * L::kLdT + n * 16,
+                               L::kLdT);
+        wmma::mma_sync(cf, af[kk], bf, cf);
+      }
+      wmma::store_matrix_sync(c + n * 16, cf, L::kLdA,
+                              wmma::mem_row_major);
     }
-    wmma::store_matrix_sync(c + n * 16, cf, L::kLdA, wmma::mem_row_major);
   }
 }
 
 // Half a row (D / 2 fp32 values of an accumulator) to global memory.
 template <typename T, int D>
 __device__ __forceinline__ void store_half_row(T* dst, const float* src) {
-#pragma unroll
-  for (int d = 0; d < D / 2; d += 8) {
-    float vals[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) vals[i] = src[d + i];
-    *reinterpret_cast<uint4*>(dst + d) = fa::pack8<T>(vals);
-  }
+  fa::store_scaled<T, D / 2>(dst, src, 1.f);
 }
 
 struct Args {
@@ -418,6 +434,7 @@ struct Dq {
   static cudaError_t run(const Args& a, void* dq) {
     using L = Layout<T, D>;
     constexpr size_t kBytes = L::kDqBytes + (Masked ? L::kSeg : 0);
+    static_assert(kBytes <= 232448, "B2 tiles exceed shared memory");
     cudaError_t err = cudaFuncSetAttribute(
         flash_bwd_dq_kernel<T, D, Masked>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBytes);
@@ -434,6 +451,7 @@ struct Dkv {
   static cudaError_t run(const Args& a, void* dk, void* dv) {
     using L = Layout<T, D>;
     constexpr size_t kBytes = L::kDkvBytes + (Masked ? L::kSeg : 0);
+    static_assert(kBytes <= 232448, "B3 tiles exceed shared memory");
     cudaError_t err = cudaFuncSetAttribute(
         flash_bwd_dkv_kernel<T, D, Masked>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBytes);
@@ -446,22 +464,25 @@ struct Dkv {
   }
 };
 
-// Dispatch over (dtype, head dim); F is a launcher templated on both and
-// on the mask flag.
+// Dispatch over the head dim for one compute type T; F is a launcher
+// templated on T, the head dim and the mask flag.
+template <template <typename, int, bool> class F, bool Masked, typename T,
+          typename... Out>
+cudaError_t dispatch_d(int D, const Args& a, Out... out) {
+  if (D == 128) return F<T, 128, Masked>::run(a, out...);
+  if (D == 64) return F<T, 64, Masked>::run(a, out...);
+  if (D == 256) return F<T, 256, Masked>::run(a, out...);
+  if (D == 32) return F<T, 32, Masked>::run(a, out...);
+  return cudaErrorInvalidValue;
+}
+
+// Dispatch over the fp16 / bf16 dtypes and the head dim.
 template <template <typename, int, bool> class F, bool Masked,
           typename... Out>
 cudaError_t dispatch(int dtype, int D, const Args& a, Out... out) {
-  if (dtype == kBFloat16) {
-    if (D == 128) return F<__nv_bfloat16, 128, Masked>::run(a, out...);
-    if (D == 64) return F<__nv_bfloat16, 64, Masked>::run(a, out...);
-    if (D == 256) return F<__nv_bfloat16, 256, Masked>::run(a, out...);
-    if (D == 32) return F<__nv_bfloat16, 32, Masked>::run(a, out...);
-  } else if (dtype == kFloat16) {
-    if (D == 128) return F<__half, 128, Masked>::run(a, out...);
-    if (D == 64) return F<__half, 64, Masked>::run(a, out...);
-    if (D == 256) return F<__half, 256, Masked>::run(a, out...);
-    if (D == 32) return F<__half, 32, Masked>::run(a, out...);
-  }
+  if (dtype == kBFloat16)
+    return dispatch_d<F, Masked, __nv_bfloat16>(D, a, out...);
+  if (dtype == kFloat16) return dispatch_d<F, Masked, __half>(D, a, out...);
   return cudaErrorInvalidValue;
 }
 
@@ -469,6 +490,10 @@ cudaError_t dispatch(int dtype, int D, const Args& a, Out... out) {
 cudaError_t dispatch_dq_masked(int dtype, int D, const Args& a, void* dq);
 cudaError_t dispatch_dkv_masked(int dtype, int D, const Args& a, void* dk,
                                 void* dv);
+// Defined in flash_bwd_f32.cu: fp32 inputs, masked or not.
+cudaError_t dispatch_dq_f32(int D, bool masked, const Args& a, void* dq);
+cudaError_t dispatch_dkv_f32(int D, bool masked, const Args& a, void* dk,
+                             void* dv);
 
 }  // namespace bwd
 }  // namespace fa

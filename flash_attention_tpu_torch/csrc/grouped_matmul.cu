@@ -1,6 +1,8 @@
 // B9: ragged grouped matrix product over expert-sorted rows for Hopper
-// (sm_90a): y[i] = x[i] @ W[g(i)], templated over {fp16, bf16}
-// activations and {dense, int8, e4m3, e5m2, int4} expert stacks.
+// (sm_90a): y[i] = x[i] @ W[g(i)], templated over {fp16, bf16, fp32}
+// activations and {dense, int8, e4m3, e5m2, int4} expert stacks (the
+// kernel template in matmul_kernels.cuh; fp32 instantiated in
+// matmul_f32.cu, products in full fp32 on the CUDA cores).
 //
 // Replaces the Pallas TPU kernel `_grouped_kernel` of
 // flash_attention_tpu/ops/grouped.py (:132, launched at :283), which runs
@@ -44,75 +46,9 @@
 // version keeps B6-B8's 64 x 64 WMMA tile and serial K loop; wgmma,
 // deeper prefetch and a decode-shaped split are the speed work.
 
-#include "matmul_core.cuh"
-
-namespace {
+#include "matmul_kernels.cuh"
 
 using namespace fa_mm;
-
-template <typename T, int W>
-__global__ void __launch_bounds__(kThreads)
-grouped_matmul_kernel(const T* __restrict__ x,
-                      const unsigned char* __restrict__ w,
-                      const float* __restrict__ scale,
-                      const int* __restrict__ offsets, T* __restrict__ y,
-                      int M, int K, int F, int E, int x_vec, int w_vec) {
-  __shared__ __align__(128) unsigned char smem[smem_bytes<T>()];
-  const int f0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * kBM;
-  const int tile_end = min(m0 + kBM, M);
-  // One expert's weight and scale strides.
-  const size_t w_expert =
-      (size_t)(W == kInt4 ? K / 2 : K) * F * weight_bytes<W>();
-  const size_t s_expert = W == kInt4 ? (size_t)(K / kGroup) * F : (size_t)F;
-
-  Acc acc[kBM / 16];
-#pragma unroll
-  for (int g = 0; g < kBM / 16; ++g) wmma::fill_fragment(acc[g], 0.f);
-  for (int e = 0; e < E; ++e) {
-    // Uniform across the block: every thread reads the same offsets.
-    const int lo = max(__ldg(offsets + e), m0);
-    const int hi = min(__ldg(offsets + e + 1), tile_end);
-    if (lo >= hi) continue;
-    accumulate_tile<T, W, true>(
-        x, w + e * w_expert, W == kDense ? nullptr : scale + e * s_expert,
-        lo, hi, K, F, m0, f0, x_vec, w_vec, smem, acc);
-  }
-  store_tile<T>(acc, smem, y, nullptr, M, F, m0, f0);
-}
-
-template <typename T, int W>
-cudaError_t launch(const void* x, const void* w, const void* scale,
-                   const int* offsets, void* y, int M, int K, int F, int E,
-                   cudaStream_t stream) {
-  dim3 grid((F + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  grouped_matmul_kernel<T, W><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const unsigned char*>(w),
-      static_cast<const float*>(scale), offsets, static_cast<T*>(y), M, K,
-      F, E, (int)x_aligned<T>(x, K), (int)w_aligned<W>(w, F));
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_weight(const void* x, const void* w, const void* scale,
-                            const int* offsets, void* y, int M, int K,
-                            int F, int E, int weight, cudaStream_t stream) {
-  switch (weight) {
-    case kDense:
-      return launch<T, kDense>(x, w, scale, offsets, y, M, K, F, E, stream);
-    case kInt8:
-      return launch<T, kInt8>(x, w, scale, offsets, y, M, K, F, E, stream);
-    case kE4M3:
-      return launch<T, kE4M3>(x, w, scale, offsets, y, M, K, F, E, stream);
-    case kE5M2:
-      return launch<T, kE5M2>(x, w, scale, offsets, y, M, K, F, E, stream);
-    case kInt4:
-      return launch<T, kInt4>(x, w, scale, offsets, y, M, K, F, E, stream);
-  }
-  return cudaErrorInvalidValue;
-}
-
-}  // namespace
 
 extern "C" int fa_grouped_matmul(const void* x, const void* w,
                                  const void* scale, const void* offsets,
@@ -125,10 +61,13 @@ extern "C" int fa_grouped_matmul(const void* x, const void* w,
   if (weight == kInt4 && K % kGroup) return (int)cudaErrorInvalidValue;
   const int* offs = static_cast<const int*>(offsets);
   if (dtype == fa::kBFloat16)
-    return (int)dispatch_weight<__nv_bfloat16>(x, w, scale, offs, y, M, K,
-                                               F, E, weight, s);
+    return (int)dispatch_grouped<__nv_bfloat16>(x, w, scale, offs, y, M, K,
+                                                F, E, weight, s);
   if (dtype == fa::kFloat16)
-    return (int)dispatch_weight<__half>(x, w, scale, offs, y, M, K, F, E,
-                                        weight, s);
+    return (int)dispatch_grouped<__half>(x, w, scale, offs, y, M, K, F, E,
+                                         weight, s);
+  if (dtype == fa::kFloat32)
+    return (int)dispatch_grouped_f32(x, w, scale, offs, y, M, K, F, E,
+                                     weight, s);
   return (int)cudaErrorInvalidValue;
 }

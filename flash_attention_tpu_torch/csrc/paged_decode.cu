@@ -45,6 +45,10 @@
 // sources (paged_decode_int8.cu, paged_decode_fp8.cu), so the build runs
 // them in parallel and the dense instantiations below are as before.
 //
+// q may be fp16, bf16 or fp32 (dense pools then in q's dtype); the fp32
+// instantiations compile in paged_decode_f32.cu and
+// paged_decode_f32_fp8.cu.
+//
 // Few blocks (B * Hkv) are in flight at small batch; splitting the pages
 // of a sequence across blocks with a merge pass is the fast shape and is
 // later work.
@@ -78,6 +82,11 @@ extern "C" int fa_paged_decode(const void* q, const void* kpool,
                       static_cast<float*>(lse), B, Hq, Hkv, num_pages,
                       page_size, width, spread, scale,
                       static_cast<cudaStream_t>(stream)};
+  if (dtype == kFloat32) {
+    if (kv_store == kE4M3 || kv_store == kE5M2)
+      return (int)paged::dispatch_f32_fp8(a, D, kv_store);
+    return (int)paged::dispatch_f32(a, D, kv_store, fold != 0);
+  }
   switch (kv_store) {
     case kDense:
       return (int)paged::dispatch<kDense, false>(a, dtype, D);

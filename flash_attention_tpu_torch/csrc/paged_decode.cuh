@@ -1,8 +1,10 @@
 // The B4 kernel template (paged_decode.cu): one 256-thread block per
 // (kv head, sequence) over the body in decode_core.cuh, instantiated per
 // window flag, K/V storage, fold flag, compute type, head dim and row
-// bound. paged_decode.cu holds the dense instantiations and the C entry
-// point; paged_decode_int8.cu and paged_decode_fp8.cu the quantized ones.
+// bound. paged_decode.cu holds the dense fp16 / bf16 instantiations and
+// the C entry point; paged_decode_int8.cu and paged_decode_fp8.cu the
+// quantized ones, paged_decode_f32.cu and paged_decode_f32_fp8.cu those
+// of an fp32 q.
 #pragma once
 
 #include "decode_core.cuh"
@@ -68,41 +70,46 @@ cudaError_t launch(const Args& a) {
 }
 
 // R: the smallest instantiated row bound >= the rows, up to 16; more
-// rows run in groups of 16 (paged_decode_kernel). Quantized storages
-// instantiate 4 and 16 only (the serving models' group of 4, and
+// rows run in groups of 16 (paged_decode_kernel). Quantized storages and
+// fp32 instantiate 4 and 16 only (the serving models' group of 4, and
 // everything wider), which keeps their build short.
 template <int Store, bool Fold, typename T, int D>
 cudaError_t dispatch_rows(const Args& a) {
+  constexpr bool kAllRows = Store == kDense && sizeof(T) == 2;
   const int rows = a.Hq / a.Hkv;
-  if constexpr (Store == kDense) {
+  if constexpr (kAllRows) {
     if (rows <= 2) return launch<Store, Fold, T, D, 2>(a);
   }
   if (rows <= 4) return launch<Store, Fold, T, D, 4>(a);
-  if constexpr (Store == kDense) {
+  if constexpr (kAllRows) {
     if (rows <= 8) return launch<Store, Fold, T, D, 8>(a);
   }
   return launch<Store, Fold, T, D, 16>(a);
 }
 
+template <int Store, bool Fold, typename T>
+cudaError_t dispatch_d(const Args& a, int D) {
+  if (D == 128) return dispatch_rows<Store, Fold, T, 128>(a);
+  if (D == 64) return dispatch_rows<Store, Fold, T, 64>(a);
+  if (D == 256) return dispatch_rows<Store, Fold, T, 256>(a);
+  if (D == 32) return dispatch_rows<Store, Fold, T, 32>(a);
+  return cudaErrorInvalidValue;
+}
+
 template <int Store, bool Fold>
 cudaError_t dispatch(const Args& a, int dtype, int D) {
-  if (dtype == kBFloat16) {
-    if (D == 128) return dispatch_rows<Store, Fold, __nv_bfloat16, 128>(a);
-    if (D == 64) return dispatch_rows<Store, Fold, __nv_bfloat16, 64>(a);
-    if (D == 256) return dispatch_rows<Store, Fold, __nv_bfloat16, 256>(a);
-    if (D == 32) return dispatch_rows<Store, Fold, __nv_bfloat16, 32>(a);
-  } else if (dtype == kFloat16) {
-    if (D == 128) return dispatch_rows<Store, Fold, __half, 128>(a);
-    if (D == 64) return dispatch_rows<Store, Fold, __half, 64>(a);
-    if (D == 256) return dispatch_rows<Store, Fold, __half, 256>(a);
-    if (D == 32) return dispatch_rows<Store, Fold, __half, 32>(a);
-  }
+  if (dtype == kBFloat16) return dispatch_d<Store, Fold, __nv_bfloat16>(a, D);
+  if (dtype == kFloat16) return dispatch_d<Store, Fold, __half>(a, D);
   return cudaErrorInvalidValue;
 }
 
 // Defined in paged_decode_int8.cu and paged_decode_fp8.cu.
 cudaError_t dispatch_int8(const Args& a, int dtype, int D, bool fold);
 cudaError_t dispatch_fp8(const Args& a, int dtype, int D, int store);
+// Defined in paged_decode_f32.cu (dense fp32 and int8 pools) and
+// paged_decode_f32_fp8.cu (e4m3 / e5m2 pools): an fp32 q.
+cudaError_t dispatch_f32(const Args& a, int D, int store, bool fold);
+cudaError_t dispatch_f32_fp8(const Args& a, int D, int store);
 
 }  // namespace paged
 }  // namespace fa

@@ -20,7 +20,9 @@
 // per-channel scale multiplies the fp32 sum once at the store; an int4
 // value is multiplied by its group scale in fp32 and rounded to the
 // activation type before the product. Products are WMMA 16x16x16
-// bf16 / fp16 with fp32 accumulation.
+// bf16 / fp16 with fp32 accumulation; fp32 activations (the JAX
+// kernels' fp32 path) multiply in full fp32 on the CUDA cores, their
+// instantiations compiled in matmul_f32.cu.
 //
 // What bounds it on the H100. Decode (M = 8..16 rows): bytes -- the
 // weight is read once per call and each weight byte does 2 M FLOPs (int8)
@@ -47,61 +49,9 @@
 // cannot fill HBM; split-K and a decode-shaped tile are the fix. At
 // prefill WMMA through shared memory runs far under wgmma's rate.
 
-#include "matmul_core.cuh"
-
-namespace {
+#include "matmul_kernels.cuh"
 
 using namespace fa_mm;
-
-template <typename T, int W>
-__global__ void __launch_bounds__(kThreads)
-quant_matmul_kernel(const T* __restrict__ x,
-                    const unsigned char* __restrict__ w,
-                    const float* __restrict__ scale, T* __restrict__ y,
-                    int M, int K, int F, int x_vec, int w_vec) {
-  __shared__ __align__(128) unsigned char smem[smem_bytes<T>()];
-  const int f0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * kBM;
-  Acc acc[kBM / 16];
-#pragma unroll
-  for (int g = 0; g < kBM / 16; ++g) wmma::fill_fragment(acc[g], 0.f);
-  accumulate_tile<T, W, false>(x, w, scale, 0, M, K, F, m0, f0, x_vec,
-                               w_vec, smem, acc);
-  store_tile<T>(acc, smem, y, channel_scaled<W>() ? scale : nullptr, M, F,
-                m0, f0);
-}
-
-template <typename T, int W>
-cudaError_t launch(const void* x, const void* w, const void* scale, void* y,
-                   int M, int K, int F, cudaStream_t stream) {
-  dim3 grid((F + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  quant_matmul_kernel<T, W><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const unsigned char*>(w),
-      static_cast<const float*>(scale), static_cast<T*>(y), M, K, F,
-      (int)x_aligned<T>(x, K), (int)w_aligned<W>(w, F));
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_weight(const void* x, const void* w, const void* scale,
-                            void* y, int M, int K, int F, int weight,
-                            cudaStream_t stream) {
-  switch (weight) {
-    case kDense:
-      return launch<T, kDense>(x, w, scale, y, M, K, F, stream);
-    case kInt8:
-      return launch<T, kInt8>(x, w, scale, y, M, K, F, stream);
-    case kE4M3:
-      return launch<T, kE4M3>(x, w, scale, y, M, K, F, stream);
-    case kE5M2:
-      return launch<T, kE5M2>(x, w, scale, y, M, K, F, stream);
-    case kInt4:
-      return launch<T, kInt4>(x, w, scale, y, M, K, F, stream);
-  }
-  return cudaErrorInvalidValue;
-}
-
-}  // namespace
 
 extern "C" int fa_quant_matmul(const void* x, const void* w,
                                const void* scale, void* y, int M, int K,
@@ -111,9 +61,11 @@ extern "C" int fa_quant_matmul(const void* x, const void* w,
   if (weight != kDense && scale == nullptr) return (int)cudaErrorInvalidValue;
   if (weight == kInt4 && K % kGroup) return (int)cudaErrorInvalidValue;
   if (dtype == fa::kBFloat16)
-    return (int)dispatch_weight<__nv_bfloat16>(x, w, scale, y, M, K, F,
-                                               weight, s);
+    return (int)dispatch_quant<__nv_bfloat16>(x, w, scale, y, M, K, F,
+                                              weight, s);
   if (dtype == fa::kFloat16)
-    return (int)dispatch_weight<__half>(x, w, scale, y, M, K, F, weight, s);
+    return (int)dispatch_quant<__half>(x, w, scale, y, M, K, F, weight, s);
+  if (dtype == fa::kFloat32)
+    return (int)dispatch_quant_f32(x, w, scale, y, M, K, F, weight, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -33,12 +33,10 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "--expt-relaxed-constexpr"]
 
-# dtype codes shared with csrc/common.cuh
-DTYPE_CODES = {torch.float16: 0, torch.bfloat16: 1}
-# The kernels that also take fp32 inputs (B1's dense forward and the
-# study kernels B10a-c, products in full fp32 on the CUDA cores) take
-# these codes; every other kernel takes DTYPE_CODES only.
-FP32_DTYPE_CODES = {**DTYPE_CODES, torch.float32: 2}
+# dtype codes shared with csrc/common.cuh. Every kernel of B1-B10 takes
+# all three (fp32 products in full fp32 on the CUDA cores, the JAX
+# kernels' Precision.HIGHEST); the probe kernels (P1-P3) take bf16 only.
+DTYPE_CODES = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2}
 
 # Storage codes of int8 / fp8 values (csrc/common.cuh kInt8, kE4M3,
 # kE5M2; 0 is a value in the compute dtype itself).
@@ -89,6 +87,17 @@ _SIGNATURES = {
     # q, k, v, o, B, H, Nq, Nk, D, block_q, block_kv, scale, dtype,
     # stream
     "fa_naive_fwd": [_vp] * 4 + [_i32] * 7 + [_f32, _i32, _vp],
+    # The probes' kernels (flash_attention_tpu_torch/scripts/).
+    # P1: x, w (offset-binary int4), scale, y, M, K, F, variant (1 float
+    # domain, 2 int domain), stream
+    "fa_probe_int4_matmul": [_vp] * 4 + [_i32] * 4 + [_vp],
+    # P2 v2: q, k_pool, v_pool, k scales, v scales, page_table, lengths,
+    # o, lse, B, Hq, Hkv, num_pages, page_size, table_width, D, scale,
+    # stream
+    "fa_probe_paged_int8_v2": [_vp] * 9 + [_i32] * 7 + [_f32, _vp],
+    # P3: x, w (int4), scale, keys (uint64 scratch), ids, values, M, K,
+    # V, chunk, stream
+    "fa_probe_lmhead_argmax": [_vp] * 6 + [_i32] * 4 + [_vp],
 }
 
 

@@ -24,7 +24,7 @@ import torch
 
 from flash_attention_tpu_torch.config import CUDA_HEAD_DIMS
 from flash_attention_tpu_torch.ops import _cuda
-from flash_attention_tpu_torch.ops.flash import INIT_M
+from flash_attention_tpu_torch.ops.flash import INIT_M, acc_dtype
 from flash_attention_tpu_torch.ops.quant import (
     QUANT_BLOCK,
     QuantizedTensor,
@@ -39,6 +39,9 @@ from flash_attention_tpu_torch.ops.quant import (
 decode_launches = 0
 decode_window_launches = 0
 decode_quant_launches = 0
+# Launches of B5 with an fp32 q (dense fp32 caches or any quantized
+# storage; also counted in decode_launches).
+decode_fp32_launches = 0
 
 
 def masked_softmax(s, lengths, starts=None, qpos_spread=1):
@@ -85,35 +88,38 @@ def flash_decode_plain(q, k, v, lengths, *, scale, return_lse=False,
     % qpos_spread). Returns o [B, Hq, D] in q's dtype, or (o, lse [B, Hq]
     fp32) with return_lse; a row that sees nothing gives O = 0 and LSE =
     INIT_M * scale. Quantized caches are dequantized to q's dtype first
-    (flash_decode)."""
+    (flash_decode). fp64 inputs compute in fp64 (the reference of the
+    fp32 kernels' gate on the card)."""
     b, hq, d = q.shape
     hkv = k.shape[1]
-    qg = q.reshape(b, hkv, hq // hkv, d).float()
-    s = torch.einsum("bhgd,bhsd->bhgs", qg, k.float()) * scale
+    acc = acc_dtype(q.dtype)
+    qg = q.reshape(b, hkv, hq // hkv, d).to(acc)
+    s = torch.einsum("bhgd,bhsd->bhgs", qg, k.to(acc)) * scale
     p, l, lse = masked_softmax(s, lengths, starts, qpos_spread)
-    o = torch.einsum("bhgs,bhsd->bhgd", p.to(v.dtype).float(), v.float())
+    o = torch.einsum("bhgs,bhsd->bhgd", p.to(v.dtype).to(acc), v.to(acc))
     return finish_rows(o, l, lse, q.shape, q.dtype, scale, return_lse)
 
 
-def _flash_decode_cuda(q, k, v, lengths, *, scale, window=None,
-                       k_scales=None, v_scales=None):
-    global decode_launches, decode_window_launches, decode_quant_launches
-    b, hq, d = q.shape
-    _, hkv, s, _ = k.shape
-    quantized = k_scales is not None
-    if quantized:
+def _check_decode_cuda(q, k, v, lengths, *, k_scales, v_scales) -> int:
+    """What B5 takes (it launches nothing): an fp16 / bf16 / fp32 q over
+    caches of its dtype or over int8 / fp8 codes with fp32 scales, a
+    built head dim, int32 lengths, one device, contiguous. Returns the
+    storage code (csrc/common.cuh)."""
+    if k_scales is not None:
         if q.dtype not in _cuda.DTYPE_CODES:
-            raise TypeError(f"B5 takes fp16/bf16 q (got {q.dtype})")
+            raise TypeError(f"B5 takes an fp16/bf16/fp32 q (got "
+                            f"{q.dtype})")
         store = check_quant_cuda("B5", (k, v), (k_scales, v_scales))
     elif q.dtype not in _cuda.DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
-        raise TypeError(f"B5 takes fp16/bf16 q and caches of one dtype "
-                        f"(got {q.dtype}, {k.dtype}, {v.dtype})")
+        raise TypeError(f"B5 takes fp16/bf16/fp32 q and caches of one "
+                        f"dtype (got {q.dtype}, {k.dtype}, {v.dtype})")
     else:
         store = 0
-    if d not in CUDA_HEAD_DIMS:
+    if q.shape[-1] not in CUDA_HEAD_DIMS:
         raise NotImplementedError(
-            f"B5 is built for head dims {CUDA_HEAD_DIMS}, got {d}")
+            f"B5 is built for head dims {CUDA_HEAD_DIMS}, got "
+            f"{q.shape[-1]}")
     if lengths.dtype != torch.int32:
         raise TypeError("lengths must be int32")
     for name, t in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):
@@ -121,6 +127,18 @@ def _flash_decode_cuda(q, k, v, lengths, *, scale, window=None,
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return store
+
+
+def _flash_decode_cuda(q, k, v, lengths, *, scale, window=None,
+                       k_scales=None, v_scales=None):
+    global decode_launches, decode_window_launches, decode_quant_launches
+    global decode_fp32_launches
+    b, hq, d = q.shape
+    _, hkv, s, _ = k.shape
+    quantized = k_scales is not None
+    store = _check_decode_cuda(q, k, v, lengths, k_scales=k_scales,
+                               v_scales=v_scales)
     o = torch.empty_like(q)
     if b == 0:
         return o
@@ -133,6 +151,7 @@ def _flash_decode_cuda(q, k, v, lengths, *, scale, window=None,
     decode_launches += 1
     decode_window_launches += window is not None
     decode_quant_launches += quantized
+    decode_fp32_launches += q.dtype == torch.float32
     _cuda.check(code, "decode")
     return o
 

@@ -14,7 +14,7 @@ package's `custom_vjp`). B1 also takes fp32 inputs (dense K/V; both
 products in full fp32, as the JAX kernel's Precision.HIGHEST), and
 `flash_attention_fwd_split` runs it as the two passes of the causal
 split (the JAX kernel's `strict_below` / `diag_band` branches); B2 / B3
-take fp16 / bf16 only.
+take fp16, bf16 and fp32 (FFMA products) with every mask.
 
 Masks combine as in the JAX kernels: with segment ids a column is
 invisible where the q and kv ids differ; under `causal` where col > row +
@@ -79,6 +79,16 @@ flash_bwd_dq_segment_launches = 0
 flash_bwd_dkv_segment_launches = 0
 flash_bwd_dq_window_launches = 0
 flash_bwd_dkv_window_launches = 0
+# Launches of B2 and of B3 on fp32 inputs (each also counted in
+# flash_bwd_dq_launches / flash_bwd_dkv_launches).
+flash_bwd_dq_fp32_launches = 0
+flash_bwd_dkv_fp32_launches = 0
+
+
+def acc_dtype(dtype):
+    """The plain versions' accumulation type: fp64 for fp64 inputs (the
+    reference of the fp32 kernels' gate on the card), else fp32."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
 
 
 @dataclasses.dataclass
@@ -169,7 +179,7 @@ def _masked_fwd_plain(q, k, v, scale, visible):
     column c; None for every pair). fp64 inputs compute in fp64 (the
     reference of the fp32 kernel's gate on the card)."""
     hq, hkv = q.shape[1], k.shape[1]
-    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    acc = acc_dtype(q.dtype)
     kk = torch.repeat_interleave(k, hq // hkv, dim=1).to(acc)
     vv = torch.repeat_interleave(v, hq // hkv, dim=1).to(acc)
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), kk) * scale
@@ -184,16 +194,15 @@ def _masked_fwd_plain(q, k, v, scale, visible):
     o = torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype).to(acc), vv) / l_safe
     lse = torch.where(l > 0, m_safe + torch.log(l_safe),
                       torch.full_like(l, INIT_M * scale))[..., 0]
-    return o.to(q.dtype), lse.float()
+    return o.to(q.dtype), lse.to(acc)
 
 
-def _check_cuda_inputs(kernel, q, k, v, *, codes=_cuda.DTYPE_CODES,
-                       **more):
+def _check_cuda_inputs(kernel, q, k, v, **more):
     """What every CUDA entry point takes: q, k, v (and `more`) of one
-    dtype among `codes` (fp16/bf16; fp32 too for the kernels that have
-    it, _cuda.FP32_DTYPE_CODES), a built head dim, one device,
-    contiguous."""
+    dtype among fp16 / bf16 / fp32 (_cuda.DTYPE_CODES), a built head
+    dim, one device, contiguous."""
     tensors = dict(q=q, k=k, v=v, **more)
+    codes = _cuda.DTYPE_CODES
     if q.dtype not in codes or any(
             t.dtype != q.dtype for t in tensors.values()):
         names = "/".join(str(dt).split(".")[-1] for dt in codes)
@@ -240,9 +249,12 @@ def _flash_fwd_cuda(q, k, v, *, causal, scale, offset, window=None,
     quantized = k_scales is not None
     if quantized:
         _check_cuda_inputs("B1", q, q, q)
+        if q.dtype == torch.float32:
+            raise TypeError("B1 over quantized K/V takes an fp16/bf16 q "
+                            "(got float32)")
         store = check_quant_cuda("B1", (k, v), (k_scales, v_scales))
     else:
-        _check_cuda_inputs("B1", q, k, v, codes=_cuda.FP32_DTYPE_CODES)
+        _check_cuda_inputs("B1", q, k, v)
         store = 0
     qseg, kvseg = _segment_ptrs(segment_ids, q.device)
     o = torch.empty_like(q)
@@ -257,7 +269,7 @@ def _flash_fwd_cuda(q, k, v, *, causal, scale, offset, window=None,
         v_scales.data_ptr() if quantized else None, o.data_ptr(),
         lse.data_ptr(), qseg, kvseg, batch, hq, hkv, nq, nk, d,
         int(causal), offset, int(window or 0), split, band, scale,
-        _cuda.FP32_DTYPE_CODES[q.dtype], store,
+        _cuda.DTYPE_CODES[q.dtype], store,
         _cuda.stream_handle(q.device))
     flash_fwd_launches += 1
     flash_fwd_segment_launches += segment_ids is not None
@@ -387,7 +399,8 @@ def _bwd_delta(o, do):
     """delta = rowsum(dO * O) in fp32, [B, Hq, Nq]: computed before the
     backward kernels, as the JAX package does in XLA outside its Pallas
     kernels (flash.py:879-881)."""
-    return (do.float() * o.float()).sum(dim=-1)
+    acc = acc_dtype(o.dtype)
+    return (do.to(acc) * o.to(acc)).sum(dim=-1)
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=False,
@@ -401,13 +414,14 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=False,
     rounded to dO's dtype before the dV product and dS to the input
     dtype before the dQ and dK products. GQA gradients are summed over
     the q heads of each group. Returns (dq, dk, dv) in the inputs'
-    dtypes."""
+    dtypes; fp64 inputs compute in fp64."""
     batch, hq, nq, d = q.shape
     hkv, nk = k.shape[1], k.shape[2]
     group = hq // hkv
-    kk = torch.repeat_interleave(k, group, dim=1).float()
-    vv = torch.repeat_interleave(v, group, dim=1).float()
-    qf, dof = q.float(), do.float()
+    acc = acc_dtype(q.dtype)
+    kk = torch.repeat_interleave(k, group, dim=1).to(acc)
+    vv = torch.repeat_interleave(v, group, dim=1).to(acc)
+    qf, dof = q.to(acc), do.to(acc)
     delta = _bwd_delta(o, do)
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kk)
     p = torch.exp(s * scale - lse[..., None])
@@ -416,10 +430,10 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=False,
     if visible is not None:
         p = torch.where(visible, p, torch.zeros_like(p))
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vv)
-    ds = (p * (dp - delta[..., None]) * scale).to(q.dtype).float()
+    ds = (p * (dp - delta[..., None]) * scale).to(q.dtype).to(acc)
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kk)
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
-    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(do.dtype).float(), dof)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(do.dtype).to(acc), dof)
     dk = dk.reshape(batch, hkv, group, nk, d).sum(dim=2)
     dv = dv.reshape(batch, hkv, group, nk, d).sum(dim=2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
@@ -442,11 +456,12 @@ def _bwd_dq_cuda(q, k, v, do, lse, delta, **kw):
     """Launch B2; returns dq. kw: causal, scale, offset, window,
     segment_ids."""
     global flash_bwd_dq_launches, flash_bwd_dq_segment_launches
-    global flash_bwd_dq_window_launches
+    global flash_bwd_dq_window_launches, flash_bwd_dq_fp32_launches
     dq = torch.empty_like(q)
     code = _launch_bwd("fa_flash_bwd_dq", q, k, v, do, lse, delta, (dq,),
                        **kw)
     flash_bwd_dq_launches += 1
+    flash_bwd_dq_fp32_launches += q.dtype == torch.float32
     flash_bwd_dq_segment_launches += kw.get("segment_ids") is not None
     flash_bwd_dq_window_launches += kw.get("window") is not None
     _cuda.check(code, "flash_bwd_dq")
@@ -456,11 +471,12 @@ def _bwd_dq_cuda(q, k, v, do, lse, delta, **kw):
 def _bwd_dkv_cuda(q, k, v, do, lse, delta, **kw):
     """Launch B3; returns (dk, dv). kw as _bwd_dq_cuda's."""
     global flash_bwd_dkv_launches, flash_bwd_dkv_segment_launches
-    global flash_bwd_dkv_window_launches
+    global flash_bwd_dkv_window_launches, flash_bwd_dkv_fp32_launches
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     code = _launch_bwd("fa_flash_bwd_dkv", q, k, v, do, lse, delta,
                        (dk, dv), **kw)
     flash_bwd_dkv_launches += 1
+    flash_bwd_dkv_fp32_launches += q.dtype == torch.float32
     flash_bwd_dkv_segment_launches += kw.get("segment_ids") is not None
     flash_bwd_dkv_window_launches += kw.get("window") is not None
     _cuda.check(code, "flash_bwd_dkv")

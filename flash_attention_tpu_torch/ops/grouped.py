@@ -25,8 +25,8 @@ type before the product, an int4 value by its group scale likewise.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 PyTorch version beside each wrapper, which does the kernel's roundings.
-The kernel takes fp16 / bf16 activations; the plain versions also take
-fp32. The offsets stay on the device: the kernel's grid is sized from M
+The kernel and the plain versions take fp16, bf16 and fp32 activations
+(fp32 products in full fp32 on the CUDA cores). The offsets stay on the device: the kernel's grid is sized from M
 and F, never from the group sizes. Three devices of the TPU kernel have
 no counterpart: its visit plan (`make_visit_plan`, the TPU grid's
 schedule), its padding of x and w (the kernel masks its loads) and the
@@ -48,6 +48,8 @@ from flash_attention_tpu_torch.ops.quant_matmul import (
 
 # Launches of the B9 kernel (incremented only where it is launched).
 grouped_matmul_launches = 0
+# Launches of B9 on fp32 activations (also counted above).
+grouped_matmul_fp32_launches = 0
 
 
 def _offsets(group_sizes, base=None) -> torch.Tensor:
@@ -123,7 +125,7 @@ def grouped_matmul_reference(x, group_sizes, w):
 
 
 def _grouped_cuda(x, group_sizes, w, scale, base, weight_code):
-    global grouped_matmul_launches
+    global grouped_matmul_launches, grouped_matmul_fp32_launches
     _check_cuda("B9", x, group_sizes=group_sizes, w=w,
                 **({} if scale is None else {"scale": scale}))
     if scale is not None and scale.dtype != torch.float32:
@@ -141,6 +143,7 @@ def _grouped_cuda(x, group_sizes, w, scale, base, weight_code):
         _cuda.stream_handle(x.device))
     _cuda.check(code, "grouped_matmul")
     grouped_matmul_launches += 1
+    grouped_matmul_fp32_launches += x.dtype == torch.float32
     return y
 
 
@@ -173,7 +176,7 @@ def _check_groups(group_sizes, e):
 def grouped_matmul(x, group_sizes, w, *, base=None):
     """y[i] = x[i] @ w[g(i)] for rows sorted by group.
 
-    x: [M, K] fp16/bf16 (fp32 on the CPU); group_sizes: [E] int; w:
+    x: [M, K] fp16/bf16/fp32; group_sizes: [E] int; w:
     [E, K, F] dense; base: optional row offset of group 0 (int or 0-d
     tensor). Rows outside [base, base + sum(group_sizes)) come back 0.
     """

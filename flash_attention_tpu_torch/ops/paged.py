@@ -48,6 +48,9 @@ paged_decode_launches = 0
 paged_decode_window_launches = 0
 paged_decode_quant_launches = 0
 paged_decode_fold_launches = 0
+# Launches of B4 with an fp32 q (dense fp32 pools or any quantized
+# storage; also counted in paged_decode_launches).
+paged_decode_fp32_launches = 0
 
 
 def _gather(pool, page_table):
@@ -118,24 +121,25 @@ def paged_flash_decode_plain(q, k_pool, v_pool, page_table, lengths, *,
     return flash_decode_plain(q, k, v, lengths, return_lse=True, **kw)
 
 
-def _paged_decode_cuda(q, k_pool, v_pool, page_table, lengths, *, scale,
-                       starts=None, qpos_spread=1, k_scales=None,
-                       v_scales=None, fold_scales=False):
-    global paged_decode_launches, paged_decode_window_launches
-    global paged_decode_quant_launches, paged_decode_fold_launches
-    b, hq, d = q.shape
-    hkv, num_pages, page_size, _ = k_pool.shape
-    rows = hq // hkv
-    quantized = k_scales is not None
-    if quantized:
+def _check_paged_cuda(q, k_pool, v_pool, page_table, lengths, *, starts,
+                      qpos_spread, k_scales, v_scales) -> int:
+    """What B4 takes (it launches nothing): an fp16 / bf16 / fp32 q over
+    pools of its dtype or over int8 / fp8 codes with fp32 scales, a built
+    head dim, int32 tables, one device, contiguous. Returns the storage
+    code (csrc/common.cuh)."""
+    d = q.shape[-1]
+    rows = q.shape[1] // k_pool.shape[0]
+    if k_scales is not None:
         if q.dtype not in _cuda.DTYPE_CODES:
-            raise TypeError(f"B4 takes fp16/bf16 q (got {q.dtype})")
+            raise TypeError(f"B4 takes an fp16/bf16/fp32 q (got "
+                            f"{q.dtype})")
         store = check_quant_cuda("B4", (k_pool, v_pool),
                                  (k_scales, v_scales))
     elif q.dtype not in _cuda.DTYPE_CODES or k_pool.dtype != q.dtype \
             or v_pool.dtype != q.dtype:
-        raise TypeError(f"B4 takes fp16/bf16 q and pools of one dtype "
-                        f"(got {q.dtype}, {k_pool.dtype}, {v_pool.dtype})")
+        raise TypeError(f"B4 takes fp16/bf16/fp32 q and pools of one "
+                        f"dtype (got {q.dtype}, {k_pool.dtype}, "
+                        f"{v_pool.dtype})")
     else:
         store = 0
     if d not in CUDA_HEAD_DIMS:
@@ -156,6 +160,21 @@ def _paged_decode_cuda(q, k_pool, v_pool, page_table, lengths, *, scale,
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return store
+
+
+def _paged_decode_cuda(q, k_pool, v_pool, page_table, lengths, *, scale,
+                       starts=None, qpos_spread=1, k_scales=None,
+                       v_scales=None, fold_scales=False):
+    global paged_decode_launches, paged_decode_window_launches
+    global paged_decode_quant_launches, paged_decode_fold_launches
+    global paged_decode_fp32_launches
+    b, hq, d = q.shape
+    hkv, num_pages, page_size, _ = k_pool.shape
+    quantized = k_scales is not None
+    store = _check_paged_cuda(q, k_pool, v_pool, page_table, lengths,
+                              starts=starts, qpos_spread=qpos_spread,
+                              k_scales=k_scales, v_scales=v_scales)
     o = torch.empty_like(q)
     lse = torch.empty((b, hq), dtype=torch.float32, device=q.device)
     if b == 0:
@@ -174,6 +193,7 @@ def _paged_decode_cuda(q, k_pool, v_pool, page_table, lengths, *, scale,
     paged_decode_window_launches += starts is not None
     paged_decode_quant_launches += quantized
     paged_decode_fold_launches += fold_scales
+    paged_decode_fp32_launches += q.dtype == torch.float32
     _cuda.check(code, "paged_decode")
     return o, lse
 

@@ -18,8 +18,9 @@ templated over the weight's storage:
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 PyTorch version beside each wrapper, which does the kernel's roundings.
-The kernel takes fp16 / bf16 activations; the plain versions also take
-fp32 (the CPU parity tests run in fp32).
+The kernel and the plain versions take fp16, bf16 and fp32 activations
+(fp32 products in full fp32 on the CUDA cores; B8's weight in the
+activation's dtype).
 
 `quantize_weight` and `quantize_weight_int4` are numpy computations, as
 in the JAX package, and give the same bytes and scales.
@@ -44,6 +45,10 @@ INT4_GROUP = 128   # logical K rows per int4 scale group
 quant_matmul_launches = 0
 int4_matmul_launches = 0
 dense_matmul_launches = 0
+# Launches of each on fp32 activations (also counted above).
+quant_matmul_fp32_launches = 0
+int4_matmul_fp32_launches = 0
+dense_matmul_fp32_launches = 0
 
 
 # --- plain versions ------------------------------------------------------
@@ -95,10 +100,10 @@ def dense_matmul_plain(x, w):
 
 
 def _check_cuda(kernel, x, **tensors):
-    """What the kernel takes: fp16 / bf16 activations, every tensor on
-    x's device and contiguous."""
+    """What the kernel takes: fp16 / bf16 / fp32 activations, every
+    tensor on x's device and contiguous."""
     if x.dtype not in _cuda.DTYPE_CODES:
-        raise TypeError(f"{kernel} takes fp16/bf16 activations, got "
+        raise TypeError(f"{kernel} takes fp16/bf16/fp32 activations, got "
                         f"{x.dtype}")
     for name, t in dict(x=x, **tensors).items():
         if t.device != x.device:
@@ -123,35 +128,38 @@ def _launch(kernel, x, w, scale, weight_code):
 
 
 def _quant_matmul_cuda(x, w_q, w_scale):
-    global quant_matmul_launches
+    global quant_matmul_launches, quant_matmul_fp32_launches
     _check_cuda("B6", x, w_q=w_q, w_scale=w_scale)
     if w_scale.dtype != torch.float32:
         raise TypeError("B6 takes fp32 scales")
     y = _launch("quant_matmul", x, w_q, w_scale,
                 _cuda.WEIGHT_CODES[w_q.dtype])
     quant_matmul_launches += 1
+    quant_matmul_fp32_launches += x.dtype == torch.float32
     return y
 
 
 def _int4_matmul_cuda(x, w_packed, w_scales):
-    global int4_matmul_launches
+    global int4_matmul_launches, int4_matmul_fp32_launches
     _check_cuda("B7", x, w_packed=w_packed, w_scales=w_scales)
     if w_scales.dtype != torch.float32:
         raise TypeError("B7 takes fp32 scales")
     y = _launch("int4_matmul", x, w_packed, w_scales,
                 _cuda.WEIGHT_CODES["int4"])
     int4_matmul_launches += 1
+    int4_matmul_fp32_launches += x.dtype == torch.float32
     return y
 
 
 def _dense_matmul_cuda(x, w):
-    global dense_matmul_launches
+    global dense_matmul_launches, dense_matmul_fp32_launches
     _check_cuda("B8", x, w=w)
     if w.dtype != x.dtype:
         raise TypeError(f"B8 takes a weight of the activation's dtype "
                         f"({x.dtype}), got {w.dtype}")
     y = _launch("dense_matmul", x, w, None, _cuda.WEIGHT_CODES["dense"])
     dense_matmul_launches += 1
+    dense_matmul_fp32_launches += x.dtype == torch.float32
     return y
 
 
@@ -169,7 +177,7 @@ def _dispatch(x, cuda_fn, plain_fn, *args):
 def quant_matmul(x, w_q, w_scale):
     """y[m, f] = x[m, k] @ (w_q[k, f] * w_scale[f]).
 
-    x: fp16/bf16 (fp32 on the CPU); w_q: int8, float8_e4m3fn or
+    x: fp16/bf16/fp32; w_q: int8, float8_e4m3fn or
     float8_e5m2; w_scale: fp32 per output channel.
     """
     m, k = x.shape
@@ -190,7 +198,7 @@ int8_matmul = quant_matmul
 def int4_matmul(x, w_packed, w_scales):
     """y[m, f] = x[m, k] @ dequant(w_packed, w_scales).
 
-    x: fp16/bf16 (fp32 on the CPU) [M, K]; w_packed: int8 [K/2, F];
+    x: fp16/bf16/fp32 [M, K]; w_packed: int8 [K/2, F];
     w_scales: fp32 [K/INT4_GROUP, F]. K must be a multiple of
     INT4_GROUP.
     """

@@ -211,7 +211,7 @@ def flash_attention_fa1_plain(q, k, v, *, scale, block_kv):
 
 def _fa1_cuda(q, k, v, *, scale, tile):
     global fa1_launches
-    _check_cuda_inputs("B10a", q, k, v, codes=_cuda.FP32_DTYPE_CODES)
+    _check_cuda_inputs("B10a", q, k, v)
     batch, h, nq, d = q.shape
     nk = k.shape[2]
     o = torch.empty_like(q)
@@ -222,7 +222,7 @@ def _fa1_cuda(q, k, v, *, scale, tile):
     code = _cuda.lib().fa_fa1_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         m.data_ptr(), l.data_ptr(), batch, h, nq, nk, d, tile[0], tile[1],
-        scale, _cuda.FP32_DTYPE_CODES[q.dtype],
+        scale, _cuda.DTYPE_CODES[q.dtype],
         _cuda.stream_handle(q.device))
     fa1_launches += 1
     _cuda.check(code, "fa1_fwd")
@@ -297,7 +297,7 @@ def flash_attention_fa2_inloop_plain(q, k, v, *, causal, scale, block_kv):
 
 def _fa2_cuda(q, k, v, *, causal, scale, tile):
     global fa2_inloop_launches
-    _check_cuda_inputs("B10b", q, k, v, codes=_cuda.FP32_DTYPE_CODES)
+    _check_cuda_inputs("B10b", q, k, v)
     batch, hq, nq, d = q.shape
     hkv, nk = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
@@ -306,7 +306,7 @@ def _fa2_cuda(q, k, v, *, causal, scale, tile):
     code = _cuda.lib().fa_fa2_inloop_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), batch, hq,
         hkv, nq, nk, d, tile[0], tile[1], int(causal), scale,
-        _cuda.FP32_DTYPE_CODES[q.dtype], _cuda.stream_handle(q.device))
+        _cuda.DTYPE_CODES[q.dtype], _cuda.stream_handle(q.device))
     fa2_inloop_launches += 1
     _cuda.check(code, "fa2_inloop_fwd")
     return o
@@ -369,7 +369,7 @@ def naive_attention_plain(q, k, v, *, scale, block_kv):
 
 def _naive_cuda(q, k, v, *, scale, tile):
     global naive_launches
-    _check_cuda_inputs("B10c", q, k, v, codes=_cuda.FP32_DTYPE_CODES)
+    _check_cuda_inputs("B10c", q, k, v)
     batch, h, nq, d = q.shape
     nk = k.shape[2]
     o = torch.empty_like(q)
@@ -377,7 +377,7 @@ def _naive_cuda(q, k, v, *, scale, tile):
         return o
     code = _cuda.lib().fa_naive_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), batch, h,
-        nq, nk, d, tile[0], tile[1], scale, _cuda.FP32_DTYPE_CODES[q.dtype],
+        nq, nk, d, tile[0], tile[1], scale, _cuda.DTYPE_CODES[q.dtype],
         _cuda.stream_handle(q.device))
     naive_launches += 1
     _cuda.check(code, "naive_fwd")

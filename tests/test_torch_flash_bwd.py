@@ -212,8 +212,11 @@ def test_bwd_cuda_wrapper_rejects_what_the_kernels_do_not_take(case, exc):
     lse = torch.zeros(1, 4, 64)
     args = dict(q=q, k=k, v=k, o=q, lse=lse, do=q)
     if case == "fp32":
-        args.update(q=q.float(), k=k.float(), v=k.float(), o=q.float(),
-                    do=q.float())
+        # fp32 is the kernels' (FFMA products); fp64 is not.
+        tflash._check_cuda_inputs("B2/B3", q.float(), k.float(), k.float(),
+                                  o=q.float(), do=q.float())
+        args.update(q=q.double(), k=k.double(), v=k.double(), o=q.double(),
+                    do=q.double())
     elif case == "mixed_dtype":
         args["do"] = q.half()
     elif case == "head_dim_48":

@@ -59,6 +59,17 @@ def test_ast_rule_covers_the_study_harness():
             "utils/bench.py"} <= names
 
 
+def test_ast_rule_covers_the_probe_scripts():
+    """The import rule walks the port's probes (scripts/) too: they
+    keep their own copies of what the JAX probes take from the JAX
+    package."""
+    names = {str(p.relative_to(PKG)) for p in _sources()
+             if PKG in p.parents}
+    assert {"scripts/__init__.py", "scripts/_common.py",
+            "scripts/probe_int4_variants.py", "scripts/probe_paged_int8.py",
+            "scripts/probe_lmhead_argmax.py"} <= names
+
+
 @pytest.mark.parametrize("path", _sources(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):

@@ -230,8 +230,10 @@ def test_cuda_wrappers_reject_what_the_kernel_does_not_take(case):
     x = torch.zeros(4, 256, dtype=torch.bfloat16)
     q, s = tqm.quantize_weight(np.ones((256, 8), np.float32))
     if case == "fp32":
-        with pytest.raises(TypeError, match="fp16/bf16"):
-            tqm._quant_matmul_cuda(x.float(), q, s)
+        # fp32 activations are the kernel's (FFMA products); fp64 is not.
+        tqm._check_cuda("B6", x.float(), w_q=q, w_scale=s)
+        with pytest.raises(TypeError, match="fp16/bf16/fp32"):
+            tqm._quant_matmul_cuda(x.double(), q, s)
     elif case == "device":
         with pytest.raises(ValueError, match="on"):
             tqm._int4_matmul_cuda(x, q.to("meta"), s)
