@@ -12,7 +12,9 @@ Phases, each fatal on failure:
              other instantiations (the low-precision gate: kernel error
              <= 3x the plain version's error in the same dtype against an
              fp32 reference, LSE within 1e-3); B2/B3 must also give
-             identical bits on a rerun;
+             identical bits on a rerun; B1 causal and B10c at q [1, 32,
+             8192, 128] and B1 at ragged lengths across its tile edges
+             (check_flash_long);
   3. time    each kernel, its plain version and (where one exists) the
              one PyTorch call that computes the same function, with CUDA
              events; the bound is the larger of bytes / 3.35 TB/s and
@@ -3601,6 +3603,94 @@ def check_study_kernels(rng, flush) -> dict:
     return out
 
 
+# B1's ragged cases across the Hopper body's tile edges (64-row
+# consumer warpgroups, 128-row blocks and kv tiles, 64 at D = 256):
+# (Hq, Hkv, Nq, Nk, offset), each at D = 32 / 128 / 256.
+LONG_RAGGED = ((4, 1, 77, 131, 54), (4, 2, 200, 200, 0), (8, 1, 200, 333, 0))
+
+
+def check_flash_long(rng, flush, results):
+    """B1 dense causal at (1, 32, 8192, 128) and (1, 32/8, 8192, 128) and
+    B10c at (1, 32, 8192, 128), bf16: the 3x gate against the fp32
+    reference (by kv group; B1's LSE within 1e-3), each timed beside its
+    bound, plain version and SDPA; then B1 at ragged lengths across its
+    tile edges (LONG_RAGGED, bf16 and fp16) under the same gate."""
+    from flash_attention_tpu_torch.ops import flash, variants
+    from flash_attention_tpu_torch.utils.metrics import (
+        max_abs_error, verify_low_precision,
+    )
+
+    b, h, n, d = STUDY_SHAPE
+    sc = d ** -0.5
+    kw = dict(causal=True, scale=sc, offset=0)
+    for hkv in (h, STUDY_GQA_KV):
+        q = randn(rng, (b, h, n, d), torch.bfloat16)
+        k = randn(rng, (b, hkv, n, d), torch.bfloat16)
+        v = randn(rng, (b, hkv, n, d), torch.bfloat16)
+        o, lse = flash.flash_attention_fwd(q, k, v, causal=True)
+        lo = by_kv_group(flash.flash_attention_fwd_plain, q, k, v, **kw)
+        hi = by_kv_group(flash.flash_attention_fwd_plain, q.float(),
+                         k.float(), v.float(), **kw)
+        torch.cuda.synchronize()
+        ok, kerr, berr = verify_low_precision(o, hi[0], lo[0])
+        lse_err = max_abs_error(lse, hi[1])
+        what = f"B1 flash_fwd causal q({b},{h},{n},{d}) kv({hkv}) bf16"
+        log(f"check {what}: kernel_err={kerr:.3e} plain_err={berr:.3e} "
+            f"lse_err={lse_err:.3e}")
+        if not (ok and lse_err <= 1e-3
+                and bool(torch.isfinite(o.float()).all())):
+            raise AssertionError(f"{what} failed its gate")
+        err = max_abs_error(o, lo[0])
+        del lo, hi
+        flops, nbytes = flash.fwd_cost(b, h, hkv, n, n, d, True, 2)
+        results[("flash_long", hkv)] = dict(
+            max_abs_err=err, shape=f"q({b},{h},{n},{d}) kv({b},{hkv},{n},"
+                                   f"{d}) causal bf16",
+            **_timed_row(
+                what, lambda: flash.flash_attention_fwd(q, k, v, causal=True),
+                lambda: by_kv_group(flash.flash_attention_fwd_plain, q, k, v,
+                                    **kw),
+                lambda: _sdpa(q, k, v, True), flush, flops, nbytes,
+                PEAK_BF16_FLOPS, plain_iters=2))
+        del q, k, v, o, lse
+        torch.cuda.empty_cache()
+
+    (q, k, v), err = _study_case(rng, "B10c", torch.bfloat16, b, h, h, n, d)
+    kern, plain = _study_fns("B10c")
+    flops, nbytes = variants.study_cost(b, h, h, n, n, d, False, 2)
+    results[("naive_long", h)] = dict(
+        max_abs_err=err, shape=f"q({b},{h},{n},{d}) bf16",
+        **_timed_row(f"B10c bf16 q({b},{h},{n},{d})", lambda: kern(q, k, v),
+                     lambda: plain(q, k, v), lambda: _sdpa(q, k, v), flush,
+                     flops, nbytes, PEAK_BF16_FLOPS, plain_iters=2))
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    for dt in (torch.bfloat16, torch.float16):
+        for d in (32, 128, 256):
+            for hq, hkv, nq, nk, off in LONG_RAGGED:
+                q = randn(rng, (1, hq, nq, d), dt)
+                k = randn(rng, (1, hkv, nk, d), dt)
+                v = randn(rng, (1, hkv, nk, d), dt)
+                o, lse = flash.flash_attention_fwd(q, k, v, causal=True,
+                                                   offset=off)
+                rkw = dict(causal=True, scale=d ** -0.5, offset=off)
+                lo = flash.flash_attention_fwd_plain(q, k, v, **rkw)
+                hi = flash.flash_attention_fwd_plain(q.float(), k.float(),
+                                                     v.float(), **rkw)
+                torch.cuda.synchronize()
+                ok, kerr, berr = verify_low_precision(o, hi[0], lo[0])
+                lse_err = max_abs_error(lse, hi[1])
+                what = (f"B1 flash_fwd {str(dt).split('.')[-1]} causal "
+                        f"q(1,{hq},{nq},{d}) kv(1,{hkv},{nk},{d}) "
+                        f"offset {off}")
+                log(f"check {what}: kernel_err={kerr:.3e} "
+                    f"plain_err={berr:.3e} lse_err={lse_err:.3e}")
+                if not (ok and lse_err <= 1e-3
+                        and bool(torch.isfinite(o.float()).all())):
+                    raise AssertionError(f"{what} failed its gate")
+
+
 def _flash_fp32_case(rng, b, hq, hkv, n, d):
     """B1 on fp32 inputs, causal: the 3x gate against the fp64 plain
     version (LSE within 1e-3). Returns ((q, k, v), max-abs difference
@@ -4061,6 +4151,8 @@ def check_kernels() -> dict:
     check_paged_quant(rng, flush, results)
     check_decode_quant(rng, flush, results)
     check_flash_quant(rng, flush, results)
+    torch.cuda.synchronize()
+    check_flash_long(rng, flush, results)
     torch.cuda.synchronize()
     check_bwd_branches(rng, flush, results)
     check_head_dims(rng, flush, results)
@@ -4552,6 +4644,10 @@ def main() -> int:
                                **by_path(bpaths, "flash")},
              **results[("flash", 512)],
              at_train_shape=results["flash_train"],
+             at_long_context={"causal MHA":
+                              results[("flash_long", STUDY_SHAPE[1])],
+                              "causal GQA 32/8":
+                              results[("flash_long", STUDY_GQA_KV)]},
              at_head_dims=head_dims("B1")),
         # B1's branches, each with the launches its own counter saw on
         # the paths (a roll-buffer launch takes both).

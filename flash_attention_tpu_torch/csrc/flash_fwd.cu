@@ -13,70 +13,79 @@
 // segment ids (qseg [B, Nq], kvseg [B, Nk], both or neither) hide pairs
 // whose ids differ. offset may exceed Nk - Nq (the rolling-buffer
 // prefill passes offset = Nk). A row that sees nothing exports O = 0
-// and LSE = INIT_M * scale, which every LSE merge weights 0.
-// Ragged Nq and Nk are masked here: tile rows past the end load as zeros
-// and are never stored, so the host pads nothing.
+// and LSE = INIT_M * scale, which every LSE merge weights 0. Ragged Nq
+// and Nk need no host padding: the tensor maps are 3-D per head, so
+// tile rows past a head's end read as zeros, and rows past Nq are never
+// stored.
 //
-// What bounds it on the H100: at the prefill shapes (T = 512..1024, 16
-// q heads, D = 128) the causal work is 2*Hq*T^2*D FLOPs against
-// 2*(2*Hq + 2*Hkv)*T*D bytes -- about 300 FLOPs/byte at T = 1000, so the
-// tensor cores, not HBM, are the limit beyond T ~ 1000. The design keeps
-// every product on the tensor cores (WMMA 16x16x16 with fp32
-// accumulation) and every intermediate (S, P, the running O) in shared
-// memory, so HBM sees each Q/K/V row once per q tile and O once. The
-// kv loop starts at the first tile inside the window of the tile's first
-// row (_first_window_block, flash.py:160) and stops at the causal limit
-// of its last row, so skipped tiles cost nothing: windowed prefill reads
-// O(window) K/V rows per q tile, not O(Nk). Segment ids are read per K/V
-// tile into shared memory beside it.
-//
-// Layout: one 128-thread block (4 warps) per (q tile of 64 rows, q head,
-// batch). Q fragments stay in registers; 64-row K/V tiles stream through
-// shared memory. Warp w owns S/P/O rows 16w..16w+15 and thread pair
-// (2r, 2r+1) owns the softmax statistics of row r, so after each K/V
-// tile lands only warp-level synchronisation is needed. The softmax is
-// the textbook exp2 recurrence with the scale folded into the exp2
-// constant; m, l and O stay in fp32, P is rounded to the input dtype for
-// the PV product (the JAX kernel's numerics).
+// What bounds it on the H100: causal prefill and training do 2 Hq T^2 D
+// FLOPs against 2 (2 Hq + 2 Hkv) T D bytes, some 300 FLOPs a byte at T =
+// 1000 and 2500 at T = 8192, so the tensor cores (989 TFLOP/s) are the
+// limit, and next to them the 16 exp2 a clock of an SM's special
+// function units (one per score) and the L2 traffic of re-reading each
+// K/V tile once per q tile. The design (sm90_attn.cuh holds its shared
+// pieces):
+// - Both products are wgmma with fp32 accumulators in registers: S = Q
+//   K^T (m64 x kBC x 16, Q and K from swizzled shared memory) and O += P
+//   V (m64 x D x 16, P from registers in the accumulator's own layout, V
+//   MN-major as stored). Nothing of S, P or O touches shared memory.
+// - A block is two consumer warpgroups of 64 q rows (128 rows a block,
+//   so each K/V tile read from L2 feeds 128 rows) and one producer warp,
+//   whose one thread keeps a 2-stage ring of 128-row K/V tiles in flight
+//   with TMA and full / empty mbarriers, so loads overlap the products.
+//   Such a block gets 168 registers a thread; at D = 256 (O alone is 128
+//   registers) a block is one consumer warpgroup with 64-row K/V tiles.
+// - The softmax runs on the accumulator fragment: a row lies on the 4
+//   threads of a quad, so its max is two shuffles; m and the row sum l
+//   are fp32, O is rescaled by alpha in registers, P is rounded to T in
+//   registers (the JAX kernel's numerics), exp2 with the scale folded
+//   in. O is normalised by 1 / l at the end.
+// - Masks are selects on the score registers, applied only to tiles
+//   that need them: the causal diagonal, a window edge, segment ids, a
+//   split bound, the ragged Nk tail. The kv loop runs from the first
+//   tile inside the window of the block's first row
+//   (_first_window_block, flash.py:160) to the causal limit of its last
+//   row, so windowed prefill reads O(window) K/V rows a q tile; each
+//   consumer warpgroup skips the tiles outside its own rows' range.
+// - The last q tiles (the longest causal rows) launch first.
 //
 // Quantized K/V (the TPU kernel's `quantized` branch with
 // `_dequant_tile`, flash.py:244-255, :303-304; the entry point is
-// flash_attention_quantized): codes [B, Hkv, Nk, D] in int8 / e4m3 / e5m2
-// with fp32 scales [B, Hkv, Nk / 128, D]. The K/V tile loader reads each
-// row's codes (8 bytes per 8 values), widens them in registers, multiplies
-// by the scale row of the row's 128-token block (scales[b, hk, row / 128,
-// :]) in fp32 and stores the product rounded to T into the shared-memory
-// tile that the WMMA loop reads, as the JAX kernel rounds the dequantized
-// tile to the compute dtype. Nothing else in the body changes; a 64-row
-// tile lies inside one 128-row scale block. The storages compile in
-// flash_fwd_quant.cu, apart from the dense instantiations here.
+// flash_attention_quantized): codes [B, Hkv, Nk, D] in int8 / e4m3 /
+// e5m2 with fp32 scales [B, Hkv, Nk / 128, D]. The 1-byte codes arrive
+// by TMA in a ring of their own; four converter warps in place of the
+// producer warp (their thread 0 issues the loads) widen each code times
+// the scale row of its 128-row block (read once a tile) in fp32, round
+// to T and store the swizzled T tile the products read -- the rounding
+// of the plain
+// version's dequantized tile, as the JAX kernel rounds the dequantized
+// tile to the compute dtype. The conversion runs beside the consumers'
+// products, a tile ahead. The storages compile in flash_fwd_int8.cu,
+// flash_fwd_e4m3.cu and flash_fwd_e5m2.cu, the dense instantiations
+// here.
 //
-// fp32 inputs (flash_fwd_f32.cu; the JAX kernel runs fp32 at
-// Precision.HIGHEST, flash.py:92-101): dense K/V only. Both products run
-// in full fp32 on the CUDA cores (common.cuh ffma_abt / ffma_ab, no TF32)
-// on the same softmax body; P stays fp32. 64-row fp32 tiles at D = 256
-// would not fit shared memory, so there the q tile is 32 rows (Smem<T,
-// D>::kBQ).
+// fp32 inputs: flash_fwd_f32.cu (full fp32 on the CUDA cores; wgmma has
+// no fp32 operand at Precision.HIGHEST). A dtype selects its body; no
+// path leads from a failed launch to another.
 //
 // The causal split (the TPU kernel's strict_below / diag_band branches,
 // flash.py:122-132, :271-278, driven by flash_attention_fwd_split :664):
-// two launches, each a loop bound in the same body. The bulk pass
-// (split = 1, non-causal) ends each q tile's kv loop at (q0 / band) *
-// band, so it runs mask-free tiles only; the band pass (split = 2,
-// causal) covers [(q0 / band) * band, + band). The LSE merge of the two
-// is elementwise PyTorch (ops/flash.py), as the JAX package does it
-// outside its kernel. Rows with no bulk column export LSE = INIT_M *
-// scale and weigh 0 in the merge.
-//
-// A fast version (TMA loads, wgmma, a producer warp and double-buffered
-// tiles) is later work; this one is simple and right first.
+// two launches, each a column range in the same body. The bulk pass
+// (split = 1, non-causal) stops each 64-row q tile at (q0 / band) *
+// band, so it runs mask-free tiles except where that bound cuts a tile;
+// the band pass (split = 2, causal) covers [(q0 / band) * band, + band).
+// The two consumer warpgroups of a block may lie in different bands
+// (band 64): each keeps its own range and masks the columns outside it.
+// The LSE merge of the two is elementwise PyTorch (ops/flash.py), as the
+// JAX package does it outside its kernel. Rows with no bulk column
+// export LSE = INIT_M * scale and weigh 0 in the merge.
 
 #include "flash_fwd.cuh"
 
 // kv_store: common.cuh kDense / kInt8 / kE4M3 / kE5M2; kscale / vscale
 // null for dense K/V (Nk a multiple of 128 otherwise). split: 0, or the
 // bulk (1, non-causal) or band (2, causal) pass of the causal split,
-// band a multiple of 64 (the q tile).
+// band a multiple of 64.
 extern "C" int fa_flash_fwd(const void* q, const void* k, const void* v,
                             const void* kscale, const void* vscale,
                             void* o, void* lse, const void* qseg,
@@ -106,8 +115,17 @@ extern "C" int fa_flash_fwd(const void* q, const void* k, const void* v,
   if (dtype == kFloat32)
     return (int)(kv_store == kDense ? fwd::dispatch_f32(a, D)
                                     : cudaErrorInvalidValue);
-  if (kv_store == kDense) return (int)fwd::dispatch<kDense>(a, dtype, D);
-  return (int)fwd::dispatch_quant(a, dtype, D, kv_store);
+  switch (kv_store) {
+    case kDense:
+      return (int)fwd::dispatch<kDense>(a, dtype, D);
+    case kInt8:
+      return (int)fwd::dispatch_int8(a, dtype, D);
+    case kE4M3:
+      return (int)fwd::dispatch_e4m3(a, dtype, D);
+    case kE5M2:
+      return (int)fwd::dispatch_e5m2(a, dtype, D);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* fa_error_string(int code) {

@@ -1,86 +1,16 @@
-// The B1 forward kernel template (flash_fwd.cu), instantiated per
-// compute type, head dim and K/V storage. flash_fwd.cu holds the dense
-// fp16 / bf16 instantiations and the C entry point, flash_fwd_quant.cu
-// the int8 / fp8 ones, flash_fwd_f32.cu the fp32 ones (dense K/V only).
+// The B1 forward kernel for fp16 / bf16 (flash_fwd.cu), instantiated per
+// compute type, head dim and K/V storage: flash_fwd.cu holds the dense
+// instantiations and the C entry point, flash_fwd_int8.cu,
+// flash_fwd_e4m3.cu and flash_fwd_e5m2.cu the quantized ones, and
+// flash_fwd_f32.cu the fp32 body (dense K/V only).
 #pragma once
 
-#include <mma.h>
+#include <climits>
 
-#include <type_traits>
-
-#include "common.cuh"
+#include "sm90_attn.cuh"
 
 namespace fa {
 namespace fwd {
-
-using namespace nvcuda;
-
-constexpr int kBKV = 64;      // kv rows per tile
-
-// The q row tile is 64 rows (128 threads, a thread pair a row) except
-// for fp32 at D = 256, where 64-row fp32 tiles would take 305 KB: 32
-// rows (64 threads) take 217,344 bytes. At D = 256 the bf16 / fp16 tiles
-// take 194,816 bytes, inside the 227 KB a block may use.
-template <typename T, int D>
-struct Smem {
-  static constexpr int kBQ = sizeof(T) == 4 && D > 128 ? 32 : 64;
-  static constexpr int kThreads = 2 * kBQ;
-  static constexpr int kPad = 16 / sizeof(T);   // keeps rows 16-byte aligned
-  static constexpr int kLdQ = D + kPad;    // Q/K/V rows (T elements)
-  static constexpr int kLdS = kBKV + 4;    // S rows (floats)
-  static constexpr int kLdP = kBKV + kPad; // P rows (T elements)
-  static constexpr int kLdO = D + 4;       // O rows (floats)
-  static constexpr size_t kQ = 0;
-  static constexpr size_t kK = kQ + sizeof(T) * kBQ * kLdQ;
-  static constexpr size_t kV = kK + sizeof(T) * kBKV * kLdQ;
-  static constexpr size_t kS = kV + sizeof(T) * kBKV * kLdQ;
-  static constexpr size_t kP = kS + sizeof(float) * kBQ * kLdS;
-  static constexpr size_t kO = kP + sizeof(T) * kBQ * kLdP;
-  static constexpr size_t kSeg = kO + sizeof(float) * kBQ * kLdO;
-  static constexpr size_t kBytes = kSeg + sizeof(int) * kBKV;
-};
-
-// rows [r0, r0 + kRows) of a [n, D] matrix into shared memory (row
-// stride ld); rows past n are zero.
-template <typename T, int D, int kRows = kBKV>
-__device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
-                                          int r0, int n, int tid) {
-  fa::load_rows<T, D, kRows, Smem<T, D>::kThreads>(dst, ld, src, r0, n,
-                                                    tid);
-}
-
-// K/V rows [r0, r0 + 64) in storage Store into a T tile: dense rows as
-// load_tile; int8 / fp8 codes widened, times the fp32 scale row of each
-// row's 128-row block (scales: [n / 128, D]), rounded to T. Rows past n
-// are zero.
-template <typename T, int D, int Store>
-__device__ __forceinline__ void load_kv_tile(T* dst, int ld, const void* src,
-                                             const float* scales, int r0,
-                                             int n, int tid) {
-  if constexpr (Store == kDense) {
-    load_tile<T, D>(dst, ld, static_cast<const T*>(src), r0, n, tid);
-  } else {
-    const unsigned char* codes = static_cast<const unsigned char*>(src);
-    constexpr int kVecPerRow = D / 8;
-    for (int i = tid; i < kBKV * kVecPerRow; i += Smem<T, D>::kThreads) {
-      const int r = i / kVecPerRow;
-      const int c = (i % kVecPerRow) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (r0 + r < n) {
-        const int row = r0 + r;
-        float x[8];
-        widen8<Store>(*reinterpret_cast<const uint2*>(
-                          codes + (size_t)row * D + c),
-                      x);
-        const float* srow = scales + (size_t)(row / 128) * D + c;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) x[e] *= srow[e];
-        val = pack8<T>(x);
-      }
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-    }
-  }
-}
 
 struct Args {
   const void* q;            // [B, Hq, Nq, D] in T
@@ -94,10 +24,10 @@ struct Args {
   const int* kvseg;         // [B, Nk] or null
   int B, Hq, Hkv, Nq, Nk, causal, offset, window;
   // The two passes of the causal split (flash_attention_fwd_split): 0
-  // none; kSplitBulk the mask-free pass over the kv columns below each q
-  // tile's band, [0, (q0 / band) * band); kSplitBand the causal pass
-  // over the band itself, [(q0 / band) * band, + band). band is a
-  // multiple of the q tile.
+  // none; kSplitBulk the mask-free pass over the kv columns below each
+  // 64-row q tile's band, [0, (q0 / band) * band); kSplitBand the causal
+  // pass over the band itself, [(q0 / band) * band, + band). band is a
+  // multiple of 64.
   int split, band;
   float scale;
   cudaStream_t stream;
@@ -106,231 +36,381 @@ struct Args {
 constexpr int kSplitBulk = 1;
 constexpr int kSplitBand = 2;
 
-// S[16, kBKV] = Q K^T (unscaled) for one warp's 16 query rows. fp16 /
-// bf16 keep the warp's Q rows in tensor-core fragments (WMMA 16x16x16,
-// fp32 accumulation); fp32 reads them from shared memory and multiplies
-// on the CUDA cores in full fp32 (fa::ffma_abt).
-template <typename T, int D>
-struct QRows {
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> f[D / 16];
-
-  __device__ __forceinline__ void load(const T* q, int ld) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wmma::load_matrix_sync(f[kk], q + kk * 16, ld);
-  }
-
-  __device__ __forceinline__ void scores(float* s, int lds, const T* k,
-                                         int ldk) {
-#pragma unroll
-    for (int n = 0; n < kBKV / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf;
-      wmma::fill_fragment(sf, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, k + (n * 16) * ldk + kk * 16, ldk);
-        wmma::mma_sync(sf, f[kk], kf, sf);
-      }
-      wmma::store_matrix_sync(s + n * 16, sf, lds, wmma::mem_row_major);
+// The kv columns [lo, hi) that rows [r0, r0 + 64) can see (before the
+// per-element masks); false when no row of them is real.
+__device__ __forceinline__ bool row_range(const Args& a, int r0, int& lo,
+                                          int& hi) {
+  if (r0 >= a.Nq) return false;
+  const int last = min(r0 + 64, a.Nq) - 1;
+  lo = 0;
+  hi = a.Nk;
+  if (a.causal) hi = min(a.Nk, last + a.offset + 1);
+  if (a.window > 0) lo = max(r0 + a.offset - a.window + 1, 0);
+  if (a.split) {
+    const int band0 = r0 / a.band * a.band;
+    if (a.split == kSplitBulk) {
+      hi = min(hi, band0);
+    } else {
+      lo = band0;
+      hi = min(hi, band0 + a.band);
     }
   }
+  return true;
+}
+
+// Tiles and shared memory of one instantiation. A block is kWG consumer
+// warpgroups of 64 q rows each (threads [0, 128 kWG)), then the
+// producer: one TMA warp, or four converter warps (thread 0 issuing the
+// TMA loads) for the quantized storages. ptxas allots a block of 9 to 12
+// warps 168 registers a thread (65536 / 384), a block of 5 to 8 warps
+// 255: at D = 256, where O alone is 128 registers a thread, a block has
+// one consumer warpgroup.
+template <typename T, int D, int Store>
+struct Cfg {
+  static constexpr bool kQuant = Store != kDense;
+  static constexpr int kWG = D > 128 ? 1 : 2;
+  static constexpr int kBM = 64 * kWG;              // q rows a block
+  static constexpr int kBC = D > 128 ? 64 : 128;    // kv rows a tile
+  static constexpr int kStages = 2;                 // K/V ring
+  static constexpr int kCodeStages = kQuant ? 2 : 0;   // codes ring
+  static constexpr int kConsumers = 128 * kWG;
+  static constexpr int kThreads = kConsumers + (kQuant ? 128 : 32);
+  static constexpr uint32_t kQBytes = kBM * D * 2;
+  static constexpr uint32_t kTileBytes = kBC * D * 2;   // K or V in T
+  static constexpr uint32_t kCodeBytes = kBC * D;       // K or V codes
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kK = kQ + kQBytes;
+  static constexpr uint32_t kV = kK + kStages * kTileBytes;
+  static constexpr uint32_t kCodes = kV + kStages * kTileBytes;
+  static constexpr uint32_t kBars = kCodes + kCodeStages * 2 * kCodeBytes;
+  // q_full, full[S], empty[S], code_full[CS]
+  static constexpr int kNumBars = 1 + 2 * kStages + kCodeStages;
+  static constexpr uint32_t kBytes = kBars + 8 * kNumBars + 1024;
+  static_assert(kBytes <= 232448, "B1 tiles exceed shared memory");
 };
 
-template <int D>
-struct QRows<float, D> {
-  const float* q;
-  int ld;
-
-  __device__ __forceinline__ void load(const float* q_, int ld_) {
-    q = q_;
-    ld = ld_;
-  }
-
-  __device__ __forceinline__ void scores(float* s, int lds, const float* k,
-                                         int ldk) {
-    fa::ffma_abt<kBKV, D>(s, lds, q, ld, k, ldk, threadIdx.x & 31);
-  }
-};
-
-// O[16, D] += P[16, kBKV] V for one warp's 16 rows (WMMA for fp16 /
-// bf16, FFMA for fp32).
-template <typename T, int D>
-__device__ __forceinline__ void pv_accumulate(float* o, int ldo, const T* p,
-                                              int ldp, const T* v, int ldv) {
-  if constexpr (sizeof(T) == 4) {
-    fa::ffma_ab<D, kBKV>(o, ldo, p, ldp, v, ldv, nullptr, nullptr,
-                         threadIdx.x & 31);
+// 8 int8 / fp8 codes to exact floats, the values of common.cuh widen8
+// in fewer instructions: int8 by placing code + 128 in the mantissa of
+// 2^23 (byte permute, one subtraction), fp8 two at a time through fp16
+// (exact for every finite e4m3 / e5m2 code).
+template <int Store>
+__device__ __forceinline__ void widen8_fast(const uint2& raw, float* x) {
+  if constexpr (Store == kInt8) {
+    const uint32_t w[2] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      x[i] = __uint_as_float(__byte_perm(w[i / 4], 0x4B000000u,
+                                         0x7440u + (i % 4))) -
+             8388736.f;
   } else {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major>
-        pf[kBKV / 16];
+    constexpr __nv_fp8_interpretation_t kind =
+        Store == kE4M3 ? __NV_E4M3 : __NV_E5M2;
+    const uint32_t w[2] = {raw.x, raw.y};
 #pragma unroll
-    for (int kk = 0; kk < kBKV / 16; ++kk)
-      wmma::load_matrix_sync(pf[kk], p + kk * 16, ldp);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> of;
-      float* optr = o + n * 16;
-      wmma::load_matrix_sync(of, optr, ldo, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kBKV / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> vf;
-        wmma::load_matrix_sync(vf, v + (kk * 16) * ldv + n * 16, ldv);
-        wmma::mma_sync(of, pf[kk], vf, of);
-      }
-      wmma::store_matrix_sync(optr, of, ldo, wmma::mem_row_major);
+    for (int i = 0; i < 4; ++i) {
+      const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+          static_cast<__nv_fp8x2_storage_t>(w[i / 2] >> (16 * (i % 2))),
+          kind);
+      const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h));
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
     }
   }
 }
 
+// The converters' share of one K or V tile of codes: each code times the
+// fp32 scale row of its 128-row block (scales [Nk / 128, D] of this kv
+// head) in fp32, rounded to T and stored swizzled -- the rounding of the
+// plain version's dequantized tile. Converter ct of 128 owns one
+// 8-column group and every (128 / (D / 8))-th row.
+template <typename T, int D, int BC, int Store>
+__device__ __forceinline__ void widen_tile(unsigned char* dst,
+                                           const unsigned char* codes,
+                                           const float* srow, int ct) {
+  constexpr int kGroups = D / 8;
+  constexpr int kRowStep = 128 / kGroups;
+  const int g = ct % kGroups;
+  float sc[8];
+  const float4 s0 = __ldg(reinterpret_cast<const float4*>(srow + g * 8));
+  const float4 s1 = __ldg(reinterpret_cast<const float4*>(srow + g * 8 + 4));
+  sc[0] = s0.x; sc[1] = s0.y; sc[2] = s0.z; sc[3] = s0.w;
+  sc[4] = s1.x; sc[5] = s1.y; sc[6] = s1.z; sc[7] = s1.w;
+#pragma unroll
+  for (int r = ct / kGroups; r < BC; r += kRowStep) {
+    float x[8];
+    widen8_fast<Store>(
+        *reinterpret_cast<const uint2*>(codes + r * D + g * 8), x);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] *= sc[e];
+    *reinterpret_cast<uint4*>(dst + sm90::Sw<D>::offset(BC, r, g * 8)) =
+        pack8<T>(x);
+  }
+}
+
 template <typename T, int D, int Store>
-__global__ void __launch_bounds__(Smem<T, D>::kThreads)
-    flash_fwd_kernel(const Args a) {
-  using L = Smem<T, D>;
-  constexpr int kBQ = L::kBQ;
-  constexpr int kThreads = L::kThreads;
-  using Elem = std::conditional_t<Store == kDense, T, unsigned char>;
-  const int Hq = a.Hq, Hkv = a.Hkv, Nq = a.Nq, Nk = a.Nk;
-  const int causal = a.causal, offset = a.offset, window = a.window;
-  const float scale = a.scale;
-  const int* __restrict__ qseg = a.qseg;
-  const int* __restrict__ kvseg = a.kvseg;
-  T* __restrict__ o = static_cast<T*>(a.o);
-  float* __restrict__ lse = a.lse;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem + L::kQ);
-  T* sK = reinterpret_cast<T*>(smem + L::kK);
-  T* sV = reinterpret_cast<T*>(smem + L::kV);
-  float* sS = reinterpret_cast<float*>(smem + L::kS);
-  T* sP = reinterpret_cast<T*>(smem + L::kP);
-  float* sO = reinterpret_cast<float*>(smem + L::kO);
-  int* sKseg = reinterpret_cast<int*>(smem + L::kSeg);
+__global__ void __launch_bounds__(Cfg<T, D, Store>::kThreads, 1)
+    flash_fwd_sm90(const __grid_constant__ sm90::QkvMaps maps, const Args a) {
+  using C = Cfg<T, D, Store>;
+  constexpr int kBC = C::kBC, kS = C::kStages, kCS = C::kCodeStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = sm90::align_smem(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + C::kBars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kS;
+  uint64_t* code_full = empty + kS;
 
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const size_t qbase = ((size_t)b * Hq + h) * Nq;
-  const T* qg = static_cast<const T*>(a.q) + qbase * D;
-  const size_t kv_head = (size_t)b * Hkv + hk;
-  const Elem* kg = static_cast<const Elem*>(a.k) + kv_head * Nk * D;
-  const Elem* vg = static_cast<const Elem*>(a.v) + kv_head * Nk * D;
-  const size_t sbase = kv_head * (size_t)(Nk / 128) * D;
-  const float* ksg = Store == kDense ? nullptr : a.kscale + sbase;
-  const float* vsg = Store == kDense ? nullptr : a.vscale + sbase;
+  // Heaviest causal tiles first: the last q tile starts first.
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * C::kBM;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (a.Hq / a.Hkv);
+  const int kv_head = b * a.Hkv + hk;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int row = tid >> 1;          // softmax row owned by this thread pair
-  const int half = tid & 1;
-  const int qrow = q0 + row;
-  const int my_seg =
-      (kvseg != nullptr && qrow < Nq) ? qseg[(size_t)b * Nq + qrow] : 0;
+  // The block's kv tiles: every column a consumer warpgroup's rows can
+  // see, from the first tile of the lowest range to the highest end.
+  int lo_blk = INT_MAX, hi_blk = INT_MIN;
+#pragma unroll
+  for (int w = 0; w < C::kWG; ++w) {
+    int lo, hi;
+    if (row_range(a, q0 + 64 * w, lo, hi) && hi > lo) {
+      lo_blk = min(lo_blk, lo);
+      hi_blk = max(hi_blk, hi);
+    }
+  }
+  const int j_first = hi_blk > lo_blk ? lo_blk / kBC * kBC : 0;
+  const int n_tiles =
+      hi_blk > lo_blk ? (hi_blk - j_first + kBC - 1) / kBC : 0;
 
-  load_tile<T, D, kBQ>(sQ, L::kLdQ, qg, q0, Nq, tid);
-  for (int i = tid; i < kBQ * D; i += kThreads)
-    sO[(i / D) * L::kLdO + (i % D)] = 0.f;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < kS; ++s) {
+      // Dense: the TMA thread's arrival; quantized: the 128 converters'.
+      sm90::mbar_init(&full[s], C::kQuant ? 128 : 1);
+      sm90::mbar_init(&empty[s], 4 * C::kWG);   // one per consumer warp
+    }
+    for (int s = 0; s < kCS; ++s) sm90::mbar_init(&code_full[s], 1);
+    sm90::fence_barrier_init();
+  }
   __syncthreads();
 
-  QRows<T, D> qrows;
-  qrows.load(sQ + (warp * 16) * L::kLdQ, L::kLdQ);
-
-  const float c = scale * fa::kLog2e;
-  float m_i = fa::kInitM;
-  float l_i = 0.f;
-
-  // kv columns any real row of this tile can see: from the oldest
-  // column inside the first row's window (rounded down to a tile) to the
-  // last row's causal limit.
-  int kv_begin = 0, kv_end = Nk;
-  if (causal) {
-    const int last_row = min(q0 + kBQ, Nq) - 1;
-    kv_end = min(Nk, last_row + offset + 1);
-  }
-  if (window > 0)
-    kv_begin = max(q0 + offset - window + 1, 0) / kBKV * kBKV;
-  // The causal split: every row of the tile shares one band.
-  const int band0 = a.split ? q0 / a.band * a.band : 0;
-  if (a.split == kSplitBulk) kv_end = min(kv_end, band0);
-  if (a.split == kSplitBand) {
-    kv_begin = band0;
-    kv_end = min(kv_end, band0 + a.band);
-  }
-
-  for (int j0 = kv_begin; j0 < kv_end; j0 += kBKV) {
-    __syncthreads();   // every warp is done with the previous K/V tile
-    load_kv_tile<T, D, Store>(sK, L::kLdQ, kg, ksg, j0, Nk, tid);
-    load_kv_tile<T, D, Store>(sV, L::kLdQ, vg, vsg, j0, Nk, tid);
-    if (kvseg != nullptr)
-      for (int i = tid; i < kBKV; i += kThreads)
-        sKseg[i] = j0 + i < Nk ? kvseg[(size_t)b * Nk + j0 + i] : 0;
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows (unscaled scores).
-    qrows.scores(sS + (warp * 16) * L::kLdS, L::kLdS, sK, L::kLdQ);
-    __syncwarp();
-
-    // Online softmax over this thread's half of the row.
-    const float* srow = sS + row * L::kLdS;
-    const int c0 = half * (kBKV / 2);
-    float sv[kBKV / 2];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int jj = 0; jj < kBKV / 2; ++jj) {
-      const int col = j0 + c0 + jj;
-      const bool ok = col < Nk && (!causal || col <= qrow + offset) &&
-                      (window <= 0 || col > qrow + offset - window) &&
-                      (kvseg == nullptr || sKseg[c0 + jj] == my_seg);
-      sv[jj] = ok ? srow[c0 + jj] : -INFINITY;
-      mx = fmaxf(mx, sv[jj]);
+  if (threadIdx.x >= C::kConsumers) {
+    // --- producer ---
+    const int pt = threadIdx.x - C::kConsumers;
+    if (pt == 0) {
+      sm90::mbar_expect_tx(q_full, C::kQBytes);
+      sm90::load_tile<D>(smem + C::kQ, &maps.q, q_full, C::kBM, q0,
+                         b * a.Hq + h);
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_i, mx);
-    const float alpha = exp2f((m_i - m_new) * c);
-    float psum = 0.f;
-    T* prow = sP + row * L::kLdP;
-#pragma unroll
-    for (int jj = 0; jj < kBKV / 2; ++jj) {
-      const float p = exp2f((sv[jj] - m_new) * c);
-      psum += p;
-      prow[c0 + jj] = fa::from_float<T>(p);
+    if constexpr (!C::kQuant) {
+      // One TMA thread keeps the K/V ring full.
+      if (pt != 0) return;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kS;
+        const int j0 = j_first + it * kBC;
+        sm90::mbar_wait(&empty[s], ((it / kS) & 1) ^ 1);
+        sm90::mbar_expect_tx(&full[s], 2 * C::kTileBytes);
+        sm90::load_tile<D>(smem + C::kK + s * C::kTileBytes, &maps.k,
+                           &full[s], kBC, j0, kv_head);
+        sm90::load_tile<D>(smem + C::kV + s * C::kTileBytes, &maps.v,
+                           &full[s], kBC, j0, kv_head);
+      }
+    } else {
+      // Four converter warps turn the codes ring into the T ring; their
+      // thread 0 refills a codes slot once all 128 have read it.
+      auto load_codes = [&](int it) {
+        const int cs = it % kCS;
+        unsigned char* codes = smem + C::kCodes + cs * 2 * C::kCodeBytes;
+        const int j0 = j_first + it * kBC;
+        sm90::mbar_expect_tx(&code_full[cs], 2 * C::kCodeBytes);
+        sm90::tma_load_3d(codes, &maps.k, &code_full[cs], 0, j0, kv_head);
+        sm90::tma_load_3d(codes + C::kCodeBytes, &maps.v, &code_full[cs], 0,
+                          j0, kv_head);
+      };
+      if (pt == 0)
+        for (int it = 0; it < kCS && it < n_tiles; ++it) load_codes(it);
+      const size_t srow0 = (size_t)kv_head * (a.Nk / 128);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int j0 = j_first + it * kBC;
+        const int s = it % kS, cs = it % kCS;
+        const unsigned char* codes =
+            smem + C::kCodes + cs * 2 * C::kCodeBytes;
+        sm90::mbar_wait(&code_full[cs], (it / kCS) & 1);
+        sm90::mbar_wait(&empty[s], ((it / kS) & 1) ^ 1);
+        const size_t srow = (srow0 + j0 / 128) * D;
+        widen_tile<T, D, kBC, Store>(smem + C::kK + s * C::kTileBytes, codes,
+                                     a.kscale + srow, pt);
+        widen_tile<T, D, kBC, Store>(smem + C::kV + s * C::kTileBytes,
+                                     codes + C::kCodeBytes, a.vscale + srow,
+                                     pt);
+        sm90::fence_async_smem();
+        sm90::mbar_arrive(&full[s]);
+        // Every converter is done reading codes slot cs.
+        asm volatile("bar.sync 1, 128;\n" ::: "memory");
+        if (pt == 0 && it + kCS < n_tiles) load_codes(it + kCS);
+      }
     }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l_i = l_i * alpha + psum;
-    m_i = m_new;
-    float* orow = sO + row * L::kLdO + half * (D / 2);
-#pragma unroll 8
-    for (int d = 0; d < D / 2; ++d) orow[d] *= alpha;
-    __syncwarp();
-
-    // O += P V for this warp's 16 rows.
-    pv_accumulate<T, D>(sO + (warp * 16) * L::kLdO, L::kLdO,
-                        sP + (warp * 16) * L::kLdP, L::kLdP, sV, L::kLdQ);
-    __syncwarp();
+    return;
   }
 
-  if (qrow < Nq) {
-    const float inv = l_i > 0.f ? 1.f / l_i : 0.f;
-    const float* orow = sO + row * L::kLdO + half * (D / 2);
-    T* og = o + (qbase + qrow) * D + half * (D / 2);
-    fa::store_scaled<T, D / 2>(og, orow, inv);
-    if (half == 0)
-      lse[qbase + qrow] =
-          l_i > 0.f ? m_i * scale + logf(l_i) : fa::kInitM * scale;
+  // --- consumer warpgroups: 64 q rows each ---
+  const int cw = threadIdx.x / 128;
+  const int t = threadIdx.x % 128, lane = threadIdx.x % 32;
+  const sm90::Frag f(t);
+  const int q0w = q0 + 64 * cw;
+  const int row0 = q0w + f.row;   // this thread's rows: row0, row0 + 8
+  int lo = 0, hi = 0;
+  const bool live = row_range(a, q0w, lo, hi) && hi > lo;
+  const int Nq = a.Nq, Nk = a.Nk, causal = a.causal, offset = a.offset;
+  const int window = a.window;
+  const int* __restrict__ kvseg =
+      a.kvseg != nullptr ? a.kvseg + (size_t)b * Nk : nullptr;
+  int seg[2] = {0, 0};
+  if (kvseg != nullptr) {
+    if (row0 < Nq) seg[0] = a.qseg[(size_t)b * Nq + row0];
+    if (row0 + 8 < Nq) seg[1] = a.qseg[(size_t)b * Nq + row0 + 8];
+  }
+  const uint32_t sq = sm90::smem_u32(smem + C::kQ);
+  const uint32_t sk = sm90::smem_u32(smem + C::kK);
+  const uint32_t sv = sm90::smem_u32(smem + C::kV);
+  const float c = a.scale * kLog2e;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kInitM, kInitM};   // running max of the raw scores
+  float l[2] = {0.f, 0.f};         // this thread's share of the row sums
+
+  sm90::mbar_wait(q_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kS;
+    const int j0 = j_first + it * kBC;
+    sm90::mbar_wait(&full[s], (it / kS) & 1);
+    if (live && j0 < hi && j0 + kBC > lo) {
+      float sc[kBC / 2];
+      sm90::wgmma_fence();
+      sm90::qk<T, D, kBC>(sc, sq, C::kBM, 64 * cw, sk + s * C::kTileBytes);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait();
+      sm90::fence_regs(sc);
+
+      // Masks only on the tiles that need them: a range edge (window
+      // start, causal end, split bounds, ragged Nk), the causal
+      // diagonal, the window's edge, segment ids.
+      const bool edge =
+          kvseg != nullptr || j0 < lo || j0 + kBC > hi ||
+          (causal && j0 + kBC - 1 > q0w + offset) ||
+          (window > 0 && j0 <= q0w + 63 + offset - window);
+      if (edge) {
+#pragma unroll
+        for (int jb = 0; jb < kBC / 8; ++jb) {
+          const int col0 = j0 + f.col_of(4 * jb);
+          int ks[2] = {0, 0};
+          if (kvseg != nullptr) {
+            if (col0 < Nk) ks[0] = kvseg[col0];
+            if (col0 + 1 < Nk) ks[1] = kvseg[col0 + 1];
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = col0 + (e & 1);
+            const int row = row0 + sm90::Frag::row_of(e);
+            const bool ok =
+                col >= lo && col < hi && (!causal || col <= row + offset) &&
+                (window <= 0 || col > row + offset - window) &&
+                (kvseg == nullptr || ks[e & 1] == seg[e >> 1]);
+            if (!ok) sc[4 * jb + e] = -INFINITY;
+          }
+        }
+      }
+
+      // Online softmax in registers (exp2, the scale folded in).
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < kBC / 2; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      float alpha[2], mc[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = sm90::quad_max(mx[r]);
+        alpha[r] = sm90::ex2((m[r] - mx[r]) * c);
+        m[r] = mx[r];
+        mc[r] = mx[r] * c;
+      }
+      uint32_t p[kBC / 4];
+      float ls[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < kBC / 4; ++j) {
+        const int r = j & 1;
+        const float e0 = sm90::ex2(fmaf(sc[2 * j], c, -mc[r]));
+        const float e1 = sm90::ex2(fmaf(sc[2 * j + 1], c, -mc[r]));
+        ls[r] += e0 + e1;
+        p[j] = sm90::pack2<T>(e0, e1);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ls[r];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+      sm90::wgmma_fence();
+      sm90::pv<T, D, kBC>(o, p, sv + s * C::kTileBytes);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait();
+      sm90::fence_regs(o);
+      sm90::fence_regs(p);
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&empty[s]);
+  }
+
+  // O / l in T; LSE in fp32 (a row that saw nothing: O = 0, LSE = INIT_M
+  // * scale).
+  const size_t qbase = ((size_t)b * a.Hq + h) * Nq;
+  T* __restrict__ og = static_cast<T*>(a.o) + qbase * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const float lr = sm90::quad_sum(l[r]);
+    if (row >= Nq) continue;
+    const float inv = lr > 0.f ? 1.f / lr : 0.f;
+#pragma unroll
+    for (int jb = 0; jb < D / 8; ++jb) {
+      const int i = 4 * jb + 2 * r;
+      *reinterpret_cast<uint32_t*>(og + (size_t)row * D + f.col_of(4 * jb)) =
+          sm90::pack2<T>(o[i] * inv, o[i + 1] * inv);
+    }
+    if ((t & 3) == 0)
+      a.lse[qbase + row] =
+          lr > 0.f ? m[r] * a.scale + logf(lr) : kInitM * a.scale;
   }
 }
 
 template <typename T, int D, int Store>
 cudaError_t launch(const Args& a) {
-  using L = Smem<T, D>;
-  static_assert(L::kBytes <= 232448, "B1 tiles exceed shared memory");
+  using C = Cfg<T, D, Store>;
+  auto kernel = flash_fwd_sm90<T, D, Store>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D, Store>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.Nq + L::kBQ - 1) / L::kBQ, a.Hq, a.B);
-  flash_fwd_kernel<T, D, Store>
-      <<<grid, L::kThreads, L::kBytes, a.stream>>>(a);
+  sm90::QkvMaps maps{};
+  bool ok = sm90::encode_tile_map<T, D>(&maps.q, a.q, a.B * a.Hq, a.Nq,
+                                        C::kBM);
+  if (a.Nk > 0) {
+    const int heads = a.B * a.Hkv;
+    if constexpr (C::kQuant) {
+      ok = ok &&
+           sm90::encode_map(&maps.k, a.k, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
+                            heads, a.Nk, D, D, C::kBC,
+                            CU_TENSOR_MAP_SWIZZLE_NONE) &&
+           sm90::encode_map(&maps.v, a.v, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
+                            heads, a.Nk, D, D, C::kBC,
+                            CU_TENSOR_MAP_SWIZZLE_NONE);
+    } else {
+      ok = ok &&
+           sm90::encode_tile_map<T, D>(&maps.k, a.k, heads, a.Nk, C::kBC) &&
+           sm90::encode_tile_map<T, D>(&maps.v, a.v, heads, a.Nk, C::kBC);
+    }
+  }
+  if (!ok) return cudaErrorInvalidValue;
+  dim3 grid((a.Nq + C::kBM - 1) / C::kBM, a.Hq, a.B);
+  kernel<<<grid, C::kThreads, C::kBytes, a.stream>>>(maps, a);
   return cudaGetLastError();
 }
 
@@ -350,8 +430,10 @@ cudaError_t dispatch(const Args& a, int dtype, int D) {
   return cudaErrorInvalidValue;
 }
 
-// Defined in flash_fwd_quant.cu.
-cudaError_t dispatch_quant(const Args& a, int dtype, int D, int store);
+// Defined in flash_fwd_int8.cu, flash_fwd_e4m3.cu, flash_fwd_e5m2.cu.
+cudaError_t dispatch_int8(const Args& a, int dtype, int D);
+cudaError_t dispatch_e4m3(const Args& a, int dtype, int D);
+cudaError_t dispatch_e5m2(const Args& a, int dtype, int D);
 // Defined in flash_fwd_f32.cu: fp32 q / k / v, dense.
 cudaError_t dispatch_f32(const Args& a, int D);
 

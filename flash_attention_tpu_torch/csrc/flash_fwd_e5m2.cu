@@ -1,0 +1,16 @@
+// B1 over e5m2 K/V (flash_fwd.cu): the Hopper body with four converter
+// warps widening each TMA-loaded tile of codes,
+// compiled apart from the other storages so the build runs them in
+// parallel.
+
+#include "flash_fwd.cuh"
+
+namespace fa {
+namespace fwd {
+
+cudaError_t dispatch_e5m2(const Args& a, int dtype, int D) {
+  return dispatch<kE5M2>(a, dtype, D);
+}
+
+}  // namespace fwd
+}  // namespace fa

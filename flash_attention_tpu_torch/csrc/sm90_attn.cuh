@@ -1,0 +1,710 @@
+// Hopper building blocks of the port's attention kernels (sm_90a): B1
+// (flash_fwd.cuh) and B10c (variants_naive.cu) are built from them, and
+// B10a / B10b and B2 / B3 can be.
+//
+// - mbarriers and TMA: a K/V tile is copied from device memory to shared
+//   memory by one thread with cp.async.bulk.tensor, and its arrival is
+//   counted in bytes on an mbarrier of the ring stage ("full"); the
+//   consumers arrive on the stage's "empty" barrier when their products
+//   have read it. The tensor maps are built on the host per call
+//   (encode_map): 3-D maps [heads, rows, D], so rows past a head's end
+//   read as zeros and never as the next head's rows.
+// - Swizzled tiles (Sw): a [rows, D] 16-bit tile is stored as D / kCols
+//   column chunks of [rows, kRowBytes] with the hardware's XOR swizzle,
+//   128-byte rows where D holds 128 bytes or more, 64-byte rows at
+//   D = 32. TMA writes the swizzle and wgmma reads it (descriptors
+//   k_major / mn_major); a thread that writes a tile itself uses offset().
+// - wgmma (Mma<T, N>): D[64, N] (+)= A[64, 16] B[16, N] for one
+//   warpgroup, fp32 accumulators in registers. ss takes A and B from
+//   shared memory (both K-major: S = Q K^T); rs takes A from registers
+//   (P, in the accumulator's own layout) and B MN-major (V as stored),
+//   the transpose flag 16-bit types allow.
+// - The accumulator fragment (Frag): thread t of a warpgroup holds rows
+//   16 (t / 32) + (t % 32) / 4 and that + 8, columns 8 j + 2 (t % 4) and
+//   + 1 of every 8-column block j, in registers 4 j .. 4 j + 3 (row,
+//   row, row + 8, row + 8). A row's values lie on the 4 threads of a
+//   quad, so a row max or sum is two shuffles.
+// - Registers: ptxas allocates every thread of a kernel against the one
+//   cap its launch bounds give, also after a setmaxnreg (an m64n256
+//   product fails to compile at a 128 cap after setmaxnreg.inc 232), so
+//   setmaxnreg cannot hand the consumers' code more, and none is used.
+//   The blocks are sized instead: consumer warpgroups first (a
+//   warpgroup's first warp must be a multiple of 4), then the producer
+//   warp(s); a block of up to 8 warps gets 255 registers a thread, of 9
+//   to 12 warps 168.
+#pragma once
+
+#include <cuda.h>   // CUtensorMap and its enums (no libcuda symbol is used)
+
+#include <type_traits>
+
+#include "common.cuh"
+
+namespace fa {
+namespace sm90 {
+
+// --- shared memory, mbarriers, fences -------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Makes the barriers' initialisation visible to the async proxy (TMA).
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also expects `bytes` of TMA traffic in this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed. A wait that
+// outlasts any real one by far (2^26 polls, a second or more) traps, so a
+// broken pipeline fails its launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t n = 0; !done; ++n) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (n == (1u << 26)) __trap();
+  }
+}
+
+// Orders this thread's generic-proxy writes to shared memory before
+// later async-proxy reads of them (wgmma, TMA).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// --- TMA ------------------------------------------------------------------
+
+// Box (c0, c1, c2) of a 3-D map into shared memory at dst; completion
+// counted on bar.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// --- registers ------------------------------------------------------------
+
+// Keeps the compiler from moving reads or writes of wgmma operand
+// registers across the asynchronous product's issue and wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// --- swizzled 16-bit tiles -------------------------------------------------
+
+template <int D>
+struct Sw {
+  static constexpr int kRowBytes = D >= 64 ? 128 : 64;
+  static constexpr int kCols = kRowBytes / 2;       // elements a chunk row
+  static constexpr int kChunks = D / kCols;
+  static constexpr uint32_t kGroupBytes = 8 * kRowBytes;   // 8-row group
+  // wgmma layout type: 1 = 128-byte swizzle, 2 = 64-byte swizzle.
+  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;
+  static constexpr CUtensorMapSwizzle kTmaSwizzle =
+      kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                       : CU_TENSOR_MAP_SWIZZLE_64B;
+
+  // Byte offset of element (r, c) in a tile of `rows` rows whose base is
+  // 1024-byte aligned.
+  __device__ __forceinline__ static uint32_t offset(int rows, int r, int c) {
+    const uint32_t o = (c / kCols) * rows * kRowBytes + r * kRowBytes +
+                       (c % kCols) * 2;
+    return o ^ ((o >> 3) & (kRowBytes == 128 ? 0x70u : 0x30u));
+  }
+};
+
+// --- wgmma ----------------------------------------------------------------
+
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
+}
+
+// A K-major operand (Q, K): rows of the tile at `tile` (`rows` rows),
+// starting at row r0, at k-step kk (16 columns).
+template <int D>
+__device__ __forceinline__ uint64_t k_major(uint32_t tile, int rows, int r0,
+                                            int kk) {
+  using L = Sw<D>;
+  const uint32_t addr = tile + (kk * 16 / L::kCols) * rows * L::kRowBytes +
+                        r0 * L::kRowBytes + (kk * 16 % L::kCols) * 2;
+  return make_desc(addr, 16, L::kGroupBytes, L::kLayout);
+}
+
+// The MN-major B operand of P V: rows 16 kk .. 16 kk + 15 of a [rows, D]
+// tile (V as stored), all D columns; column chunks `rows * kRowBytes`
+// apart.
+template <int D>
+__device__ __forceinline__ uint64_t mn_major(uint32_t tile, int rows,
+                                             int kk) {
+  using L = Sw<D>;
+  return make_desc(tile + kk * 16 * L::kRowBytes, rows * L::kRowBytes,
+                   L::kGroupBytes, L::kLayout);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// ss at N = 64 / 128 (S over a kv tile), rs at N = D (O).
+template <typename T, int N>
+struct Mma;
+
+template <>
+struct Mma<__nv_bfloat16, 32> {
+  __device__ __forceinline__ static void rs(float (&d)[16], uint32_t a0,
+                                            uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Mma<__nv_bfloat16, 64> {
+  __device__ __forceinline__ static void ss(float (&d)[32], uint64_t a,
+                                            uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+  __device__ __forceinline__ static void rs(float (&d)[32], uint32_t a0,
+                                            uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Mma<__nv_bfloat16, 128> {
+  __device__ __forceinline__ static void ss(float (&d)[64], uint64_t a,
+                                            uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+  __device__ __forceinline__ static void rs(float (&d)[64], uint32_t a0,
+                                            uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Mma<__nv_bfloat16, 256> {
+  __device__ __forceinline__ static void rs(float (&d)[128], uint32_t a0,
+                                            uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69,"
+        "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89,"
+        "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99,"
+        "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109,"
+        "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
+        "%120, %121, %122, %123, %124, %125, %126, %127}, "
+        "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+          "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+          "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+          "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+          "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+          "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+          "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+          "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+          "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+          "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Mma<__half, 32> {
+  __device__ __forceinline__ static void rs(float (&d)[16], uint32_t a0,
+                                            uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Mma<__half, 64> {
+  __device__ __forceinline__ static void ss(float (&d)[32], uint64_t a,
+                                            uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+  __device__ __forceinline__ static void rs(float (&d)[32], uint32_t a0,
+                                            uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Mma<__half, 128> {
+  __device__ __forceinline__ static void ss(float (&d)[64], uint64_t a,
+                                            uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+  __device__ __forceinline__ static void rs(float (&d)[64], uint32_t a0,
+                                            uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Mma<__half, 256> {
+  __device__ __forceinline__ static void rs(float (&d)[128], uint32_t a0,
+                                            uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69,"
+        "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89,"
+        "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99,"
+        "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109,"
+        "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
+        "%120, %121, %122, %123, %124, %125, %126, %127}, "
+        "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+          "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+          "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+          "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+          "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+          "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+          "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+          "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+          "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+          "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+  }
+};
+
+// --- the accumulator fragment -----------------------------------------------
+
+// Where thread t (0..127) of a warpgroup sits in an m64nN fragment.
+struct Frag {
+  int row;    // its first row; its second is row + 8
+  int col;    // its first column in each 8-column block
+  __device__ __forceinline__ explicit Frag(int t)
+      : row(16 * (t / 32) + (t % 32) / 4), col(2 * (t % 4)) {}
+  // Register i: row offset 0 or 8, column.
+  __device__ __forceinline__ static constexpr int row_of(int i) {
+    return (i & 2) ? 8 : 0;
+  }
+  __device__ __forceinline__ int col_of(int i) const {
+    return (i / 4) * 8 + col + (i & 1);
+  }
+};
+
+// Max / sum over the 4 threads of a quad (one row of a fragment).
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two floats rounded to T in one 32-bit register (lo in the low half):
+// an A-operand pair of rs.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+// Y[64, N] += P V where P is the probability fragment of an m64nBC score
+// accumulator, rounded to T (pairs of register i, i + 1), and V the
+// [BC, N] tile at `v` (swizzled, rows = BC).
+template <typename T, int N, int BC>
+__device__ __forceinline__ void pv(float (&o)[N / 2],
+                                   const uint32_t (&p)[BC / 4], uint32_t v) {
+#pragma unroll
+  for (int kk = 0; kk < BC / 16; ++kk)
+    Mma<T, N>::rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                  mn_major<N>(v, BC, kk));
+}
+
+// S[64, BC] = Q K^T over D: Q rows q_r0.. of the tile at q (q_rows
+// rows), K the [BC, D] tile at k.
+template <typename T, int D, int BC>
+__device__ __forceinline__ void qk(float (&s)[BC / 2], uint32_t q, int q_rows,
+                                   int q_r0, uint32_t k) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    Mma<T, BC>::ss(s, k_major<D>(q, q_rows, q_r0, kk),
+                   k_major<D>(k, BC, 0, kk), kk > 0);
+}
+
+// --- host: tensor maps -------------------------------------------------------
+
+// The tensor maps of one attention launch: Q [B*Hq, Nq, D] and K, V
+// [B*Hkv, Nk, D] (as 16-bit swizzled tiles, or 1-byte codes).
+struct QkvMaps {
+  CUtensorMap q, k, v;
+};
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, reached through the runtime so the
+// library links no libcuda.
+inline EncodeTiled encode_fn() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &q);
+#endif
+    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                            : nullptr;
+  }();
+  return fn;
+}
+
+// A 3-D map over a contiguous [heads, rows, d] tensor of `elem` bytes per
+// value, box [1, box_rows, box_cols]; rows past `rows` read as zeros.
+inline bool encode_map(CUtensorMap* map, const void* base,
+                       CUtensorMapDataType type, int elem, int heads,
+                       int rows, int d, int box_cols, int box_rows,
+                       CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * elem,
+                                 (cuuint64_t)rows * d * elem};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, step,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A [heads, rows, D] 16-bit tensor as swizzled chunks of box_rows rows.
+template <typename T, int D>
+inline bool encode_tile_map(CUtensorMap* map, const void* base, int heads,
+                            int rows, int box_rows) {
+  const CUtensorMapDataType type = std::is_same_v<T, __nv_bfloat16>
+                                       ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  return encode_map(map, base, type, 2, heads, rows, D, Sw<D>::kCols,
+                    box_rows, Sw<D>::kTmaSwizzle);
+}
+
+// TMA of one [box_rows, D] tile as its column chunks into `dst`.
+template <int D>
+__device__ __forceinline__ void load_tile(unsigned char* dst,
+                                          const CUtensorMap* map,
+                                          uint64_t* bar, int box_rows,
+                                          int row, int head) {
+  using L = Sw<D>;
+#pragma unroll
+  for (int c = 0; c < L::kChunks; ++c)
+    tma_load_3d(dst + c * box_rows * L::kRowBytes, map, bar, c * L::kCols,
+                row, head);
+}
+
+// The 1024-byte aligned start of dynamic shared memory (the swizzle
+// pattern repeats every 1024 bytes and is taken from address bits).
+__device__ __forceinline__ unsigned char* align_smem(unsigned char* raw) {
+  const uint32_t a = smem_u32(raw);
+  return raw + (((a + 1023) & ~1023u) - a);
+}
+
+}  // namespace sm90
+}  // namespace fa

@@ -31,6 +31,12 @@ CASES = {
     "gqa_4_2_causal": (2, 4, 2, 100, 100, 64, True),
     "odd_lengths_causal": (1, 4, 4, 77, 131, 64, True),
     "odd_lengths_noncausal": (1, 4, 4, 77, 131, 64, False),
+    # Across the card's tile edges (64-row consumer warpgroups, 128-row
+    # blocks and kv tiles; 64-row kv tiles at D = 256).
+    "d128_ragged_200_333_causal": (1, 2, 2, 200, 333, 128, True),
+    "d128_ragged_200_333_noncausal": (1, 2, 1, 200, 333, 128, False),
+    "d256_ragged_200_333_causal": (1, 1, 1, 200, 333, 256, True),
+    "gqa_8_1_causal": (1, 8, 1, 130, 130, 64, True),
 }
 
 

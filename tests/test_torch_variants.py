@@ -115,6 +115,18 @@ def test_naive_matches_jax():
     assert verify(o_t, o_j).passed
 
 
+def test_naive_d128_several_kv_tiles_matches_jax():
+    """B10c at D = 128 over six kv tiles of the card's 64 columns (the
+    JAX kernel takes three of 128): the two passes agree whatever the
+    tiling."""
+    q, k, v = _inputs(11, 1, 2, 2, 384, 384, 128)
+    o_j = jvariants.naive_attention_pallas(*_jax(q, k, v),
+                                           block_sizes=JAX_BLOCKS)
+    o_t = variants.naive_attention_pallas(*_torch(q, k, v))
+    assert max_abs_error(o_t, o_j) <= ATOL
+    assert verify(o_t, o_j).passed
+
+
 def test_variant_shape_errors():
     """The JAX kernels' refusals: MHA-only FA1 / naive, block-divisible
     FA2 / naive; and the card's compiled tiles (checked before any
