@@ -22,9 +22,11 @@ Phases, each fatal on failure:
   3b. study the kernel-study harness: B10a (FA1, o / m / l), B10b (FA2
              in-loop, causal and not, GQA 32/8) and B10c (naive two-pass)
              against their plain versions at q [1, 32, 8192, 128] bf16
-             and at every compiled tile in bf16 / fp16 / fp32 at (1, 8,
-             2048, D = 32..256), with B1 on fp32 inputs (the 3x gate
-             against fp32, fp64 for fp32 inputs; LSE within 1e-3); B1's
+             (check_study_long) and at every compiled tile in bf16 /
+             fp16 / fp32 at (1, 8, 2048, D = 32..256), B10a at ragged
+             lengths and B10b causal with Nq < Nk, with B1 on fp32
+             inputs (the 3x gate against fp32, fp64 for fp32 inputs; LSE
+             within 1e-3, B10a's m and l too); B1's
              causal split (flash_attention_fwd_split, band 512 and 2048)
              against its plain version and single-pass B1; each timed
              beside its bound (fp32 at the 67 TFLOP/s FFMA rate) and
@@ -3478,8 +3480,9 @@ def _study_fns(name, causal=False):
 
 
 def _study_gate(what, got, hi, lo):
-    """The 3x low-precision gate on O (and, for B10a, LSE = m + log l
-    within 1e-3 of the reference's). Returns the kernel's max-abs
+    """The 3x low-precision gate on O (and, for B10a, LSE = m + log l,
+    m and l each within 1e-3 of the reference's: m max-abs, l relative,
+    since l sums up to Nk terms). Returns the kernel's max-abs
     difference from the plain version in the same dtype."""
     from flash_attention_tpu_torch.utils.metrics import (
         max_abs_error, verify_low_precision,
@@ -3492,8 +3495,12 @@ def _study_gate(what, got, hi, lo):
     if len(got) == 3:
         lse_err = max_abs_error(got[1] + torch.log(got[2]),
                                 hi[1] + torch.log(hi[2]))
-        line += f" lse_err={lse_err:.3e}"
-        ok = ok and lse_err <= 1e-3
+        m_err = max_abs_error(got[1], hi[1])
+        l_rel = float(((got[2].double() - hi[2].double()).abs()
+                       / hi[2].double()).max())
+        line += (f" lse_err={lse_err:.3e} m_err={m_err:.3e} "
+                 f"l_rel_err={l_rel:.3e}")
+        ok = ok and lse_err <= 1e-3 and m_err <= 1e-3 and l_rel <= 1e-3
     log(line)
     if not (ok and finite):
         raise AssertionError(f"{what} failed its gate")
@@ -3501,13 +3508,15 @@ def _study_gate(what, got, hi, lo):
 
 
 def _study_case(rng, name, dt, b, hq, hkv, n, d, causal=False,
-                block_sizes=None):
+                block_sizes=None, nk=None):
     """Kernel, plain (same dtype) and reference (fp32, fp64 for fp32
-    inputs) of one study kernel on seeded inputs; gated."""
+    inputs) of one study kernel on seeded inputs, q [b, hq, n, d] and
+    k, v [b, hkv, nk (default n), d]; gated."""
     kern, plain = _study_fns(name, causal)
+    nk = n if nk is None else nk
     q = randn(rng, (b, hq, n, d), dt)
-    k = randn(rng, (b, hkv, n, d), dt)
-    v = randn(rng, (b, hkv, n, d), dt)
+    k = randn(rng, (b, hkv, nk, d), dt)
+    v = randn(rng, (b, hkv, nk, d), dt)
     got = kern(q, k, v, block_sizes=block_sizes)
     torch.cuda.synchronize()
     bkv = None if block_sizes is None else block_sizes.block_kv
@@ -3517,7 +3526,8 @@ def _study_case(rng, name, dt, b, hq, hkv, n, d, causal=False,
     tile = "" if block_sizes is None else \
         f" tile {block_sizes.block_q}x{block_sizes.block_kv}"
     err = _study_gate(
-        f"{name} {str(dt).split('.')[-1]} q({b},{hq},{n},{d}) kv({hkv})"
+        f"{name} {str(dt).split('.')[-1]} q({b},{hq},{n},{d}) "
+        f"kv({hkv}{'' if nk == n else f',{nk}'})"
         f"{' causal' if causal else ''}{tile}", got, hi, lo)
     return (q, k, v), err
 
@@ -3527,38 +3537,69 @@ def _sdpa(q, k, v, causal=False):
         q, k, v, is_causal=causal, enable_gqa=q.shape[1] != k.shape[1])
 
 
+def check_study_long(rng, flush, results):
+    """B10a (o, m, l) at q [1, 32, 8192, 128] bf16 and B10b non-causal
+    and causal GQA 32/8 (kv [1, 8, 8192, 128]): the 3x gate against the
+    fp32 reference (B10a's m and l within 1e-3), each timed beside its
+    bound, plain version and SDPA."""
+    h = STUDY_SHAPE[1]
+    for name, hkv, causal in (("B10a", h, False),
+                              ("B10b", STUDY_GQA_KV, False),
+                              ("B10b", STUDY_GQA_KV, True)):
+        _study_row(rng, flush, results, name, hkv, causal)
+        torch.cuda.empty_cache()
+
+
+def _study_row(rng, flush, results, name, hkv, causal):
+    """One study kernel at STUDY_SHAPE bf16, gated and timed into
+    results[(name, causal)]."""
+    from flash_attention_tpu_torch.ops import variants
+
+    b, h, n, d = STUDY_SHAPE
+    (q, k, v), err = _study_case(rng, name, torch.bfloat16, b, h, hkv, n, d,
+                                 causal)
+    kern, plain = _study_fns(name, causal)
+    flops, nbytes = variants.study_cost(
+        b, h, hkv, n, n, d, causal, 2, stats=2 if name == "B10a" else 0)
+    results[(name, causal)] = dict(
+        max_abs_err=err,
+        shape=f"q({b},{h},{n},{d}) kv({b},{hkv},{n},{d})"
+              f"{' causal' if causal else ''} bf16",
+        **_timed_row(f"{name} bf16 q({b},{h},{n},{d}) kv({hkv})"
+                     f"{' causal' if causal else ''}",
+                     lambda: kern(q, k, v), lambda: plain(q, k, v),
+                     lambda: _sdpa(q, k, v, causal), flush, flops,
+                     nbytes, PEAK_BF16_FLOPS, plain_iters=2))
+
+
+# B10a's ragged cases across the Hopper body's 64-row tiles: (Nq, Nk).
+STUDY_RAGGED = ((77, 131), (200, 333), (1, 40))
+
+
 def check_study_kernels(rng, flush) -> dict:
     """B10a (o, m, l), B10b (causal and not, GQA 32/8) and B10c at q [1,
-    32, 8192, 128] bf16 (B10b's GQA at kv [1, 8, 8192, 128]), timed;
-    every compiled tile of each in bf16, fp16 and fp32 at (1, 8, 2048,
-    D) for D in 32..256 (fp32 B1 causal there too), the fp32 kernels at
-    D = 128 timed against the FFMA rate. Gate: 3x the plain version's
-    error in the same dtype against fp32 (fp64 for fp32 inputs)."""
+    32, 8192, 128] bf16 (B10b's GQA at kv [1, 8, 8192, 128]), timed
+    (check_study_long and B10c); every compiled tile of each in bf16,
+    fp16 and fp32 at (1, 8, 2048, D) for D in 32..256 (fp32 B1 causal
+    there too); B10a at ragged lengths (STUDY_RAGGED) and B10b causal
+    with Nq < Nk (GQA 4/2) in fp16 and bf16 at D = 32 / 128 / 256; the
+    fp32 kernels at D = 128 timed against the FFMA rate. Gate: 3x the
+    plain version's error in the same dtype against fp32 (fp64 for fp32
+    inputs)."""
     from flash_attention_tpu_torch.config import BlockSizes
     from flash_attention_tpu_torch.ops import flash, variants
 
-    b, h, n, d = STUDY_SHAPE
     out = {}
-    for name, hkv, causal in (("B10a", h, False), ("B10b", STUDY_GQA_KV,
-                                                   False),
-                              ("B10b", STUDY_GQA_KV, True),
-                              ("B10c", h, False)):
-        (q, k, v), err = _study_case(rng, name, torch.bfloat16, b, h, hkv,
-                                     n, d, causal)
-        kern, plain = _study_fns(name, causal)
-        flops, nbytes = variants.study_cost(
-            b, h, hkv, n, n, d, causal, 2, stats=2 if name == "B10a" else 0)
-        key = (name, causal)
-        out[key] = dict(
-            max_abs_err=err,
-            shape=f"q({b},{h},{n},{d}) kv({b},{hkv},{n},{d})"
-                  f"{' causal' if causal else ''} bf16",
-            **_timed_row(f"{name} bf16 q({b},{h},{n},{d}) kv({hkv})"
-                         f"{' causal' if causal else ''}",
-                         lambda: kern(q, k, v), lambda: plain(q, k, v),
-                         lambda: _sdpa(q, k, v, causal), flush, flops,
-                         nbytes, PEAK_BF16_FLOPS, plain_iters=2))
-        del q, k, v
+    check_study_long(rng, flush, out)
+    _study_row(rng, flush, out, "B10c", STUDY_SHAPE[1], False)
+    torch.cuda.synchronize()
+
+    for dt in (torch.bfloat16, torch.float16):
+        for d in (32, 128, 256):
+            for nq, nk in STUDY_RAGGED:
+                _study_case(rng, "B10a", dt, 2, 3, 3, nq, d, nk=nk)
+            _study_case(rng, "B10b", dt, 2, 4, 2, 128, d, causal=True,
+                        nk=320)
     torch.cuda.synchronize()
 
     b, h, n = STUDY_SMALL
@@ -4812,11 +4853,16 @@ def main() -> int:
         # with the launches its own counter saw on the study path.
         dict(name="fa1 (B10a)", route="cuda",
              source="flash_attention_tpu_torch/csrc/variants_fa1.cu",
+             body="fp16 / bf16 at 64 x 64: wgmma + TMA ring "
+                  "(csrc/study_sm90.cuh over sm90_attn.cuh); 16 x 16 and "
+                  "fp32: csrc/study.cuh",
              replaces="flash_attention_tpu/ops/variants.py:80",
              launches=sl["fa1"], launches_by_path={"cli_study": sl["fa1"]},
              **sk[("B10a", False)], fp32=sk["fp32 timings"]["B10a"]),
         dict(name="fa2_inloop (B10b)", route="cuda",
              source="flash_attention_tpu_torch/csrc/variants_fa2.cu",
+             body="fp16 / bf16: wgmma + TMA ring (csrc/study_sm90.cuh "
+                  "over sm90_attn.cuh); fp32: csrc/study.cuh",
              replaces="flash_attention_tpu/ops/variants.py:216",
              launches=sl["fa2"], launches_by_path={"cli_study": sl["fa2"]},
              **sk[("B10b", True)],

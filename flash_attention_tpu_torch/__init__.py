@@ -24,6 +24,7 @@ Layering (bottom-up):
                 max-batch, profile)
 """
 
+from flash_attention_tpu_torch.config import BlockSizes, select_block_sizes
 from flash_attention_tpu_torch.ops.flash import (
     SegmentIds,
     flash_attention,
@@ -34,17 +35,23 @@ from flash_attention_tpu_torch.ops.quant import (
     dequantize_kv,
     quantize_kv,
 )
-from flash_attention_tpu_torch.ops.reference import attention_reference
+from flash_attention_tpu_torch.ops.reference import (
+    attention_baseline,
+    attention_reference,
+)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "attention_reference",
+    "attention_baseline",
     "flash_attention",
     "flash_attention_quantized",
     "SegmentIds",
     "QuantizedTensor",
     "quantize_kv",
     "dequantize_kv",
+    "BlockSizes",
+    "select_block_sizes",
     "__version__",
 ]

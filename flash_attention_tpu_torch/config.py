@@ -3,10 +3,11 @@
 The JAX package searches block sizes against the TPU's VMEM budget
 (`flash_attention_tpu/config.py`). On Hopper the kernels use fixed tiles
 sized to shared memory and registers instead (compile-time constants of
-csrc/*.cu: B1 64-row q and kv tiles, B2 and B3 64-row tiles or 32 at
-D = 256, B4 and B5 256 threads per (sequence, kv head) over groups of at
-most 16 query rows); what the Python wrappers must check against is
-mirrored here.
+csrc/*.cu: B1 128 q rows by 128 kv rows, 64 x 64 at D = 256, B2 and B3
+64-row tiles or 32 at D = 256, B4 and B5 256 threads per (sequence, kv
+head) over groups of at most 16 query rows); what the Python wrappers
+must check against is mirrored here, and `select_block_sizes` returns
+B1's tile.
 """
 
 from __future__ import annotations
@@ -25,12 +26,34 @@ LANES = 128
 
 @dataclasses.dataclass(frozen=True)
 class BlockSizes:
-    """Query and key/value tile rows of a study kernel (the JAX
-    package's `BlockSizes` keyword, forward fields only). On the CPU the
-    plain versions tile by them; on the card a kernel takes only the
-    tiles it was compiled for and raises ValueError for others."""
+    """Query and key/value tile rows of a forward kernel (the JAX
+    package's `BlockSizes` keyword, forward fields only: B2 / B3 have
+    fixed tiles). On the CPU the plain versions tile by them, or are
+    untiled (B1); on the card a kernel takes only the tiles it was
+    compiled for and raises ValueError for others."""
     block_q: int = 64
     block_kv: int = 64
+
+
+def b1_tile(dtype, head_dim: int) -> tuple[int, int]:
+    """(block_q, block_kv) of B1 as compiled (csrc/flash_fwd.cuh Cfg,
+    csrc/flash_fwd_f32.cu Smem32): fp16 / bf16 128 x 128, 64 x 64 at
+    D = 256; fp32 64 x 64, 32 x 64 at D = 256."""
+    if dtype == torch.float32:
+        return (32, 64) if head_dim > 128 else (64, 64)
+    return (64, 64) if head_dim > 128 else (128, 128)
+
+
+def select_block_sizes(seq_q: int, seq_kv: int, head_dim: int, *,
+                       dtype=torch.bfloat16, causal: bool = False,
+                       vmem_budget=None, candidates=None) -> BlockSizes:
+    """B1's tile for this dtype and head dim (`b1_tile`), so that passing
+    it back as `block_sizes=` works on the card. The JAX package's
+    signature; its search of a TPU's VMEM budget has no counterpart on
+    this card, where the tile is fixed when the kernel is compiled, so
+    the lengths, `causal`, `vmem_budget` and `candidates` are not
+    read."""
+    return BlockSizes(*b1_tile(dtype, head_dim))
 
 # Head dims the CUDA kernels are instantiated for (csrc/*.cu): all of
 # them.

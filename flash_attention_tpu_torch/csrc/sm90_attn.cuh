@@ -1,6 +1,6 @@
 // Hopper building blocks of the port's attention kernels (sm_90a): B1
-// (flash_fwd.cuh) and B10c (variants_naive.cu) are built from them, and
-// B10a / B10b and B2 / B3 can be.
+// (flash_fwd.cuh), B10c (variants_naive.cu) and B10a / B10b
+// (study_sm90.cuh) are built from them, and B2 / B3 can be.
 //
 // - mbarriers and TMA: a K/V tile is copied from device memory to shared
 //   memory by one thread with cp.async.bulk.tensor, and its arrival is
@@ -18,7 +18,8 @@
 //   warpgroup, fp32 accumulators in registers. ss takes A and B from
 //   shared memory (both K-major: S = Q K^T); rs takes A from registers
 //   (P, in the accumulator's own layout) and B MN-major (V as stored),
-//   the transpose flag 16-bit types allow.
+//   the transpose flag 16-bit types allow. `acc` 0 (scale-d) overwrites
+//   D instead of adding to it.
 // - The accumulator fragment (Frag): thread t of a warpgroup holds rows
 //   16 (t / 32) + (t % 32) / 4 and that + 8, columns 8 j + 2 (t % 4) and
 //   + 1 of every 8-column block j, in registers 4 j .. 4 j + 3 (row,
@@ -205,7 +206,8 @@ template <>
 struct Mma<__nv_bfloat16, 32> {
   __device__ __forceinline__ static void rs(float (&d)[16], uint32_t a0,
                                             uint32_t a1, uint32_t a2,
-                                            uint32_t a3, uint64_t b) {
+                                            uint32_t a3, uint64_t b,
+                                            int acc = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
@@ -216,7 +218,7 @@ struct Mma<__nv_bfloat16, 32> {
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
           "+f"(d[15])
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(acc));
   }
 };
 
@@ -243,7 +245,8 @@ struct Mma<__nv_bfloat16, 64> {
   }
   __device__ __forceinline__ static void rs(float (&d)[32], uint32_t a0,
                                             uint32_t a1, uint32_t a2,
-                                            uint32_t a3, uint64_t b) {
+                                            uint32_t a3, uint64_t b,
+                                            int acc = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -259,7 +262,7 @@ struct Mma<__nv_bfloat16, 64> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(acc));
   }
 };
 
@@ -295,7 +298,8 @@ struct Mma<__nv_bfloat16, 128> {
   }
   __device__ __forceinline__ static void rs(float (&d)[64], uint32_t a0,
                                             uint32_t a1, uint32_t a2,
-                                            uint32_t a3, uint64_t b) {
+                                            uint32_t a3, uint64_t b,
+                                            int acc = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -320,7 +324,7 @@ struct Mma<__nv_bfloat16, 128> {
           "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
           "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(acc));
   }
 };
 
@@ -328,7 +332,8 @@ template <>
 struct Mma<__nv_bfloat16, 256> {
   __device__ __forceinline__ static void rs(float (&d)[128], uint32_t a0,
                                             uint32_t a1, uint32_t a2,
-                                            uint32_t a3, uint64_t b) {
+                                            uint32_t a3, uint64_t b,
+                                            int acc = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -372,7 +377,7 @@ struct Mma<__nv_bfloat16, 256> {
           "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
           "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(acc));
   }
 };
 
@@ -380,7 +385,8 @@ template <>
 struct Mma<__half, 32> {
   __device__ __forceinline__ static void rs(float (&d)[16], uint32_t a0,
                                             uint32_t a1, uint32_t a2,
-                                            uint32_t a3, uint64_t b) {
+                                            uint32_t a3, uint64_t b,
+                                            int acc = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 {"
@@ -391,7 +397,7 @@ struct Mma<__half, 32> {
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
           "+f"(d[15])
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(acc));
   }
 };
 
@@ -418,7 +424,8 @@ struct Mma<__half, 64> {
   }
   __device__ __forceinline__ static void rs(float (&d)[32], uint32_t a0,
                                             uint32_t a1, uint32_t a2,
-                                            uint32_t a3, uint64_t b) {
+                                            uint32_t a3, uint64_t b,
+                                            int acc = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
@@ -434,7 +441,7 @@ struct Mma<__half, 64> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(acc));
   }
 };
 
@@ -470,7 +477,8 @@ struct Mma<__half, 128> {
   }
   __device__ __forceinline__ static void rs(float (&d)[64], uint32_t a0,
                                             uint32_t a1, uint32_t a2,
-                                            uint32_t a3, uint64_t b) {
+                                            uint32_t a3, uint64_t b,
+                                            int acc = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
@@ -495,7 +503,7 @@ struct Mma<__half, 128> {
           "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
           "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(acc));
   }
 };
 
@@ -503,7 +511,8 @@ template <>
 struct Mma<__half, 256> {
   __device__ __forceinline__ static void rs(float (&d)[128], uint32_t a0,
                                             uint32_t a1, uint32_t a2,
-                                            uint32_t a3, uint64_t b) {
+                                            uint32_t a3, uint64_t b,
+                                            int acc = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 {"
@@ -547,7 +556,7 @@ struct Mma<__half, 256> {
           "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
           "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(acc));
   }
 };
 
@@ -598,16 +607,19 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   }
 }
 
-// Y[64, N] += P V where P is the probability fragment of an m64nBC score
-// accumulator, rounded to T (pairs of register i, i + 1), and V the
-// [BC, N] tile at `v` (swizzled, rows = BC).
+// Y[64, N] += P V (Y = P V when !accumulate) where P is the probability
+// fragment of an m64nBC score accumulator, rounded to T (pairs of
+// register i, i + 1), and V the [BC, N] tile at `v` (swizzled, rows =
+// BC). N may be a run of whole column chunks of a wider tile: `v` then
+// points at its first chunk.
 template <typename T, int N, int BC>
 __device__ __forceinline__ void pv(float (&o)[N / 2],
-                                   const uint32_t (&p)[BC / 4], uint32_t v) {
+                                   const uint32_t (&p)[BC / 4], uint32_t v,
+                                   bool accumulate = true) {
 #pragma unroll
   for (int kk = 0; kk < BC / 16; ++kk)
     Mma<T, N>::rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
-                  mn_major<N>(v, BC, kk));
+                  mn_major<N>(v, BC, kk), accumulate || kk > 0);
 }
 
 // S[64, BC] = Q K^T over D: Q rows q_r0.. of the tile at q (q_rows

@@ -1,11 +1,12 @@
-// Shared pieces of the kernel-study variants B10a and B10b
-// (variants_fa1.cu, variants_fa2.cu) and of B10c on fp32 inputs
-// (variants_naive.cu; its fp16 / bf16 body is built from sm90_attn.cuh):
-// the shared-memory layout of a (BR x BC)-tiled attention block, the tile
-// loads and the two tile products, on the tensor cores for fp16 / bf16
-// (WMMA 16x16x16, fp32 accumulation) and on the CUDA cores in full fp32
-// for fp32 (common.cuh ffma_abt / ffma_ab; the JAX kernels ask the MXU
-// for Precision.HIGHEST).
+// The first body of the kernel-study variants, which B10a's 16 x 16 tile
+// (all dtypes) and the fp32 bodies of B10a, B10b and B10c
+// (variants_fa1.cu, variants_fa2.cu, variants_naive.cu) still run; their
+// fp16 / bf16 64 x 64 bodies are the Hopper block of study_sm90.cuh. It
+// holds the shared-memory layout of a (BR x BC)-tiled attention block, the
+// tile loads and the two tile products, on the tensor cores for fp16 /
+// bf16 (WMMA 16x16x16, fp32 accumulation) and on the CUDA cores in full
+// fp32 for fp32 (common.cuh ffma_abt / ffma_ab; the JAX kernels ask the
+// MXU for Precision.HIGHEST).
 //
 // Layout: one block of 2 * BR threads (BR / 16 warps) per (q tile of BR
 // rows, q head, batch). Warp w owns S / P / O rows 16w..16w+15; thread
@@ -14,12 +15,11 @@
 // memory; S, P and the fp32 accumulator O stay there, so only warp-level
 // synchronisation is needed between the loads.
 //
-// What bounds it on the H100: not the tensor cores (B10a / B10b run at
-// 45-62 TFLOP/s of 989 in bf16) but the round trips of S, P and O
-// through shared memory, each warp reloading whole K / V tiles as WMMA
-// fragments, and loads that never overlap a product (no TMA, no wgmma,
-// no double buffering). B10c's fp16 / bf16 body shows the way out: a TMA
-// ring and wgmma with the accumulators in registers (sm90_attn.cuh).
+// What bounds it on the H100: not the tensor cores (B10a / B10b ran at
+// 45-62 TFLOP/s of 989 in bf16 on it at 64 x 64) but the round trips of
+// S, P and O through shared memory, each warp reloading whole K / V tiles
+// as WMMA fragments, and loads that never overlap a product (no TMA, no
+// wgmma, no double buffering).
 #pragma once
 
 #include <mma.h>

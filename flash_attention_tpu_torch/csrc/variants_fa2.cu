@@ -20,9 +20,23 @@
 //
 // What bounds it on the H100: the same work as B1 (4 D FLOPs a visible
 // pair), so the tensor cores (fp16 / bf16) or fp32 CUDA cores at these
-// shapes; the design is study.cuh's, all intermediates in shared memory.
+// shapes.
+//
+// fp16 / bf16 (fa2_sm90): the Hopper block of study_sm90.cuh (one
+// consumer warpgroup of 64 q rows, a producer warp streaming K and V
+// through a 2-stage TMA ring; heaviest causal q tiles first). S = Q K^T
+// and P V are wgmma with fp32 accumulators in registers, the softmax
+// works on the accumulator fragment, P is rounded to T in registers.
+// The normalized update is taken as acc *= l_i e^{m_i - m_ij}, then acc
+// += P V (wgmma into acc), then acc *= 1 / l_ij: one more pass over the
+// accumulator a step than B1, and one divide a row; it differs from the
+// JAX kernel's acc * (carry / l_ij) + (P V) / l_ij in fp32 rounding only.
+// Only the tiles the causal diagonal crosses are masked.
+//
+// fp32 (study.cuh fa2_inloop_kernel): full fp32 on the CUDA cores.
 
 #include "study.cuh"
+#include "study_sm90.cuh"
 
 namespace fa {
 namespace study {
@@ -61,11 +75,124 @@ __global__ void __launch_bounds__(2 * BR) fa2_inloop_kernel(const Args a) {
 }
 
 template <typename T, int D>
+__global__ void __launch_bounds__(160, StudyCfg<D>::kBlocksPerSM)
+    fa2_sm90(const __grid_constant__ sm90::QkvMaps maps, const Args a) {
+  using C = StudyCfg<D>;
+  constexpr int kBC = C::kBC, kS = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const StudySmem<D> sm(smem_raw);
+  // Heaviest causal q tiles first: the last q tile starts first.
+  const int q0 =
+      (a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * C::kBM;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kv_end = a.causal ? min(a.Nk, q0 + C::kBM + a.offset) : a.Nk;
+  const int n_kv = kv_end > 0 ? (kv_end + kBC - 1) / kBC : 0;
+
+  if (threadIdx.x >= 128) {
+    if (threadIdx.x == 128) {
+      sm.load_q(maps, q0, b * a.Hq + h);
+      const int kv_head = b * a.Hkv + h / (a.Hq / a.Hkv);
+      for (int it = 0; it < n_kv; ++it)
+        sm.load_kv(maps, it, it * kBC, kv_head, true);
+    }
+    return;
+  }
+
+  // Consumer warpgroup: 64 q rows.
+  const int t = threadIdx.x;
+  const sm90::Frag f(t);
+  const int row0 = q0 + f.row;   // this thread's rows: row0, row0 + 8
+  const float c = a.scale * kLog2e;
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kInitM, kInitM};   // running max of the raw scores
+  float l[2] = {0.f, 0.f};         // the row sums (whole rows)
+  sm90::mbar_wait(sm.q_full, 0);
+
+  for (int it = 0; it < n_kv; ++it) {
+    const int s = it % kS, j0 = it * kBC;
+    sm90::mbar_wait(&sm.full[s], (it / kS) & 1);
+    float sc[kBC / 2];
+    sm90::wgmma_fence();
+    sm90::qk<T, D, kBC>(sc, sm.q(), C::kBM, 0, sm.k(s));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait();
+    sm90::fence_regs(sc);
+    // The causal mask, only on tiles the diagonal crosses.
+    if (a.causal && j0 + kBC - 1 > q0 + a.offset) {
+#pragma unroll
+      for (int i = 0; i < kBC / 2; ++i)
+        if (j0 + f.col_of(i) > row0 + sm90::Frag::row_of(i) + a.offset)
+          sc[i] = -INFINITY;
+    }
+
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < kBC / 2; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    float mc[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = sm90::quad_max(mx[r]);
+      mc[r] = mx[r] * c;
+    }
+    uint32_t p[kBC / 4];
+#pragma unroll
+    for (int j = 0; j < kBC / 4; ++j) {
+      const int r = j & 1;
+      const float e0 = sm90::ex2(fmaf(sc[2 * j], c, -mc[r]));
+      const float e1 = sm90::ex2(fmaf(sc[2 * j + 1], c, -mc[r]));
+      ps[r] += e0 + e1;
+      p[j] = sm90::pack2<T>(e0, e1);
+    }
+    float carry[2], inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      carry[r] = l[r] * sm90::ex2((m[r] - mx[r]) * c);
+      const float l_ij = carry[r] + sm90::quad_sum(ps[r]);
+      inv[r] = l_ij == 0.f ? 1.f : 1.f / l_ij;
+      m[r] = mx[r];
+      l[r] = l_ij;
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= carry[(i >> 1) & 1];
+
+    sm90::wgmma_fence();
+    sm90::pv<T, D, kBC>(o, p, sm.v(s));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait();
+    sm90::fence_regs(o);
+    sm90::fence_regs(p);
+    sm.release(s);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= inv[(i >> 1) & 1];
+  }
+
+  // Already normalized; rows < Nq (block-divisible: all of them).
+  const size_t qbase = ((size_t)b * a.Hq + h) * a.Nq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row < a.Nq)
+      store_frag_row<T, D>(static_cast<T*>(a.o) + (qbase + row) * D, o, f,
+                           r, 0, 1.f);
+  }
+}
+
+template <typename T, int D>
 cudaError_t fa2_run(const Args& a, int br, int bc) {
   using Tile = DefaultTile<T, D>;
   if (br != Tile::kBR || bc != Tile::kBC) return cudaErrorInvalidValue;
-  return launch<T, D, Tile::kBR, Tile::kBC>(
-      fa2_inloop_kernel<T, D, Tile::kBR, Tile::kBC>, a);
+  if constexpr (sizeof(T) == 2) {
+    static_assert(Tile::kBR == StudyCfg<D>::kBM &&
+                  Tile::kBC == StudyCfg<D>::kBC);
+    if (a.Nq % Tile::kBR || a.Nk % Tile::kBC) return cudaErrorInvalidValue;
+    return launch_sm90<T, D>(fa2_sm90<T, D>, a);
+  } else {
+    return launch<T, D, Tile::kBR, Tile::kBC>(
+        fa2_inloop_kernel<T, D, Tile::kBR, Tile::kBC>, a);
+  }
 }
 
 template <typename T>

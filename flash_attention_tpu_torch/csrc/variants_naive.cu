@@ -19,8 +19,8 @@
 // and the per-tile synchronisation weigh more than in B1.
 //
 // fp16 / bf16 (naive_sm90): the study's public tile, 64 q rows (one
-// consumer warpgroup) by 64 kv columns, on B1's Hopper pieces
-// (sm90_attn.cuh): one producer thread streams K tiles (pass 1) and then
+// consumer warpgroup) by 64 kv columns, on the Hopper block of
+// study_sm90.cuh: one producer thread streams K tiles (pass 1) and then
 // K and V tiles (pass 2) through a 2-stage TMA ring with full / empty
 // mbarriers; S = Q K^T and O += P V are wgmma with fp32 accumulators in
 // registers, P rounded to T in registers; the row max and sum are quad
@@ -29,8 +29,8 @@
 // fp32 (study.cuh naive_kernel): full fp32 on the CUDA cores, 64 x 64,
 // 32 x 64 at D = 256 (study.cuh DefaultTile).
 
-#include "sm90_attn.cuh"
 #include "study.cuh"
+#include "study_sm90.cuh"
 
 namespace fa {
 namespace study {
@@ -59,88 +59,45 @@ __global__ void __launch_bounds__(2 * BR) naive_kernel(const Args a) {
   blk.store(a, 1.f / l_i);
 }
 
-// The Hopper body's tiles: Q [64, D], a ring of 2 K / V stages [64, D].
-// A block is one consumer warpgroup (threads 0-127) and one producer
-// warp; two blocks an SM up to D = 128 (at most 168 registers a
-// thread), one at
-// D = 256, where the tiles take 160 KB.
-template <int D>
-struct NaiveCfg {
-  static constexpr int kBM = 64, kBC = 64, kStages = 2, kThreads = 160;
-  static constexpr int kBlocksPerSM = D > 128 ? 1 : 2;
-  static constexpr uint32_t kTileBytes = 64 * D * 2;
-  static constexpr uint32_t kQ = 0;
-  static constexpr uint32_t kK = kTileBytes;
-  static constexpr uint32_t kV = kK + kStages * kTileBytes;
-  static constexpr uint32_t kBars = kV + kStages * kTileBytes;
-  static constexpr uint32_t kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
-};
-
 template <typename T, int D>
-__global__ void __launch_bounds__(160, NaiveCfg<D>::kBlocksPerSM)
+__global__ void __launch_bounds__(160, StudyCfg<D>::kBlocksPerSM)
     naive_sm90(const __grid_constant__ sm90::QkvMaps maps, const Args a) {
-  using C = NaiveCfg<D>;
+  using C = StudyCfg<D>;
   constexpr int kBC = C::kBC, kS = C::kStages;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = sm90::align_smem(smem_raw);
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + C::kBars);
-  uint64_t* full = q_full + 1;
-  uint64_t* empty = full + kS;
+  const StudySmem<D> sm(smem_raw);
   const int q0 = blockIdx.x * C::kBM;
   const int head = blockIdx.z * a.Hq + blockIdx.y;   // MHA: kv head too
   const int n_kv = a.Nk / kBC;
 
-  if (threadIdx.x == 0) {
-    sm90::mbar_init(q_full, 1);
-    for (int s = 0; s < kS; ++s) {
-      sm90::mbar_init(&full[s], 1);
-      sm90::mbar_init(&empty[s], 4);   // one per consumer warp
-    }
-    sm90::fence_barrier_init();
-  }
-  __syncthreads();
-
   if (threadIdx.x >= 128) {
     // Producer: pass 1's K tiles, then pass 2's K and V tiles.
-    if (threadIdx.x != 128) return;
-    sm90::mbar_expect_tx(q_full, C::kTileBytes);
-    sm90::load_tile<D>(smem + C::kQ, &maps.q, q_full, C::kBM, q0, head);
-    for (int it = 0; it < 2 * n_kv; ++it) {
-      const int s = it % kS, j0 = (it % n_kv) * kBC;
-      const bool with_v = it >= n_kv;
-      sm90::mbar_wait(&empty[s], ((it / kS) & 1) ^ 1);
-      sm90::mbar_expect_tx(&full[s], (with_v ? 2 : 1) * C::kTileBytes);
-      sm90::load_tile<D>(smem + C::kK + s * C::kTileBytes, &maps.k, &full[s],
-                         kBC, j0, head);
-      if (with_v)
-        sm90::load_tile<D>(smem + C::kV + s * C::kTileBytes, &maps.v,
-                           &full[s], kBC, j0, head);
+    if (threadIdx.x == 128) {
+      sm.load_q(maps, q0, head);
+      for (int it = 0; it < 2 * n_kv; ++it)
+        sm.load_kv(maps, it, (it % n_kv) * kBC, head, it >= n_kv);
     }
     return;
   }
 
   // Consumer warpgroup: 64 q rows.
-  const int t = threadIdx.x, lane = threadIdx.x % 32;
+  const int t = threadIdx.x;
   const sm90::Frag f(t);
-  const uint32_t sq = sm90::smem_u32(smem + C::kQ);
-  const uint32_t sk = sm90::smem_u32(smem + C::kK);
-  const uint32_t sv = sm90::smem_u32(smem + C::kV);
   const float c = a.scale * kLog2e;
   float sc[kBC / 2];
-  sm90::mbar_wait(q_full, 0);
+  sm90::mbar_wait(sm.q_full, 0);
 
   // Pass 1: the row max of the raw scores.
   float m[2] = {kInitM, kInitM};
   for (int it = 0; it < n_kv; ++it) {
     const int s = it % kS;
-    sm90::mbar_wait(&full[s], (it / kS) & 1);
+    sm90::mbar_wait(&sm.full[s], (it / kS) & 1);
     sm90::wgmma_fence();
-    sm90::qk<T, D, kBC>(sc, sq, C::kBM, 0, sk + s * C::kTileBytes);
+    sm90::qk<T, D, kBC>(sc, sm.q(), C::kBM, 0, sm.k(s));
     sm90::wgmma_commit();
     sm90::wgmma_wait();
     sm90::fence_regs(sc);
-    __syncwarp();
-    if (lane == 0) sm90::mbar_arrive(&empty[s]);
+    sm.release(s);
 #pragma unroll
     for (int i = 0; i < kBC / 2; ++i)
       m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], sc[i]);
@@ -156,9 +113,9 @@ __global__ void __launch_bounds__(160, NaiveCfg<D>::kBlocksPerSM)
   float l[2] = {0.f, 0.f};
   for (int it = n_kv; it < 2 * n_kv; ++it) {
     const int s = it % kS;
-    sm90::mbar_wait(&full[s], (it / kS) & 1);
+    sm90::mbar_wait(&sm.full[s], (it / kS) & 1);
     sm90::wgmma_fence();
-    sm90::qk<T, D, kBC>(sc, sq, C::kBM, 0, sk + s * C::kTileBytes);
+    sm90::qk<T, D, kBC>(sc, sm.q(), C::kBM, 0, sm.k(s));
     sm90::wgmma_commit();
     sm90::wgmma_wait();
     sm90::fence_regs(sc);
@@ -172,45 +129,19 @@ __global__ void __launch_bounds__(160, NaiveCfg<D>::kBlocksPerSM)
       p[j] = sm90::pack2<T>(e0, e1);
     }
     sm90::wgmma_fence();
-    sm90::pv<T, D, kBC>(o, p, sv + s * C::kTileBytes);
+    sm90::pv<T, D, kBC>(o, p, sm.v(s));
     sm90::wgmma_commit();
     sm90::wgmma_wait();
     sm90::fence_regs(o);
     sm90::fence_regs(p);
-    __syncwarp();
-    if (lane == 0) sm90::mbar_arrive(&empty[s]);
+    sm.release(s);
   }
 
-  T* __restrict__ og =
-      static_cast<T*>(a.o) + ((size_t)head * a.Nq + q0 + f.row) * D;
+  T* __restrict__ og = static_cast<T*>(a.o) + ((size_t)head * a.Nq + q0) * D;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float inv = 1.f / sm90::quad_sum(l[r]);
-#pragma unroll
-    for (int jb = 0; jb < D / 8; ++jb) {
-      const int i = 4 * jb + 2 * r;
-      *reinterpret_cast<uint32_t*>(og + 8 * r * D + f.col_of(4 * jb)) =
-          sm90::pack2<T>(o[i] * inv, o[i + 1] * inv);
-    }
-  }
-}
-
-template <typename T, int D>
-cudaError_t naive_sm90_run(const Args& a) {
-  using C = NaiveCfg<D>;
-  auto kernel = naive_sm90<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
-  if (err != cudaSuccess) return err;
-  const int heads = a.B * a.Hq;
-  sm90::QkvMaps maps{};
-  if (!sm90::encode_tile_map<T, D>(&maps.q, a.q, heads, a.Nq, C::kBM) ||
-      !sm90::encode_tile_map<T, D>(&maps.k, a.k, heads, a.Nk, C::kBC) ||
-      !sm90::encode_tile_map<T, D>(&maps.v, a.v, heads, a.Nk, C::kBC))
-    return cudaErrorInvalidValue;
-  dim3 grid(a.Nq / C::kBM, a.Hq, a.B);
-  kernel<<<grid, C::kThreads, C::kBytes, a.stream>>>(maps, a);
-  return cudaGetLastError();
+  for (int r = 0; r < 2; ++r)
+    store_frag_row<T, D>(og + (f.row + 8 * r) * D, o, f, r, 0,
+                         1.f / sm90::quad_sum(l[r]));
 }
 
 template <typename T, int D>
@@ -221,10 +152,10 @@ cudaError_t naive_run(const Args& a, int br, int bc) {
     return launch<T, D, Tile::kBR, Tile::kBC>(
         naive_kernel<T, D, Tile::kBR, Tile::kBC>, a);
   } else {
-    static_assert(Tile::kBR == NaiveCfg<D>::kBM &&
-                  Tile::kBC == NaiveCfg<D>::kBC);
+    static_assert(Tile::kBR == StudyCfg<D>::kBM &&
+                  Tile::kBC == StudyCfg<D>::kBC);
     if (a.Nq % Tile::kBR || a.Nk % Tile::kBC) return cudaErrorInvalidValue;
-    return naive_sm90_run<T, D>(a);
+    return launch_sm90<T, D>(naive_sm90<T, D>, a);
   }
 }
 

@@ -1,1 +1,27 @@
 """Llama-class model and token sampling."""
+
+from flash_attention_tpu_torch.models.llama import (
+    LlamaConfig,
+    forward,
+    init_params,
+    loss_fn,
+    make_train_step,
+)
+from flash_attention_tpu_torch.models.moe import (
+    MoEConfig,
+    init_moe_params,
+    moe_forward,
+    moe_loss_fn,
+)
+
+__all__ = [
+    "LlamaConfig",
+    "init_params",
+    "forward",
+    "loss_fn",
+    "make_train_step",
+    "MoEConfig",
+    "init_moe_params",
+    "moe_forward",
+    "moe_loss_fn",
+]

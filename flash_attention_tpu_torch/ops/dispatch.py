@@ -45,8 +45,8 @@ def _fixed_tile(name: str, head_dim: int) -> Callable:
     """Standalone fixed-tile study entry (the reference keeps two
     frozen-tile kernels outside its dispatch path, at d64 and d32): the
     head dim is gated the way those kernels hard-code theirs. It runs B1,
-    whose tiles are fixed when the kernels are built (64 x 64; the JAX
-    package pins its BlockSizes instead), so it takes no block sizes."""
+    whose tiles are fixed when the kernels are built (`config.b1_tile`;
+    the JAX package pins its BlockSizes instead)."""
 
     def impl(q, k, v, **kw):
         if q.shape[-1] != head_dim:

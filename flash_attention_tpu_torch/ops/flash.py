@@ -40,6 +40,7 @@ import torch
 from flash_attention_tpu_torch.config import (
     CUDA_HEAD_DIMS,
     SUPPORTED_HEAD_DIMS,
+    b1_tile,
 )
 from flash_attention_tpu_torch.ops import _cuda
 from flash_attention_tpu_torch.ops.quant import (
@@ -282,9 +283,54 @@ def _flash_fwd_cuda(q, k, v, *, causal, scale, offset, window=None,
     return o, lse
 
 
+def _check_block_sizes(q, block_sizes):
+    """On the card B1 takes only the tile it is compiled for (ValueError
+    naming it); on the CPU any tile is accepted and changes nothing
+    (B1's plain version is untiled)."""
+    if block_sizes is None or not q.is_cuda:
+        return
+    tile = b1_tile(q.dtype, q.shape[-1])
+    got = (block_sizes.block_q, block_sizes.block_kv)
+    if got != tile:
+        raise ValueError(
+            f"B1 on the card is compiled for (block_q, block_kv) = {tile} "
+            f"at head dim {q.shape[-1]} and {q.dtype}; got {got} "
+            "(select_block_sizes gives the compiled tile)")
+
+
+def _split_pass(nq, nk, causal, offset, window, segment_ids, strict_below,
+                diag_band):
+    """(split code, band) of a call that asks for one pass of the causal
+    split, with the JAX kernel's guards and messages; (0, 0) otherwise."""
+    if diag_band is not None:
+        if not causal or window is not None or segment_ids is not None \
+                or offset != 0 or nq != nk:
+            raise ValueError(
+                "diag_band requires plain causal self-attention "
+                "(no window/segments/padding, Nq == Nk)")
+        if diag_band % SPLIT_TILE or nq % diag_band:
+            raise ValueError(
+                f"diag_band={diag_band} must be a multiple of B1's "
+                f"{SPLIT_TILE}-row q tile and divide Nq={nq}")
+        return SPLIT_BAND, diag_band
+    if strict_below is not None:
+        if causal or window is not None or segment_ids is not None \
+                or offset != 0:
+            raise ValueError(
+                "strict_below composes with none of causal/window/"
+                "segments/padding/offset (it IS the mask)")
+        if strict_below % SPLIT_TILE:
+            raise ValueError(
+                f"strict_below band {strict_below} must be a multiple of "
+                f"B1's {SPLIT_TILE}-row q tile")
+        return SPLIT_BULK, strict_below
+    return 0, 0
+
+
 def flash_attention_fwd(q, k, v, segment_ids=None, *, causal=False,
-                        scale=None, offset=None, window=None,
-                        save_residuals=True):
+                        scale=None, block_sizes=None, offset=None,
+                        window=None, save_residuals=True, strict_below=None,
+                        diag_band=None):
     """Forward flash attention. Returns (o, lse) with lse the fp32
     log-sum-exp per row, [B, Hq, Nq] (the JAX kernel's lane-replicated
     [..., 128] layout is a TPU device and is not kept); lse is None when
@@ -295,7 +341,15 @@ def flash_attention_fwd(q, k, v, segment_ids=None, *, causal=False,
     visibility is col <= row + offset, offset defaulting to Nk - Nq (it
     may exceed Nk - Nq, as the rolling-buffer prefill's offset = Nk);
     `window` hides col <= row + offset - window; `segment_ids`
-    (SegmentIds) hide pairs whose ids differ.
+    (SegmentIds) hide pairs whose ids differ. `block_sizes` must be B1's
+    compiled tile on the card (`select_block_sizes`).
+
+    The two passes of the causal split (flash_attention_fwd_split), each
+    on its own: `strict_below=w` (non-causal, offset 0) lets row r see
+    columns [0, (r // w) * w) only, `diag_band=w` (causal
+    self-attention, Nq == Nk divisible by w) columns [(r // w) * w, r];
+    w a multiple of B1's 64-row q tile. A row that sees nothing gives
+    O = 0 and LSE = INIT_M * scale.
     """
     kv, vv, ks, vs = split_kv(k, v)
     scale, offset = _check_args(q, kv, vv, segment_ids, causal, scale,
@@ -308,14 +362,23 @@ def flash_attention_fwd(q, k, v, segment_ids=None, *, causal=False,
             raise ValueError(f"quantized K/V need Nk % {QUANT_BLOCK} == 0 "
                              f"and scales {want}, got Nk={nk}, "
                              f"{tuple(ks.shape)} / {tuple(vs.shape)}")
+    nq, nk = q.shape[2], kv.shape[2]
+    split, band = _split_pass(nq, nk, causal, offset, window, segment_ids,
+                              strict_below, diag_band)
     kw = dict(causal=causal, scale=scale, offset=offset, window=window,
               segment_ids=segment_ids)
     if q.is_cuda:
-        o, lse = _flash_fwd_cuda(q, kv, vv, k_scales=ks, v_scales=vs, **kw)
+        _check_block_sizes(q, block_sizes)
+        o, lse = _flash_fwd_cuda(q, kv, vv, k_scales=ks, v_scales=vs,
+                                 split=split, band=band, **kw)
     elif q.device.type == "cpu":
         if ks is not None:
             kv, vv = dequantize_kv(k, q.dtype), dequantize_kv(v, q.dtype)
-        o, lse = flash_attention_fwd_plain(q, kv, vv, **kw)
+        if split:
+            visible = _split_masks(nq, nk, band, q.device)[split - 1]
+            o, lse = _masked_fwd_plain(q, kv, vv, scale, visible)
+        else:
+            o, lse = flash_attention_fwd_plain(q, kv, vv, **kw)
     else:
         raise ValueError(f"unsupported device {q.device}")
     return o, (lse if save_residuals else None)
@@ -325,12 +388,12 @@ def flash_attention_fwd(q, k, v, segment_ids=None, *, causal=False,
 SPLIT_TILE = 64
 
 
-def _split_masks(n, band, device):
-    """(bulk, band) visibility [N, N] of the causal split: row r's bulk
+def _split_masks(nq, nk, band, device):
+    """(bulk, band) visibility [Nq, Nk] of the causal split: row r's bulk
     pass sees columns [0, (r // band) * band), its band pass columns
     [(r // band) * band, r]."""
-    row = torch.arange(n, device=device)[:, None]
-    col = torch.arange(n, device=device)[None, :]
+    row = torch.arange(nq, device=device)[:, None]
+    col = torch.arange(nk, device=device)[None, :]
     start = row // band * band
     return col < start, (col >= start) & (col <= row)
 
@@ -352,7 +415,7 @@ def merge_lse(o_a, lse_a, o_b, lse_b):
 def flash_attention_fwd_split_plain(q, k, v, *, scale, band):
     """flash_attention_fwd_split's function in plain PyTorch: B1's plain
     version under the bulk and band masks, then the LSE merge."""
-    bulk, diag = _split_masks(q.shape[2], band, q.device)
+    bulk, diag = _split_masks(q.shape[2], k.shape[2], band, q.device)
     o_b, lse_b = _masked_fwd_plain(q, k, v, scale, bulk)
     o_d, lse_d = _masked_fwd_plain(q, k, v, scale, diag)
     return merge_lse(o_b, lse_b, o_d, lse_d)
@@ -363,7 +426,8 @@ def flash_attention_fwd_split(q, k, v, *, scale=None, band=2048,
     """Two-pass causal forward (the JAX package's
     `flash_attention_fwd_split`, flash.py:664): a mask-free bulk pass
     over the kv columns below each q tile's `band`-wide diagonal band,
-    then a causal pass over the band only, merged by their LSEs. On CUDA
+    then a causal pass over the band only, merged by their LSEs: the
+    `strict_below` and `diag_band` passes of flash_attention_fwd. On CUDA
     tensors these are two B1 launches (each a kv-loop bound in B1's
     body: the bulk pass's loop ends at (q0 / band) * band, the band
     pass's covers [(q0 / band) * band, + band)); on CPU tensors the
@@ -377,21 +441,11 @@ def flash_attention_fwd_split(q, k, v, *, scale=None, band=2048,
         raise ValueError(
             f"split forward needs Nq == Nk divisible by band "
             f"(got {nq}/{nk}, band {band})")
-    if band % SPLIT_TILE:
-        raise ValueError(f"band {band} must be a multiple of B1's "
-                         f"{SPLIT_TILE}-row q tile")
-    scale, _ = _check_args(q, k, v, None, True, scale, 0, None)
-    if q.is_cuda:
-        o_b, lse_b = _flash_fwd_cuda(q, k, v, causal=False, scale=scale,
-                                     offset=0, split=SPLIT_BULK, band=band)
-        o_d, lse_d = _flash_fwd_cuda(q, k, v, causal=True, scale=scale,
-                                     offset=0, split=SPLIT_BAND, band=band)
-        o, lse = merge_lse(o_b, lse_b, o_d, lse_d)
-    elif q.device.type == "cpu":
-        o, lse = flash_attention_fwd_split_plain(q, k, v, scale=scale,
-                                                 band=band)
-    else:
-        raise ValueError(f"unsupported device {q.device}")
+    o_b, lse_b = flash_attention_fwd(q, k, v, scale=scale, offset=0,
+                                     strict_below=band)
+    o_d, lse_d = flash_attention_fwd(q, k, v, causal=True, scale=scale,
+                                     offset=0, diag_band=band)
+    o, lse = merge_lse(o_b, lse_b, o_d, lse_d)
     return o, (lse if save_residuals else None)
 
 
@@ -551,24 +605,27 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, segment_ids=None, *, causal: bool = False,
-                    scale: float | None = None, offset: int | None = None,
-                    window: int | None = None):
+                    scale: float | None = None, block_sizes=None,
+                    offset: int | None = None, window: int | None = None):
     """Differentiable flash attention (public API): B1 forward, B2/B3
     backward on CUDA tensors, their plain versions on CPU tensors.
 
     q: [B, Hq, Nq, D]; k, v: [B, Hkv, Nk, D] with Hkv | Hq. Masks as in
     flash_attention_fwd, in the forward and the backward; quantized K/V
     raise TypeError (flash_attention_quantized is forward-only).
+    `block_sizes` must be B1's compiled tile on the card (B2 / B3 have
+    fixed tiles).
     """
     _dense_kv(k, v)
     scale, offset = _check_args(q, k, v, segment_ids, causal, scale,
                                 offset, window)
+    _check_block_sizes(q, block_sizes)
     return _FlashAttention.apply(q, k, v, causal, scale, offset, window,
                                  segment_ids)
 
 
 def flash_attention_quantized(q, k, v, *, causal: bool = False,
-                              scale: float | None = None,
+                              scale: float | None = None, block_sizes=None,
                               offset: int | None = None):
     """Forward-only flash attention over an int8 / fp8-quantized KV cache
     (QuantizedTensor k and v): B1 with the dequantization fused into its
@@ -579,7 +636,8 @@ def flash_attention_quantized(q, k, v, *, causal: bool = False,
                         "k and v (ops/quant.py quantize_kv)")
     with torch.no_grad():
         o, _ = flash_attention_fwd(q, k, v, causal=causal, scale=scale,
-                                   offset=offset, save_residuals=False)
+                                   block_sizes=block_sizes, offset=offset,
+                                   save_residuals=False)
     return o
 
 

@@ -276,6 +276,27 @@ def paged_flash_decode(q, k_pool, v_pool, page_table, lengths, *,
     return (o, lse) if return_lse else o
 
 
+def validate_paged_inputs(k_pool, page_table, lengths, *, page_size=None):
+    """The guard of the page-table path (JAX `validate_paged_inputs`,
+    an opt-in checkify guard there): raises ValueError, with the JAX
+    messages, when a page id lies outside [0, num_pages) or a length
+    outside [0, W * page_size]. B4 reads `page_table[p]` unchecked and
+    the plain gather wraps a negative id, so callers that cannot trust
+    their tables call this first; `paged_flash_decode` does not. Takes
+    the pool's codes when it is quantized (shape [Hkv, num_pages,
+    page_size, D] either way). On the card each check reads back one
+    reduced flag."""
+    num_pages = k_pool.shape[1]
+    ps = page_size or k_pool.shape[2]
+    capacity = page_table.shape[1] * ps
+    if not bool(((page_table >= 0) & (page_table < num_pages)).all()):
+        raise ValueError(f"page_table contains out-of-range page ids "
+                         f"(pool has {num_pages} pages)")
+    if not bool(((lengths >= 0) & (lengths <= capacity)).all()):
+        raise ValueError(f"lengths exceed page-table capacity "
+                         f"({capacity} tokens)")
+
+
 def paged_decode_reference(q, k_pool, v_pool, page_table, lengths, *,
                            k_scales=None, v_scales=None, scale=None,
                            window=None, window_starts=None, qpos_spread=1):

@@ -58,7 +58,9 @@ fa2_inloop_launches = 0
 naive_launches = 0
 
 # The (block_q, block_kv) pairs csrc/variants_fa1.cu instantiates, each
-# where it fits shared memory at the head dim and dtype.
+# where it fits shared memory at the head dim and dtype: 64 x 64 on the
+# Hopper body for fp16 / bf16 (csrc/study_sm90.cuh, every head dim),
+# 16 x 16 and fp32 64 x 64 on csrc/study.cuh.
 FA1_TILES = ((16, 16), (64, 64))
 SMEM_LIMIT = 232448        # bytes of shared memory a block may use
 
@@ -75,12 +77,14 @@ def _smem_bytes(itemsize: int, d: int, br: int, bc: int) -> int:
 def fa1_compiled_tiles(dtype, head_dim: int) -> list[tuple[int, int]]:
     """The FA1 tiles the card has for this dtype and head dim."""
     return [t for t in FA1_TILES
-            if _smem_bytes(dtype.itemsize, head_dim, *t) <= SMEM_LIMIT]
+            if (dtype.itemsize == 2 and t == (64, 64))
+            or _smem_bytes(dtype.itemsize, head_dim, *t) <= SMEM_LIMIT]
 
 
 def study_tile(dtype, head_dim: int) -> tuple[int, int]:
     """The one tile B10b and B10c are compiled for (csrc/study.cuh
-    DefaultTile): 64 x 64, or 32 x 64 where 64 rows do not fit."""
+    DefaultTile): 64 x 64 (fp16 / bf16 on the Hopper body at every head
+    dim), or 32 x 64 where 64 fp32 rows do not fit."""
     return (64, 64) if _smem_bytes(dtype.itemsize, head_dim, 64, 64) \
         <= SMEM_LIMIT else (32, 64)
 
