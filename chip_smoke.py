@@ -5,14 +5,18 @@
 
 Phases, each fatal on failure:
   1. build   compile the port's CUDA kernels (csrc/*.cu) and the native
-             page allocator from the sources in this checkout;
+             page allocator from the sources in this checkout; print
+             nvcc's ptxas report and one line of registers and spill
+             per B2 / B3 instantiation;
   2. check   hold each kernel against its plain PyTorch version on the
              card in bf16 at the serving shapes (B1, B4) and the training
              shape (B2, B3), and in fp16/bf16 at small shapes for its
              other instantiations (the low-precision gate: kernel error
              <= 3x the plain version's error in the same dtype against an
              fp32 reference, LSE within 1e-3); B2/B3 must also give
-             identical bits on a rerun; B1 causal and B10c at q [1, 32,
+             identical bits on a rerun (their small shapes include a
+             window over Nq < Nk at GQA 4/1 and ragged 77 x 131 rows at
+             D = 256); B1 causal and B10c at q [1, 32,
              8192, 128] and B1 at ragged lengths across its tile edges
              (check_flash_long);
   3. time    each kernel, its plain version and (where one exists) the
@@ -166,10 +170,13 @@ no CUDA device is present or any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
+import io
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -194,6 +201,49 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_rows(build_log: str, name_part: str) -> list[str]:
+    """One line per kernel of nvcc's `-Xptxas -v` report whose mangled
+    name holds `name_part`: its dtype, head dim and mask flag, registers
+    a thread, spill stores / loads, and any wgmma serialization ptxas
+    reported for it."""
+    info, cur = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\w+)", line)
+        if m:
+            cur = m.group(1)
+            info.setdefault(cur, {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            info[cur]["spill"] = f"spill {m.group(1)} / {m.group(2)} bytes"
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            info[cur]["regs"] = f"{m.group(1)} registers"
+        if "wgmma" in line and "serialized" in line:
+            info[cur]["warn"] = "wgmma serialized"
+    rows = []
+    for mangled, v in info.items():
+        if name_part not in mangled:
+            continue
+        kernel = re.search(rf"(?<=\d)({re.escape(name_part)}[a-z0-9_]*?)I",
+                           mangled)
+        dtype = ("bf16" if "bfloat16" in mangled else
+                 "fp16" if "6__half" in mangled else
+                 "fp32" if "IfLi" in mangled else "?")
+        d = re.search(r"Li(\d+)E", mangled)
+        rows.append(" ".join(filter(None, (
+            kernel.group(1) if kernel else mangled, dtype,
+            f"D={d.group(1)}" if d else "",
+            "masked" if "Lb1E" in mangled else "dense",
+            v.get("regs", "? registers"), v.get("spill", ""),
+            v.get("warn", "")))))
+    return rows
 
 
 def bound_ms(flops: float, nbytes: float,
@@ -2096,6 +2146,18 @@ def check_variants(rng) -> None:
             # Rows 0..-offset-1 see no key: zero dq, nothing in dk/dv.
             if not bool((got[0][:, :, :-offset] == 0).all()):
                 raise AssertionError("B2 gave a dead row a gradient")
+    # Edges of the Hopper bodies: a window over Nq < Nk (offset Nk - Nq)
+    # at GQA 4/1 in fp16 (B3 streams four q heads per kv block), and
+    # ragged lengths that are multiples of neither 64 nor 32 at D = 256
+    # (B3's two column passes).
+    for dt, hq, hkv, nq, nk, d, mask in (
+            (torch.float16, 4, 1, 200, 333, 128, dict(window=150)),
+            (torch.bfloat16, 4, 2, 77, 131, 256, {})):
+        _, got, hi, lo = _bwd_case(rng, dt, 1, hq, hkv, nq, nk, d, True,
+                                   **mask)
+        _bwd_gate(f"B2/B3 variant {dt} q({hq},{nq},{d}) kv({hkv},{nk}) "
+                  f"causal=True offset={nk - nq} {mask or 'no window'}",
+                  got, hi, lo)
     torch.cuda.synchronize()
 
 
@@ -4563,7 +4625,12 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    secs = _cuda.build(verbose=True)
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        secs = _cuda.build(verbose=True)
+    print(report.getvalue(), end="", flush=True)
+    for row in ptxas_rows(report.getvalue(), "flash_bwd_"):
+        log(f"ptxas B2/B3 {row}")
     log(f"build: kernels built in {secs:.2f} s "
         f"(phase {time.perf_counter() - t0:.2f} s)")
     phase_s = {}
@@ -4661,7 +4728,7 @@ def main() -> int:
 
     def bwd_entry(name, part, counter, key, replaces):
         return dict(name=name, route="cuda",
-                    source="flash_attention_tpu_torch/csrc/flash_bwd.cu",
+                    source="flash_attention_tpu_torch/csrc/flash_bwd_sm90.cuh",
                     replaces=replaces,
                     launches=sum(by_path(bpaths, counter).values()),
                     launches_by_path=by_path(bpaths, counter),
@@ -4712,7 +4779,7 @@ def main() -> int:
                         "windowed self-attention T=8192":
                             results["flash_window"]}),
         dict(name="flash_bwd_dq (B2)", route="cuda",
-             source="flash_attention_tpu_torch/csrc/flash_bwd.cu",
+             source="flash_attention_tpu_torch/csrc/flash_bwd_sm90.cuh",
              replaces="flash_attention_tpu/ops/flash.py:716",
              launches=trained["bwd_dq"] + sl["bwd_dq"]
              + sum(by_path(bpaths, "bwd_dq").values()),
@@ -4721,7 +4788,7 @@ def main() -> int:
                                **by_path(tpaths, "bwd_dq")},
              **results["bwd_dq"], at_head_dims=head_dims("B2/B3", "dq")),
         dict(name="flash_bwd_dkv (B3)", route="cuda",
-             source="flash_attention_tpu_torch/csrc/flash_bwd.cu",
+             source="flash_attention_tpu_torch/csrc/flash_bwd_sm90.cuh",
              replaces="flash_attention_tpu/ops/flash.py:773",
              launches=trained["bwd_dkv"] + sl["bwd_dkv"]
              + sum(by_path(bpaths, "bwd_dkv").values()),

@@ -3,9 +3,11 @@
 The JAX package searches block sizes against the TPU's VMEM budget
 (`flash_attention_tpu/config.py`). On Hopper the kernels use fixed tiles
 sized to shared memory and registers instead (compile-time constants of
-csrc/*.cu: B1 128 q rows by 128 kv rows, 64 x 64 at D = 256, B2 and B3
-64-row tiles or 32 at D = 256, B4 and B5 256 threads per (sequence, kv
-head) over groups of at most 16 query rows); what the Python wrappers
+csrc/*.cu: B1 128 q rows by 128 kv rows, 64 x 64 at D = 256; B2 128 q
+rows a block against kv tiles of 64, B3 128 kv rows a block against q
+tiles of 64, both 64 rows a block at D = 256 (fp32: 64-row tiles, 32
+above D = 64); B4 and B5 256 threads per (sequence, kv head) over groups
+of at most 16 query rows); what the Python wrappers
 must check against is mirrored here, and `select_block_sizes` returns
 B1's tile.
 """

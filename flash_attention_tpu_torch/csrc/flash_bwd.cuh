@@ -1,7 +1,6 @@
-// The B2 / B3 kernel templates (flash_bwd.cu), instantiated per compute
-// type, head dim and mask flag. flash_bwd.cu holds the unmasked fp16 /
-// bf16 instantiations and the C entry points, flash_bwd_masked.cu the
-// window / segment-id ones, flash_bwd_f32.cu both for fp32 inputs.
+// B2 / B3 on fp32 inputs (flash_bwd_f32.cu): the FFMA body, and the
+// Args and dispatch pieces that the fp16 / bf16 Hopper body
+// (flash_bwd_sm90.cuh) shares with it.
 //
 // B2 (dQ) replaces the Pallas TPU kernel flash_attention_tpu/ops/flash.py
 // `_bwd_dq_kernel` (flash.py:716, launched at :949); B3 (dK/dV) replaces
@@ -18,7 +17,8 @@
 // dV = P^T dO and dK = dS^T Q over the GQA group's q heads and the q
 // tiles of one kv tile. P is rounded to the input dtype before the dV
 // product and dS before the dQ and dK products (the JAX kernels'
-// numerics, flash.py:764, :822, :831); every sum is fp32.
+// numerics, flash.py:764, :822, :831; a no-op in fp32); every sum is
+// fp32.
 //
 // Masking is by select: a pair that is causally hidden (col > row +
 // offset), a kv column >= Nk or a q row >= Nq gets P = 0 exactly, never
@@ -31,25 +31,18 @@
 // applied through _mask_block_if_needed, :748-756): the `Masked`
 // instantiations also hide col <= row + offset - window (window > 0,
 // causal only) and pairs whose segment ids differ (qseg [B, Nq], kvseg
-// [B, Nk], both or neither), by the same select. Each block reads the
-// streamed tile's ids into shared memory beside it and keeps its own
-// rows' ids in registers. The window is a template parameter, as in B4 /
-// B5, so the unmasked instantiations are the dense body unchanged.
+// [B, Nk], both or neither), by the same select.
 //
 // Determinism: the split into two kernels (rather than one fused kernel
 // with fp32 atomics on dQ) makes every output the sum of a fixed
 // sequence of products in one block, in a fixed order: two runs give
 // identical bits, as the TPU kernels do.
 //
-// What bounds them on the H100: at the training shape (q [4, 16, 2048,
-// 128], kv [4, 8, 2048, 128], causal) B2 does 6*D and B3 8*D FLOPs per
-// visible pair against ~135 MB of traffic -- ~760 (B2) and ~1020 (B3)
-// FLOPs/byte, far above the card's ~295 bf16 FLOPs/byte, so both are
-// operation-bound. The design keeps every product on the tensor cores
-// (WMMA 16x16x16, bf16/fp16 in, fp32 accumulate; fp32 inputs take the
-// FFMA warp tiles of common.cuh instead, full fp32 as the JAX kernels'
-// Precision.HIGHEST, at the card's 67 TFLOP/s) and every intermediate
-// (S, dP, P, dS and the fp32 accumulators) in shared memory, so device
+// What bounds this body on the H100: the JAX kernels compute fp32 at
+// Precision.HIGHEST, and wgmma has no fp32 operand at that precision, so
+// every product runs in full fp32 on the CUDA cores (common.cuh ffma_abt
+// / ffma_ab warp tiles) at the card's 67 TFLOP/s: bound by operations.
+// S, dP, P, dS and the accumulators live in shared memory, so device
 // memory sees each input row once per tile pass and each gradient once.
 // Tiles that see nothing are never loaded: B2's kv loop runs from the
 // first tile inside the window of its first row (the JAX grid's
@@ -60,35 +53,22 @@
 //
 // Layout: 2 * kTile threads per block, kTile / 16 warps. Warp w owns rows
 // 16w..16w+15 of every per-block tile (q rows in B2, kv rows in B3), and
-// thread pair (2r, 2r+1) does the elementwise work of row r, so only
-// warp-level synchronisation is needed between the loads of the streamed
-// tiles. The accumulators (dQ; dK and dV) live in shared memory, not in
-// WMMA fragments: at D = 128 two accumulators in fragments would take
-// 128 registers a thread. kTile is 64 rows up to 256 bytes of head dim
-// a row (D = 128 in bf16 / fp16, D = 64 in fp32); B3's shared memory is
-// 190,976 bytes at bf16 D = 128, past the 48 KB default, so the launch
-// raises the kernel's dynamic limit first (the card allows 227 KB).
-// Wider rows take 32-row tiles: 148,736 bytes for B3 at bf16 D = 256,
-// 120,064 at fp32 D = 128 and 218,368 at fp32 D = 256 (64-row fp32 tiles
-// would take 272,896 bytes at D = 128).
-//
-// A fast version (wgmma, TMA, a producer warp, double-buffered tiles,
-// accumulators in registers) is later work; this one is simple and
-// right first.
+// thread pair (2r, 2r+1) does the elementwise work of row r. kTile is 64
+// rows up to D = 64 and 32 above (120,064 bytes of shared memory for B3
+// at D = 128, 218,368 at D = 256; 64-row tiles would take 272,896 at
+// D = 128), past the 48 KB default, so the launch raises the kernel's
+// dynamic limit first.
 #pragma once
-
-#include <mma.h>
 
 #include "common.cuh"
 
 namespace fa {
 namespace bwd {
 
-using namespace nvcuda;
-
 template <typename T, int D>
 struct Layout {
   // q and kv tile rows: 64 up to 256 bytes of head dim a row, else 32.
+  static_assert(sizeof(T) == 4, "the FFMA body is fp32 only");
   static constexpr int kTile = sizeof(T) * D > 256 ? 32 : 64;
   static constexpr int kThreads = 2 * kTile;        // a thread pair a row
   static constexpr int kPad = 16 / sizeof(T);       // keeps rows 16-byte
@@ -118,68 +98,22 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int r0,
 }
 
 // C[16, kTile] = A[16, D] B^T for one warp: A row-major (stride kLdT), B
-// [kTile, D] row-major (read as a col-major D x kTile operand), C fp32
-// (stride kLdS). WMMA for fp16 / bf16, FFMA for fp32.
+// [kTile, D] row-major, C (stride kLdS); full fp32 FFMA.
 template <typename T, int D>
 __device__ __forceinline__ void mm_abt(float* c, const T* a, const T* b) {
   using L = Layout<T, D>;
-  if constexpr (sizeof(T) == 4) {
-    fa::ffma_abt<L::kTile, D>(c, L::kLdS, a, L::kLdT, b, L::kLdT,
-                              threadIdx.x & 31);
-  } else {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major>
-        af[D / 16];
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wmma::load_matrix_sync(af[kk], a + kk * 16, L::kLdT);
-#pragma unroll
-    for (int n = 0; n < L::kTile / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> cf;
-      wmma::fill_fragment(cf, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> bf;
-        wmma::load_matrix_sync(bf, b + (n * 16) * L::kLdT + kk * 16,
-                               L::kLdT);
-        wmma::mma_sync(cf, af[kk], bf, cf);
-      }
-      wmma::store_matrix_sync(c + n * 16, cf, L::kLdS,
-                              wmma::mem_row_major);
-    }
-  }
+  fa::ffma_abt<L::kTile, D>(c, L::kLdS, a, L::kLdT, b, L::kLdT,
+                            threadIdx.x & 31);
 }
 
 // C[16, D] += A[16, kTile] B for one warp: A row-major (stride kLdP), B
-// [kTile, D] row-major (stride kLdT), C fp32 (stride kLdA). WMMA for
-// fp16 / bf16, FFMA for fp32.
+// [kTile, D] row-major (stride kLdT), C (stride kLdA); full fp32 FFMA.
 template <typename T, int D>
 __device__ __forceinline__ void mm_ab_acc(float* c, const T* a,
                                           const T* b) {
   using L = Layout<T, D>;
-  if constexpr (sizeof(T) == 4) {
-    fa::ffma_ab<D, L::kTile>(c, L::kLdA, a, L::kLdP, b, L::kLdT, nullptr,
-                             nullptr, threadIdx.x & 31);
-  } else {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major>
-        af[L::kTile / 16];
-#pragma unroll
-    for (int kk = 0; kk < L::kTile / 16; ++kk)
-      wmma::load_matrix_sync(af[kk], a + kk * 16, L::kLdP);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> cf;
-      wmma::load_matrix_sync(cf, c + n * 16, L::kLdA, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < L::kTile / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> bf;
-        wmma::load_matrix_sync(bf, b + (kk * 16) * L::kLdT + n * 16,
-                               L::kLdT);
-        wmma::mma_sync(cf, af[kk], bf, cf);
-      }
-      wmma::store_matrix_sync(c + n * 16, cf, L::kLdA,
-                              wmma::mem_row_major);
-    }
-  }
+  fa::ffma_ab<D, L::kTile>(c, L::kLdA, a, L::kLdP, b, L::kLdT, nullptr,
+                           nullptr, threadIdx.x & 31);
 }
 
 // Half a row (D / 2 fp32 values of an accumulator) to global memory.
@@ -430,7 +364,7 @@ flash_bwd_dkv_kernel(const Args a, T* __restrict__ dk, T* __restrict__ dv) {
 // The launchers: each raises the kernel's dynamic shared-memory limit
 // (past the 48 KB default from D = 64) before it launches.
 template <typename T, int D, bool Masked>
-struct Dq {
+struct DqFfma {
   static cudaError_t run(const Args& a, void* dq) {
     using L = Layout<T, D>;
     constexpr size_t kBytes = L::kDqBytes + (Masked ? L::kSeg : 0);
@@ -447,7 +381,7 @@ struct Dq {
 };
 
 template <typename T, int D, bool Masked>
-struct Dkv {
+struct DkvFfma {
   static cudaError_t run(const Args& a, void* dk, void* dv) {
     using L = Layout<T, D>;
     constexpr size_t kBytes = L::kDkvBytes + (Masked ? L::kSeg : 0);
@@ -465,7 +399,8 @@ struct Dkv {
 };
 
 // Dispatch over the head dim for one compute type T; F is a launcher
-// templated on T, the head dim and the mask flag.
+// templated on T, the head dim and the mask flag (DqFfma / DkvFfma here,
+// Dq / Dkv of flash_bwd_sm90.cuh).
 template <template <typename, int, bool> class F, bool Masked, typename T,
           typename... Out>
 cudaError_t dispatch_d(int D, const Args& a, Out... out) {
@@ -473,16 +408,6 @@ cudaError_t dispatch_d(int D, const Args& a, Out... out) {
   if (D == 64) return F<T, 64, Masked>::run(a, out...);
   if (D == 256) return F<T, 256, Masked>::run(a, out...);
   if (D == 32) return F<T, 32, Masked>::run(a, out...);
-  return cudaErrorInvalidValue;
-}
-
-// Dispatch over the fp16 / bf16 dtypes and the head dim.
-template <template <typename, int, bool> class F, bool Masked,
-          typename... Out>
-cudaError_t dispatch(int dtype, int D, const Args& a, Out... out) {
-  if (dtype == kBFloat16)
-    return dispatch_d<F, Masked, __nv_bfloat16>(D, a, out...);
-  if (dtype == kFloat16) return dispatch_d<F, Masked, __half>(D, a, out...);
   return cudaErrorInvalidValue;
 }
 

@@ -10,14 +10,14 @@ namespace fa {
 namespace bwd {
 
 cudaError_t dispatch_dq_f32(int D, bool masked, const Args& a, void* dq) {
-  return masked ? dispatch_d<Dq, true, float>(D, a, dq)
-                : dispatch_d<Dq, false, float>(D, a, dq);
+  return masked ? dispatch_d<DqFfma, true, float>(D, a, dq)
+                : dispatch_d<DqFfma, false, float>(D, a, dq);
 }
 
 cudaError_t dispatch_dkv_f32(int D, bool masked, const Args& a, void* dk,
                              void* dv) {
-  return masked ? dispatch_d<Dkv, true, float>(D, a, dk, dv)
-                : dispatch_d<Dkv, false, float>(D, a, dk, dv);
+  return masked ? dispatch_d<DkvFfma, true, float>(D, a, dk, dv)
+                : dispatch_d<DkvFfma, false, float>(D, a, dk, dv);
 }
 
 }  // namespace bwd

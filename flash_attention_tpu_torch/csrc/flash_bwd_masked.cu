@@ -1,8 +1,8 @@
-// B2 / B3 with a sliding window and / or segment ids (flash_bwd.cuh, the
-// Masked instantiations), compiled apart from the unmasked ones so the
-// build runs them in parallel.
+// B2 / B3 on fp16 / bf16 with a sliding window and / or segment ids
+// (flash_bwd_sm90.cuh, the Masked instantiations), compiled apart from
+// the unmasked ones so the build runs them in parallel.
 
-#include "flash_bwd.cuh"
+#include "flash_bwd_sm90.cuh"
 
 namespace fa {
 namespace bwd {

@@ -1,6 +1,6 @@
 // Hopper building blocks of the port's attention kernels (sm_90a): B1
-// (flash_fwd.cuh), B10c (variants_naive.cu) and B10a / B10b
-// (study_sm90.cuh) are built from them, and B2 / B3 can be.
+// (flash_fwd.cuh), B2 / B3 (flash_bwd_sm90.cuh), B10c (variants_naive.cu)
+// and B10a / B10b (study_sm90.cuh) are built from them.
 //
 // - mbarriers and TMA: a K/V tile is copied from device memory to shared
 //   memory by one thread with cp.async.bulk.tensor, and its arrival is
@@ -194,8 +194,11 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
+// Waits until at most N of the warpgroup's committed groups are still in
+// flight (groups complete in the order they were committed).
+template <int N = 0>
 __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // ss at N = 64 / 128 (S over a kv tile), rs at N = D (O).

@@ -12,6 +12,9 @@ of its own, and prints one line per turn:
 
     PAIR parent {"package": "...", "ms": {"paged": 0.074, ...}}
 
+A check that times several kernels under one key (check_bwd_branches:
+B2 and B3 per case) gives one "ms" entry per kernel, "<key>.<kernel>".
+
 Both versions run on the same card in one call, so their times compare.
 """
 
@@ -45,8 +48,20 @@ def one_turn(checks: str, package_root: str | None) -> None:
         getattr(chip_smoke, f"check_{name}")(
             np.random.default_rng(chip_smoke.SEED), flush, results)
     print(json.dumps({"package": _cuda.CSRC.parent.as_posix(),
-                      "ms": {str(k): v["ms"] for k, v in results.items()}}),
-          flush=True)
+                      "ms": flat_ms(results)}), flush=True)
+
+
+def flat_ms(results: dict) -> dict:
+    """{check key: ms} of a results dict. An entry without its own "ms"
+    holds one entry per kernel (check_bwd_branches' {"dq": {...}, "dkv":
+    {...}}): each is keyed "<key>.<part>", e.g. "('bwd', 'window').dq"."""
+    out = {}
+    for key, v in results.items():
+        if "ms" in v:
+            out[str(key)] = v["ms"]
+        else:
+            out.update({f"{key}.{part}": sub["ms"] for part, sub in v.items()})
+    return out
 
 
 def main() -> int:

@@ -36,6 +36,11 @@ CASES = {
     "unpadded_200": (1, 2, 2, 200, 200, 64, True),
     "offset_nq_lt_nk": (1, 2, 2, 128, 256, 64, True),
     "multi_kv_block_384": (1, 1, 1, 384, 384, 64, False),
+    # The head dims the card's B2 / B3 bodies are built for, beside 64:
+    # the training shape's D = 128 (causal GQA 4/2), 32 and 256.
+    "d128_causal_gqa_4_2": (1, 4, 2, 256, 256, 128, True),
+    "d32_causal": (1, 2, 2, 128, 128, 32, True),
+    "d256_causal": (1, 2, 2, 128, 128, 256, True),
 }
 
 

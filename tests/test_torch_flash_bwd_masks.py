@@ -83,10 +83,13 @@ def _assert_match(jax_side, port_side):
         assert max_abs_error(a, ref) <= ATOL, name
 
 
-@pytest.mark.parametrize("window", [96, 256])
-def test_window_gradients_match_jax(window):
-    """tests/test_window.py:38: causal, window 96 / 256, T = 384."""
-    q, k, v, ct = _inputs(window, 1, 2, 2, 384, 384, 64)
+@pytest.mark.parametrize("window, d", [
+    pytest.param(96, 64, id="96"), pytest.param(256, 64, id="256"),
+    pytest.param(96, 128, id="96-d128")])
+def test_window_gradients_match_jax(window, d):
+    """tests/test_window.py:38: causal, window 96 / 256, T = 384; window
+    96 also at the training head dim 128."""
+    q, k, v, ct = _inputs(window, 1, 2, 2, 384, 384, d)
     _assert_match(*_both(q, k, v, ct, causal=True, window=window))
 
 

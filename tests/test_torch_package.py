@@ -349,3 +349,21 @@ def test_cli_device_cuda_raises_without_a_card(argv):
         cli.main(argv)
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(argv + ["--device", "cuda"])
+
+
+def test_kernel_pairs_flattens_nested_results():
+    """kernel_pairs.py times checks whose results nest one entry per
+    kernel under a key (check_bwd_branches' {"dq": ..., "dkv": ...})
+    as "<key>.<kernel>", beside flat entries."""
+    import sys
+
+    sys.path.insert(0, str(ROOT))
+    try:
+        import kernel_pairs
+    finally:
+        sys.path.remove(str(ROOT))
+    results = {"bwd_dq": {"ms": 0.5, "bound_ms": 0.1},
+               ("bwd", "window"): {"dq": {"ms": 2.0}, "dkv": {"ms": 3.0}}}
+    assert kernel_pairs.flat_ms(results) == {
+        "bwd_dq": 0.5, "('bwd', 'window').dq": 2.0,
+        "('bwd', 'window').dkv": 3.0}
