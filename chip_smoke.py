@@ -7,7 +7,8 @@ Phases, each fatal on failure:
   1. build   compile the port's CUDA kernels (csrc/*.cu) and the native
              page allocator from the sources in this checkout; print
              nvcc's ptxas report and one line of registers and spill
-             per B2 / B3 instantiation;
+             per B2 / B3 instantiation and per instantiation of the
+             B6-B9 Hopper bodies (csrc/matmul_sm90.cuh);
   2. check   hold each kernel against its plain PyTorch version on the
              card in bf16 at the serving shapes (B1, B4) and the training
              shape (B2, B3), and in fp16/bf16 at small shapes for its
@@ -90,7 +91,7 @@ Phases, each fatal on failure:
              exact launch counts, the same teacher-forced band);
   9. mixtral  the Engine on MoEConfig.mixtral_8x7b (dropless routing) at
              full width on int4 and int8 weights drawn on the
-             card by init_quantized_moe_params (int8 cut to 16 of its
+             card by init_quantized_moe_params (each cut to 16 of its
              32 layers for the time limit), then the int4 tree with
              FA_TPU_GROUPED_MIN_TOKENS=1 (B9 at every decode step), then
              bf16 weights cut to 8 layers (of the 16 that fit one
@@ -133,10 +134,16 @@ The 1B serve phase also runs one prefill with FA_TPU_DENSE_PALLAS_MM=1
 the cuBLAS path) and serves its requests again with prefill_chunk=256
 and the prefix cache (B1 with segment ids, 2 launches per layer per
 chunk dispatch). Kernel checks (phase 2) cover B5 at the generate
-shape and B6 (int8, e4m3, e5m2), B7 and B8 at the 8B decode (M = 16)
-and prefill (M = 1024) shapes, ragged shapes and fp16, B9 on all five
-storages at Mixtral's expert shapes with 16 and 8192 expert-sorted rows,
-a ragged shape, a base band with rows past the data, and fp16, and the
+shape and B6 (int8, e4m3, e5m2), B7 and B8 at the 8B decode step's four
+shapes (M = 16) and its prefill shapes (M = 1024), 64 and 65 rows (the
+decode threshold), ragged shapes (the first body) and fp16 on both
+Hopper bodies, with identical bits on a rerun of the split-K decode
+body and the wrapper's host time a call; B9 on all five storages at
+Mixtral's expert shapes with 16 and 8192 expert-sorted rows, a ragged
+shape, a base band with rows past the data, experts that straddle the
+128-row tiles (bf16 and fp16) and fp16; every B6-B9 case checks which
+body it took through the first-body counter, which every model phase
+holds at 0 (NO_BRANCHES); and the
 window and segment-id branches at Mistral's shapes: B1's chunk-prefix
 attention (segment ids), roll-buffer attention (offset, window, segment
 ids) and windowed self-attention, B4 with window starts and 1 or 4
@@ -203,11 +210,9 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def ptxas_rows(build_log: str, name_part: str) -> list[str]:
-    """One line per kernel of nvcc's `-Xptxas -v` report whose mangled
-    name holds `name_part`: its dtype, head dim and mask flag, registers
-    a thread, spill stores / loads, and any wgmma serialization ptxas
-    reported for it."""
+def ptxas_info(build_log: str) -> dict:
+    """{mangled kernel name: {"regs", "spill", "warn"}} from nvcc's
+    `-Xptxas -v` report."""
     info, cur = {}, None
     for line in build_log.splitlines():
         m = re.search(r"(?:Compiling entry function '|Function properties "
@@ -227,8 +232,16 @@ def ptxas_rows(build_log: str, name_part: str) -> list[str]:
             info[cur]["regs"] = f"{m.group(1)} registers"
         if "wgmma" in line and "serialized" in line:
             info[cur]["warn"] = "wgmma serialized"
+    return info
+
+
+def ptxas_rows(build_log: str, name_part: str) -> list[str]:
+    """One line per kernel of nvcc's `-Xptxas -v` report whose mangled
+    name holds `name_part`: its dtype, head dim and mask flag, registers
+    a thread, spill stores / loads, and any wgmma serialization ptxas
+    reported for it."""
     rows = []
-    for mangled, v in info.items():
+    for mangled, v in ptxas_info(build_log).items():
         if name_part not in mangled:
             continue
         kernel = re.search(rf"(?<=\d)({re.escape(name_part)}[a-z0-9_]*?)I",
@@ -244,6 +257,29 @@ def ptxas_rows(build_log: str, name_part: str) -> list[str]:
             v.get("regs", "? registers"), v.get("spill", ""),
             v.get("warn", "")))))
     return rows
+
+
+STORAGE_NAMES = {0: "dense", 1: "int8", 2: "e4m3", 3: "e5m2", 4: "int4"}
+
+
+def matmul_ptxas_rows(build_log: str) -> list[str]:
+    """One line per instantiation of csrc/matmul_sm90.cuh's kernel
+    (mm_sm90<T, storage, NP, grouped>): B6-B8 prefill (NP = 0), decode
+    (NP = 16 / 64) or B9, its dtype and storage, registers a thread and
+    spill stores / loads."""
+    rows = []
+    for mangled, v in ptxas_info(build_log).items():
+        m = re.search(r"mm_sm90I(\w+?)Li(\d+)ELi(\d+)ELb([01])E", mangled)
+        if m is None:
+            continue
+        np_, grouped = int(m.group(3)), m.group(4) == "1"
+        rows.append(" ".join(filter(None, (
+            "B9" if grouped else "B6-B8 prefill" if np_ == 0
+            else f"B6-B8 decode NP={np_}",
+            "bf16" if "bfloat16" in m.group(1) else "fp16",
+            STORAGE_NAMES[int(m.group(2))], v.get("regs", "? registers"),
+            v.get("spill", ""), v.get("warn", "")))))
+    return sorted(rows)
 
 
 def bound_ms(flops: float, nbytes: float,
@@ -272,6 +308,28 @@ def time_ms(fn, flush: L2Flush, iters: int = 25, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def device_ms(fn, flush: L2Flush, iters: int = 25, warmup: int = 3) -> float:
+    """time_ms with the host's launch cost taken out: the card first
+    spins for 20 ms (torch.cuda._sleep), so the host has queued every
+    timed launch before the first one starts, and each pair of events
+    brackets the kernel alone."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(35_000_000)
     pairs = []
     for _ in range(iters):
         flush()
@@ -703,9 +761,11 @@ def dense_pallas_path(params, params32, cfg, cfg32, plain_attn) -> int:
     os.environ["FA_TPU_DENSE_PALLAS_MM"] = "1"
     try:
         qm.dense_matmul_launches = 0
+        qm.matmul_first_body_launches = 0
         got = prefill_kv(params, tokens, cfg)[0]
         torch.cuda.synchronize()
         launches = qm.dense_matmul_launches
+        first = qm.matmul_first_body_launches
     finally:
         del os.environ["FA_TPU_DENSE_PALLAS_MM"]
     with torch.no_grad():
@@ -713,9 +773,10 @@ def dense_pallas_path(params, params32, cfg, cfg32, plain_attn) -> int:
     ok, kerr, berr = verify_low_precision(got, ref, default)
     want = 7 * cfg.n_layers + 1
     log(f"b8 path: prefill_kv T=512 with FA_TPU_DENSE_PALLAS_MM=1: B8 "
-        f"launches {launches} (want {want}); last-token logit error vs "
-        f"fp32 {kerr:.4e}, default cuBLAS path's {berr:.4e} (gate 3x)")
-    if launches != want or not ok:
+        f"launches {launches} (want {want}), {first} on the first body "
+        f"(want 0); last-token logit error vs fp32 {kerr:.4e}, default "
+        f"cuBLAS path's {berr:.4e} (gate 3x)")
+    if launches != want or first or not ok:
         raise AssertionError("the B8 path failed its gate")
     return launches
 
@@ -829,6 +890,8 @@ def _counters() -> dict:
             "int4": (quant_matmul, "int4_matmul_launches"),
             "dense": (quant_matmul, "dense_matmul_launches"),
             "grouped": (grouped, "grouped_matmul_launches"),
+            "matmul_first_body": (quant_matmul,
+                                  "matmul_first_body_launches"),
             "flash_fp32": (flash, "flash_fwd_fp32_launches"),
             "flash_split_bulk": (flash, "flash_fwd_split_bulk_launches"),
             "flash_split_band": (flash, "flash_fwd_split_band_launches"),
@@ -855,10 +918,11 @@ def _counters() -> dict:
 # with a window; B4 with window starts, over int8 / fp8 pools, with the
 # fold_scales body; B5 with a window, over int8 / fp8 caches; and the
 # study kernels B10a-c; B2-B9 on fp32 inputs; the probes' kernels (P1
-# v1 / v2, P2 v2, P3). Zero on every path that serves a model without a
+# v1 / v2, P2 v2, P3); B6-B9 on their first body (fp16 / bf16 operands
+# TMA cannot address). Zero on every path that serves a model without a
 # window, chunked prefill or quantized KV, and on every serving path for
-# B2/B3; the fp32, split, study and probe counters are zero on every
-# model path.
+# B2/B3; the fp32, split, study, probe and first-body counters are zero
+# on every model path.
 FP32_COUNTERS = ("bwd_dq_fp32", "bwd_dkv_fp32", "paged_fp32", "decode_fp32",
                  "quant_fp32", "int4_fp32", "dense_fp32", "grouped_fp32")
 PROBE_COUNTERS = ("p1_v1", "p1_v2", "p2_v2", "p3")
@@ -868,7 +932,8 @@ NO_BRANCHES = dict.fromkeys(("flash_seg", "flash_win", "flash_quant",
                              "bwd_dq_seg", "bwd_dkv_seg", "bwd_dq_win",
                              "bwd_dkv_win", "paged_win", "paged_quant",
                              "paged_fold", "decode_win", "decode_quant",
-                             *FP32_COUNTERS, *PROBE_COUNTERS), 0)
+                             "matmul_first_body", *FP32_COUNTERS,
+                             *PROBE_COUNTERS), 0)
 
 
 def reset_counts() -> None:
@@ -1419,16 +1484,17 @@ def serve_mixtral(kind, params, cfg, forced=False) -> dict:
 # Depth of the bf16 Mixtral tree: 16 layers fit one card (93 GB at 32);
 # 8 keep the whole script inside its time limit. The int8 tree (47 GB at
 # full depth, the largest) is cut to 16 of its 32 layers for the same
-# reason; the int4 tree keeps full depth.
+# reason, and so is the int4 tree (the script passed 1100 s at 32).
 MIXTRAL_BF16_LAYERS = 8
 MIXTRAL_INT8_LAYERS = 16
+MIXTRAL_INT4_LAYERS = 16
 
 
 def mixtral() -> dict:
     """Phase 9: Mixtral-8x7B (MoEConfig.mixtral_8x7b, dropless routing)
-    at full width and depth on int4 and int8 trees from
-    init_quantized_moe_params (the int8 tree cut to MIXTRAL_INT8_LAYERS
-    layers), the int4 tree again with the grouped path forced, and a
+    at full width on int4 and int8 trees from init_quantized_moe_params
+    (cut to MIXTRAL_INT4_LAYERS / MIXTRAL_INT8_LAYERS layers), the int4
+    tree again with the grouped path forced, and a
     bf16 tree cut to MIXTRAL_BF16_LAYERS layers; between the int4 runs
     the crossover report. Returns each run's numbers."""
     from flash_attention_tpu_torch.models.moe import (
@@ -1440,11 +1506,10 @@ def mixtral() -> dict:
 
     out = {}
     for kind in ("int4", "int8", "bf16"):
-        layers = {"bf16": MIXTRAL_BF16_LAYERS,
-                  "int8": MIXTRAL_INT8_LAYERS}.get(kind)
+        layers = {"bf16": MIXTRAL_BF16_LAYERS, "int4": MIXTRAL_INT4_LAYERS,
+                  "int8": MIXTRAL_INT8_LAYERS}[kind]
         cfg = MoEConfig.mixtral_8x7b(
-            routing="dropless", dtype=torch.bfloat16,
-            **({} if layers is None else {"n_layers": layers}))
+            routing="dropless", dtype=torch.bfloat16, n_layers=layers)
         t0 = time.perf_counter()
         if kind == "bf16":
             params = init_moe_params(cfg, seed=SEED)
@@ -2213,67 +2278,147 @@ def _matmul_fns(kind):
     return qm.quant_matmul, qm.quant_matmul_plain, qm.quant_matmul_cost
 
 
+# Where B6-B8 live: the Hopper bodies' header and their instantiations,
+# and the entry with the first body (fp32, operands TMA cannot address).
+MATMUL_SOURCES = dict(
+    source="flash_attention_tpu_torch/csrc/matmul_sm90.cuh",
+    sources=["flash_attention_tpu_torch/csrc/matmul_sm90_bf16.cu",
+             "flash_attention_tpu_torch/csrc/matmul_sm90_f16.cu",
+             "flash_attention_tpu_torch/csrc/matmul_decode_bf16.cu",
+             "flash_attention_tpu_torch/csrc/matmul_decode_f16.cu",
+             "flash_attention_tpu_torch/csrc/quant_matmul.cu (entry; first "
+             "body over matmul_core.cuh)"])
 MATMUL_KINDS = {"B6 int8": torch.int8, "B6 e4m3": torch.float8_e4m3fn,
                 "B6 e5m2": torch.float8_e5m2, "B7 int4": "int4",
                 "B8 dense": "dense"}
+# The timed B6-B8 shapes: the 8B decode step's w_gate / w_up, w_down, wq /
+# wo and wk / wv at 16 rows, then w_gate and w_down at 1024 prefill rows.
+MATMUL_TIMED = [(16, 4096, 14336), (16, 14336, 4096), (16, 4096, 4096),
+                (16, 4096, 1024), (1024, 4096, 14336), (1024, 14336, 4096)]
 
 
-def check_quant_matmul(flush, results):
+def first_body_count():
+    """The first-body launch counter (fp16 / bf16 B6-B9 launches whose
+    operands TMA cannot address), or None in a package without it."""
+    from flash_attention_tpu_torch.ops import quant_matmul as qm
+
+    return getattr(qm, "matmul_first_body_launches", None)
+
+
+def expected_body(m, dtype, aligned, grouped=False):
+    """The body a launch should take (quant_matmul.matmul_body), or None
+    in a package without the routing rule."""
+    from flash_attention_tpu_torch.ops import quant_matmul as qm
+
+    route = getattr(qm, "matmul_body", None)
+    return None if route is None else route(m, dtype, aligned=aligned,
+                                            grouped=grouped)
+
+
+def check_first_body(what, before, body):
+    """The first-body counter rose by one exactly when `body` is the
+    first body (skipped in a package without the counter)."""
+    after = first_body_count()
+    if after is None or body is None:
+        return
+    if after - before != (body == "first"):
+        raise AssertionError(f"{what}: first-body launches {after - before} "
+                             f"for body {body}")
+
+
+def host_us_per_call(fn, calls=1000) -> float:
+    """The wrapper's host time a call: `calls` calls without a sync,
+    time.perf_counter (the queue drains afterwards)."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def check_quant_matmul(rng, flush, results):
     """B6 (int8, e4m3, e5m2), B7 and B8 against their plain versions
-    under the low-precision gate at the 8B decode shapes (M = 16) and
-    prefill shapes (M = 1024) of w_gate/w_up (4096 x 14336) and w_down
-    (14336 x 4096), a ragged shape and fp16; timed at the 8B shapes
-    beside their bound, their plain time and torch.matmul on the dense
-    bf16 weight of the same shape (the product the quantized weight
-    replaces; for B8 the same function)."""
+    under the low-precision gate at the 8B decode step's shapes (M = 16:
+    w_gate / w_up 4096 x 14336, w_down 14336 x 4096, wq / wo 4096 x
+    4096, wk / wv 4096 x 1024) and prefill shapes (M = 1024 of w_gate and
+    w_down), 64 and 65 rows (one each side of the decode threshold), a
+    ragged shape (the first body: no TMA row stride) and fp16 on both
+    Hopper bodies; each decode-body case again with identical bits. The
+    8B shapes are timed beside their bound, their plain time and
+    torch.matmul on the dense bf16 weight of the same shape (the product
+    the quantized weight replaces; for B8 the same function), and the
+    wrapper's host time a call at 16 x 4096 x 14336 int4. Inputs come
+    from the check's own seeded generator (rng is unused)."""
     from flash_attention_tpu_torch.utils.metrics import (
         max_abs_error, verify_low_precision,
     )
 
+    del rng
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    timed = [(16, 4096, 14336), (16, 14336, 4096), (1024, 4096, 14336),
-             (1024, 14336, 4096)]
     for label, kind in MATMUL_KINDS.items():
         fn, plain, cost = _matmul_fns(kind)
         ragged = (3, 384, 257) if kind == "int4" else (3, 130, 257)
-        cases = [(m, k, f, torch.bfloat16) for m, k, f in timed] + [
-            (*ragged, torch.bfloat16), (16, 512, 384, torch.float16)]
+        cases = [(m, k, f, torch.bfloat16) for m, k, f in MATMUL_TIMED] + [
+            (64, 1024, 512, torch.bfloat16), (65, 1024, 512, torch.bfloat16),
+            (*ragged, torch.bfloat16), (16, 512, 384, torch.float16),
+            (200, 512, 384, torch.float16)]
         rows = []
         for m, k, f, dt in cases:
             args, wdense = rand_weight(kind, k, f, gen)
             if kind == "dense":
                 args = (args[0].to(dt),)
             x = (torch.randn((m, k), generator=gen, device="cuda")).to(dt)
+            aligned = (m, k, f) != ragged
+            body = expected_body(m, dt, aligned)
+            before = first_body_count()
             got = fn(x, *args)
             torch.cuda.synchronize()
+            check_first_body(f"{label} {m}x{k}x{f}", before, body)
             lo = plain(x, *args)
             hi = plain(x.float(), *((args[0].float(),) if kind == "dense"
                                     else args))
             ok, kerr, berr = verify_low_precision(got, hi, lo)
             finite = bool(torch.isfinite(got.float()).all())
-            log(f"check {label} {m}x{k}x{f} {dt}: kernel_err={kerr:.3e} "
-                f"plain_err={berr:.3e} finite={finite}")
-            if not (ok and finite):
+            same = True
+            if m <= 64:
+                same = torch.equal(fn(x, *args), got)
+            log(f"check {label} {m}x{k}x{f} {dt} ({body} body): kernel_err="
+                f"{kerr:.3e} plain_err={berr:.3e} finite={finite}"
+                + (f" rerun_identical={same}" if m <= 64 else ""))
+            if not (ok and finite and same):
                 raise AssertionError(f"{label} failed its gate at "
                                      f"{m}x{k}x{f} {dt}")
-            if (m, k, f) not in timed:
+            if (m, k, f) not in MATMUL_TIMED:
                 continue
             wd = wdense.to(dt)
             ms = time_ms(lambda: fn(x, *args), flush)
+            dev_ms = device_ms(lambda: fn(x, *args), flush)
             plain_ms = time_ms(lambda: plain(x, *args), flush)
             lib_ms = time_ms(lambda: torch.matmul(x, wd), flush)
             flops, nbytes = cost(m, k, f)
             bms, by = bound_ms(flops, nbytes)
-            log(f"time  {label} {m}x{k}x{f}: kernel_ms={ms:.4f} plain_ms="
+            log(f"time  {label} {m}x{k}x{f}: kernel_ms={ms:.4f} (device "
+                f"alone {dev_ms:.4f}) plain_ms="
                 f"{plain_ms:.4f} library_ms={lib_ms:.4f} (torch.matmul, "
                 f"dense bf16 weight) bound_ms={bms:.4f} ({by}) achieved="
                 f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s "
                 f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
-            rows.append(dict(shape=f"x({m},{k}) w({k},{f}) bf16 x",
+            rows.append(dict(shape=f"x({m},{k}) w({k},{f})", body=body,
                              max_abs_err=max_abs_error(got, lo), ms=ms,
-                             plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                             library_ms=lib_ms))
+                             device_ms=dev_ms, plain_ms=plain_ms,
+                             bound_ms=bms, bound_by=by, library_ms=lib_ms))
+            if kind == "int4" and (m, k, f) == (16, 4096, 14336):
+                us = host_us_per_call(lambda: fn(x, *args))
+                log(f"host  {label} {m}x{k}x{f}: {us:.2f} us a call (1000 "
+                    f"calls, no sync)")
+                results["host B7 int4"] = dict(
+                    shape=f"x({m},{k}) w({k},{f})", host_us=us,
+                    ms=us * 1e-3)
             del args, wdense, wd
         results[label] = rows
 
@@ -2330,22 +2475,31 @@ def library_grouped(x, sizes, w, flush):
             "torch._grouped_mm, dense bf16 stack")
 
 
-def check_grouped(flush, results):
+# B9's straddle case: 600 rows over 8 experts whose boundaries (100, 130,
+# 330, 407, 557, 577) fall inside 128-row tiles, expert 3 empty and
+# expert 6 (rows 557-576) inside one tile.
+STRADDLE_SIZES = [100, 30, 200, 0, 77, 150, 20, 23]
+
+
+def check_grouped(rng, flush, results):
     """B9 on every storage (dense bf16, int8, e4m3, e5m2, int4) against
     its plain version under the low-precision gate, at Mixtral's w_gate
     (K 4096, F 14336) and w_down (K 14336, F 4096) with M = 16 (a forced
     decode step: batch 8 x top-2) and M = 8192 (a 4096-token prefill
     bucket x top-2) expert-sorted rows over 8 experts, group sizes
-    skewed from the seed with one empty expert; plus a ragged shape, a
-    band with base > 0 and rows past the data (which must come back
-    exactly zero), and fp16. The Mixtral shapes are timed beside their
-    bound, the plain version and torch._grouped_mm on the dense bf16
-    stack of the same shape."""
+    skewed from the seed with one empty expert; plus a ragged shape (the
+    first body), a band with base > 0 and rows past the data (which must
+    come back exactly zero), experts that straddle the 128-row tiles in
+    bf16 and fp16 (STRADDLE_SIZES), and fp16. The Mixtral shapes are
+    timed beside their bound, the plain version and torch._grouped_mm on
+    the dense bf16 stack of the same shape. Inputs come from the check's
+    own seeded generators (rng is unused)."""
     from flash_attention_tpu_torch.ops.grouped import grouped_cost
     from flash_attention_tpu_torch.utils.metrics import (
         max_abs_error, verify_low_precision,
     )
 
+    del rng
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 8)
     rng = np.random.default_rng(SEED + 8)
@@ -2356,19 +2510,25 @@ def check_grouped(flush, results):
     for label, kind in GROUPED_KINDS.items():
         fn, plain, storage = _grouped_fns(kind)
         ragged = (100, 384, 257) if kind == "int4" else (100, 130, 257)
-        cases = [(m, k, f, torch.bfloat16, 0, m) for m, k, f in timed] + [
-            (*ragged, torch.bfloat16, 0, 100),
-            (200, 256, 192, torch.bfloat16, 37, 120),
-            (64, 512, 384, torch.float16, 0, 64)]
+        cases = [(m, k, f, torch.bfloat16, 0, m, None) for m, k, f in timed]
+        cases += [(*ragged, torch.bfloat16, 0, 100, None),
+                  (200, 256, 192, torch.bfloat16, 37, 120, None),
+                  (64, 512, 384, torch.float16, 0, 64, None),
+                  (600, 512, 384, torch.bfloat16, 0, 600, STRADDLE_SIZES),
+                  (600, 512, 384, torch.float16, 0, 600, STRADDLE_SIZES)]
         rows = []
-        for m, k, f, dt, base, live in cases:
+        for m, k, f, dt, base, live, fixed in cases:
             args = rand_stack(kind, e, k, f, gen)
             if kind == "dense":
                 args = (args[0].to(dt),)
             x = torch.randn((m, k), generator=gen, device="cuda").to(dt)
-            sizes = skewed_sizes(rng, live, e)
+            sizes = (skewed_sizes(rng, live, e) if fixed is None else
+                     torch.tensor(fixed, dtype=torch.int32, device="cuda"))
+            body = expected_body(m, dt, (m, k, f) != ragged, grouped=True)
+            before = first_body_count()
             got = fn(x, sizes, *args, base=base)
             torch.cuda.synchronize()
+            check_first_body(f"{label} {m}x{k}x{f}", before, body)
             lo = plain(x, sizes, *args, base=base)
             hi = plain(x.float(), sizes,
                        *((args[0].float(),) if kind == "dense" else args),
@@ -2377,7 +2537,7 @@ def check_grouped(flush, results):
             finite = bool(torch.isfinite(got.float()).all())
             dead = bool((got[:base] == 0).all()) and bool(
                 (got[base + live:] == 0).all())
-            log(f"check {label} {m}x{k}x{f} {dt} sizes "
+            log(f"check {label} {m}x{k}x{f} {dt} ({body} body) sizes "
                 f"{sizes.tolist()} base {base}: kernel_err={kerr:.3e} "
                 f"plain_err={berr:.3e} finite={finite} "
                 f"rows_outside_zero={dead}")
@@ -2387,6 +2547,7 @@ def check_grouped(flush, results):
             if (m, k, f) not in timed:
                 continue
             ms = time_ms(lambda: fn(x, sizes, *args), flush)
+            dev_ms = device_ms(lambda: fn(x, sizes, *args), flush)
             plain_ms = time_ms(lambda: plain(x, sizes, *args), flush)
             if kind == "dense":
                 library[(m, k, f)] = library_grouped(x, sizes, args[0],
@@ -2395,15 +2556,17 @@ def check_grouped(flush, results):
             flops, nbytes = grouped_cost(m, k, f, int((sizes > 0).sum()),
                                          storage)
             bms, by = bound_ms(flops, nbytes)
-            log(f"time  {label} {m}x{k}x{f}: kernel_ms={ms:.4f} plain_ms="
+            log(f"time  {label} {m}x{k}x{f}: kernel_ms={ms:.4f} (device "
+                f"alone {dev_ms:.4f}) plain_ms="
                 f"{plain_ms:.4f} library_ms={lib_ms} ({lib_what}) "
                 f"bound_ms={bms:.4f} ({by}) achieved="
                 f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s "
                 f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
-            rows.append(dict(shape=f"x({m},{k}) w({e},{k},{f}) bf16 x, "
-                                   f"sizes {sizes.tolist()}",
+            rows.append(dict(shape=f"x({m},{k}) w({e},{k},{f})",
+                             sizes=sizes.tolist(), body=body,
                              max_abs_err=max_abs_error(got, lo), ms=ms,
-                             plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                             device_ms=dev_ms, plain_ms=plain_ms,
+                             bound_ms=bms, bound_by=by,
                              library_ms=lib_ms, library=lib_what))
             del args, x, got, lo, hi
         results[label] = rows
@@ -4243,9 +4406,9 @@ def check_kernels() -> dict:
     check_variants(rng)
     check_decode(rng, flush, results)
     torch.cuda.synchronize()
-    check_quant_matmul(flush, results)
+    check_quant_matmul(rng, flush, results)
     torch.cuda.synchronize()
-    check_grouped(flush, results)
+    check_grouped(rng, flush, results)
     torch.cuda.synchronize()
     check_flash_branches(rng, flush, results)
     check_paged_window(rng, flush, results)
@@ -4631,6 +4794,9 @@ def main() -> int:
     print(report.getvalue(), end="", flush=True)
     for row in ptxas_rows(report.getvalue(), "flash_bwd_"):
         log(f"ptxas B2/B3 {row}")
+    mm_ptxas = matmul_ptxas_rows(report.getvalue())
+    for row in mm_ptxas:
+        log(f"ptxas B6-B9 {row}")
     log(f"build: kernels built in {secs:.2f} s "
         f"(phase {time.perf_counter() - t0:.2f} s)")
     phase_s = {}
@@ -4661,8 +4827,8 @@ def main() -> int:
     kvpaths = {"serve_8b_bf16_kv_int8": q8["kv_int8"]["launches"],
                "serve_8b_bf16_kv_e4m3": q8["kv_e4m3"]["launches"]}
     mix = timed("mixtral", mixtral)
-    log(f"mixtral: decode tok/s at batch 8 -- int4 "
-        f"{mix['int4']['decode_tok_s']:.1f}, int8 {MIXTRAL_INT8_LAYERS} "
+    log(f"mixtral: decode tok/s at batch 8 -- int4 {MIXTRAL_INT4_LAYERS} "
+        f"layers {mix['int4']['decode_tok_s']:.1f}, int8 {MIXTRAL_INT8_LAYERS} "
         f"layers {mix['int8']['decode_tok_s']:.1f}, int4 forced-grouped "
         f"{mix['int4_forced']['decode_tok_s']:.1f}, bf16 "
         f"{MIXTRAL_BF16_LAYERS} layers {mix['bf16']['decode_tok_s']:.1f}")
@@ -4719,7 +4885,7 @@ def main() -> int:
 
     def matmul_entry(label, **extra):
         rows = results[label]
-        return dict(rows[0], at_shapes=rows[1:], **extra)
+        return dict(rows[0], at_shapes=rows[1:], **MATMUL_SOURCES, **extra)
 
     def head_dims(kernel, part=None):
         return {f"head dim {d}": (results[("d", d, kernel)] if part is None
@@ -4877,7 +5043,6 @@ def main() -> int:
                                                         MISTRAL_WINDOW)]
                            for k in QUANT_KINDS}}),
         matmul_entry("B6 int8", name="quant_matmul (B6)", route="cuda",
-                     source="flash_attention_tpu_torch/csrc/quant_matmul.cu",
                      replaces="flash_attention_tpu/ops/quant_matmul.py:41",
                      launches=l8["quant"] + mix["int8"]["launches"][
                          "quant"],
@@ -4886,10 +5051,11 @@ def main() -> int:
                          f"serve_mixtral{MIXTRAL_INT8_LAYERS}_int8":
                              mix["int8"]["launches"]["quant"]},
                      fp8=dict(e4m3=results["B6 e4m3"],
-                              e5m2=results["B6 e5m2"])),
+                              e5m2=results["B6 e5m2"]),
+                     ptxas=[r for r in mm_ptxas if not r.startswith("B9")]),
         matmul_entry("B7 int4", name="int4_matmul (B7)", route="cuda",
-                     source="flash_attention_tpu_torch/csrc/quant_matmul.cu",
                      replaces="flash_attention_tpu/ops/quant_matmul.py:214",
+                     host_us_per_call=results["host B7 int4"]["host_us"],
                      launches=l4["int4"] + lg["int4"]
                      + mpaths["serve_mixtral_int4"]["int4"]
                      + mpaths["serve_mixtral_int4_forced"]["int4"],
@@ -4901,7 +5067,6 @@ def main() -> int:
                          "serve_mixtral_int4_forced":
                              mpaths["serve_mixtral_int4_forced"]["int4"]}),
         matmul_entry("B8 dense", name="dense_matmul (B8)", route="cuda",
-                     source="flash_attention_tpu_torch/csrc/quant_matmul.cu",
                      replaces="flash_attention_tpu/ops/quant_matmul.py:141",
                      launches=launches["dense"],
                      launches_by_path={"prefill_1b_dense_pallas_mm":
@@ -4909,12 +5074,17 @@ def main() -> int:
         # Headline: int4 at the 4096-token prefill bucket (8192 sorted
         # rows) of w_gate, where B9 runs on the default path.
         dict(name="grouped_matmul (B9)", route="cuda",
-             source="flash_attention_tpu_torch/csrc/grouped_matmul.cu",
+             source="flash_attention_tpu_torch/csrc/matmul_sm90.cuh",
+             sources=["flash_attention_tpu_torch/csrc/grouped_sm90_bf16.cu",
+                      "flash_attention_tpu_torch/csrc/grouped_sm90_f16.cu",
+                      "flash_attention_tpu_torch/csrc/grouped_matmul.cu "
+                      "(entry; first body over matmul_core.cuh)"],
              replaces="flash_attention_tpu/ops/grouped.py:132",
              launches=sum(mix_by_path("grouped").values()),
              launches_by_path=mix_by_path("grouped"),
              **results["B9 int4"][2],
              at_shapes={label: results[label] for label in GROUPED_KINDS},
+             ptxas=[r for r in mm_ptxas if r.startswith("B9")],
              crossover=mix["crossover"]),
         # The study kernels and B1's fp32 and split branches, each
         # with the launches its own counter saw on the study path.

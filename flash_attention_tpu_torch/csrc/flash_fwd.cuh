@@ -89,35 +89,6 @@ struct Cfg {
   static_assert(kBytes <= 232448, "B1 tiles exceed shared memory");
 };
 
-// 8 int8 / fp8 codes to exact floats, the values of common.cuh widen8
-// in fewer instructions: int8 by placing code + 128 in the mantissa of
-// 2^23 (byte permute, one subtraction), fp8 two at a time through fp16
-// (exact for every finite e4m3 / e5m2 code).
-template <int Store>
-__device__ __forceinline__ void widen8_fast(const uint2& raw, float* x) {
-  if constexpr (Store == kInt8) {
-    const uint32_t w[2] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      x[i] = __uint_as_float(__byte_perm(w[i / 4], 0x4B000000u,
-                                         0x7440u + (i % 4))) -
-             8388736.f;
-  } else {
-    constexpr __nv_fp8_interpretation_t kind =
-        Store == kE4M3 ? __NV_E4M3 : __NV_E5M2;
-    const uint32_t w[2] = {raw.x, raw.y};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
-          static_cast<__nv_fp8x2_storage_t>(w[i / 2] >> (16 * (i % 2))),
-          kind);
-      const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h));
-      x[2 * i] = f.x;
-      x[2 * i + 1] = f.y;
-    }
-  }
-}
-
 // The converters' share of one K or V tile of codes: each code times the
 // fp32 scale row of its 128-row block (scales [Nk / 128, D] of this kv
 // head) in fp32, rounded to T and stored swizzled -- the rounding of the

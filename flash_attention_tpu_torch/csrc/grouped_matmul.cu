@@ -25,49 +25,67 @@
 // (ops/grouped.py) do; an int4 value is multiplied by its group scale
 // in fp32 and rounded likewise.
 //
-// Schedule. The grid is sized from M and F alone -- one 128-thread block
-// per 64 x 64 tile of y -- so the group offsets never leave the device
-// (no host sync in an MoE layer). A block reads the E + 1 offsets, and
-// for each expert whose row range meets its 64 rows runs the shared
-// weight-widening K loop (matmul_core.cuh `accumulate_tile`, the body of
-// B6-B8) on that expert's weight with the other rows masked to zero,
-// summing into one set of fragments: a tile that straddles experts
-// loops over them, an empty expert or one outside the tile costs
-// nothing, and a tile past the data stores zeros. This replaces the TPU
-// grid's visit plan (`make_visit_plan`), its padding of x and W (masked
-// loads here) and its even/odd split of x for int4 (x is read at full
-// width).
+// Schedule. The grid is sized from M and F alone, so the group offsets
+// never leave the device (no host sync in an MoE layer). A block reads
+// the E + 1 offsets and, for each expert whose row range meets its rows,
+// runs the weight-widening K loop on that expert's weight with the other
+// rows contributing zero, summing into one set of accumulators: a tile
+// that straddles experts loops over them, an empty expert or one outside
+// the tile costs nothing, and a tile past the data stores zeros. This
+// replaces the TPU grid's visit plan (`make_visit_plan`), its padding of
+// x and W (out-of-bounds reads are zeros here) and its even/odd split of
+// x for int4 (x is read at full width).
 //
 // What bounds it on the H100. Prefill (a 4096-token bucket, M = 8192
 // sorted rows, Mixtral w_gate 4096 x 14336): operations, 0.96 TFLOP =
-// 0.97 ms at 989 TFLOP/s. Decode-shaped dispatches (16 rows): bytes --
-// every expert with a row is read once per column tile; w_gate's eight
-// experts are 235 MB int4 / 470 MB int8 / 940 MB bf16. This first
-// version keeps B6-B8's 64 x 64 WMMA tile and serial K loop; wgmma,
-// deeper prefetch and a decode-shaped split are the speed work.
+// 0.97 ms at 989 TFLOP/s. Decode-shaped dispatches (16 rows, the forced
+// path only): bytes -- every expert with a row is read once.
+//
+// Two bodies, chosen from the shape before the launch (ops/quant_matmul.py
+// matmul_body, body argument): fp16 / bf16 operands TMA can address take
+// the wgmma body of matmul_sm90.cuh at any row count
+// (grouped_sm90_{bf16,f16}.cu: 128-row tiles, every expert meeting the
+// tile runs its own K loop into the same accumulators, a warpgroup
+// zeroes its rows outside the expert in the landed x stage of a
+// straddling tile); fp32 and unaligned operands keep the first body here
+// (matmul_kernels.cuh over matmul_core.cuh: 64 x 64 WMMA tiles, masked
+// rows read as zeros), fp32 compiled in matmul_f32.cu.
 
 #include "matmul_kernels.cuh"
+#include "matmul_sm90.cuh"
 
 using namespace fa_mm;
 
+// body: hopper::kFirstBody (the kernel above; fp32, and operands TMA
+// cannot address) or kPrefillBody (matmul_sm90.cuh; fp16 / bf16, any M).
 extern "C" int fa_grouped_matmul(const void* x, const void* w,
                                  const void* scale, const void* offsets,
                                  void* y, int M, int K, int F, int E,
-                                 int weight, int dtype, void* stream) {
+                                 int weight, int dtype, int body,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 0 || K < 0 || F <= 0 || E < 0 || offsets == nullptr)
     return (int)cudaErrorInvalidValue;
   if (weight != kDense && scale == nullptr) return (int)cudaErrorInvalidValue;
   if (weight == kInt4 && K % kGroup) return (int)cudaErrorInvalidValue;
   const int* offs = static_cast<const int*>(offsets);
-  if (dtype == fa::kBFloat16)
-    return (int)dispatch_grouped<__nv_bfloat16>(x, w, scale, offs, y, M, K,
-                                                F, E, weight, s);
-  if (dtype == fa::kFloat16)
-    return (int)dispatch_grouped<__half>(x, w, scale, offs, y, M, K, F, E,
-                                         weight, s);
-  if (dtype == fa::kFloat32)
-    return (int)dispatch_grouped_f32(x, w, scale, offs, y, M, K, F, E,
-                                     weight, s);
-  return (int)cudaErrorInvalidValue;
+  if (body == hopper::kFirstBody) {
+    if (dtype == fa::kBFloat16)
+      return (int)dispatch_grouped<__nv_bfloat16>(x, w, scale, offs, y, M,
+                                                  K, F, E, weight, s);
+    if (dtype == fa::kFloat16)
+      return (int)dispatch_grouped<__half>(x, w, scale, offs, y, M, K, F, E,
+                                           weight, s);
+    if (dtype == fa::kFloat32)
+      return (int)dispatch_grouped_f32(x, w, scale, offs, y, M, K, F, E,
+                                       weight, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (body != hopper::kPrefillBody ||
+      (dtype != fa::kBFloat16 && dtype != fa::kFloat16) || K == 0)
+    return (int)cudaErrorInvalidValue;
+  hopper::Args a{nullptr, offs, y, nullptr, nullptr, M, K, F, E, 0};
+  return (int)(dtype == fa::kBFloat16
+                   ? hopper::grouped_bf16(x, w, scale, a, weight, s)
+                   : hopper::grouped_f16(x, w, scale, a, weight, s));
 }

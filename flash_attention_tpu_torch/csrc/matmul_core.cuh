@@ -1,5 +1,15 @@
-// The weight-widening matrix-product body shared by B6 / B7 / B8
-// (quant_matmul.cu) and B9 (grouped_matmul.cu), for sm_90a.
+// The first weight-widening matrix-product body of B6 / B7 / B8
+// (quant_matmul.cu) and B9 (grouped_matmul.cu), for sm_90a. Since the
+// Hopper bodies of matmul_sm90.cuh took every fp16 / bf16 launch whose
+// operands TMA can address, it runs fp32 activations (FFMA, below),
+// fp16 / bf16 operands with a base or row stride that is not a multiple
+// of 16 bytes (counted in ops/quant_matmul.py
+// matmul_first_body_launches; no model path makes one), and the study
+// probes P1 (probe_int4_variants.cu, its step functor) and P3
+// (probe_lmhead_argmax.cu). What bounds it: at 64 x 64 tiles with WMMA
+// from shared memory and two barriers a K step it reaches ~11% of the
+// tensor cores' rate at prefill, and at decode F / 64 blocks keep too
+// few bytes in flight to fill HBM -- the reasons those launches moved.
 //
 // A 128-thread block owns a kBM x kBN = 64 x 64 tile of y and loops over
 // K in steps of kBK = 128 (one int4 scale group). Each step loads the

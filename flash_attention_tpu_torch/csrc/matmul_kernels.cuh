@@ -1,7 +1,9 @@
-// The kernels of B6-B8 (quant_matmul.cu) and B9 (grouped_matmul.cu) over
-// the body in matmul_core.cuh, with their launchers, instantiated per
-// activation type and weight storage: fp16 / bf16 in quant_matmul.cu and
-// grouped_matmul.cu, fp32 in matmul_f32.cu.
+// The first-body kernels of B6-B8 (quant_matmul.cu) and B9
+// (grouped_matmul.cu) over matmul_core.cuh, with their launchers,
+// instantiated per activation type and weight storage: fp16 / bf16 in
+// quant_matmul.cu and grouped_matmul.cu (operands TMA cannot address;
+// every other fp16 / bf16 launch runs matmul_sm90.cuh), fp32 in
+// matmul_f32.cu.
 #pragma once
 
 #include "matmul_core.cuh"

@@ -19,53 +19,83 @@
 // where the TPU's bit-plant gave large finite values) and the
 // per-channel scale multiplies the fp32 sum once at the store; an int4
 // value is multiplied by its group scale in fp32 and rounded to the
-// activation type before the product. Products are WMMA 16x16x16
-// bf16 / fp16 with fp32 accumulation; fp32 activations (the JAX
-// kernels' fp32 path) multiply in full fp32 on the CUDA cores, their
-// instantiations compiled in matmul_f32.cu.
+// activation type before the product. Products are bf16 / fp16 with fp32
+// accumulation (wgmma in the Hopper bodies, WMMA in the first); fp32
+// activations (the JAX kernels' fp32 path) multiply in full fp32 on the
+// CUDA cores, their instantiations compiled in matmul_f32.cu.
 //
 // What bounds it on the H100. Decode (M = 8..16 rows): bytes -- the
 // weight is read once per call and each weight byte does 2 M FLOPs (int8)
 // or 4 M (int4) against the ~295 FLOPs per byte at which the tensor
 // cores become the limit; w_gate 4096 x 14336 takes 35 us in bf16,
 // 17.5 us in int8 and 9.3 us in int4 at 3.35 TB/s. Prefill (M up to
-// 1024): operations. The body is `fa_mm::accumulate_tile`
-// (matmul_core.cuh, shared with B9) over the rows [0, M): it reads each
-// weight at its storage width
-// with 16-byte loads by neighbouring threads on neighbouring addresses,
-// widens it in shared memory (never in HBM), and keeps the next K tile's
-// loads in flight in registers while the tensor cores work on the
-// current one. Each block owns a 64 x 64 tile of y and loops over K in
-// steps of 128 inside the block (the TPU's sequential k grid axis);
-// each of its four warps owns 16 columns and skips the 16-row groups
-// that lie past M, so at decode the four warps share the few products.
-// Ragged M, K and F load as zeros and store under a mask (the JAX
-// wrapper's jnp.pad); rows whose stride or base is not 16-byte aligned
-// fall back to byte loads.
+// 1024): operations, 1024 x 4096 x 14336 is 0.122 ms at 989 TFLOP/s.
 //
-// Known costs, for the speed work: a 64-wide F tile gives F / 64 blocks
-// at decode (16 for wk / wv, 64 for wq / wo / w_down, 224 for w_gate /
-// w_up on 132 SMs), each with a few KB in flight, so the small products
-// cannot fill HBM; split-K and a decode-shaped tile are the fix. At
-// prefill WMMA through shared memory runs far under wgmma's rate.
+// Three bodies, chosen by ops/quant_matmul.py matmul_body from the shape
+// before the launch (body argument):
+//  - fp16 / bf16 above DECODE_MAX_ROWS (64) rows: the wgmma prefill body
+//    of matmul_sm90.cuh (matmul_sm90_{bf16,f16}.cu): a TMA ring of the
+//    weight at its storage width, converter warps widening it into
+//    swizzled T tiles, two consumer warpgroups on 128 x 128 tiles;
+//  - fp16 / bf16 at DECODE_MAX_ROWS rows or fewer: its split-K decode
+//    body (matmul_decode_{bf16,f16}.cu): y^T = W^T x^T so no tensor work
+//    is spent on rows past M, K split so every product of the 8B decode
+//    step puts at least two blocks on each SM (decode_split_plan), a
+//    fixed-order reduction of fp32 partials by the last block of each
+//    column tile (identical bits on a rerun);
+//  - the first body (this file, over matmul_core.cuh): fp32 activations,
+//    whose products stay in full fp32 on the CUDA cores (matmul_f32.cu),
+//    and operands TMA cannot address (a base or row stride that is not a
+//    multiple of 16 bytes, e.g. K = 130 or F = 257). A 64 x 64 tile of y
+//    a 128-thread block, WMMA 16x16x16 from shared memory, the next K
+//    tile prefetched into registers; ragged M, K and F load as zeros and
+//    store under a mask, unaligned rows by byte loads. Its fp16 / bf16
+//    launches are counted in matmul_first_body_launches: no model path
+//    makes one.
 
 #include "matmul_kernels.cuh"
+#include "matmul_sm90.cuh"
 
 using namespace fa_mm;
 
+// body: hopper::kFirstBody (the kernel above; fp32, and operands TMA
+// cannot address), kPrefillBody or kDecodeBody (matmul_sm90.cuh; fp16 /
+// bf16). splits, k_chunk, ws and counters are the decode body's
+// (ops/quant_matmul.py decode_split_plan); ws [splits, M, F] fp32 and
+// counters (one zero int per 128-column tile) when splits > 1.
 extern "C" int fa_quant_matmul(const void* x, const void* w,
                                const void* scale, void* y, int M, int K,
-                               int F, int weight, int dtype, void* stream) {
+                               int F, int weight, int dtype, int body,
+                               int splits, int k_chunk, void* ws,
+                               void* counters, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 0 || K < 0 || F <= 0) return (int)cudaErrorInvalidValue;
   if (weight != kDense && scale == nullptr) return (int)cudaErrorInvalidValue;
   if (weight == kInt4 && K % kGroup) return (int)cudaErrorInvalidValue;
-  if (dtype == fa::kBFloat16)
-    return (int)dispatch_quant<__nv_bfloat16>(x, w, scale, y, M, K, F,
-                                              weight, s);
-  if (dtype == fa::kFloat16)
-    return (int)dispatch_quant<__half>(x, w, scale, y, M, K, F, weight, s);
-  if (dtype == fa::kFloat32)
-    return (int)dispatch_quant_f32(x, w, scale, y, M, K, F, weight, s);
-  return (int)cudaErrorInvalidValue;
+  if (body == hopper::kFirstBody) {
+    if (dtype == fa::kBFloat16)
+      return (int)dispatch_quant<__nv_bfloat16>(x, w, scale, y, M, K, F,
+                                                weight, s);
+    if (dtype == fa::kFloat16)
+      return (int)dispatch_quant<__half>(x, w, scale, y, M, K, F, weight, s);
+    if (dtype == fa::kFloat32)
+      return (int)dispatch_quant_f32(x, w, scale, y, M, K, F, weight, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if ((dtype != fa::kBFloat16 && dtype != fa::kFloat16) || K == 0)
+    return (int)cudaErrorInvalidValue;
+  const bool bf16 = dtype == fa::kBFloat16;
+  hopper::Args a{static_cast<const float*>(scale), nullptr, y,
+                 static_cast<float*>(ws), static_cast<int*>(counters),
+                 M, K, F, 1, k_chunk};
+  if (body == hopper::kPrefillBody)
+    return (int)(bf16 ? hopper::prefill_bf16(x, w, scale, a, weight, s)
+                      : hopper::prefill_f16(x, w, scale, a, weight, s));
+  if (body != hopper::kDecodeBody || M > 64 || splits < 1 || k_chunk <= 0 ||
+      k_chunk % kGroup || (long)(splits - 1) * k_chunk >= K ||
+      (long)splits * k_chunk < K ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  return (int)(bf16 ? hopper::decode_bf16(x, w, scale, a, weight, splits, s)
+                    : hopper::decode_f16(x, w, scale, a, weight, splits, s));
 }

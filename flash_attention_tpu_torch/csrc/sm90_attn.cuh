@@ -201,9 +201,29 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// ss at N = 64 / 128 (S over a kv tile), rs at N = D (O).
+// ss at N = 64 / 128 (S over a kv tile), rs at N = D (O); sst, the ss
+// form with transpose flags, at N = 16 / 64 / 128 (the matrix products
+// of matmul_sm90.cuh: B MN-major for x W, A MN-major for W^T x^T).
 template <typename T, int N>
 struct Mma;
+
+template <>
+struct Mma<__nv_bfloat16, 16> {
+  // ss with the transpose flags as immediates: TA = 1 reads A MN-major,
+  // TB = 1 reads B MN-major (16-bit types only).
+  template <int TA, int TB>
+  __device__ __forceinline__ static void sst(float (&d)[8], uint64_t a,
+                                             uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+  }
+};
 
 template <>
 struct Mma<__nv_bfloat16, 32> {
@@ -227,6 +247,28 @@ struct Mma<__nv_bfloat16, 32> {
 
 template <>
 struct Mma<__nv_bfloat16, 64> {
+  // ss with the transpose flags as immediates: TA = 1 reads A MN-major,
+  // TB = 1 reads B MN-major (16-bit types only).
+  template <int TA, int TB>
+  __device__ __forceinline__ static void sst(float (&d)[32], uint64_t a,
+                                             uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+  }
   __device__ __forceinline__ static void ss(float (&d)[32], uint64_t a,
                                             uint64_t b, int acc) {
     asm volatile(
@@ -271,6 +313,37 @@ struct Mma<__nv_bfloat16, 64> {
 
 template <>
 struct Mma<__nv_bfloat16, 128> {
+  // ss with the transpose flags as immediates: TA = 1 reads A MN-major,
+  // TB = 1 reads B MN-major (16-bit types only).
+  template <int TA, int TB>
+  __device__ __forceinline__ static void sst(float (&d)[64], uint64_t a,
+                                             uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+  }
   __device__ __forceinline__ static void ss(float (&d)[64], uint64_t a,
                                             uint64_t b, int acc) {
     asm volatile(
@@ -385,6 +458,24 @@ struct Mma<__nv_bfloat16, 256> {
 };
 
 template <>
+struct Mma<__half, 16> {
+  // ss with the transpose flags as immediates: TA = 1 reads A MN-major,
+  // TB = 1 reads B MN-major (16-bit types only).
+  template <int TA, int TB>
+  __device__ __forceinline__ static void sst(float (&d)[8], uint64_t a,
+                                             uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+  }
+};
+
+template <>
 struct Mma<__half, 32> {
   __device__ __forceinline__ static void rs(float (&d)[16], uint32_t a0,
                                             uint32_t a1, uint32_t a2,
@@ -406,6 +497,28 @@ struct Mma<__half, 32> {
 
 template <>
 struct Mma<__half, 64> {
+  // ss with the transpose flags as immediates: TA = 1 reads A MN-major,
+  // TB = 1 reads B MN-major (16-bit types only).
+  template <int TA, int TB>
+  __device__ __forceinline__ static void sst(float (&d)[32], uint64_t a,
+                                             uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+  }
   __device__ __forceinline__ static void ss(float (&d)[32], uint64_t a,
                                             uint64_t b, int acc) {
     asm volatile(
@@ -450,6 +563,37 @@ struct Mma<__half, 64> {
 
 template <>
 struct Mma<__half, 128> {
+  // ss with the transpose flags as immediates: TA = 1 reads A MN-major,
+  // TB = 1 reads B MN-major (16-bit types only).
+  template <int TA, int TB>
+  __device__ __forceinline__ static void sst(float (&d)[64], uint64_t a,
+                                             uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+  }
   __device__ __forceinline__ static void ss(float (&d)[64], uint64_t a,
                                             uint64_t b, int acc) {
     asm volatile(

@@ -73,11 +73,12 @@ _SIGNATURES = {
     # q, k, v, k scales (or NULL), v scales (or NULL), lengths, o, B, Hq,
     # Hkv, S, D, window (0 = none), scale, dtype, kv store, stream
     "fa_decode": [_vp] * 7 + [_i32] * 6 + [_f32, _i32, _i32, _vp],
-    # x, w, scale (or NULL), y, M, K, F, weight code, dtype, stream
-    "fa_quant_matmul": [_vp] * 4 + [_i32] * 5 + [_vp],
+    # x, w, scale (or NULL), y, M, K, F, weight code, dtype, body,
+    # splits, k_chunk, workspace (or NULL), counters (or NULL), stream
+    "fa_quant_matmul": [_vp] * 4 + [_i32] * 8 + [_vp] * 3,
     # x, w, scale (or NULL), offsets, y, M, K, F, E, weight code, dtype,
-    # stream
-    "fa_grouped_matmul": [_vp] * 5 + [_i32] * 6 + [_vp],
+    # body, stream
+    "fa_grouped_matmul": [_vp] * 5 + [_i32] * 7 + [_vp],
     # q, k, v, o, m, l, B, H, Nq, Nk, D, block_q, block_kv, scale, dtype,
     # stream
     "fa_fa1_fwd": [_vp] * 6 + [_i32] * 7 + [_f32, _i32, _vp],
@@ -176,6 +177,8 @@ def build(verbose: bool = False) -> float:
 def lib():
     """The loaded kernel library, building it first if needed."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             build()
@@ -190,7 +193,14 @@ def lib():
     return _lib
 
 
+# The current stream's handle without building a torch.cuda.Stream (the
+# binding CUDA builds of torch have; its value is the same).
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_handle(device: torch.device) -> int:
+    if _raw_stream is not None and device.index is not None:
+        return _raw_stream(device.index)
     return torch.cuda.current_stream(device).cuda_stream
 
 

@@ -26,8 +26,11 @@ type before the product, an int4 value by its group scale likewise.
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 PyTorch version beside each wrapper, which does the kernel's roundings.
 The kernel and the plain versions take fp16, bf16 and fp32 activations
-(fp32 products in full fp32 on the CUDA cores). The offsets stay on the device: the kernel's grid is sized from M
-and F, never from the group sizes. Three devices of the TPU kernel have
+(fp32 products in full fp32 on the CUDA cores). fp16 / bf16 operands
+that TMA can address run the wgmma body of `csrc/matmul_sm90.cuh` at
+any row count; fp32 and the rest the first body (`quant_matmul.
+matmul_body`). The offsets stay on the device: the kernel's grid is sized
+from M and F, never from the group sizes. Three devices of the TPU kernel have
 no counterpart: its visit plan (`make_visit_plan`, the TPU grid's
 schedule), its padding of x and w (the kernel masks its loads) and the
 int4 wrapper's even/odd split of x (x is read at full width).
@@ -38,12 +41,16 @@ from __future__ import annotations
 import torch
 
 from flash_attention_tpu_torch.ops import _cuda
+from flash_attention_tpu_torch.ops import quant_matmul as _qm
 from flash_attention_tpu_torch.ops.quant import _QMAX, widen_scaled
 from flash_attention_tpu_torch.ops.quant_matmul import (
+    BODY_CODES,
     INT4_GROUP,
     _check_cuda,
     _dispatch,
     int4_dequant,
+    matmul_body,
+    tma_ready,
 )
 
 # Launches of the B9 kernel (incremented only where it is launched).
@@ -124,7 +131,7 @@ def grouped_matmul_reference(x, group_sizes, w):
 # --- kernel launch -------------------------------------------------------
 
 
-def _grouped_cuda(x, group_sizes, w, scale, base, weight_code):
+def _grouped_cuda(x, group_sizes, w, scale, base, storage):
     global grouped_matmul_launches, grouped_matmul_fp32_launches
     _check_cuda("B9", x, group_sizes=group_sizes, w=w,
                 **({} if scale is None else {"scale": scale}))
@@ -136,14 +143,19 @@ def _grouped_cuda(x, group_sizes, w, scale, base, weight_code):
     if m == 0 or f == 0:
         return y
     offs = _offsets(group_sizes, base)
+    body = matmul_body(m, x.dtype, aligned=tma_ready(x, w, storage, scale),
+                       grouped=True)
     code = _cuda.lib().fa_grouped_matmul(
         x.data_ptr(), w.data_ptr(),
         None if scale is None else scale.data_ptr(), offs.data_ptr(),
-        y.data_ptr(), m, k, f, e, weight_code, _cuda.DTYPE_CODES[x.dtype],
+        y.data_ptr(), m, k, f, e, _cuda.WEIGHT_CODES[storage],
+        _cuda.DTYPE_CODES[x.dtype], BODY_CODES[body],
         _cuda.stream_handle(x.device))
     _cuda.check(code, "grouped_matmul")
     grouped_matmul_launches += 1
     grouped_matmul_fp32_launches += x.dtype == torch.float32
+    _qm.matmul_first_body_launches += (body == "first"
+                                       and x.dtype != torch.float32)
     return y
 
 
@@ -151,18 +163,15 @@ def _dense_cuda(x, group_sizes, w, *, base=None):
     if w.dtype != x.dtype:
         raise TypeError(f"B9 takes a dense stack of the activation's dtype "
                         f"({x.dtype}), got {w.dtype}")
-    return _grouped_cuda(x, group_sizes, w, None, base,
-                         _cuda.WEIGHT_CODES["dense"])
+    return _grouped_cuda(x, group_sizes, w, None, base, "dense")
 
 
 def _quant_cuda(x, group_sizes, w_q, w_scale, *, base=None):
-    return _grouped_cuda(x, group_sizes, w_q, w_scale, base,
-                         _cuda.WEIGHT_CODES[w_q.dtype])
+    return _grouped_cuda(x, group_sizes, w_q, w_scale, base, w_q.dtype)
 
 
 def _int4_cuda(x, group_sizes, w_packed, w_scales, *, base=None):
-    return _grouped_cuda(x, group_sizes, w_packed, w_scales, base,
-                         _cuda.WEIGHT_CODES["int4"])
+    return _grouped_cuda(x, group_sizes, w_packed, w_scales, base, "int4")
 
 
 # --- public wrappers -----------------------------------------------------

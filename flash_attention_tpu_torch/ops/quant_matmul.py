@@ -22,6 +22,14 @@ The kernel and the plain versions take fp16, bf16 and fp32 activations
 (fp32 products in full fp32 on the CUDA cores; B8's weight in the
 activation's dtype).
 
+Which body a launch runs is decided from the shape before the launch
+(`matmul_body`): fp16 / bf16 operands that TMA can address take the
+Hopper bodies of `csrc/matmul_sm90.cuh` -- the split-K decode body for
+at most DECODE_MAX_ROWS rows (`decode_split_plan` sizes its splits), the
+wgmma prefill body above -- and everything else (fp32, a base or row
+stride that is not a multiple of 16 bytes) the first body of
+`csrc/matmul_core.cuh`.
+
 `quantize_weight` and `quantize_weight_int4` are numpy computations, as
 in the JAX package, and give the same bytes and scales.
 """
@@ -40,6 +48,13 @@ from flash_attention_tpu_torch.ops.quant import (
 
 INT4_GROUP = 128   # logical K rows per int4 scale group
 
+# The bodies of csrc/matmul_sm90.cuh and their C codes.
+BODY_CODES = {"first": 0, "prefill": 1, "decode": 2}
+DECODE_MAX_ROWS = 64   # the split-K body's x rows (padded to 16 or 64)
+DECODE_TILE_F = 64     # columns of y a decode block owns
+SPLIT_ROWS = INT4_GROUP   # a split's K rows are a multiple of this
+SM_COUNT = 132         # the H100's SMs; the decode body fits two a SM
+
 # Launches of the B6, B7 and B8 kernels (each incremented only where its
 # kernel is launched).
 quant_matmul_launches = 0
@@ -49,6 +64,9 @@ dense_matmul_launches = 0
 quant_matmul_fp32_launches = 0
 int4_matmul_fp32_launches = 0
 dense_matmul_fp32_launches = 0
+# fp16 / bf16 launches of B6-B9 on the first body (operands TMA cannot
+# address; also counted above and in ops/grouped.py's counter).
+matmul_first_body_launches = 0
 
 
 # --- plain versions ------------------------------------------------------
@@ -112,18 +130,89 @@ def _check_cuda(kernel, x, **tensors):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(kernel, x, w, scale, weight_code):
+def tma_ready(x, w, storage, scale=None) -> bool:
+    """Whether TMA can address the operands of a B6-B9 launch: x [M, K]
+    and the weight ([K, F] or an [E, K, F] stack; int4 packed [.., K/2,
+    F]) with 16-byte aligned bases and rows, and the scales the Hopper
+    bodies load by TMA (int4's group rows, a grouped stack's rows)."""
+    k, f = x.shape[1], w.shape[-1]
+    row_bytes = f * (w.element_size() if storage == "dense" else 1)
+    ok = (k > 0 and x.data_ptr() % 16 == 0 and k * x.element_size() % 16 == 0
+          and w.data_ptr() % 16 == 0 and row_bytes % 16 == 0)
+    if scale is not None and (storage == "int4" or scale.dim() == 2):
+        ok = ok and scale.data_ptr() % 16 == 0 and f * 4 % 16 == 0
+    return ok
+
+
+def matmul_body(m, dtype, *, aligned, grouped=False) -> str:
+    """The body a B6-B9 launch runs: "decode" (the split-K body, B6-B8
+    at <= DECODE_MAX_ROWS rows), "prefill" (the wgmma body: more rows,
+    and B9 at any row count) or "first" (fp32, or operands TMA cannot
+    address: `aligned` is `tma_ready`)."""
+    if dtype == torch.float32 or not aligned:
+        return "first"
+    if grouped or m > DECODE_MAX_ROWS:
+        return "prefill"
+    return "decode"
+
+
+def decode_split_plan(k, f, *, sms=SM_COUNT) -> tuple[int, int]:
+    """(splits, k_chunk) of the decode body for K = k, F = f: K is cut
+    into `splits` ranges of k_chunk rows (a multiple of SPLIT_ROWS, so an
+    int4 group's scale row lies in one range; the last range may be
+    shorter), as many as leave at least two blocks an SM over the
+    F / DECODE_TILE_F column tiles where K has the rows for it."""
+    groups = -(-k // SPLIT_ROWS)
+    tiles = -(-f // DECODE_TILE_F)
+    k_chunk = max(1, groups * tiles // (2 * sms)) * SPLIT_ROWS
+    return -(-k // k_chunk), k_chunk
+
+
+_scratch: dict = {}
+
+
+def _decode_scratch(device, stream, n_part, n_tiles):
+    """(workspace, counters) of the decode body on `device` for launches
+    on `stream`: at least n_part fp32 partial sums and n_tiles zero int32
+    counters (one per column tile; each launch's last block resets its
+    own). Launches on one stream run in order, so each stream keeps one
+    pair, allocated once and grown when a launch needs more."""
+    key = (device, stream)
+    ws, counters = _scratch.get(key, (None, None))
+    if ws is None or ws.numel() < n_part:
+        ws = torch.empty(max(n_part, 1 << 20), dtype=torch.float32,
+                         device=device)
+    if counters is None or counters.numel() < n_tiles:
+        counters = torch.zeros(max(n_tiles, 4096), dtype=torch.int32,
+                               device=device)
+    _scratch[key] = ws, counters
+    return ws, counters
+
+
+def _launch(kernel, x, w, scale, storage):
+    global matmul_first_body_launches
     m, k = x.shape
     f = w.shape[1]
     y = torch.empty((m, f), dtype=x.dtype, device=x.device)
     if m == 0 or f == 0:
         return y
+    body = matmul_body(m, x.dtype, aligned=tma_ready(x, w, storage, scale))
+    stream = _cuda.stream_handle(x.device)
+    splits, k_chunk, ws, counters = 1, 0, None, None
+    if body == "decode":
+        splits, k_chunk = decode_split_plan(k, f)
+        if splits > 1:
+            ws, counters = _decode_scratch(x.device, stream, splits * m * f,
+                                           -(-f // DECODE_TILE_F))
     code = _cuda.lib().fa_quant_matmul(
         x.data_ptr(), w.data_ptr(),
         None if scale is None else scale.data_ptr(), y.data_ptr(), m, k,
-        f, weight_code, _cuda.DTYPE_CODES[x.dtype],
-        _cuda.stream_handle(x.device))
+        f, _cuda.WEIGHT_CODES[storage], _cuda.DTYPE_CODES[x.dtype],
+        BODY_CODES[body], splits, k_chunk,
+        None if ws is None else ws.data_ptr(),
+        None if counters is None else counters.data_ptr(), stream)
     _cuda.check(code, kernel)
+    matmul_first_body_launches += body == "first" and x.dtype != torch.float32
     return y
 
 
@@ -132,8 +221,7 @@ def _quant_matmul_cuda(x, w_q, w_scale):
     _check_cuda("B6", x, w_q=w_q, w_scale=w_scale)
     if w_scale.dtype != torch.float32:
         raise TypeError("B6 takes fp32 scales")
-    y = _launch("quant_matmul", x, w_q, w_scale,
-                _cuda.WEIGHT_CODES[w_q.dtype])
+    y = _launch("quant_matmul", x, w_q, w_scale, w_q.dtype)
     quant_matmul_launches += 1
     quant_matmul_fp32_launches += x.dtype == torch.float32
     return y
@@ -144,8 +232,7 @@ def _int4_matmul_cuda(x, w_packed, w_scales):
     _check_cuda("B7", x, w_packed=w_packed, w_scales=w_scales)
     if w_scales.dtype != torch.float32:
         raise TypeError("B7 takes fp32 scales")
-    y = _launch("int4_matmul", x, w_packed, w_scales,
-                _cuda.WEIGHT_CODES["int4"])
+    y = _launch("int4_matmul", x, w_packed, w_scales, "int4")
     int4_matmul_launches += 1
     int4_matmul_fp32_launches += x.dtype == torch.float32
     return y
@@ -157,7 +244,7 @@ def _dense_matmul_cuda(x, w):
     if w.dtype != x.dtype:
         raise TypeError(f"B8 takes a weight of the activation's dtype "
                         f"({x.dtype}), got {w.dtype}")
-    y = _launch("dense_matmul", x, w, None, _cuda.WEIGHT_CODES["dense"])
+    y = _launch("dense_matmul", x, w, None, "dense")
     dense_matmul_launches += 1
     dense_matmul_fp32_launches += x.dtype == torch.float32
     return y

@@ -13,9 +13,18 @@ of its own, and prints one line per turn:
     PAIR parent {"package": "...", "ms": {"paged": 0.074, ...}}
 
 A check that times several kernels under one key (check_bwd_branches:
-B2 and B3 per case) gives one "ms" entry per kernel, "<key>.<kernel>".
+B2 and B3 per case) gives one "ms" entry per kernel, "<key>.<kernel>";
+one that times a list of shapes (check_quant_matmul, check_grouped) one
+per shape, "<key>.<shape>".
 
 Both versions run on the same card in one call, so their times compare.
+The run ends with the summary (`summarize`): per key the parent's and
+the change's median and in how many pairs (the i-th parent turn beside
+the i-th change turn) the change was faster.
+
+    python3 kernel_pairs.py --summarize LOG
+
+prints that summary again from a saved run's PAIR lines.
 """
 
 from __future__ import annotations
@@ -54,13 +63,43 @@ def one_turn(checks: str, package_root: str | None) -> None:
 def flat_ms(results: dict) -> dict:
     """{check key: ms} of a results dict. An entry without its own "ms"
     holds one entry per kernel (check_bwd_branches' {"dq": {...}, "dkv":
-    {...}}): each is keyed "<key>.<part>", e.g. "('bwd', 'window').dq"."""
+    {...}}): each is keyed "<key>.<part>", e.g. "('bwd', 'window').dq". A
+    list of rows (check_quant_matmul, check_grouped: one row per timed
+    shape) is keyed "<key>.<shape>", e.g. "B7 int4.x(16,14336)
+    w(14336,4096)"."""
     out = {}
     for key, v in results.items():
-        if "ms" in v:
+        if isinstance(v, list):
+            out.update({f"{key}.{row['shape']}": row["ms"] for row in v})
+        elif "ms" in v:
             out[str(key)] = v["ms"]
         else:
             out.update({f"{key}.{part}": sub["ms"] for part, sub in v.items()})
+    return out
+
+
+def summarize(lines) -> list[str]:
+    """One line per key of the PAIR lines: parent median, change median,
+    change / parent, and the pairs (i-th parent turn, i-th change turn)
+    in which the change was faster."""
+    import statistics
+
+    turns = {"parent": [], "change": []}
+    for line in lines:
+        if line.startswith("PAIR "):
+            _, which, payload = line.split(" ", 2)
+            turns[which].append(json.loads(payload)["ms"])
+    n = min(len(turns["parent"]), len(turns["change"]))
+    out = []
+    for key in turns["change"][0] if n else ():
+        par = [t[key] for t in turns["parent"][:n] if key in t]
+        chg = [t[key] for t in turns["change"][:n]]
+        if len(par) != n:
+            continue
+        mp, mc = statistics.median(par), statistics.median(chg)
+        wins = sum(c < p for p, c in zip(par, chg))
+        out.append(f"{key}: parent {mp:.4f} change {mc:.4f} ms "
+                   f"({mc / mp:.3f}x), change faster in {wins}/{n}")
     return out
 
 
@@ -70,13 +109,20 @@ def main() -> int:
     ap.add_argument("--checks", default="paged,decode")
     ap.add_argument("--package-root", help=argparse.SUPPRESS)
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--summarize", metavar="LOG",
+                    help="print the summary of a saved run and exit")
     args = ap.parse_args()
+    if args.summarize:
+        with open(args.summarize) as f:
+            print("\n".join(summarize(f.read().splitlines())))
+        return 0
     if args.one:
         one_turn(args.checks, args.package_root)
         return 0
     if not args.parent:
         ap.error("--parent is required")
     order = ["parent", "change", "change", "parent"]
+    lines = []
     for i in range(2 * PAIRS):
         which = order[i % 4]
         cmd = [sys.executable, str(HERE / "kernel_pairs.py"), "--one",
@@ -88,8 +134,9 @@ def main() -> int:
         if out.returncode:
             print(out.stdout[-4000:], out.stderr[-4000:], file=sys.stderr)
             return out.returncode
-        print(f"PAIR {which} {out.stdout.strip().splitlines()[-1]}",
-              flush=True)
+        lines.append(f"PAIR {which} {out.stdout.strip().splitlines()[-1]}")
+        print(lines[-1], flush=True)
+    print("\n".join(summarize(lines)), flush=True)
     return 0
 
 

@@ -206,3 +206,54 @@ def test_wrapper_rejections():
                                torch.ones(2, 1, 16))
     with pytest.raises(ValueError, match="multiple of 128"):
         tq.quantize_expert_stack(torch.zeros(2, 64, 16), dtype="int4")
+
+
+# Group sizes whose boundaries (60, 150, 170) fall inside the Hopper
+# body's 128-row tiles: expert 1 straddles rows 128 | 129, expert 2
+# (rows 150-169) lies inside one tile.
+STRADDLE = np.asarray([60, 90, 20, 30], np.int32)
+
+
+@pytest.mark.parametrize("kind", ["dense", "int4"])
+def test_grouped_matmul_matches_jax_when_experts_straddle_tiles(rng, kind):
+    """200 rows over 4 experts at the new tile edges, against the JAX
+    kernel in the interpreter with 128-row blocks."""
+    e, k, f, total = 4, 256, 128, 200
+    x = rng.normal(0, 1, (total, k)).astype(np.float32)
+    w = rng.normal(0, 0.1, (e, k, f)).astype(np.float32)
+    if kind == "dense":
+        want = np.asarray(jg.grouped_matmul(
+            jnp.asarray(x), jnp.asarray(STRADDLE), jnp.asarray(w), **BLOCKS))
+        got = tg.grouped_matmul(*_t(x, STRADDLE, w))
+        assert max_abs_error(got, want) <= 1e-5
+        return
+    stack = jq.quantize_expert_stack(w, dtype="int4")
+    want = np.asarray(jg.grouped_int4_matmul(
+        jnp.asarray(x), jnp.asarray(STRADDLE), stack.packed, stack.scales,
+        block_m=128, block_f=128, block_k=128))
+    mine = tq.quantize_expert_stack(torch.from_numpy(w), dtype="int4")
+    got = tg.grouped_int4_matmul(*_t(x, STRADDLE), mine.packed, mine.scales)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+def test_grouped_cuda_routes_every_row_count_to_the_hopper_body():
+    """B9 takes the wgmma body at any row count once TMA can address its
+    operands (16-bit x rows of K % 8, a stack's rows of F % 16 bytes);
+    fp32 and the rest take the first body."""
+    from flash_attention_tpu_torch.ops import quant_matmul as tqm
+
+    for m in (1, 16, 64, 65, 8192):
+        assert tqm.matmul_body(m, torch.bfloat16, aligned=True,
+                               grouped=True) == "prefill"
+    x = torch.zeros(100, 130, dtype=torch.bfloat16)
+    stack = torch.zeros(2, 130, 257, dtype=torch.bfloat16)
+    assert not tqm.tma_ready(x, stack, "dense")
+    assert tqm.tma_ready(torch.zeros(100, 128, dtype=torch.bfloat16),
+                         torch.zeros(2, 128, 256, dtype=torch.bfloat16),
+                         "dense")
+    q = torch.zeros(2, 128, 256, dtype=torch.int8)
+    assert tqm.tma_ready(torch.zeros(8, 128, dtype=torch.bfloat16), q,
+                         torch.int8, torch.ones(2, 256))
+    assert not tqm.tma_ready(torch.zeros(8, 128, dtype=torch.bfloat16),
+                             q[:, :, :250].contiguous(), torch.int8,
+                             torch.ones(2, 250))

@@ -367,3 +367,37 @@ def test_kernel_pairs_flattens_nested_results():
     assert kernel_pairs.flat_ms(results) == {
         "bwd_dq": 0.5, "('bwd', 'window').dq": 2.0,
         "('bwd', 'window').dkv": 3.0}
+
+
+def test_kernel_pairs_flattens_rows_of_shapes_and_calls_every_check():
+    """check_quant_matmul and check_grouped store one row per timed shape
+    (a list); kernel_pairs.py keys each "<label>.<shape>". Every check
+    it can name takes (rng, flush, results), the matmul checks too."""
+    import inspect
+    import sys
+
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+        import kernel_pairs
+    finally:
+        sys.path.remove(str(ROOT))
+    results = {"B7 int4": [{"shape": "x(16,14336) w(14336,4096)", "ms": 0.04},
+                           {"shape": "x(1024,4096) w(4096,14336)",
+                            "ms": 0.3}],
+               "host B7 int4": {"ms": 0.02}, "paged": {"ms": 0.07}}
+    assert kernel_pairs.flat_ms(results) == {
+        "B7 int4.x(16,14336) w(14336,4096)": 0.04,
+        "B7 int4.x(1024,4096) w(4096,14336)": 0.3,
+        "host B7 int4": 0.02, "paged": 0.07}
+    for name in ("quant_matmul", "grouped", "paged", "decode", "flash_bwd"):
+        params = list(inspect.signature(
+            getattr(chip_smoke, f"check_{name}")).parameters)
+        assert params == ["rng", "flush", "results"], name
+    # The summary pairs the i-th parent turn with the i-th change turn.
+    lines = ['PAIR parent {"package": "p", "ms": {"k": 2.0}}',
+             'PAIR change {"package": "c", "ms": {"k": 1.0}}',
+             'PAIR change {"package": "c", "ms": {"k": 3.0}}',
+             'PAIR parent {"package": "p", "ms": {"k": 2.5}}']
+    assert kernel_pairs.summarize(lines) == [
+        "k: parent 2.2500 change 2.0000 ms (0.889x), change faster in 1/2"]

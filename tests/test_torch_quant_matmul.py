@@ -243,3 +243,122 @@ def test_cuda_wrappers_reject_what_the_kernel_does_not_take(case):
     else:
         with pytest.raises(TypeError, match="dtype"):
             tqm._dense_matmul_cuda(x, torch.zeros(256, 8))
+
+
+# --- the Hopper bodies' routing and split plan (pure functions) -----------
+
+# The 8B decode step's products at 16 rows: (K, F) of wq / wo, wk / wv,
+# w_gate / w_up, w_down.
+DECODE_8B = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+RAGGED_K = [(128, 1024), (200, 512), (1000, 64), (4224, 4096), (64, 8)]
+
+
+@pytest.mark.parametrize("k,f", DECODE_8B + RAGGED_K,
+                         ids=[f"{k}x{f}" for k, f in DECODE_8B + RAGGED_K])
+def test_decode_split_plan_covers_k_once(k, f):
+    """The splits cover [0, K) exactly once in ranges of k_chunk rows, a
+    multiple of 128 (an int4 group never crosses a split), none empty."""
+    splits, k_chunk = tqm.decode_split_plan(k, f)
+    assert k_chunk > 0 and k_chunk % tqm.INT4_GROUP == 0
+    ranges = [(s * k_chunk, min(k, (s + 1) * k_chunk)) for s in range(splits)]
+    assert all(lo < hi for lo, hi in ranges)
+    covered = np.zeros(k, np.int32)
+    for lo, hi in ranges:
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    for lo, _ in ranges:
+        assert lo % tqm.INT4_GROUP == 0
+
+
+@pytest.mark.parametrize("k,f", DECODE_8B, ids=[f"{k}x{f}" for k, f in DECODE_8B])
+def test_decode_split_plan_fills_the_card_at_8b_decode(k, f):
+    """Every decode product of the 8B puts at least one block on each of
+    the 132 SMs, and two wherever K has the 128-row groups for it."""
+    splits, _ = tqm.decode_split_plan(k, f)
+    blocks = splits * -(-f // tqm.DECODE_TILE_F)
+    assert blocks >= tqm.SM_COUNT
+    assert blocks >= 2 * tqm.SM_COUNT or splits == k // tqm.INT4_GROUP
+
+
+ROUTES = [
+    # m, dtype, aligned, grouped, body
+    (1, torch.bfloat16, True, False, "decode"),
+    (16, torch.bfloat16, True, False, "decode"),
+    (64, torch.float16, True, False, "decode"),
+    (65, torch.float16, True, False, "prefill"),
+    (1024, torch.bfloat16, True, False, "prefill"),
+    (16, torch.bfloat16, True, True, "prefill"),
+    (8192, torch.bfloat16, True, True, "prefill"),
+    (16, torch.bfloat16, False, False, "first"),
+    (1024, torch.bfloat16, False, True, "first"),
+    (16, torch.float32, True, False, "first"),
+    (1024, torch.float32, True, True, "first"),
+]
+
+
+@pytest.mark.parametrize("m,dtype,aligned,grouped,body", ROUTES)
+def test_matmul_body_routing(m, dtype, aligned, grouped, body):
+    assert tqm.matmul_body(m, dtype, aligned=aligned,
+                           grouped=grouped) == body
+
+
+def test_tma_ready_needs_16_byte_bases_and_rows():
+    """TMA addresses 16-byte aligned bases and rows: K % 8 of a 16-bit x,
+    F % 16 of a one-byte or packed weight, F % 8 of a 16-bit one."""
+    x = torch.zeros(16, 256, dtype=torch.bfloat16)
+    q, s = tqm.quantize_weight(np.ones((256, 384), np.float32))
+    assert tqm.tma_ready(x, q, torch.int8, s)
+    assert not tqm.tma_ready(torch.zeros(3, 130, dtype=torch.bfloat16),
+                             torch.zeros(130, 384, dtype=torch.int8),
+                             torch.int8, s)
+    assert not tqm.tma_ready(x, torch.zeros(256, 257, dtype=torch.int8),
+                             torch.int8)
+    assert tqm.tma_ready(x, torch.zeros(256, 264, dtype=torch.bfloat16),
+                         "dense")
+    assert not tqm.tma_ready(x, torch.zeros(256, 260, dtype=torch.bfloat16),
+                             "dense")
+    p, sc = tqm.quantize_weight_int4(np.ones((384, 257), np.float32))
+    assert not tqm.tma_ready(torch.zeros(3, 384, dtype=torch.bfloat16), p,
+                             "int4", sc)
+    # An x whose base sits 2 bytes past an aligned address.
+    shifted = torch.zeros(16 * 256 + 1, dtype=torch.bfloat16)[1:].view(16, 256)
+    assert not tqm.tma_ready(shifted, q, torch.int8, s)
+
+
+# --- parity at the Hopper bodies' tile edges ---------------------------------
+
+
+@pytest.mark.parametrize("m", [65, 128, 129])
+def test_quant_matmul_plain_matches_jax_at_tile_edges(m):
+    """Rows on both sides of the decode threshold (64 / 65) and of the
+    prefill body's 128-row tile."""
+    rng = np.random.default_rng(100 + m)
+    x = rng.normal(0, 1, (m, 256)).astype(np.float32)
+    w = rng.normal(0, 0.05, (256, 384)).astype(np.float32)
+    qj, sj = jqm.quantize_weight(w)
+    want = np.asarray(jqm.quant_matmul(jnp.asarray(x), qj, sj))
+    qt, st = tqm.quantize_weight(w)
+    got = tqm.quant_matmul(torch.from_numpy(x), qt, st)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_int4_matmul_plain_matches_jax_with_groups_across_k_steps():
+    """K = 384: three 128-row scale groups, each over two of the Hopper
+    bodies' 64-row K steps, at 129 rows (one past a 128-row tile)."""
+    rng = np.random.default_rng(7)
+    w = rng.normal(0, 0.05, (384, 256)).astype(np.float32)
+    x = rng.normal(0, 1, (129, 384)).astype(np.float32)
+    pj, sj = jqm.quantize_weight_int4(w)
+    want = np.asarray(jqm.int4_matmul(jnp.asarray(x), pj, sj))
+    pt, st = tqm.quantize_weight_int4(w)
+    got = tqm.int4_matmul(torch.from_numpy(x), pt, st)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_dense_matmul_plain_matches_jax_at_tile_edges():
+    rng = np.random.default_rng(8)
+    x = rng.normal(0, 1, (129, 192)).astype(np.float32)
+    w = rng.normal(0, 1, (192, 136)).astype(np.float32)
+    want = np.asarray(jqm.dense_matmul(jnp.asarray(x), jnp.asarray(w)))
+    got = tqm.dense_matmul(torch.from_numpy(x), torch.from_numpy(w))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
