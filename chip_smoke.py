@@ -7,8 +7,9 @@ Phases, each fatal on failure:
   1. build   compile the port's CUDA kernels (csrc/*.cu) and the native
              page allocator from the sources in this checkout; print
              nvcc's ptxas report and one line of registers and spill
-             per B2 / B3 instantiation and per instantiation of the
-             B6-B9 Hopper bodies (csrc/matmul_sm90.cuh);
+             per B2 / B3 instantiation, per instantiation of the B6-B9
+             Hopper bodies (csrc/matmul_sm90.cuh) and of B4 / B5's
+             split body (csrc/decode_sm90.cuh);
   2. check   hold each kernel against its plain PyTorch version on the
              card in bf16 at the serving shapes (B1, B4) and the training
              shape (B2, B3), and in fp16/bf16 at small shapes for its
@@ -143,7 +144,14 @@ Mixtral's expert shapes with 16 and 8192 expert-sorted rows, a ragged
 shape, a base band with rows past the data, experts that straddle the
 128-row tiles (bf16 and fp16) and fp16; every B6-B9 case checks which
 body it took through the first-body counter, which every model phase
-holds at 0 (NO_BRANCHES); and the
+holds at 0 (NO_BRANCHES); B4 and B5 on the split body
+(csrc/decode_sm90.cuh) rerun for identical bits in every check, timed
+with their device time alone and the wrapper's host time a call, B4 at
+Mistral's serving decode step (bf16 and int8 pools) and on bf16 pools at
+the 8B decode shape, the split body's edges (more splits than live
+slabs, window starts that empty most splits, D = 256, pages of 40 on the
+first body: check_split_edges), and their first-body counters held at 0
+on every model phase; and the
 window and segment-id branches at Mistral's shapes: B1's chunk-prefix
 attention (segment ids), roll-buffer attention (offset, window, segment
 ids) and windowed self-attention, B4 with window starts and 1 or 4
@@ -279,6 +287,29 @@ def matmul_ptxas_rows(build_log: str) -> list[str]:
             "bf16" if "bfloat16" in m.group(1) else "fp16",
             STORAGE_NAMES[int(m.group(2))], v.get("regs", "? registers"),
             v.get("spill", ""), v.get("warn", "")))))
+    return sorted(rows)
+
+
+def split_ptxas_rows(build_log: str) -> list[str]:
+    """One line per instantiation of csrc/decode_sm90.cuh's kernels
+    (paged_split_kernel<Windowed, storage, Fold, T, D> for B4,
+    contiguous_split_kernel<Windowed, storage, T, D> for B5): window,
+    storage, dtype, head dim, registers a thread and spill stores /
+    loads."""
+    rows = []
+    for mangled, v in ptxas_info(build_log).items():
+        m = re.search(r"(paged|contiguous)_split_kernelILb([01])ELi(\d+)E"
+                      r"(?:Lb([01])E)?(\w+?)Li(\d+)E", mangled)
+        if m is None:
+            continue
+        rows.append(" ".join(filter(None, (
+            "B4" if m.group(1) == "paged" else "B5",
+            "window" if m.group(2) == "1" else "dense",
+            STORAGE_NAMES[int(m.group(3))]
+            + (" fold" if m.group(4) == "1" else ""),
+            "bf16" if "bfloat16" in m.group(5) else "fp16",
+            f"D={m.group(6)}", v.get("regs", "? registers"),
+            v.get("spill", "")))))
     return sorted(rows)
 
 
@@ -579,7 +610,10 @@ def check_paged(rng, flush, results):
     err_vs_plain = max_abs_error(o, o_lo)
 
     def kern():
-        paged.paged_flash_decode(q, kp, vp, tbl, lens, return_lse=True)
+        return paged.paged_flash_decode(q, kp, vp, tbl, lens,
+                                        return_lse=True)
+
+    same_bits("B4 paged_decode", kern, (o, lse))
 
     def plain():
         paged.paged_flash_decode_plain(q, kp, vp, tbl, lens, scale=scale)
@@ -597,6 +631,7 @@ def check_paged(rng, flush, results):
         bound_by=by, library_ms=None,
         shape=f"q({b},{hq},{d}) pools({hkv},{num_pages},{ps},{d}) "
               f"lens {int(lengths.min())}-{int(lengths.max())} bf16")
+    host_row("B4 paged_decode", kern, flush, results["paged"])
 
 
 # --- phase 4: serve ----------------------------------------------------------
@@ -851,6 +886,14 @@ def kernel_ms(profile: dict, name: str) -> float | None:
     return sum(hits) if hits else None
 
 
+def b4_ms(profile: dict) -> float | None:
+    """B4's device ms per step: its split body (paged_split_kernel) and
+    its first body (paged_decode_kernel)."""
+    hits = [v for k, v in profile.items()
+            if "paged_split_kernel" in k or "paged_decode_kernel" in k]
+    return sum(hits) if hits else None
+
+
 # --- phase 7: serve 8B on quantized weights, generate ---------------------
 
 # One prompt over 1024 tokens: its prefill bucket (2048 rows) takes the
@@ -883,9 +926,11 @@ def _counters() -> dict:
             "paged_win": (paged, "paged_decode_window_launches"),
             "paged_quant": (paged, "paged_decode_quant_launches"),
             "paged_fold": (paged, "paged_decode_fold_launches"),
+            "paged_first_body": (paged, "paged_decode_first_body_launches"),
             "decode": (decode, "decode_launches"),
             "decode_win": (decode, "decode_window_launches"),
             "decode_quant": (decode, "decode_quant_launches"),
+            "decode_first_body": (decode, "decode_first_body_launches"),
             "quant": (quant_matmul, "quant_matmul_launches"),
             "int4": (quant_matmul, "int4_matmul_launches"),
             "dense": (quant_matmul, "dense_matmul_launches"),
@@ -919,7 +964,9 @@ def _counters() -> dict:
 # fold_scales body; B5 with a window, over int8 / fp8 caches; and the
 # study kernels B10a-c; B2-B9 on fp32 inputs; the probes' kernels (P1
 # v1 / v2, P2 v2, P3); B6-B9 on their first body (fp16 / bf16 operands
-# TMA cannot address). Zero on every path that serves a model without a
+# TMA cannot address); B4 and B5 on their first body (fp16 / bf16 launches
+# the split body of decode_sm90.cuh does not take). Zero on every path
+# that serves a model without a
 # window, chunked prefill or quantized KV, and on every serving path for
 # B2/B3; the fp32, split, study, probe and first-body counters are zero
 # on every model path.
@@ -932,7 +979,8 @@ NO_BRANCHES = dict.fromkeys(("flash_seg", "flash_win", "flash_quant",
                              "bwd_dq_seg", "bwd_dkv_seg", "bwd_dq_win",
                              "bwd_dkv_win", "paged_win", "paged_quant",
                              "paged_fold", "decode_win", "decode_quant",
-                             "matmul_first_body", *FP32_COUNTERS,
+                             "matmul_first_body", "paged_first_body",
+                             "decode_first_body", *FP32_COUNTERS,
                              *PROBE_COUNTERS), 0)
 
 
@@ -942,7 +990,7 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    return {key: getattr(mod, attr)
+    return {key: getattr(mod, attr, 0)
             for key, (mod, attr) in _counters().items()}
 
 
@@ -1116,7 +1164,7 @@ def serve_8b(kind: str, params, cfg, kv=None) -> dict:
     torch.cuda.empty_cache()
     if kind != "int8":
         prof = profile_decode(eng, prompts, Request, f"{what} decode steps")
-        out["b4_ms_per_step"] = kernel_ms(prof, "paged_decode_kernel")
+        out["b4_ms_per_step"] = b4_ms(prof)
         out["busy_ms_per_step"] = prof.get("busy")
     if kind == "int4":
         out["generate"] = generate_8b(params, cfg, eng, Request)
@@ -1734,7 +1782,7 @@ def mistral() -> dict:
     torch.cuda.empty_cache()
     prof = profile_decode(eng_c, prompts, Request,
                           "mistral[chunked] decode steps", new=48)
-    chunked["b4_ms_per_step"] = kernel_ms(prof, "paged_decode_kernel")
+    chunked["b4_ms_per_step"] = b4_ms(prof)
     del eng_c
     gc.collect()
     torch.cuda.empty_cache()
@@ -1774,7 +1822,7 @@ def mistral() -> dict:
     torch.cuda.empty_cache()
     prof = profile_decode(eng_q, prompts, Request,
                           "mistral[int8 KV] decode steps", new=48)
-    chunked_q["b4_ms_per_step"] = kernel_ms(prof, "paged_decode_kernel")
+    chunked_q["b4_ms_per_step"] = b4_ms(prof)
     del eng_q
     gc.collect()
     torch.cuda.empty_cache()
@@ -1810,7 +1858,7 @@ def mistral() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     prof = profile_decode(eng_m, prompts, Request, "mistral decode steps")
-    mono["b4_ms_per_step"] = kernel_ms(prof, "paged_decode_kernel")
+    mono["b4_ms_per_step"] = b4_ms(prof)
     log(f"mistral: B4 device ms per decode step (profiled, chunked + "
         f"prefix cache, the same requests and new=48) bf16 KV "
         f"{chunked['b4_ms_per_step']}, int8 KV "
@@ -2573,6 +2621,47 @@ def check_grouped(rng, flush, results):
         torch.cuda.empty_cache()
 
 
+def decode_first_body_counts():
+    """(B4, B5) fp16 / bf16 launches on the first body, each None in a
+    package without the counter (a parent timed by kernel_pairs.py)."""
+    from flash_attention_tpu_torch.ops import decode, paged
+
+    return (getattr(paged, "paged_decode_first_body_launches", None),
+            getattr(decode, "decode_first_body_launches", None))
+
+
+def decode_splits(b, hkv, rows, tokens, d=128):
+    """The split body's blocks per (sequence, kv head, row group) for
+    this shape (decode.split_plan), or None in a package without it."""
+    from flash_attention_tpu_torch.ops import decode
+
+    plan = getattr(decode, "split_plan", None)
+    if plan is None:
+        return None
+    return plan(b * hkv * -(-rows // decode.SPLIT_ROWS), tokens, d)
+
+
+def same_bits(what, fn, first) -> None:
+    """fn() again gives identical bits (the split body merges its
+    partials in a fixed order; no atomics into O or the LSE)."""
+    again = fn()
+    first = first if isinstance(first, tuple) else (first,)
+    again = again if isinstance(again, tuple) else (again,)
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    log(f"check {what}: identical bits on a rerun: {same}")
+    if not same:
+        raise AssertionError(f"{what}: a rerun changed the bits")
+
+
+def host_row(what, fn, flush, row) -> None:
+    """Adds the kernel's device time alone (device_ms) and the wrapper's
+    host time a call (host_us_per_call) to a timed row."""
+    row["device_ms"] = device_ms(fn, flush)
+    row["host_us"] = host_us_per_call(fn)
+    log(f"time  {what}: device_ms={row['device_ms']:.4f} host_us="
+        f"{row['host_us']:.1f} a call")
+
+
 def check_decode(rng, flush, results):
     """B5 at the generate phase's last step (4 sequences of 543 live
     positions in a 640-position cache, 32 q / 8 kv heads of 128, bf16),
@@ -2603,9 +2692,12 @@ def check_decode(rng, flush, results):
         dead_ok = all(bool((o[i] == 0).all()) for i in dead)
         log(f"check B5 decode {dt} q({b},{hq},{d}) cache({b},{hkv},{s},{d}) "
             f"lens={lens}: kernel_err={kerr:.3e} plain_err={berr:.3e} "
-            f"dead_rows_zero={dead_ok}")
+            f"dead_rows_zero={dead_ok} splits="
+            f"{decode_splits(b, hkv, hq // hkv, s, d)}")
         if not (ok and dead_ok and bool(torch.isfinite(o.float()).all())):
             raise AssertionError("B5 decode failed its gate")
+        same_bits(f"B5 decode {dt} lens={lens}",
+                  lambda: dec.flash_decode(q, k, v, lengths), o)
         if lens != [543] * 4:
             continue
         mask = (torch.arange(s, device="cuda")[None, :]
@@ -2630,6 +2722,8 @@ def check_decode(rng, flush, results):
             bound_ms=bms, bound_by=by, library_ms=lib_ms,
             shape=f"q({b},{hq},{d}) cache({b},{hkv},{s},{d}) lens {lens} "
                   f"bf16")
+        host_row("B5 decode", lambda: dec.flash_decode(q, k, v, lengths),
+                 flush, results["decode"])
 
 
 # --- phase 2/3: the window and segment-id branches (B1, B4, B5) -------------
@@ -2804,6 +2898,9 @@ def check_paged_window(rng, flush, results):
             f"dead_rows_ok={dead_ok}")
         if not (ok and dead_ok and lse_err <= 1e-3):
             raise AssertionError("B4 windowed paged_decode failed its gate")
+        same_bits(f"B4 paged_decode window starts qpos_spread={spread}",
+                  lambda: paged.paged_flash_decode(q, kp, vp, tbl, lens,
+                                                   **kw), (o, lse))
         ms = time_ms(lambda: paged.paged_flash_decode(q, kp, vp, tbl, lens,
                                                       **kw), flush)
         plain_ms = time_ms(lambda: paged.paged_flash_decode_plain(
@@ -2820,6 +2917,10 @@ def check_paged_window(rng, flush, results):
             bound_ms=bms, bound_by=by, library_ms=None,
             shape=f"q({b},{hq},{d}) pools({hkv},{num_pages},{ps},{d}) lens "
                   f"{lengths.tolist()} starts {starts.tolist()} bf16")
+        host_row(f"B4 paged_decode window starts qpos_spread={spread}",
+                 lambda: paged.paged_flash_decode(q, kp, vp, tbl, lens, **kw),
+                 flush, results[("paged_win", spread)])
+    check_paged_serving(rng, flush, results)
 
 
 def check_decode_window(rng, flush, results):
@@ -2850,6 +2951,8 @@ def check_decode_window(rng, flush, results):
         f"{d}) lens={lens}: kernel_err={kerr:.3e} plain_err={berr:.3e}")
     if not (ok and bool(torch.isfinite(o.float()).all())):
         raise AssertionError("B5 windowed decode failed its gate")
+    same_bits(f"B5 decode window {win}",
+              lambda: dec.flash_decode(q, k, v, lengths, window=win), o)
     pos = torch.arange(s, device="cuda")[None, :]
     mask = ((pos < lengths[:, None]) & (pos >= starts[:, None]))[
         :, None, None, :]
@@ -2871,6 +2974,9 @@ def check_decode_window(rng, flush, results):
         bound_ms=bms, bound_by=by, library_ms=lib_ms,
         shape=f"q({b},{hq},{d}) cache({b},{hkv},{s},{d}) lens {lens} "
               f"window {win} bf16")
+    host_row(f"B5 decode window {win}",
+             lambda: dec.flash_decode(q, k, v, lengths, window=win), flush,
+             results["decode_win"])
 
 
 # --- phase 2/3: the int8 / fp8 branches (B1, B4, B5) and the P2 bodies -----
@@ -2975,12 +3081,47 @@ def check_paged_quant(rng, flush, results):
     plain version (no single PyTorch call attends over a page table)."""
     from flash_attention_tpu_torch.ops import paged
 
+    from flash_attention_tpu_torch.utils.metrics import verify_low_precision
+
     b, hq, hkv, d, ps = 16, 32, 8, 128, 256
     scale = 1.0 / math.sqrt(d)
     lengths = np.linspace(256, 1132, b).astype(np.int32)
     kp, vp, tbl, num_pages = paged_setup(rng, lengths, hkv, d, ps, 8)
     lens = torch.from_numpy(lengths).cuda()
     q = randn(rng, (b, hq, d), torch.bfloat16)
+    # Dense bf16 pools at the same shape, beside the quantized rows.
+    what = f"B4 paged_decode bf16 pools B={b} lens " \
+        f"{int(lengths.min())}-{int(lengths.max())}"
+
+    def dense():
+        return paged.paged_flash_decode(q, kp, vp, tbl, lens,
+                                        return_lse=True)
+
+    o, lse = dense()
+    o_lo, _ = paged.paged_flash_decode_plain(q, kp, vp, tbl, lens,
+                                             scale=scale)
+    o_hi, lse_hi = paged.paged_flash_decode_plain(
+        q.float(), kp.float(), vp.float(), tbl, lens, scale=scale)
+    ok, kerr, berr = verify_low_precision(o, o_hi, o_lo)
+    lse_err, _, dead_ok = _lse_gate(lse, lse_hi, scale)
+    log(f"check {what}: kernel_err={kerr:.3e} bf16_plain_err={berr:.3e} "
+        f"lse_err={lse_err:.3e} splits={decode_splits(b, hkv, 4, 8 * ps)}")
+    if not (ok and dead_ok and lse_err <= 1e-3):
+        raise AssertionError(f"{what} failed its gate")
+    same_bits(what, dense, (o, lse))
+    ms = time_ms(dense, flush)
+    plain_ms = time_ms(lambda: paged.paged_flash_decode_plain(
+        q, kp, vp, tbl, lens, scale=scale), flush)
+    flops, nbytes = paged.paged_decode_cost(lengths, hq, hkv, d, 2, ps)
+    bms, by = bound_ms(flops, nbytes)
+    log(f"time  {what}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms=null bound_ms={bms:.4f} ({by})")
+    results[("paged_q", "bf16", "default")] = dict(
+        max_abs_err=max_abs(o, o_lo), ms=ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=None,
+        shape=f"q({b},{hq},{d}) pools({hkv},{num_pages},{ps},{d}) bf16 "
+              f"lens {int(lengths.min())}-{int(lengths.max())}")
+    host_row(what, dense, flush, results[("paged_q", "bf16", "default")])
     for kind, dt in QUANT_KINDS.items():
         kc, ks = quant_pools(kp, dt)
         vc, vs = quant_pools(vp, dt)
@@ -2999,6 +3140,8 @@ def check_paged_quant(rng, flush, results):
             what = f"B4 paged_decode {kind} {body} B={b} lens " \
                 f"{int(lengths.min())}-{int(lengths.max())}"
             _quant_gate(what, o, o_hi, o_lo, lse, lse_hi, lse_lo, scale)
+            same_bits(what, lambda: paged.paged_flash_decode(
+                q, kc, vc, tbl, lens, return_lse=True, **kw), (o, lse))
             ms = time_ms(lambda: paged.paged_flash_decode(
                 q, kc, vc, tbl, lens, return_lse=True, **kw), flush)
             plain_ms = time_ms(lambda: paged.paged_flash_decode_plain(
@@ -3015,6 +3158,9 @@ def check_paged_quant(rng, flush, results):
                 shape=f"q({b},{hq},{d}) pools({hkv},{num_pages},{ps},{d}) "
                       f"{kind} lens {int(lengths.min())}-"
                       f"{int(lengths.max())} bf16 q")
+            host_row(what, lambda: paged.paged_flash_decode(
+                q, kc, vc, tbl, lens, return_lse=True, **kw), flush,
+                results[("paged_q", kind, body)])
 
     # Window starts over quantized pools at Mistral's shape.
     b = 8
@@ -3042,6 +3188,9 @@ def check_paged_quant(rng, flush, results):
             what = (f"B4 paged_decode {kind} window starts qpos_spread="
                     f"{spread}")
             _quant_gate(what, o, o_hi, o_lo, lse, lse_hi, lse_lo, scale)
+            same_bits(what, lambda: paged.paged_flash_decode(
+                q, kc, vc, tbl, lens, window_starts=st, qpos_spread=spread,
+                return_lse=True, **kw), (o, lse))
             if kind != "int8":
                 continue
             ms = time_ms(lambda: paged.paged_flash_decode(
@@ -3061,6 +3210,10 @@ def check_paged_quant(rng, flush, results):
                 shape=f"q({b},{hq},{d}) pools({hkv},{num_pages},{ps},{d}) "
                       f"int8 lens {lengths.tolist()} starts "
                       f"{starts.tolist()}")
+            host_row(what, lambda: paged.paged_flash_decode(
+                q, kc, vc, tbl, lens, window_starts=st, qpos_spread=spread,
+                return_lse=True, **kw), flush,
+                results[("paged_q_win", spread)])
 
 
 def max_abs(a, b) -> float:
@@ -3113,6 +3266,8 @@ def check_decode_quant(rng, flush, results):
             what = (f"B5 decode {kind} cache({b},{hkv},{s},{d}) lens {lens}"
                     + (f" window {win}" if win else ""))
             _quant_gate(what, o, hi, lo)
+            same_bits(what, lambda: dec.flash_decode(q, kq, vq, lengths,
+                                                     window=win), o)
             ms = time_ms(lambda: dec.flash_decode(q, kq, vq, lengths,
                                                   window=win), flush)
             plain_ms = time_ms(lambda: dec.flash_decode_plain(
@@ -3133,6 +3288,9 @@ def check_decode_quant(rng, flush, results):
                 bound_ms=bms, bound_by=by, library_ms=lib_ms,
                 shape=f"q({b},{hq},{d}) cache({b},{hkv},{s},{d}) {kind} "
                       f"lens {lens}" + (f" window {win}" if win else ""))
+            host_row(what, lambda: dec.flash_decode(q, kq, vq, lengths,
+                                                    window=win), flush,
+                     results[("decode_q", kind, win)])
             del kq, vq, kb, vb
         torch.cuda.empty_cache()
 
@@ -3311,17 +3469,20 @@ def check_bwd_branches(rng, flush, results):
 
 
 def _paged_case(rng, dt, lengths, hq, hkv, d, ps, starts=None, spread=1,
-                kv_dtype=None):
+                kv_dtype=None, fold=False, width=None):
     """B4 against its plain versions on a shuffled page table (dense
-    pools in dt, or int8 / fp8 codes of them when kv_dtype is given):
-    the 3x gate on O and LSE, dead rows exact (quantized: _quant_gate).
-    Returns (what, o, o_lo, args of the kernel call, kw)."""
+    pools in dt, or int8 / fp8 codes of them when kv_dtype is given;
+    `fold`: int8's fold_scales body; `width`: the table's, at least the
+    longest row's pages + 1): the 3x gate on O and LSE, dead rows exact
+    (quantized: _quant_gate). Returns (what, o, o_lo, args of the kernel
+    call, kw)."""
     from flash_attention_tpu_torch.ops import paged
     from flash_attention_tpu_torch.utils.metrics import verify_low_precision
 
     lengths = np.asarray(lengths, np.int32)
-    kp, vp, tbl, num_pages = paged_setup(rng, lengths, hkv, d, ps,
-                                         -(-int(lengths.max()) // ps) + 1)
+    kp, vp, tbl, num_pages = paged_setup(
+        rng, lengths, hkv, d, ps,
+        width or -(-int(lengths.max()) // ps) + 1)
     kp, vp = kp.to(dt), vp.to(dt)
     q = randn(rng, (len(lengths), hq, d), dt)
     lens = torch.from_numpy(lengths).cuda()
@@ -3333,6 +3494,8 @@ def _paged_case(rng, dt, lengths, hq, hkv, d, ps, starts=None, spread=1,
         vc, vs = quant_pools(vp, kv_dtype)
         kp, vp, hi_pools = kc, vc, (kc, vc)
         kw = dict(k_scales=ks, v_scales=vs)
+        if fold:
+            kw["fold_scales"] = True
     scale = 1.0 / math.sqrt(d)
     o, lse = paged.paged_flash_decode(q, kp, vp, tbl, lens, window_starts=st,
                                       qpos_spread=spread, return_lse=True,
@@ -3347,7 +3510,11 @@ def _paged_case(rng, dt, lengths, hq, hkv, d, ps, starts=None, spread=1,
     what = (f"B4 {str(dt).split('.')[-1]} d={d} rows={rows} page {ps} "
             f"lens {lengths.tolist()}"
             + (f" starts {list(starts)} spread {spread}" if starts else "")
-            + (f" {str(kv_dtype).split('.')[-1]} pools" if kv_dtype else ""))
+            + (f" {str(kv_dtype).split('.')[-1]} pools" if kv_dtype else "")
+            + (" fold_scales" if fold else "")
+            + f" table width {tbl.shape[1]} splits "
+              + str(decode_splits(len(lengths), hkv, rows,
+                                  tbl.shape[1] * ps, d)))
     if kv_dtype is not None:
         _quant_gate(what, o, o_hi, o_lo, lse, lse_hi, lse_lo, scale)
     else:
@@ -3407,6 +3574,132 @@ def _decode_case(rng, dt, lengths, hq, hkv, d, s, window=None,
         if not (ok and dead_ok and bool(torch.isfinite(o.float()).all())):
             raise AssertionError(f"{what} failed its gate")
     return what, o, lo, (q, k, v, lens), dict(window=window)
+
+
+def check_paged_serving(rng, flush, results):
+    """B4 at Mistral's serving decode step: batch 8, 32 q / 8 kv heads of
+    128, pages of 256, window 4096 (window starts lengths - 4096, the
+    pages wholly below them pointing at the scratch page, as after the
+    engine's eviction), lengths 700-12000; on bf16 and int8 pools, each
+    held to its plain versions and rerun for identical bits, timed
+    beside its bound and plain version, its device time and the
+    wrapper's host time a call."""
+    from flash_attention_tpu_torch.ops import paged
+
+    b, hq, hkv, d, ps = 8, 32, 8, 128, 256
+    lengths = np.array([700, 1500, 3000, 4500, 6000, 8000, 10000, 12000],
+                       np.int32)
+    starts = lengths - MISTRAL_WINDOW
+    kp, vp, tbl, num_pages = paged_setup(rng, lengths, hkv, d, ps,
+                                         -(-int(lengths.max()) // ps))
+    below = (np.arange(tbl.shape[1])[None, :] + 1) * ps <= starts[:, None]
+    tbl[torch.from_numpy(below).cuda()] = 0
+    lens, st = (torch.from_numpy(x).cuda() for x in (lengths, starts))
+    q = randn(rng, (b, hq, d), torch.bfloat16)
+    scale = 1.0 / math.sqrt(d)
+    for kind in ("bf16", "int8"):
+        if kind == "bf16":
+            pools, kw = (kp, vp), {}
+            hi_pools = (kp.float(), vp.float())
+        else:
+            kc, ks = quant_pools(kp, torch.int8)
+            vc, vs = quant_pools(vp, torch.int8)
+            pools, hi_pools = (kc, vc), (kc, vc)
+            kw = dict(k_scales=ks, v_scales=vs)
+
+        def kern():
+            return paged.paged_flash_decode(
+                q, *pools, tbl, lens, window_starts=st, return_lse=True,
+                **kw)
+
+        o, lse = kern()
+        pkw = dict(kw, scale=scale, starts=st)
+        o_lo, lse_lo = paged.paged_flash_decode_plain(q, *pools, tbl, lens,
+                                                      **pkw)
+        o_hi, lse_hi = paged.paged_flash_decode_plain(q.float(), *hi_pools,
+                                                      tbl, lens, **pkw)
+        what = (f"B4 paged_decode mistral serving {kind} pools lens "
+                f"{lengths.tolist()} window {MISTRAL_WINDOW} splits "
+                f"{decode_splits(b, hkv, hq // hkv, tbl.shape[1] * ps)}")
+        _quant_gate(what, o, o_hi, o_lo, lse, lse_hi, lse_lo, scale)
+        same_bits(what, kern, (o, lse))
+        ms = time_ms(kern, flush)
+        plain_ms = time_ms(lambda: paged.paged_flash_decode_plain(
+            q, *pools, tbl, lens, **pkw), flush)
+        flops, nbytes = paged.paged_decode_cost(
+            lengths, hq, hkv, d, 2, ps, starts=starts,
+            kv_itemsize=None if kind == "bf16" else 1)
+        bms, by = bound_ms(flops, nbytes)
+        log(f"time  {what}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms=null bound_ms={bms:.4f} ({by}) achieved="
+            f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
+        results[("paged_serving", kind)] = dict(
+            max_abs_err=max_abs(o, o_lo), ms=ms, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by, library_ms=None,
+            shape=f"q({b},{hq},{d}) pools({hkv},{num_pages},{ps},{d}) "
+                  f"{kind} lens {lengths.tolist()} window {MISTRAL_WINDOW}")
+        host_row(what, kern, flush, results[("paged_serving", kind)])
+
+
+def check_split_edges(rng):
+    """The split body's edges (untimed), each held to its plain versions
+    and rerun for identical bits: more splits than live slabs (B4 and
+    B5), window starts that leave most splits empty (B4, also with 4
+    folded positions and negative starts), head dim 256 with several
+    splits (B4 windowed fp16, B4 int8 fold_scales, B5 windowed bf16);
+    and a page size the split body does not walk (40: the first body,
+    counted by paged_decode_first_body_launches)."""
+    from flash_attention_tpu_torch.ops import decode as dec
+    from flash_attention_tpu_torch.ops import paged
+    from flash_attention_tpu_torch.utils.metrics import verify_low_precision
+
+    bf, hf = torch.bfloat16, torch.float16
+    for args, kw in (
+            ((bf, [1, 40, 0], 32, 8, 128, 256), dict(width=8)),
+            ((bf, [4400, 3000], 32, 8, 128, 256),
+             dict(starts=[4380, 2990])),
+            ((bf, [300, 5000, 0], 128, 8, 128, 256),
+             dict(starts=[-290, 4990, 0], spread=4)),
+            ((hf, [4400, 300, 0, 1500], 32, 8, 256, 256),
+             dict(starts=[300, -3780, 0, 700], spread=2)),
+            ((bf, [1500, 0, 700], 32, 8, 256, 256),
+             dict(kv_dtype=torch.int8, fold=True))):
+        what, o, _, call, ckw = _paged_case(rng, *args, **kw)
+        same_bits(what, lambda: paged.paged_flash_decode(*call, **ckw),
+                  (o,))
+    for args, kw in (((bf, [1, 17, 0, 3], 32, 8, 128, 640), {}),
+                     ((bf, [5031, 100], 32, 8, 256, 5120),
+                      dict(window=MISTRAL_WINDOW))):
+        what, o, _, call, ckw = _decode_case(rng, *args, **kw)
+        same_bits(what, lambda: dec.flash_decode(*call, **ckw), o)
+    # Pages of 40 tokens: the first body.
+    b, hq, hkv, d, ps = 3, 32, 8, 128, 40
+    lengths = np.array([100, 0, 37], np.int32)
+    width = 3
+    table = np.zeros((b, width), np.int32)
+    table[0] = [1, 2, 3]
+    table[2, 0] = 4
+    kp = randn(rng, (hkv, 5, ps, d), bf)
+    vp = randn(rng, (hkv, 5, ps, d), bf)
+    q = randn(rng, (b, hq, d), bf)
+    tbl, lens = (torch.from_numpy(x).cuda() for x in (table, lengths))
+    scale = 1.0 / math.sqrt(d)
+    before = decode_first_body_counts()[0]
+    o, lse = paged.paged_flash_decode(q, kp, vp, tbl, lens, return_lse=True)
+    after = decode_first_body_counts()[0]
+    torch.cuda.synchronize()
+    o_lo, _ = paged.paged_flash_decode_plain(q, kp, vp, tbl, lens,
+                                             scale=scale)
+    o_hi, lse_hi = paged.paged_flash_decode_plain(
+        q.float(), kp.float(), vp.float(), tbl, lens, scale=scale)
+    ok, kerr, berr = verify_low_precision(o, o_hi, o_lo)
+    lse_err, dead, dead_ok = _lse_gate(lse, lse_hi, scale)
+    first = None if after is None else after - before
+    log(f"check B4 bf16 page {ps} lens {lengths.tolist()} (first body): "
+        f"kernel_err={kerr:.3e} plain_err={berr:.3e} lse_err={lse_err:.3e} "
+        f"dead_rows_ok={dead_ok} first-body launches {first}")
+    if not (ok and dead_ok and lse_err <= 1e-3 and first in (None, 1)):
+        raise AssertionError("B4 on the first body failed its gate")
 
 
 # B4's serving shape of check_paged and B5's generate shape of
@@ -4423,6 +4716,7 @@ def check_kernels() -> dict:
     check_bwd_branches(rng, flush, results)
     check_head_dims(rng, flush, results)
     check_rows(rng)
+    check_split_edges(rng)
     check_fp32(rng, flush, results)
     return results
 
@@ -4797,6 +5091,9 @@ def main() -> int:
     mm_ptxas = matmul_ptxas_rows(report.getvalue())
     for row in mm_ptxas:
         log(f"ptxas B6-B9 {row}")
+    split_ptxas = split_ptxas_rows(report.getvalue())
+    for row in split_ptxas:
+        log(f"ptxas B4/B5 {row}")
     log(f"build: kernels built in {secs:.2f} s "
         f"(phase {time.perf_counter() - t0:.2f} s)")
     phase_s = {}
@@ -4882,6 +5179,15 @@ def main() -> int:
 
     def mix_by_path(key):
         return {path: got[key] for path, got in mpaths.items()}
+
+    # B4 / B5 fp16 / bf16 launches on the first body, by model path (each
+    # phase holds them at 0 through NO_BRANCHES).
+    model_paths = {"serve_1b": launches, "serve_8b_int4": l4,
+                   "serve_8b_int8": l8, "generate_8b_int4": lg, **mpaths,
+                   **bpaths}
+    first_body_paths = {
+        key: {path: got.get(key) for path, got in model_paths.items()}
+        for key in ("paged_first_body", "decode_first_body")}
 
     def matmul_entry(label, **extra):
         rows = results[label]
@@ -4972,8 +5278,7 @@ def main() -> int:
                   "window", "flash_attention_tpu/ops/flash.py:773"),
         bwd_entry("flash_bwd_dkv (B3 segment ids)", "dkv", "bwd_dkv_seg",
                   "segments", "flash_attention_tpu/ops/flash.py:773"),
-        dict(name="paged_decode (B4)", route="cuda",
-             source="flash_attention_tpu_torch/csrc/paged_decode.cu",
+        dict(name="paged_decode (B4)", route="cuda", source="flash_attention_tpu_torch/csrc/decode_sm90.cuh",
              replaces="flash_attention_tpu/ops/paged.py:37",
              launches=launches["paged"] + l4["paged"] + l8["paged"]
              + sum(mix_by_path("paged").values())
@@ -4983,23 +5288,27 @@ def main() -> int:
                                "serve_8b_int8": l8["paged"],
                                **mix_by_path("paged"),
                                **by_path(bpaths, "paged")},
-             **results["paged"], at_head_dims=head_dims("B4")),
+             **results["paged"], at_head_dims=head_dims("B4"),
+             first_body_launches=first_body_paths["paged_first_body"],
+             ptxas=split_ptxas),
         dict(name="paged_decode (B4 window starts)", route="cuda",
-             source="flash_attention_tpu_torch/csrc/paged_decode.cu",
+             source="flash_attention_tpu_torch/csrc/decode_sm90.cuh",
              replaces="flash_attention_tpu/ops/paged.py:37",
              launches=sum(by_path(bpaths, "paged_win").values()),
              launches_by_path=by_path(bpaths, "paged_win"),
              **results[("paged_win", 1)],
-             at_qpos_spread_4=results[("paged_win", 4)]),
-        dict(name="decode (B5)", route="cuda",
-             source="flash_attention_tpu_torch/csrc/decode.cu",
+             at_qpos_spread_4=results[("paged_win", 4)],
+             at_mistral_serving={k: results[("paged_serving", k)]
+                                 for k in ("bf16", "int8")}),
+        dict(name="decode (B5)", route="cuda", source="flash_attention_tpu_torch/csrc/decode_sm90.cuh",
              replaces="flash_attention_tpu/ops/decode.py:71",
              launches=lg["decode"] + sum(by_path(bpaths, "decode").values()),
              launches_by_path={"generate_8b_int4": lg["decode"],
                                **by_path(bpaths, "decode")},
-             **results["decode"], at_head_dims=head_dims("B5")),
+             **results["decode"], at_head_dims=head_dims("B5"),
+             first_body_launches=first_body_paths["decode_first_body"]),
         dict(name="decode (B5 window)", route="cuda",
-             source="flash_attention_tpu_torch/csrc/decode.cu",
+             source="flash_attention_tpu_torch/csrc/decode_sm90.cuh",
              replaces="flash_attention_tpu/ops/decode.py:71",
              launches=sum(by_path(bpaths, "decode_win").values()),
              launches_by_path=by_path(bpaths, "decode_win"),
@@ -5015,24 +5324,24 @@ def main() -> int:
              at_shapes={k: results[("flash_q", k)]
                         for k in ("e4m3", "e5m2")}),
         dict(name="paged_decode (B4 int8/fp8)", route="cuda",
-             source="flash_attention_tpu_torch/csrc/paged_decode.cu",
+             source="flash_attention_tpu_torch/csrc/decode_sm90.cuh",
              replaces="flash_attention_tpu/ops/paged.py:37",
              launches=sum(by_path(bpaths, "paged_quant").values()),
              launches_by_path=by_path(bpaths, "paged_quant"),
              **results[("paged_q", "int8", "default")],
              at_shapes={**{k: results[("paged_q", k, "default")]
-                           for k in ("e4m3", "e5m2")},
+                           for k in ("e4m3", "e5m2", "bf16")},
                         **{f"int8 window starts qpos_spread {k}":
                            results[("paged_q_win", k)] for k in (1, 4)}},
              p2=p2),
         dict(name="paged_decode (B4 fold_scales)", route="cuda",
-             source="flash_attention_tpu_torch/csrc/paged_decode_int8.cu",
+             source="flash_attention_tpu_torch/csrc/decode_sm90.cuh",
              replaces="flash_attention_tpu/ops/paged.py:37",
              launches=sum(by_path(bpaths, "paged_fold").values()),
              launches_by_path=by_path(bpaths, "paged_fold"),
              **results[("paged_q", "int8", "fold")]),
         dict(name="decode (B5 int8/fp8)", route="cuda",
-             source="flash_attention_tpu_torch/csrc/decode.cu",
+             source="flash_attention_tpu_torch/csrc/decode_sm90.cuh",
              replaces="flash_attention_tpu/ops/decode.py:71",
              launches=sum(by_path(bpaths, "decode_quant").values()),
              launches_by_path=by_path(bpaths, "decode_quant"),

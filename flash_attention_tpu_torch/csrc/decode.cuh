@@ -1,9 +1,8 @@
-// The B5 kernel template (decode.cu): one 256-thread block per (kv head,
-// sequence) over the body in decode_core.cuh, walking the contiguous
-// cache in chunks of 256 positions; instantiated per window flag, K/V
-// storage, compute type, head dim and row bound. decode.cu holds the
-// dense fp16 / bf16 instantiations and the C entry point, decode_int8.cu
-// and decode_fp8.cu the quantized ones, decode_f32.cu those of an fp32 q.
+// B5's first body (decode.cu), for an fp32 q: one 256-thread block per
+// (kv head, sequence) over the FFMA body in decode_core.cuh, walking the
+// contiguous cache in chunks of 256 positions; instantiated per window
+// flag, K/V storage, head dim and row bound in decode_f32.cu. fp16 / bf16
+// queries run the split body (decode_sm90.cuh).
 #pragma once
 
 #include "decode_core.cuh"
@@ -66,20 +65,11 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-// R: the smallest instantiated row bound >= the GQA group, up to 16;
-// a wider group runs in groups of 16 (decode_kernel). Quantized storages
-// and fp32 instantiate 4 and 16 only, as B4's.
+// R: 4 for a GQA group of at most 4 rows, else 16; a wider group runs
+// in groups of 16 (decode_kernel).
 template <int Store, typename T, int D>
 cudaError_t dispatch_rows(const Args& a) {
-  constexpr bool kAllRows = Store == kDense && sizeof(T) == 2;
-  const int rows = a.Hq / a.Hkv;
-  if constexpr (kAllRows) {
-    if (rows <= 2) return launch<Store, T, D, 2>(a);
-  }
-  if (rows <= 4) return launch<Store, T, D, 4>(a);
-  if constexpr (kAllRows) {
-    if (rows <= 8) return launch<Store, T, D, 8>(a);
-  }
+  if (a.Hq / a.Hkv <= 4) return launch<Store, T, D, 4>(a);
   return launch<Store, T, D, 16>(a);
 }
 
@@ -92,16 +82,6 @@ cudaError_t dispatch_d(const Args& a, int D) {
   return cudaErrorInvalidValue;
 }
 
-template <int Store>
-cudaError_t dispatch(const Args& a, int dtype, int D) {
-  if (dtype == kBFloat16) return dispatch_d<Store, __nv_bfloat16>(a, D);
-  if (dtype == kFloat16) return dispatch_d<Store, __half>(a, D);
-  return cudaErrorInvalidValue;
-}
-
-// Defined in decode_int8.cu and decode_fp8.cu.
-cudaError_t dispatch_int8(const Args& a, int dtype, int D);
-cudaError_t dispatch_fp8(const Args& a, int dtype, int D, int store);
 // Defined in decode_f32.cu: an fp32 q over any storage.
 cudaError_t dispatch_f32(const Args& a, int D, int store);
 

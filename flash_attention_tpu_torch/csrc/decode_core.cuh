@@ -1,8 +1,13 @@
-// The body shared by the decode attention kernels B4 (paged_decode.cu,
+// The first body of the decode attention kernels B4 (paged_decode.cu,
 // K/V in page-table-indexed pools) and B5 (decode.cu, K/V in contiguous
-// per-sequence caches). Only the addressing differs: an `Offsets`
-// functor maps chunk p of a sequence's tokens to the element offset of
-// its first K/V row; inside a chunk the rows are contiguous [n, D].
+// per-sequence caches): the FFMA body of an fp32 q, and of B4 fp16 /
+// bf16 over dense pools whose page size is not a multiple of 16. Every
+// other fp16 / bf16 launch runs the split body of decode_sm90.cuh, which
+// reuses this file's addressing functors (PagedChunks, ContiguousChunks)
+// and kQuantBlock. Only the addressing differs between B4 and B5: an
+// `Offsets` functor maps chunk p of a sequence's tokens to the element
+// offset of its first K/V row; inside a chunk the rows are contiguous
+// [n, D].
 //
 // One block of kThreads threads attends the R-bounded `rows` query rows
 // of one (sequence, kv head) over the first `len` tokens, chunk by

@@ -1,10 +1,10 @@
-// The B4 kernel template (paged_decode.cu): one 256-thread block per
-// (kv head, sequence) over the body in decode_core.cuh, instantiated per
+// B4's first body (paged_decode.cu): one 256-thread block per (kv head,
+// sequence) over the FFMA body in decode_core.cuh, instantiated per
 // window flag, K/V storage, fold flag, compute type, head dim and row
-// bound. paged_decode.cu holds the dense fp16 / bf16 instantiations and
-// the C entry point; paged_decode_int8.cu and paged_decode_fp8.cu the
-// quantized ones, paged_decode_f32.cu and paged_decode_f32_fp8.cu those
-// of an fp32 q.
+// bound. It runs an fp32 q (paged_decode_f32.cu, paged_decode_f32_fp8.cu)
+// and fp16 / bf16 over dense pools whose page size the split body cannot
+// walk (not a multiple of 16; paged_decode.cu); every other fp16 / bf16
+// launch runs the split body (decode_sm90.cuh).
 #pragma once
 
 #include "decode_core.cuh"
@@ -69,21 +69,11 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-// R: the smallest instantiated row bound >= the rows, up to 16; more
-// rows run in groups of 16 (paged_decode_kernel). Quantized storages and
-// fp32 instantiate 4 and 16 only (the serving models' group of 4, and
-// everything wider), which keeps their build short.
+// R: 4 for at most 4 rows (the serving models' group of 4), else 16;
+// more rows run in groups of 16 (paged_decode_kernel).
 template <int Store, bool Fold, typename T, int D>
 cudaError_t dispatch_rows(const Args& a) {
-  constexpr bool kAllRows = Store == kDense && sizeof(T) == 2;
-  const int rows = a.Hq / a.Hkv;
-  if constexpr (kAllRows) {
-    if (rows <= 2) return launch<Store, Fold, T, D, 2>(a);
-  }
-  if (rows <= 4) return launch<Store, Fold, T, D, 4>(a);
-  if constexpr (kAllRows) {
-    if (rows <= 8) return launch<Store, Fold, T, D, 8>(a);
-  }
+  if (a.Hq / a.Hkv <= 4) return launch<Store, Fold, T, D, 4>(a);
   return launch<Store, Fold, T, D, 16>(a);
 }
 
@@ -103,9 +93,6 @@ cudaError_t dispatch(const Args& a, int dtype, int D) {
   return cudaErrorInvalidValue;
 }
 
-// Defined in paged_decode_int8.cu and paged_decode_fp8.cu.
-cudaError_t dispatch_int8(const Args& a, int dtype, int D, bool fold);
-cudaError_t dispatch_fp8(const Args& a, int dtype, int D, int store);
 // Defined in paged_decode_f32.cu (dense fp32 and int8 pools) and
 // paged_decode_f32_fp8.cu (e4m3 / e5m2 pools): an fp32 q.
 cudaError_t dispatch_f32(const Args& a, int D, int store, bool fold);

@@ -67,12 +67,14 @@ _SIGNATURES = {
     # q, k_pool, v_pool, k scales (or NULL), v scales (or NULL),
     # page_table, lengths, window starts (or NULL), o, lse, B, Hq, Hkv,
     # num_pages, page_size, table_width, D, qpos_spread, scale, dtype,
-    # kv store, fold_scales, stream
-    "fa_paged_decode": [_vp] * 10 + [_i32] * 8 + [_f32] + [_i32] * 3
-    + [_vp],
+    # kv store, fold_scales, body, splits, workspace (or NULL), counters
+    # (or NULL), stream
+    "fa_paged_decode": [_vp] * 10 + [_i32] * 8 + [_f32] + [_i32] * 5
+    + [_vp] * 3,
     # q, k, v, k scales (or NULL), v scales (or NULL), lengths, o, B, Hq,
-    # Hkv, S, D, window (0 = none), scale, dtype, kv store, stream
-    "fa_decode": [_vp] * 7 + [_i32] * 6 + [_f32, _i32, _i32, _vp],
+    # Hkv, S, D, window (0 = none), scale, dtype, kv store, body, splits,
+    # workspace (or NULL), counters (or NULL), stream
+    "fa_decode": [_vp] * 7 + [_i32] * 6 + [_f32] + [_i32] * 4 + [_vp] * 3,
     # x, w, scale (or NULL), y, M, K, F, weight code, dtype, body,
     # splits, k_chunk, workspace (or NULL), counters (or NULL), stream
     "fa_quant_matmul": [_vp] * 4 + [_i32] * 8 + [_vp] * 3,
@@ -202,6 +204,29 @@ def stream_handle(device: torch.device) -> int:
     if _raw_stream is not None and device.index is not None:
         return _raw_stream(device.index)
     return torch.cuda.current_stream(device).cuda_stream
+
+
+_scratch: dict = {}
+
+
+def scratch(device, stream: int, n_floats: int, n_counters: int):
+    """(workspace, counters) of the kernels that merge split partials
+    inside their launch (B4 / B5's split body, B6-B8's split-K decode
+    body) on `device` for launches on `stream`: at least n_floats fp32
+    values and n_counters zero int32 counters (each launch's last block
+    of a unit resets its own). Launches on one stream run in order, so
+    each stream keeps one pair, allocated once and grown when a launch
+    needs more; a launch on another stream never sees these counters."""
+    key = (device, stream)
+    ws, counters = _scratch.get(key, (None, None))
+    if ws is None or ws.numel() < n_floats:
+        ws = torch.empty(max(n_floats, 1 << 20), dtype=torch.float32,
+                         device=device)
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(max(n_counters, 4096), dtype=torch.int32,
+                               device=device)
+    _scratch[key] = ws, counters
+    return ws, counters
 
 
 def check(code: int, what: str) -> None:

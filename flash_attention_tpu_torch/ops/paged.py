@@ -17,6 +17,13 @@ each code times its scale in fp32 and rounds it to q's dtype before the
 product (the JAX kernel's numerics); `fold_scales` (int8 only) folds the
 K scales into q per 128-token block and the V scales into each block's
 partial PV sum, so the codes enter the products unscaled.
+
+fp16 / bf16 queries over pools whose page size is a multiple of 16 run
+the split body B4 shares with B5 (`decode.decode_body`; sized by
+`decode.split_plan` from the table's width and an integer window, never
+from values on the card); fp32 queries and other page sizes the first
+body. `paged_flash_decode_split_plain` is the split body's algorithm in
+plain PyTorch.
 """
 
 from __future__ import annotations
@@ -28,9 +35,16 @@ import torch
 from flash_attention_tpu_torch.config import CUDA_HEAD_DIMS, cdiv
 from flash_attention_tpu_torch.ops import _cuda
 from flash_attention_tpu_torch.ops.decode import (
+    BODY_CODES,
+    SPLIT_ROWS,
     finish_rows,
     flash_decode_plain,
+    flash_decode_split_plain,
+    _plans,
+    hidden,
+    launch_plan,
     masked_softmax,
+    split_merge_plain,
 )
 from flash_attention_tpu_torch.ops.quant import (
     QUANT_BLOCK,
@@ -51,6 +65,9 @@ paged_decode_fold_launches = 0
 # Launches of B4 with an fp32 q (dense fp32 pools or any quantized
 # storage; also counted in paged_decode_launches).
 paged_decode_fp32_launches = 0
+# fp16 / bf16 launches of B4 on the first body (dense pools whose page
+# size is not a multiple of 16; also counted in paged_decode_launches).
+paged_decode_first_body_launches = 0
 
 
 def _gather(pool, page_table):
@@ -73,12 +90,13 @@ def _gather_dequant(pool, scales, page_table, dtype):
         _gather(scales, page_table), dtype).reshape(b, hkv, s, d)
 
 
-def _fold_plain(q, kc, vc, ks, vs, lengths, *, scale, starts, qpos_spread):
-    """The fold_scales body in plain PyTorch over gathered int8 codes kc,
-    vc [B, Hkv, S, D] and scales ks, vs [B, Hkv, S/128, D]: per 128-token
-    block, q times the block's K scale row in fp32, rounded to q's dtype,
-    against the unscaled codes; each block's PV partial (probabilities
-    rounded to q's dtype) times the block's V scale row."""
+def _fold_parts(q, kc, vc, ks, vs, scale):
+    """The fold_scales body's scores and PV product in plain PyTorch over
+    gathered int8 codes kc, vc [B, Hkv, S, D] and scales ks, vs [B, Hkv,
+    S/128, D]: per 128-token block, q times the block's K scale row in
+    fp32, rounded to q's dtype, against the unscaled codes; each block's
+    PV partial (probabilities rounded to q's dtype) times the block's V
+    scale row. Returns (scaled scores [B, Hkv, G, S], pv)."""
     b, hq, d = q.shape
     hkv, s = kc.shape[1], kc.shape[2]
     g, nb = hq // hkv, s // QUANT_BLOCK
@@ -87,12 +105,22 @@ def _fold_plain(q, kc, vc, ks, vs, lengths, *, scale, starts, qpos_spread):
     kb = kc.reshape(b, hkv, nb, QUANT_BLOCK, d)
     sc = torch.einsum("bhgnd,bhntd->bhgnt", qs, kb).reshape(
         b, hkv, g, s) * scale
+
+    def pv(p):
+        pb = p.to(q.dtype).float().reshape(b, hkv, g, nb, QUANT_BLOCK)
+        part = torch.einsum("bhgnt,bhntd->bhgnd", pb,
+                            vc.reshape(b, hkv, nb, QUANT_BLOCK, d))
+        return (part * vs[:, :, None]).sum(dim=3)
+
+    return sc, pv
+
+
+def _fold_plain(q, kc, vc, ks, vs, lengths, *, scale, starts, qpos_spread):
+    """The fold_scales body in plain PyTorch (_fold_parts, then the
+    masked softmax)."""
+    sc, pv = _fold_parts(q, kc, vc, ks, vs, scale)
     p, l, lse = masked_softmax(sc, lengths, starts, qpos_spread)
-    pb = p.to(q.dtype).float().reshape(b, hkv, g, nb, QUANT_BLOCK)
-    pv = torch.einsum("bhgnt,bhntd->bhgnd", pb,
-                      vc.reshape(b, hkv, nb, QUANT_BLOCK, d))
-    o = (pv * vs[:, :, None]).sum(dim=3)
-    return finish_rows(o, l, lse, q.shape, q.dtype, scale, True)
+    return finish_rows(pv(p), l, lse, q.shape, q.dtype, scale, True)
 
 
 def paged_flash_decode_plain(q, k_pool, v_pool, page_table, lengths, *,
@@ -119,6 +147,32 @@ def paged_flash_decode_plain(q, k_pool, v_pool, page_table, lengths, *,
         k = _gather_dequant(k_pool, k_scales, page_table, q.dtype)
         v = _gather_dequant(v_pool, v_scales, page_table, q.dtype)
     return flash_decode_plain(q, k, v, lengths, return_lse=True, **kw)
+
+
+def paged_flash_decode_split_plain(q, k_pool, v_pool, page_table, lengths,
+                                   *, scale, splits, starts=None,
+                                   qpos_spread=1, k_scales=None,
+                                   v_scales=None, fold_scales=False):
+    """paged_flash_decode_plain computed as the split body computes it:
+    the pages gathered (quantized pools dequantized to q's dtype, or the
+    fold_scales body), then each of `splits` shares of a sequence's
+    visible positions a partial, merged in split order
+    (decode.split_merge_plain). Returns (o, lse)."""
+    kw = dict(scale=scale, splits=splits, starts=starts,
+              qpos_spread=qpos_spread, return_lse=True)
+    if k_scales is None:
+        k, v = _gather(k_pool, page_table), _gather(v_pool, page_table)
+    elif fold_scales:
+        sc, pv = _fold_parts(q, *(_gather(t, page_table).float() for t in
+                                  (k_pool, v_pool, k_scales, v_scales)),
+                             scale)
+        return split_merge_plain(
+            sc, hidden(sc, lengths, starts, qpos_spread), lengths, starts,
+            splits, pv, q.shape, q.dtype, scale, True)
+    else:
+        k = _gather_dequant(k_pool, k_scales, page_table, q.dtype)
+        v = _gather_dequant(v_pool, v_scales, page_table, q.dtype)
+    return flash_decode_split_plain(q, k, v, lengths, **kw)
 
 
 def _check_paged_cuda(q, k_pool, v_pool, page_table, lengths, *, starts,
@@ -155,8 +209,9 @@ def _check_paged_cuda(q, k_pool, v_pool, page_table, lengths, *, starts,
     if any(t.dtype != torch.int32 for _, t in tensors[3:]):
         raise TypeError("page_table, lengths and window_starts must be "
                         "int32")
+    dev = q.get_device()   # an int: cheaper to compare than torch.device
     for name, t in tensors:
-        if t.device != q.device:
+        if t.get_device() != dev:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -165,10 +220,10 @@ def _check_paged_cuda(q, k_pool, v_pool, page_table, lengths, *, starts,
 
 def _paged_decode_cuda(q, k_pool, v_pool, page_table, lengths, *, scale,
                        starts=None, qpos_spread=1, k_scales=None,
-                       v_scales=None, fold_scales=False):
+                       v_scales=None, fold_scales=False, window=None):
     global paged_decode_launches, paged_decode_window_launches
     global paged_decode_quant_launches, paged_decode_fold_launches
-    global paged_decode_fp32_launches
+    global paged_decode_fp32_launches, paged_decode_first_body_launches
     b, hq, d = q.shape
     hkv, num_pages, page_size, _ = k_pool.shape
     quantized = k_scales is not None
@@ -176,24 +231,38 @@ def _paged_decode_cuda(q, k_pool, v_pool, page_table, lengths, *, scale,
                               starts=starts, qpos_spread=qpos_spread,
                               k_scales=k_scales, v_scales=v_scales)
     o = torch.empty_like(q)
-    lse = torch.empty((b, hq), dtype=torch.float32, device=q.device)
+    lse = q.new_empty((b, hq), dtype=torch.float32)
     if b == 0:
         return o, lse
+    stream = _cuda.stream_handle(q.device)
+    width = page_table.shape[1]
+    # A unit sees at most the table's positions, and under an integer
+    # window at most the window.
+    span = width * page_size if window is None \
+        else min(width * page_size, window)
+    key = (q.dtype, b, hq, hkv, page_size, width, d, span, q.get_device(),
+           stream)
+    plan = _plans.get(key) or launch_plan(
+        key, q.dtype, page_size, b * hkv * cdiv(hq // hkv, SPLIT_ROWS), span,
+        d, q.device, stream)
+    body, splits, ws, counters = plan[:4]
     code = _cuda.lib().fa_paged_decode(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scales.data_ptr() if quantized else None,
         v_scales.data_ptr() if quantized else None,
         page_table.data_ptr(), lengths.data_ptr(),
         None if starts is None else starts.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), b, hq, hkv, num_pages, page_size,
-        page_table.shape[1], d, qpos_spread, scale,
+        lse.data_ptr(), b, hq, hkv, num_pages, page_size, width, d,
+        qpos_spread, scale,
         _cuda.DTYPE_CODES[q.dtype], store, int(fold_scales),
-        _cuda.stream_handle(q.device))
+        BODY_CODES[body], splits, ws, counters, stream)
+    fp32 = q.dtype == torch.float32
     paged_decode_launches += 1
     paged_decode_window_launches += starts is not None
     paged_decode_quant_launches += quantized
     paged_decode_fold_launches += fold_scales
-    paged_decode_fp32_launches += q.dtype == torch.float32
+    paged_decode_fp32_launches += fp32
+    paged_decode_first_body_launches += body == "first" and not fp32
     _cuda.check(code, "paged_decode")
     return o, lse
 
@@ -266,8 +335,9 @@ def paged_flash_decode(q, k_pool, v_pool, page_table, lengths, *,
     kw = dict(scale=float(scale), starts=starts, qpos_spread=spread,
               k_scales=k_scales, v_scales=v_scales, fold_scales=fold_scales)
     if q.is_cuda:
-        o, lse = _paged_decode_cuda(q, k_pool, v_pool, page_table,
-                                    lengths, **kw)
+        o, lse = _paged_decode_cuda(
+            q, k_pool, v_pool, page_table, lengths, **kw,
+            window=window if window_starts is None else None)
     elif q.device.type == "cpu":
         o, lse = paged_flash_decode_plain(q, k_pool, v_pool, page_table,
                                           lengths, **kw)

@@ -181,11 +181,12 @@ def check_quant_cuda(kernel, values, scales):
     if store is None or vv.dtype != kv.dtype:
         raise TypeError(f"{kernel} takes k and v codes of one int8 / fp8 "
                         f"storage (got {kv.dtype}, {vv.dtype})")
+    dev = kv.get_device()   # an int: cheaper to compare than torch.device
     for name, t in (("k codes", kv), ("v codes", vv),
                     ("k scales", scales[0]), ("v scales", scales[1])):
         if name.endswith("scales") and t.dtype != torch.float32:
             raise TypeError(f"{kernel}: {name} must be fp32, got {t.dtype}")
-        if t.device != kv.device or not t.is_contiguous() \
+        if t.get_device() != dev or not t.is_contiguous() \
                 or t.data_ptr() % 16:
             raise ValueError(f"{kernel}: {name} must be contiguous, "
                              f"16-byte aligned and on {kv.device}")

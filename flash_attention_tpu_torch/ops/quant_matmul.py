@@ -168,27 +168,6 @@ def decode_split_plan(k, f, *, sms=SM_COUNT) -> tuple[int, int]:
     return -(-k // k_chunk), k_chunk
 
 
-_scratch: dict = {}
-
-
-def _decode_scratch(device, stream, n_part, n_tiles):
-    """(workspace, counters) of the decode body on `device` for launches
-    on `stream`: at least n_part fp32 partial sums and n_tiles zero int32
-    counters (one per column tile; each launch's last block resets its
-    own). Launches on one stream run in order, so each stream keeps one
-    pair, allocated once and grown when a launch needs more."""
-    key = (device, stream)
-    ws, counters = _scratch.get(key, (None, None))
-    if ws is None or ws.numel() < n_part:
-        ws = torch.empty(max(n_part, 1 << 20), dtype=torch.float32,
-                         device=device)
-    if counters is None or counters.numel() < n_tiles:
-        counters = torch.zeros(max(n_tiles, 4096), dtype=torch.int32,
-                               device=device)
-    _scratch[key] = ws, counters
-    return ws, counters
-
-
 def _launch(kernel, x, w, scale, storage):
     global matmul_first_body_launches
     m, k = x.shape
@@ -202,8 +181,8 @@ def _launch(kernel, x, w, scale, storage):
     if body == "decode":
         splits, k_chunk = decode_split_plan(k, f)
         if splits > 1:
-            ws, counters = _decode_scratch(x.device, stream, splits * m * f,
-                                           -(-f // DECODE_TILE_F))
+            ws, counters = _cuda.scratch(x.device, stream, splits * m * f,
+                                         -(-f // DECODE_TILE_F))
     code = _cuda.lib().fa_quant_matmul(
         x.data_ptr(), w.data_ptr(),
         None if scale is None else scale.data_ptr(), y.data_ptr(), m, k,

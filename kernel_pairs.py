@@ -15,7 +15,9 @@ of its own, and prints one line per turn:
 A check that times several kernels under one key (check_bwd_branches:
 B2 and B3 per case) gives one "ms" entry per kernel, "<key>.<kernel>";
 one that times a list of shapes (check_quant_matmul, check_grouped) one
-per shape, "<key>.<shape>".
+per shape, "<key>.<shape>"; a row that also has the kernel's device
+time alone and the wrapper's host time a call (the B4 / B5 checks) adds
+"<key>.device_ms" and "<key>.host_us".
 
 Both versions run on the same card in one call, so their times compare.
 The run ends with the summary (`summarize`): per key the parent's and
@@ -73,6 +75,11 @@ def flat_ms(results: dict) -> dict:
             out.update({f"{key}.{row['shape']}": row["ms"] for row in v})
         elif "ms" in v:
             out[str(key)] = v["ms"]
+            # A row that also measured the kernel alone and the wrapper's
+            # host time a call (chip_smoke.host_row).
+            for extra in ("device_ms", "host_us"):
+                if extra in v:
+                    out[f"{key}.{extra}"] = v[extra]
         else:
             out.update({f"{key}.{part}": sub["ms"] for part, sub in v.items()})
     return out
