@@ -49,15 +49,18 @@ Phases, each fatal on failure:
              grouped_int4_matmul), every fp32 counter exact;
   3d. probes the port's probes (flash_attention_tpu_torch/scripts) at
              the JAX scripts' shapes through their run(): P1's int4
-             unpack variants v1 / v2 (3x gate against the fp32 dequant
-             reference, each against its own plain version), P2's
-             int8 paged bodies with v2 on the tensor cores (the
-             quantized-branch gates on O and LSE), P3's fused int4
-             lm_head + argmax (values on the 3x rule with B7's bf16
-             logits as the baseline, ids equal to the plain version's
-             where the top-2 gap exceeds 4e, exact ties and an
-             all-negative row at every chunk width); launch counts
-             exact;
+             unpack variants v1 / v2 on B7's split-K decode body (3x
+             gate against the fp32 dequant reference, each against its
+             own plain version; identical bits on a rerun), also at 200
+             rows and on the first body (F = 5000), P2's int8 paged
+             bodies with v2 on the tensor cores (the quantized-branch
+             gates on O and LSE), P3's fused int4 lm_head + argmax on
+             the same body (values on the 3x rule with B7's bf16 logits
+             as the baseline, ids equal to the plain version's where the
+             top-2 gap exceeds 4e; 200 rows; exact ties and an
+             all-negative row at every chunk width on V = 5000, the
+             first body, and V = 5008); launch counts exact, the P1 / P3
+             first-body counters 0 at the probes' shapes;
   4. serve   the continuous-batching Engine on LlamaConfig.llama3_1b at
              full width and depth from seeded random weights, counting
              kernel launches, and hold every greedy transcript to a
@@ -267,22 +270,28 @@ def ptxas_rows(build_log: str, name_part: str) -> list[str]:
     return rows
 
 
-STORAGE_NAMES = {0: "dense", 1: "int8", 2: "e4m3", 3: "e5m2", 4: "int4"}
+STORAGE_NAMES = {0: "dense", 1: "int8", 2: "e4m3", 3: "e5m2", 4: "int4",
+                 5: "int4 offset-binary", 6: "int4 offset-binary + 128"}
 
 
 def matmul_ptxas_rows(build_log: str) -> list[str]:
     """One line per instantiation of csrc/matmul_sm90.cuh's kernel
-    (mm_sm90<T, storage, NP, grouped>): B6-B8 prefill (NP = 0), decode
-    (NP = 16 / 64) or B9, its dtype and storage, registers a thread and
-    spill stores / loads."""
+    (mm_sm90<T, storage, NP, grouped, epilogue>): B6-B8 prefill (NP =
+    0), decode (NP = 16 / 64), B9, or the probes on the decode body (P1
+    v1 / v2 by storage, P3 by its argmax epilogue), its dtype and
+    storage, registers a thread and spill stores / loads."""
     rows = []
     for mangled, v in ptxas_info(build_log).items():
-        m = re.search(r"mm_sm90I(\w+?)Li(\d+)ELi(\d+)ELb([01])E", mangled)
+        m = re.search(r"mm_sm90I(\w+?)Li(\d+)ELi(\d+)ELb([01])ELi(\d+)E",
+                      mangled)
         if m is None:
             continue
-        np_, grouped = int(m.group(3)), m.group(4) == "1"
+        storage, np_ = int(m.group(2)), int(m.group(3))
+        grouped, argmax = m.group(4) == "1", m.group(5) == "1"
         rows.append(" ".join(filter(None, (
-            "B9" if grouped else "B6-B8 prefill" if np_ == 0
+            f"P3 decode NP={np_} argmax" if argmax
+            else f"P1 v{7 - storage} decode NP={np_}" if storage in (5, 6)
+            else "B9" if grouped else "B6-B8 prefill" if np_ == 0
             else f"B6-B8 decode NP={np_}",
             "bf16" if "bfloat16" in m.group(1) else "fp16",
             STORAGE_NAMES[int(m.group(2))], v.get("regs", "? registers"),
@@ -953,8 +962,10 @@ def _counters() -> dict:
             "grouped_fp32": (grouped, "grouped_matmul_fp32_launches"),
             "p1_v1": (p1, "v1_launches"),
             "p1_v2": (p1, "v2_launches"),
+            "p1_first_body": (p1, "first_body_launches"),
             "p2_v2": (p2, "paged_int8_v2_launches"),
-            "p3": (p3, "lmhead_argmax_launches")}
+            "p3": (p3, "lmhead_argmax_launches"),
+            "p3_first_body": (p3, "first_body_launches")}
 
 
 # The branch counters (each launch also counts in its kernel's total): B1
@@ -963,7 +974,8 @@ def _counters() -> dict:
 # with a window; B4 with window starts, over int8 / fp8 pools, with the
 # fold_scales body; B5 with a window, over int8 / fp8 caches; and the
 # study kernels B10a-c; B2-B9 on fp32 inputs; the probes' kernels (P1
-# v1 / v2, P2 v2, P3); B6-B9 on their first body (fp16 / bf16 operands
+# v1 / v2, P2 v2, P3, and P1 / P3 on their first body); B6-B9 on their
+# first body (fp16 / bf16 operands
 # TMA cannot address); B4 and B5 on their first body (fp16 / bf16 launches
 # the split body of decode_sm90.cuh does not take). Zero on every path
 # that serves a model without a
@@ -972,7 +984,8 @@ def _counters() -> dict:
 # on every model path.
 FP32_COUNTERS = ("bwd_dq_fp32", "bwd_dkv_fp32", "paged_fp32", "decode_fp32",
                  "quant_fp32", "int4_fp32", "dense_fp32", "grouped_fp32")
-PROBE_COUNTERS = ("p1_v1", "p1_v2", "p2_v2", "p3")
+PROBE_COUNTERS = ("p1_v1", "p1_v2", "p1_first_body", "p2_v2", "p3",
+                  "p3_first_body")
 NO_BRANCHES = dict.fromkeys(("flash_seg", "flash_win", "flash_quant",
                              "flash_fp32", "flash_split_bulk",
                              "flash_split_band", "fa1", "fa2", "naive",
@@ -4159,6 +4172,19 @@ def check_study_kernels(rng, flush) -> dict:
             lambda: _sdpa(q, k, v, True), flush, flops, nbytes,
             PEAK_FP32_FLOPS))
     out["fp32 timings"] = timed
+    # B10a's 16 x 16 tile (study.cuh's WMMA body; 64 x 64 runs the Hopper
+    # block) in bf16, beside the 64 x 64 tile on the same inputs.
+    kern, plain = _study_fns("B10a")
+    q, k, v = (randn(rng, (b, h, n, d), torch.bfloat16) for _ in "qkv")
+    flops, nbytes = variants.study_cost(b, h, h, n, n, d, False, 2,
+                                        stats=2)
+    out["B10a tiles"] = {
+        f"{bq}x{bk}": _timed_row(
+            f"B10a bf16 q({b},{h},{n},{d}) tile {bq}x{bk}",
+            lambda: kern(q, k, v, block_sizes=BlockSizes(bq, bk)),
+            lambda: plain(q, k, v, bk), lambda: _sdpa(q, k, v), flush,
+            flops, nbytes, PEAK_BF16_FLOPS, plain_iters=5)
+        for bq, bk in ((16, 16), (64, 64))}
     return out
 
 
@@ -4802,7 +4828,10 @@ def probe_p1(flush) -> dict:
     JAX probe's shape through its run(): v1 and v2 each under the 3x gate
     against the fp32 dequant reference (each against its own plain
     version's error: v1 rounds b s_b with b up to 15, so its error is
-    larger by design); the launch counts exact."""
+    larger by design) and with identical bits on a rerun (the split-K
+    decode body sums its 2 splits in order); the launch counts exact, 0
+    on the first body; then the M = 200 and first-body cases
+    (_p1_cases)."""
     from flash_attention_tpu_torch.scripts import probe_int4_variants as p1
     from flash_attention_tpu_torch.utils.metrics import verify_low_precision
 
@@ -4812,7 +4841,8 @@ def probe_p1(flush) -> dict:
     torch.cuda.synchronize()
     got = read_counts()
     c = TIMED_CALLS
-    want = dict(p1_v1=1 + c, p1_v2=1 + c, dense=c, quant=c, int4=c)
+    want = dict(p1_v1=1 + c, p1_v2=1 + c, p1_first_body=0, dense=c,
+                quant=c, int4=c)
     have = {key: got[key] for key in want}
     log(f"p1: launches {have}")
     if have != want:
@@ -4825,13 +4855,58 @@ def probe_p1(flush) -> dict:
                                               outs["reference"],
                                               outs["plain"])
         finite = bool(torch.isfinite(outs["kernel"].float()).all())
+        same = torch.equal(p1.int4_variant_matmul(*outs["inputs"],
+                                                  r["variant"]),
+                           outs["kernel"])
         log(f"check P1 v{r['variant']}: kernel_err={kerr:.3e} "
             f"plain_err={berr:.3e} (vs the fp32 dequant reference) "
             f"rel {r['rel_err']:.3e} plain rel {r['plain_rel_err']:.3e} "
-            f"finite={finite}")
-        if not (ok and finite):
+            f"finite={finite} rerun_identical={same}")
+        if not (ok and finite and same):
             raise AssertionError(f"P1 v{r['variant']} failed its gate")
+    _p1_cases()
     return dict(rows=rows, launches=got)
+
+
+def _p1_cases():
+    """P1 v1 and v2 beyond the probe's shape, each under the 3x gate
+    against the fp32 dequant reference with its plain version's error as
+    the baseline: 200 rows of (4096, 14336) (four 64-row slices of x on
+    the decode body, 2 splits) and (8, 1024, 5000), whose packed rows of
+    5000 bytes TMA cannot address (the first body: its counter rises by
+    exactly one a call, and by none on the decode body)."""
+    from flash_attention_tpu_torch.scripts import probe_int4_variants as p1
+    from flash_attention_tpu_torch.utils.metrics import verify_low_precision
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 15)
+    for m, k, f in ((200, 4096, 14336), (8, 1024, 5000)):
+        packed = torch.randint(0, 256, (k // 2, f), generator=gen,
+                               device="cuda", dtype=torch.uint8)
+        scales = (0.5 + torch.rand((k // 128, f), generator=gen,
+                                   device="cuda")) / (4.64 * math.sqrt(k))
+        x = torch.randn((m, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        b = p1.unpack_offset_binary(packed).float() - 8.0
+        ref = x.float() @ (b.view(k // 128, 128, f)
+                           * scales[:, None, :]).view(k, f)
+        del b
+        body = "decode" if f % 16 == 0 else "first"
+        for variant in (1, 2):
+            before = p1.first_body_launches
+            got = p1.int4_variant_matmul(x, packed, scales, variant)
+            torch.cuda.synchronize()
+            first = p1.first_body_launches - before
+            plain = p1.int4_variant_plain(x, packed, scales, variant)
+            ok, kerr, berr = verify_low_precision(got, ref, plain)
+            finite = bool(torch.isfinite(got.float()).all())
+            log(f"check P1 v{variant} {m}x{k}x{f} ({body} body): "
+                f"kernel_err={kerr:.3e} plain_err={berr:.3e} "
+                f"finite={finite} first_body_launches={first}")
+            if not (ok and finite and first == (body == "first")):
+                raise AssertionError(f"P1 v{variant} failed at "
+                                     f"{m}x{k}x{f}")
+        del packed, scales, x, ref
 
 
 def probe_p2(flush) -> dict:
@@ -4876,10 +4951,12 @@ def probe_p3(flush) -> dict:
     exceeds 4e (e the larger of the kernel's and the plain version's
     value error against fp64); then a crafted head with a row of exact
     ties (x = 0: every logit 0, id 0) and a row whose logits are all
-    negative, at each chunk width. Launch counts exact."""
-    from flash_attention_tpu_torch.ops import quant_matmul as qm
+    negative, at each chunk width, on V = 5000 (packed rows TMA cannot
+    address: the first body) and V = 5008 (the decode body); and 200 rows
+    of x (four 64-row slices) at the probe's lm_head. Launch counts
+    exact: 0 on the first body at the probe's shapes, exactly 1 a call
+    at V = 5000."""
     from flash_attention_tpu_torch.scripts import probe_lmhead_argmax as p3
-    from flash_attention_tpu_torch.utils.metrics import verify_low_precision
 
     reset_counts()
     rows = p3.run(timer=lambda fn: time_ms(fn, flush), keep_outputs=True,
@@ -4887,7 +4964,7 @@ def probe_p3(flush) -> dict:
     torch.cuda.synchronize()
     got = read_counts()
     c = TIMED_CALLS
-    want = dict(p3=len(p3.CHUNKS) * (1 + c), int4=1 + c)
+    want = dict(p3=len(p3.CHUNKS) * (1 + c), p3_first_body=0, int4=1 + c)
     have = {key: got[key] for key in want}
     log(f"p3: launches {have}")
     if have != want:
@@ -4896,55 +4973,104 @@ def probe_p3(flush) -> dict:
         outs = r.pop("outputs", None)
         if outs is None:
             continue
+        _p3_gate(f"P3 ({p3.M} rows, chunk {r['chunk']})", outs["x"],
+                 outs["packed"], outs["scales"], outs["ids"],
+                 outs["values"], outs["plain_ids"], outs["plain_values"],
+                 outs["logits"], r["agree"])
         x, packed, scales = outs["x"], outs["packed"], outs["scales"]
-        hi = (x.double() @ qm.int4_dequant(packed, scales, torch.bfloat16)
-              .double()).max(-1).values
-        b7 = qm.int4_matmul(x, packed, scales).float().max(-1).values
-        ok, kerr, berr = verify_low_precision(outs["values"], hi, b7)
-        plain_err = float((outs["plain_values"].double() - hi).abs().max())
-        e = max(kerr, plain_err)
-        top2 = outs["logits"].topk(2, dim=-1).values
-        clear = (top2[:, 0] - top2[:, 1]) > 4 * e
-        same = bool((outs["ids"][clear] == outs["plain_ids"][clear]).all())
-        log(f"check P3 values: kernel_err={kerr:.3e} b7_bf16_err={berr:.3e} "
-            f"fp32_plain_err={plain_err:.3e} (vs the fp64 row max); ids "
-            f"equal the plain version's on {int(clear.sum())} of {p3.M} "
-            f"rows with a top-2 gap > 4e (e={e:.3e}): {same}; agreement "
-            f"with B7 + argmax {r['agree']:.3f}")
-        if not (ok and same):
-            raise AssertionError("P3 failed its gate")
-        del hi, b7, top2, outs, x, packed, scales
-    for chunk in p3.CHUNKS:
-        _p3_edge_rows(chunk)
+        del outs
+        # 200 rows: four 64-row slices of x on the decode body, gated at
+        # the default chunk; the other widths only regroup the same keys,
+        # so their ids and values must be identical.
+        x200 = randn(np.random.default_rng(SEED + 15), (200, p3.K),
+                     torch.bfloat16, std=0.5)
+        before = p3.first_body_launches
+        by_chunk = {chunk: p3.lmhead_argmax(x200, packed, scales,
+                                            chunk=chunk)
+                    for chunk in p3.CHUNKS}
+        torch.cuda.synchronize()
+        if p3.first_body_launches != before:
+            raise AssertionError("P3 at 200 rows left the decode body")
+        ids, vals = by_chunk[p3.DEFAULT_CHUNK]
+        pids, pvals = p3.lmhead_argmax_plain(x200, packed, scales)
+        _p3_gate(f"P3 (200 rows, chunk {p3.DEFAULT_CHUNK})", x200, packed,
+                 scales, ids, vals, pids, pvals,
+                 p3.lmhead_logits_plain(x200, packed, scales))
+        same = all(torch.equal(i, ids) and torch.equal(v, vals)
+                   for i, v in by_chunk.values())
+        log(f"check P3 (200 rows): chunks {p3.CHUNKS} identical: {same}")
+        if not same:
+            raise AssertionError("P3 at 200 rows differs between chunks")
+        del x, packed, scales, x200, by_chunk
+    for v in (5000, 5008):
+        for chunk in p3.CHUNKS:
+            _p3_edge_rows(chunk, v)
     return dict(rows=rows, launches=got)
 
 
-def _p3_edge_rows(chunk):
-    """The fused kernel on a crafted lm_head [4096, 5000] at one chunk
+def _p3_gate(what, x, packed, scales, ids, vals, pids, pvals, logits,
+             agree=None):
+    """P3's values under the 3x gate against the fp64 logits' row max
+    with B7's bf16 logits' row max as the baseline; its ids equal the
+    plain version's on every row whose top-2 fp32 logit gap exceeds 4e
+    (e the larger of the kernel's and the plain version's value error
+    against fp64)."""
+    from flash_attention_tpu_torch.ops import quant_matmul as qm
+    from flash_attention_tpu_torch.utils.metrics import verify_low_precision
+
+    hi = (x.double() @ qm.int4_dequant(packed, scales, torch.bfloat16)
+          .double()).max(-1).values
+    b7 = qm.int4_matmul(x, packed, scales).float().max(-1).values
+    ok, kerr, berr = verify_low_precision(vals, hi, b7)
+    plain_err = float((pvals.double() - hi).abs().max())
+    e = max(kerr, plain_err)
+    top2 = logits.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 4 * e
+    same = bool((ids[clear] == pids[clear]).all())
+    log(f"check {what} values: kernel_err={kerr:.3e} b7_bf16_err="
+        f"{berr:.3e} fp32_plain_err={plain_err:.3e} (vs the fp64 row max); "
+        f"ids equal the plain version's on {int(clear.sum())} of "
+        f"{x.shape[0]} rows with a top-2 gap > 4e (e={e:.3e}): {same}"
+        + ("" if agree is None else
+           f"; agreement with B7 + argmax {agree:.3f}"))
+    if not (ok and same):
+        raise AssertionError(f"{what} failed its gate")
+
+
+def _p3_edge_rows(chunk, v):
+    """The fused kernel on a crafted lm_head [4096, v] at one chunk
     width: row 0 of x is zero (every logit exactly 0: id 0), row 1 sees
     only negative logits (x < 0, weights > 0), row 2 a random row; ids
-    and values equal the plain version's."""
+    and values equal the plain version's. V = 5000 (rows of 5000 bytes)
+    runs the first body, V = 5008 the decode body: the first-body
+    counter rises by exactly one a call on the first, by none on the
+    second."""
     from flash_attention_tpu_torch.ops import quant_matmul as qm
     from flash_attention_tpu_torch.scripts import probe_lmhead_argmax as p3
 
     rng = np.random.default_rng(SEED + 14)
-    k, v = 4096, 5000
+    k = 4096
     w = np.abs(rng.normal(0, 0.02, (k, v))).astype(np.float32) + 1e-3
     packed, scales = (t.cuda() for t in qm.quantize_weight_int4(w))
     x = torch.from_numpy(np.stack([
         np.zeros(k), -np.abs(rng.normal(0, 0.5, k)),
         rng.normal(0, 0.5, k)]).astype(np.float32)).to("cuda",
                                                       torch.bfloat16)
+    before = p3.first_body_launches
     ids, vals = p3.lmhead_argmax(x, packed, scales, chunk=chunk)
+    first = p3.first_body_launches - before
     pids, pvals = p3.lmhead_argmax_plain(x, packed, scales)
     torch.cuda.synchronize()
+    body = "first" if v % 16 else "decode"
     ok = (torch.equal(ids, pids) and int(ids[0]) == 0
           and float(vals[0]) == 0.0 and float(vals[1]) < 0
-          and float((vals - pvals).abs().max()) <= 1e-3)
-    log(f"check P3 chunk {chunk} edge rows: ids {ids.tolist()} plain "
-        f"{pids.tolist()} values {vals.tolist()} -> {ok}")
+          and float((vals - pvals).abs().max()) <= 1e-3
+          and first == (body == "first"))
+    log(f"check P3 V={v} ({body} body) chunk {chunk} edge rows: ids "
+        f"{ids.tolist()} plain {pids.tolist()} values {vals.tolist()} "
+        f"first_body_launches={first} -> {ok}")
     if not ok:
-        raise AssertionError(f"P3 chunk {chunk} edge rows differ")
+        raise AssertionError(f"P3 V={v} chunk {chunk} edge rows differ")
 
 
 def probes() -> dict:
@@ -4959,6 +5085,110 @@ def probes() -> dict:
         torch.cuda.empty_cache()
         log(f"probes: {name} {time.perf_counter() - t:.1f} s")
     return out
+
+
+def _probe_row(what, fn, flush, cost, **extra):
+    """time_ms and device_ms of fn() beside the bound of cost = (flops,
+    bytes)."""
+    ms, dev = time_ms(fn, flush), device_ms(fn, flush)
+    bms, by = bound_ms(*cost)
+    log(f"time  {what}: ms={ms:.4f} (device alone {dev:.4f}) "
+        f"bound_ms={bms:.4f} ({by})")
+    return dict(ms=ms, device_ms=dev, bound_ms=bms, bound_by=by, **extra)
+
+
+def check_probe_int4(rng, flush, results):
+    """P1 at the probe's shape (32 x 4096 x 14336 bf16) on weights drawn
+    on the card (uniform random bytes: offset-binary nibbles for v1 / v2,
+    two's-complement ones for v0 = B7): v1 and v2 under the 3x gate
+    against the fp32 dequant reference (their plain versions' error the
+    baseline), then v1, v2, v0 and torch.matmul on the dense bf16 weight
+    timed (CUDA events, L2 flushed; device_ms the kernels alone). Calls
+    only names both sides of a kernel_pairs.py run have
+    (int4_variant_matmul, int4_matmul)."""
+    from flash_attention_tpu_torch.ops import quant_matmul as qm
+    from flash_attention_tpu_torch.scripts import probe_int4_variants as p1
+    from flash_attention_tpu_torch.utils.metrics import verify_low_precision
+
+    del rng
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 15)
+    m, k, f = p1.M, p1.K, p1.F
+    (packed, scales), _ = rand_weight("int4", k, f, gen)
+    ob = packed.view(torch.uint8)
+    x = (torch.randn((m, k), generator=gen, device="cuda") * 0.5).to(
+        torch.bfloat16)
+    b = p1.unpack_offset_binary(ob).float() - 8.0
+    ref = x.float() @ (b.view(k // 128, 128, f) * scales[:, None, :]).view(
+        k, f)
+    del b
+    cost = qm.int4_matmul_cost(m, k, f)
+    for variant in (1, 2):
+        got = p1.int4_variant_matmul(x, ob, scales, variant)
+        plain = p1.int4_variant_plain(x, ob, scales, variant)
+        ok, kerr, berr = verify_low_precision(got, ref, plain)
+        log(f"check P1 v{variant} (pairs input): kernel_err={kerr:.3e} "
+            f"plain_err={berr:.3e}")
+        if not ok:
+            raise AssertionError(f"P1 v{variant} failed its gate")
+        results[f"P1 v{variant}"] = _probe_row(
+            f"P1 v{variant} {m}x{k}x{f}",
+            lambda: p1.int4_variant_matmul(x, ob, scales, variant), flush,
+            cost)
+    results["P1 v0 (B7)"] = _probe_row(
+        f"P1 v0 = B7 {m}x{k}x{f}", lambda: qm.int4_matmul(x, packed, scales),
+        flush, cost)
+    wd = qm.int4_dequant(packed, scales, torch.bfloat16)
+    results["P1 torch.matmul"] = _probe_row(
+        f"P1 torch.matmul dense bf16 {m}x{k}x{f}",
+        lambda: torch.matmul(x, wd), flush, qm.dense_matmul_cost(m, k, f))
+
+
+def check_probe_lmhead(rng, flush, results):
+    """P3 at the probe's shape (32 x 4096 x 128256 bf16) on a packed int4
+    lm_head drawn on the card: ids equal to the plain version's on every
+    row whose top-2 fp32 logit gap exceeds 1e-2, values within 1e-2 of
+    it; then the fused kernel at each chunk width, B7 + torch.argmax (the
+    probe's baseline) and torch.matmul on the dense bf16 lm_head +
+    torch.argmax timed (CUDA events, L2 flushed; device_ms the calls
+    alone). Calls only names both sides of a kernel_pairs.py run have
+    (lmhead_argmax, int4_matmul)."""
+    from flash_attention_tpu_torch.ops import quant_matmul as qm
+    from flash_attention_tpu_torch.scripts import probe_lmhead_argmax as p3
+
+    del rng
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 15)
+    m, k, v = p3.M, p3.K, p3.V
+    (packed, scales), wd = rand_weight("int4", k, v, gen)
+    x = (torch.randn((m, k), generator=gen, device="cuda") * 0.5).to(
+        torch.bfloat16)
+    logits = x.float() @ wd.float()
+    top2 = logits.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-2
+    cost = p3.argmax_cost(m, k, v)
+    for chunk in p3.CHUNKS:
+        ids, vals = p3.lmhead_argmax(x, packed, scales, chunk=chunk)
+        err = float((vals - top2[:, 0]).abs().max())
+        same = bool((ids.long() == logits.argmax(-1))[clear].all())
+        log(f"check P3 chunk {chunk} (pairs input): ids equal the plain "
+            f"argmax on {int(clear.sum())} clear rows: {same}; value err "
+            f"{err:.3e}")
+        if not (same and err <= 1e-2):
+            raise AssertionError(f"P3 chunk {chunk} failed its gate")
+        results[f"P3 chunk {chunk}"] = _probe_row(
+            f"P3 fused chunk {chunk}",
+            lambda: p3.lmhead_argmax(x, packed, scales, chunk=chunk), flush,
+            cost)
+    del logits
+    results["P3 B7 + argmax"] = _probe_row(
+        "P3 B7 + torch.argmax",
+        lambda: torch.argmax(qm.int4_matmul(x, packed, scales), -1), flush,
+        qm.int4_matmul_cost(m, k, v))
+    results["P3 torch.matmul + argmax"] = _probe_row(
+        "P3 torch.matmul dense bf16 + torch.argmax",
+        lambda: torch.argmax(torch.matmul(x, wd), -1), flush,
+        qm.dense_matmul_cost(m, k, v))
 
 
 def fp32_entries(results, fp32p) -> list:
@@ -5014,10 +5244,10 @@ def fp32_entries(results, fp32p) -> list:
     ]
 
 
-def probe_entries(pr) -> list:
+def probe_entries(pr, mm_ptxas) -> list:
     """The kernels line's entries of the probes' kernels (P1 v1 / v2, P2
     v2, P3), each with the launches its own counter saw in its probe's
-    run()."""
+    run() (P1 / P3 also their first-body launches and ptxas rows)."""
     def pick(rows, **match):
         return next(r for r in rows
                     if all(r.get(k) == v for k, v in match.items()))
@@ -5027,16 +5257,24 @@ def probe_entries(pr) -> list:
                                   "bound_ms", "bound_by", "library_ms")}
 
     p1, p2, p3 = (pr[k]["rows"] for k in ("p1", "p2", "p3"))
+    body = ("the split-K decode body of csrc/matmul_sm90.cuh (bf16, NP = "
+            "64, x in 64-row slices)")
     entries = []
     for variant, line in ((1, 87), (2, 125)):
         r = pick(p1, variant=variant)
         entries.append(dict(
             name=f"probe_int4_variants v{variant} (P1)", route="cuda",
-            source="flash_attention_tpu_torch/csrc/probe_int4_variants.cu",
-            replaces=f"scripts/probe_int4_variants.py:{line}",
+            source="flash_attention_tpu_torch/csrc/matmul_sm90.cuh",
+            sources=[f"flash_attention_tpu_torch/csrc/probe_int4_v{variant}"
+                     "_sm90.cu",
+                     "flash_attention_tpu_torch/csrc/probe_int4_variants.cu "
+                     "(entry; first body over matmul_core.cuh)"],
+            body=body, replaces=f"scripts/probe_int4_variants.py:{line}",
+            ptxas=[r for r in mm_ptxas if r.startswith(f"P1 v{variant}")],
             launches=pr["p1"]["launches"][f"p1_v{variant}"],
             launches_by_path={"probe_int4_variants":
                               pr["p1"]["launches"][f"p1_v{variant}"]},
+            first_body_launches=pr["p1"]["launches"]["p1_first_body"],
             **fields(r), rel_err=r["rel_err"],
             plain_rel_err=r["plain_rel_err"],
             shape="x(32,4096) bf16 w(4096,14336) offset-binary int4",
@@ -5056,11 +5294,17 @@ def probe_entries(pr) -> list:
     r = pick(p3, chunk=2048)
     entries.append(dict(
         name="probe_lmhead_argmax (P3)", route="cuda",
-        source="flash_attention_tpu_torch/csrc/probe_lmhead_argmax.cu",
+        source="flash_attention_tpu_torch/csrc/matmul_sm90.cuh",
+        sources=["flash_attention_tpu_torch/csrc/probe_lmhead_sm90.cu",
+                 "flash_attention_tpu_torch/csrc/probe_lmhead_argmax.cu "
+                 "(entry, key reduction; first body over matmul_core.cuh)"],
+        body=body + ", argmax epilogue",
+        ptxas=[r for r in mm_ptxas if r.startswith("P3")],
         replaces="scripts/probe_lmhead_argmax.py:40",
         launches=pr["p3"]["launches"]["p3"],
         launches_by_path={"probe_lmhead_argmax":
                           pr["p3"]["launches"]["p3"]},
+        first_body_launches=pr["p3"]["launches"]["p3_first_body"],
         **fields(r), agree_with_b7_argmax=r["agree"],
         ids_equal_plain=r["plain_agree"],
         at_chunks={c: pick(p3, chunk=c)["ms"] for c in (1024, 4096)},
@@ -5361,7 +5605,8 @@ def main() -> int:
                              mix["int8"]["launches"]["quant"]},
                      fp8=dict(e4m3=results["B6 e4m3"],
                               e5m2=results["B6 e5m2"]),
-                     ptxas=[r for r in mm_ptxas if not r.startswith("B9")]),
+                     ptxas=[r for r in mm_ptxas
+                            if r.startswith("B6-B8")]),
         matmul_entry("B7 int4", name="int4_matmul (B7)", route="cuda",
                      replaces="flash_attention_tpu/ops/quant_matmul.py:214",
                      host_us_per_call=results["host B7 int4"]["host_us"],
@@ -5404,7 +5649,8 @@ def main() -> int:
                   "fp32: csrc/study.cuh",
              replaces="flash_attention_tpu/ops/variants.py:80",
              launches=sl["fa1"], launches_by_path={"cli_study": sl["fa1"]},
-             **sk[("B10a", False)], fp32=sk["fp32 timings"]["B10a"]),
+             **sk[("B10a", False)], fp32=sk["fp32 timings"]["B10a"],
+             at_tiles_bf16_1_8_2048_128=sk["B10a tiles"]),
         dict(name="fa2_inloop (B10b)", route="cuda",
              source="flash_attention_tpu_torch/csrc/variants_fa2.cu",
              body="fp16 / bf16: wgmma + TMA ring (csrc/study_sm90.cuh "
@@ -5438,7 +5684,7 @@ def main() -> int:
                                "fp32_api": fp32p["flash_fp32"]},
              **sk["B1 fp32"]),
         *fp32_entries(results, fp32p),
-        *probe_entries(pr),
+        *probe_entries(pr, mm_ptxas),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     log(card)

@@ -11,9 +11,25 @@
 // probe_int4_variants.py `int4_variant_matmul`; the question the probe
 // asks is whether B7's nibble unpack is what holds B7 at its time.
 //
-// Both bodies are B7's (matmul_core.cuh `accumulate_tile`: a 64 x 64
-// tile of y per 128-thread block, K in steps of one 128-row scale group,
-// WMMA bf16 products with fp32 sums); only the widening differs:
+// Two bodies, chosen before the launch (scripts/_common.py
+// int4_probe_body, by ops/quant_matmul.py tma_ready):
+//  - the split-K decode body of matmul_sm90.cuh whenever TMA can address
+//    x, the packed weight and its scales (16-byte aligned bases, F % 16):
+//    v2 in probe_int4_v2_sm90.cu, v1 in probe_int4_v1_sm90.cu, x in
+//    64-row slices, K split by decode_split_plan (2 splits of 3456 rows at
+//    the probe's shape: 448 blocks, two resident an SM), TMA rings of
+//    codes, scale rows and x, wgmma with fp32 accumulators in registers,
+//    fixed-order split sums (identical bits on a rerun). v1's correction
+//    grows a stage at a time in registers beside the accumulators (each
+//    K step is one 128-row scale group: the landed x stage's row sums,
+//    which the converter warps take beside the widening, times the
+//    stage's bf16 scale row) and each split's partial carries its own;
+//  - the first body (this file), B7's old one, for operands TMA cannot
+//    address (matmul_core.cuh `accumulate_tile`: a 64 x 64 tile of y per
+//    128-thread block, K in steps of one 128-row scale group, WMMA bf16
+//    products with fp32 sums), counted in the wrapper's
+//    first_body_launches.
+// Only the widening differs between v1 and v2:
 //   v2, int domain (kInt4Ob): (u & 0xF) - 8 per nibble, converted to
 //      fp32, times the scale, rounded to bf16 -- B7's unpack without its
 //      sign xor;
@@ -34,6 +50,7 @@
 // 0.0095 ms at 3.35 TB/s (3.8 GFLOP, 0.0038 ms at 989 TFLOP/s).
 
 #include "matmul_core.cuh"
+#include "matmul_sm90.cuh"
 
 namespace {
 
@@ -110,16 +127,39 @@ cudaError_t launch(const void* x, const void* w, const void* scale, void* y,
 }  // namespace
 
 // x [M, K] bf16, w packed offset-binary int4 [K/2, F], scale fp32
-// [K/128, F], y [M, F] bf16; variant 1 (float domain) or 2 (int domain).
+// [K/128, F], y [M, F] bf16; variant 1 (float domain) or 2 (int domain);
+// body hopper::kFirstBody (the kernel above) or kDecodeBody
+// (matmul_sm90.cuh) with splits and k_chunk from decode_split_plan and,
+// for splits > 1, ws [splits, M, F] fp32 and counters [ceil(M / 64) x
+// ceil(F / 64)] int32, zero between launches.
 extern "C" int fa_probe_int4_matmul(const void* x, const void* w,
                                     const void* scale, void* y, int M,
-                                    int K, int F, int variant,
-                                    void* stream) {
+                                    int K, int F, int variant, int body,
+                                    int splits, int k_chunk, void* ws,
+                                    void* counters, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= 0 || K <= 0 || F <= 0 || K % kGroup || scale == nullptr)
+  if (M <= 0 || K <= 0 || F <= 0 || K % kGroup || scale == nullptr ||
+      (variant != 1 && variant != 2))
     return (int)cudaErrorInvalidValue;
-  if (variant == 1)
-    return (int)launch<kInt4ObBias>(x, w, scale, y, M, K, F, s);
-  if (variant == 2) return (int)launch<kInt4Ob>(x, w, scale, y, M, K, F, s);
-  return (int)cudaErrorInvalidValue;
+  if (body == hopper::kFirstBody)
+    return (int)(variant == 1
+                     ? launch<kInt4ObBias>(x, w, scale, y, M, K, F, s)
+                     : launch<kInt4Ob>(x, w, scale, y, M, K, F, s));
+  if (body != hopper::kDecodeBody || splits < 1 || k_chunk <= 0 ||
+      k_chunk % kGroup || (long)(splits - 1) * k_chunk >= K ||
+      (long)splits * k_chunk < K ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  hopper::Args a{};
+  a.y = y;
+  a.ws = static_cast<float*>(ws);
+  a.counters = static_cast<int*>(counters);
+  a.M = M;
+  a.K = K;
+  a.F = F;
+  a.E = 1;
+  a.k_chunk = k_chunk;
+  return (int)(variant == 1 ? hopper::probe_int4_v1(x, w, scale, a, splits, s)
+                            : hopper::probe_int4_v2(x, w, scale, a, splits,
+                                                    s));
 }

@@ -92,15 +92,16 @@ _SIGNATURES = {
     "fa_naive_fwd": [_vp] * 4 + [_i32] * 7 + [_f32, _i32, _vp],
     # The probes' kernels (flash_attention_tpu_torch/scripts/).
     # P1: x, w (offset-binary int4), scale, y, M, K, F, variant (1 float
-    # domain, 2 int domain), stream
-    "fa_probe_int4_matmul": [_vp] * 4 + [_i32] * 4 + [_vp],
+    # domain, 2 int domain), body, splits, k_chunk, workspace (or NULL),
+    # counters (or NULL), stream
+    "fa_probe_int4_matmul": [_vp] * 4 + [_i32] * 7 + [_vp] * 3,
     # P2 v2: q, k_pool, v_pool, k scales, v scales, page_table, lengths,
     # o, lse, B, Hq, Hkv, num_pages, page_size, table_width, D, scale,
     # stream
     "fa_probe_paged_int8_v2": [_vp] * 9 + [_i32] * 7 + [_f32, _vp],
     # P3: x, w (int4), scale, keys (uint64 scratch), ids, values, M, K,
-    # V, chunk, stream
-    "fa_probe_lmhead_argmax": [_vp] * 6 + [_i32] * 4 + [_vp],
+    # V, chunk, body, stream
+    "fa_probe_lmhead_argmax": [_vp] * 6 + [_i32] * 5 + [_vp],
 }
 
 

@@ -1,6 +1,7 @@
 """What the probes share: the card's peak rates for bounds, the default
 timer (utils/bench.measure: CUDA events around chains of calls on the
-card, the host clock on the CPU) and the printed row."""
+card, the host clock on the CPU), the printed row and the body P1 / P3
+launch."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ from typing import Callable
 
 import torch
 
+from flash_attention_tpu_torch.ops.quant_matmul import tma_ready
 from flash_attention_tpu_torch.utils.bench import measure
 
 # H100 SXM data sheet: dense bf16 tensor-core rate, HBM3 bandwidth.
@@ -59,3 +61,13 @@ def device_line(device: torch.device) -> str:
     if device.type == "cuda":
         return f"device: {torch.cuda.get_device_name(device)}"
     return "device: cpu (plain PyTorch versions; times are the host's)"
+
+
+def int4_probe_body(x, packed, scales) -> str:
+    """The body a P1 or P3 launch runs, decided before it: "decode" (the
+    split-K decode body of csrc/matmul_sm90.cuh, x in 64-row slices, any
+    M) when TMA can address x [M, K], the packed int4 weight [K/2, F] and
+    its scales [K/128, F] (ops/quant_matmul.py tma_ready: 16-byte aligned
+    bases, K % 8 and F % 16), else "first" (the probe's first body over
+    csrc/matmul_core.cuh, e.g. at F = 5000)."""
+    return "decode" if tma_ready(x, packed, "int4", scales) else "first"

@@ -16,14 +16,19 @@ yardstick), its plain version and its bound:
       exponent of 128, one packed fma removes the bias and scales), the
       -8 folded into a per-group correction (sum_group x) * 8 s;
   v2  offset-binary nibbles, int domain: (u & 0xF) - 8, then a convert;
-  v3  the JAX probe re-tiles the shipped kernel; B7's tile is fixed at
-      compile time (csrc/matmul_core.cuh), so v0 is B7 as built.
+  v3  the JAX probe re-tiles the shipped kernel; B7's decode tile (64
+      columns a block, 128-row K steps, csrc/matmul_sm90.cuh) is fixed
+      at compile time, so v0 is B7 as built.
 
-v1 and v2 are `int4_variant_matmul`, hand-written kernels over B7's body
-(csrc/probe_int4_variants.cu); each prints its error relative to the
-fp32 dequant reference, as the JAX probe does. Weights and activations
-are the JAX probe's draws from np.random.default_rng(0). With
-`--device cpu` every row runs its plain PyTorch version.
+v1 and v2 are `int4_variant_matmul`: B7's split-K decode body of
+csrc/matmul_sm90.cuh with the variant's converter (probe_int4_v1_sm90.cu,
+probe_int4_v2_sm90.cu; v0, v1 and v2 share one pipeline, so their times
+compare the converters), or the first body of
+csrc/probe_int4_variants.cu where TMA cannot address the operands
+(`int4_probe_body`); each prints its error relative to the fp32 dequant
+reference, as the JAX probe does. Weights and activations are the JAX
+probe's draws from np.random.default_rng(0). With `--device cpu` every
+row runs its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -36,10 +41,14 @@ import torch
 from flash_attention_tpu_torch.config import resolve_device
 from flash_attention_tpu_torch.ops import _cuda
 from flash_attention_tpu_torch.ops.quant_matmul import (
+    BODY_CODES,
+    DECODE_MAX_ROWS,
+    DECODE_TILE_F,
     INT4_GROUP,
     dense_matmul,
     dense_matmul_cost,
     dense_matmul_plain,
+    decode_split_plan,
     int4_matmul,
     int4_matmul_cost,
     int4_matmul_plain,
@@ -52,15 +61,18 @@ from flash_attention_tpu_torch.ops.quant_matmul import (
 from flash_attention_tpu_torch.scripts._common import (
     default_timer,
     device_line,
+    int4_probe_body,
     row,
 )
 
 M, K, F = 32, 4096, 14336
 
 # Launches of the v1 and v2 kernels (each incremented only where its
-# kernel is launched).
+# kernel is launched), and those of either on the first body (operands
+# TMA cannot address; also counted above).
 v1_launches = 0
 v2_launches = 0
+first_body_launches = 0
 
 
 def pack_offset_binary(w: np.ndarray):
@@ -88,30 +100,81 @@ def unpack_offset_binary(packed: torch.Tensor) -> torch.Tensor:
     return torch.stack([b & 0xF, b >> 4], dim=1).reshape(2 * kp2, f)
 
 
+def _variant_weight(packed, scales, variant: int, dtype):
+    """The [K, F] weight a variant multiplies, rounded as its kernel
+    rounds it, in fp32: v2 (b - 8) s, v1 b s_b (s_b = s rounded to
+    `dtype`; the - 8 s_b is the correction's)."""
+    if variant not in (1, 2):
+        raise ValueError(f"variant must be 1 or 2, got {variant}")
+    b = unpack_offset_binary(packed).float()
+    k, f = b.shape
+    groups = (k // INT4_GROUP, INT4_GROUP, f)
+    if variant == 2:
+        w = (b - 8.0).reshape(groups) * scales.float()[:, None, :]
+    else:
+        w = b.reshape(groups) * scales.to(dtype).float()[:, None, :]
+    return w.to(dtype).float().reshape(k, f)
+
+
 def int4_variant_plain(x, packed, scales, variant: int):
     """The function of variant 1 or 2 in plain PyTorch, with its kernel's
     roundings. v2: w = (b - 8) s in fp32, rounded to x's type; y = x @ w
     (fp32 sum). v1: s_b = s rounded to x's type, w' = b s_b rounded to
     x's type, y = x @ w' - 8 (sum over each 128-row group of x) @ s_b in
     fp32. Both round y once to x's type."""
-    b = unpack_offset_binary(packed).float()
-    k, f = b.shape
-    groups = (k // INT4_GROUP, INT4_GROUP, f)
+    w = _variant_weight(packed, scales, variant, x.dtype)
     xf = x.float()
     if variant == 2:
-        w = (b - 8.0).reshape(groups) * scales.float()[:, None, :]
-        w = w.to(x.dtype).float().reshape(k, f)
         return (xf @ w).to(x.dtype)
-    if variant != 1:
-        raise ValueError(f"variant must be 1 or 2, got {variant}")
+    k = w.shape[0]
     sb = scales.to(x.dtype).float()
-    w = (b.reshape(groups) * sb[:, None, :]).to(x.dtype).float()
     xs = xf.reshape(x.shape[0], k // INT4_GROUP, INT4_GROUP).sum(-1)
-    return (xf @ w.reshape(k, f) - 8.0 * (xs @ sb)).to(x.dtype)
+    return (xf @ w - 8.0 * (xs @ sb)).to(x.dtype)
+
+
+def launch_plan(m: int, k: int, f: int) -> tuple[int, int, int]:
+    """(splits, k_chunk, slices) of a decode-body launch: K cut by
+    decode_split_plan (2 splits of 3456 rows at the probe's shape), x in
+    DECODE_MAX_ROWS-row slices."""
+    splits, k_chunk = decode_split_plan(k, f)
+    return splits, k_chunk, -(-m // DECODE_MAX_ROWS)
+
+
+def int4_variant_split(x, packed, scales, variant: int, *, splits=None,
+                       k_chunk=None):
+    """Variant 1 or 2 as the decode body computes it, in plain PyTorch:
+    x in DECODE_MAX_ROWS-row slices; K cut into `splits` ranges of
+    k_chunk rows (launch_plan's by default); each split's fp32 partial
+    summed one 128-row step (one scale group) at a time in K order, v1's
+    less 8 times its own correction, grown a step at a time from the
+    step's x row sums and bf16 scale row; the partials summed in split
+    order and rounded once to x's type."""
+    m, k = x.shape
+    f = packed.shape[1]
+    if splits is None:
+        splits, k_chunk, _ = launch_plan(m, k, f)
+    w = _variant_weight(packed, scales, variant, x.dtype)
+    sb = scales.to(x.dtype).float()
+    y = torch.empty((m, f), dtype=x.dtype, device=x.device)
+    for m0 in range(0, m, DECODE_MAX_ROWS):
+        xs = x[m0:m0 + DECODE_MAX_ROWS].float()
+        total = torch.zeros((xs.shape[0], f), device=x.device)
+        for sp in range(splits):
+            part = torch.zeros_like(total)
+            corr = torch.zeros_like(total)
+            for k0 in range(sp * k_chunk, min(k, (sp + 1) * k_chunk),
+                            INT4_GROUP):
+                xk = xs[:, k0:k0 + INT4_GROUP]
+                part += xk @ w[k0:k0 + INT4_GROUP]
+                if variant == 1:
+                    corr += xk.sum(-1, keepdim=True) * sb[k0 // INT4_GROUP]
+            total += part - 8.0 * corr
+        y[m0:m0 + DECODE_MAX_ROWS] = total.to(x.dtype)
+    return y
 
 
 def _variant_cuda(x, packed, scales, variant):
-    global v1_launches, v2_launches
+    global v1_launches, v2_launches, first_body_launches
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the P1 kernels take bf16 activations, got "
                         f"{x.dtype}")
@@ -125,13 +188,25 @@ def _variant_cuda(x, packed, scales, variant):
     m, k = x.shape
     f = packed.shape[1]
     y = torch.empty((m, f), dtype=x.dtype, device=x.device)
+    body = int4_probe_body(x, packed, scales)
+    stream = _cuda.stream_handle(x.device)
+    splits, k_chunk, ws, counters = 1, 0, None, None
+    if body == "decode":
+        splits, k_chunk, slices = launch_plan(m, k, f)
+        if splits > 1:
+            ws, counters = _cuda.scratch(
+                x.device, stream, splits * m * f,
+                slices * -(-f // DECODE_TILE_F))
     code = _cuda.lib().fa_probe_int4_matmul(
         x.data_ptr(), packed.data_ptr(), scales.data_ptr(), y.data_ptr(),
-        m, k, f, variant, _cuda.stream_handle(x.device))
+        m, k, f, variant, BODY_CODES[body], splits, k_chunk,
+        None if ws is None else ws.data_ptr(),
+        None if counters is None else counters.data_ptr(), stream)
     if variant == 1:
         v1_launches += 1
     else:
         v2_launches += 1
+    first_body_launches += body == "first"
     _cuda.check(code, f"probe int4 v{variant}")
     return y
 
@@ -168,8 +243,8 @@ def run(m: int = M, k: int = K, f: int = F, *, device="cuda",
         seed: int = 0, timer=None, keep_outputs: bool = False,
         out=print) -> list:
     """The probe's rows (dicts, times in ms); with keep_outputs, each
-    variant row also holds its output, its plain version's and the fp32
-    reference under "outputs"."""
+    variant row also holds its output, its plain version's, the fp32
+    reference and its inputs (x, packed, scales) under "outputs"."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     out(f"{device_line(dev)}  shape: [{m},{k}]@[{k},{f}]")
@@ -211,7 +286,8 @@ def run(m: int = M, k: int = K, f: int = F, *, device="cuda",
                      max_abs_err=float((got.float() - plain.float())
                                        .abs().max()))
         if keep_outputs:
-            extra["outputs"] = dict(kernel=got, plain=plain, reference=ref)
+            extra["outputs"] = dict(kernel=got, plain=plain, reference=ref,
+                                    inputs=(x, packed_ob, sc_ob))
         rows.append(row(
             f"{name} (rel {err:.1e})",
             timer(lambda: int4_variant_matmul(x, packed_ob, sc_ob, variant)),
@@ -219,9 +295,10 @@ def run(m: int = M, k: int = K, f: int = F, *, device="cuda",
             plain_ms=timer(lambda: int4_variant_plain(x, packed_ob, sc_ob,
                                                       variant)),
             library_ms=lib_ms, out=out, **extra))
-    out("v3 (the JAX probe's re-tiled shipped kernel): B7's 64 x 64 tile "
-        "is fixed at compile time (csrc/matmul_core.cuh), so the v0 row "
-        "is B7 as built; other tiles belong to B7's speed work")
+    out("v3 (the JAX probe's re-tiled shipped kernel): B7's decode tile "
+        "(64 columns a block, 128-row K steps, csrc/matmul_sm90.cuh) is "
+        "fixed at compile time, so the v0 row is B7 as built; other tiles "
+        "belong to B7's speed work")
     return rows
 
 

@@ -9,12 +9,17 @@ At Llama-3-8B's head (M = 32 rows, K = 4096, V = 128256, x ~ N(0, 0.5^2)
 in bf16, the lm_head ~ N(0, 0.02^2) packed by quantize_weight_int4) it
 times the baseline, B7 (`int4_matmul`) followed by `torch.argmax` (the
 JAX probe's `int4_matmul` + `jnp.argmax`), against `lmhead_argmax`, a
-hand-written kernel (csrc/probe_lmhead_argmax.cu) that streams the
-packed lm_head in vocab chunks through B7's dequantize-and-multiply
-body and keeps only a running (max, argmax) per row, at chunk widths
-2048 (with the agreement of its ids with the baseline's), 1024 and
-4096; each beside its bound, its plain version and torch.matmul on the
-bf16 dequantized lm_head + torch.argmax (the library yardstick).
+hand-written kernel on B7's own split-K decode body (csrc/matmul_sm90.cuh,
+probe_lmhead_sm90.cu: the same converter and pipeline, with an epilogue
+that keeps each row's (max, argmax) of the fp32 sums instead of storing
+the logits), so the two rows compare one body with and without the
+fusion; at chunk widths 2048 (with the agreement of its ids with the
+baseline's), 1024 and 4096 -- the column span whose tiles combine into
+one key slot a row (the grid does not depend on it); each beside its
+bound, its plain version and torch.matmul on the bf16 dequantized
+lm_head + torch.argmax (the library yardstick). Operands TMA cannot
+address (e.g. V = 5000) take the first body of
+csrc/probe_lmhead_argmax.cu (`int4_probe_body`).
 
 The port reduces over the V real columns. The JAX probe pads V to a
 multiple of the chunk with zero columns, so a padded logit 0 wins any
@@ -25,6 +30,7 @@ real argmax. With `--device cpu` every row runs its plain version.
 from __future__ import annotations
 
 import argparse
+import math
 
 import numpy as np
 import torch
@@ -32,6 +38,9 @@ import torch
 from flash_attention_tpu_torch.config import resolve_device
 from flash_attention_tpu_torch.ops import _cuda
 from flash_attention_tpu_torch.ops.quant_matmul import (
+    BODY_CODES,
+    DECODE_MAX_ROWS,
+    DECODE_TILE_F,
     INT4_GROUP,
     int4_dequant,
     int4_matmul,
@@ -42,6 +51,7 @@ from flash_attention_tpu_torch.ops.quant_matmul import (
 from flash_attention_tpu_torch.scripts._common import (
     default_timer,
     device_line,
+    int4_probe_body,
     row,
 )
 
@@ -49,8 +59,11 @@ M, K, V = 32, 4096, 128256
 CHUNKS = (1024, 2048, 4096)      # the vocab chunk widths compiled
 DEFAULT_CHUNK = 2048
 
-# Launches of the fused kernel (incremented only where it is launched).
+# Launches of the fused kernel (incremented only where it is launched),
+# and those on the first body (operands TMA cannot address; also counted
+# above).
 lmhead_argmax_launches = 0
+first_body_launches = 0
 
 
 def lmhead_logits_plain(x, packed, scales):
@@ -68,8 +81,74 @@ def lmhead_argmax_plain(x, packed, scales):
     return ids.to(torch.int32), vals
 
 
+def launch_plan(m: int, v: int, chunk: int) -> dict:
+    """The decode body's grid and key slots for x [m, K] through a [K/2,
+    v] lm_head: one block per (64-column tile, 64-row slice of x), one
+    split (an argmax needs whole sums), ceil(v / chunk) key slots a row
+    that the second kernel reduces."""
+    tiles = -(-v // DECODE_TILE_F)
+    slices = -(-m // DECODE_MAX_ROWS)
+    return dict(blocks=tiles * slices, splits=1,
+                slots=-(-v // chunk), tiles_per_slot=chunk // DECODE_TILE_F)
+
+
+def lmhead_logits_steps(x, packed, scales):
+    """The fp32 logits as the decode body sums them: one 128-row K step
+    (one scale group) at a time, in K order, over B7's dequantized
+    weights."""
+    w = int4_dequant(packed, scales, x.dtype).float()
+    xf = x.float()
+    logits = xf[:, :INT4_GROUP] @ w[:INT4_GROUP]
+    for k0 in range(INT4_GROUP, x.shape[1], INT4_GROUP):
+        logits = logits + xf[:, k0:k0 + INT4_GROUP] @ w[k0:k0 + INT4_GROUP]
+    return logits
+
+
+def argmax_key(values: np.ndarray, cols: np.ndarray) -> np.ndarray:
+    """The kernels' 64-bit keys (csrc/matmul_sm90.cuh argmax_key):
+    order-preserving float bits over (0xFFFFFFFF - column), so their max
+    is the largest value, then the lowest column; -0 counts as +0."""
+    v = np.where(values == 0, np.float32(0), values).astype(np.float32)
+    u = v.view(np.uint32).astype(np.uint64)
+    u = np.where(u & 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
+    return (u << np.uint64(32)) | (np.uint64(0xFFFFFFFF)
+                                   - cols.astype(np.uint64))
+
+
+def argmax_by_tiles(logits, chunk: int = DEFAULT_CHUNK):
+    """The decode body's reduction of fp32 logits [M, V]: one winner per
+    64-column tile (the largest value, the lowest column among equal
+    ones) over the V real columns, its key max-combined into the slot of
+    its chunk of `chunk` columns, then each row's slot keys by max;
+    returns the decoded (ids int32 [M], values fp32 [M])."""
+    m, v = logits.shape
+    tiles = -(-v // DECODE_TILE_F)
+    pad = torch.full((m, tiles * DECODE_TILE_F), -math.inf)
+    pad[:, :v] = logits.float().cpu()
+    t = pad.view(m, tiles, DECODE_TILE_F)
+    best = t.max(-1).values
+    first = (t == best[..., None]).int().argmax(-1)
+    cols = np.arange(tiles)[None, :] * DECODE_TILE_F + first.numpy()
+    keys = argmax_key(best.numpy(), cols)
+    per = chunk // DECODE_TILE_F
+    slots = -(-tiles // per)
+    keys = np.pad(keys, ((0, 0), (0, slots * per - tiles)))
+    key = keys.reshape(m, slots, per).max(-1).max(-1)
+    u = (key >> np.uint64(32)).astype(np.uint32)
+    bits = np.where(u & 0x80000000, u & 0x7FFFFFFF, ~u)
+    ids = (0xFFFFFFFF - (key & np.uint64(0xFFFFFFFF))).astype(np.int32)
+    return (torch.from_numpy(ids),
+            torch.from_numpy(bits.astype(np.uint32).view(np.float32)))
+
+
+def lmhead_argmax_tiled(x, packed, scales, *, chunk: int = DEFAULT_CHUNK):
+    """The decode body's P3 step by step in plain PyTorch:
+    lmhead_logits_steps, then argmax_by_tiles."""
+    return argmax_by_tiles(lmhead_logits_steps(x, packed, scales), chunk)
+
+
 def _argmax_cuda(x, packed, scales, chunk):
-    global lmhead_argmax_launches
+    global lmhead_argmax_launches, first_body_launches
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the P3 kernel takes bf16 activations, got "
                         f"{x.dtype}")
@@ -84,14 +163,17 @@ def _argmax_cuda(x, packed, scales, chunk):
             raise ValueError(f"{name} must be contiguous")
     m, k = x.shape
     v = packed.shape[1]
-    keys = torch.empty(m, dtype=torch.int64, device=x.device)
+    body = int4_probe_body(x, packed, scales)
+    slots = launch_plan(m, v, chunk)["slots"] if body == "decode" else 1
+    keys = torch.empty(slots * m, dtype=torch.int64, device=x.device)
     ids = torch.empty(m, dtype=torch.int32, device=x.device)
     vals = torch.empty(m, dtype=torch.float32, device=x.device)
     code = _cuda.lib().fa_probe_lmhead_argmax(
         x.data_ptr(), packed.data_ptr(), scales.data_ptr(), keys.data_ptr(),
-        ids.data_ptr(), vals.data_ptr(), m, k, v, chunk,
+        ids.data_ptr(), vals.data_ptr(), m, k, v, chunk, BODY_CODES[body],
         _cuda.stream_handle(x.device))
     lmhead_argmax_launches += 1
+    first_body_launches += body == "first"
     _cuda.check(code, "probe lmhead_argmax")
     return ids, vals
 
