@@ -30,14 +30,19 @@ Phases, each fatal on failure:
              against their plain versions at q [1, 32, 8192, 128] bf16
              (check_study_long) and at every compiled tile in bf16 /
              fp16 / fp32 at (1, 8, 2048, D = 32..256), B10a at ragged
-             lengths and B10b causal with Nq < Nk, with B1 on fp32
+             lengths (both tiles; the fp16 / bf16 16 x 16 body of
+             csrc/study_sm80.cuh at every D, its launch counter exact
+             and study.cuh's fp16 / bf16 launches 0; check_fa1_tiles
+             times both tiles and fp32 16 x 16) and B10b causal with
+             Nq < Nk, with B1 on fp32
              inputs (the 3x gate against fp32, fp64 for fp32 inputs; LSE
              within 1e-3, B10a's m and l too); B1's
              causal split (flash_attention_fwd_split, band 512 and 2048)
              against its plain version and single-pass B1; each timed
              beside its bound (fp32 at the 67 TFLOP/s FFMA rate) and
              SDPA; then the harness through its entry point: `cli
-             verify` with the reference's defaults, `compare` at
+             verify` with the reference's defaults (fp32, then bf16 on
+             the 16 x 16 body), `compare` at
              1,32,8192,{128,64,32} bf16 (non-causal, then causal) and
              1,8,2048,128 fp32 (every cross-check pair PASS, no failure
              but the fixed-tile entries' head-dim ValueError), `perf
@@ -259,7 +264,7 @@ def ptxas_rows(build_log: str, name_part: str) -> list[str]:
                            mangled)
         dtype = ("bf16" if "bfloat16" in mangled else
                  "fp16" if "6__half" in mangled else
-                 "fp32" if "IfLi" in mangled else "?")
+                 "fp32" if "IfLi" in mangled or "_f32I" in mangled else "?")
         d = re.search(r"Li(\d+)E", mangled)
         rows.append(" ".join(filter(None, (
             kernel.group(1) if kernel else mangled, dtype,
@@ -950,6 +955,7 @@ def _counters() -> dict:
             "flash_split_bulk": (flash, "flash_fwd_split_bulk_launches"),
             "flash_split_band": (flash, "flash_fwd_split_band_launches"),
             "fa1": (variants, "fa1_launches"),
+            "fa1_tile16": (variants, "fa1_tile16_launches"),
             "fa2": (variants, "fa2_inloop_launches"),
             "naive": (variants, "naive_launches"),
             "bwd_dq_fp32": (flash, "flash_bwd_dq_fp32_launches"),
@@ -988,7 +994,8 @@ PROBE_COUNTERS = ("p1_v1", "p1_v2", "p1_first_body", "p2_v2", "p3",
                   "p3_first_body")
 NO_BRANCHES = dict.fromkeys(("flash_seg", "flash_win", "flash_quant",
                              "flash_fp32", "flash_split_bulk",
-                             "flash_split_band", "fa1", "fa2", "naive",
+                             "flash_split_band", "fa1", "fa1_tile16",
+                             "fa2", "naive",
                              "bwd_dq_seg", "bwd_dkv_seg", "bwd_dq_win",
                              "bwd_dkv_win", "paged_win", "paged_quant",
                              "paged_fold", "decode_win", "decode_quant",
@@ -1543,9 +1550,9 @@ def serve_mixtral(kind, params, cfg, forced=False) -> dict:
 
 
 # Depth of the bf16 Mixtral tree: 16 layers fit one card (93 GB at 32);
-# 8 keep the whole script inside its time limit. The int8 tree (47 GB at
-# full depth, the largest) is cut to 16 of its 32 layers for the same
-# reason, and so is the int4 tree (the script passed 1100 s at 32).
+# 8 keep the whole script inside its time limit. The int8 tree (47 GB at full depth, the largest) is cut to 16
+# of its 32 layers for the same reason, and so is the int4 tree (the
+# script passed 1100 s at 32).
 MIXTRAL_BF16_LAYERS = 8
 MIXTRAL_INT8_LAYERS = 16
 MIXTRAL_INT4_LAYERS = 16
@@ -4125,12 +4132,20 @@ def check_study_kernels(rng, flush) -> dict:
     _study_row(rng, flush, out, "B10c", STUDY_SHAPE[1], False)
     torch.cuda.synchronize()
 
+    tile16 = variants.fa1_tile16_launches
+    n16 = 0       # fp16 / bf16 16 x 16 cases below, one launch each
     for dt in (torch.bfloat16, torch.float16):
-        for d in (32, 128, 256):
+        for d in (32, 64, 128, 256):
             for nq, nk in STUDY_RAGGED:
-                _study_case(rng, "B10a", dt, 2, 3, 3, nq, d, nk=nk)
-            _study_case(rng, "B10b", dt, 2, 4, 2, 128, d, causal=True,
-                        nk=320)
+                if d != 64:
+                    _study_case(rng, "B10a", dt, 2, 3, 3, nq, d, nk=nk)
+                # The 16 x 16 body (study_sm80.cuh) at the same edges.
+                _study_case(rng, "B10a", dt, 2, 3, 3, nq, d, nk=nk,
+                            block_sizes=BlockSizes(16, 16))
+                n16 += 1
+            if d != 64:
+                _study_case(rng, "B10b", dt, 2, 4, 2, 128, d, causal=True,
+                            nk=320)
     torch.cuda.synchronize()
 
     b, h, n = STUDY_SMALL
@@ -4139,12 +4154,17 @@ def check_study_kernels(rng, flush) -> dict:
             for tile in variants.fa1_compiled_tiles(dt, d):
                 _study_case(rng, "B10a", dt, b, h, h, n, d,
                             block_sizes=BlockSizes(*tile))
+                n16 += dt != torch.float32 and tile == (16, 16)
             for causal in (False, True):
                 _study_case(rng, "B10b", dt, b, h, 2, n, d, causal)
             _study_case(rng, "B10c", dt, b, h, h, n, d)
             if dt == torch.float32:
                 _flash_fp32_case(rng, b, h, 2, n, d)
     torch.cuda.synchronize()
+    got = variants.fa1_tile16_launches - tile16
+    log(f"study: fp16 / bf16 16 x 16 launches {got} (expected {n16})")
+    if got != n16:
+        raise AssertionError(f"16 x 16 body launches {got}, expected {n16}")
 
     # fp32 timings at D = 128 (the FFMA bodies).
     d = 128
@@ -4172,20 +4192,46 @@ def check_study_kernels(rng, flush) -> dict:
             lambda: _sdpa(q, k, v, True), flush, flops, nbytes,
             PEAK_FP32_FLOPS))
     out["fp32 timings"] = timed
-    # B10a's 16 x 16 tile (study.cuh's WMMA body; 64 x 64 runs the Hopper
-    # block) in bf16, beside the 64 x 64 tile on the same inputs.
-    kern, plain = _study_fns("B10a")
-    q, k, v = (randn(rng, (b, h, n, d), torch.bfloat16) for _ in "qkv")
-    flops, nbytes = variants.study_cost(b, h, h, n, n, d, False, 2,
-                                        stats=2)
-    out["B10a tiles"] = {
-        f"{bq}x{bk}": _timed_row(
-            f"B10a bf16 q({b},{h},{n},{d}) tile {bq}x{bk}",
-            lambda: kern(q, k, v, block_sizes=BlockSizes(bq, bk)),
-            lambda: plain(q, k, v, bk), lambda: _sdpa(q, k, v), flush,
-            flops, nbytes, PEAK_BF16_FLOPS, plain_iters=5)
-        for bq, bk in ((16, 16), (64, 64))}
+    check_fa1_tiles(rng, flush, out)
     return out
+
+
+FA1_TILE_SHAPES = ((1, 8, 2048, 128), (1, 8, 2048, 64))
+FA1_VERIFY_SHAPE = (1, 8, 512, 64)   # cli verify's defaults
+
+
+def check_fa1_tiles(rng, flush, results):
+    """B10a's two tiles in bf16 and fp16 at (1, 8, 2048, 128) and (1, 8,
+    2048, 64): 16 x 16 on the mma.sync body (csrc/study_sm80.cuh), 64 x
+    64 on the Hopper block (study_sm90.cuh), each under the study gate
+    (o, m, l) and timed beside its bound, its plain version at the same
+    tile and SDPA; and the fp32 16 x 16 tile (study.cuh) at cli verify's
+    defaults and at (1, 8, 2048, 128). results[("B10a", dtype, shape,
+    tile)]."""
+    from flash_attention_tpu_torch.config import BlockSizes
+    from flash_attention_tpu_torch.ops import variants
+
+    kern, plain = _study_fns("B10a")
+    cases = [(dt, shape, tile)
+             for dt in (torch.bfloat16, torch.float16)
+             for shape in FA1_TILE_SHAPES for tile in ((16, 16), (64, 64))]
+    cases += [(torch.float32, shape, (16, 16))
+              for shape in (FA1_VERIFY_SHAPE, FA1_TILE_SHAPES[0])]
+    for dt, (b, h, n, d), (bq, bk) in cases:
+        (q, k, v), err = _study_case(rng, "B10a", dt, b, h, h, n, d,
+                                     block_sizes=BlockSizes(bq, bk))
+        flops, nbytes = variants.study_cost(b, h, h, n, n, d, False,
+                                            dt.itemsize, stats=2)
+        name = str(dt).split(".")[-1]
+        results[("B10a", name, f"({b},{h},{n},{d})", f"{bq}x{bk}")] = dict(
+            max_abs_err=err, shape=f"q({b},{h},{n},{d}) {name} tile "
+                                   f"{bq}x{bk}",
+            **_timed_row(f"B10a {name} q({b},{h},{n},{d}) tile {bq}x{bk}",
+                         lambda: kern(q, k, v,
+                                      block_sizes=BlockSizes(bq, bk)),
+                         lambda: plain(q, k, v, bk), lambda: _sdpa(q, k, v),
+                         flush, flops, nbytes, _peak(dt), plain_iters=5))
+        torch.cuda.synchronize()
 
 
 # B1's ragged cases across the Hopper body's tile edges (64-row
@@ -4381,6 +4427,9 @@ def study_path() -> dict:
     reset_counts()
     if cli.main(["verify"]) != 0:
         raise AssertionError("cli verify failed")
+    # The same in bf16: the tile law's 16 x 16 on the mma.sync body.
+    if cli.main(["verify", "--dtype", "bfloat16"]) != 0:
+        raise AssertionError("cli verify --dtype bfloat16 failed")
     results, cfgs = [], ((1, 32, 8192, 128), (1, 32, 8192, 64),
                          (1, 32, 8192, 32))
     for causal in (False, True):
@@ -4417,7 +4466,8 @@ def study_path() -> dict:
     perf_fwd, perf_bwd = _harness_calls(3, 5, 5), _harness_calls(3, 5, 16)
     fixed_runs = 2 * 2          # d64 at D = 64, d32 at D = 32, both modes
     want = dict(
-        fa1=verify_calls + 4 * call,          # 3 bf16 + 1 fp32 configs
+        fa1=2 * verify_calls + 4 * call,      # 3 bf16 + 1 fp32 configs
+        fa1_tile16=verify_calls,
         naive=4 * call,
         fa2=7 * call,                         # 6 bf16 + 1 fp32
         flash=(7 + fixed_runs) * call + 2 * (perf_fwd + perf_bwd),
@@ -4448,7 +4498,11 @@ def study() -> dict:
 
 # --- phase 2/3: fp32 on B2-B9 -------------------------------------------------
 
-FP32_BWD_DIMS = (64, 128, 256)       # B2 / B3 at (1, 8, 2048, D) causal
+FP32_BWD_DIMS = (32, 64, 128, 256)   # B2 / B3 at (1, 8, 2048, D) causal
+# B2 / B3 fp32 causal with Nq < Nk (offset Nk - Nq) across the body's
+# 64-row resident and 16-row streamed tiles: (B, Hq, Hkv, Nq, Nk, D).
+FP32_BWD_OFFSET = ((1, 4, 2, 200, 333, 128), (2, 4, 1, 77, 131, 32),
+                   (1, 2, 2, 77, 131, 256))
 
 
 def _fp32_gate(what, got, hi, lo):
@@ -4488,9 +4542,10 @@ def _timed_row(what, kern, plain, library, flush, flops, nbytes, peak,
 
 def check_fp32_bwd(rng, flush, results):
     """B2 / B3 on fp32 inputs (FFMA products): at (1, 8, 2048, D) causal
-    for D = 64, 128, 256, and with a window and packed segment ids at (1,
-    8, 1024, 128); each gradient under the 3x gate against the fp64
-    plain backward, identical bits on a rerun; timed beside the bound at
+    for D = 32, 64, 128, 256, with a window and packed segment ids at (1,
+    8, 1024, 128), and causal with Nq < Nk (FP32_BWD_OFFSET); each
+    gradient under the 3x gate against the fp64 plain backward, identical
+    bits on a rerun; the (1, 8, 2048, D) cases timed beside the bound at
     the FFMA rate, the plain backward and SDPA's fp32 backward."""
     from flash_attention_tpu_torch.ops.flash import SegmentIds
 
@@ -4505,6 +4560,9 @@ def check_fp32_bwd(rng, flush, results):
         results[("fp32", "dq", d)] = dict(timed["dq"], max_abs_err=errs[0])
         results[("fp32", "dkv", d)] = dict(timed["dkv"],
                                            max_abs_err=max(errs[1:]))
+        # B2 + B3, the backward's time (kernel_pairs.py compares it).
+        results[("fp32", "dq+dkv", d)] = dict(
+            ms=timed["dq"]["ms"] + timed["dkv"]["ms"])
         del case
     t = 1024
     ids = torch.repeat_interleave(
@@ -4517,6 +4575,12 @@ def check_fp32_bwd(rng, flush, results):
                      f"ids fp32, deterministic", got, hi, lo)
     results[("fp32", "masked")] = errs
     del case, got, hi, lo
+    results[("fp32", "offset")] = []
+    for b, hq, hkv, nq, nk, d in FP32_BWD_OFFSET:
+        _, got, hi, lo = _bwd_case(rng, f32, b, hq, hkv, nq, nk, d, True)
+        results[("fp32", "offset")].append(_bwd_gate(
+            f"B2/B3 q({b},{hq},{nq},{d}) kv({hkv},{nk}) causal offset "
+            f"{nk - nq} fp32, deterministic", got, hi, lo))
     torch.cuda.empty_cache()
 
 
@@ -5191,9 +5255,10 @@ def check_probe_lmhead(rng, flush, results):
         qm.dense_matmul_cost(m, k, v))
 
 
-def fp32_entries(results, fp32p) -> list:
+def fp32_entries(results, fp32p, bwd_ptxas) -> list:
     """The kernels line's entries of B2-B9 on fp32 inputs, each with the
-    launches its own fp32 counter saw on the fp32_api path."""
+    launches its own fp32 counter saw on the fp32_api path (B2 / B3 also
+    their ptxas rows)."""
     def one(name, source, replaces, counter, row, **more):
         return dict(name=name, route="cuda",
                     source=f"flash_attention_tpu_torch/csrc/{source}",
@@ -5211,15 +5276,23 @@ def fp32_entries(results, fp32p) -> list:
                 if label != "B9 int4"}
 
     masked = results[("fp32", "masked")]
+    offset = results[("fp32", "offset")]
+    body = ("register-blocked FFMA: 4 warps over 64 resident rows (32 at "
+            "D = 256), 16-row streamed tiles in a cp.async double buffer, "
+            "accumulators in registers (flash_bwd_f32.cu instantiates it)")
     return [
-        one("flash_bwd_dq (B2 fp32)", "flash_bwd_f32.cu", "flash.py:716",
-            "bwd_dq_fp32", results[("fp32", "dq", 128)],
+        one("flash_bwd_dq (B2 fp32)", "flash_bwd_f32.cuh", "flash.py:716",
+            "bwd_dq_fp32", results[("fp32", "dq", 128)], body=body,
+            ptxas=[r for r in bwd_ptxas if "_dq_" in r],
             at_head_dims=head_dims("dq"),
-            masked_window_segments_max_abs_err=masked[0]),
-        one("flash_bwd_dkv (B3 fp32)", "flash_bwd_f32.cu", "flash.py:773",
-            "bwd_dkv_fp32", results[("fp32", "dkv", 128)],
+            masked_window_segments_max_abs_err=masked[0],
+            causal_offset_max_abs_err=max(e[0] for e in offset)),
+        one("flash_bwd_dkv (B3 fp32)", "flash_bwd_f32.cuh", "flash.py:773",
+            "bwd_dkv_fp32", results[("fp32", "dkv", 128)], body=body,
+            ptxas=[r for r in bwd_ptxas if "_dkv_" in r],
             at_head_dims=head_dims("dkv"),
-            masked_window_segments_max_abs_err=max(masked[1:])),
+            masked_window_segments_max_abs_err=max(masked[1:]),
+            causal_offset_max_abs_err=max(max(e[1:]) for e in offset)),
         one("paged_decode (B4 fp32)", "paged_decode_f32.cu", "paged.py:37",
             "paged_fp32", results[("fp32", "paged", "fp32 pools")],
             at_shapes={k: results[("fp32", "paged", k)]
@@ -5332,6 +5405,11 @@ def main() -> int:
     print(report.getvalue(), end="", flush=True)
     for row in ptxas_rows(report.getvalue(), "flash_bwd_"):
         log(f"ptxas B2/B3 {row}")
+    bwd_f32_ptxas = ptxas_rows(report.getvalue(), "flash_bwd_d")
+    bwd_f32_ptxas = [r for r in bwd_f32_ptxas if "_f32 " in r]
+    tile16_ptxas = ptxas_rows(report.getvalue(), "fa1_tile16")
+    for row in tile16_ptxas:
+        log(f"ptxas B10a 16x16 {row}")
     mm_ptxas = matmul_ptxas_rows(report.getvalue())
     for row in mm_ptxas:
         log(f"ptxas B6-B9 {row}")
@@ -5645,12 +5723,27 @@ def main() -> int:
         dict(name="fa1 (B10a)", route="cuda",
              source="flash_attention_tpu_torch/csrc/variants_fa1.cu",
              body="fp16 / bf16 at 64 x 64: wgmma + TMA ring "
-                  "(csrc/study_sm90.cuh over sm90_attn.cuh); 16 x 16 and "
-                  "fp32: csrc/study.cuh",
+                  "(csrc/study_sm90.cuh over sm90_attn.cuh); fp16 / bf16 "
+                  "at 16 x 16: mma.sync register body (csrc/study_sm80.cuh,"
+                  " its own entry); fp32: csrc/study.cuh",
              replaces="flash_attention_tpu/ops/variants.py:80",
              launches=sl["fa1"], launches_by_path={"cli_study": sl["fa1"]},
              **sk[("B10a", False)], fp32=sk["fp32 timings"]["B10a"],
-             at_tiles_bf16_1_8_2048_128=sk["B10a tiles"]),
+             at_tiles={" ".join(k[1:]): v for k, v in sk.items()
+                       if isinstance(k, tuple) and len(k) == 4}),
+        dict(name="fa1 16x16 (B10a, fp16 / bf16)", route="cuda",
+             source="flash_attention_tpu_torch/csrc/study_sm80.cuh",
+             body="one warp a 16-row q tile, 8 a block, Q fragments and O "
+                  "in registers, mma.sync m16n8k16 with P from registers, "
+                  "a cp.async K / V ring shared by the block",
+             replaces="flash_attention_tpu/ops/variants.py:80",
+             launches=sl["fa1_tile16"],
+             launches_by_path={"cli_verify_bf16": sl["fa1_tile16"]},
+             ptxas=tile16_ptxas,
+             **sk[("B10a", "bfloat16", "(1,8,2048,128)", "16x16")],
+             at_shapes={" ".join(k[1:]): v for k, v in sk.items()
+                        if isinstance(k, tuple) and len(k) == 4
+                        and k[3] == "16x16" and k[1] != "float32"}),
         dict(name="fa2_inloop (B10b)", route="cuda",
              source="flash_attention_tpu_torch/csrc/variants_fa2.cu",
              body="fp16 / bf16: wgmma + TMA ring (csrc/study_sm90.cuh "
@@ -5683,7 +5776,7 @@ def main() -> int:
              launches_by_path={"cli_compare_fp32": sl["flash_fp32"],
                                "fp32_api": fp32p["flash_fp32"]},
              **sk["B1 fp32"]),
-        *fp32_entries(results, fp32p),
+        *fp32_entries(results, fp32p, bwd_f32_ptxas),
         *probe_entries(pr, mm_ptxas),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,7 +1,8 @@
 // B2 and B3: the recompute backward of flash attention for Hopper
 // (sm_90a), the backward of B1 (flash_fwd.cu). The fp16 / bf16 kernels
 // (wgmma, TMA, accumulators in registers) are in flash_bwd_sm90.cuh, the
-// fp32 FFMA body and what both compute in flash_bwd.cuh. This file holds
+// fp32 FFMA body in flash_bwd_f32.cuh, what both compute in
+// flash_bwd.cuh. This file holds
 // the unmasked fp16 / bf16 instantiations and the C entry points,
 // flash_bwd_masked.cu the window / segment-id instantiations and
 // flash_bwd_f32.cu those of fp32 inputs, so the build compiles them in

@@ -1,7 +1,7 @@
 // B2 (dQ) and B3 (dK, dV) for fp16 / bf16 on Hopper (sm_90a), built
 // from the pieces of sm90_attn.cuh. flash_bwd.cu holds the unmasked
 // instantiations and the C entry points, flash_bwd_masked.cu the window /
-// segment-id ones; fp32 inputs keep the FFMA body of flash_bwd.cuh
+// segment-id ones; fp32 inputs run the FFMA body of flash_bwd_f32.cuh
 // (flash_bwd_f32.cu).
 //
 // B2 replaces the Pallas TPU kernel flash_attention_tpu/ops/flash.py

@@ -1,12 +1,12 @@
-// The first body of the kernel-study variants, which B10a's 16 x 16 tile
-// (all dtypes) and the fp32 bodies of B10a, B10b and B10c
-// (variants_fa1.cu, variants_fa2.cu, variants_naive.cu) still run; their
-// fp16 / bf16 64 x 64 bodies are the Hopper block of study_sm90.cuh. It
-// holds the shared-memory layout of a (BR x BC)-tiled attention block, the
-// tile loads and the two tile products, on the tensor cores for fp16 /
-// bf16 (WMMA 16x16x16, fp32 accumulation) and on the CUDA cores in full
-// fp32 for fp32 (common.cuh ffma_abt / ffma_ab; the JAX kernels ask the
-// MXU for Precision.HIGHEST).
+// The first body of the kernel-study variants, which now runs their fp32
+// instantiations only: B10a at 16 x 16 and 64 x 64, B10b and B10c
+// (variants_fa1.cu, variants_fa2.cu, variants_naive.cu). fp16 / bf16 run
+// elsewhere: B10a's 16 x 16 tile on study_sm80.cuh's mma.sync body, the
+// 64 x 64 tiles of B10a-c on the Hopper block of study_sm90.cuh. It holds
+// the shared-memory layout of a (BR x BC)-tiled attention block, the tile
+// loads and the two tile products on the CUDA cores in full fp32
+// (common.cuh ffma_abt / ffma_ab; the JAX kernels ask the MXU for
+// Precision.HIGHEST), and the Args every study kernel takes.
 //
 // Layout: one block of 2 * BR threads (BR / 16 warps) per (q tile of BR
 // rows, q head, batch). Warp w owns S / P / O rows 16w..16w+15; thread
@@ -15,21 +15,15 @@
 // memory; S, P and the fp32 accumulator O stay there, so only warp-level
 // synchronisation is needed between the loads.
 //
-// What bounds it on the H100: not the tensor cores (B10a / B10b ran at
-// 45-62 TFLOP/s of 989 in bf16 on it at 64 x 64) but the round trips of
-// S, P and O through shared memory, each warp reloading whole K / V tiles
-// as WMMA fragments, and loads that never overlap a product (no TMA, no
-// wgmma, no double buffering).
+// What bounds it on the H100: the CUDA cores' 67 TFLOP/s in principle;
+// in practice the round trips of S, P and O through shared memory and
+// loads that never overlap a product (PERF.md has its times).
 #pragma once
-
-#include <mma.h>
 
 #include "common.cuh"
 
 namespace fa {
 namespace study {
-
-using namespace nvcuda;
 
 // The byte offsets of a (BR x BC) block's tiles. ops/variants.py
 // `_smem_bytes` mirrors kBytes to know which tiles are compiled.
@@ -122,30 +116,12 @@ struct Block {
     __syncthreads();
   }
 
-  // S = Q K^T (unscaled) for this warp's 16 rows.
+  // S = Q K^T (unscaled) for this warp's 16 rows (fp32 FFMA).
   __device__ __forceinline__ void scores() {
-    float* s = sS + (warp * 16) * L::kLdS;
-    const T* q = sQ + (warp * 16) * L::kLdT;
-    if constexpr (sizeof(T) == 4) {
-      fa::ffma_abt<BC, D>(s, L::kLdS, q, L::kLdT, sK, L::kLdT, tid & 31);
-    } else {
-#pragma unroll
-      for (int n = 0; n < BC / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf;
-        wmma::fill_fragment(sf, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> qf;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> kf;
-          wmma::load_matrix_sync(qf, q + kk * 16, L::kLdT);
-          wmma::load_matrix_sync(kf, sK + (n * 16) * L::kLdT + kk * 16,
-                                 L::kLdT);
-          wmma::mma_sync(sf, qf, kf, sf);
-        }
-        wmma::store_matrix_sync(s + n * 16, sf, L::kLdS,
-                                wmma::mem_row_major);
-      }
-    }
+    static_assert(sizeof(T) == 4, "study.cuh is the fp32 body");
+    fa::ffma_abt<BC, D>(sS + (warp * 16) * L::kLdS, L::kLdS,
+                        sQ + (warp * 16) * L::kLdT, L::kLdT, sK, L::kLdT,
+                        tid & 31);
     __syncwarp();
   }
 
@@ -187,47 +163,10 @@ struct Block {
   // per-row factors in sAlpha / sBeta when `combine`, else O += P V.
   __device__ __forceinline__ void pv(bool combine) {
     __syncwarp();      // P and the row factors are written
-    float* o = sO + (warp * 16) * L::kLdO;
-    const T* p = sP + (warp * 16) * L::kLdP;
-    const float* al = combine ? sAlpha + warp * 16 : nullptr;
-    const float* be = combine ? sBeta + warp * 16 : nullptr;
-    if constexpr (sizeof(T) == 4) {
-      fa::ffma_ab<D, BC>(o, L::kLdO, p, L::kLdP, sV, L::kLdT, al, be,
-                         tid & 31);
-    } else {
-      // The product lands in the warp's rows of S (free once P is
-      // written), 16 columns at a time, and each lane combines a row's
-      // 8 values into O: WMMA fragments do not say which row an element
-      // belongs to.
-      float* scratch = sS + (warp * 16) * L::kLdS;
-      const int lane = tid & 31, r = lane >> 1, c0 = (lane & 1) * 8;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major>
-          pf[BC / 16];
-#pragma unroll
-      for (int kk = 0; kk < BC / 16; ++kk)
-        wmma::load_matrix_sync(pf[kk], p + kk * 16, L::kLdP);
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> of;
-        wmma::fill_fragment(of, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < BC / 16; ++kk) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> vf;
-          wmma::load_matrix_sync(vf, sV + (kk * 16) * L::kLdT + n * 16,
-                                 L::kLdT);
-          wmma::mma_sync(of, pf[kk], vf, of);
-        }
-        wmma::store_matrix_sync(scratch, of, L::kLdS, wmma::mem_row_major);
-        __syncwarp();
-        const float a_r = al != nullptr ? al[r] : 1.f;
-        const float b_r = be != nullptr ? be[r] : 1.f;
-        float* orow = o + r * L::kLdO + n * 16 + c0;
-        const float* srow = scratch + r * L::kLdS + c0;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) orow[i] = a_r * orow[i] + b_r * srow[i];
-        __syncwarp();
-      }
-    }
+    fa::ffma_ab<D, BC>(sO + (warp * 16) * L::kLdO, L::kLdO,
+                       sP + (warp * 16) * L::kLdP, L::kLdP, sV, L::kLdT,
+                       combine ? sAlpha + warp * 16 : nullptr,
+                       combine ? sBeta + warp * 16 : nullptr, tid & 31);
     __syncwarp();
   }
 

@@ -38,12 +38,15 @@
 // two column halves of 128 (acc 128 + fresh 64 registers a thread; the
 // V tile's 64-column chunks let a descriptor start at a half).
 //
-// The 16 x 16 tile (all dtypes) and fp32 at 64 x 64 keep the first body
-// (study.cuh fa1_kernel): an m64 wgmma needs 64 rows, and fp32 has no
-// wgmma operand at full precision. Both products there work from shared
-// memory (WMMA for fp16 / bf16, FFMA for fp32).
+// fp16 / bf16 at 16 x 16 (fa1_tile16): the mma.sync register body of
+// study_sm80.cuh (one warp a 16-row q tile, eight a block, a cp.async
+// ring of K / V slabs shared by the block; its note states the 16 x 16
+// tile's contract). fp32 at both tiles keeps the first body (study.cuh
+// fa1_kernel, FFMA products from shared memory): fp32 has no tensor-core
+// operand at full precision.
 
 #include "study.cuh"
+#include "study_sm80.cuh"
 #include "study_sm90.cuh"
 
 namespace fa {
@@ -207,6 +210,8 @@ template <typename T, int D, int BR, int BC>
 cudaError_t fa1_run(const Args& a) {
   if constexpr (sizeof(T) == 2 && BR == 64 && BC == 64)
     return launch_sm90<T, D>(fa1_sm90<T, D>, a);
+  else if constexpr (sizeof(T) == 2 && BR == 16 && BC == 16)
+    return launch_tile16<T, D>(a);
   else if constexpr (Tiles<T, D, BR, BC>::kFits)
     return launch<T, D, BR, BC>(fa1_kernel<T, D, BR, BC>, a);
   return cudaErrorInvalidValue;

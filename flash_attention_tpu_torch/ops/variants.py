@@ -56,19 +56,24 @@ __all__ = [
 fa1_launches = 0
 fa2_inloop_launches = 0
 naive_launches = 0
+# Launches of B10a's 16 x 16 fp16 / bf16 body (csrc/study_sm80.cuh; also
+# counted in fa1_launches).
+fa1_tile16_launches = 0
 
 # The (block_q, block_kv) pairs csrc/variants_fa1.cu instantiates, each
-# where it fits shared memory at the head dim and dtype: 64 x 64 on the
-# Hopper body for fp16 / bf16 (csrc/study_sm90.cuh, every head dim),
-# 16 x 16 and fp32 64 x 64 on csrc/study.cuh.
+# where it fits shared memory at the head dim and dtype: for fp16 / bf16
+# 16 x 16 on the mma.sync body (csrc/study_sm80.cuh) and 64 x 64 on the
+# Hopper body (csrc/study_sm90.cuh), at every head dim; for fp32 both on
+# the first body (csrc/study.cuh).
 FA1_TILES = ((16, 16), (64, 64))
 SMEM_LIMIT = 232448        # bytes of shared memory a block may use
 
 
 def _smem_bytes(itemsize: int, d: int, br: int, bc: int) -> int:
-    """Shared memory of a study block (csrc/study.cuh Tiles::kBytes): Q,
-    K, V rows padded to 16 bytes, fp32 S, P in the input dtype, fp32 O,
-    two fp32 row factors."""
+    """Shared memory of a first-body study block, the fp32 body since
+    fp16 / bf16 have their own (csrc/study.cuh Tiles::kBytes): Q, K, V
+    rows padded to 16 bytes, fp32 S, P in the input dtype, fp32 O, two
+    fp32 row factors."""
     pad = 16 // itemsize
     return (itemsize * (br + 2 * bc) * (d + pad) + 4 * br * (bc + 4)
             + itemsize * br * (bc + pad) + 4 * br * (d + 4) + 8 * br)
@@ -76,9 +81,10 @@ def _smem_bytes(itemsize: int, d: int, br: int, bc: int) -> int:
 
 def fa1_compiled_tiles(dtype, head_dim: int) -> list[tuple[int, int]]:
     """The FA1 tiles the card has for this dtype and head dim."""
+    if dtype.itemsize == 2:
+        return list(FA1_TILES)
     return [t for t in FA1_TILES
-            if (dtype.itemsize == 2 and t == (64, 64))
-            or _smem_bytes(dtype.itemsize, head_dim, *t) <= SMEM_LIMIT]
+            if _smem_bytes(dtype.itemsize, head_dim, *t) <= SMEM_LIMIT]
 
 
 def study_tile(dtype, head_dim: int) -> tuple[int, int]:
@@ -214,7 +220,7 @@ def flash_attention_fa1_plain(q, k, v, *, scale, block_kv):
 
 
 def _fa1_cuda(q, k, v, *, scale, tile):
-    global fa1_launches
+    global fa1_launches, fa1_tile16_launches
     _check_cuda_inputs("B10a", q, k, v)
     batch, h, nq, d = q.shape
     nk = k.shape[2]
@@ -229,6 +235,8 @@ def _fa1_cuda(q, k, v, *, scale, tile):
         scale, _cuda.DTYPE_CODES[q.dtype],
         _cuda.stream_handle(q.device))
     fa1_launches += 1
+    # fa_fa1_fwd routes (fp16 / bf16, 16, 16) to the mma.sync body.
+    fa1_tile16_launches += q.dtype.itemsize == 2 and tuple(tile) == (16, 16)
     _cuda.check(code, "fa1_fwd")
     return o, m, l
 

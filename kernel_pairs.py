@@ -2,6 +2,7 @@
 """Time kernels of two checkouts of the port in turns on one GPU.
 
     python3 kernel_pairs.py --parent DIR [--checks paged,decode]
+    python3 kernel_pairs.py --parent DIR --checks fa1_tiles,fp32_bwd
 
 Runs the named kernel checks of chip_smoke.py (check_<name>: build,
 hold each kernel against its plain version, time it with CUDA events)
@@ -63,7 +64,9 @@ def one_turn(checks: str, package_root: str | None) -> None:
 
 
 def flat_ms(results: dict) -> dict:
-    """{check key: ms} of a results dict. An entry without its own "ms"
+    """{check key: ms} of a results dict (entries that hold no time, such
+    as check_fp32_bwd's gate errors, are left out). An entry without its
+    own "ms"
     holds one entry per kernel (check_bwd_branches' {"dq": {...}, "dkv":
     {...}}): each is keyed "<key>.<part>", e.g. "('bwd', 'window').dq". A
     list of rows (check_quant_matmul, check_grouped: one row per timed
@@ -72,7 +75,11 @@ def flat_ms(results: dict) -> dict:
     out = {}
     for key, v in results.items():
         if isinstance(v, list):
-            out.update({f"{key}.{row['shape']}": row["ms"] for row in v})
+            # Rows of timed shapes; a list of gate errors holds no time.
+            out.update({f"{key}.{row['shape']}": row["ms"] for row in v
+                        if isinstance(row, dict)})
+        elif not isinstance(v, dict):
+            continue
         elif "ms" in v:
             out[str(key)] = v["ms"]
             # A row that also measured the kernel alone and the wrapper's
