@@ -31,9 +31,11 @@ Phases, each fatal on failure:
              (check_study_long) and at every compiled tile in bf16 /
              fp16 / fp32 at (1, 8, 2048, D = 32..256), B10a at ragged
              lengths (both tiles; the fp16 / bf16 16 x 16 body of
-             csrc/study_sm80.cuh at every D, its launch counter exact
-             and study.cuh's fp16 / bf16 launches 0; check_fa1_tiles
-             times both tiles and fp32 16 x 16) and B10b causal with
+             csrc/study_sm80.cuh at every D, and the fp32 body of
+             csrc/study_f32.cuh on both of its row counts, their launch
+             counters exact; check_fa1_tiles times both fp16 / bf16
+             tiles, check_study_fp32 the fp32 rows of B10a-c with a
+             rerun for identical bits) and B10b causal with
              Nq < Nk, with B1 on fp32
              inputs (the 3x gate against fp32, fp64 for fp32 inputs; LSE
              within 1e-3, B10a's m and l too); B1's
@@ -324,6 +326,24 @@ def split_ptxas_rows(build_log: str) -> list[str]:
             "bf16" if "bfloat16" in m.group(5) else "fp16",
             f"D={m.group(6)}", v.get("regs", "? registers"),
             v.get("spill", "")))))
+    return sorted(rows)
+
+
+def study_f32_ptxas_rows(build_log: str) -> list[str]:
+    """One line per instantiation of csrc/study_f32.cuh's kernel
+    (study_f32<Kind, G, D, Wide>): the study kernel and its tile, head
+    dim, q rows a block, registers a thread and spill stores / loads."""
+    rows = []
+    for mangled, v in ptxas_info(build_log).items():
+        m = re.search(r"study_f32ILi(\d)ELi(\d+)ELi(\d+)ELb([01])E",
+                      mangled)
+        if m is None:
+            continue
+        kind, g, d = (int(x) for x in m.groups()[:3])
+        rows.append(" ".join(filter(None, (
+            ("B10a %dx%d" % (g, g), "B10b", "B10c")[kind], f"D={d}",
+            f"{64 if m.group(4) == '1' and d <= 128 else 32} rows",
+            v.get("regs", "? registers"), v.get("spill", "")))))
     return sorted(rows)
 
 
@@ -956,6 +976,7 @@ def _counters() -> dict:
             "flash_split_band": (flash, "flash_fwd_split_band_launches"),
             "fa1": (variants, "fa1_launches"),
             "fa1_tile16": (variants, "fa1_tile16_launches"),
+            "study_f32": (variants, "study_f32_launches"),
             "fa2": (variants, "fa2_inloop_launches"),
             "naive": (variants, "naive_launches"),
             "bwd_dq_fp32": (flash, "flash_bwd_dq_fp32_launches"),
@@ -995,7 +1016,7 @@ PROBE_COUNTERS = ("p1_v1", "p1_v2", "p1_first_body", "p2_v2", "p3",
 NO_BRANCHES = dict.fromkeys(("flash_seg", "flash_win", "flash_quant",
                              "flash_fp32", "flash_split_bulk",
                              "flash_split_band", "fa1", "fa1_tile16",
-                             "fa2", "naive",
+                             "study_f32", "fa2", "naive",
                              "bwd_dq_seg", "bwd_dkv_seg", "bwd_dq_win",
                              "bwd_dkv_win", "paged_win", "paged_quant",
                              "paged_fold", "decode_win", "decode_quant",
@@ -4120,10 +4141,12 @@ def check_study_kernels(rng, flush) -> dict:
     (check_study_long and B10c); every compiled tile of each in bf16,
     fp16 and fp32 at (1, 8, 2048, D) for D in 32..256 (fp32 B1 causal
     there too); B10a at ragged lengths (STUDY_RAGGED) and B10b causal
-    with Nq < Nk (GQA 4/2) in fp16 and bf16 at D = 32 / 128 / 256; the
-    fp32 kernels at D = 128 timed against the FFMA rate. Gate: 3x the
-    plain version's error in the same dtype against fp32 (fp64 for fp32
-    inputs)."""
+    with Nq < Nk (GQA 4/2) in fp16 and bf16 at D = 32 / 128 / 256, and
+    in fp32 at every D on both row counts of its body; the launch
+    counters of the 16 x 16 and fp32 bodies exact over these cases; B1
+    fp32 timed against the FFMA rate; then check_fa1_tiles and
+    check_study_fp32. Gate: 3x the plain version's error in the same
+    dtype against fp32 (fp64 for fp32 inputs)."""
     from flash_attention_tpu_torch.config import BlockSizes
     from flash_attention_tpu_torch.ops import flash, variants
 
@@ -4133,7 +4156,9 @@ def check_study_kernels(rng, flush) -> dict:
     torch.cuda.synchronize()
 
     tile16 = variants.fa1_tile16_launches
+    f32_before = variants.study_f32_launches
     n16 = 0       # fp16 / bf16 16 x 16 cases below, one launch each
+    n32 = 0       # fp32 cases (csrc/study_f32.cuh), one launch each
     for dt in (torch.bfloat16, torch.float16):
         for d in (32, 64, 128, 256):
             for nq, nk in STUDY_RAGGED:
@@ -4146,39 +4171,49 @@ def check_study_kernels(rng, flush) -> dict:
             if d != 64:
                 _study_case(rng, "B10b", dt, 2, 4, 2, 128, d, causal=True,
                             nk=320)
+    # fp32 (csrc/study_f32.cuh) at the same edges on both of its row
+    # counts a block: 2 x 3 heads take blocks of 32 rows, 2 x 34 of 64
+    # (up to D = 128; D = 256 has only the 32-row plan).
+    for d in (32, 64, 128, 256):
+        for b, h in ((2, 3), (2, 34)) if d <= 128 else ((2, 3),):
+            for nq, nk in STUDY_RAGGED:
+                for tile in variants.fa1_compiled_tiles(torch.float32, d):
+                    _study_case(rng, "B10a", torch.float32, b, h, h, nq, d,
+                                nk=nk, block_sizes=BlockSizes(*tile))
+                    n32 += 1
+            _study_case(rng, "B10b", torch.float32, b, 2 * h, h, 128, d,
+                        causal=True, nk=320)
+            n32 += 1
     torch.cuda.synchronize()
 
     b, h, n = STUDY_SMALL
     for dt in (torch.bfloat16, torch.float16, torch.float32):
         for d in (32, 64, 128, 256):
+            f32 = dt == torch.float32
             for tile in variants.fa1_compiled_tiles(dt, d):
                 _study_case(rng, "B10a", dt, b, h, h, n, d,
                             block_sizes=BlockSizes(*tile))
-                n16 += dt != torch.float32 and tile == (16, 16)
+                n16 += not f32 and tile == (16, 16)
+                n32 += f32
             for causal in (False, True):
                 _study_case(rng, "B10b", dt, b, h, 2, n, d, causal)
+                n32 += f32
             _study_case(rng, "B10c", dt, b, h, h, n, d)
-            if dt == torch.float32:
+            n32 += f32
+            if f32:
                 _flash_fp32_case(rng, b, h, 2, n, d)
     torch.cuda.synchronize()
     got = variants.fa1_tile16_launches - tile16
     log(f"study: fp16 / bf16 16 x 16 launches {got} (expected {n16})")
     if got != n16:
         raise AssertionError(f"16 x 16 body launches {got}, expected {n16}")
+    got = variants.study_f32_launches - f32_before
+    log(f"study: fp32 body launches {got} (expected {n32})")
+    if got != n32:
+        raise AssertionError(f"fp32 study body launches {got}, expected "
+                             f"{n32}")
 
-    # fp32 timings at D = 128 (the FFMA bodies).
     d = 128
-    timed = {}
-    for name, causal in (("B10a", False), ("B10b", True), ("B10c", False)):
-        kern, plain = _study_fns(name, causal)
-        q, k, v = (randn(rng, (b, h, n, d), torch.float32) for _ in "qkv")
-        flops, nbytes = variants.study_cost(
-            b, h, h, n, n, d, causal, 4, stats=2 if name == "B10a" else 0)
-        timed[name] = _timed_row(
-            f"{name} fp32 q({b},{h},{n},{d}){' causal' if causal else ''}",
-            lambda: kern(q, k, v), lambda: plain(q, k, v),
-            lambda: _sdpa(q, k, v, causal), flush, flops, nbytes,
-            PEAK_FP32_FLOPS)
     sc = d ** -0.5
     (q, k, v), err = _flash_fp32_case(rng, b, h, h, n, d)
     flops, nbytes = flash.fwd_cost(b, h, h, n, n, d, True, 4)
@@ -4191,13 +4226,12 @@ def check_study_kernels(rng, flush) -> dict:
                 q, k, v, causal=True, scale=sc, offset=0),
             lambda: _sdpa(q, k, v, True), flush, flops, nbytes,
             PEAK_FP32_FLOPS))
-    out["fp32 timings"] = timed
     check_fa1_tiles(rng, flush, out)
+    check_study_fp32(rng, flush, out)
     return out
 
 
 FA1_TILE_SHAPES = ((1, 8, 2048, 128), (1, 8, 2048, 64))
-FA1_VERIFY_SHAPE = (1, 8, 512, 64)   # cli verify's defaults
 
 
 def check_fa1_tiles(rng, flush, results):
@@ -4205,9 +4239,8 @@ def check_fa1_tiles(rng, flush, results):
     2048, 64): 16 x 16 on the mma.sync body (csrc/study_sm80.cuh), 64 x
     64 on the Hopper block (study_sm90.cuh), each under the study gate
     (o, m, l) and timed beside its bound, its plain version at the same
-    tile and SDPA; and the fp32 16 x 16 tile (study.cuh) at cli verify's
-    defaults and at (1, 8, 2048, 128). results[("B10a", dtype, shape,
-    tile)]."""
+    tile and SDPA (fp32 rows: check_study_fp32). results[("B10a",
+    dtype, shape, tile)]."""
     from flash_attention_tpu_torch.config import BlockSizes
     from flash_attention_tpu_torch.ops import variants
 
@@ -4215,8 +4248,6 @@ def check_fa1_tiles(rng, flush, results):
     cases = [(dt, shape, tile)
              for dt in (torch.bfloat16, torch.float16)
              for shape in FA1_TILE_SHAPES for tile in ((16, 16), (64, 64))]
-    cases += [(torch.float32, shape, (16, 16))
-              for shape in (FA1_VERIFY_SHAPE, FA1_TILE_SHAPES[0])]
     for dt, (b, h, n, d), (bq, bk) in cases:
         (q, k, v), err = _study_case(rng, "B10a", dt, b, h, h, n, d,
                                      block_sizes=BlockSizes(bq, bk))
@@ -4231,6 +4262,67 @@ def check_fa1_tiles(rng, flush, results):
                                       block_sizes=BlockSizes(bq, bk)),
                          lambda: plain(q, k, v, bk), lambda: _sdpa(q, k, v),
                          flush, flops, nbytes, _peak(dt), plain_iters=5))
+        torch.cuda.synchronize()
+
+
+# The fp32 study rows (csrc/study_f32.cuh): (kernel, B10a's tile or
+# None, (B, H, N, D), causal). (1, 8, 512, 64) is cli verify's defaults.
+STUDY_F32_ROWS = (
+    ("B10a", (16, 16), (1, 8, 512, 64), False),
+    ("B10a", (16, 16), (1, 8, 2048, 64), False),
+    ("B10a", (16, 16), (1, 8, 2048, 128), False),
+    ("B10a", (64, 64), (1, 8, 2048, 64), False),
+    ("B10a", (64, 64), (1, 8, 2048, 128), False),
+    ("B10b", None, (1, 8, 2048, 128), False),
+    ("B10b", None, (1, 8, 2048, 128), True),
+    ("B10c", None, (1, 8, 2048, 128), False),
+    ("B10a", (16, 16), (1, 8, 2048, 256), False),
+    ("B10c", None, (1, 8, 2048, 256), False),
+)
+
+
+def check_study_fp32(rng, flush, results):
+    """B10a (both tiles), B10b (causal and not) and B10c on fp32 inputs
+    (csrc/study_f32.cuh) at STUDY_F32_ROWS, MHA: each under the study
+    gate against fp64 (B10a's m and l too) and timed beside its bound at
+    the 67 TFLOP/s FFMA rate (the function's 4 D FLOPs a visible pair,
+    variants.study_cost; B10c's second Q K^T is work, not bound), its
+    plain version at the same tile and SDPA in fp32 (TF32 off); the first row also with its device time alone and the
+    wrapper's host time a call; one case of each kernel rerun for
+    identical bits. results[("B10a fp32", shape, tile)], results[(
+    "B10b fp32", shape, causal)], results[("B10c fp32", shape)]."""
+    from flash_attention_tpu_torch.config import BlockSizes
+    from flash_attention_tpu_torch.ops import variants
+
+    reran = set()
+    for r, (name, tile, (b, h, n, d), causal) in enumerate(STUDY_F32_ROWS):
+        bs = None if tile is None else BlockSizes(*tile)
+        (q, k, v), err = _study_case(rng, name, torch.float32, b, h, h, n,
+                                     d, causal, block_sizes=bs)
+        kern, plain = _study_fns(name, causal)
+        bkv = None if tile is None else tile[1]
+        flops, nbytes = variants.study_cost(
+            b, h, h, n, n, d, causal, 4, stats=2 if name == "B10a" else 0)
+        shape = f"({b},{h},{n},{d})"
+        what = (f"{name} fp32 q{shape}{' causal' if causal else ''}"
+                f"{'' if tile is None else f' tile {tile[0]}x{tile[1]}'}")
+
+        def fn():
+            return kern(q, k, v, block_sizes=bs)
+
+        key = ((f"{name} fp32", shape, f"{tile[0]}x{tile[1]}") if tile
+               else (f"{name} fp32", shape, causal) if name == "B10b"
+               else (f"{name} fp32", shape))
+        results[key] = row = dict(
+            max_abs_err=err, shape=what.split(" ", 2)[2],
+            **_timed_row(what, fn, lambda: plain(q, k, v, bkv),
+                         lambda: _sdpa(q, k, v, causal), flush, flops,
+                         nbytes, PEAK_FP32_FLOPS, plain_iters=2))
+        if r == 0:
+            host_row(what, fn, flush, row)
+        if (name, tile, causal) not in reran:
+            reran.add((name, tile, causal))
+            same_bits(what, fn, fn())
         torch.cuda.synchronize()
 
 
@@ -4468,6 +4560,9 @@ def study_path() -> dict:
     want = dict(
         fa1=2 * verify_calls + 4 * call,      # 3 bf16 + 1 fp32 configs
         fa1_tile16=verify_calls,
+        # fp32: verify at its defaults (B10a 16 x 16), compare's fp32
+        # config (B10a 64 x 64, B10b, B10c).
+        study_f32=verify_calls + 3 * call,
         naive=4 * call,
         fa2=7 * call,                         # 6 bf16 + 1 fp32
         flash=(7 + fixed_runs) * call + 2 * (perf_fwd + perf_bwd),
@@ -5410,6 +5505,9 @@ def main() -> int:
     tile16_ptxas = ptxas_rows(report.getvalue(), "fa1_tile16")
     for row in tile16_ptxas:
         log(f"ptxas B10a 16x16 {row}")
+    study_f32_ptxas = study_f32_ptxas_rows(report.getvalue())
+    for row in study_f32_ptxas:
+        log(f"ptxas B10a-c fp32 {row}")
     mm_ptxas = matmul_ptxas_rows(report.getvalue())
     for row in mm_ptxas:
         log(f"ptxas B6-B9 {row}")
@@ -5725,10 +5823,11 @@ def main() -> int:
              body="fp16 / bf16 at 64 x 64: wgmma + TMA ring "
                   "(csrc/study_sm90.cuh over sm90_attn.cuh); fp16 / bf16 "
                   "at 16 x 16: mma.sync register body (csrc/study_sm80.cuh,"
-                  " its own entry); fp32: csrc/study.cuh",
+                  " its own entry); fp32: csrc/study_f32.cuh (its own "
+                  "entry)",
              replaces="flash_attention_tpu/ops/variants.py:80",
              launches=sl["fa1"], launches_by_path={"cli_study": sl["fa1"]},
-             **sk[("B10a", False)], fp32=sk["fp32 timings"]["B10a"],
+             **sk[("B10a", False)],
              at_tiles={" ".join(k[1:]): v for k, v in sk.items()
                        if isinstance(k, tuple) and len(k) == 4}),
         dict(name="fa1 16x16 (B10a, fp16 / bf16)", route="cuda",
@@ -5747,18 +5846,37 @@ def main() -> int:
         dict(name="fa2_inloop (B10b)", route="cuda",
              source="flash_attention_tpu_torch/csrc/variants_fa2.cu",
              body="fp16 / bf16: wgmma + TMA ring (csrc/study_sm90.cuh "
-                  "over sm90_attn.cuh); fp32: csrc/study.cuh",
+                  "over sm90_attn.cuh); fp32: csrc/study_f32.cuh (its own "
+                  "entry)",
              replaces="flash_attention_tpu/ops/variants.py:216",
              launches=sl["fa2"], launches_by_path={"cli_study": sl["fa2"]},
              **sk[("B10b", True)],
-             at_shapes={"non-causal": sk[("B10b", False)]},
-             fp32=sk["fp32 timings"]["B10b"]),
+             at_shapes={"non-causal": sk[("B10b", False)]}),
         dict(name="naive (B10c)", route="cuda",
              source="flash_attention_tpu_torch/csrc/variants_naive.cu",
+             body="fp16 / bf16: wgmma + TMA ring (csrc/study_sm90.cuh); "
+                  "fp32: csrc/study_f32.cuh (its own entry)",
              replaces="flash_attention_tpu/ops/variants.py:349",
              launches=sl["naive"],
              launches_by_path={"cli_study": sl["naive"]},
-             **sk[("B10c", False)], fp32=sk["fp32 timings"]["B10c"]),
+             **sk[("B10c", False)]),
+        # B10a-c on fp32 inputs: one body; the headline row is B10a's 16
+        # x 16 tile at (1, 8, 2048, 128), the others in at_shapes.
+        dict(name="study fp32 (B10a, B10b, B10c)", route="cuda",
+             source="flash_attention_tpu_torch/csrc/study_f32.cuh",
+             body="4 warps over 64 (or 32) q rows, S and O in registers, "
+                  "P through shared memory, K / V slabs of 64 keys by "
+                  "cp.async through two buffers, FFMA (no TF32)",
+             replaces="flash_attention_tpu/ops/variants.py:80",
+             also_replaces=["flash_attention_tpu/ops/variants.py:216",
+                            "flash_attention_tpu/ops/variants.py:349"],
+             launches=sl["study_f32"],
+             launches_by_path={"cli_verify_and_compare_fp32":
+                               sl["study_f32"]},
+             ptxas=study_f32_ptxas,
+             **sk[("B10a fp32", "(1,8,2048,128)", "16x16")],
+             at_shapes={" ".join(map(str, k)): v for k, v in sk.items()
+                        if isinstance(k, tuple) and k[0].endswith("fp32")}),
         dict(name="flash_fwd (B1 split)", route="cuda",
              source="flash_attention_tpu_torch/csrc/flash_fwd.cu",
              replaces="flash_attention_tpu/ops/flash.py:259",

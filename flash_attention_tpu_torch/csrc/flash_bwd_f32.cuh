@@ -35,7 +35,8 @@
 //  - The accumulators (dQ; dK and dV) stay in registers from the first
 //    tile to the store, a register micro-tile of MR rows x 4 NV columns a
 //    thread (AccTile: 8 x 8 at D = 128 and 256, 8 x 4 at D = 64, 4 x 4
-//    at D = 32). A's values are read as float4 along k (the k loop
+//    at D = 32; the micro-tile, its accumulate, the cp.async staging and
+//    work_rank are ffma_f32.cuh's, shared with the fp32 study body). A's values are read as float4 along k (the k loop
 //    contiguous), B's as float4 along the columns: 12 16-byte loads per
 //    128 FFMAs. Each streamed tile's 16-term partial sum joins the
 //    accumulator whole (accumulate).
@@ -64,8 +65,8 @@
 //    head of the GQA group in turn.
 #pragma once
 
+#include "ffma_f32.cuh"
 #include "flash_bwd.cuh"
-#include "mma_sm80.cuh"
 
 namespace fa {
 namespace bwd {
@@ -76,17 +77,10 @@ constexpr int kHalf = 64;           // threads of one score product
 constexpr int kStream = 16;         // rows of a streamed tile
 constexpr int kLdP = kStream + 4;   // P / dS rows (floats; bank spread)
 
-// The register tile of an accumulating product C[R, D] over the block's
-// 128 threads: thread (ty, tx) owns rows ty + kTY i (i < kMR) and the
-// float4 columns tx + kTX j (j < kNV).
+// The accumulators' register tile over the block's 128 threads
+// (ffma_f32.cuh).
 template <int R, int D, int NV>
-struct AccTile {
-  static constexpr int kNV = NV;
-  static constexpr int kTX = D / (4 * NV);
-  static constexpr int kTY = kThreads / kTX;
-  static constexpr int kMR = R / kTY;
-  static_assert(kTX * kTY == kThreads && kMR * kTY == R, "AccTile");
-};
+using AccTile = ffma::AccTile<R, D, NV, kThreads>;
 
 template <int D>
 struct DqCfg {
@@ -125,24 +119,7 @@ struct DkvCfg {
 template <int D, int N>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           int r0, int n, int tid) {
-  constexpr int kChunks = D / 4;
-  for (int i = tid; i < N * kChunks; i += kThreads) {
-    const int r = i / kChunks, col = (i % kChunks) * 4;
-    const bool ok = r0 + r < n;
-    cp_async16(dst + r * (D + 4) + col,
-               src + (size_t)(ok ? r0 + r : 0) * D + col, ok ? 16 : 0);
-  }
-}
-
-// Entries [i0, i0 + kStream) of a length-n vector of 4-byte values into
-// shared memory by threads [t0, t0 + kStream); past n read zeros.
-template <typename V>
-__device__ __forceinline__ void load_vec(V* dst, const V* src, int i0,
-                                         int n, int tid, int t0) {
-  const int i = tid - t0;
-  if (i < 0 || i >= kStream) return;
-  const bool ok = i0 + i < n;
-  cp_async4(dst + i, src + (ok ? i0 + i : 0), ok ? 4 : 0);
+  ffma::load_rows<D, N, kThreads, ffma::Padded<D>>(dst, src, r0, n, tid);
 }
 
 // x[MI][4] = A[rows ty + 16 i] . B[rows tx + 4 j] over D (fp32 FFMA, k
@@ -186,101 +163,10 @@ __device__ __forceinline__ void scores(float (&x)[MI][4],
   }
 }
 
-// A 16-byte shared load the compiler may not merge with an earlier one:
-// accumulate re-reads A's rows for each column group rather than keep
-// them all in registers across the groups (which spills at D >= 128).
-__device__ __forceinline__ float4 lds4(const float* p) {
-  float4 v;
-  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(saddr(p)));
-  return v;
-}
-
-// The rank (0 = heaviest) of the work item that block L of W takes.
-// Blocks reach the SMs in launch order, one an SM before any SM takes a
-// second: when the whole grid is resident at once at two blocks an SM,
-// the second round takes the items lightest first, so each SM's two
-// items sum to about the mean; otherwise the heaviest go first.
-__device__ __forceinline__ int work_rank(int L, int W, int sms,
-                                         int per_sm) {
-  if (per_sm < 2 || W > 2 * sms || L < sms) return L;
-  return sms + (W - 1 - L);
-}
-
-// acc += A[rows ty + kTY i][0, K) B[0, K)[float4 columns tx + kTX j]
-// (fp32 FFMA): A row-major with stride lda, read as float4 along k; B
-// row-major with stride ldb, read as float4 along its row. Each float4
-// column group's K-term sum is formed from zero (k ascending) and then
-// added to acc, so an accumulator is a sum of K-term partial sums in tile
-// order: over thousands of rows a single running sum would grow its
-// rounding error with the row count.
-template <class A, int K>
-__device__ __forceinline__ void accumulate(
-    float (&acc)[A::kMR][4 * A::kNV], const float* __restrict__ a, int lda,
-    const float* __restrict__ b, int ldb, int ty, int tx) {
-#pragma unroll
-  for (int j = 0; j < A::kNV; ++j) {
-    float t[A::kMR][4];
-#pragma unroll
-    for (int i = 0; i < A::kMR; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) t[i][e] = 0.f;
-#pragma unroll
-    for (int k = 0; k < K; k += 4) {
-      float4 av[A::kMR];
-#pragma unroll
-      for (int i = 0; i < A::kMR; ++i)
-        av[i] = lds4(a + (ty + A::kTY * i) * lda + k);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float4 bv = *reinterpret_cast<const float4*>(
-            b + (k + kk) * ldb + 4 * (tx + A::kTX * j));
-#pragma unroll
-        for (int i = 0; i < A::kMR; ++i) {
-          const float ai = kk == 0 ? av[i].x
-                           : kk == 1 ? av[i].y
-                           : kk == 2 ? av[i].z
-                                     : av[i].w;
-          t[i][0] = fmaf(ai, bv.x, t[i][0]);
-          t[i][1] = fmaf(ai, bv.y, t[i][1]);
-          t[i][2] = fmaf(ai, bv.z, t[i][2]);
-          t[i][3] = fmaf(ai, bv.w, t[i][3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < A::kMR; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][4 * j + e] += t[i][e];
-  }
-}
-
-// An accumulator's rows (those < n) to global memory, float4 stores.
-template <class A, int D>
-__device__ __forceinline__ void store_acc(
-    const float (&acc)[A::kMR][4 * A::kNV], float* dst, int r0, int n,
-    int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < A::kMR; ++i) {
-    const int r = r0 + ty + A::kTY * i;
-    if (r >= n) continue;
-#pragma unroll
-    for (int j = 0; j < A::kNV; ++j)
-      *reinterpret_cast<float4*>(dst + (size_t)r * D +
-                                 4 * (tx + A::kTX * j)) =
-          make_float4(acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2],
-                      acc[i][4 * j + 3]);
-  }
-}
-
-template <class A>
-__device__ __forceinline__ void zero(float (&acc)[A::kMR][4 * A::kNV]) {
-#pragma unroll
-  for (int i = 0; i < A::kMR; ++i)
-#pragma unroll
-    for (int j = 0; j < 4 * A::kNV; ++j) acc[i][j] = 0.f;
-}
+using ffma::accumulate;
+using ffma::store_acc;
+using ffma::work_rank;
+using ffma::zero;
 
 // ---------------------------------------------------------------------------
 // B2: dQ. One block per (batch, q head, q tile), in work_rank order of
@@ -334,8 +220,8 @@ __global__ void __launch_bounds__(kThreads, DqCfg<D>::kMinBlocks)
     load_rows<D, kStream>(st, kg, j0, Nk, tid);
     load_rows<D, kStream>(st + kStream * kLd, vg, j0, Nk, tid);
     if (Masked && kvseg != nullptr)
-      load_vec(sSeg + (step & 1) * kStream, kvseg + (size_t)b * Nk, j0, Nk,
-               tid, 0);
+      ffma::load_vec<kStream>(sSeg + (step & 1) * kStream,
+                              kvseg + (size_t)b * Nk, j0, Nk, tid, 0);
   };
   if (n_steps > 0) issue(0);
   cp_async_commit();
@@ -468,11 +354,13 @@ __global__ void __launch_bounds__(kThreads, DkvCfg<D>::kMinBlocks)
                           static_cast<const float*>(a.dout) + qb * D, q0, Nq,
                           tid);
     float* stat = sStat + (step & 1) * 3 * kStream;
-    load_vec(stat, a.lse + qb, q0, Nq, tid, 0);
-    load_vec(stat + kStream, a.delta + qb, q0, Nq, tid, kStream);
+    ffma::load_vec<kStream>(stat, a.lse + qb, q0, Nq, tid, 0);
+    ffma::load_vec<kStream>(stat + kStream, a.delta + qb, q0, Nq, tid,
+                            kStream);
     if (Masked && qsegs != nullptr)
-      load_vec(reinterpret_cast<int*>(stat + 2 * kStream),
-               qsegs + (size_t)b * Nq, q0, Nq, tid, 2 * kStream);
+      ffma::load_vec<kStream>(reinterpret_cast<int*>(stat + 2 * kStream),
+                              qsegs + (size_t)b * Nq, q0, Nq, tid,
+                              2 * kStream);
   };
   if (n_steps > 0) issue(0);
   cp_async_commit();
@@ -542,14 +430,6 @@ __global__ void __launch_bounds__(kThreads, DkvCfg<D>::kMinBlocks)
   store_acc<A, D>(acc_v, dv + kvbase * D, j0, Nk, aty, atx);
 }
 
-// The SMs of the current device (work_rank's first round).
-inline int sm_count() {
-  int dev = 0, n = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n > 0 ? n : 1;
-}
-
 // The launchers: each raises the kernel's dynamic shared-memory limit
 // before it launches; the grid is one block per (batch, head, tile),
 // which work_rank maps to its item.
@@ -564,7 +444,7 @@ struct DqF32 {
     if (err != cudaSuccess) return err;
     const int blocks = a.B * a.Hq * ((a.Nq + C::kRows - 1) / C::kRows);
     flash_bwd_dq_f32<D, Masked><<<blocks, kThreads, C::kBytes, a.stream>>>(
-        a, static_cast<float*>(dq), sm_count());
+        a, static_cast<float*>(dq), ffma::sm_count());
     return cudaGetLastError();
   }
 };
@@ -580,7 +460,8 @@ struct DkvF32 {
     if (err != cudaSuccess) return err;
     const int blocks = a.B * a.Hkv * ((a.Nk + C::kRows - 1) / C::kRows);
     flash_bwd_dkv_f32<D, Masked><<<blocks, kThreads, C::kBytes, a.stream>>>(
-        a, static_cast<float*>(dk), static_cast<float*>(dv), sm_count());
+        a, static_cast<float*>(dk), static_cast<float*>(dv),
+        ffma::sm_count());
     return cudaGetLastError();
   }
 };

@@ -17,8 +17,8 @@
 //
 // Tiles: the FA1 tile law (Bc = ceil(M / 4d), Br = min(Bc, d)) chooses
 // (Br, Bc) in ops/variants.py among the pairs compiled here: 16 x 16 and
-// 64 x 64, each where it fits shared memory at that D and dtype (all but
-// fp32 64 x 64 at D = 256).
+// 64 x 64 at every D and dtype but fp32 64 x 64 at D = 256 (the set the
+// first body's shared memory allowed, kept; fa1_compiled_tiles).
 //
 // What bounds it on the H100: at the study's configurations (N = 512 to
 // 8192, D = 32 to 128) attention is 4 N D FLOPs per 2 D bytes of K/V a
@@ -41,49 +41,17 @@
 // fp16 / bf16 at 16 x 16 (fa1_tile16): the mma.sync register body of
 // study_sm80.cuh (one warp a 16-row q tile, eight a block, a cp.async
 // ring of K / V slabs shared by the block; its note states the 16 x 16
-// tile's contract). fp32 at both tiles keeps the first body (study.cuh
-// fa1_kernel, FFMA products from shared memory): fp32 has no tensor-core
-// operand at full precision.
+// tile's contract). fp32 at both tiles runs the register-blocked FFMA
+// body of study_f32.cuh (fp32 has no tensor-core operand at full
+// precision); its 64 x 64 tile is built up to D = 128, as before
+// (ops/variants.py fa1_compiled_tiles).
 
-#include "study.cuh"
+#include "study_f32.cuh"
 #include "study_sm80.cuh"
 #include "study_sm90.cuh"
 
 namespace fa {
 namespace study {
-
-template <typename T, int D, int BR, int BC>
-__global__ void __launch_bounds__(2 * BR) fa1_kernel(const Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  Block<T, D, BR, BC> blk(a, smem);
-  blk.start(a);
-  const float c = a.scale * kLog2e;
-  float m_i = kInitM;   // scaled units, as the JAX kernel's m
-  float l_i = 0.f;
-  for (int j0 = 0; j0 < a.Nk; j0 += BC) {
-    blk.load_kv(a, j0, true);
-    blk.scores();
-    float sv[BC / 2];
-    const float mt = blk.row_scores(a, j0, sv);   // tile max, unscaled
-    const float l_t = blk.row_probs(sv, mt, c);   // P~, l~
-    const float mt_s = mt * a.scale;
-    const float m_new = fmaxf(m_i, mt_s);
-    const float alpha = exp2f((m_i - m_new) * kLog2e);
-    const float beta = exp2f((mt_s - m_new) * kLog2e);
-    l_i = alpha * l_i + beta * l_t;
-    m_i = m_new;
-    if (blk.half == 0) {
-      blk.sAlpha[blk.row] = alpha;
-      blk.sBeta[blk.row] = beta;
-    }
-    blk.pv(true);
-  }
-  blk.store(a, l_i == 0.f ? 1.f : 1.f / l_i);
-  if (blk.half == 0 && blk.qrow < a.Nq) {
-    a.m[blk.qbase + blk.qrow] = m_i;
-    a.l[blk.qbase + blk.qrow] = l_i;
-  }
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(160, StudyCfg<D>::kBlocksPerSM)
@@ -212,8 +180,8 @@ cudaError_t fa1_run(const Args& a) {
     return launch_sm90<T, D>(fa1_sm90<T, D>, a);
   else if constexpr (sizeof(T) == 2 && BR == 16 && BC == 16)
     return launch_tile16<T, D>(a);
-  else if constexpr (Tiles<T, D, BR, BC>::kFits)
-    return launch<T, D, BR, BC>(fa1_kernel<T, D, BR, BC>, a);
+  else if constexpr (sizeof(T) == 4 && (BC == 16 || D <= 128))
+    return launch_f32<kFa1, BC, D>(a);   // fp32 64 x 64: D <= 128 only
   return cudaErrorInvalidValue;
 }
 

@@ -33,46 +33,15 @@
 // JAX kernel's acc * (carry / l_ij) + (P V) / l_ij in fp32 rounding only.
 // Only the tiles the causal diagonal crosses are masked.
 //
-// fp32 (study.cuh fa2_inloop_kernel): full fp32 on the CUDA cores.
+// fp32: the register-blocked FFMA body of study_f32.cuh (the normalized
+// update as acc = (carry / l) acc + (P / l) V; heaviest causal q tiles
+// first).
 
-#include "study.cuh"
+#include "study_f32.cuh"
 #include "study_sm90.cuh"
 
 namespace fa {
 namespace study {
-
-template <typename T, int D, int BR, int BC>
-__global__ void __launch_bounds__(2 * BR) fa2_inloop_kernel(const Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  Block<T, D, BR, BC> blk(a, smem);
-  blk.start(a);
-  const float c = a.scale * kLog2e;
-  float m_i = kInitM;   // unscaled, as S
-  float l_i = 0.f;
-  int kv_end = a.Nk;
-  if (a.causal) {
-    const int last_row = min(blk.q0 + BR, a.Nq) - 1;
-    kv_end = min(a.Nk, last_row + a.offset + 1);
-  }
-  for (int j0 = 0; j0 < kv_end; j0 += BC) {
-    blk.load_kv(a, j0, true);
-    blk.scores();
-    float sv[BC / 2];
-    const float m_ij = fmaxf(m_i, blk.row_scores(a, j0, sv));
-    const float psum = blk.row_probs(sv, m_ij, c);
-    const float carry = l_i * exp2f((m_i - m_ij) * c);
-    const float l_ij = carry + psum;
-    const float l_safe = l_ij == 0.f ? 1.f : l_ij;
-    if (blk.half == 0) {
-      blk.sAlpha[blk.row] = carry / l_safe;
-      blk.sBeta[blk.row] = 1.f / l_safe;
-    }
-    m_i = m_ij;
-    l_i = l_ij;
-    blk.pv(true);
-  }
-  blk.store(a, 1.f);   // already normalized
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(160, StudyCfg<D>::kBlocksPerSM)
@@ -184,14 +153,13 @@ template <typename T, int D>
 cudaError_t fa2_run(const Args& a, int br, int bc) {
   using Tile = DefaultTile<T, D>;
   if (br != Tile::kBR || bc != Tile::kBC) return cudaErrorInvalidValue;
+  if (a.Nq % Tile::kBR || a.Nk % Tile::kBC) return cudaErrorInvalidValue;
   if constexpr (sizeof(T) == 2) {
     static_assert(Tile::kBR == StudyCfg<D>::kBM &&
                   Tile::kBC == StudyCfg<D>::kBC);
-    if (a.Nq % Tile::kBR || a.Nk % Tile::kBC) return cudaErrorInvalidValue;
     return launch_sm90<T, D>(fa2_sm90<T, D>, a);
   } else {
-    return launch<T, D, Tile::kBR, Tile::kBC>(
-        fa2_inloop_kernel<T, D, Tile::kBR, Tile::kBC>, a);
+    return launch_f32<kFa2, Tile::kBC, D>(a);
   }
 }
 

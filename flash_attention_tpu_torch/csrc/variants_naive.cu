@@ -26,38 +26,15 @@
 // registers, P rounded to T in registers; the row max and sum are quad
 // shuffles on the accumulator fragment. Two blocks fit an SM at D <= 128.
 //
-// fp32 (study.cuh naive_kernel): full fp32 on the CUDA cores, 64 x 64,
-// 32 x 64 at D = 256 (study.cuh DefaultTile).
+// fp32: the register-blocked FFMA body of study_f32.cuh (64-key slabs;
+// the tile 64 x 64, 32 x 64 at D = 256, study.cuh DefaultTile, is what
+// the wrapper requires to divide Nq and Nk).
 
-#include "study.cuh"
+#include "study_f32.cuh"
 #include "study_sm90.cuh"
 
 namespace fa {
 namespace study {
-
-template <typename T, int D, int BR, int BC>
-__global__ void __launch_bounds__(2 * BR) naive_kernel(const Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  Block<T, D, BR, BC> blk(a, smem);
-  blk.start(a);
-  const float c = a.scale * kLog2e;
-  float m_i = kInitM;   // unscaled, as S
-  float sv[BC / 2];
-  for (int j0 = 0; j0 < a.Nk; j0 += BC) {   // pass 1: the row max
-    blk.load_kv(a, j0, false);
-    blk.scores();
-    m_i = fmaxf(m_i, blk.row_scores(a, j0, sv));
-  }
-  float l_i = 0.f;
-  for (int j0 = 0; j0 < a.Nk; j0 += BC) {   // pass 2: exp, sum, P V
-    blk.load_kv(a, j0, true);
-    blk.scores();
-    blk.row_scores(a, j0, sv);
-    l_i += blk.row_probs(sv, m_i, c);
-    blk.pv(false);
-  }
-  blk.store(a, 1.f / l_i);
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(160, StudyCfg<D>::kBlocksPerSM)
@@ -148,13 +125,12 @@ template <typename T, int D>
 cudaError_t naive_run(const Args& a, int br, int bc) {
   using Tile = DefaultTile<T, D>;
   if (br != Tile::kBR || bc != Tile::kBC) return cudaErrorInvalidValue;
+  if (a.Nq % Tile::kBR || a.Nk % Tile::kBC) return cudaErrorInvalidValue;
   if constexpr (sizeof(T) == 4) {
-    return launch<T, D, Tile::kBR, Tile::kBC>(
-        naive_kernel<T, D, Tile::kBR, Tile::kBC>, a);
+    return launch_f32<kNaive, Tile::kBC, D>(a);
   } else {
     static_assert(Tile::kBR == StudyCfg<D>::kBM &&
                   Tile::kBC == StudyCfg<D>::kBC);
-    if (a.Nq % Tile::kBR || a.Nk % Tile::kBC) return cudaErrorInvalidValue;
     return launch_sm90<T, D>(naive_sm90<T, D>, a);
   }
 }

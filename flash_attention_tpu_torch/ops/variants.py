@@ -59,40 +59,35 @@ naive_launches = 0
 # Launches of B10a's 16 x 16 fp16 / bf16 body (csrc/study_sm80.cuh; also
 # counted in fa1_launches).
 fa1_tile16_launches = 0
+# Launches of B10a, B10b and B10c on fp32 inputs, the register-blocked
+# FFMA body of csrc/study_f32.cuh (also counted in each kernel's total).
+study_f32_launches = 0
 
-# The (block_q, block_kv) pairs csrc/variants_fa1.cu instantiates, each
-# where it fits shared memory at the head dim and dtype: for fp16 / bf16
-# 16 x 16 on the mma.sync body (csrc/study_sm80.cuh) and 64 x 64 on the
-# Hopper body (csrc/study_sm90.cuh), at every head dim; for fp32 both on
-# the first body (csrc/study.cuh).
+# The (block_q, block_kv) pairs csrc/variants_fa1.cu instantiates: for
+# fp16 / bf16 16 x 16 on the mma.sync body (csrc/study_sm80.cuh) and 64 x
+# 64 on the Hopper body (csrc/study_sm90.cuh), at every head dim; for fp32
+# both on csrc/study_f32.cuh, 64 x 64 only up to D = 128 (the set the
+# first fp32 body's shared memory allowed, kept).
 FA1_TILES = ((16, 16), (64, 64))
 SMEM_LIMIT = 232448        # bytes of shared memory a block may use
 
 
-def _smem_bytes(itemsize: int, d: int, br: int, bc: int) -> int:
-    """Shared memory of a first-body study block, the fp32 body since
-    fp16 / bf16 have their own (csrc/study.cuh Tiles::kBytes): Q, K, V
-    rows padded to 16 bytes, fp32 S, P in the input dtype, fp32 O, two
-    fp32 row factors."""
-    pad = 16 // itemsize
-    return (itemsize * (br + 2 * bc) * (d + pad) + 4 * br * (bc + 4)
-            + itemsize * br * (bc + pad) + 4 * br * (d + 4) + 8 * br)
+def _fp32_above_128(dtype, head_dim: int) -> bool:
+    """fp32 at D > 128: no 64 x 64 B10a, 32 x 64 B10b / B10c."""
+    return dtype.itemsize == 4 and head_dim > 128
 
 
 def fa1_compiled_tiles(dtype, head_dim: int) -> list[tuple[int, int]]:
     """The FA1 tiles the card has for this dtype and head dim."""
-    if dtype.itemsize == 2:
-        return list(FA1_TILES)
-    return [t for t in FA1_TILES
-            if _smem_bytes(dtype.itemsize, head_dim, *t) <= SMEM_LIMIT]
+    return [(16, 16)] if _fp32_above_128(dtype, head_dim) else list(FA1_TILES)
 
 
 def study_tile(dtype, head_dim: int) -> tuple[int, int]:
     """The one tile B10b and B10c are compiled for (csrc/study.cuh
-    DefaultTile): 64 x 64 (fp16 / bf16 on the Hopper body at every head
-    dim), or 32 x 64 where 64 fp32 rows do not fit."""
-    return (64, 64) if _smem_bytes(dtype.itemsize, head_dim, 64, 64) \
-        <= SMEM_LIMIT else (32, 64)
+    DefaultTile): 64 x 64, or 32 x 64 for fp32 at D = 256. It is the
+    block the wrapper requires to divide Nq and Nk, as the JAX kernels
+    require theirs."""
+    return (32, 64) if _fp32_above_128(dtype, head_dim) else (64, 64)
 
 
 def fa1_law(m_budget_elems: int, head_dim: int) -> tuple[int, int]:
@@ -220,7 +215,7 @@ def flash_attention_fa1_plain(q, k, v, *, scale, block_kv):
 
 
 def _fa1_cuda(q, k, v, *, scale, tile):
-    global fa1_launches, fa1_tile16_launches
+    global fa1_launches, fa1_tile16_launches, study_f32_launches
     _check_cuda_inputs("B10a", q, k, v)
     batch, h, nq, d = q.shape
     nk = k.shape[2]
@@ -237,6 +232,7 @@ def _fa1_cuda(q, k, v, *, scale, tile):
     fa1_launches += 1
     # fa_fa1_fwd routes (fp16 / bf16, 16, 16) to the mma.sync body.
     fa1_tile16_launches += q.dtype.itemsize == 2 and tuple(tile) == (16, 16)
+    study_f32_launches += q.dtype == torch.float32
     _cuda.check(code, "fa1_fwd")
     return o, m, l
 
@@ -308,7 +304,7 @@ def flash_attention_fa2_inloop_plain(q, k, v, *, causal, scale, block_kv):
 
 
 def _fa2_cuda(q, k, v, *, causal, scale, tile):
-    global fa2_inloop_launches
+    global fa2_inloop_launches, study_f32_launches
     _check_cuda_inputs("B10b", q, k, v)
     batch, hq, nq, d = q.shape
     hkv, nk = k.shape[1], k.shape[2]
@@ -320,6 +316,7 @@ def _fa2_cuda(q, k, v, *, causal, scale, tile):
         hkv, nq, nk, d, tile[0], tile[1], int(causal), scale,
         _cuda.DTYPE_CODES[q.dtype], _cuda.stream_handle(q.device))
     fa2_inloop_launches += 1
+    study_f32_launches += q.dtype == torch.float32
     _cuda.check(code, "fa2_inloop_fwd")
     return o
 
@@ -380,7 +377,7 @@ def naive_attention_plain(q, k, v, *, scale, block_kv):
 
 
 def _naive_cuda(q, k, v, *, scale, tile):
-    global naive_launches
+    global naive_launches, study_f32_launches
     _check_cuda_inputs("B10c", q, k, v)
     batch, h, nq, d = q.shape
     nk = k.shape[2]
@@ -392,6 +389,7 @@ def _naive_cuda(q, k, v, *, scale, tile):
         nq, nk, d, tile[0], tile[1], scale, _cuda.DTYPE_CODES[q.dtype],
         _cuda.stream_handle(q.device))
     naive_launches += 1
+    study_f32_launches += q.dtype == torch.float32
     _cuda.check(code, "naive_fwd")
     return o
 
