@@ -8,8 +8,9 @@ Phases, each fatal on failure:
              page allocator from the sources in this checkout; print
              nvcc's ptxas report and one line of registers and spill
              per B2 / B3 instantiation, per instantiation of the B6-B9
-             Hopper bodies (csrc/matmul_sm90.cuh) and of B4 / B5's
-             split body (csrc/decode_sm90.cuh);
+             Hopper bodies (csrc/matmul_sm90.cuh), of their fp32 FFMA
+             body (csrc/matmul_f32.cuh) and of B4 / B5's split body
+             (csrc/decode_sm90.cuh);
   2. check   hold each kernel against its plain PyTorch version on the
              card in bf16 at the serving shapes (B1, B4) and the training
              shape (B2, B3), and in fp16/bf16 at small shapes for its
@@ -53,7 +54,8 @@ Phases, each fatal on failure:
              (flash_attention forward and backward, paged_flash_decode
              over fp32 and int8 pools, flash_decode, quant_matmul,
              int4_matmul, dense_matmul, grouped_matmul,
-             grouped_int4_matmul), every fp32 counter exact;
+             grouped_int4_matmul), every fp32 counter exact (the fp32
+             FFMA body of B6-B9 too);
   3d. probes the port's probes (flash_attention_tpu_torch/scripts) at
              the JAX scripts' shapes through their run(): P1's int4
              unpack variants v1 / v2 on B7's split-K decode body (3x
@@ -80,8 +82,9 @@ Phases, each fatal on failure:
              16 B2 / 16 B3 launches a step, an exact resume from a
              checkpoint, one profiled step (device time by kernel), and
              the kernel path held to the plain path;
-  7. serve8b the Engine on LlamaConfig.llama3_8b at full width and depth
-             on int4 (B7) and int8 (B6) weights drawn on the card by
+  7. serve8b the Engine on LlamaConfig.llama3_8b at full width, cut to
+             LLAMA_8B_LAYERS of its 32 layers for the time limit, on
+             int4 (B7) and int8 (B6) weights drawn on the card by
              init_quantized_params: 16 greedy requests, exact launch
              counts, transcripts held to a teacher-forced forward on the
              dequantized weights; 8 profiled decode steps; the same
@@ -102,11 +105,10 @@ Phases, each fatal on failure:
              exact launch counts, the same teacher-forced band);
   9. mixtral  the Engine on MoEConfig.mixtral_8x7b (dropless routing) at
              full width on int4 and int8 weights drawn on the
-             card by init_quantized_moe_params (each cut to 16 of its
-             32 layers for the time limit), then the int4 tree with
+             card by init_quantized_moe_params, then the int4 tree with
              FA_TPU_GROUPED_MIN_TOKENS=1 (B9 at every decode step), then
-             bf16 weights cut to 8 layers (of the 16 that fit one
-             card, to keep the script inside its time limit): 8 greedy
+             bf16 weights (each tree cut to MIXTRAL_*_LAYERS of its 32
+             layers for the time limit): 8 greedy
              requests of 300-4600 tokens, exact B9 / B7 / B6 / B1 / B4
              launch counts, transcripts held to a teacher-forced forward
              with plain attention and a plain per-expert MoE, 8 profiled
@@ -114,7 +116,8 @@ Phases, each fatal on failure:
              timed through the one-hot cubes and the grouped path at
              16-8192 tokens (the card's crossover, reported);
  10. mistral  the Engine on LlamaConfig.mistral_7b (sliding window 4096)
-             at full width and depth in bf16, weights drawn on the card:
+             at full width in bf16, cut to MISTRAL_LAYERS of its 32
+             layers for the time limit, weights drawn on the card:
              8 greedy requests of 700-12000 tokens in two waves (the
              second's four share a 3072-token prefix with a finished
              first-wave request), served with monolithic prefill and
@@ -130,10 +133,11 @@ Phases, each fatal on failure:
              with the widened band; then sampling.generate on 4 x
              5000-token prompts (B5's window);
  11. train_mistral  the Trainer on LlamaConfig.mistral_7b (window 4096)
-             at full width cut to 16 layers (58 GB of bf16 state at 32),
-             batch 1 x 8192 from a seeded token shard: 4 steps with
-             finite, falling loss and exactly 32 / 16 / 16 B1 / B2 / B3
-             launches a step, every one on its window branch; an exact
+             at full width cut to MISTRAL_TRAIN_LAYERS layers (58 GB of
+             bf16 state at 32), batch 1 x 8192 from a seeded token shard:
+             4 steps with finite, falling loss and exactly 2 B1 and 1 B2
+             and B3 launches a layer a step, every one on its window
+             branch; an exact
              resume from a checkpoint; one profiled step; the kernel
              path held to the plain path over two layers; then one
              segmented gradient through flash_attention(...,
@@ -184,8 +188,10 @@ timed beside their bound at the 67 TFLOP/s FFMA rate or in bytes and
 their library call: B2 / B3 at (1, 8, 2048, D = 64 / 128 / 256) causal
 and with a window and segment ids, B4 at check_paged's shape over fp32
 and int8 pools (and fold_scales), B5 at the generate shape over fp32 and
-int8 caches, B6 / B7 / B8 at 16 and 1024 rows of 4096 x 14336, B9 on
-five storages at Mixtral's expert shapes with 16 rows.
+int8 caches, B6 / B7 / B8 at 16 and 1024 rows of 4096 x 14336 and 1024
+rows of 14336 x 4096, B9 on five storages at Mixtral's expert shapes
+with 16 rows (each B6-B9 case rerun for identical bits, the FFMA body's
+launch counter exact), and B6-B9 at ragged fp32 shapes.
 
 Prints information lines, then one JSON line describing the kernels,
 then the card's name and power limit, and last one JSON line
@@ -327,6 +333,22 @@ def split_ptxas_rows(build_log: str) -> list[str]:
             f"D={m.group(6)}", v.get("regs", "? registers"),
             v.get("spill", "")))))
     return sorted(rows)
+
+
+def matmul_f32_ptxas_rows(build_log: str) -> list[str]:
+    """One line per instantiation of csrc/matmul_f32.cuh's kernel
+    (mm_f32<rows, storage, grouped>): B6-B8 or B9, the tile's rows, the
+    storage, registers a thread and spill stores / loads."""
+    rows = []
+    for mangled, v in ptxas_info(build_log).items():
+        m = re.search(r"mm_f32ILi(\d+)ELi(\d)ELb([01])E", mangled)
+        if m is None:
+            continue
+        rows.append(" ".join(filter(None, (
+            "B9" if m.group(3) == "1" else "B6-B8", f"{m.group(1)} rows",
+            STORAGE_NAMES[int(m.group(2))], v.get("regs", "? registers"),
+            v.get("spill", "")))))
+    return sorted(rows, key=lambda r: (r.split()[0], int(r.split()[1]), r))
 
 
 def study_f32_ptxas_rows(build_log: str) -> list[str]:
@@ -987,6 +1009,7 @@ def _counters() -> dict:
             "int4_fp32": (quant_matmul, "int4_matmul_fp32_launches"),
             "dense_fp32": (quant_matmul, "dense_matmul_fp32_launches"),
             "grouped_fp32": (grouped, "grouped_matmul_fp32_launches"),
+            "matmul_ffma": (quant_matmul, "matmul_ffma_launches"),
             "p1_v1": (p1, "v1_launches"),
             "p1_v2": (p1, "v2_launches"),
             "p1_first_body": (p1, "first_body_launches"),
@@ -1010,7 +1033,8 @@ def _counters() -> dict:
 # B2/B3; the fp32, split, study, probe and first-body counters are zero
 # on every model path.
 FP32_COUNTERS = ("bwd_dq_fp32", "bwd_dkv_fp32", "paged_fp32", "decode_fp32",
-                 "quant_fp32", "int4_fp32", "dense_fp32", "grouped_fp32")
+                 "quant_fp32", "int4_fp32", "dense_fp32", "grouped_fp32",
+                 "matmul_ffma")
 PROBE_COUNTERS = ("p1_v1", "p1_v2", "p1_first_body", "p2_v2", "p3",
                   "p3_first_body")
 NO_BRANCHES = dict.fromkeys(("flash_seg", "flash_win", "flash_quant",
@@ -1154,7 +1178,7 @@ def kv_bytes(cache) -> dict:
 
 def serve_8b(kind: str, params, cfg, kv=None) -> dict:
     """Serve 16 greedy requests (prompts of 256-1100 tokens, 32 new tokens
-    each) on LlamaConfig.llama3_8b at full width and depth through
+    each) on LlamaConfig.llama3_8b at full width through
     serve_stack: "int4" and "int8" weight trees from init_quantized_params
     (drawn on the card), or "bf16" init_params weights, with bf16 KV or,
     with `kv`, int8 / e4m3 KV pages. Gates: exact launch counts (B7 / B6
@@ -1279,7 +1303,7 @@ def ppl_delta_8b(params, cfg, kv) -> dict:
 
 
 def quant_api_8b(params, cfg) -> dict:
-    """The quantized-KV attention API at full width and depth (no engine
+    """The quantized-KV attention API at full width (no engine
     path of the JAX package calls it): a 2048-token forward of the bf16
     llama3_8b whose every layer attends over its K/V quantized to int8 by
     quantize_kv, through flash_attention_quantized (B1's int8 branch);
@@ -1354,8 +1378,13 @@ def quant_api_8b(params, cfg) -> dict:
     return dict(launches=got, b5_vs_b1=max(last_gap), logit_err=err)
 
 
+# Depth of the 8B trees: 8 of 32 layers keep the whole script well inside
+# its time limit; every layer runs the same kernels at the same shapes.
+LLAMA_8B_LAYERS = 8
+
+
 def serve_8b_phase() -> dict:
-    """Phase 7: llama3_8b on int4 and int8 weights, then on bf16 weights
+    """Phase 7: llama3_8b (cut to LLAMA_8B_LAYERS layers) on int4 and int8 weights, then on bf16 weights
     with bf16 KV (the yardstick), int8 KV and e4m3 KV, the perplexity-
     delta gate for both KV storages and the quantized-KV API drive."""
     from flash_attention_tpu_torch.models.llama import (
@@ -1365,7 +1394,8 @@ def serve_8b_phase() -> dict:
         init_quantized_params, logical_param_count, params_nbytes,
     )
 
-    cfg = LlamaConfig.llama3_8b(dtype=torch.bfloat16)
+    cfg = LlamaConfig.llama3_8b(n_layers=LLAMA_8B_LAYERS,
+                                dtype=torch.bfloat16)
     out = {}
     for kind in ("int4", "int8", "bf16"):
         t0 = time.perf_counter()
@@ -1570,13 +1600,13 @@ def serve_mixtral(kind, params, cfg, forced=False) -> dict:
     return out
 
 
-# Depth of the bf16 Mixtral tree: 16 layers fit one card (93 GB at 32);
-# 8 keep the whole script inside its time limit. The int8 tree (47 GB at full depth, the largest) is cut to 16
-# of its 32 layers for the same reason, and so is the int4 tree (the
-# script passed 1100 s at 32).
-MIXTRAL_BF16_LAYERS = 8
-MIXTRAL_INT8_LAYERS = 16
-MIXTRAL_INT4_LAYERS = 16
+# Depth of the Mixtral trees: 4 of their 32 layers each keep the whole
+# script well inside its time limit (a bf16 tree of 16 layers is the most
+# that fits one card, 93 GB at 32); every layer runs the same kernels at
+# the same shapes.
+MIXTRAL_BF16_LAYERS = 4
+MIXTRAL_INT8_LAYERS = 4
+MIXTRAL_INT4_LAYERS = 4
 
 
 def mixtral() -> dict:
@@ -1755,9 +1785,15 @@ def serve_stack(what, params, cfg, waves, engine_kw, counts_fn, poll=None):
                      peak_bytes=peak)
 
 
+# Depth of the served Mistral tree: 8 of its 32 layers keep the whole
+# script well inside its time limit.
+MISTRAL_LAYERS = 8
+
+
 def mistral() -> dict:
     """Phase 10: LlamaConfig.mistral_7b (sliding window 4096) at full
-    width and depth in bf16, weights drawn on the card. Eight greedy
+    width in bf16, cut to MISTRAL_LAYERS layers, weights drawn on the
+    card. Eight greedy
     requests of 700-12000 tokens in two waves (the second wave's four
     share the 3072-token prefix of a first-wave request, which has
     finished by then), served with monolithic prefill and again with
@@ -1771,7 +1807,8 @@ def mistral() -> dict:
     from flash_attention_tpu_torch.models.llama import LlamaConfig, init_params
     from flash_attention_tpu_torch.runtime.engine import Request
 
-    cfg = LlamaConfig.mistral_7b(dtype=torch.bfloat16)
+    cfg = LlamaConfig.mistral_7b(n_layers=MISTRAL_LAYERS,
+                                 dtype=torch.bfloat16)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=SEED)
     torch.cuda.synchronize()
@@ -2548,9 +2585,10 @@ def _grouped_fns(kind):
 
 
 def library_grouped(x, sizes, w, flush):
-    """torch._grouped_mm on the dense bf16 stack with the same int32
-    offsets: the library yardstick, timed only (never called by the
-    port). Returns (ms or None, what was timed or why not)."""
+    """torch._grouped_mm on the dense stack w (bf16, or fp32 for the fp32
+    rows) with the same int32 offsets: the library yardstick, timed only
+    (never called by the port). Returns (ms or None, what was timed or
+    why not)."""
     fn = getattr(torch, "_grouped_mm", None)
     if fn is None:
         return None, "torch._grouped_mm is absent from this torch"
@@ -2560,8 +2598,10 @@ def library_grouped(x, sizes, w, flush):
         torch.cuda.synchronize()
     except RuntimeError as exc:
         return None, f"torch._grouped_mm refused: {str(exc)[:200]}"
+    kind = {torch.bfloat16: "bf16", torch.float32: "fp32"}.get(w.dtype,
+                                                               w.dtype)
     return (time_ms(lambda: fn(x, w, offs=offs), flush),
-            "torch._grouped_mm, dense bf16 stack")
+            f"torch._grouped_mm, dense {kind} stack")
 
 
 # B9's straddle case: 600 rows over 8 experts whose boundaries (100, 130,
@@ -3878,7 +3918,7 @@ def check_rows(rng):
 
 # --- phase 11: windowed training, the segmented gradient, moe_loss_fn -----
 
-MISTRAL_TRAIN_LAYERS = 16        # the one-card depth (58 GB of state at 32)
+MISTRAL_TRAIN_LAYERS = 4         # for the time limit (58 GB of state at 32)
 
 
 def train_1b() -> dict:
@@ -3891,9 +3931,10 @@ def train_1b() -> dict:
 
 
 def train_mistral() -> dict:
-    """LlamaConfig.mistral_7b at full width (window 4096), cut to 16
-    layers, trained at batch 1 x 8192 (train(): 4 steps, 32 B1 / 16 B2 /
-    16 B3 launches a step, every one on its window branch); the kernel
+    """LlamaConfig.mistral_7b at full width (window 4096), cut to
+    MISTRAL_TRAIN_LAYERS layers, trained at batch 1 x 8192 (train(): 4
+    steps, 2 B1 and 1 B2 and B3 launches a layer a step, every one on its
+    window branch); the kernel
     path held to the plain path over the first 2 layers at T = 8192."""
     from flash_attention_tpu_torch.models.llama import LlamaConfig
 
@@ -4582,12 +4623,18 @@ def study() -> dict:
     entry point (study_path)."""
     flush = L2Flush()
     rng = np.random.default_rng(SEED + 9)
-    out = dict(kernels=check_study_kernels(rng, flush),
-               split=check_split(rng, flush))
+    out = {}
+    for key, fn in (("kernels", check_study_kernels), ("split", check_split)):
+        t = time.perf_counter()
+        out[key] = fn(rng, flush)
+        torch.cuda.synchronize()
+        log(f"study: {fn.__name__} {time.perf_counter() - t:.1f} s")
     del flush
     gc.collect()
     torch.cuda.empty_cache()
+    t = time.perf_counter()
     out["path"] = study_path()
+    log(f"study: study_path {time.perf_counter() - t:.1f} s")
     return out
 
 
@@ -4763,10 +4810,18 @@ def check_fp32_decode(rng, flush, results):
             shape=f"q({b},32,{d}) cache({b},8,{s},{d}) lens {lens} {what}")
 
 
-# fp32 B6-B8 at the 8B decode and prefill shapes of w_gate; B9 at
-# Mixtral's expert shapes with 16 rows.
-FP32_MATMUL_SHAPES = ((16, 4096, 14336), (1024, 4096, 14336))
+# fp32 B6-B8 at the 8B decode and prefill shapes of w_gate and the
+# prefill shape of w_down; B9 at Mixtral's expert shapes with 16 rows.
+FP32_MATMUL_SHAPES = ((16, 4096, 14336), (1024, 4096, 14336),
+                      (1024, 14336, 4096))
 FP32_GROUPED_SHAPES = ((16, 4096, 14336), (16, 14336, 4096))
+# Shapes off the FFMA body's fast paths, gated only: x rows of K % 4 != 0
+# (4-byte staging), weight rows of F % 16 != 0 bytes (byte loads), M
+# across the 16 / 32 / 64 / 128-row tiles, K not a multiple of a step.
+FP32_RAGGED = ((3, 130, 257), (33, 384, 200), (70, 256, 96), (129, 200, 384))
+# B9's: (M, K, F, group sizes, base).
+FP32_GROUPED_RAGGED = ((300, 384, 200, [100, 30, 0, 77, 50, 20, 13, 5], 3),
+                       (13, 256, 130, [2, 0, 5, 3], None))
 
 
 def _fp32_weight(kind, k, f, gen):
@@ -4784,21 +4839,70 @@ def _fp32_weight(kind, k, f, gen):
     return args, args[0].float() * args[1]
 
 
-def check_fp32_matmul(flush, results):
+def ffma_count():
+    """The fp32 FFMA body's launch counter (every fp32 B6-B9 launch), or
+    None in a package without it (a parent in kernel_pairs.py)."""
+    from flash_attention_tpu_torch.ops import quant_matmul as qm
+
+    return getattr(qm, "matmul_ffma_launches", None)
+
+
+def _ffma_twice(what, fn):
+    """fn() twice: identical bits (split rows merge their partials in a
+    fixed order), and exactly two launches on the FFMA body's counter
+    where the package has it. Returns the first output."""
+    before = ffma_count()
+    got = fn()
+    same_bits(what, fn, got)
+    after = ffma_count()
+    if before is not None and after - before != 2:
+        raise AssertionError(f"{what}: {after - before} FFMA body "
+                             f"launches for 2 calls")
+    return got
+
+
+def _fp32_hi(kind, x, args, w32):
+    """The fp64 product of B6-B8: B6 scales the sum at the store; B7 /
+    B8 multiply the exact fp32 weight."""
+    if kind in (torch.int8, torch.float8_e4m3fn, torch.float8_e5m2):
+        return (x.double() @ args[0].float().double()) * args[1].double()
+    return x.double() @ w32.double()
+
+
+def _grouped_hi(x, sizes, w32, base=None):
+    """The fp64 product of B9 over the exact fp32 stack: each expert's
+    rows against its weight, rows outside every expert zero."""
+    offs = [(base or 0) + o for o in [0] + torch.cumsum(sizes, 0).tolist()]
+    hi = torch.zeros((x.shape[0], w32.shape[2]), dtype=torch.float64,
+                     device="cuda")
+    for g in range(w32.shape[0]):
+        lo, up = max(offs[g], 0), min(offs[g + 1], x.shape[0])
+        if lo < up:
+            hi[lo:up] = x[lo:up].double() @ w32[g].double()
+    return hi
+
+
+def check_fp32_matmul(rng, flush, results):
     """B6 (int8), B7 (int4) and B8 (an fp32 weight) on fp32 activations
-    at 16 and 1024 rows of 4096 x 14336, and B9 on all five storages at
+    (csrc/matmul_f32.cuh's FFMA body) at 16 and 1024 rows of 4096 x 14336
+    and 1024 rows of 14336 x 4096, and B9 on all five storages at
     Mixtral's w_gate / w_down with 16 expert-sorted rows over 8 experts:
     each under the 3x gate against the fp64 product over the exact fp32
-    weight the kernel multiplies, timed beside its bound (the FFMA rate
-    or bytes), the plain version and the library call (torch.matmul in
-    fp32 on the fp32 weight; torch._grouped_mm on the fp32 stack where
-    it takes one)."""
+    weight the kernel multiplies, rerun for identical bits with the FFMA
+    body's counter exact, timed beside its bound (the FFMA rate or
+    bytes), the plain version and the library call (torch.matmul in fp32
+    on the fp32 weight; torch._grouped_mm on the fp32 stack where it
+    takes one, else the reason it gave); then FP32_RAGGED on every
+    storage and FP32_GROUPED_RAGGED (a base, an empty expert) on the
+    dense and int4 stacks, gated only. Inputs come from the check's own
+    seeded generators (rng is unused)."""
     from flash_attention_tpu_torch.ops.grouped import grouped_cost
 
+    del rng
+    t0 = time.perf_counter()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 12)
     rng = np.random.default_rng(SEED + 12)
-    f32 = torch.float32
     for label, kind in (("B6 int8", torch.int8), ("B7 int4", "int4"),
                         ("B8 dense", "dense")):
         fn, plain, cost = _matmul_fns(kind)
@@ -4806,13 +4910,11 @@ def check_fp32_matmul(flush, results):
         for m, k, f in FP32_MATMUL_SHAPES:
             args, w32 = _fp32_weight(kind, k, f, gen)
             x = torch.randn((m, k), generator=gen, device="cuda")
-            got = fn(x, *args)
+            what = f"{label} fp32 {m}x{k}x{f}"
+            got = _ffma_twice(what, lambda: fn(x, *args))
             lo = plain(x, *args)
-            # B6 scales the fp32 sum at the store; B7 / B8 multiply the
-            # exact fp32 weight.
-            hi = ((x.double() @ args[0].double()) * args[1].double()
-                  if kind == torch.int8 else x.double() @ w32.double())
-            err = _fp32_gate(f"{label} fp32 {m}x{k}x{f}", got, hi, lo)
+            hi = _fp32_hi(kind, x, args, w32)
+            err = _fp32_gate(what, got, hi, lo)
             del hi
             flops, nbytes = cost(m, k, f, 4)
             rows.append(_timed_row(
@@ -4834,17 +4936,12 @@ def check_fp32_matmul(flush, results):
             del per
             x = torch.randn((m, k), generator=gen, device="cuda")
             sizes = skewed_sizes(rng, m, e)
-            got = fn(x, sizes, *args)
+            what = f"{label} fp32 {m}x{k}x{f} sizes {sizes.tolist()}"
+            got = _ffma_twice(what, lambda: fn(x, sizes, *args))
             lo = plain(x, sizes, *args)
-            offs = [0] + torch.cumsum(sizes, 0).tolist()
-            hi = torch.zeros((m, f), dtype=torch.float64, device="cuda")
-            for g in range(e):
-                hi[offs[g]:offs[g + 1]] = (x[offs[g]:offs[g + 1]].double()
-                                           @ w32[g].double())
-            err = _fp32_gate(f"{label} fp32 {m}x{k}x{f} sizes "
-                             f"{sizes.tolist()}", got, hi, lo)
-            del hi
+            err = _fp32_gate(what, got, _grouped_hi(x, sizes, w32), lo)
             lib_ms, lib_what = library_grouped(x, sizes, w32, flush)
+            log(f"library {label} fp32 {m}x{k}x{f}: {lib_ms} ms ({lib_what})")
             flops, nbytes = grouped_cost(m, k, f, int((sizes > 0).sum()),
                                          storage, x_itemsize=4)
             row = _timed_row(
@@ -4858,6 +4955,32 @@ def check_fp32_matmul(flush, results):
             del args, w32, x, got, lo
         results[("fp32", label)] = rows
         torch.cuda.empty_cache()
+    for kind in ("dense", torch.int8, torch.float8_e4m3fn,
+                 torch.float8_e5m2, "int4"):
+        fn, plain, _ = _matmul_fns(kind)
+        for m, k, f in FP32_RAGGED:
+            k = -(-k // 128) * 128 if kind == "int4" else k
+            args, w32 = _fp32_weight(kind, k, f, gen)
+            x = torch.randn((m, k), generator=gen, device="cuda")
+            what = f"{kind} fp32 ragged {m}x{k}x{f}"
+            got = _ffma_twice(what, lambda: fn(x, *args))
+            _fp32_gate(what, got, _fp32_hi(kind, x, args, w32),
+                       plain(x, *args))
+    for label in ("B9 dense", "B9 int4"):
+        kind = GROUPED_KINDS[label]
+        fn, plain, _ = _grouped_fns(kind)
+        for m, k, f, sizes, base in FP32_GROUPED_RAGGED:
+            per = [_fp32_weight(kind, k, f, gen) for _ in sizes]
+            args = tuple(torch.stack(t) for t in zip(*(a for a, _ in per)))
+            w32 = torch.stack([w for _, w in per])
+            x = torch.randn((m, k), generator=gen, device="cuda")
+            gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+            what = f"{label} fp32 ragged {m}x{k}x{f} sizes {sizes} base {base}"
+            got = _ffma_twice(what, lambda: fn(x, gs, *args, base=base))
+            _fp32_gate(what, got, _grouped_hi(x, gs, w32, base),
+                       plain(x, gs, *args, base=base))
+    torch.cuda.synchronize()
+    log(f"check_fp32_matmul: {time.perf_counter() - t0:.1f} s")
 
 
 def check_fp32(rng, flush, results):
@@ -4867,42 +4990,33 @@ def check_fp32(rng, flush, results):
     torch.cuda.synchronize()
     check_fp32_decode(rng, flush, results)
     torch.cuda.synchronize()
-    check_fp32_matmul(flush, results)
+    check_fp32_matmul(rng, flush, results)
     torch.cuda.synchronize()
 
 
 def check_kernels() -> dict:
+    """Phase 2/3: every check in turn, each one's seconds logged."""
     flush = L2Flush()
     rng = np.random.default_rng(SEED)
     results: dict = {}
-    check_flash(rng, flush, results)
-    torch.cuda.synchronize()
-    check_paged(rng, flush, results)
-    torch.cuda.synchronize()
-    check_flash_bwd(rng, flush, results)
-    torch.cuda.synchronize()
-    check_variants(rng)
-    check_decode(rng, flush, results)
-    torch.cuda.synchronize()
-    check_quant_matmul(rng, flush, results)
-    torch.cuda.synchronize()
-    check_grouped(rng, flush, results)
-    torch.cuda.synchronize()
-    check_flash_branches(rng, flush, results)
-    check_paged_window(rng, flush, results)
-    check_decode_window(rng, flush, results)
-    torch.cuda.synchronize()
-    check_paged_quant(rng, flush, results)
-    check_decode_quant(rng, flush, results)
-    check_flash_quant(rng, flush, results)
-    torch.cuda.synchronize()
-    check_flash_long(rng, flush, results)
-    torch.cuda.synchronize()
-    check_bwd_branches(rng, flush, results)
-    check_head_dims(rng, flush, results)
-    check_rows(rng)
-    check_split_edges(rng)
-    check_fp32(rng, flush, results)
+    full = (check_flash, check_paged, check_flash_bwd, check_decode,
+            check_quant_matmul, check_grouped, check_flash_branches,
+            check_paged_window, check_decode_window, check_paged_quant,
+            check_decode_quant, check_flash_quant, check_flash_long,
+            check_bwd_branches, check_head_dims, check_fp32)
+    for fn in (check_flash, check_paged, check_flash_bwd, check_variants,
+               check_decode, check_quant_matmul, check_grouped,
+               check_flash_branches, check_paged_window,
+               check_decode_window, check_paged_quant, check_decode_quant,
+               check_flash_quant, check_flash_long, check_bwd_branches,
+               check_head_dims, check_rows, check_split_edges, check_fp32):
+        t = time.perf_counter()
+        if fn in full:
+            fn(rng, flush, results)
+        else:
+            fn(rng)
+        torch.cuda.synchronize()
+        log(f"check: {fn.__name__} {time.perf_counter() - t:.1f} s")
     return results
 
 
@@ -4916,7 +5030,8 @@ def fp32_api() -> dict:
     and int8 pools, flash_decode over an fp32 cache, quant_matmul,
     int4_matmul and dense_matmul at 16 x 4096 x 4096, grouped_matmul and
     grouped_int4_matmul over 8 experts. Each fp32 counter must equal its
-    kernel's total; the outputs must be finite."""
+    kernel's total, the fp32 FFMA body's the five B6-B9 calls (none on
+    the first body); the outputs must be finite."""
     from flash_attention_tpu_torch.ops import decode as dec
     from flash_attention_tpu_torch.ops import (
         flash, grouped, paged, quant_matmul as qm,
@@ -4966,7 +5081,7 @@ def fp32_api() -> dict:
                 bwd_dkv_fp32=1, paged=2, paged_fp32=2, paged_quant=1,
                 decode=1, decode_fp32=1, quant=1, quant_fp32=1, int4=1,
                 int4_fp32=1, dense=1, dense_fp32=1, grouped=2,
-                grouped_fp32=2)
+                grouped_fp32=2, matmul_ffma=5, matmul_first_body=0)
     have = {key: got[key] for key in want}
     finite = all(bool(torch.isfinite(t.float()).all()) for t in outs)
     log(f"fp32_api: launches {have} finite={finite}")
@@ -5350,10 +5465,10 @@ def check_probe_lmhead(rng, flush, results):
         qm.dense_matmul_cost(m, k, v))
 
 
-def fp32_entries(results, fp32p, bwd_ptxas) -> list:
+def fp32_entries(results, fp32p, bwd_ptxas, mm_ptxas) -> list:
     """The kernels line's entries of B2-B9 on fp32 inputs, each with the
-    launches its own fp32 counter saw on the fp32_api path (B2 / B3 also
-    their ptxas rows)."""
+    launches its own fp32 counter saw on the fp32_api path (B2 / B3 and
+    B6-B9 also their ptxas rows; B6-B9 the FFMA body's counter)."""
     def one(name, source, replaces, counter, row, **more):
         return dict(name=name, route="cuda",
                     source=f"flash_attention_tpu_torch/csrc/{source}",
@@ -5372,6 +5487,11 @@ def fp32_entries(results, fp32p, bwd_ptxas) -> list:
 
     masked = results[("fp32", "masked")]
     offset = results[("fp32", "offset")]
+    mm_body = ("register-blocked FFMA: 256 threads on a 16-128 x 128 tile "
+               "(8 x 8 a thread, K sliced across thread groups below 128 "
+               "rows), cp.async ring with the weight widened once a block "
+               "in shared memory, K split by ffma_plan with a fixed-order "
+               "merge (matmul_f32.cu / matmul_f32_grouped.cu instantiate it)")
     body = ("register-blocked FFMA: 4 warps over 64 resident rows (32 at "
             "D = 256), 16-row streamed tiles in a cp.async double buffer, "
             "accumulators in registers (flash_bwd_f32.cu instantiates it)")
@@ -5396,19 +5516,23 @@ def fp32_entries(results, fp32p, bwd_ptxas) -> list:
             "decode_fp32", results[("fp32", "decode", "fp32 cache")],
             at_shapes={"int8 cache": results[("fp32", "decode",
                                               "int8 cache")]}),
-        one("quant_matmul (B6 fp32)", "matmul_f32.cu", "quant_matmul.py:41",
-            "quant_fp32", results[("fp32", "B6 int8")][0],
-            at_shapes=results[("fp32", "B6 int8")][1:]),
-        one("int4_matmul (B7 fp32)", "matmul_f32.cu", "quant_matmul.py:214",
-            "int4_fp32", results[("fp32", "B7 int4")][0],
-            at_shapes=results[("fp32", "B7 int4")][1:]),
-        one("dense_matmul (B8 fp32)", "matmul_f32.cu", "quant_matmul.py:141",
-            "dense_fp32", results[("fp32", "B8 dense")][0],
-            at_shapes=results[("fp32", "B8 dense")][1:]),
-        one("grouped_matmul (B9 fp32)", "matmul_f32.cu", "grouped.py:132",
-            "grouped_fp32", results[("fp32", "B9 int4")][0],
-            at_shapes={"B9 int4 w_down": results[("fp32", "B9 int4")][1:],
-                       **grouped_at()}),
+        *(one(name, "matmul_f32.cuh", replaces, counter,
+              results[("fp32", label)][0], body=mm_body,
+              ffma_launches_fp32_api=fp32p["matmul_ffma"],
+              ptxas=[r for r in mm_ptxas if r.startswith(
+                  "B9" if label.startswith("B9") else "B6-B8")],
+              at_shapes=(results[("fp32", label)][1:] if at is None
+                         else at))
+          for name, replaces, counter, label, at in (
+              ("quant_matmul (B6 fp32)", "quant_matmul.py:41", "quant_fp32",
+               "B6 int8", None),
+              ("int4_matmul (B7 fp32)", "quant_matmul.py:214", "int4_fp32",
+               "B7 int4", None),
+              ("dense_matmul (B8 fp32)", "quant_matmul.py:141",
+               "dense_fp32", "B8 dense", None),
+              ("grouped_matmul (B9 fp32)", "grouped.py:132", "grouped_fp32",
+               "B9 int4", {"B9 int4 w_down": results[("fp32", "B9 int4")][1:],
+                           **grouped_at()}))),
     ]
 
 
@@ -5511,6 +5635,9 @@ def main() -> int:
     mm_ptxas = matmul_ptxas_rows(report.getvalue())
     for row in mm_ptxas:
         log(f"ptxas B6-B9 {row}")
+    mm_f32_ptxas = matmul_f32_ptxas_rows(report.getvalue())
+    for row in mm_f32_ptxas:
+        log(f"ptxas B6-B9 fp32 {row}")
     split_ptxas = split_ptxas_rows(report.getvalue())
     for row in split_ptxas:
         log(f"ptxas B4/B5 {row}")
@@ -5894,7 +6021,7 @@ def main() -> int:
              launches_by_path={"cli_compare_fp32": sl["flash_fp32"],
                                "fp32_api": fp32p["flash_fp32"]},
              **sk["B1 fp32"]),
-        *fp32_entries(results, fp32p, bwd_f32_ptxas),
+        *fp32_entries(results, fp32p, bwd_f32_ptxas, mm_f32_ptxas),
         *probe_entries(pr, mm_ptxas),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

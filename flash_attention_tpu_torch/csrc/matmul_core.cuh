@@ -1,15 +1,16 @@
 // The first weight-widening matrix-product body of B6 / B7 / B8
-// (quant_matmul.cu) and B9 (grouped_matmul.cu), for sm_90a. Since the
-// Hopper bodies of matmul_sm90.cuh took every fp16 / bf16 launch whose
-// operands TMA can address, it runs fp32 activations (FFMA, below),
-// fp16 / bf16 operands with a base or row stride that is not a multiple
-// of 16 bytes (counted in ops/quant_matmul.py
-// matmul_first_body_launches; no model path makes one), and the study
-// probes P1 (probe_int4_variants.cu, its step functor) and P3
-// (probe_lmhead_argmax.cu). What bounds it: at 64 x 64 tiles with WMMA
-// from shared memory and two barriers a K step it reaches ~11% of the
-// tensor cores' rate at prefill, and at decode F / 64 blocks keep too
-// few bytes in flight to fill HBM -- the reasons those launches moved.
+// (quant_matmul.cu) and B9 (grouped_matmul.cu), for sm_90a, on fp16 /
+// bf16 activations. Since the Hopper bodies of matmul_sm90.cuh took every
+// fp16 / bf16 launch whose operands TMA can address, and the FFMA body of
+// matmul_f32.cuh every fp32 launch, it runs fp16 / bf16 operands with a
+// base or row stride that is not a multiple of 16 bytes (counted in
+// ops/quant_matmul.py matmul_first_body_launches; no model path makes
+// one), and the study probes P1 (probe_int4_variants.cu, its step
+// functor) and P3 (probe_lmhead_argmax.cu) where TMA cannot address their
+// operands. What bounds it: at 64 x 64 tiles with WMMA from shared memory
+// and two barriers a K step it reaches ~11% of the tensor cores' rate at
+// prefill, and at decode F / 64 blocks keep too few bytes in flight to
+// fill HBM -- the reasons those launches moved.
 //
 // A 128-thread block owns a kBM x kBN = 64 x 64 tile of y and loops over
 // K in steps of kBK = 128 (one int4 scale group). Each step loads the
@@ -28,15 +29,6 @@
 // [0, M), B9 once per expert whose rows meet the tile. A caller may pass
 // a step functor, run by every thread once per K step after the step's
 // tiles are in shared memory (the probe P1's offset correction).
-//
-// fp32 activations (the JAX kernels' fp32 path) take the same loop with
-// fp32 tiles in shared memory and the products on the CUDA cores in full
-// fp32 (common.cuh ffma_ab, the warp tile of B1's fp32 instantiation):
-// WMMA has no fp32 operand and the JAX kernels ask for
-// Precision.HIGHEST. The sums then live in a fp32 tile in shared memory
-// (`Sums<float>`) instead of WMMA fragments; warp w still owns columns
-// 16w..16w+15 and skips the dead 16-row groups. fp32 tiles take 86 KB,
-// so every launch sizes its shared memory dynamically (`Tile<T>`).
 
 #pragma once
 
@@ -86,39 +78,28 @@ constexpr bool channel_scaled() {
 }
 
 // Shared memory of one block: the x tile [kBM][kLdX] and the widened
-// weight tile [kBK][kLdW] in T, the step's column scales, and for fp32
-// the sums [kBM][kLdO].
+// weight tile [kBK][kLdW] in T, and the step's column scales.
 template <typename T>
 struct Tile {
+  static_assert(sizeof(T) == 2, "the first body takes fp16 / bf16");
   static constexpr int kPad = 16 / sizeof(T);   // keeps rows 16-byte
   static constexpr int kLdX = kBK + kPad;
   static constexpr int kLdW = kBN + kPad;
   static constexpr size_t kW = sizeof(T) * kBM * kLdX;
   static constexpr size_t kScale = kW + sizeof(T) * kBK * kLdW;
-  static constexpr size_t kSums = kScale + sizeof(float) * kBN;
-  static constexpr size_t kBytes =
-      kSums + (sizeof(T) == 4 ? sizeof(float) * kBM * kLdO : 0);
+  static constexpr size_t kBytes = kScale + sizeof(float) * kBN;
 };
 
 using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-// A tile's fp32 sums: WMMA fragments for fp16 / bf16 (warp w's columns
-// of each 16-row group), a shared-memory tile for fp32.
+// A tile's fp32 sums: WMMA fragments, warp w's columns of each 16-row
+// group.
 template <typename T>
 struct Sums {
   Acc f[kBM / 16];
   __device__ __forceinline__ void zero(unsigned char*) {
 #pragma unroll
     for (int g = 0; g < kBM / 16; ++g) wmma::fill_fragment(f[g], 0.f);
-  }
-};
-
-template <>
-struct Sums<float> {
-  __device__ __forceinline__ void zero(unsigned char* smem) {
-    float* s = reinterpret_cast<float*>(smem + Tile<float>::kSums);
-    for (int i = threadIdx.x; i < kBM * kLdO; i += kThreads) s[i] = 0.f;
-    // Ordered before any product by accumulate_tile's first barrier.
   }
 };
 
@@ -167,7 +148,7 @@ __device__ __forceinline__ void accumulate_tile(
   constexpr int kLdX = L::kLdX, kLdW = L::kLdW;
   constexpr int kEB = weight_bytes<T, W>();
   constexpr int kWRows = stored_rows<W>();
-  constexpr int kWChunksPerRow = kBN * kEB / 16;        // 16 fp32 .. 4
+  constexpr int kWChunksPerRow = kBN * kEB / 16;        // 8 (16-bit) .. 4
   constexpr int kWPer = kWRows * kWChunksPerRow / kThreads;
   constexpr int kXVec = 16 / sizeof(T);                 // x per 16 bytes
   constexpr int kXChunksPerRow = kBK / kXVec;
@@ -318,26 +299,16 @@ __device__ __forceinline__ void accumulate_tile(
     __syncthreads();
     if (kt + 1 < nk) prefetch(kt + 1);
     step(kt, sX, sScale);
-    if constexpr (sizeof(T) == 4) {
-      // fp32: the warp's 16 columns of each live 16-row group, FFMA.
-      float* sums = reinterpret_cast<float*>(smem + L::kSums);
-      for (int g = g_lo; g < g_hi; ++g)
-        fa::ffma_ab<16, kBK>(sums + (g * 16) * kLdO + warp * 16, kLdO,
-                             sX + (g * 16) * kLdX, kLdX, sW + warp * 16,
-                             kLdW, nullptr, nullptr, tid & 31);
-    } else {
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> bf;
-        wmma::load_matrix_sync(bf, sW + (kk * 16) * kLdW + warp * 16, kLdW);
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> bf;
+      wmma::load_matrix_sync(bf, sW + (kk * 16) * kLdW + warp * 16, kLdW);
 #pragma unroll
-        for (int g = 0; g < kBM / 16; ++g) {
-          if (g >= g_lo && g < g_hi) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major>
-                a;
-            wmma::load_matrix_sync(a, sX + (g * 16) * kLdX + kk * 16, kLdX);
-            wmma::mma_sync(acc.f[g], a, bf, acc.f[g]);
-          }
+      for (int g = 0; g < kBM / 16; ++g) {
+        if (g >= g_lo && g < g_hi) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
+          wmma::load_matrix_sync(a, sX + (g * 16) * kLdX + kk * 16, kLdX);
+          wmma::mma_sync(acc.f[g], a, bf, acc.f[g]);
         }
       }
     }
@@ -345,25 +316,20 @@ __device__ __forceinline__ void accumulate_tile(
 }
 
 // The tile's fp32 sums as a [kBM][kLdO] shared-memory tile, visible to
-// every thread: fp16 / bf16 store their fragments over the (dead)
-// operand tiles, fp32 already keeps them there. Every thread must call
-// it.
+// every thread: the fragments stored over the (dead) operand tiles.
+// Every thread must call it.
 template <typename T>
 __device__ __forceinline__ float* sums_to_smem(Sums<T>& acc,
                                                unsigned char* smem) {
-  __syncthreads();      // the operand tiles (and sums) are complete
-  if constexpr (sizeof(T) == 4) {
-    return reinterpret_cast<float*>(smem + Tile<T>::kSums);
-  } else {
-    float* sO = reinterpret_cast<float*>(smem);
-    const int warp = threadIdx.x / 32;
+  __syncthreads();      // every warp is done with the operand tiles
+  float* sO = reinterpret_cast<float*>(smem);
+  const int warp = threadIdx.x / 32;
 #pragma unroll
-    for (int g = 0; g < kBM / 16; ++g)
-      wmma::store_matrix_sync(sO + (g * 16) * kLdO + warp * 16, acc.f[g],
-                              kLdO, wmma::mem_row_major);
-    __syncthreads();
-    return sO;
-  }
+  for (int g = 0; g < kBM / 16; ++g)
+    wmma::store_matrix_sync(sO + (g * 16) * kLdO + warp * 16, acc.f[g],
+                            kLdO, wmma::mem_row_major);
+  __syncthreads();
+  return sO;
 }
 
 // y[m0.., f0..] = the tile's sums (times col_scale[col] when given),
@@ -400,7 +366,7 @@ __host__ inline bool w_aligned(const void* w, int F) {
 }
 
 // Raise a kernel's dynamic shared-memory limit where its tiles pass the
-// 48 KB default (fp32), then launch nothing: the caller launches.
+// 48 KB default, then launch nothing: the caller launches.
 template <typename Kernel>
 __host__ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;

@@ -1,26 +1,18 @@
-// B6-B8 and B9 on fp32 activations (matmul_kernels.cuh): every weight
-// storage widened into fp32 shared-memory tiles and multiplied in full
-// fp32 on the CUDA cores (matmul_core.cuh's FFMA branch), as the JAX
-// kernels compute fp32 at Precision.HIGHEST. B8 and B9's dense stacks
-// take an fp32 weight. Compiled apart from the fp16 / bf16
-// instantiations so the build runs them in parallel.
+// B6 / B7 / B8 on fp32 activations: the instantiations of the
+// register-blocked FFMA body of matmul_f32.cuh for every tile height (16,
+// 32, 64, 128 rows) and weight storage (fp32, int8, e4m3, e5m2, int4),
+// compiled apart from B9's (matmul_f32_grouped.cu) so the build runs them
+// in parallel. quant_matmul.cu's entry launches them.
 
-#include "matmul_kernels.cuh"
+#include "matmul_f32.cuh"
 
 namespace fa_mm {
+namespace f32 {
 
-cudaError_t dispatch_quant_f32(const void* x, const void* w,
-                               const void* scale, void* y, int M, int K,
-                               int F, int weight, cudaStream_t stream) {
-  return dispatch_quant<float>(x, w, scale, y, M, K, F, weight, stream);
+cudaError_t quant(const Params& p, int weight, int tile_rows, int splits,
+                  cudaStream_t s) {
+  return dispatch<false>(p, weight, tile_rows, splits, s);
 }
 
-cudaError_t dispatch_grouped_f32(const void* x, const void* w,
-                                 const void* scale, const int* offsets,
-                                 void* y, int M, int K, int F, int E,
-                                 int weight, cudaStream_t stream) {
-  return dispatch_grouped<float>(x, w, scale, offsets, y, M, K, F, E,
-                                 weight, stream);
-}
-
+}  // namespace f32
 }  // namespace fa_mm

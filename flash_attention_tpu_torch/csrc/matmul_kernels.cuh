@@ -1,9 +1,9 @@
 // The first-body kernels of B6-B8 (quant_matmul.cu) and B9
 // (grouped_matmul.cu) over matmul_core.cuh, with their launchers,
-// instantiated per activation type and weight storage: fp16 / bf16 in
-// quant_matmul.cu and grouped_matmul.cu (operands TMA cannot address;
-// every other fp16 / bf16 launch runs matmul_sm90.cuh), fp32 in
-// matmul_f32.cu.
+// instantiated per activation type (fp16, bf16) and weight storage in
+// those two sources: the launches of fp16 / bf16 operands TMA cannot
+// address. Every other fp16 / bf16 launch runs matmul_sm90.cuh, every
+// fp32 launch matmul_f32.cuh.
 #pragma once
 
 #include "matmul_core.cuh"
@@ -131,14 +131,5 @@ cudaError_t dispatch_grouped(const void* x, const void* w, const void* scale,
   }
   return cudaErrorInvalidValue;
 }
-
-// Defined in matmul_f32.cu: fp32 activations.
-cudaError_t dispatch_quant_f32(const void* x, const void* w,
-                               const void* scale, void* y, int M, int K,
-                               int F, int weight, cudaStream_t stream);
-cudaError_t dispatch_grouped_f32(const void* x, const void* w,
-                                 const void* scale, const int* offsets,
-                                 void* y, int M, int K, int F, int E,
-                                 int weight, cudaStream_t stream);
 
 }  // namespace fa_mm

@@ -7,9 +7,10 @@
 //   `_grouped_kernel` (:132, :283).
 // Instantiated per activation type in matmul_sm90_{bf16,f16}.cu (B6-B8
 // above the decode threshold), matmul_decode_{bf16,f16}.cu (B6-B8 at a
-// few rows) and grouped_sm90_{bf16,f16}.cu (B9). fp32 activations, and
-// operands TMA cannot address (a base or row stride that is not a
-// multiple of 16 bytes), keep the first body (matmul_core.cuh).
+// few rows) and grouped_sm90_{bf16,f16}.cu (B9). fp32 activations run
+// the FFMA body of matmul_f32.cuh; fp16 / bf16 operands TMA cannot
+// address (a base or row stride that is not a multiple of 16 bytes) keep
+// the first body (matmul_core.cuh).
 //
 // What bounds it on the H100. Prefill (hundreds of rows; B9's 8192
 // sorted rows): operations -- 1024 x 14336 x 4096 is 0.12 TFLOP, 0.122
@@ -909,7 +910,8 @@ cudaError_t dispatch_decode(const void* x, const void* w, const void* scale,
 }
 
 // The body codes of a launch (ops/quant_matmul.py BODY_CODES): the first
-// body (matmul_core.cuh), the prefill body, the split-K decode body.
+// body (matmul_core.cuh), the prefill body, the split-K decode body (3:
+// fp32's FFMA body, matmul_f32.cuh f32::kBody).
 constexpr int kFirstBody = 0;
 constexpr int kPrefillBody = 1;
 constexpr int kDecodeBody = 2;

@@ -42,7 +42,7 @@ DTYPE_CODES = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2}
 # kE5M2; 0 is a value in the compute dtype itself).
 STORE_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2, torch.float8_e5m2: 3}
 
-# Weight storage codes of csrc/matmul_core.cuh: a dense weight in the
+# Weight storage codes of B6-B9's kernels: a dense weight in the
 # activation's own dtype, int8, the two fp8 formats, packed int4.
 WEIGHT_CODES = {"dense": 0, **STORE_CODES, "int4": 4}
 
@@ -75,12 +75,14 @@ _SIGNATURES = {
     # Hkv, S, D, window (0 = none), scale, dtype, kv store, body, splits,
     # workspace (or NULL), counters (or NULL), stream
     "fa_decode": [_vp] * 7 + [_i32] * 6 + [_f32] + [_i32] * 4 + [_vp] * 3,
-    # x, w, scale (or NULL), y, M, K, F, weight code, dtype, body,
-    # splits, k_chunk, workspace (or NULL), counters (or NULL), stream
-    "fa_quant_matmul": [_vp] * 4 + [_i32] * 8 + [_vp] * 3,
+    # x, w, scale (or NULL), y, M, K, F, weight code, dtype, body, tile
+    # rows, splits, k_chunk, workspace (or NULL), counters (or NULL),
+    # stream
+    "fa_quant_matmul": [_vp] * 4 + [_i32] * 9 + [_vp] * 3,
     # x, w, scale (or NULL), offsets, y, M, K, F, E, weight code, dtype,
-    # body, stream
-    "fa_grouped_matmul": [_vp] * 5 + [_i32] * 7 + [_vp],
+    # body, tile rows, splits, k_chunk, workspace (or NULL), counters (or
+    # NULL), stream
+    "fa_grouped_matmul": [_vp] * 5 + [_i32] * 10 + [_vp] * 3,
     # q, k, v, o, m, l, B, H, Nq, Nk, D, block_q, block_kv, scale, dtype,
     # stream
     "fa_fa1_fwd": [_vp] * 6 + [_i32] * 7 + [_f32, _i32, _vp],
@@ -213,11 +215,12 @@ _scratch: dict = {}
 def scratch(device, stream: int, n_floats: int, n_counters: int):
     """(workspace, counters) of the kernels that merge split partials
     inside their launch (B4 / B5's split body, B6-B8's split-K decode
-    body) on `device` for launches on `stream`: at least n_floats fp32
-    values and n_counters zero int32 counters (each launch's last block
-    of a unit resets its own). Launches on one stream run in order, so
-    each stream keeps one pair, allocated once and grown when a launch
-    needs more; a launch on another stream never sees these counters."""
+    body, B6-B9's fp32 FFMA body) on `device` for launches on `stream`:
+    at least n_floats fp32 values and n_counters zero int32 counters
+    (each launch's last block of a unit resets its own). Launches on one
+    stream run in order, so each stream keeps one pair, allocated once
+    and grown when a launch needs more; a launch on another stream never
+    sees these counters."""
     key = (device, stream)
     ws, counters = _scratch.get(key, (None, None))
     if ws is None or ws.numel() < n_floats:

@@ -26,11 +26,13 @@ type before the product, an int4 value by its group scale likewise.
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 PyTorch version beside each wrapper, which does the kernel's roundings.
 The kernel and the plain versions take fp16, bf16 and fp32 activations
-(fp32 products in full fp32 on the CUDA cores). fp16 / bf16 operands
-that TMA can address run the wgmma body of `csrc/matmul_sm90.cuh` at
-any row count; fp32 and the rest the first body (`quant_matmul.
-matmul_body`). The offsets stay on the device: the kernel's grid is sized
-from M and F, never from the group sizes. Three devices of the TPU kernel have
+(fp32 products in full fp32 on the CUDA cores). fp32 activations run
+the register-blocked FFMA body of `csrc/matmul_f32.cuh` (tile and K
+splits by `quant_matmul.ffma_plan`); fp16 / bf16 operands that TMA can
+address the wgmma body of `csrc/matmul_sm90.cuh` at any row count; the
+rest the first body (`quant_matmul.matmul_body`). The offsets stay on
+the device: the kernel's grid is sized from M and F, never from the
+group sizes. Three devices of the TPU kernel have
 no counterpart: its visit plan (`make_visit_plan`, the TPU grid's
 schedule), its padding of x and w (the kernel masks its loads) and the
 int4 wrapper's even/odd split of x (x is read at full width).
@@ -48,6 +50,8 @@ from flash_attention_tpu_torch.ops.quant_matmul import (
     INT4_GROUP,
     _check_cuda,
     _dispatch,
+    _ptr,
+    _split_args,
     int4_dequant,
     matmul_body,
     tma_ready,
@@ -145,17 +149,19 @@ def _grouped_cuda(x, group_sizes, w, scale, base, storage):
     offs = _offsets(group_sizes, base)
     body = matmul_body(m, x.dtype, aligned=tma_ready(x, w, storage, scale),
                        grouped=True)
+    stream = _cuda.stream_handle(x.device)
+    rows, splits, k_chunk, ws, counters = _split_args(body, m, k, f,
+                                                      x.device, stream)
     code = _cuda.lib().fa_grouped_matmul(
-        x.data_ptr(), w.data_ptr(),
-        None if scale is None else scale.data_ptr(), offs.data_ptr(),
+        x.data_ptr(), w.data_ptr(), _ptr(scale), offs.data_ptr(),
         y.data_ptr(), m, k, f, e, _cuda.WEIGHT_CODES[storage],
-        _cuda.DTYPE_CODES[x.dtype], BODY_CODES[body],
-        _cuda.stream_handle(x.device))
+        _cuda.DTYPE_CODES[x.dtype], BODY_CODES[body], rows, splits, k_chunk,
+        _ptr(ws), _ptr(counters), stream)
     _cuda.check(code, "grouped_matmul")
     grouped_matmul_launches += 1
     grouped_matmul_fp32_launches += x.dtype == torch.float32
-    _qm.matmul_first_body_launches += (body == "first"
-                                       and x.dtype != torch.float32)
+    _qm.matmul_first_body_launches += body == "first"
+    _qm.matmul_ffma_launches += body == "ffma"
     return y
 
 

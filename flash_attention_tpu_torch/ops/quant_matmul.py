@@ -23,11 +23,13 @@ The kernel and the plain versions take fp16, bf16 and fp32 activations
 activation's dtype).
 
 Which body a launch runs is decided from the shape before the launch
-(`matmul_body`): fp16 / bf16 operands that TMA can address take the
-Hopper bodies of `csrc/matmul_sm90.cuh` -- the split-K decode body for
-at most DECODE_MAX_ROWS rows (`decode_split_plan` sizes its splits), the
-wgmma prefill body above -- and everything else (fp32, a base or row
-stride that is not a multiple of 16 bytes) the first body of
+(`matmul_body`): fp32 activations take the register-blocked FFMA body of
+`csrc/matmul_f32.cuh` (`ffma_plan` sizes its tile and splits); fp16 /
+bf16 operands that TMA can address take the Hopper bodies of
+`csrc/matmul_sm90.cuh` -- the split-K decode body for at most
+DECODE_MAX_ROWS rows (`decode_split_plan` sizes its splits), the wgmma
+prefill body above -- and fp16 / bf16 operands with a base or row stride
+that is not a multiple of 16 bytes the first body of
 `csrc/matmul_core.cuh`.
 
 `quantize_weight` and `quantize_weight_int4` are numpy computations, as
@@ -48,12 +50,16 @@ from flash_attention_tpu_torch.ops.quant import (
 
 INT4_GROUP = 128   # logical K rows per int4 scale group
 
-# The bodies of csrc/matmul_sm90.cuh and their C codes.
-BODY_CODES = {"first": 0, "prefill": 1, "decode": 2}
+# The bodies of B6-B9 and their C codes: the first body
+# (csrc/matmul_core.cuh), the Hopper prefill and split-K decode bodies
+# (csrc/matmul_sm90.cuh), the fp32 FFMA body (csrc/matmul_f32.cuh).
+BODY_CODES = {"first": 0, "prefill": 1, "decode": 2, "ffma": 3}
 DECODE_MAX_ROWS = 64   # the split-K body's x rows (padded to 16 or 64)
 DECODE_TILE_F = 64     # columns of y a decode block owns
 SPLIT_ROWS = INT4_GROUP   # a split's K rows are a multiple of this
-SM_COUNT = 132         # the H100's SMs; the decode body fits two a SM
+SM_COUNT = 132         # the H100's SMs; the split bodies fit two a SM
+FFMA_TILE_ROWS = (16, 32, 64, 128)   # rows of y an FFMA block may own
+FFMA_TILE_F = 128      # columns of y an FFMA block owns
 
 # Launches of the B6, B7 and B8 kernels (each incremented only where its
 # kernel is launched).
@@ -67,6 +73,9 @@ dense_matmul_fp32_launches = 0
 # fp16 / bf16 launches of B6-B9 on the first body (operands TMA cannot
 # address; also counted above and in ops/grouped.py's counter).
 matmul_first_body_launches = 0
+# Launches of B6-B9 on the fp32 FFMA body (every fp32 launch; also
+# counted above and in ops/grouped.py's counters).
+matmul_ffma_launches = 0
 
 
 # --- plain versions ------------------------------------------------------
@@ -145,11 +154,14 @@ def tma_ready(x, w, storage, scale=None) -> bool:
 
 
 def matmul_body(m, dtype, *, aligned, grouped=False) -> str:
-    """The body a B6-B9 launch runs: "decode" (the split-K body, B6-B8
-    at <= DECODE_MAX_ROWS rows), "prefill" (the wgmma body: more rows,
-    and B9 at any row count) or "first" (fp32, or operands TMA cannot
-    address: `aligned` is `tma_ready`)."""
-    if dtype == torch.float32 or not aligned:
+    """The body a B6-B9 launch runs: "ffma" (fp32 activations, any
+    alignment), "decode" (the split-K body, B6-B8 at <= DECODE_MAX_ROWS
+    rows), "prefill" (the wgmma body: more rows, and B9 at any row count)
+    or "first" (fp16 / bf16 operands TMA cannot address: `aligned` is
+    `tma_ready`)."""
+    if dtype == torch.float32:
+        return "ffma"
+    if not aligned:
         return "first"
     if grouped or m > DECODE_MAX_ROWS:
         return "prefill"
@@ -168,8 +180,46 @@ def decode_split_plan(k, f, *, sms=SM_COUNT) -> tuple[int, int]:
     return -(-k // k_chunk), k_chunk
 
 
+def ffma_plan(m, k, f, *, sms=SM_COUNT) -> tuple[int, int, int]:
+    """(rows, splits, k_chunk) of the fp32 FFMA body for M = m, K = k,
+    F = f: a block owns `rows` x FFMA_TILE_F of y, the fewest of
+    FFMA_TILE_ROWS that hold m (128 above that); K is cut into `splits`
+    ranges of k_chunk rows (a multiple of SPLIT_ROWS, so an int4 group
+    lies in one range; the last range may be shorter, none is empty), as
+    many as leave at least two blocks an SM where K has the rows for it
+    (decode_split_plan's rule over this body's tiles)."""
+    rows = next((r for r in FFMA_TILE_ROWS if r >= m), FFMA_TILE_ROWS[-1])
+    tiles = -(-m // rows) * -(-f // FFMA_TILE_F)
+    groups = -(-k // SPLIT_ROWS)
+    k_chunk = max(1, groups * tiles // (2 * sms)) * SPLIT_ROWS
+    return rows, max(1, -(-k // k_chunk)), k_chunk
+
+
+def _split_args(body, m, k, f, device, stream):
+    """(tile rows, splits, k_chunk, workspace, counters) of a B6-B9
+    launch: the split bodies' plans and, for more than one split, the
+    stream's scratch (one counter per tile)."""
+    if body == "ffma":
+        rows, splits, k_chunk = ffma_plan(m, k, f)
+        tiles = -(-m // rows) * -(-f // FFMA_TILE_F)
+    elif body == "decode":
+        rows = 0
+        splits, k_chunk = decode_split_plan(k, f)
+        tiles = -(-f // DECODE_TILE_F)
+    else:
+        return 0, 1, 0, None, None
+    ws, counters = None, None
+    if splits > 1:
+        ws, counters = _cuda.scratch(device, stream, splits * m * f, tiles)
+    return rows, splits, k_chunk, ws, counters
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _launch(kernel, x, w, scale, storage):
-    global matmul_first_body_launches
+    global matmul_first_body_launches, matmul_ffma_launches
     m, k = x.shape
     f = w.shape[1]
     y = torch.empty((m, f), dtype=x.dtype, device=x.device)
@@ -177,21 +227,16 @@ def _launch(kernel, x, w, scale, storage):
         return y
     body = matmul_body(m, x.dtype, aligned=tma_ready(x, w, storage, scale))
     stream = _cuda.stream_handle(x.device)
-    splits, k_chunk, ws, counters = 1, 0, None, None
-    if body == "decode":
-        splits, k_chunk = decode_split_plan(k, f)
-        if splits > 1:
-            ws, counters = _cuda.scratch(x.device, stream, splits * m * f,
-                                         -(-f // DECODE_TILE_F))
+    rows, splits, k_chunk, ws, counters = _split_args(body, m, k, f,
+                                                      x.device, stream)
     code = _cuda.lib().fa_quant_matmul(
-        x.data_ptr(), w.data_ptr(),
-        None if scale is None else scale.data_ptr(), y.data_ptr(), m, k,
-        f, _cuda.WEIGHT_CODES[storage], _cuda.DTYPE_CODES[x.dtype],
-        BODY_CODES[body], splits, k_chunk,
-        None if ws is None else ws.data_ptr(),
-        None if counters is None else counters.data_ptr(), stream)
+        x.data_ptr(), w.data_ptr(), _ptr(scale), y.data_ptr(), m, k, f,
+        _cuda.WEIGHT_CODES[storage], _cuda.DTYPE_CODES[x.dtype],
+        BODY_CODES[body], rows, splits, k_chunk, _ptr(ws), _ptr(counters),
+        stream)
     _cuda.check(code, kernel)
-    matmul_first_body_launches += body == "first" and x.dtype != torch.float32
+    matmul_first_body_launches += body == "first"
+    matmul_ffma_launches += body == "ffma"
     return y
 
 

@@ -291,8 +291,9 @@ ROUTES = [
     (8192, torch.bfloat16, True, True, "prefill"),
     (16, torch.bfloat16, False, False, "first"),
     (1024, torch.bfloat16, False, True, "first"),
-    (16, torch.float32, True, False, "first"),
-    (1024, torch.float32, True, True, "first"),
+    (16, torch.float32, True, False, "ffma"),
+    (1024, torch.float32, True, True, "ffma"),
+    (16, torch.float32, False, False, "ffma"),
 ]
 
 
