@@ -369,6 +369,33 @@ def study_f32_ptxas_rows(build_log: str) -> list[str]:
     return sorted(rows)
 
 
+def flash_f32_ptxas_rows(build_log: str) -> list[str]:
+    """One line per instantiation of csrc/flash_fwd_f32.cuh's kernel
+    (flash_fwd_f32_kernel<D, Masked>): B1 fp32, head dim, q rows a
+    block, whether it carries the window / segment-id masks, registers a
+    thread and spill stores / loads."""
+    rows = []
+    for mangled, v in ptxas_info(build_log).items():
+        m = re.search(r"flash_fwd_f32_kernelILi(\d+)ELb([01])E", mangled)
+        if m is None:
+            continue
+        d = int(m.group(1))
+        rows.append(" ".join(filter(None, (
+            f"D={d}", f"{64 if d <= 128 else 32} rows",
+            "masked" if m.group(2) == "1" else "dense",
+            v.get("regs", "? registers"), v.get("spill", "")))))
+    return sorted(rows, key=lambda r: (int(r.split()[0][2:]), r))
+
+
+def p2_ptxas_rows(build_log: str) -> list[str]:
+    """The line of csrc/probe_paged_int8.cu's kernel (P2 v2): registers a
+    thread and spill stores / loads."""
+    return [" ".join(filter(None, (v.get("regs", "? registers"),
+                                   v.get("spill", ""))))
+            for mangled, v in ptxas_info(build_log).items()
+            if "paged_int8_v2_kernel" in mangled]
+
+
 def bound_ms(flops: float, nbytes: float,
              peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     t_ops = flops / peak
@@ -4180,16 +4207,16 @@ def check_study_kernels(rng, flush) -> dict:
     """B10a (o, m, l), B10b (causal and not, GQA 32/8) and B10c at q [1,
     32, 8192, 128] bf16 (B10b's GQA at kv [1, 8, 8192, 128]), timed
     (check_study_long and B10c); every compiled tile of each in bf16,
-    fp16 and fp32 at (1, 8, 2048, D) for D in 32..256 (fp32 B1 causal
-    there too); B10a at ragged lengths (STUDY_RAGGED) and B10b causal
-    with Nq < Nk (GQA 4/2) in fp16 and bf16 at D = 32 / 128 / 256, and
-    in fp32 at every D on both row counts of its body; the launch
-    counters of the 16 x 16 and fp32 bodies exact over these cases; B1
-    fp32 timed against the FFMA rate; then check_fa1_tiles and
-    check_study_fp32. Gate: 3x the plain version's error in the same
-    dtype against fp32 (fp64 for fp32 inputs)."""
+    fp16 and fp32 at (1, 8, 2048, D) for D in 32..256; B10a at ragged
+    lengths (STUDY_RAGGED) and B10b causal with Nq < Nk (GQA 4/2) in
+    fp16 and bf16 at D = 32 / 128 / 256, and in fp32 at every D on both
+    row counts of its body; the launch counters of the 16 x 16 and fp32
+    bodies exact over these cases; then check_fa1_tiles and
+    check_study_fp32 (B1 fp32: check_flash_fp32). Gate: 3x the plain
+    version's error in the same dtype against fp32 (fp64 for fp32
+    inputs)."""
     from flash_attention_tpu_torch.config import BlockSizes
-    from flash_attention_tpu_torch.ops import flash, variants
+    from flash_attention_tpu_torch.ops import variants
 
     out = {}
     check_study_long(rng, flush, out)
@@ -4241,8 +4268,6 @@ def check_study_kernels(rng, flush) -> dict:
                 n32 += f32
             _study_case(rng, "B10c", dt, b, h, h, n, d)
             n32 += f32
-            if f32:
-                _flash_fp32_case(rng, b, h, 2, n, d)
     torch.cuda.synchronize()
     got = variants.fa1_tile16_launches - tile16
     log(f"study: fp16 / bf16 16 x 16 launches {got} (expected {n16})")
@@ -4254,19 +4279,6 @@ def check_study_kernels(rng, flush) -> dict:
         raise AssertionError(f"fp32 study body launches {got}, expected "
                              f"{n32}")
 
-    d = 128
-    sc = d ** -0.5
-    (q, k, v), err = _flash_fp32_case(rng, b, h, h, n, d)
-    flops, nbytes = flash.fwd_cost(b, h, h, n, n, d, True, 4)
-    out["B1 fp32"] = dict(
-        max_abs_err=err, shape=f"q({b},{h},{n},{d}) causal fp32",
-        **_timed_row(
-            f"B1 fp32 q({b},{h},{n},{d}) causal",
-            lambda: flash.flash_attention_fwd(q, k, v, causal=True),
-            lambda: flash.flash_attention_fwd_plain(
-                q, k, v, causal=True, scale=sc, offset=0),
-            lambda: _sdpa(q, k, v, True), flush, flops, nbytes,
-            PEAK_FP32_FLOPS))
     check_fa1_tiles(rng, flush, out)
     check_study_fp32(rng, flush, out)
     return out
@@ -4455,29 +4467,148 @@ def check_flash_long(rng, flush, results):
                     raise AssertionError(f"{what} failed its gate")
 
 
-def _flash_fp32_case(rng, b, hq, hkv, n, d):
-    """B1 on fp32 inputs, causal: the 3x gate against the fp64 plain
-    version (LSE within 1e-3). Returns ((q, k, v), max-abs difference
-    from the fp32 plain version)."""
-    from flash_attention_tpu_torch.ops import flash
-    from flash_attention_tpu_torch.utils.metrics import max_abs_error
+# B1 on fp32 inputs (csrc/flash_fwd_f32.cuh): timed at (1, 8, 2048, D)
+# causal for each D; gated (not timed) at the body's edges: (what, (B, Hq,
+# Hkv, Nq, Nk, D), keyword arguments; seg=True: packed documents, one of
+# them in no kv column, so its rows see nothing).
+FLASH_F32_DIMS = (32, 64, 128, 256)
+FLASH_F32_CASES = (
+    *(("gqa 8/2", (1, 8, 2, 2048, 2048, d), dict(causal=True))
+      for d in FLASH_F32_DIMS),
+    *((f"ragged{' causal' if c else ''}", (2, 3, 1, 77, 131, d),
+       dict(causal=c)) for d in FLASH_F32_DIMS for c in (False, True)),
+    ("gqa 8/1", (1, 8, 1, 600, 600, 128), dict(causal=True)),
+    ("window", (1, 4, 2, 1000, 1500, 128), dict(causal=True, window=300)),
+    ("window", (1, 4, 2, 700, 700, 256), dict(causal=True, window=200)),
+    ("segments", (2, 4, 2, 700, 700, 64), dict(causal=True, seg=True)),
+    ("segments + window", (1, 4, 1, 700, 700, 32),
+     dict(causal=True, window=250, seg=True)),
+    ("roll buffer", (1, 8, 2, 300, 1000, 128),
+     dict(causal=True, offset=1000, window=700)),
+    ("offset Nk", (1, 4, 2, 77, 131, 128), dict(causal=True, offset=131)),
+    ("bulk", (1, 8, 8, 1024, 1024, 128), dict(strict_below=128)),
+    ("band", (1, 8, 8, 1024, 1024, 128), dict(causal=True, diag_band=128)),
+    ("bulk", (1, 4, 4, 1024, 1024, 256), dict(strict_below=64)),
+    ("band", (1, 4, 4, 1024, 1024, 256), dict(causal=True, diag_band=64)),
+)
 
-    q = randn(rng, (b, hq, n, d), torch.float32)
-    k = randn(rng, (b, hkv, n, d), torch.float32)
-    v = randn(rng, (b, hkv, n, d), torch.float32)
-    sc = d ** -0.5
-    o, lse = flash.flash_attention_fwd(q, k, v, causal=True)
-    lo = flash.flash_attention_fwd_plain(q, k, v, causal=True, scale=sc,
-                                         offset=0)
-    hi = flash.flash_attention_fwd_plain(
-        q.double(), k.double(), v.double(), causal=True, scale=sc, offset=0)
+
+def _f32_docs(b, nq, nk):
+    """Segment ids of FLASH_F32_CASES: q rows in documents 0, 1, 9, 2
+    (document 9 in no kv column), kv columns in 0, 1, 2."""
+    from flash_attention_tpu_torch.ops.flash import SegmentIds
+
+    q = torch.tensor([0] * 200 + [1] * 200 + [9] * 100
+                     + [2] * (nq - 500), dtype=torch.int32)
+    kv = torch.tensor([0] * 200 + [1] * 200 + [2] * (nk - 400),
+                      dtype=torch.int32)
+    return SegmentIds(q.repeat(b, 1).cuda(), kv.repeat(b, 1).cuda())
+
+
+def _b1_f32_plain(q, k, v, seg, kw):
+    """B1's plain version under a case's masks, in q's dtype (fp64 for the
+    reference)."""
+    from flash_attention_tpu_torch.ops import flash
+
+    sc = q.shape[-1] ** -0.5
+    nq, nk = q.shape[2], k.shape[2]
+    if "strict_below" in kw or "diag_band" in kw:
+        bulk, band = flash._split_masks(
+            nq, nk, kw.get("strict_below") or kw["diag_band"], q.device)
+        return flash._masked_fwd_plain(
+            q, k, v, sc, bulk if "strict_below" in kw else band)
+    return flash.flash_attention_fwd_plain(
+        q, k, v, causal=kw.get("causal", False), scale=sc,
+        offset=kw.get("offset", nk - nq), window=kw.get("window"),
+        segment_ids=seg)
+
+
+def _flash_f32_case(rng, what, shape, kw):
+    """One B1 fp32 case: the 3x gate against the fp64 plain version, LSE
+    within 1e-3 on rows that see something, rows that see nothing O = 0
+    and LSE = INIT_M * scale, identical bits on a rerun (two launches).
+    Returns ((q, k, v, segment ids, kw), max-abs difference from the fp32
+    plain version)."""
+    from flash_attention_tpu_torch.ops import flash
+
+    b, hq, hkv, nq, nk, d = shape
+    kw = dict(kw)
+    seg = _f32_docs(b, nq, nk) if kw.pop("seg", False) else None
+    q = randn(rng, (b, hq, nq, d), torch.float32)
+    k = randn(rng, (b, hkv, nk, d), torch.float32)
+    v = randn(rng, (b, hkv, nk, d), torch.float32)
+    o, lse = flash.flash_attention_fwd(q, k, v, seg, **kw)
+    lo = _b1_f32_plain(q, k, v, seg, kw)
+    hi = _b1_f32_plain(q.double(), k.double(), v.double(), seg, kw)
     torch.cuda.synchronize()
-    err = _study_gate(f"B1 fp32 q({b},{hq},{n},{d}) kv({hkv}) causal",
-                      (o,), hi, lo)
-    lse_err = max_abs_error(lse, hi[1])
-    if lse_err > 1e-3:
-        raise AssertionError(f"B1 fp32 LSE off by {lse_err:.3e}")
-    return (q, k, v), err
+    what = (f"B1 fp32 {what} q({b},{hq},{nq},{d}) kv({hkv},{nk}) "
+            f"{' '.join(f'{k_}={v_}' for k_, v_ in kw.items())}")
+    err = _fp32_gate(what, o, hi[0], lo[0])
+    lse_err, dead, dead_ok = _lse_gate(lse, hi[1], d ** -0.5)
+    dead_ok = dead_ok and bool((o[dead] == 0).all())
+    log(f"check {what}: lse_err={lse_err:.3e} dead_rows={int(dead.sum())} "
+        f"dead_rows_ok={dead_ok}")
+    if lse_err > 1e-3 or not dead_ok:
+        raise AssertionError(f"{what}: LSE or dead rows off")
+    same_bits(what, lambda: flash.flash_attention_fwd(q, k, v, seg, **kw),
+              (o, lse))
+    return (q, k, v, seg, kw), err
+
+
+def check_flash_fp32(rng, flush, results):
+    """B1 on fp32 inputs (the register-blocked FFMA body of
+    csrc/flash_fwd_f32.cuh) over every branch: FLASH_F32_CASES (GQA 8/2
+    at (1, 8, 2048, D) and ragged lengths at each D, GQA 8/1, windows,
+    packed segment ids with rows that see nothing, segment ids with a
+    window, the rolling buffer's offset > Nk - Nq, offset = Nk, the
+    split's bulk and band passes at D = 128 and 256), each under the 3x
+    gate against fp64 with identical bits on a rerun; the fp32, window,
+    segment-id and split counters exact over them; then (1, 8, 2048, D)
+    causal for each D gated and timed beside its bound at the 67 TFLOP/s
+    FFMA rate, its fp32 plain version and SDPA in fp32 (TF32 off), D =
+    128 also with its device time alone and the wrapper's host time a
+    call. results[("B1 fp32", D)]. Calls only flash_attention_fwd and
+    the plain version, so kernel_pairs.py times a parent with it."""
+    from flash_attention_tpu_torch.ops import flash
+
+    names = ("flash_fwd_fp32_launches", "flash_fwd_window_launches",
+             "flash_fwd_segment_launches", "flash_fwd_split_bulk_launches",
+             "flash_fwd_split_band_launches")
+    before = [getattr(flash, n) for n in names]
+    for what, shape, kw in FLASH_F32_CASES:
+        _flash_f32_case(rng, what, shape, kw)
+        torch.cuda.empty_cache()
+    got = [getattr(flash, n) - x for n, x in zip(names, before)]
+    want = [2 * sum(bool(f(kw)) for _, _, kw in FLASH_F32_CASES)
+            for f in (lambda kw: True, lambda kw: kw.get("window"),
+                      lambda kw: kw.get("seg"),
+                      lambda kw: kw.get("strict_below"),
+                      lambda kw: kw.get("diag_band"))]
+    log(f"check B1 fp32 launches (fp32, window, segment ids, bulk, band): "
+        f"{got} (expected {want})")
+    if got != want:
+        raise AssertionError(f"B1 fp32 launches {got}, expected {want}")
+
+    b, h, n = STUDY_SMALL
+    for d in FLASH_F32_DIMS:
+        (q, k, v, _, kw), err = _flash_f32_case(
+            rng, "timed", (b, h, h, n, n, d), dict(causal=True))
+        flops, nbytes = flash.fwd_cost(b, h, h, n, n, d, True, 4)
+        what = f"B1 fp32 q({b},{h},{n},{d}) causal"
+
+        def fn():
+            return flash.flash_attention_fwd(q, k, v, causal=True)
+
+        results[("B1 fp32", d)] = row = dict(
+            max_abs_err=err, shape=f"q({b},{h},{n},{d}) causal fp32",
+            **_timed_row(what, fn,
+                         lambda: _b1_f32_plain(q, k, v, None, kw),
+                         lambda: _sdpa(q, k, v, True), flush, flops,
+                         nbytes, PEAK_FP32_FLOPS, plain_iters=2))
+        if d == 128:
+            host_row(what, fn, flush, row)
+        del q, k, v
+        torch.cuda.empty_cache()
 
 
 def check_split(rng, flush) -> dict:
@@ -5003,13 +5134,15 @@ def check_kernels() -> dict:
             check_quant_matmul, check_grouped, check_flash_branches,
             check_paged_window, check_decode_window, check_paged_quant,
             check_decode_quant, check_flash_quant, check_flash_long,
-            check_bwd_branches, check_head_dims, check_fp32)
+            check_bwd_branches, check_head_dims, check_flash_fp32,
+            check_fp32)
     for fn in (check_flash, check_paged, check_flash_bwd, check_variants,
                check_decode, check_quant_matmul, check_grouped,
                check_flash_branches, check_paged_window,
                check_decode_window, check_paged_quant, check_decode_quant,
                check_flash_quant, check_flash_long, check_bwd_branches,
-               check_head_dims, check_rows, check_split_edges, check_fp32):
+               check_head_dims, check_rows, check_split_edges,
+               check_flash_fp32, check_fp32):
         t = time.perf_counter()
         if fn in full:
             fn(rng, flush, results)
@@ -5349,7 +5482,8 @@ def _p3_edge_rows(chunk, v):
 
 def probes() -> dict:
     """The probes phase: P1, P2, P3 through their run() at the JAX
-    probes' shapes, timed with this script's L2-flushed CUDA events."""
+    probes' shapes, timed with this script's L2-flushed CUDA events; then
+    P2 v2's edges (check_probe_paged)."""
     flush = L2Flush()
     out = {}
     for name, fn in (("p1", probe_p1), ("p2", probe_p2), ("p3", probe_p3)):
@@ -5358,6 +5492,12 @@ def probes() -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         log(f"probes: {name} {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    out["p2_check"] = {}
+    check_probe_paged(np.random.default_rng(SEED), flush, out["p2_check"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"probes: check_probe_paged {time.perf_counter() - t:.1f} s")
     return out
 
 
@@ -5416,6 +5556,105 @@ def check_probe_int4(rng, flush, results):
     results["P1 torch.matmul"] = _probe_row(
         f"P1 torch.matmul dense bf16 {m}x{k}x{f}",
         lambda: torch.matmul(x, wd), flush, qm.dense_matmul_cost(m, k, f))
+
+
+# P2 v2's edges on the split-KV body: (what, B, Hq, Hkv, page size, table
+# width, lengths). B = 2 at 16 pages of 256 takes 8 splits, more than its
+# sequences' live quant blocks (0 and 2); the rest take 1-4 splits.
+P2_EDGES = (
+    ("more splits than live blocks", 2, 32, 8, 256, 16, (0, 129)),
+    ("block edges", 5, 12, 2, 128, 4, (0, 1, 127, 128, 129)),
+    ("pages of 512", 3, 8, 1, 512, 2, (1000, 513, 300)),
+    ("ragged batch", 8, 32, 8, 256, 16,
+     (4088, 3000, 1, 0, 129, 2000, 4096, 255)),
+)
+
+
+def _p2_case(gen, b, hq, hkv, ps, width, lengths):
+    """Seeded int8 pools of the probe's draw (N(0, 0.02^2), quantized by
+    quantize_pool) drawn on the card, a page table of distinct pages, q
+    in bf16: the arguments of paged_int8_v2."""
+    from flash_attention_tpu_torch.scripts import probe_paged_int8 as p2
+
+    pages = b * width
+    kq, ks = p2.quantize_pool(torch.randn(
+        (hkv, pages, ps, p2.D), generator=gen, device="cuda") * 0.02)
+    vq, vs = p2.quantize_pool(torch.randn(
+        (hkv, pages, ps, p2.D), generator=gen, device="cuda") * 0.02)
+    table = torch.randperm(pages, generator=gen, device="cuda").view(
+        b, width).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q = (torch.randn((b, hq, p2.D), generator=gen, device="cuda")
+         * 0.02).to(torch.bfloat16)
+    return q, kq, vq, ks, vs, table, lens
+
+
+def _p2_gated(what, args):
+    """P2 v2 on args under the quantized-branch gates (O and LSE on the
+    3x rule against the fp32 reference over the dequantized pools, row by
+    row against the bf16 plain version, sequences of length 0 exact) and
+    identical bits on a rerun (two launches)."""
+    from flash_attention_tpu_torch.ops.paged import paged_flash_decode_plain
+    from flash_attention_tpu_torch.scripts import probe_paged_int8 as p2
+
+    q, kq, vq, ks, vs, table, lens = args
+    scale = 1.0 / math.sqrt(p2.D)
+    o, lse = p2.paged_int8_v2(*args)
+    po, plse = p2.paged_int8_v2_plain(*args, scale=scale)
+    ro, rlse = paged_flash_decode_plain(q.float(), kq, vq, table, lens,
+                                        scale=scale, k_scales=ks,
+                                        v_scales=vs)
+    torch.cuda.synchronize()
+    _quant_gate(what, o, ro, po, lse=lse, lse_hi=rlse, lse_lo=plse,
+                scale=scale)
+    same_bits(what, lambda: p2.paged_int8_v2(*args), (o, lse))
+
+
+def check_probe_paged(rng, flush, results):
+    """P2 v2 (paged_int8_v2, csrc/probe_paged_int8.cu on decode_sm90.cuh's
+    split-KV pieces) at the probe's shape (B = 64, 32 q / 8 kv heads, D =
+    128, 4088 tokens, int8 pages of 256) on pools drawn on the card and
+    at P2_EDGES, each under the quantized-branch gates with identical
+    bits on a rerun, its launch counter exact; then v2 and v0 (B4's
+    default int8 body, paged_flash_decode) at the probe's shape timed
+    beside the byte bound (device_ms the kernels alone). Calls only
+    paged_int8_v2 and its plain version, quantize_pool and
+    paged_flash_decode, so kernel_pairs.py times a parent with it."""
+    from flash_attention_tpu_torch.ops.paged import (
+        paged_decode_cost, paged_flash_decode,
+    )
+    from flash_attention_tpu_torch.scripts import probe_paged_int8 as p2
+
+    del rng
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 19)
+    before = p2.paged_int8_v2_launches
+    cases = [("probe's shape", p2.B, p2.HQ, p2.HKV, 256, p2.CTX // 256,
+              (p2.CTX - 8,) * p2.B), *P2_EDGES]
+    plan = getattr(p2, "v2_splits", None)   # a parent may lack the plan
+    probe_args = None
+    for what, b, hq, hkv, ps, width, lengths in cases:
+        args = _p2_case(gen, b, hq, hkv, ps, width, lengths)
+        splits = f", {plan(b * hkv, width * ps)} splits" if plan else ""
+        _p2_gated(f"P2 v2 {what} (B={b}, {hq}q/{hkv}kv, pages of {ps}"
+                  f"{splits})", args)
+        probe_args = probe_args or args
+        torch.cuda.empty_cache()
+    got = p2.paged_int8_v2_launches - before
+    log(f"check P2 v2 launches {got} (expected {2 * len(cases)})")
+    if got != 2 * len(cases):
+        raise AssertionError(f"P2 v2 launches {got}, expected "
+                             f"{2 * len(cases)}")
+    q, kq, vq, ks, vs, table, lens = probe_args
+    cost = paged_decode_cost(lens.tolist(), p2.HQ, p2.HKV, p2.D, 2, 256,
+                             kv_itemsize=1)
+    results["P2 v2"] = _probe_row(
+        "P2 v2 (probe's shape)", lambda: p2.paged_int8_v2(*probe_args),
+        flush, cost)
+    results["P2 v0 (B4 int8)"] = _probe_row(
+        "P2 v0 = B4 int8 (probe's shape)",
+        lambda: paged_flash_decode(q, kq, vq, table, lens, k_scales=ks,
+                                   v_scales=vs), flush, cost)
 
 
 def check_probe_lmhead(rng, flush, results):
@@ -5536,10 +5775,11 @@ def fp32_entries(results, fp32p, bwd_ptxas, mm_ptxas) -> list:
     ]
 
 
-def probe_entries(pr, mm_ptxas) -> list:
+def probe_entries(pr, mm_ptxas, p2_ptxas) -> list:
     """The kernels line's entries of the probes' kernels (P1 v1 / v2, P2
     v2, P3), each with the launches its own counter saw in its probe's
-    run() (P1 / P3 also their first-body launches and ptxas rows)."""
+    run() and its ptxas rows (P1 / P3 also their first-body launches; P2
+    its check_probe_paged rows)."""
     def pick(rows, **match):
         return next(r for r in rows
                     if all(r.get(k) == v for k, v in match.items()))
@@ -5576,6 +5816,12 @@ def probe_entries(pr, mm_ptxas) -> list:
     entries.append(dict(
         name="probe_paged_int8 v2 (P2)", route="cuda",
         source="flash_attention_tpu_torch/csrc/probe_paged_int8.cu",
+        body="split-KV over decode_sm90.cuh's pieces (v2_splits from "
+             "shapes, write_unit's fixed-order merge): 8 warps, each "
+             "128-token quant block's K then V widened once into one bf16 "
+             "tile the warps share, codes and scale rows in a 2-stage "
+             "cp.async ring, tokens on the mma.sync M side",
+        ptxas=p2_ptxas, check_probe_paged=pr["p2_check"],
         replaces="scripts/probe_paged_int8.py:76",
         launches=pr["p2"]["launches"]["p2_v2"],
         launches_by_path={"probe_paged_int8":
@@ -5641,6 +5887,12 @@ def main() -> int:
     split_ptxas = split_ptxas_rows(report.getvalue())
     for row in split_ptxas:
         log(f"ptxas B4/B5 {row}")
+    flash_f32_ptxas = flash_f32_ptxas_rows(report.getvalue())
+    for row in flash_f32_ptxas:
+        log(f"ptxas B1 fp32 {row}")
+    p2_ptxas = p2_ptxas_rows(report.getvalue())
+    for row in p2_ptxas:
+        log(f"ptxas P2 v2 {row}")
     log(f"build: kernels built in {secs:.2f} s "
         f"(phase {time.perf_counter() - t0:.2f} s)")
     phase_s = {}
@@ -6015,14 +6267,25 @@ def main() -> int:
              at_shapes={f"band {SPLIT_BANDS[0]}": sp[SPLIT_BANDS[0]]},
              single_pass_ms=sp["single"]),
         dict(name="flash_fwd (B1 fp32)", route="cuda",
-             source="flash_attention_tpu_torch/csrc/flash_fwd_f32.cu",
+             source="flash_attention_tpu_torch/csrc/flash_fwd_f32.cuh",
+             sources=["flash_attention_tpu_torch/csrc/flash_fwd_f32.cu",
+                      "flash_attention_tpu_torch/csrc/flash_fwd_f32_"
+                      "masked.cu"],
+             body="register-blocked FFMA on study_f32.cuh's plan (4 warps "
+                  "over 64 q rows, 32 at D = 256; S and O in registers, P "
+                  "through shared memory, K / V slabs of 64 keys through "
+                  "two cp.async buffers), masks only on the slabs that "
+                  "need them, window / segment ids in their own "
+                  "instantiations",
              replaces="flash_attention_tpu/ops/flash.py:259",
              launches=sl["flash_fp32"] + fp32p["flash_fp32"],
              launches_by_path={"cli_compare_fp32": sl["flash_fp32"],
                                "fp32_api": fp32p["flash_fp32"]},
-             **sk["B1 fp32"]),
+             ptxas=flash_f32_ptxas, **results[("B1 fp32", 128)],
+             at_head_dims={f"head dim {d}": results[("B1 fp32", d)]
+                           for d in FLASH_F32_DIMS if d != 128}),
         *fp32_entries(results, fp32p, bwd_f32_ptxas, mm_f32_ptxas),
-        *probe_entries(pr, mm_ptxas),
+        *probe_entries(pr, mm_ptxas, p2_ptxas),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     log(card)

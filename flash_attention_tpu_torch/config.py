@@ -39,7 +39,7 @@ class BlockSizes:
 
 def b1_tile(dtype, head_dim: int) -> tuple[int, int]:
     """(block_q, block_kv) of B1 as compiled (csrc/flash_fwd.cuh Cfg,
-    csrc/flash_fwd_f32.cu Smem32): fp16 / bf16 128 x 128, 64 x 64 at
+    csrc/flash_fwd_f32.cuh F32Plan): fp16 / bf16 128 x 128, 64 x 64 at
     D = 256; fp32 64 x 64, 32 x 64 at D = 256."""
     if dtype == torch.float32:
         return (32, 64) if head_dim > 128 else (64, 64)

@@ -163,110 +163,6 @@ __device__ __forceinline__ float round_to(float x) {
   return to_float<T>(from_float<T>(x));
 }
 
-// Rows [r0, r0 + kRows) of a row-major [n, D] matrix into shared memory
-// (row stride ld elements, a multiple of 16 bytes) with 16-byte loads by
-// kThreads threads; rows past n are written as zeros, so ragged edges
-// need no host padding.
-template <typename T, int D, int kRows, int kThreads>
-__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
-                                          int r0, int n, int tid) {
-  constexpr int kVec = 16 / sizeof(T);   // elements per 16-byte load
-  constexpr int kVecPerRow = D / kVec;
-  for (int i = tid; i < kRows * kVecPerRow; i += kThreads) {
-    const int r = i / kVecPerRow;
-    const int c = (i % kVecPerRow) * kVec;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
-
-// fp32 tile products on the CUDA cores (FFMA, full fp32: no TF32), for
-// the kernels' fp32 instantiations, where the JAX kernels ask the MXU for
-// Precision.HIGHEST. One warp computes a [16, N] block of C from A rows
-// [16, K] in shared memory: lane l owns rows l / 8 + 4 i (i < 4) and
-// columns l % 8 + 8 j, so the four row reads of a step hit four banks and
-// each product is a sequential fp32 sum over k. Columns go in chunks of
-// at most 64 (32 accumulators a lane).
-
-// C[16, N] = A[16, K] B^T, B [N, K] row-major (scores Q K^T).
-template <int N, int K>
-__device__ __forceinline__ void ffma_abt(float* c, int ldc, const float* a,
-                                         int lda, const float* b, int ldb,
-                                         int lane) {
-  constexpr int kNC = N < 64 ? N : 64;
-  const int r0 = lane >> 3, c0 = lane & 7;
-  for (int n0 = 0; n0 < N; n0 += kNC) {
-    float acc[4][kNC / 8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < kNC / 8; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      float av[4], bv[kNC / 8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = a[(r0 + 4 * i) * lda + k];
-#pragma unroll
-      for (int j = 0; j < kNC / 8; ++j)
-        bv[j] = b[(n0 + c0 + 8 * j) * ldb + k];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < kNC / 8; ++j)
-          acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < kNC / 8; ++j)
-        c[(r0 + 4 * i) * ldc + n0 + c0 + 8 * j] = acc[i][j];
-  }
-}
-
-// C[16, N] = alpha_r C + beta_r (A[16, K] B), B [K, N] row-major (P V);
-// alpha, beta: the warp's 16 per-row factors, or null for 1 (C += A B).
-template <int N, int K>
-__device__ __forceinline__ void ffma_ab(float* c, int ldc, const float* a,
-                                        int lda, const float* b, int ldb,
-                                        const float* alpha,
-                                        const float* beta, int lane) {
-  constexpr int kNC = N < 64 ? N : 64;
-  const int r0 = lane >> 3, c0 = lane & 7;
-  for (int n0 = 0; n0 < N; n0 += kNC) {
-    float acc[4][kNC / 8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < kNC / 8; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      float av[4], bv[kNC / 8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = a[(r0 + 4 * i) * lda + k];
-#pragma unroll
-      for (int j = 0; j < kNC / 8; ++j) bv[j] = b[k * ldb + n0 + c0 + 8 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < kNC / 8; ++j)
-          acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = r0 + 4 * i;
-      const float al = alpha != nullptr ? alpha[r] : 1.f;
-      const float be = beta != nullptr ? beta[r] : 1.f;
-#pragma unroll
-      for (int j = 0; j < kNC / 8; ++j) {
-        float* cp = c + r * ldc + n0 + c0 + 8 * j;
-        *cp = al * *cp + be * acc[i][j];
-      }
-    }
-  }
-}
-
 }  // namespace fa
 
 extern "C" const char* fa_error_string(int code);

@@ -153,6 +153,120 @@ __device__ __forceinline__ void widen16(T* dst, const uint4& codes,
   *reinterpret_cast<uint4*>(dst + 8) = pack8<T>(x + 8);
 }
 
+// Row r's largest m over the warps' stats wstats [Warps][Rows][2] (m, l).
+template <int Warps, int Rows>
+__device__ __forceinline__ float warps_max(const float* wstats, int r) {
+  float mx = wstats[r * 2];
+#pragma unroll
+  for (int w = 1; w < Warps; ++w) mx = fmaxf(mx, wstats[(w * Rows + r) * 2]);
+  return mx;
+}
+
+// The block's (m, l) of each row into merge[2 r], merge[2 r + 1]: the
+// warps' l weighted by e^(m_w - m) and summed in warp order.
+template <int Warps, int Rows>
+__device__ __forceinline__ void merge_warps(const float* wstats, float* merge,
+                                            float c) {
+  const int r = threadIdx.x;
+  if (r >= Rows) return;
+  const float mx = warps_max<Warps, Rows>(wstats, r);
+  float ls = 0.f;
+#pragma unroll
+  for (int w = 0; w < Warps; ++w)
+    ls += exp2f((wstats[(w * Rows + r) * 2] - mx) * c) *
+          wstats[(w * Rows + r) * 2 + 1];
+  merge[r * 2] = mx;
+  merge[r * 2 + 1] = ls;
+}
+
+// The end of a block of a split body, every thread past a barrier:
+// sums [Warps][Rows][D] in shared memory holds each warp's O of the
+// block's rows, relative to the block's row max, and merge[2 r], merge[2
+// r + 1] the block's (m, l) of row r. With one split the block writes O
+// (and the LSE, where lse_rows is not null). Otherwise it writes its
+// partial (part [splits][Rows][D], stats [splits][Rows][2]), and the last
+// block of its unit -- found by `counter`, which it resets -- merges
+// every partial in split order 0, 1, 2, ... and writes O and the LSE: no
+// atomics into O, and identical bits on a rerun. merge holds Rows x
+// (kMaxSplits + 2) floats, flag one int (both shared).
+template <int Warps, int Rows, typename T, int D>
+__device__ __forceinline__ void write_unit(
+    int rows, int split, int splits, float scale,
+    const float* __restrict__ sums, float* __restrict__ merge, int* flag,
+    T* __restrict__ o_rows, float* __restrict__ lse_rows,
+    float* __restrict__ part, float* __restrict__ stats,
+    int* __restrict__ counter) {
+  constexpr int kThreads = 32 * Warps;
+  const int tid = threadIdx.x;
+  const float c = scale * kLog2e;
+  if (splits == 1) {
+    for (int i = tid; i < rows * D; i += kThreads) {
+      const int r = i / D, d = i % D;
+      float o = 0.f;
+#pragma unroll
+      for (int w = 0; w < Warps; ++w) o += sums[(w * Rows + r) * D + d];
+      const float ls = merge[r * 2 + 1];
+      o_rows[(size_t)r * D + d] = from_float<T>(ls > 0.f ? o / ls : 0.f);
+    }
+    if (lse_rows != nullptr && tid < rows) {
+      const float ls = merge[tid * 2 + 1];
+      lse_rows[tid] =
+          ls > 0.f ? merge[tid * 2] * scale + logf(ls) : kInitM * scale;
+    }
+    return;
+  }
+  // This split's partial: part [splits][Rows][D], stats [splits][Rows][2].
+  for (int i = tid; i < rows * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    float o = 0.f;
+#pragma unroll
+    for (int w = 0; w < Warps; ++w) o += sums[(w * Rows + r) * D + d];
+    part[((size_t)split * Rows + r) * D + d] = o;
+  }
+  if (tid < rows) {
+    stats[(split * Rows + tid) * 2] = merge[tid * 2];
+    stats[(split * Rows + tid) * 2 + 1] = merge[tid * 2 + 1];
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *flag = atomicAdd(counter, 1) == splits - 1;
+  __syncthreads();
+  if (!*flag) return;
+  // The last split of this unit: merge the partials in split order.
+  __threadfence();
+  constexpr int kW = kMaxSplits + 2;   // merge row: m, l, weights
+  if (tid < rows) {
+    float* row = merge + tid * kW;
+    float mx = kInitM;
+    for (int sp = 0; sp < splits; ++sp)
+      mx = fmaxf(mx, __ldcg(stats + (sp * Rows + tid) * 2));
+    float ls = 0.f;
+    for (int sp = 0; sp < splits; ++sp) {
+      const float w = exp2f((__ldcg(stats + (sp * Rows + tid) * 2) - mx) * c);
+      row[2 + sp] = w;
+      ls += w * __ldcg(stats + (sp * Rows + tid) * 2 + 1);
+    }
+    row[0] = mx;
+    row[1] = ls;
+  }
+  __syncthreads();
+  for (int i = tid; i < rows * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    const float* row = merge + r * kW;
+    float o = 0.f;
+    for (int sp = 0; sp < splits; ++sp)
+      o += row[2 + sp] * __ldcg(part + ((size_t)sp * Rows + r) * D + d);
+    const float ls = row[1];
+    o_rows[(size_t)r * D + d] = from_float<T>(ls > 0.f ? o / ls : 0.f);
+  }
+  if (lse_rows != nullptr && tid < rows) {
+    const float* row = merge + tid * kW;
+    lse_rows[tid] =
+        row[1] > 0.f ? row[0] * scale + logf(row[1]) : kInitM * scale;
+  }
+  if (tid == 0) *counter = 0;   // ready for the next launch on this stream
+}
+
 // --- the block ------------------------------------------------------------
 
 // One block: query rows [row0, row0 + rows) of a (sequence, kv head)
@@ -453,11 +567,7 @@ __device__ __forceinline__ void attend(
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = gid + 8 * h;
-    float mx = wstats[r * 2];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w)
-      mx = fmaxf(mx, wstats[(w * kRows + r) * 2]);
-    const float f = exp2f((m[h] - mx) * c);
+    const float f = exp2f((m[h] - warps_max<kWarps, kRows>(wstats, r)) * c);
     float* dst = sums + (warp * kRows + r) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
@@ -465,87 +575,12 @@ __device__ __forceinline__ void attend(
       dst[8 * j + 2 * tig + 1] = acc[j][2 * h + 1] * f;
     }
   }
-  if (tid < kRows) {
-    float mx = wstats[tid * 2];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w)
-      mx = fmaxf(mx, wstats[(w * kRows + tid) * 2]);
-    float ls = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w)
-      ls += exp2f((wstats[(w * kRows + tid) * 2] - mx) * c) *
-            wstats[(w * kRows + tid) * 2 + 1];
-    merge[tid * 2] = mx;
-    merge[tid * 2 + 1] = ls;
-  }
+  merge_warps<kWarps, kRows>(wstats, merge, c);
   __syncthreads();
-  if (splits == 1) {
-    for (int i = tid; i < rows * D; i += kThreads) {
-      const int r = i / D, d = i % D;
-      float o = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) o += sums[(w * kRows + r) * D + d];
-      const float ls = merge[r * 2 + 1];
-      o_rows[(size_t)r * D + d] = from_float<T>(ls > 0.f ? o / ls : 0.f);
-    }
-    if (lse_rows != nullptr && tid < rows) {
-      const float ls = merge[tid * 2 + 1];
-      lse_rows[tid] =
-          ls > 0.f ? merge[tid * 2] * a.scale + logf(ls) : kInitM * a.scale;
-    }
-    return;
-  }
-  // This split's partial: part [splits][kRows][D], stats [splits][kRows][2].
-  for (int i = tid; i < rows * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    float o = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) o += sums[(w * kRows + r) * D + d];
-    part[((size_t)split * kRows + r) * D + d] = o;
-  }
-  if (tid < rows) {
-    stats[(split * kRows + tid) * 2] = merge[tid * 2];
-    stats[(split * kRows + tid) * 2 + 1] = merge[tid * 2 + 1];
-  }
-  __threadfence();
-  __syncthreads();
-  int* flag = reinterpret_cast<int*>(smem + L::kFlagAt);
-  if (tid == 0) *flag = atomicAdd(counter, 1) == splits - 1;
-  __syncthreads();
-  if (!*flag) return;
-  // The last split of this unit: merge the partials in split order.
-  __threadfence();
-  constexpr int kW = kMaxSplits + 2;   // merge row: m, l, weights
-  if (tid < rows) {
-    float* row = merge + tid * kW;
-    float mx = kInitM;
-    for (int sp = 0; sp < splits; ++sp)
-      mx = fmaxf(mx, __ldcg(stats + (sp * kRows + tid) * 2));
-    float ls = 0.f;
-    for (int sp = 0; sp < splits; ++sp) {
-      const float w = exp2f((__ldcg(stats + (sp * kRows + tid) * 2) - mx) * c);
-      row[2 + sp] = w;
-      ls += w * __ldcg(stats + (sp * kRows + tid) * 2 + 1);
-    }
-    row[0] = mx;
-    row[1] = ls;
-  }
-  __syncthreads();
-  for (int i = tid; i < rows * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const float* row = merge + r * kW;
-    float o = 0.f;
-    for (int sp = 0; sp < splits; ++sp)
-      o += row[2 + sp] * __ldcg(part + ((size_t)sp * kRows + r) * D + d);
-    const float ls = row[1];
-    o_rows[(size_t)r * D + d] = from_float<T>(ls > 0.f ? o / ls : 0.f);
-  }
-  if (lse_rows != nullptr && tid < rows) {
-    const float* row = merge + tid * kW;
-    lse_rows[tid] =
-        row[1] > 0.f ? row[0] * a.scale + logf(row[1]) : kInitM * a.scale;
-  }
-  if (tid == 0) *counter = 0;   // ready for the next launch on this stream
+  write_unit<kWarps, kRows, T, D>(
+      rows, split, splits, a.scale, sums, merge,
+      reinterpret_cast<int*>(smem + L::kFlagAt), o_rows, lse_rows, part,
+      stats, counter);
 }
 
 // A unit is one (sequence, kv head, row group); its scratch: splits x
@@ -616,7 +651,8 @@ __global__ void __launch_bounds__(kThreads)
 // Raises the kernel's dynamic shared memory limit to `bytes` once per
 // device (`done`: a bit per device the kernel is set up on; the call
 // costs the host microseconds a launch).
-inline cudaError_t allow_smem(void (*kernel)(const Args), size_t bytes,
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes,
                               std::atomic<uint64_t>& done) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);

@@ -64,9 +64,11 @@
 // flash_fwd_e4m3.cu and flash_fwd_e5m2.cu, the dense instantiations
 // here.
 //
-// fp32 inputs: flash_fwd_f32.cu (full fp32 on the CUDA cores; wgmma has
-// no fp32 operand at Precision.HIGHEST). A dtype selects its body; no
-// path leads from a failed launch to another.
+// fp32 inputs: the register-blocked FFMA body of flash_fwd_f32.cuh
+// (full fp32 on the CUDA cores; wgmma has no fp32 operand at
+// Precision.HIGHEST), instantiated in flash_fwd_f32.cu and
+// flash_fwd_f32_masked.cu. A dtype selects its body; no path leads from a
+// failed launch to another.
 //
 // The causal split (the TPU kernel's strict_below / diag_band branches,
 // flash.py:122-132, :271-278, driven by flash_attention_fwd_split :664):

@@ -2,7 +2,7 @@
 // compute type, head dim and K/V storage: flash_fwd.cu holds the dense
 // instantiations and the C entry point, flash_fwd_int8.cu,
 // flash_fwd_e4m3.cu and flash_fwd_e5m2.cu the quantized ones, and
-// flash_fwd_f32.cu the fp32 body (dense K/V only).
+// flash_fwd_f32.cuh the fp32 body (dense K/V only).
 #pragma once
 
 #include <climits>
@@ -405,7 +405,8 @@ cudaError_t dispatch(const Args& a, int dtype, int D) {
 cudaError_t dispatch_int8(const Args& a, int dtype, int D);
 cudaError_t dispatch_e4m3(const Args& a, int dtype, int D);
 cudaError_t dispatch_e5m2(const Args& a, int dtype, int D);
-// Defined in flash_fwd_f32.cu: fp32 q / k / v, dense.
+// Defined in flash_fwd_f32.cu (flash_fwd_f32.cuh's body): fp32 q / k /
+// v, dense.
 cudaError_t dispatch_f32(const Args& a, int D);
 
 }  // namespace fwd

@@ -98,9 +98,9 @@ _SIGNATURES = {
     # counters (or NULL), stream
     "fa_probe_int4_matmul": [_vp] * 4 + [_i32] * 7 + [_vp] * 3,
     # P2 v2: q, k_pool, v_pool, k scales, v scales, page_table, lengths,
-    # o, lse, B, Hq, Hkv, num_pages, page_size, table_width, D, scale,
-    # stream
-    "fa_probe_paged_int8_v2": [_vp] * 9 + [_i32] * 7 + [_f32, _vp],
+    # o, lse, workspace (or NULL), counters (or NULL), B, Hq, Hkv,
+    # num_pages, page_size, table_width, D, splits, scale, stream
+    "fa_probe_paged_int8_v2": [_vp] * 11 + [_i32] * 8 + [_f32, _vp],
     # P3: x, w (int4), scale, keys (uint64 scratch), ids, values, M, K,
     # V, chunk, body, stream
     "fa_probe_lmhead_argmax": [_vp] * 6 + [_i32] * 5 + [_vp],

@@ -13,10 +13,13 @@ int8 pools with fp32 scales per (128-token block, channel), it times:
         bf16 before the product), pages of 256;
   v1    B4's `fold_scales` body, pages of 256;
   v2    `paged_int8_v2`, the JAX probe's blocked body as a hand-written
-        kernel (csrc/probe_paged_int8.cu): each 128-token block of K and
-        V dequantized to bf16 in shared memory, double-buffered, both
-        products on the tensor cores (mma.sync), fp32 online softmax,
-        P rounded to bf16; pages of 256;
+        kernel (csrc/probe_paged_int8.cu, on the split-KV pieces of
+        csrc/decode_sm90.cuh): each 128-token block of K and V
+        dequantized once to a bf16 tile the block's 8 warps share, codes
+        and scale rows in a cp.async ring, both products on the tensor
+        cores (mma.sync), fp32 online softmax, P rounded to bf16, split
+        across blocks by `v2_splits` and merged in split order; pages of
+        256;
   v3    v0 at pages of 512;
 
 each beside its bound and its plain version (no single library call
@@ -32,12 +35,18 @@ from __future__ import annotations
 
 import argparse
 import math
+from fractions import Fraction
 
 import numpy as np
 import torch
 
-from flash_attention_tpu_torch.config import CUDA_HEAD_DIMS, resolve_device
+from flash_attention_tpu_torch.config import (
+    CUDA_HEAD_DIMS,
+    cdiv,
+    resolve_device,
+)
 from flash_attention_tpu_torch.ops import _cuda
+from flash_attention_tpu_torch.ops.decode import MAX_SPLITS, SM_COUNT
 from flash_attention_tpu_torch.ops.paged import (
     paged_decode_cost,
     paged_flash_decode,
@@ -55,6 +64,31 @@ PAGES = (256, 512)
 
 # Launches of the v2 kernel (incremented only where it is launched).
 paged_int8_v2_launches = 0
+
+# The v2 body's launch (csrc/probe_paged_int8.cu): a block of 8 warps
+# takes one (sequence, kv head) -- V2_ROWS q rows at most -- and an even
+# share of its 128-token quant blocks; its shared memory keeps two blocks
+# on an SM (V2_RESIDENT at once); a split takes V2_MIN_BLOCKS quant
+# blocks at least.
+V2_ROWS = 8
+V2_RESIDENT = 2 * SM_COUNT
+V2_MIN_BLOCKS = 4
+
+
+def v2_splits(units, max_tokens) -> int:
+    """Blocks per unit (one (sequence, kv head)) of the v2 body when a
+    sequence holds at most `max_tokens` tokens. Of 1 up to the most
+    that leave each split V2_MIN_BLOCKS quant blocks (and MAX_SPLITS),
+    the count s whose grid of units x s blocks takes the fewest waves of
+    V2_RESIDENT blocks per unit of work, ceil(units s / V2_RESIDENT) / s
+    (a launch's time in one unit's work, blocks of a wave running side
+    by side); the fewest splits on a tie. From shapes alone: no value on
+    the card is read."""
+    units = max(int(units), 1)
+    blocks = cdiv(max(int(max_tokens), 0), QUANT_BLOCK)
+    most = max(1, min(MAX_SPLITS, blocks // V2_MIN_BLOCKS))
+    return min(range(1, most + 1),
+               key=lambda s: (Fraction(cdiv(units * s, V2_RESIDENT), s), s))
 
 
 def quantize_pool(x: torch.Tensor):
@@ -131,12 +165,22 @@ def _v2_cuda(q, k_pool, v_pool, k_scales, v_scales, page_table, lengths,
     lse = torch.empty((b, hq), dtype=torch.float32, device=q.device)
     if b == 0:
         return o, lse
+    width = page_table.shape[1]
+    units = b * hkv
+    splits = v2_splits(units, width * page_size)
+    stream = _cuda.stream_handle(q.device)
+    ws = counters = None
+    if splits > 1:
+        ws, counters = _cuda.scratch(q.device, stream,
+                                     units * splits * V2_ROWS * (d + 2),
+                                     units)
     code = _cuda.lib().fa_probe_paged_int8_v2(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scales.data_ptr(), v_scales.data_ptr(), page_table.data_ptr(),
-        lengths.data_ptr(), o.data_ptr(), lse.data_ptr(), b, hq, hkv,
-        num_pages, page_size, page_table.shape[1], d, scale,
-        _cuda.stream_handle(q.device))
+        lengths.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        None if ws is None else ws.data_ptr(),
+        None if counters is None else counters.data_ptr(), b, hq, hkv,
+        num_pages, page_size, width, d, splits, scale, stream)
     paged_int8_v2_launches += 1
     _cuda.check(code, "probe paged_int8 v2")
     return o, lse
