@@ -103,6 +103,17 @@ Phases, each fatal on failure:
              body;
   8. generate sampling.generate on the int4 8B tree (B5 attention,
              exact launch counts, the same teacher-forced band);
+  8b. spec   speculative decoding through the Engine on the int4 8B tree
+             (16 requests, half of them repetitive, k = SPEC_K): n-gram
+             drafts, then a llama3_1b draft model at one and two rounds
+             a step, then an fp32 llama3_1b cut to SPEC_SELF_LAYERS
+             drafting for itself; exact B1 / B4 / B7 launch counts, the
+             teacher-forced band, no host sync inside a step's rounds
+             (torch's sync debug mode), accept counts and decode tokens
+             consistent, every page back, the self-draft accepting at
+             least 0.9 of its drafts with the transcripts of the fp32
+             engine without speculation; decode tok/s against the same
+             engine without speculation; profiles of (a) and (b);
   9. mixtral  the Engine on MoEConfig.mixtral_8x7b (dropless routing) at
              full width on int4 and int8 weights drawn on the
              card by init_quantized_moe_params, then the int4 tree with
@@ -183,7 +194,9 @@ window 4096, packed documents with the window, and q rows in a
 document no kv column shares, whose dq must be exactly 0), timed beside
 SDPA's backward with the same boolean mask; head dims 32 and 256 on
 B1-B5 (bf16 timed, fp16 and int8 checked); B4 and B5 at 32 and 64 query
-rows per kv head; and B2-B9 on fp32 inputs against fp64 (the 3x gate),
+rows per kv head; B4 at the speculative verify step (k + 1 = 5 positions
+folded: 20 rows a kv head, dense at the 8B shape and windowed at
+Mistral's, against the split body's plain version, timed); and B2-B9 on fp32 inputs against fp64 (the 3x gate),
 timed beside their bound at the 67 TFLOP/s FFMA rate or in bytes and
 their library call: B2 / B3 at (1, 8, 2048, D = 64 / 128 / 256) causal
 and with a window and segment ids, B4 at check_paged's shape over fp32
@@ -212,6 +225,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -900,8 +914,8 @@ def dense_pallas_path(params, params32, cfg, cfg32, plain_attn) -> int:
 
 
 def profile_decode(eng, prompts, request_cls, what: str = "decode steps",
-                   new: int = 10) -> dict:
-    """Where a decode step's time goes: torch.profiler over 8 engine
+                   new: int = 10, steps: int = 8) -> dict:
+    """Where a decode step's time goes: torch.profiler over `steps` engine
     decode steps of the same prompts after their prefill (a chunked
     engine steps until no prompt is left prefilling; `new` tokens per
     request keep every slot live through the window), device time by
@@ -915,7 +929,6 @@ def profile_decode(eng, prompts, request_cls, what: str = "decode steps",
     while eng.pending or eng.prefilling:
         eng.step()
     torch.cuda.synchronize()
-    steps = 8
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA],
                  acc_events=True) as prof:
@@ -1439,6 +1452,8 @@ def serve_8b_phase() -> dict:
             f"{params_nbytes(params) / 1e9:.3f} GB of weights, seed {SEED}, "
             f"built on the card in {time.perf_counter() - t0:.2f} s")
         out[kind] = serve_8b(kind, params, cfg)
+        if kind == "int4":
+            out["int4_tree"] = params      # the spec phase serves it again
         if kind == "bf16":
             for name, dt in KV_KINDS.items():
                 out[f"kv_{name}"] = serve_8b(kind, params, cfg, kv=dt)
@@ -1498,6 +1513,265 @@ def generate_8b(params, cfg, eng, request_cls) -> dict:
     log(f"generate: {same} of 4 transcripts equal the int4 engine's on the "
         f"same prompts (reported, not gated)")
     return dict(launches=got, wall_s=wall, equal_to_engine=same)
+
+
+
+# --- phase 8b: speculative decoding -----------------------------------------
+
+SPEC_K = 4                    # drafts a verify: 20 rows a kv head at 32/8
+SPEC_DRAFT_MAX_SEQ = 2048     # draft-cache rows: every 8B prompt + 32 fit
+SPEC_SELF_LAYERS = 4          # depth of the fp32 self-draft model
+SPEC_SELF_LENS = [100, 180, 250, 333, 420, 512, 600, 700]
+
+
+def syncs_in(fn, *args, **kw):
+    """fn(*args, **kw) under torch's sync debug mode: (its result, the
+    host syncs it made -- a readback, a copy from host memory)."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, [str(w.message)[:160] for w in caught
+                 if "synchroniz" in str(w.message)]
+
+
+def watch_rounds(eng, syncs: list) -> None:
+    """Run the engine's speculative rounds (Engine._spec_rounds, the
+    device part of a step) under syncs_in, recording their syncs in
+    `syncs`."""
+    rounds = eng._spec_rounds
+
+    def watched(*args, **kw):
+        out, seen = syncs_in(rounds, *args, **kw)
+        syncs.extend(seen)
+        return out
+
+    eng._spec_rounds = watched
+
+
+def spec_gates(what, run, rounds, syncs) -> dict:
+    """The speculative run's own gates and figures: accepted <= proposed,
+    decode tokens = the transcripts' tokens after the first of each (which
+    the prefill samples), no host sync inside the rounds. Returns the
+    figures (decode tok/s, acceptance, tokens per engine step)."""
+    st = run["stats"]
+    steps = st.decode_steps // rounds
+    want_tokens = sum(len(t) - 1 for t in run["transcripts"])
+    rate = st.spec_accepted / max(st.spec_proposed, 1)
+    log(f"{what}: accepted {st.spec_accepted} of {st.spec_proposed} drafts "
+        f"({rate:.3f}); {steps} speculative engine steps, "
+        f"{st.decode_steps} verify dispatches, "
+        f"{st.decode_tokens / max(steps, 1):.3f} tokens per engine step (all slots); "
+        f"decode tokens {st.decode_tokens} (want {want_tokens}); host syncs "
+        f"inside the rounds {len(syncs)} (want 0) {syncs[:2]}")
+    if not (st.spec_proposed > 0 and st.spec_accepted <= st.spec_proposed
+            and st.decode_tokens == want_tokens and not syncs
+            and st.decode_steps % rounds == 0):
+        raise AssertionError(f"{what}: speculative accounting or syncs off")
+    return dict(decode_tok_s=st.decode_tokens_per_s, accepted=st.spec_accepted,
+                proposed=st.spec_proposed, accept_rate=rate,
+                tokens_per_step=st.decode_tokens / max(steps, 1),
+                engine_steps=steps, launches=run["launches"])
+
+
+def spec(params) -> dict:
+    """Phase 8b: speculative decoding at full width through serve_stack,
+    on `params`, the int4 llama3_8b tree of phase 7 (LLAMA_8B_LAYERS
+    layers), with its 16 prompt lengths, half the prompts random and half
+    repetitive (np.tile([3, 1, 4, 1, 5])), 32 greedy tokens each, k =
+    SPEC_K:
+      (a) n-gram drafts (propose_ngram_draft);
+      (b) a llama3_1b draft model (bf16, 16 layers, its own seed) at one
+          and at two rounds a step;
+      (c) llama3_1b in fp32 cut to SPEC_SELF_LAYERS layers drafting for
+          itself, 8 requests.
+    Each beside the same engine without speculation. Profiles 8 steps
+    of (a) and one of (b) at one round. Gates: exact
+    launches (B4 n_layers a verify dispatch; B7 7 n_layers + 1 a verify
+    dispatch and a prefill of <= 1024 rows, 1 a wider prefill; B1 a layer
+    a target prefill plus a draft layer a warm draft install), the
+    teacher-forced band on every 8B transcript, spec_gates, every page
+    back; (c) accepts >= 0.9 of its drafts and its transcripts equal the
+    fp32 engine's without speculation. bf16 transcripts equal to the engine's without speculation are
+    counted, not gated (bf16 rounding differs with the verify's row
+    count, and random trees give flat logits)."""
+    from flash_attention_tpu_torch.models.llama import LlamaConfig, init_params
+    from flash_attention_tpu_torch.runtime.engine import Request, _bucket
+
+    card = card_line()
+    t0, stage_s = time.perf_counter(), {}
+
+    def stage(name):
+        torch.cuda.synchronize()
+        stage_s[name] = round(time.perf_counter() - t0 - sum(
+            stage_s.values()), 1)
+
+    # The sync watch must see a readback and a host copy, or its 0 means
+    # nothing.
+    probe = syncs_in(lambda: (torch.ones(1, device="cuda").item(),
+                              torch.ones(1).cuda()))[1]
+    log(f"spec: sync debug mode saw {len(probe)} syncs in a readback and a "
+        f"host copy (want at least the readback's) {probe}")
+    if not probe:
+        raise AssertionError("spec: the sync watch does not see syncs")
+    out = {}
+    cfg = LlamaConfig.llama3_8b(n_layers=LLAMA_8B_LAYERS, dtype=torch.bfloat16)
+    n, per = cfg.n_layers, 7 * cfg.n_layers + 1
+    small = sum(_bucket(t) <= 1024 for t in PROMPT_LENS_8B)
+    rng = np.random.default_rng(SEED + 20)
+    prompts = [rng.integers(0, cfg.vocab_size, t).tolist() if i % 2 == 0
+               else np.tile([3, 1, 4, 1, 5], -(-t // 5))[:t].tolist()
+               for i, t in enumerate(PROMPT_LENS_8B)]
+    waves = [[(p, 32) for p in prompts]]
+
+    def counts_8b(draft_layers=0):
+        def counts(st):
+            return dict(flash=(n + draft_layers) * len(prompts),
+                        paged=n * st.decode_steps,
+                        int4=per * (st.decode_steps + small)
+                        + len(prompts) - small)
+        return counts
+
+    def watched(syncs):
+        return lambda eng: watch_rounds(eng, syncs)
+
+    eng, base = serve_stack("spec[8b int4, no speculation]", params, cfg,
+                            waves, ENGINE_8B, counts_8b())
+    del eng
+    stage("8b_base")
+    runs = {}
+    syncs = []
+    eng, run = serve_stack(f"spec[8b int4, n-gram k={SPEC_K}]", params, cfg,
+                           waves, dict(ENGINE_8B, speculative_k=SPEC_K),
+                           counts_8b(), prepare=watched(syncs))
+    runs["ngram"] = (run, 1, list(syncs))
+    prof = profile_decode(eng, prompts, Request,
+                          f"spec[8b n-gram k={SPEC_K}] verify steps", new=48)
+    out["profile_ngram"] = {k: v for k, v in prof.items()
+                            if k == "busy" or v >= 0.01}
+    del eng
+    stage("8b_ngram")
+    dcfg = LlamaConfig.llama3_1b(dtype=torch.bfloat16)
+    dparams = init_params(dcfg, seed=SEED + 21)
+    for rounds in (1, 2):
+        syncs = []
+        eng, run = serve_stack(
+            f"spec[8b int4 + llama3_1b draft, k={SPEC_K} R={rounds}]", params,
+            cfg, waves, dict(ENGINE_8B, speculative_k=SPEC_K,
+                             speculative_rounds=rounds, draft_params=dparams,
+                             draft_cfg=dcfg, draft_max_seq=SPEC_DRAFT_MAX_SEQ),
+            counts_8b(dcfg.n_layers), prepare=watched(syncs))
+        runs[f"draft_r{rounds}"] = (run, rounds, list(syncs))
+        if rounds == 1:
+            # One step: a step holds some 5000 eager ops, and the
+            # profiler's bookkeeping of 8 took ~40 s.
+            prof = profile_decode(
+                eng, prompts, Request,
+                f"spec[8b + 1b draft k={SPEC_K} R=1] step", new=4, steps=1)
+            out["profile_draft_r1"] = {k: v for k, v in prof.items()
+                                       if k == "busy" or v >= 0.01}
+        del eng
+        stage(f"8b_draft_r{rounds}")
+    del dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Each distinct (prompt, transcript) pair held to the band once.
+    pairs = {}
+    for run in [base] + [r for r, _, _ in runs.values()]:
+        for p, t in zip(prompts, run["transcripts"]):
+            pairs[(tuple(p), tuple(t))] = (p, t)
+    out["band_8b"] = teacher_forced(
+        params, cfg, [p for p, _ in pairs.values()],
+        [t for _, t in pairs.values()],
+        f"spec[8b int4] ({len(pairs)} distinct transcripts of 4 runs)")
+    stage("8b_band")
+    for name, (run, rounds, syncs) in runs.items():
+        fig = spec_gates(f"spec[8b {name}]", run, rounds, syncs)
+        fig["equal_to_plain"] = sum(
+            a == b for a, b in zip(run["transcripts"], base["transcripts"]))
+        out[name] = fig
+    out["base_8b"] = dict(decode_tok_s=base["stats"].decode_tokens_per_s,
+                          tokens_per_step=base["stats"].decode_tokens
+                          / base["stats"].decode_steps,
+                          launches=base["launches"])
+
+    # (c) fp32 self-draft.
+    cfg32 = LlamaConfig.llama3_1b(n_layers=SPEC_SELF_LAYERS,
+                                  dtype=torch.float32)
+    p32 = init_params(cfg32, seed=SEED + 22)
+    prompts32 = [rng.integers(0, cfg32.vocab_size, t).tolist()
+                 for t in SPEC_SELF_LENS]
+    waves32 = [[(p, 32) for p in prompts32]]
+    kw32 = dict(max_batch=8, num_pages=64, page_size=256, tail_size=16)
+    m = cfg32.n_layers
+
+    def counts32(draft_layers=0):
+        def counts(st):
+            f = (m + draft_layers) * len(prompts32)
+            return dict(flash=f, flash_fp32=f, paged=m * st.decode_steps,
+                        paged_fp32=m * st.decode_steps)
+        return counts
+
+    eng, base32 = serve_stack("spec[1b fp32, no speculation]", p32, cfg32,
+                              waves32, kw32, counts32())
+    del eng
+    syncs = []
+    eng, self32 = serve_stack(
+        f"spec[1b fp32 self-draft, k={SPEC_K}]", p32, cfg32, waves32,
+        dict(kw32, speculative_k=SPEC_K, draft_params=p32, draft_cfg=cfg32,
+             draft_max_seq=1024), counts32(m), prepare=watched(syncs))
+    del eng
+    fig = spec_gates("spec[1b fp32 self-draft]", self32, 1, syncs)
+    same = sum(a == b for a, b in zip(self32["transcripts"],
+                                      base32["transcripts"]))
+    log(f"spec[1b fp32 self-draft]: acceptance {fig['accept_rate']:.3f} "
+        f"(want >= 0.9); {same} of {len(prompts32)} transcripts equal the "
+        f"fp32 engine's without speculation (want all)")
+    if fig["accept_rate"] < 0.9 or same != len(prompts32):
+        raise AssertionError("spec[1b fp32 self-draft]: acceptance or "
+                             "transcripts off")
+    out["band_1b_fp32"] = teacher_forced(p32, cfg32, prompts32,
+                                         base32["transcripts"],
+                                         "spec[1b fp32]")
+    fig["equal_to_plain"] = same
+    out["self_fp32"] = fig
+    out["base_1b_fp32"] = dict(
+        decode_tok_s=base32["stats"].decode_tokens_per_s,
+        tokens_per_step=base32["stats"].decode_tokens
+        / base32["stats"].decode_steps, launches=base32["launches"])
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    stage("1b_fp32")
+    out["stage_s"] = stage_s
+    busy = out["profile_ngram"].get("busy")
+    log(f"spec: on {card}: decode tok/s (speculative / without) -- 8b "
+        f"n-gram {out['ngram']['decode_tok_s']:.1f} / "
+        f"{out['base_8b']['decode_tok_s']:.1f}, 8b + 1b draft R=1 "
+        f"{out['draft_r1']['decode_tok_s']:.1f}, R=2 "
+        f"{out['draft_r2']['decode_tok_s']:.1f}; 1b fp32 self-draft "
+        f"{out['self_fp32']['decode_tok_s']:.1f} / "
+        f"{out['base_1b_fp32']['decode_tok_s']:.1f}; accepted / proposed "
+        + ", ".join(f"{k} {out[k]['accepted']}/{out[k]['proposed']}"
+                    for k in ("ngram", "draft_r1", "draft_r2", "self_fp32"))
+        + "; tokens per engine step (all slots) "
+        + ", ".join(f"{k} {out[k]['tokens_per_step']:.3f}"
+                    for k in ("base_8b", "ngram", "draft_r1", "draft_r2",
+                              "base_1b_fp32", "self_fp32"))
+        + "; bf16 transcripts equal to the engine without speculation "
+        + ", ".join(f"{k} {out[k]['equal_to_plain']}/16"
+                    for k in ("ngram", "draft_r1", "draft_r2"))
+        + f" (reported); device busy ms a step (profiled): n-gram {busy}, "
+        f"1b draft R=1 {out['profile_draft_r1'].get('busy')}; seconds by "
+        f"stage {stage_s}")
+    out["paths"] = {"spec_8b_int4_ngram": out["ngram"]["launches"],
+                    "spec_8b_int4_draft_r1": out["draft_r1"]["launches"],
+                    "spec_8b_int4_draft_r2": out["draft_r2"]["launches"],
+                    "spec_1b_fp32_self_draft": out["self_fp32"]["launches"]}
+    return out
 
 
 # --- phase 9: serve Mixtral-8x7B (MoE, dropless) on B9 ---------------------
@@ -1765,14 +2039,18 @@ def live_page_poll(peaks, from_first_flush=False):
     return poll
 
 
-def serve_stack(what, params, cfg, waves, engine_kw, counts_fn, poll=None):
+def serve_stack(what, params, cfg, waves, engine_kw, counts_fn, poll=None,
+                prepare=None):
     """One engine run of `waves` with its launch counts, stats and
     transcripts. `counts_fn(stats)` gives the wanted launch counts from
     the run's decode steps and chunk dispatches; they must be exact, the
-    transcripts complete and every page back at the end."""
+    transcripts complete and every page back at the end. `prepare(eng)`
+    runs on the new engine before its warm-up request."""
     from flash_attention_tpu_torch.runtime.engine import Engine, Request
 
     eng = Engine(params, cfg, seed=SEED, **engine_kw)
+    if prepare is not None:
+        prepare(eng)
     eng.run([Request(prompt=[1, 2, 3], max_new_tokens=2)])     # warm-up
     torch.cuda.synchronize()
     free0 = eng.cache.free_pages
@@ -2704,7 +2982,10 @@ def check_grouped(rng, flush, results):
                 continue
             ms = time_ms(lambda: fn(x, sizes, *args), flush)
             dev_ms = device_ms(lambda: fn(x, sizes, *args), flush)
-            plain_ms = time_ms(lambda: plain(x, sizes, *args), flush)
+            # Five timed calls: the plain version is reported, not gated,
+            # and its 8192-row calls hold the script's time limit.
+            plain_ms = time_ms(lambda: plain(x, sizes, *args), flush,
+                               iters=5, warmup=1)
             if kind == "dense":
                 library[(m, k, f)] = library_grouped(x, sizes, args[0],
                                                      flush)
@@ -3747,6 +4028,93 @@ def check_paged_serving(rng, flush, results):
             shape=f"q({b},{hq},{d}) pools({hkv},{num_pages},{ps},{d}) "
                   f"{kind} lens {lengths.tolist()} window {MISTRAL_WINDOW}")
         host_row(what, kern, flush, results[("paged_serving", kind)])
+
+
+def check_spec_verify(rng, flush, results):
+    """B4 at the speculative verify step: SPEC_K + 1 query positions
+    folded into each kv head's group (32 q / 8 kv heads of 128: 20 rows a
+    kv head, so the split body runs two row groups, the second of 4
+    rows), bf16 pages of 256, as decode_step_paged_multi calls it
+    (qpos_spread = k + 1). "dense": the 8B n-gram step, 16 sequences of
+    PROMPT_LENS_8B + 16 tokens, no window. "window": Mistral's serving
+    step, 8 sequences of 700-12000 tokens, window starts lengths + 1 -
+    4096 (the first folded query's), each folded query t seeing from
+    starts + t. Each held to paged_flash_decode_split_plain (the split
+    body's own shares and merge order, bf16) under the 3x gate against
+    the fp32 plain version, LSE within 1e-3, the rows of the second group
+    reported apart, rerun for identical bits, and timed beside its bound
+    and its plain version."""
+    from flash_attention_tpu_torch.ops import paged
+    from flash_attention_tpu_torch.utils.metrics import verify_low_precision
+
+    t_new = SPEC_K + 1
+    hq, hkv, d, ps = 32 * t_new, 8, 128, 256
+    rows = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    for kind, lengths, window in (
+            ("dense", np.array(PROMPT_LENS_8B) + 16, None),
+            ("window", np.array([700, 1500, 3000, 4500, 6000, 8000, 10000,
+                                 12000]), MISTRAL_WINDOW)):
+        lengths = lengths.astype(np.int32)
+        b = len(lengths)
+        kp, vp, tbl, num_pages = paged_setup(
+            rng, lengths, hkv, d, ps, -(-int(lengths.max()) // ps) + 1)
+        q = randn(rng, (b, hq, d), torch.bfloat16)
+        lens = torch.from_numpy(lengths).cuda()
+        starts = st = None
+        if window is not None:
+            starts = lengths + 1 - window
+            st = torch.from_numpy(starts.astype(np.int32)).cuda()
+        spread = t_new if st is not None else 1
+        splits = decode_splits(b, hkv, rows, tbl.shape[1] * ps, d)
+
+        def kern():
+            return paged.paged_flash_decode(
+                q, kp, vp, tbl, lens, window_starts=st, qpos_spread=t_new,
+                return_lse=True)
+
+        def plain():
+            return paged.paged_flash_decode_split_plain(
+                q, kp, vp, tbl, lens, scale=scale, splits=splits, starts=st,
+                qpos_spread=spread)
+
+        o, lse = kern()
+        o_lo, _ = plain()
+        o_hi, lse_hi = paged.paged_flash_decode_plain(
+            q.float(), kp.float(), vp.float(), tbl, lens, scale=scale,
+            starts=st, qpos_spread=spread)
+        ok, kerr, berr = verify_low_precision(o, o_hi, o_lo)
+        lse_err, dead, dead_ok = _lse_gate(lse, lse_hi, scale)
+        second = (torch.arange(hq, device="cuda") % rows) >= 16
+        err2 = float((o[:, second].float() - o_hi[:, second]).abs().max())
+        what = (f"B4 verify step k={SPEC_K} {kind}: q({b},{hq},{d}) {rows} "
+                f"rows a kv head (row groups of 16: 16 + {rows - 16}) pages "
+                f"{ps} lens {lengths.tolist()}"
+                + (f" window {window} qpos_spread {t_new}" if window else "")
+                + f" splits {splits}")
+        log(f"check {what}: kernel_err={kerr:.3e} split_plain_err={berr:.3e} "
+            f"second-group rows kernel_err={err2:.3e} lse_err={lse_err:.3e} "
+            f"dead_rows={int(dead.sum())}")
+        if not (ok and dead_ok and lse_err <= 1e-3
+                and bool(torch.isfinite(o.float()).all())):
+            raise AssertionError(f"{what} failed its gate")
+        same_bits(what, kern, (o, lse))
+        ms = time_ms(kern, flush)
+        plain_ms = time_ms(plain, flush, iters=5, warmup=1)
+        flops, nbytes = paged.paged_decode_cost(
+            lengths, hq, hkv, d, 2, ps, starts=starts, qpos_spread=spread)
+        bms, by = bound_ms(flops, nbytes)
+        log(f"time  {what}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms=null bound_ms={bms:.4f} ({by}) achieved="
+            f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
+        results[("spec_verify", kind)] = dict(
+            max_abs_err=max_abs(o, o_lo), ms=ms, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by, library_ms=None,
+            shape=f"q({b},{hq},{d}) pools({hkv},{num_pages},{ps},{d}) bf16 "
+                  f"lens {lengths.tolist()}"
+                  + (f" window {window} qpos_spread {t_new}" if window
+                     else ""))
+        del kp, vp
 
 
 def check_split_edges(rng):
@@ -5135,10 +5503,10 @@ def check_kernels() -> dict:
             check_paged_window, check_decode_window, check_paged_quant,
             check_decode_quant, check_flash_quant, check_flash_long,
             check_bwd_branches, check_head_dims, check_flash_fp32,
-            check_fp32)
+            check_fp32, check_spec_verify)
     for fn in (check_flash, check_paged, check_flash_bwd, check_variants,
                check_decode, check_quant_matmul, check_grouped,
-               check_flash_branches, check_paged_window,
+               check_flash_branches, check_paged_window, check_spec_verify,
                check_decode_window, check_paged_quant, check_decode_quant,
                check_flash_quant, check_flash_long, check_bwd_branches,
                check_head_dims, check_rows, check_split_edges,
@@ -5918,6 +6286,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     q8 = timed("serve_8b", serve_8b_phase)
+    spc = timed("spec", lambda: spec(q8.pop("int4_tree")))
+    gc.collect()
+    torch.cuda.empty_cache()
     l4, l8 = q8["int4"]["launches"], q8["int8"]["launches"]
     lg = q8["int4"]["generate"]["launches"]
     kvpaths = {"serve_8b_bf16_kv_int8": q8["kv_int8"]["launches"],
@@ -5983,7 +6354,7 @@ def main() -> int:
     # phase holds them at 0 through NO_BRANCHES).
     model_paths = {"serve_1b": launches, "serve_8b_int4": l4,
                    "serve_8b_int8": l8, "generate_8b_int4": lg, **mpaths,
-                   **bpaths}
+                   **bpaths, **spc["paths"]}
     first_body_paths = {
         key: {path: got.get(key) for path, got in model_paths.items()}
         for key in ("paged_first_body", "decode_first_body")}
@@ -6088,6 +6459,8 @@ def main() -> int:
                                **mix_by_path("paged"),
                                **by_path(bpaths, "paged")},
              **results["paged"], at_head_dims=head_dims("B4"),
+             at_spec_verify={k: results[("spec_verify", k)]
+                             for k in ("dense", "window")},
              first_body_launches=first_body_paths["paged_first_body"],
              ptxas=split_ptxas),
         dict(name="paged_decode (B4 window starts)", route="cuda",
@@ -6287,6 +6660,17 @@ def main() -> int:
         *fp32_entries(results, fp32p, bwd_f32_ptxas, mm_f32_ptxas),
         *probe_entries(pr, mm_ptxas, p2_ptxas),
     ]
+    # The speculative paths' launches, under each kernel's own counter.
+    for entry in kernels:
+        counter = {"flash_fwd (B1)": "flash", "paged_decode (B4)": "paged",
+                   "int4_matmul (B7)": "int4",
+                   "flash_fwd (B1 fp32)": "flash_fp32",
+                   "paged_decode (B4 fp32)": "paged_fp32"}.get(entry["name"])
+        if counter is not None:
+            got = {path: c[counter] for path, c in spc["paths"].items()
+                   if c[counter]}
+            entry["launches"] += sum(got.values())
+            entry["launches_by_path"].update(got)
     print(json.dumps({"kernels": kernels}), flush=True)
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -202,11 +202,18 @@ def _rope_freqs(d: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, d, 2, dtype=np.float32) / d))
 
 
+@functools.lru_cache(maxsize=16)
+def _rope_freqs_on(d: int, theta: float, device: torch.device):
+    # Kept per device: a copy from host memory on every call would wait
+    # for the card's queue (a host sync per layer on the decode path).
+    return torch.from_numpy(_rope_freqs(d, theta)).to(device)
+
+
 def rope(x, positions, theta):
     """Interleaved rotary embedding (pairs x[..., 0::2], x[..., 1::2]).
     x: [B, H, T, D]; positions: [B, T] or [T]."""
     d = x.shape[-1]
-    freqs = torch.from_numpy(_rope_freqs(d, float(theta))).to(x.device)
+    freqs = _rope_freqs_on(d, float(theta), x.device)
     if positions.ndim == 1:
         positions = positions[None, :]
     angles = positions[:, None, :, None].float() * freqs     # [B,1,T,D/2]

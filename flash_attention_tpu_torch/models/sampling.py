@@ -49,6 +49,96 @@ def sample(logits, generator: torch.Generator | None = None, *,
         torch.int32)
 
 
+def _categorical(logits, generator):
+    """One draw per row from softmax(logits) by the Gumbel-max trick, as
+    jax.random.categorical draws (a -inf logit is never drawn); no host
+    sync on the card."""
+    u = torch.rand(logits.shape, generator=generator,
+                   device=logits.device).clamp_(min=1e-20)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+
+
+def speculative_sample(logits, tokens, temps, top_ps, generator=None, *,
+                       all_greedy: bool | None = None):
+    """Rejection-scheme speculative sampling over one multi-token verify
+    dispatch, for a deterministic (point-mass) draft:
+
+      * position i's target p_i = softmax of the (temperature + nucleus)
+        filtered logits; draft d_{i+1} is accepted with probability
+        p_i(d_{i+1});
+      * at the first rejection a the correction token is drawn from p_a
+        with the draft token masked out and renormalised;
+      * if every draft is accepted, a bonus token is drawn from p_k.
+
+    The emitted tokens follow sequential sampling from p exactly; greedy
+    rows (temps <= 0) accept by argmax equality. The draws come from
+    `generator` (a torch.Generator on the logits' device), so sampled
+    rows keep the sampling law of the JAX version, not its tokens.
+
+    logits [B, k+1, V] (position i predicts the token after input i);
+    tokens [B, k+1] int ([next_token, k drafts]); temps, top_ps [B] fp32
+    tensors on the logits' device. `all_greedy` (from the requests'
+    temperatures, which the host holds) takes the greedy path without
+    looking at `temps`: an all-greedy batch neither sorts nor softmaxes
+    the vocabulary. When it is None it is read from `temps` (a host sync
+    for a tensor on the card).
+
+    Returns (out [B, k+1] int32, accepted [B] int32): row b emits
+    out[b, :accepted[b] + 1].
+    """
+    b, kp1, v = logits.shape
+    k = kp1 - 1
+    dev = logits.device
+    logits = logits.float()
+    tokens = tokens.long()
+    greedy = torch.argmax(logits, dim=-1)                      # [B, k+1]
+    drafts = tokens[:, 1:]                                     # [B, k]
+    if all_greedy is None:
+        all_greedy = bool((torch.as_tensor(temps) <= 0.0).all())
+
+    def emit(accepted, corr):
+        pos = torch.arange(kp1, device=dev)[None, :]
+        dpad = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1)
+        out = torch.where(pos == accepted[:, None], corr[:, None], dpad)
+        return out.to(torch.int32), accepted.to(torch.int32)
+
+    def first_rejection(acc):
+        # Accepted drafts: the leading run of accepts (k = all accepted).
+        if not k:
+            return torch.zeros(b, dtype=torch.long, device=dev)
+        return torch.cumprod(acc.long(), dim=1).sum(dim=1)
+
+    if all_greedy:
+        accepted = first_rejection(greedy[:, :k] == drafts)
+        return emit(accepted, greedy.gather(1, accepted[:, None])[:, 0])
+
+    temps = temps.to(dev, torch.float32)
+    tsafe = temps.clamp(min=1e-6)[:, None, None]
+    filt = apply_top_p((logits / tsafe).reshape(b * kp1, v),
+                       top_ps.to(dev).repeat_interleave(kp1)
+                       ).reshape(b, kp1, v)
+    is_greedy = temps <= 0.0                                   # [B]
+    if k:
+        p = torch.softmax(filt[:, :k], dim=-1)
+        p_draft = p.gather(2, drafts[..., None])[..., 0]       # [B, k]
+        u = torch.rand((b, k), generator=generator, device=dev)
+        acc = torch.where(is_greedy[:, None], greedy[:, :k] == drafts,
+                          u < p_draft)
+    accepted = first_rejection(acc if k else None)
+    # Correction at position `accepted`: p_a without the draft token on a
+    # rejection, p_k itself when every draft was accepted.
+    filt_a = filt.gather(1, accepted[:, None, None].expand(b, 1, v))[:, 0]
+    if k:
+        d_a = tokens.gather(1, (accepted + 1).clamp(max=k)[:, None])[:, 0]
+        hit = torch.zeros_like(filt_a, dtype=torch.bool).scatter_(
+            1, d_a[:, None], True)
+        filt_a = filt_a.masked_fill(hit & (accepted < k)[:, None],
+                                    float("-inf"))
+    corr = torch.where(is_greedy, greedy.gather(1, accepted[:, None])[:, 0],
+                       _categorical(filt_a, generator))
+    return emit(accepted, corr)
+
+
 def generate(params, prompt_tokens, cfg, *, max_new_tokens: int,
              max_len: int | None = None, temperature: float = 0.0,
              top_k: int = 0, top_p: float = 0.0,

@@ -44,9 +44,22 @@ Design (as in the JAX engine):
     model's); the CUDA decode kernel takes dense pools only in the
     model's dtype, so another dense one raises on the card.
 
-Features of the JAX engine that later slices port raise
-NotImplementedError here: speculative decoding and draft models, and
-tensor-parallel serving (mesh). MoE models serve
+  * Speculative decoding (`speculative_k`): each engine step feeds
+    [next_token, k drafts] per slot through one decode_step_paged_multi
+    (the paged kernel sees the k + 1 positions folded into each kv
+    head's group) and accepts on the device by rejection sampling
+    (models/sampling.py speculative_sample); greedy transcripts are
+    unchanged. Drafts come from `draft_fn(history, k)` on the host (the
+    n-gram prompt lookup by default) or from a small draft model
+    (`draft_params` / `draft_cfg`) with its own contiguous per-slot
+    cache, whose k + 1 greedy steps run on the device; with a draft
+    model `speculative_rounds` R rounds of (draft, verify, accept) run
+    back to back, tail positions and draft lengths advanced on the
+    device. Either way a step reads back once. The step is eager (no
+    CUDA graph).
+
+Tensor-parallel serving (mesh) arrives with the multi-device slice and
+raises NotImplementedError here. MoE models serve
 through the same path (models/llama.py `_mlp_block`). The XLA warm-up
 helpers (precompile_*) have no counterpart: PyTorch compiles nothing.
 One departure from the JAX engine: an explicit `prefill_hbm_budget`
@@ -58,6 +71,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import inspect
 import itertools
 import time
 from typing import Any
@@ -68,12 +82,19 @@ import torch
 from flash_attention_tpu_torch.config import cdiv, resolve_device
 from flash_attention_tpu_torch.models.llama import (
     LlamaConfig,
+    decode_step,
     decode_step_paged,
+    decode_step_paged_multi,
+    init_kv_cache,
     prefill_chunk_step,
     prefill_kv,
     prefill_window_chunk_step,
 )
-from flash_attention_tpu_torch.models.sampling import apply_top_p, sample
+from flash_attention_tpu_torch.models.sampling import (
+    apply_top_p,
+    sample,
+    speculative_sample,
+)
 from flash_attention_tpu_torch.ops.paged import DEFAULT_PAGE_SIZE
 from flash_attention_tpu_torch.runtime.kv_cache import LayeredPagedKVCache
 
@@ -147,13 +168,15 @@ class EngineStats:
     prefill_tokens: int = 0
     prefix_cached_tokens: int = 0     # prompt tokens served from cache
     decode_tokens: int = 0
-    decode_steps: int = 0             # decode_step_paged calls
+    spec_proposed: int = 0            # draft tokens offered
+    spec_accepted: int = 0            # draft tokens confirmed
+    decode_steps: int = 0             # decode_step_paged(_multi) calls
     prefill_chunks: int = 0           # chunked-prefill dispatches
     engine_steps: int = 0
     rejected: int = 0
     peak_pages: int = 0
     prefill_s: float = 0.0
-    decode_s: float = 0.0
+    decode_s: float = 0.0             # incl. draft steps and the verify
     admit_s: float = 0.0              # _try_admit (incl. prefix probes)
     flush_s: float = 0.0              # tail flush + window eviction
     book_s: float = 0.0               # host-side batch assembly
@@ -169,6 +192,31 @@ class EngineStats:
         v = np.sort(np.asarray(self.ttft_s))
         pick = lambda p: float(v[min(len(v) - 1, int(p * len(v)))])  # noqa: E731
         return {"p50": pick(0.50), "p90": pick(0.90), "p99": pick(0.99)}
+
+
+def propose_ngram_draft(history, k: int, ngram: int = 2):
+    """Prompt-lookup draft: find the most recent earlier occurrence of the
+    history's trailing `ngram` and propose the k tokens that followed it
+    (padded with the continuation's last token when it runs short). No
+    match, or a history too short, proposes the last token repeated.
+    Host numpy; the verify is the only authority, so a draft never
+    changes a greedy transcript."""
+    h = np.asarray(history, np.int32)
+    n = len(h)
+    if n == 0:
+        return np.zeros(k, np.int32)
+    if n >= ngram + 1:
+        pat = h[-ngram:]
+        w = np.lib.stride_tricks.sliding_window_view(h[:-1], ngram)
+        starts = np.nonzero((w == pat).all(axis=1))[0]
+        if len(starts):
+            st = int(starts[-1])
+            cont = h[st + ngram: st + ngram + k]
+            out = np.empty(k, np.int32)
+            out[: len(cont)] = cont
+            out[len(cont):] = cont[-1]
+            return out
+    return np.full(k, h[-1], np.int32)
 
 
 def _bucket(n: int, lo: int = 64) -> int:
@@ -187,21 +235,14 @@ class Engine:
                  tail_size: int | None = None, kv_quant_dtype=None,
                  decode_chunk: int = 1, prefill_chunk: int | None = None,
                  prefix_cache: bool = False, speculative_k: int = 0,
-                 max_decode_stall: int = 4, draft_fn=None,
-                 draft_params=None, draft_cfg=None,
-                 prefill_hbm_budget: int | None = None, mesh=None,
-                 seed: int = 0, device="cuda"):
-        unported = [
-            (speculative_k or draft_fn is not None
-             or draft_params is not None or draft_cfg is not None,
-             "speculative_k / draft_*", "the speculative-decoding slice"),
-            (mesh is not None, "mesh", "the multi-device slice"),
-        ]
-        for bad, what, slice_name in unported:
-            if bad:
-                raise NotImplementedError(
-                    f"Engine: {what} is not ported yet; it arrives with "
-                    f"{slice_name}")
+                 speculative_rounds: int = 1, max_decode_stall: int = 4,
+                 draft_fn=None, draft_params=None, draft_cfg=None,
+                 draft_max_seq=None, prefill_hbm_budget: int | None = None,
+                 mesh=None, seed: int = 0, device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError(
+                "Engine: mesh is not ported yet; it arrives with the "
+                "multi-device slice")
         self.device = resolve_device(device)
         cache_dtype = cache_dtype or cfg.dtype
         if (self.device.type == "cuda" and kv_quant_dtype is None
@@ -285,6 +326,56 @@ class Engine:
                 "chunked prefill; it needs cfg.window and prefill_chunk "
                 "or prefix_cache")
         self._prefill_hbm_budget = prefill_hbm_budget
+        self._init_speculative(speculative_k, speculative_rounds, draft_fn,
+                               draft_params, draft_cfg, draft_max_seq)
+
+    def _init_speculative(self, speculative_k, speculative_rounds, draft_fn,
+                          draft_params, draft_cfg, draft_max_seq) -> None:
+        """Speculative decoding's options, their guards (as the JAX
+        engine's) and the draft model's state: a contiguous cache of
+        draft_max_seq (default min(max_seq_len, 8192)) positions per slot
+        and, on the host, each slot's draft length. Between steps rows
+        [0, _draft_len[b]) hold the draft K/V of every transcript token
+        but the pending next token; a step that accepts a drafts
+        advances it by a + 1 (rejected rows above are rewritten by the
+        next draft scan before they are read)."""
+        self.speculative_k = max(0, int(speculative_k))
+        self.speculative_rounds = max(1, int(speculative_rounds))
+        self.draft_fn = draft_fn or propose_ngram_draft
+        # draft_fn(history, k, request_id=...) is the richer protocol.
+        try:
+            self._draft_takes_id = "request_id" in \
+                inspect.signature(self.draft_fn).parameters
+        except (TypeError, ValueError):
+            self._draft_takes_id = False
+        if self.speculative_k:
+            if self.decode_chunk > 1:
+                raise ValueError(
+                    "speculative_k and decode_chunk>1 are mutually "
+                    "exclusive decode strategies (speculative_rounds "
+                    "is the stacking mechanism)")
+            span = (self.speculative_k + 1) * self.speculative_rounds
+            if span >= self.cache.tail_size:
+                raise ValueError(
+                    f"(speculative_k + 1) * speculative_rounds ({span}) "
+                    f"must be < tail_size ({self.cache.tail_size})")
+        if self.speculative_rounds > 1 and draft_params is None:
+            raise ValueError(
+                "speculative_rounds > 1 requires a draft model "
+                "(draft_params/draft_cfg): a host draft_fn cannot run "
+                "between the rounds of one step")
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
+        if draft_params is None:
+            return
+        if not self.speculative_k:
+            raise ValueError("draft_params requires speculative_k")
+        if draft_cfg is None:
+            raise ValueError("draft_params requires draft_cfg")
+        self._draft_S = int(draft_max_seq or min(self.max_seq_len, 8192))
+        self._draft_caches = init_kv_cache(draft_cfg, self.max_batch,
+                                           self._draft_S, device=self.device)
+        self._draft_len = np.zeros(self.max_batch, np.int32)
 
     # --- scheduling -------------------------------------------------------
 
@@ -493,6 +584,7 @@ class Engine:
                 if req.submit_ts is not None else None)
         if ttft is not None:
             self.stats.ttft_s.append(ttft)
+        installed = []
         for branch, (slot_idx, bsid) in enumerate(zip(free_slots, sids)):
             if branch == 0 and first_token is not None:
                 first = first_token
@@ -510,7 +602,36 @@ class Engine:
                 done.append(fin)
             else:
                 self.slots[slot_idx] = slot
+                installed.append(slot_idx)
+        if self.draft_params is not None:
+            self._draft_install_prompt(prompt, t, installed)
         return done
+
+    def _draft_install_prompt(self, prompt, t, slot_idxs) -> None:
+        """Prefill the draft model's cache for freshly installed slots (one
+        prefill_kv; forks copy its K/V into every slot). A prompt beyond
+        the draft cache leaves the slot cold (_draft_len 0): its drafts
+        are then garbage and rarely accepted, its transcript unchanged."""
+        k = self.speculative_k
+        if prompt is None or t > self._draft_S - (k + 2):
+            for i in slot_idxs:
+                self._draft_len[i] = 0
+            return
+        if not slot_idxs:
+            return
+        tb = min(_bucket(t), self._draft_S)
+        padded = np.zeros((1, tb), np.int32)
+        padded[0, :t] = np.asarray(prompt, np.int32)[:t]
+        _, ks, vs = prefill_kv(self.draft_params,
+                               torch.from_numpy(padded).to(self.device),
+                               self.draft_cfg, true_len=t)
+        for i in slot_idxs:
+            # Rows past t are pad garbage, hidden by _draft_len until the
+            # draft scan rewrites them in order.
+            for (ck, cv), k_l, v_l in zip(self._draft_caches, ks, vs):
+                ck[i, :, :tb] = k_l[0].to(ck.dtype)
+                cv[i, :, :tb] = v_l[0].to(cv.dtype)
+            self._draft_len[i] = t
 
     def _step_prefill(self) -> list[Completion]:
         """Advance chunked prefill by up to `prefill_chunk` real tokens of
@@ -672,7 +793,8 @@ class Engine:
     def step(self) -> list[Completion]:
         """One engine iteration: admit, advance chunked prefill, then
         `decode_chunk` decode steps (sampled tokens feed the next step on
-        the device; one host sync per chunk), collect finished
+        the device; one host sync per chunk) or, with speculative_k, one
+        speculative step (_step_speculative), collect finished
         sequences."""
         t_step = time.perf_counter()
         done = self._try_admit()
@@ -696,9 +818,11 @@ class Engine:
             return done
 
         chunk = self.decode_chunk
+        step_tokens = ((self.speculative_k + 1) * self.speculative_rounds
+                       if self.speculative_k else chunk)
         t_flush = time.perf_counter()
-        # Flush BEFORE the chunk if any live tail could overflow.
-        if any(self.slots[i].tail + chunk > self.cache.tail_size
+        # Flush BEFORE the step if any live tail could overflow.
+        if any(self.slots[i].tail + step_tokens > self.cache.tail_size
                for i in live):
             self.cache.flush_tails(
                 [s.seq_id if s else -1 for s in self.slots],
@@ -738,6 +862,9 @@ class Engine:
         bases = self.cache.bases(slot_sids)
         self.stats.book_s += time.perf_counter() - t_book
 
+        if self.speculative_k:
+            return self._step_speculative(done, live, tail_pos, temps,
+                                          top_ps, tables, paged_lens, bases)
         t0 = time.perf_counter()
         tok = torch.from_numpy(tokens).to(self.device)
         tpos = torch.from_numpy(tail_pos).to(self.device)
@@ -776,6 +903,119 @@ class Engine:
                     s = None
         self.stats.decode_tokens += accepted
         return done
+
+    def _step_speculative(self, done, live, tail_pos, temps, top_ps,
+                          tables, paged_lens, bases) -> list[Completion]:
+        """One speculative engine step: the rounds run on the device
+        (_spec_rounds), then one readback of every round's tokens and
+        accept counts, then per round and slot the accepted tokens join
+        the transcript (a slot that finishes ignores later rounds)."""
+        k, rounds = self.speculative_k, self.speculative_rounds
+        tokens = np.zeros((self.max_batch, k + 1), np.int32)
+        for i in live:
+            s = self.slots[i]
+            tokens[i, 0] = s.next_token
+            if self.draft_params is None:
+                hist = np.concatenate([
+                    np.asarray(s.request.prompt, np.int32),
+                    np.asarray(s.generated, np.int32)])
+                tokens[i, 1:] = (
+                    self.draft_fn(hist, k, request_id=s.request.request_id)
+                    if self._draft_takes_id else self.draft_fn(hist, k))
+        t0 = time.perf_counter()
+        dev = self.device
+        all_greedy = bool((temps <= 0.0).all())
+        res = self._spec_rounds(
+            torch.from_numpy(tokens).to(dev),
+            torch.from_numpy(tail_pos).to(dev),
+            (torch.from_numpy(self._draft_len).to(dev)
+             if self.draft_params is not None else None),
+            tables, paged_lens, bases,
+            None if all_greedy else torch.from_numpy(temps).to(dev),
+            None if all_greedy else torch.from_numpy(top_ps).to(dev),
+            all_greedy)
+        res = res.cpu().numpy()                      # [R, B, k+2], one sync
+        self.stats.decode_s += time.perf_counter() - t0
+        out, acc = res[..., :k + 1], res[..., k + 1]
+
+        accepted_total = 0
+        for r in range(rounds):
+            for i in live:
+                s = self.slots[i]
+                if s is None:
+                    continue                        # finished at round < r
+                a = int(acc[r, i])
+                # K/V of positions 0..k went into the tail; 0..a are real.
+                self.stats.spec_proposed += k
+                self.stats.spec_accepted += a
+                if self.draft_params is not None:
+                    self._draft_len[i] = min(int(self._draft_len[i]) + a + 1,
+                                             self._draft_S - 1)
+                s.length += a + 1
+                s.tail += a + 1
+                for tok in out[r, i, :a + 1]:
+                    s.next_token = int(tok)
+                    s.generated.append(int(tok))
+                    accepted_total += 1
+                    fin = self._maybe_finish(s, slot_idx=i)
+                    if fin is not None:
+                        done.append(fin)
+                        self.slots[i] = None
+                        s = None
+                        break
+        self.stats.decode_tokens += accepted_total
+        return done
+
+    def _spec_rounds(self, tokens, tail_pos, draft_lens, tables, paged_lens,
+                     bases, temps, top_ps, all_greedy) -> torch.Tensor:
+        """speculative_rounds rounds of (draft scan with a draft model,)
+        verify and accept, all on the device: a round's tail positions
+        and draft lengths advance by its accept counts + 1 as tensors, so
+        nothing here reads back or waits for the card. The verify writes
+        K/V of all k + 1 positions into the tails in place; rejected rows
+        stay stale behind tail_pos and the next round overwrites them.
+        tokens [B, k+1] ([next_token, host drafts]; only column 0 is read
+        with a draft model). Returns [R, B, k+2] int32: each round's
+        emitted tokens, then its accept count."""
+        cache = self.cache
+        tok = tokens[:, 0]
+        rows = []
+        for r in range(self.speculative_rounds):
+            if self.draft_params is not None:
+                tokens = torch.cat(
+                    [tok[:, None], self._draft_scan(tok, draft_lens)], dim=1)
+            logits, _, _ = decode_step_paged_multi(
+                self.params, tokens, self.cfg, cache.k_pools, cache.v_pools,
+                cache.k_tails, cache.v_tails, tables, paged_lens, tail_pos,
+                k_scales=cache.k_scale_pools, v_scales=cache.v_scale_pools,
+                paged_bases=bases)
+            self.stats.decode_steps += 1
+            out, acc = speculative_sample(logits, tokens, temps, top_ps,
+                                          self._gen, all_greedy=all_greedy)
+            rows.append(torch.cat([out, acc[:, None]], dim=1))
+            if r + 1 < self.speculative_rounds:
+                tok = out.gather(1, acc.long()[:, None])[:, 0]
+                tail_pos = tail_pos + acc + 1
+                if draft_lens is not None:
+                    draft_lens = draft_lens + acc + 1
+        return torch.stack(rows)
+
+    def _draft_scan(self, tok, draft_lens) -> torch.Tensor:
+        """k + 1 greedy draft-model steps on the contiguous draft cache
+        (decode_step with plain attention, as the JAX engine drafts),
+        lengths clamped so the k + 1 writes stay inside the cache. The
+        last step only ingests the k-th draft, so an all-accepted round
+        leaves no hole. Returns the k drafts [B, k] int32."""
+        k = self.speculative_k
+        lens = draft_lens.clamp(max=self._draft_S - (k + 2))
+        drafts = []
+        for _ in range(k + 1):
+            logits, _, lens = decode_step(
+                self.draft_params, tok, self.draft_cfg, self._draft_caches,
+                lens, use_flash=False)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            drafts.append(tok)
+        return torch.stack(drafts[:k], dim=1)
 
     def run(self, requests=None) -> list[Completion]:
         """Serve until every pending/submitted request completes."""

@@ -4,7 +4,7 @@
     package (AST walk over every .py file).
   * Entry points default to device="cuda"; on a host without a card that
     default raises instead of dropping to the CPU.
-  * Features that later slices port (engine options, the backward of
+  * Features that later slices port (the engine's mesh, the backward of
     windowed or segmented attention, trainer families, expert-parallel
     MoE placements) raise NotImplementedError instead of being accepted
     and ignored; options the port rejects by design raise ValueError.
@@ -96,21 +96,27 @@ def test_default_device_is_cuda_and_raises_without_a_card():
 
 
 @pytest.mark.parametrize("kw, exc, match", [
-    (dict(speculative_k=2), NotImplementedError, "slice"),
-    (dict(draft_fn=lambda h, k: h[:k]), NotImplementedError, "slice"),
+    (dict(speculative_k=2, decode_chunk=2), ValueError, "mutually exclusive"),
+    (dict(draft_fn=lambda h, k: h[:k], speculative_k=2,
+          speculative_rounds=2), ValueError, "draft model"),
+    (dict(draft_params={}), ValueError, "requires speculative_k"),
     (dict(mesh=object()), NotImplementedError, "slice"),
     (dict(prefill_hbm_budget=1 << 30, prefill_chunk=32), ValueError,
      "prefill_hbm_budget"),
-], ids=["speculative_k", "draft_fn", "mesh", "prefill_hbm_budget"])
+], ids=["speculative_k", "draft_fn", "draft_params", "mesh",
+        "prefill_hbm_budget"])
 def test_engine_unported_features_raise(kw, exc, match):
-    """Chunked prefill, the prefix cache and quantized KV are ported;
-    speculative decoding and meshes raise; a rolling-buffer budget on a
-    model without a window is refused (the JAX engine ignores it)."""
+    """Chunked prefill, the prefix cache, quantized KV and speculative
+    decoding (n-gram and draft-model drafts, rounds) are ported, with the
+    JAX engine's guards: speculation beside decode_chunk > 1, rounds over
+    a host draft_fn, and a draft model without speculative_k raise
+    ValueError. Meshes raise NotImplementedError; a rolling-buffer budget
+    on a model without a window is refused (the JAX engine ignores it)."""
     params = init_params(CFG, seed=0, device="cpu")
     with pytest.raises(exc, match=match):
         Engine(params, CFG, num_pages=4, page_size=16, device="cpu", **kw)
     Engine(params, CFG, num_pages=4, page_size=16, device="cpu",
-           prefill_chunk=32, prefix_cache=True)
+           prefill_chunk=32, prefix_cache=True, speculative_k=2)
 
 
 @pytest.mark.parametrize("dt", [torch.int8, torch.float8_e4m3fn],
