@@ -82,6 +82,21 @@ Phases, each fatal on failure:
              16 B2 / 16 B3 launches a step, an exact resume from a
              checkpoint, one profiled step (device time by kernel), and
              the kernel path held to the plain path;
+  6b. ring   ring attention (parallel/ring.py) at Llama-3-8B's attention
+             widths (q [1, 32, 8192, 128], K / V 8 heads, bf16): over a
+             one-process NCCL group and its mesh, contiguous causal,
+             non-causal, window 4096 and packed segment ids bit-identical
+             to B1 with exactly one launch, the causal backward
+             bit-identical to B2 + B3, zigzag (3 B1 / B2 / B3) within the
+             low-precision gate, one 1B train step (4 x 2048, remat) with
+             the ring as attn_impl bit-identical in loss and gradient
+             norm to the flash path; then two ranks on the one card over
+             gloo (launch_multihost --simulate 2 running ring_worker,
+             every rotation staged through host memory): contiguous
+             causal, zigzag and window 4096 forward and backward within
+             the low-precision gate against the single-process
+             flash_attention, each rank's launches by the ring's loop
+             (ring_launches); ring vs B1 (+ B2 + B3) times at world 1;
   7. serve8b the Engine on LlamaConfig.llama3_8b at full width, cut to
              LLAMA_8B_LAYERS of its 32 layers for the time limit, on
              int4 (B7) and int8 (B6) weights drawn on the card by
@@ -221,9 +236,11 @@ import io
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -4420,6 +4437,425 @@ def moe_loss() -> dict:
     return counts
 
 
+# --- phase: ring attention (sequence parallelism over B1 / B2 / B3) ------
+
+RING_T, RING_HQ, RING_HKV, RING_D = 8192, 32, 8, 128   # Llama-3-8B widths
+RING_RANKS = 2
+RING_ITERS = 10              # CUDA-event timings of each ring / B1 pair
+RING_RERUNS = 3             # wall-time reruns of each 2-rank case
+RING_SPAWN_TIMEOUT_S = 1200     # the ranks live from the build to the ring phase
+
+
+def ring_launches(my, n, causal, layout="contiguous", window=None, c=0):
+    """B1 launches of rank `my` of `n` in one ring forward (and B2, B3
+    in its backward), by the ring's loop: n steps non-causal; my + 1
+    contiguous causal (steps whose kv chunk is in the causal past);
+    zigzag 3 at step 0 (the always-full pair and two diagonals), then
+    2; windowed, step 0 and each step t <= my whose chunk t back reaches
+    into the window (window > (t - 1) c + 1)."""
+    if not causal:
+        return n
+    if layout == "zigzag":
+        return 2 * n + 1
+    if window is None:
+        return my + 1
+    return 1 + sum(window > (t - 1) * c + 1 for t in range(1, my + 1))
+
+
+def _ring_inputs(seed, device="cuda"):
+    """q [1, 32, 8192, 128] and k, v [1, 8, 8192, 128] bf16 on `device`,
+    and an output cotangent like q."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(
+        0.0, 1.0, (1, h, RING_T, RING_D)).astype(np.float32)).to(
+            device, torch.bfloat16)
+                 for h in (RING_HQ, RING_HKV, RING_HKV, RING_HQ))
+
+
+def _ring_counted(what, fn, want) -> dict:
+    """fn() with every counter set to 0 just before and read just after;
+    the counts must be `want` (others 0)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = read_counts()
+    wanted = dict(dict.fromkeys(got, 0), **want)
+    if got != wanted:
+        raise AssertionError(f"ring {what}: launches "
+                             f"{ {k: v for k, v in got.items() if v} }, "
+                             f"want {want}")
+    return out, got
+
+
+def _add_counts(total, got):
+    for key, val in got.items():
+        total[key] = total.get(key, 0) + val
+
+
+def ring_world1(mesh) -> dict:
+    """The ring over a one-rank NCCL group at Llama-3-8B's attention
+    widths (q [1, 32, 8192, 128], K / V 8 heads, bf16): contiguous causal,
+    non-causal, window 4096 and packed segment ids forward, each O
+    bit-identical to flash_attention_fwd (B1) with exactly one B1 launch
+    (on its window / segment branch where it has one); the contiguous
+    causal backward bit-identical to flash_attention's B2 + B3 (one
+    launch each); zigzag (3 B1, 3 B2, 3 B3: the chunk pair's three
+    pairs) within the low-precision gate (O and gradients within 3x the
+    bf16 plain version's error against fp32, LSE within 1e-3). Returns
+    the launch counts of the counted runs and the inputs (ring_times
+    times them later, with nothing else on the card)."""
+    from flash_attention_tpu_torch.ops import flash
+    from flash_attention_tpu_torch.parallel import ring as pring
+    from flash_attention_tpu_torch.utils.metrics import (
+        max_abs_error, verify_low_precision,
+    )
+
+    q, k, v, do = _ring_inputs(SEED + 21)
+    sc = 1.0 / math.sqrt(RING_D)
+    ids = packed_ids()
+    seg = flash.SegmentIds(ids, ids)
+    total = {}
+    fwd_cases = {"contiguous causal": (dict(causal=True), None, {}),
+                 "non-causal": (dict(causal=False), None, {}),
+                 f"window {MISTRAL_WINDOW}": (
+                     dict(causal=True, window=MISTRAL_WINDOW), None,
+                     dict(flash_win=1)),
+                 "packed segment ids": (dict(causal=True), seg,
+                                        dict(flash_seg=1))}
+    for name, (kw, sids, branch) in fwd_cases.items():
+        fn = pring.make_ring_attention(mesh, segmented=sids is not None,
+                                       **kw)
+        args = (q, k, v) + ((sids,) if sids is not None else ())
+        with torch.no_grad():
+            o, got = _ring_counted(name, lambda: fn(*args),
+                                   dict(flash=1, **branch))
+            ref, _ = flash.flash_attention_fwd(q, k, v, sids, **kw)
+        same = torch.equal(o, ref)
+        log(f"ring world 1 (NCCL) {name}: O bit-identical to "
+            f"flash_attention_fwd {same}; launches "
+            f"{ {k: v for k, v in got.items() if v} }")
+        if not same:
+            raise AssertionError(f"ring world 1 {name}: O differs from B1")
+        _add_counts(total, got)
+
+    xs = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def fwd_bwd(fn):
+        o = fn(*xs)
+        return (o.detach(), *torch.autograd.grad(o, xs, do))
+
+    causal = pring.make_ring_attention(mesh, causal=True)
+    got_g, got = _ring_counted("contiguous causal backward",
+                               lambda: fwd_bwd(causal),
+                               dict(flash=1, bwd_dq=1, bwd_dkv=1))
+    want_g = fwd_bwd(lambda *a: flash.flash_attention(*a, causal=True))
+    same = all(torch.equal(a, b) for a, b in zip(got_g, want_g))
+    log(f"ring world 1 (NCCL) contiguous causal forward + backward: O, dq, "
+        f"dk, dv bit-identical to flash_attention (B1, B2, B3) {same}")
+    if not same:
+        raise AssertionError("ring world 1: gradients differ from B2 + B3")
+    _add_counts(total, got)
+    del got_g, want_g
+
+    zz = pring.make_ring_attention(mesh, causal=True, layout="zigzag")
+    if not np.array_equal(pring.zigzag_order(RING_T, 1), np.arange(RING_T)):
+        raise AssertionError("zigzag order at one rank is not the identity")
+    got_z, got = _ring_counted("zigzag", lambda: fwd_bwd(zz),
+                               dict(flash=3, bwd_dq=3, bwd_dkv=3))
+    _add_counts(total, got)
+    kw = dict(causal=True, scale=sc, offset=0)
+    q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+    o_hi, lse_hi = by_kv_group(flash.flash_attention_fwd_plain, q32, k32, v32,
+                               **kw)
+    o_lo, _ = by_kv_group(flash.flash_attention_fwd_plain, q, k, v, **kw)
+    ok, kerr, berr = verify_low_precision(got_z[0], o_hi, o_lo)
+    with torch.no_grad():
+        _, lse = pring._ring_fwd_loop(
+            q, k, v, None, pring._Ring(mesh.get_group("sp")), causal=True,
+            layout="zigzag", window=None, scale=sc, block_sizes=None)
+    lse_err = max_abs_error(lse, lse_hi)
+    del o_hi, o_lo, lse_hi, lse
+    log(f"check ring world 1 zigzag O: kernel_err={kerr:.3e} "
+        f"bf16_plain_err={berr:.3e} lse_err={lse_err:.3e}")
+    if not (ok and lse_err <= 1e-3):
+        raise AssertionError("ring world 1 zigzag: O or LSE failed the gate")
+    hi = plain_fwd_bwd(q32, k32, v32, do32, **kw)
+    lo = plain_fwd_bwd(q, k, v, do, **kw)
+    _bwd_gate("ring world 1 zigzag gradients", got_z[1:], hi, lo)
+    del hi, lo, got_z, q32, k32, v32, do32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    return dict(launches=total, inputs=(q, k, v, do))
+
+
+def ring_times(mesh, q, k, v, do) -> dict:
+    """The one-rank ring's times against B1's and B1 + B2 + B3's (CUDA
+    events after an L2 flush, medians of RING_ITERS): contiguous causal
+    (one launch each, no merge) and zigzag (three, two LSE merges)."""
+    from flash_attention_tpu_torch.ops import flash
+    from flash_attention_tpu_torch.parallel import ring as pring
+
+    causal = pring.make_ring_attention(mesh, causal=True)
+    zz = pring.make_ring_attention(mesh, causal=True, layout="zigzag")
+    xs = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def fwd_bwd(fn):
+        o = fn(*xs)
+        return torch.autograd.grad(o, xs, do)
+
+    flush = L2Flush()
+    with torch.no_grad():
+        times = dict(
+            ring_causal_fwd_ms=time_ms(lambda: causal(q, k, v), flush,
+                                       RING_ITERS),
+            b1_causal_fwd_ms=time_ms(
+                lambda: flash.flash_attention_fwd(q, k, v, causal=True),
+                flush, RING_ITERS),
+            ring_zigzag_fwd_ms=time_ms(lambda: zz(q, k, v), flush,
+                                       RING_ITERS))
+    times.update(
+        ring_causal_fwd_bwd_ms=time_ms(lambda: fwd_bwd(causal), flush,
+                                       RING_ITERS),
+        flash_causal_fwd_bwd_ms=time_ms(
+            lambda: fwd_bwd(lambda *a: flash.flash_attention(
+                *a, causal=True)), flush, RING_ITERS),
+        ring_zigzag_fwd_bwd_ms=time_ms(lambda: fwd_bwd(zz), flush,
+                                       RING_ITERS))
+    log("time  ring world 1 (NCCL, q [1, 32, 8192, 128] bf16, medians of "
+        f"{RING_ITERS}): " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                       times.items()))
+    return times
+
+
+def ring_train_1b(mesh) -> dict:
+    """One loss and gradient of LlamaConfig.llama3_1b (bf16, remat) at
+    batch 4 x 2048, as train_1b trains it, through flash_attention and
+    again through the one-rank ring as attn_impl: loss and gradient norm
+    bit-identical, the ring run with exactly 2 B1 (remat), 1 B2 and 1 B3
+    launches a layer."""
+    from flash_attention_tpu_torch.models.llama import (
+        LlamaConfig, init_params, param_leaves,
+    )
+    from flash_attention_tpu_torch.parallel import ring as pring
+
+    cfg = LlamaConfig.llama3_1b(dtype=torch.bfloat16)
+    params = init_params(cfg, seed=SEED)
+    for leaf in param_leaves(params):
+        leaf.requires_grad_(True)
+    tokens = torch.as_tensor(np.random.default_rng(SEED + 22).integers(
+        0, cfg.vocab_size, (4, 2049)), device="cuda")
+    lk, gk = _loss_and_grad_norm(params, tokens, cfg, None)
+    n = cfg.n_layers
+    ring = pring.make_ring_attention(mesh, causal=True)
+    (lr, gr), got = _ring_counted(
+        "train_1b", lambda: _loss_and_grad_norm(params, tokens, cfg, ring),
+        dict(flash=2 * n, bwd_dq=n, bwd_dkv=n))
+    log(f"ring world 1 (NCCL) in the 1B train step (4 x 2048, remat): loss "
+        f"{lr!r} vs flash path {lk!r}, gradient norm {gr!r} vs {gk!r}; "
+        f"launches { {k: v for k, v in got.items() if v} }")
+    if lr != lk or gr != gk:
+        raise AssertionError("ring world 1: the 1B train step differs from "
+                             "the flash path")
+    return got
+
+
+class RingTwoRanks:
+    """Two ranks on the one card over gloo (every rotation staged through
+    host memory), spawned by the port's launcher running ring_worker,
+    each rank holding [1, 32 / 8, 4096, 128] bf16 chunks: contiguous
+    causal, zigzag and window 4096, forward and backward, each then rerun
+    RING_RERUNS times for its wall time. The ranks start with the build
+    (their process start, torch import, group and meshes overlap it: no
+    card work, no kernel library yet) and load the kernels, warm up and
+    run their cases after `go()`, so no other work on the card shares
+    their times. `kill()` stops them (main's finally). `finish()` checks
+    each rank's B1 / B2 / B3
+    launches against ring_launches, and O and the gradients against the
+    low-precision gate with the single-process flash_attention on the
+    card as the baseline (error against the fp32 plain version within 3x
+    its error); it returns each rank's launches and the wall times
+    (host-staged gloo, not a fabric)."""
+
+    CASES = {"contiguous causal": dict(causal=True),
+             "zigzag": dict(causal=True, layout="zigzag"),
+             f"window {MISTRAL_WINDOW}": dict(causal=True,
+                                              window=MISTRAL_WINDOW)}
+
+    def __init__(self, tmp):
+        import pathlib
+
+        from flash_attention_tpu_torch.parallel import ring as pring
+
+        self.tmp = pathlib.Path(tmp)
+        self.t_go = None
+        self.inputs = _ring_inputs(SEED + 23, device="cpu")
+        perm = torch.from_numpy(pring.zigzag_order(RING_T, RING_RANKS))
+        self.inv = torch.from_numpy(pring.zigzag_inverse(RING_T, RING_RANKS))
+        spec = []
+        for name, kw in self.CASES.items():
+            xs = (self.inputs if kw.get("layout") != "zigzag" else
+                  tuple(x[:, :, perm].contiguous() for x in self.inputs))
+            spec.append(dict(name=name, q=xs[0], k=xs[1], v=xs[2],
+                             do=xs[3], sp=RING_RANKS, repeat=RING_RERUNS,
+                             **kw))
+        torch.save({"cases": spec}, self.tmp / "ring_cases.pt")
+        del spec
+        self.go_file = self.tmp / "ring_go"
+        root = pathlib.Path(__file__).resolve().parent
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "flash_attention_tpu_torch.scripts.launch_multihost",
+             "--simulate", str(RING_RANKS), "--device", "cuda",
+             "--rendezvous-dir", str(self.tmp), "--timeout",
+             str(RING_SPAWN_TIMEOUT_S), "--", "-m",
+             "flash_attention_tpu_torch.scripts.ring_worker",
+             str(self.tmp / "ring_cases.pt"), str(self.tmp / "ring_out.pt"),
+             "--backend", "gloo", "--warmup", "--start-after",
+             str(self.go_file)],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, start_new_session=True)
+
+    def go(self):
+        torch.cuda.synchronize()
+        self.go_file.touch()
+        self.t_go = time.perf_counter()
+
+    def kill(self):
+        """Stop the launcher and its ranks (one process group)."""
+        import os
+        import signal
+
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.communicate()
+
+    def finish(self) -> dict:
+        from flash_attention_tpu_torch.ops import flash
+        from flash_attention_tpu_torch.utils.metrics import (
+            max_abs_error, verify_low_precision,
+        )
+
+        try:
+            log_text, _ = self.proc.communicate(
+                timeout=RING_SPAWN_TIMEOUT_S + 60)
+        finally:
+            self.kill()
+        done = time.perf_counter()
+        if self.proc.returncode:
+            raise AssertionError(f"ring: the 2-rank spawn failed "
+                                 f"({self.proc.returncode}):\n"
+                                 f"{log_text[-6000:]}")
+        out = torch.load(self.tmp / "ring_out.pt", weights_only=True)
+        if (out["world"], out["backend"]) != (RING_RANKS, "gloo") \
+                or not out["device"].startswith("cuda"):
+            raise AssertionError(f"ring: the spawn ran {out['world']} ranks "
+                                 f"on {out['backend']} / {out['device']}")
+        c = RING_T // RING_RANKS
+        qc, kc, vc, doc = (x.cuda() for x in self.inputs)
+        result = dict(after_go_s=done - self.t_go, launches={}, seconds={},
+                      first_seconds={})
+        for name, kw in self.CASES.items():
+            got = out["cases"][name]
+            want = [ring_launches(r, RING_RANKS, c=c, **kw)
+                    for r in range(RING_RANKS)]
+            launches = got["launches"]
+            if any(n != dict(B1=w, B2=w, B3=w)
+                   for n, w in zip(launches, want)):
+                raise AssertionError(
+                    f"ring 2 ranks {name}: launches per rank {launches}, "
+                    f"want B1 = B2 = B3 = {want}")
+            back = self.inv if kw.get("layout") == "zigzag" else slice(None)
+            ring_out = [got[x][:, :, back].cuda()
+                        for x in ("o", "dq", "dk", "dv")]
+            xs = [x.detach().clone().requires_grad_() for x in (qc, kc, vc)]
+            o = flash.flash_attention(*xs, causal=True,
+                                      window=kw.get("window"))
+            base = [o.detach(), *torch.autograd.grad(o, xs, doc)]
+            pkw = dict(causal=True, scale=1.0 / math.sqrt(RING_D), offset=0,
+                       window=kw.get("window"))
+            x32 = [x.float() for x in (qc, kc, vc, doc)]
+            o32, lse32 = by_kv_group(flash.flash_attention_fwd_plain,
+                                     *x32[:3], **pkw)
+            hi = [o32, *by_kv_group(flash.flash_attention_bwd_plain,
+                                    *x32[:3], o32, lse32, x32[3], **pkw)]
+            del lse32
+            parts, failed = [], []
+            for label, r, h, b in zip(("o", "dq", "dk", "dv"), ring_out, hi,
+                                      base):
+                ok, kerr, berr = verify_low_precision(r, h, b)
+                parts.append(f"{label} ring_err={kerr:.3e} "
+                             f"single_process_err={berr:.3e} "
+                             f"|ring - single|={max_abs_error(r, b):.3e}")
+                if not (ok and bool(torch.isfinite(r.float()).all())):
+                    failed.append(label)
+            log(f"check ring 2 ranks (gloo, one card) {name}: "
+                + "; ".join(parts) + f"; launches per rank {launches}")
+            if failed:
+                raise AssertionError(f"ring 2 ranks {name}: {failed} failed "
+                                     "the gate")
+            del ring_out, base, hi, x32, xs, o, o32
+            result["launches"][name] = launches
+            result["seconds"][name] = got["repeat_seconds"]
+            result["first_seconds"][name] = got["seconds"]
+        log(f"time  ring 2 ranks on one card (host-staged gloo, not a "
+            f"fabric): started with the build, {result['after_go_s']:.1f} s "
+            f"from the go to their results (kernel load, warm-up, counted "
+            f"runs and reruns, gather); forward + "
+            f"backward wall s per rank, median of {RING_RERUNS} reruns "
+            f"{result['seconds']} (first runs {result['first_seconds']})")
+        return result
+
+
+def ring(two: RingTwoRanks) -> dict:
+    """Ring attention (parallel/ring.py over B1 / B2 / B3): a one-process
+    NCCL group and its mesh run ring_world1 and ring_train_1b, then the
+    two ranks started with the build (`two`) run and are checked, then
+    ring_times. Returns the launch counts by path, the times and the
+    part seconds."""
+    import torch.distributed as dist
+
+    from flash_attention_tpu_torch.parallel.mesh import (
+        initialize_distributed, make_mesh,
+    )
+
+    secs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ring_") as tmp:
+        t = time.perf_counter()
+        initialize_distributed(f"file://{tmp}/store", 1, 0)
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"ring: the world of one runs "
+                                     f"{dist.get_backend()}, not NCCL")
+            mesh = make_mesh(sp=1)
+            secs["nccl_world1_and_mesh"] = time.perf_counter() - t
+            t = time.perf_counter()
+            w1 = ring_world1(mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+            secs["world1"] = time.perf_counter() - t
+            t = time.perf_counter()
+            tr = ring_train_1b(mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+            secs["train_1b"] = time.perf_counter() - t
+            t = time.perf_counter()
+            two.go()
+            got = two.finish()
+            secs["two_ranks_after_go"] = time.perf_counter() - t
+            t = time.perf_counter()
+            w1["times"] = ring_times(mesh, *w1.pop("inputs"))
+            secs["world1_times"] = time.perf_counter() - t
+        finally:
+            dist.destroy_process_group()
+    log("ring: part seconds " + ", ".join(f"{k} {v:.1f}"
+                                           for k, v in secs.items()))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(world1=w1, train=tr, two=got, seconds=secs)
+
+
 # --- phase: the kernel-study harness (B10a-c, B1 fp32, B1's split) -------
 
 STUDY_SHAPE = (1, 32, 8192, 128)     # benchmarks/perf_1_32_8192_128
@@ -6223,14 +6659,25 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from flash_attention_tpu_torch.ops import _cuda
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
+    rdir = tempfile.mkdtemp(prefix="chip_smoke_ring_ranks_")
+    two = RingTwoRanks(rdir)
+    try:
+        return run_phases(card, two)
+    finally:
+        two.kill()
+        shutil.rmtree(rdir, ignore_errors=True)
+
+
+def run_phases(card: str, two: RingTwoRanks) -> int:
+    """Every phase after the ring ranks' start (main)."""
+    from flash_attention_tpu_torch.ops import _cuda
+
     t0 = time.perf_counter()
     report = io.StringIO()
     with contextlib.redirect_stdout(report):
@@ -6285,6 +6732,9 @@ def main() -> int:
     trained = timed("train_1b", train_1b)
     gc.collect()
     torch.cuda.empty_cache()
+    rg = timed("ring", lambda: ring(two))
+    gc.collect()
+    torch.cuda.empty_cache()
     q8 = timed("serve_8b", serve_8b_phase)
     spc = timed("spec", lambda: spec(q8.pop("int4_tree")))
     gc.collect()
@@ -6308,6 +6758,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     tpaths["segmented_grad_api"] = timed("segmented_grad", segmented_grad)
     tpaths["moe_loss_tiny"] = timed("moe_loss", moe_loss)
+    # The one-rank NCCL ring's checks and its 1B train step.
+    tpaths["ring_world1_nccl"] = rg["world1"]["launches"]
+    tpaths["train_1b_ring_world1"] = rg["train"]
     log(f"phase seconds: {phase_s}")
     mm, mc = mis["monolithic"], mis["chunked"]
     log(f"mistral: decode tok/s at batch 8 -- monolithic "
@@ -6398,7 +6851,12 @@ def main() -> int:
                               results[("flash_long", STUDY_SHAPE[1])],
                               "causal GQA 32/8":
                               results[("flash_long", STUDY_GQA_KV)]},
-             at_head_dims=head_dims("B1")),
+             at_head_dims=head_dims("B1"),
+             at_ring={"world 1 NCCL, q [1, 32, 8192, 128] bf16":
+                      rg["world1"]["times"],
+                      "2 ranks on one card, host-staged gloo (not a "
+                      "fabric): forward + backward wall s per rank":
+                      rg["two"]["seconds"]}),
         # B1's branches, each with the launches its own counter saw on
         # the paths (a roll-buffer launch takes both).
         dict(name="flash_fwd (B1 segment ids)", route="cuda",
@@ -6671,6 +7129,15 @@ def main() -> int:
                    if c[counter]}
             entry["launches"] += sum(got.values())
             entry["launches_by_path"].update(got)
+    # The 2-rank ring's launches, each rank counting its own.
+    for entry in kernels:
+        key = {"flash_fwd (B1)": "B1", "flash_bwd_dq (B2)": "B2",
+               "flash_bwd_dkv (B3)": "B3"}.get(entry["name"])
+        for r in range(RING_RANKS if key else 0):
+            n = sum(per_rank[r][key]
+                    for per_rank in rg["two"]["launches"].values())
+            entry["launches"] += n
+            entry["launches_by_path"][f"ring_2rank_gloo_rank{r}"] = n
     print(json.dumps({"kernels": kernels}), flush=True)
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,9 +17,12 @@ Layering (bottom-up):
                 backward (and its causal split), paged and contiguous
                 decode, quantized KV, the study variants (FA1, FA2
                 in-loop, naive) and their registry, exact references
+    parallel/   process group + device mesh (torch.distributed), ring
+                attention (sequence parallelism) over B1 / B2 / B3
     models/     Llama-class model (prefill, paged decode, loss and train
                 step), sampling, the Trainer
     runtime/    native page allocator, paged KV caches, serving engine
+    scripts/    the probes, the multi-host launcher and its workers
     cli.py      the kernel-study harness (verify, compare, perf,
                 max-batch, profile)
 """

@@ -1,0 +1,162 @@
+"""Process group and device mesh (port of
+`flash_attention_tpu/parallel/mesh.py`).
+
+Axis conventions, in mesh-major order, as in the JAX package:
+
+  dp    data parallel (batch): gradients all-reduce
+  pp    pipeline parallel (layer stages; microbatch activations hop)
+  fsdp  fully-sharded data parallel (params + optimizer state sharded)
+  sp    sequence parallel (ring attention rotates K/V around this axis)
+  tp    tensor parallel (heads / hidden sharded; activations collective)
+  ep    expert parallel (MoE experts sharded; token all-to-all)
+
+One process is one rank and one device. `initialize_distributed()`
+joins the processes into one `torch.distributed` world (NCCL between
+cards, gloo between CPU processes), and `make_mesh` lays the six named
+axes over its ranks as a `DeviceMesh`; `mesh.get_group(axis)` is the
+process group of an axis. `flash_attention_tpu_torch.scripts.
+launch_multihost` is the per-host launcher, and its `--simulate N` mode
+spawns N local ranks.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from flash_attention_tpu_torch.config import resolve_device
+
+AXES = ("dp", "pp", "fsdp", "sp", "tp", "ep")
+
+# How long a rank waits for its peers at the rendezvous and in a
+# collective before it raises, instead of hanging.
+TIMEOUT_S = 600
+
+
+def _init_method(coordinator: str) -> str:
+    """A `host:port` coordinator as a TCP rendezvous; `tcp://` and
+    `file://` addresses pass as they are."""
+    if coordinator.startswith(("tcp://", "file://", "env://")):
+        return coordinator
+    return f"tcp://{coordinator}"
+
+
+def initialize_distributed(coordinator_address: str | None = None,
+                           num_processes: int | None = None,
+                           process_id: int | None = None,
+                           local_device_ids=None, *, device="cuda",
+                           backend: str | None = None) -> None:
+    """Join this process to the `torch.distributed` world. Call once per
+    process, before `make_mesh`.
+
+    The rendezvous comes from the arguments, else from the JAX
+    package's contract FA_TPU_COORDINATOR (`host:port`, or a `tcp://` /
+    `file://` address) / FA_TPU_NUM_PROCESSES / FA_TPU_PROCESS_ID (what
+    `scripts/launch_multihost.py` sets), else from torchrun's
+    MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK.
+
+    `device="cuda"` (the default) makes an NCCL group and raises where
+    there is no card or no NCCL; it never drops to gloo. `device="cpu"`
+    makes a gloo group. `backend=` names another backend explicitly
+    (gloo over card tensors: every transfer is staged through host
+    memory). Each rank drives one device: `local_device_ids` (an index,
+    or a sequence of one) names it, else LOCAL_RANK, else the rank modulo
+    the visible cards.
+
+    A no-op when a group already exists, and for one process that was
+    given no rendezvous (no coordinator and at most one process).
+    """
+    dev = resolve_device(device)
+    if dist.is_initialized():
+        return
+    env = os.environ
+    if coordinator_address is None:
+        coordinator_address = env.get("FA_TPU_COORDINATOR")
+    if coordinator_address is None and "MASTER_ADDR" in env:
+        coordinator_address = (f"{env['MASTER_ADDR']}:"
+                               f"{env.get('MASTER_PORT', '29500')}")
+    if num_processes is None:
+        num_processes = env.get("FA_TPU_NUM_PROCESSES",
+                                env.get("WORLD_SIZE"))
+    if process_id is None:
+        process_id = env.get("FA_TPU_PROCESS_ID", env.get("RANK"))
+    num_processes = 1 if num_processes is None else int(num_processes)
+    process_id = 0 if process_id is None else int(process_id)
+    if coordinator_address is None:
+        if num_processes == 1:
+            return
+        raise ValueError(f"{num_processes} processes need a coordinator "
+                         "address (FA_TPU_COORDINATOR or MASTER_ADDR)")
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend == "nccl" and not dist.is_nccl_available():
+        raise RuntimeError("the NCCL backend is not available in this "
+                           "torch build; pass device='cpu' for gloo")
+    if dev.type == "cuda":
+        if local_device_ids is None:
+            index = int(env.get("LOCAL_RANK", process_id))
+        elif isinstance(local_device_ids, int):
+            index = local_device_ids
+        else:
+            (index,) = local_device_ids
+        torch.cuda.set_device(index % torch.cuda.device_count())
+    dist.init_process_group(
+        backend, init_method=_init_method(coordinator_address),
+        world_size=num_processes, rank=process_id,
+        timeout=datetime.timedelta(seconds=TIMEOUT_S))
+
+
+def mesh_shape_for(n_devices: int, *, dp=1, pp=1, fsdp=1, sp=1, tp=1,
+                   ep=1) -> dict:
+    """Fill in at most one -1 axis to consume the remaining devices."""
+    shape = {"dp": dp, "pp": pp, "fsdp": fsdp, "sp": sp, "tp": tp, "ep": ep}
+    free = [k for k, v in shape.items() if v == -1]
+    if len(free) > 1:
+        raise ValueError("at most one axis may be -1")
+    fixed = int(np.prod([v for v in shape.values() if v != -1]))
+    if free:
+        if n_devices % fixed:
+            raise ValueError(
+                f"{n_devices} devices not divisible by fixed axes {fixed}"
+            )
+        shape[free[0]] = n_devices // fixed
+        fixed = n_devices
+    if fixed != n_devices:
+        raise ValueError(
+            f"mesh shape {shape} needs {fixed} devices, have {n_devices}"
+        )
+    return shape
+
+
+def make_mesh(*, dp=1, pp=1, fsdp=1, sp=1, tp=1, ep=1, devices=None,
+              device_type: str = "cuda"):
+    """A `DeviceMesh` over the ranks of the world with the six named
+    axes (AXES, dp / pp outermost, tp / ep innermost). Use -1 for one
+    auto axis. `devices` is a sequence of global ranks (default: every
+    rank, in order). `device_type="cuda"` (the default) raises where
+    there is no card; "cpu" meshes CPU ranks over gloo.
+
+    Needs `initialize_distributed()` first (a world of one too). The JAX
+    function lays the axes along the TPU's ICI torus when the devices
+    are not given; there is no counterpart here: ranks are laid in
+    enumeration order, and a card's topology (NVLink, the network) is
+    NCCL's to route."""
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+    resolve_device(device_type)
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs a process group: call "
+                           "initialize_distributed() first")
+    ranks = (list(range(dist.get_world_size())) if devices is None
+             else [int(r) for r in devices])
+    shape = mesh_shape_for(len(ranks), dp=dp, pp=pp, fsdp=fsdp, sp=sp,
+                           tp=tp, ep=ep)
+    dims = tuple(shape[a] for a in AXES)
+    if devices is None:
+        return init_device_mesh(device_type, dims, mesh_dim_names=AXES)
+    return DeviceMesh(device_type, torch.tensor(ranks).reshape(dims),
+                      mesh_dim_names=AXES)

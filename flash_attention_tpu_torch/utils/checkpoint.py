@@ -31,9 +31,12 @@ def _steps(ckpt_dir: pathlib.Path) -> list[int]:
 
 
 def save_checkpoint(ckpt_dir, step: int, state: Any, *,
-                    max_to_keep: int = 3) -> None:
+                    max_to_keep: int = 3, blocking: bool = True) -> None:
     """Save `state` (params / opt_state / step / metadata) at `step`.
-    Retains the newest `max_to_keep` steps."""
+    Retains the newest `max_to_keep` steps. `blocking` is the JAX
+    package's keyword (Orbax may write in the background); `torch.save`
+    is synchronous, so every save has finished when this returns and
+    the keyword changes nothing."""
     ckpt_dir = pathlib.Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     final = ckpt_dir / str(int(step))

@@ -14,9 +14,11 @@ the paged-decode input guard.
     packages.
   * `block_sizes=` is accepted on the CPU and changes nothing;
     `select_block_sizes` has the JAX signature and returns B1's tile.
-  * Every name the JAX package exports from its top level, `models` and
-    `utils` is importable from the port under that name, except the
-    sharding names of the multi-device slice.
+  * Every name the JAX package exports from its top level, `models`,
+    `utils`, `ops`, `runtime` and `parallel` is importable from the port
+    under that name, except the sharding and pipeline names of later
+    multi-device slices.
+  * `save_checkpoint` takes the JAX package's keywords (`blocking=`).
 """
 
 import inspect
@@ -31,9 +33,15 @@ from jax.experimental import checkify
 
 import flash_attention_tpu
 import flash_attention_tpu.models
+import flash_attention_tpu.ops
+import flash_attention_tpu.parallel
+import flash_attention_tpu.runtime
 import flash_attention_tpu.utils
 import flash_attention_tpu_torch
 import flash_attention_tpu_torch.models
+import flash_attention_tpu_torch.ops
+import flash_attention_tpu_torch.parallel
+import flash_attention_tpu_torch.runtime
 import flash_attention_tpu_torch.utils
 from flash_attention_tpu import config as jconfig
 from flash_attention_tpu.config import BlockSizes as JaxBlockSizes
@@ -41,10 +49,12 @@ from flash_attention_tpu.ops.flash import flash_attention_fwd as jax_fwd
 from flash_attention_tpu.ops.paged import (
     validate_paged_inputs as jax_validate,
 )
+from flash_attention_tpu.utils import checkpoint as jcheckpoint
 from flash_attention_tpu_torch import config
 from flash_attention_tpu_torch.config import BlockSizes
 from flash_attention_tpu_torch.ops import flash
 from flash_attention_tpu_torch.ops.paged import validate_paged_inputs
+from flash_attention_tpu_torch.utils import checkpoint
 from flash_attention_tpu_torch.utils.metrics import max_abs_error
 
 ATOL = 2e-5
@@ -52,6 +62,11 @@ JAX_BLOCKS = JaxBlockSizes(block_q=128, block_kv=128)
 # Names the JAX package exports that wait for the multi-device slice.
 SHARDING_NAMES = {"param_shardings", "moe_param_shardings",
                   "make_moe_train_step"}
+# The pipeline names of JAX `parallel/__init__.py`, which come with the
+# pipeline-training slice.
+PIPELINE_NAMES = {"make_pp_train_step", "make_pp_loss",
+                  "split_pipeline_params", "merge_pipeline_params",
+                  "pipeline_shardings"}
 
 HKV, PAGES, PS, D = 2, 8, 128, 64
 GOOD_TABLE = [[0, 1], [2, 3]]
@@ -220,12 +235,32 @@ def test_select_block_sizes_has_the_jax_signature():
         [p.kind for p in theirs.values()]
 
 
+def test_save_checkpoint_has_the_jax_signature(tmp_path):
+    """The JAX keywords, `blocking=` among them, in the JAX order; a
+    non-blocking save has finished when it returns (torch.save is
+    synchronous) and restores."""
+    ours = inspect.signature(checkpoint.save_checkpoint).parameters
+    theirs = inspect.signature(jcheckpoint.save_checkpoint).parameters
+    assert list(ours) == list(theirs)
+    assert [p.kind for p in ours.values()] == \
+        [p.kind for p in theirs.values()]
+    assert [p.default for p in ours.values()] == \
+        [p.default for p in theirs.values()]
+    state = {"w": torch.arange(6.0).reshape(2, 3), "step": 7}
+    checkpoint.save_checkpoint(tmp_path, 7, state, blocking=False)
+    step, got = checkpoint.restore_checkpoint(tmp_path)
+    assert step == 7 and got["step"] == 7 and torch.equal(got["w"],
+                                                          state["w"])
+
+
 def _jax_exports():
-    return [(mod, name) for mod in ("", "models", "utils")
+    return [(mod, name)
+            for mod in ("", "models", "utils", "ops", "runtime", "parallel")
             for name in getattr(
                 flash_attention_tpu if not mod else
                 getattr(flash_attention_tpu, mod), "__all__")
-            if name not in SHARDING_NAMES and name != "__version__"]
+            if name not in SHARDING_NAMES | PIPELINE_NAMES
+            and name != "__version__"]
 
 
 @pytest.mark.parametrize("mod, name", _jax_exports(),

@@ -3,7 +3,8 @@
   * Nothing in the port, nor chip_smoke.py, imports jax or the JAX
     package (AST walk over every .py file).
   * Entry points default to device="cuda"; on a host without a card that
-    default raises instead of dropping to the CPU.
+    default raises instead of dropping to the CPU (the mesh and the
+    process group too).
   * Features that later slices port (the engine's mesh, the backward of
     windowed or segmented attention, trainer families, expert-parallel
     MoE placements) raise NotImplementedError instead of being accepted
@@ -70,6 +71,16 @@ def test_ast_rule_covers_the_probe_scripts():
             "scripts/probe_lmhead_argmax.py"} <= names
 
 
+def test_ast_rule_covers_the_parallel_package():
+    """The import rule walks the multi-device modules (the process
+    group, mesh and ring attention) and their scripts too."""
+    names = {str(p.relative_to(PKG)) for p in _sources()
+             if PKG in p.parents}
+    assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/ring.py",
+            "scripts/launch_multihost.py", "scripts/ring_worker.py",
+            "scripts/multihost_worker.py"} <= names
+
+
 @pytest.mark.parametrize("path", _sources(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
@@ -93,6 +104,23 @@ def test_default_device_is_cuda_and_raises_without_a_card():
         Engine(params, CFG, num_pages=4, page_size=16)
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(CFG, torch.optim.SGD)
+
+
+def test_multi_device_defaults_raise_without_a_card():
+    """make_mesh() and initialize_distributed() default to the card
+    (NCCL) and raise on a host without one, before any group exists."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    from flash_attention_tpu_torch.parallel.mesh import (
+        initialize_distributed, make_mesh,
+    )
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        initialize_distributed()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        initialize_distributed("127.0.0.1:1", 2, 0)
 
 
 @pytest.mark.parametrize("kw, exc, match", [
