@@ -97,6 +97,25 @@ Phases, each fatal on failure:
              the low-precision gate against the single-process
              flash_attention, each rank's launches by the ring's loop
              (ring_launches); ring vs B1 (+ B2 + B3) times at world 1;
+  6c. tp     tensor-parallel serving (Engine(mesh=), models/llama.py
+             tp_axis) of LlamaConfig.llama3_70b at full width, cut to
+             LLAMA_70B_TP_LAYERS of its 80 layers, int4 weights drawn on
+             the card: over a one-process NCCL group, make_mesh(tp=1)
+             against the engine without a mesh (4 requests, 32 greedy
+             tokens; plain decode and n-gram drafts) with identical
+             transcripts, bit-identical decode and prefill logits, equal
+             and exact launch counts and exact collective counts (2
+             all-reduces a layer and one logits all-gather a dispatch,
+             parallel/collectives.py), decode tok/s and the profiled
+             wall / busy device ms a step, the decode step's effective
+             HBM bandwidth fed to the scaling model (parallel/scaling.py);
+             then two ranks on the one card over gloo (launch_multihost
+             --simulate 2 running tp_worker, each holding its tp = 2
+             shard, bf16 and int8 KV): their transcripts identical, each
+             within the teacher-forced band of the unsharded tree,
+             launches and collectives exact per rank, wall times
+             (host-staged gloo, not a fabric); B7 at the shards' local
+             shapes runs in phase 2 (check_b7_tp_shapes);
   7. serve8b the Engine on LlamaConfig.llama3_8b at full width, cut to
              LLAMA_8B_LAYERS of its 32 layers for the time limit, on
              int4 (B7) and int8 (B6) weights drawn on the card by
@@ -961,7 +980,8 @@ def profile_decode(eng, prompts, request_cls, what: str = "decode steps",
 def report_profile(prof, wall, steps, what) -> dict:
     """Device time by kernel over a profiled window of `steps` steps and
     the device's busy share of its wall time. Returns device ms per step
-    by kernel name (empty when the profiler saw no device time)."""
+    by kernel name, with "busy" (their sum) and "wall" (the window's wall
+    ms a step); empty when the profiler saw no device time."""
     rows = []
     for evt in prof.key_averages():
         # Kernel events only: CPU-side ops also carry the device time of
@@ -990,6 +1010,7 @@ def report_profile(prof, wall, steps, what) -> dict:
     for dev_us, key, _ in rows:
         by_kernel[key] = by_kernel.get(key, 0.0) + dev_us / 1e3 / steps
     by_kernel["busy"] = busy_us / 1e3 / steps
+    by_kernel["wall"] = wall * 1e3 / steps
     return by_kernel
 
 
@@ -2062,7 +2083,10 @@ def serve_stack(what, params, cfg, waves, engine_kw, counts_fn, poll=None,
     transcripts. `counts_fn(stats)` gives the wanted launch counts from
     the run's decode steps and chunk dispatches; they must be exact, the
     transcripts complete and every page back at the end. `prepare(eng)`
-    runs on the new engine before its warm-up request."""
+    runs on the new engine before its warm-up request. The run's
+    collective counts (parallel/collectives.py) come back beside its
+    launches."""
+    from flash_attention_tpu_torch.parallel import collectives
     from flash_attention_tpu_torch.runtime.engine import Engine, Request
 
     eng = Engine(params, cfg, seed=SEED, **engine_kw)
@@ -2074,11 +2098,13 @@ def serve_stack(what, params, cfg, waves, engine_kw, counts_fn, poll=None,
     eng.stats = type(eng.stats)()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    collectives.reset_collective_counts()
     t0 = time.perf_counter()
     comps = serve_waves(eng, waves, Request, poll)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = read_counts()
+    coll = collectives.collective_counts()
     st = eng.stats
     want = dict(got, **NO_BRANCHES,
                 **{k: 0 for k in ("decode", "quant", "int4", "dense",
@@ -2104,7 +2130,7 @@ def serve_stack(what, params, cfg, waves, engine_kw, counts_fn, poll=None,
                              f"pages not returned")
     return eng, dict(transcripts=[c.tokens for c in comps], launches=got,
                      stats=copy.deepcopy(st), wall_s=wall,
-                     peak_bytes=peak)
+                     peak_bytes=peak, collectives=coll)
 
 
 # Depth of the served Mistral tree: 8 of its 32 layers keep the whole
@@ -2743,6 +2769,12 @@ MATMUL_KINDS = {"B6 int8": torch.int8, "B6 e4m3": torch.float8_e4m3fn,
 # wo and wk / wv at 16 rows, then w_gate and w_down at 1024 prefill rows.
 MATMUL_TIMED = [(16, 4096, 14336), (16, 14336, 4096), (16, 4096, 4096),
                 (16, 4096, 1024), (1024, 4096, 14336), (1024, 14336, 4096)]
+# B7's local shapes in Llama-3-70B's decode step at tp = 2 (the tp phase's
+# shards), (K, F): wq, wk / wv, wo, w_gate / w_up, w_down, lm_head.
+TP_LOCAL_SHAPES = [(8192, 4096), (8192, 512), (4096, 8192), (8192, 14336),
+                   (14336, 8192), (8192, 64128)]
+TP_LOCAL_ROWS = 16
+TP_LOCAL_ITERS = 10
 
 
 def first_body_count():
@@ -2799,7 +2831,8 @@ def check_quant_matmul(rng, flush, results):
     8B shapes are timed beside their bound, their plain time and
     torch.matmul on the dense bf16 weight of the same shape (the product
     the quantized weight replaces; for B8 the same function), and the
-    wrapper's host time a call at 16 x 4096 x 14336 int4. Inputs come
+    wrapper's host time a call at 16 x 4096 x 14336 int4; then B7 at the
+    70B tp = 2 shards' local shapes (check_b7_tp_shapes). Inputs come
     from the check's own seeded generator (rng is unused)."""
     from flash_attention_tpu_torch.utils.metrics import (
         max_abs_error, verify_low_precision,
@@ -2869,6 +2902,58 @@ def check_quant_matmul(rng, flush, results):
                     ms=us * 1e-3)
             del args, wdense, wd
         results[label] = rows
+    results["B7 int4 tp"] = check_b7_tp_shapes(gen, flush)
+
+
+def check_b7_tp_shapes(gen, flush) -> list:
+    """B7 at TP_LOCAL_SHAPES with TP_LOCAL_ROWS bf16 rows: the
+    low-precision gate against its plain version, identical bits on a
+    rerun, each timed (TP_LOCAL_ITERS CUDA-event iterations) beside its
+    bound, its plain version and torch.matmul on the dense bf16 weight
+    it stands for."""
+    from flash_attention_tpu_torch.utils.metrics import (
+        max_abs_error, verify_low_precision,
+    )
+
+    fn, plain, cost = _matmul_fns("int4")
+    rows, m = [], TP_LOCAL_ROWS
+    for k, f in TP_LOCAL_SHAPES:
+        args, wdense = rand_weight("int4", k, f, gen)
+        x = torch.randn((m, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        body = expected_body(m, torch.bfloat16, True)
+        before = first_body_count()
+        got = fn(x, *args)
+        torch.cuda.synchronize()
+        check_first_body(f"B7 int4 tp {m}x{k}x{f}", before, body)
+        lo = plain(x, *args)
+        hi = plain(x.float(), *args)
+        ok, kerr, berr = verify_low_precision(got, hi, lo)
+        finite = bool(torch.isfinite(got.float()).all())
+        same = torch.equal(fn(x, *args), got)
+        log(f"check B7 int4 tp-local {m}x{k}x{f} ({body} body): kernel_err="
+            f"{kerr:.3e} plain_err={berr:.3e} finite={finite} "
+            f"rerun_identical={same}")
+        if not (ok and finite and same):
+            raise AssertionError(f"B7 failed its gate at the tp-local shape "
+                                 f"{m}x{k}x{f}")
+        it = TP_LOCAL_ITERS
+        ms = time_ms(lambda: fn(x, *args), flush, iters=it)
+        dev_ms = device_ms(lambda: fn(x, *args), flush, iters=it)
+        plain_ms = time_ms(lambda: plain(x, *args), flush, iters=it)
+        lib_ms = time_ms(lambda: torch.matmul(x, wdense), flush, iters=it)
+        flops, nbytes = cost(m, k, f)
+        bms, by = bound_ms(flops, nbytes)
+        log(f"time  B7 int4 tp-local {m}x{k}x{f}: kernel_ms={ms:.4f} (device "
+            f"alone {dev_ms:.4f}) plain_ms={plain_ms:.4f} library_ms="
+            f"{lib_ms:.4f} (torch.matmul, dense bf16 weight) bound_ms="
+            f"{bms:.4f} ({by}) achieved={nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
+        rows.append(dict(shape=f"x({m},{k}) w({k},{f})", body=body,
+                         max_abs_err=max_abs_error(got, lo), ms=ms,
+                         device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms,
+                         bound_by=by, library_ms=lib_ms))
+        del args, wdense, x, got, lo, hi
+    return rows
 
 
 # B9 storages: the dense bf16 stack and the quantized ones.
@@ -4856,6 +4941,481 @@ def ring(two: RingTwoRanks) -> dict:
     return dict(world1=w1, train=tr, two=got, seconds=secs)
 
 
+# --- phase 6c: tensor-parallel serving (Llama-3-70B, full width) -----------
+
+# Depth of the served 70B tree: 8 of its 80 layers at full width (int4
+# 0.43 GB a layer; with the bf16 embedding and the int4 lm_head 6.0 GB),
+# so the world-1 run and two ranks on the card each hold one tree.
+LLAMA_70B_TP_LAYERS = 8
+TP_RANKS = 2
+TP_PROMPT_LENS = [256, 300, 480, 600]
+TP_NEW = 32
+TP_SPEC_K = 4
+ENGINE_70B = dict(max_batch=4, num_pages=32, page_size=256, tail_size=16)
+TP_SPAWN_TIMEOUT_S = 1500       # the ranks live from the build to the tp phase
+# NVLink 4 on the H100 SXM: 900 GB/s a card, 450 GB/s each direction
+# (NVIDIA's data sheet): a plate figure for the scaling model's fabric.
+NVLINK4_PLATE_BYTES_S = 450e9
+
+
+def tp_cfg():
+    from flash_attention_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig.llama3_70b(n_layers=LLAMA_70B_TP_LAYERS,
+                                  dtype=torch.bfloat16)
+
+
+def tp_prompts(cfg) -> list:
+    rng = np.random.default_rng(SEED + 30)
+    return [rng.integers(0, cfg.vocab_size, t).tolist()
+            for t in TP_PROMPT_LENS]
+
+
+def tp_launches(cfg, decode_steps, kv_quant=False) -> dict:
+    """The launches of one tp run of the TP_PROMPT_LENS requests: B1 a
+    layer a prefill, B4 a layer a decode (or verify) dispatch (on its
+    quantized branch too over int8 pages), B7 7 a layer and the lm_head's
+    a decode dispatch and a prefill of <= 1024 rows, one (the lm_head) a
+    wider prefill. The same on every rank: each runs every layer on its
+    shard."""
+    from flash_attention_tpu_torch.runtime.engine import _bucket
+
+    n, per = cfg.n_layers, 7 * cfg.n_layers + 1
+    small = sum(_bucket(t) <= 1024 for t in TP_PROMPT_LENS)
+    want = dict(flash=n * len(TP_PROMPT_LENS), paged=n * decode_steps,
+                int4=per * (decode_steps + small)
+                + len(TP_PROMPT_LENS) - small)
+    if kv_quant:
+        want["paged_quant"] = n * decode_steps
+    return want
+
+
+def tp_collectives(cfg, decode_steps, positions=1) -> dict:
+    """The collectives of one tp run: per dispatch (a monolithic prefill
+    of a request's bucket, or a decode step of max_batch rows x
+    `positions`) 2 all-reduces a layer of its [rows, dim] activations and
+    one all-gather of its logits' rows, [rows, vocab] out; bf16."""
+    from flash_attention_tpu_torch.runtime.engine import _bucket
+
+    n_req, rows = len(TP_PROMPT_LENS), ENGINE_70B["max_batch"] * positions
+    dispatches = decode_steps + n_req
+    act_rows = sum(_bucket(t) for t in TP_PROMPT_LENS) + decode_steps * rows
+    return {"all-reduce": dict(calls=2 * cfg.n_layers * dispatches,
+                               bytes=2 * cfg.n_layers * act_rows * cfg.dim * 2),
+            "all-gather": dict(calls=dispatches,
+                               bytes=(n_req + decode_steps * rows)
+                               * cfg.vocab_size * 2)}
+
+
+def _record_logits(seen):
+    """An engine hook keeping every logits tensor its decode steps sample."""
+    def prepare(eng):
+        sample = eng._sample_batch
+
+        def recorded(logits, temps, top_ps):
+            seen.append(logits.detach().clone())
+            return sample(logits, temps, top_ps)
+        eng._sample_batch = recorded
+    return prepare
+
+
+def tp_world1(params, cfg, prompts, mesh) -> dict:
+    """The engine on the 70B tree under make_mesh(tp=1) over a one-process
+    NCCL group against the same engine without a mesh, with plain decode
+    and with n-gram drafts (speculative_k = TP_SPEC_K): transcripts
+    identical, every decode step's logits bit-identical (plain decode)
+    and the prefill logits and K / V of prefill_kv too, launch counts
+    equal by kernel and body and exact (tp_launches), the collective
+    counts exact (tp_collectives; none without a mesh). Profiles 8 decode
+    steps of each plain engine. Returns the runs."""
+    from flash_attention_tpu_torch.models.llama import prefill_kv
+    from flash_attention_tpu_torch.runtime.engine import Request, _bucket
+
+    waves = [[(p, TP_NEW) for p in prompts]]
+    group = mesh.get_group("tp")
+    runs, engines = {}, {}
+    for label, extra, positions in (
+            ("no mesh", {}, 1), ("mesh tp=1", dict(mesh=mesh), 1),
+            (f"no mesh, n-gram k={TP_SPEC_K}",
+             dict(speculative_k=TP_SPEC_K), TP_SPEC_K + 1),
+            (f"mesh tp=1, n-gram k={TP_SPEC_K}",
+             dict(mesh=mesh, speculative_k=TP_SPEC_K), TP_SPEC_K + 1)):
+        seen = []
+        what = f"tp[70b int4 {LLAMA_70B_TP_LAYERS} layers, {label}]"
+        eng, run = serve_stack(
+            what, params, cfg, waves, dict(ENGINE_70B, **extra),
+            lambda st: tp_launches(cfg, st.decode_steps),
+            prepare=_record_logits(seen))
+        st = run["stats"]
+        want = (tp_collectives(cfg, st.decode_steps, positions)
+                if "mesh" in extra else
+                {k: dict(calls=0, bytes=0) for k in run["collectives"]})
+        log(f"{what}: collectives {run['collectives']} (want {want})")
+        if run["collectives"] != want:
+            raise AssertionError(f"{what}: collective counts off")
+        run["logits"] = seen
+        if not extra.get("speculative_k"):
+            prof = profile_decode(eng, prompts, Request, f"{what} decode "
+                                  "steps")
+            run["busy_ms"] = prof.get("busy")
+            run["profile_wall_ms"] = prof.get("wall")
+            run["host_ops"] = host_ops(eng, prompts, Request, what)
+        runs[label] = run
+        engines[label] = eng
+    for a, b in (("no mesh", "mesh tp=1"),
+                 (f"no mesh, n-gram k={TP_SPEC_K}",
+                  f"mesh tp=1, n-gram k={TP_SPEC_K}")):
+        ra, rb = runs[a], runs[b]
+        same_t = ra["transcripts"] == rb["transcripts"]
+        same_l = ra["launches"] == rb["launches"]
+        same_x = (len(ra["logits"]) == len(rb["logits"]) and all(
+            torch.equal(x, y) for x, y in zip(ra["logits"], rb["logits"])))
+        log(f"tp world 1 (NCCL) [{b}] vs [{a}]: transcripts identical "
+            f"{same_t}, launches equal {same_l}, decode logits bit-identical "
+            f"{same_x} ({len(rb['logits'])} sampled steps)")
+        if not (same_t and same_l and same_x):
+            raise AssertionError(f"tp world 1: [{b}] differs from [{a}]")
+    # The prefill's logits and K / V, through the sharded tree's call.
+    t = TP_PROMPT_LENS[-1]
+    padded = torch.zeros((1, _bucket(t)), dtype=torch.long, device="cuda")
+    padded[0, :t] = torch.tensor(prompts[-1], device="cuda")
+    la, ka, va = prefill_kv(params, padded, cfg, true_len=t)
+    lb, kb, vb = prefill_kv(engines["mesh tp=1"].params, padded, cfg,
+                            true_len=t, tp_axis=group)
+    same = torch.equal(la, lb) and torch.equal(ka, kb) and \
+        torch.equal(va, vb)
+    log(f"tp world 1 (NCCL): prefill_kv at {t} tokens through the sharded "
+        f"tree and the group: logits, K and V bit-identical {same}")
+    if not same:
+        raise AssertionError("tp world 1: prefill_kv differs")
+    for run in runs.values():
+        del run["logits"]
+    del engines, la, ka, va, lb, kb, vb
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["collective_calls"] = tp_collective_times(cfg, group)
+    return runs
+
+
+def host_ops(eng, prompts, request_cls, what, steps=4) -> dict:
+    """Where a decode step's host time goes: torch.profiler (CPU only)
+    over `steps` engine decode steps after the prompts' prefill, the
+    operators with the most self CPU ms a step (logged, top 8)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for p in prompts:
+        eng.submit(request_cls(prompt=p, max_new_tokens=10))
+    eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    eng.run()
+    rows = sorted(((e.self_cpu_time_total, e.key, e.count)
+                   for e in prof.key_averages()), reverse=True)[:8]
+    log(f"{what}: host self CPU ms a step by operator (torch.profiler, "
+        f"{steps} decode steps): " + "; ".join(
+            f"{key} {us / 1e3 / steps:.3f} ({n // steps} calls)"
+            for us, key, n in rows))
+    return {key: us / 1e3 / steps for us, key, _ in rows}
+
+
+def tp_collective_times(cfg, group) -> dict:
+    """The host microseconds a call (host_us_per_call, 200 calls without a
+    sync) and the CUDA-event ms (time_ms) of the decode
+    step's two collectives at world 1 over NCCL: the all-reduce of [4,
+    dim] bf16 through all_reduce_sum and as the bare dist.all_reduce, the
+    logits all-gather of [4, vocab] through all_gather_tiled."""
+    import torch.distributed as dist
+
+    from flash_attention_tpu_torch.parallel import collectives
+
+    b = ENGINE_70B["max_batch"]
+    x = torch.randn((b, 1, cfg.dim), device="cuda").to(torch.bfloat16)
+    lg = torch.randn((b, 1, cfg.vocab_size), device="cuda").to(
+        torch.bfloat16)
+    calls = {"all_reduce_sum [4, 1, 8192]":
+             lambda: collectives.all_reduce_sum(x, group),
+             "dist.all_reduce [4, 1, 8192] (in place, no clone)":
+             lambda: dist.all_reduce(x, group=group),
+             "all_gather_tiled [4, 1, 128256] on dim 2":
+             lambda: collectives.all_gather_tiled(lg, group, 2)}
+    out, flush = {}, L2Flush()
+    for what, fn in calls.items():
+        us = host_us_per_call(fn, calls=200)
+        ms = time_ms(fn, flush, iters=25)
+        out[what] = dict(host_us=us, ms=ms)
+        log(f"tp world 1 (NCCL) {what}: {us:.1f} us of host a call, "
+            f"{ms:.4f} ms a call (CUDA events)")
+    return out
+
+
+def tp_bandwidth(params, cfg, runs, card) -> dict:
+    """The effective HBM bandwidth of the world-1 70B decode step: the
+    weight bytes it reads (every layer and the lm_head; the embedding
+    only gathers rows) and the KV bytes at the prompts' lengths (a lower
+    bound) over the profiled busy device ms a step. Feeds the scaling
+    model (parallel/scaling.py) with it, the step's collective bytes
+    counted at world 1 and NVLink 4's plate bandwidth, the layers scaled
+    to the model's 80 (a prediction, with its latency term not
+    measured)."""
+    from flash_attention_tpu_torch.models.llama import LlamaConfig
+    from flash_attention_tpu_torch.models.quantized import params_nbytes
+    from flash_attention_tpu_torch.parallel.scaling import (
+        DecodeStepCosts, Fabric, predict_tp_decode,
+    )
+
+    emb = params["embed"].numel() * params["embed"].element_size()
+    weights = params_nbytes(params) - emb
+    kv_tok = 2 * cfg.n_kv_heads * cfg.head_dim * 2 * cfg.n_layers
+    kv = sum(TP_PROMPT_LENS) * kv_tok
+    out = {}
+    for label in ("no mesh", "mesh tp=1"):
+        busy = runs[label].get("busy_ms")
+        out[label] = (None if not busy else
+                      (weights + kv) / (busy * 1e-3) / 1e9)
+    log(f"tp: effective HBM bandwidth of the 70B decode step ({weights} "
+        f"weight bytes + {kv} KV bytes at the prompt lengths, over the "
+        f"profiled busy device ms a step) GB/s {out} on {card}")
+    bw = out["mesh tp=1"] or out["no mesh"]
+    if bw:
+        full = LlamaConfig.llama3_70b()
+        scale = full.n_layers / cfg.n_layers
+        lm = params["lm_head"].nbytes
+        b = ENGINE_70B["max_batch"]
+        costs = DecodeStepCosts(
+            weight_bytes=int((weights - lm) * scale + lm),
+            kv_bytes=int(kv * scale),
+            all_reduce_bytes=2 * full.n_layers * b * full.dim * 2,
+            all_gather_bytes=b * full.vocab_size * 2, tp_measured=1,
+            hbm_bw=bw * 1e9)
+        fabric = Fabric(bandwidth=NVLINK4_PLATE_BYTES_S, latency=0.0)
+        pred = {n: predict_tp_decode(costs, n, fabric) for n in (1, 2, 4, 8)}
+        out["prediction"] = pred
+        log("tp: scaling model (a prediction, not a measurement: the 80-layer "
+            "70B int4 at batch 4, the measured bandwidth above, NVLink 4's "
+            "450 GB/s plate bandwidth a direction, latency term not "
+            "measured and left at 0): " + "; ".join(
+                f"tp {n}: t_step {p['t_step'] * 1e3:.4f} ms, efficiency "
+                f"{p['efficiency']:.4f}" for n, p in pred.items()))
+    return out
+
+
+class TpTwoRanks:
+    """Two ranks on the one card over gloo (every collective staged
+    through host memory), spawned by the port's launcher running
+    tp_worker: each draws the 70B tree (tp_cfg, int4, SEED) on the card
+    and keeps its tp = 2 shard (32 q / 4 kv heads, ffn 14336, vocab
+    64128), then serves the TP_PROMPT_LENS requests (TP_NEW greedy tokens)
+    on bf16 KV and again on int8 KV pools sharded over tp, after one
+    warm-up request each. The ranks start with the build (process start,
+    torch import, group and mesh; no card work) and run after `go()`.
+    `finish()` holds the two ranks' transcripts identical, each rank's
+    launches (tp_launches) and collectives (tp_collectives) exact, and
+    returns the transcripts, counts and wall times (host-staged gloo on
+    one card, not a fabric)."""
+
+    KV = {"bf16 KV": None, "int8 KV": "int8"}
+
+    def __init__(self, tmp):
+        import pathlib
+
+        self.tmp = pathlib.Path(tmp)
+        self.t_go = None
+        cfg = tp_cfg()
+        prompts = tp_prompts(cfg)
+        cases = [dict(name=name, cfg=dict(preset="llama3_70b",
+                                          n_layers=LLAMA_70B_TP_LAYERS,
+                                          dtype="bfloat16"),
+                      params=dict(seed=SEED, weights="int4"),
+                      mesh=dict(tp=TP_RANKS, dp=-1),
+                      engine=dict(ENGINE_70B, kv_quant_dtype=kv, seed=SEED),
+                      requests=[dict(prompt=p, max_new_tokens=TP_NEW)
+                                for p in prompts], warmup=True)
+                 for name, kv in self.KV.items()]
+        torch.save({"cases": cases}, self.tmp / "tp_cases.pt")
+        self.go_file = self.tmp / "tp_go"
+        root = pathlib.Path(__file__).resolve().parent
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "flash_attention_tpu_torch.scripts.launch_multihost",
+             "--simulate", str(TP_RANKS), "--device", "cuda",
+             "--rendezvous-dir", str(self.tmp), "--timeout",
+             str(TP_SPAWN_TIMEOUT_S), "--", "-m",
+             "flash_attention_tpu_torch.scripts.tp_worker",
+             str(self.tmp / "tp_cases.pt"), str(self.tmp / "tp_out.pt"),
+             "--backend", "gloo", "--start-after", str(self.go_file)],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, start_new_session=True)
+
+    def go(self):
+        torch.cuda.synchronize()
+        self.go_file.touch()
+        self.t_go = time.perf_counter()
+
+    def kill(self):
+        """Stop the launcher and its ranks (one process group)."""
+        import os
+        import signal
+
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.communicate()
+
+    def finish(self, cfg) -> dict:
+        try:
+            log_text, _ = self.proc.communicate(
+                timeout=TP_SPAWN_TIMEOUT_S + 60)
+        finally:
+            self.kill()
+        done = time.perf_counter()
+        if self.proc.returncode:
+            raise AssertionError(f"tp: the 2-rank spawn failed "
+                                 f"({self.proc.returncode}):\n"
+                                 f"{log_text[-6000:]}")
+        out = torch.load(self.tmp / "tp_out.pt", weights_only=True)
+        if (out["world"], out["backend"]) != (TP_RANKS, "gloo") \
+                or not out["device"].startswith("cuda"):
+            raise AssertionError(f"tp: the spawn ran {out['world']} ranks on "
+                                 f"{out['backend']} / {out['device']}")
+        names = {f"{mod.__name__.rsplit('.', 1)[1]}.{attr}": key
+                 for key, (mod, attr) in _counters().items()}
+        result = dict(after_go_s=done - self.t_go, cases={})
+        for name, kv in self.KV.items():
+            ranks = out["cases"][name]
+            what = f"tp 2 ranks (gloo, one card) [{name}]"
+            if ranks[0]["transcripts"] != ranks[1]["transcripts"]:
+                raise AssertionError(f"{what}: the ranks' transcripts differ")
+            launches = []
+            for r, got in enumerate(ranks):
+                st = got["stats"]
+                mine = {names[k]: v for k, v in got["launches"].items()
+                        if k in names}
+                want = dict(dict.fromkeys(mine, 0),
+                            **tp_launches(cfg, st["decode_steps"],
+                                          kv is not None))
+                cw = tp_collectives(cfg, st["decode_steps"])
+                log(f"{what} rank {r}: launches "
+                    f"{ {k: v for k, v in mine.items() if v} }, collectives "
+                    f"{got['collectives']} (want {cw}); decode "
+                    f"{st['decode_tokens']} tokens in {st['decode_steps']} "
+                    f"steps, {st['decode_s']:.4f} s; wall {got['seconds']:.3f}"
+                    f" s (host-staged gloo on one card, not a fabric)")
+                if mine != want or got["collectives"] != cw:
+                    raise AssertionError(f"{what} rank {r}: launches or "
+                                         f"collectives off (want {want})")
+                launches.append(mine)
+            result["cases"][name] = dict(
+                transcripts=[t[2] for t in ranks[0]["transcripts"]],
+                launches=launches,
+                seconds=[g["seconds"] for g in ranks],
+                decode_tok_s=[g["stats"]["decode_tokens"]
+                              / g["stats"]["decode_s"] for g in ranks],
+                collectives=ranks[0]["collectives"])
+        log(f"tp 2 ranks on one card (host-staged gloo, not a fabric): "
+            f"started with the build, {result['after_go_s']:.1f} s from the "
+            f"go to their results (kernel load, tree draw, warm-ups, runs)")
+        return result
+
+
+def tp(two: TpTwoRanks) -> dict:
+    """Tensor-parallel serving of LlamaConfig.llama3_70b at full width
+    (LLAMA_70B_TP_LAYERS layers, int4 weights from SEED drawn on the
+    card): tp_world1 over a one-process NCCL group, tp_bandwidth, then
+    the two ranks started with the build (`two`), whose transcripts must
+    pass the teacher-forced band against the unsharded tree here (int8 KV
+    with its widened band); their transcripts equal to world 1's are
+    counted, not gated (bf16 all-reduce order can move a near-tie).
+    Returns the launch counts by path, the runs' figures and the part
+    seconds."""
+    import torch.distributed as dist
+
+    from flash_attention_tpu_torch.models.quantized import (
+        init_quantized_params, logical_param_count, params_nbytes,
+    )
+    from flash_attention_tpu_torch.parallel.mesh import (
+        initialize_distributed, make_mesh,
+    )
+
+    card = card_line()
+    cfg = tp_cfg()
+    prompts = tp_prompts(cfg)
+    secs = {}
+    t = time.perf_counter()
+    params = init_quantized_params(cfg, SEED, "int4")
+    torch.cuda.synchronize()
+    log(f"tp: llama3_70b ({cfg.n_layers} layers, dim {cfg.dim}, "
+        f"{cfg.n_heads}q/{cfg.n_kv_heads}kv x {cfg.head_dim}, ffn "
+        f"{cfg.ffn_dim}, vocab {cfg.vocab_size}) "
+        f"{logical_param_count(params) / 1e9:.3f} B logical params, "
+        f"{params_nbytes(params) / 1e9:.3f} GB of int4 weights, seed {SEED}")
+    secs["draw"] = time.perf_counter() - t
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        t = time.perf_counter()
+        initialize_distributed(f"file://{tmp}/store", 1, 0)
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"tp: the world of one runs "
+                                     f"{dist.get_backend()}, not NCCL")
+            runs = tp_world1(params, cfg, prompts, make_mesh(tp=1))
+            secs["world1"] = time.perf_counter() - t
+        finally:
+            dist.destroy_process_group()
+    bw = tp_bandwidth(params, cfg, runs, card)
+    t = time.perf_counter()
+    two.go()
+    got = two.finish(cfg)
+    secs["two_ranks_after_go"] = time.perf_counter() - t
+    t = time.perf_counter()
+    ref = runs["no mesh"]["transcripts"]
+    bands = {}
+    for name, kv in TpTwoRanks.KV.items():
+        tr = got["cases"][name]["transcripts"]
+        same = sum(a == b for a, b in zip(tr, ref))
+        log(f"tp 2 ranks [{name}]: {same} of {len(ref)} transcripts equal "
+            f"to world 1's bf16-KV engine (reported)")
+        got["cases"][name]["equal_to_world1"] = same
+        bands[name] = teacher_forced(
+            params, cfg, prompts, tr, f"tp 2 ranks [{name}]",
+            kv_dtype=None if kv is None else torch.int8)
+    bands["world 1"] = teacher_forced(params, cfg, prompts, ref,
+                                      "tp world 1 [no mesh]")
+    secs["bands"] = time.perf_counter() - t
+    paths = {}
+    for label, key in (("no mesh", "tp_70b_world1"),
+                       ("mesh tp=1", "tp_70b_world1_nccl_mesh"),
+                       (f"no mesh, n-gram k={TP_SPEC_K}",
+                        "tp_70b_world1_ngram"),
+                       (f"mesh tp=1, n-gram k={TP_SPEC_K}",
+                        "tp_70b_world1_nccl_mesh_ngram")):
+        paths[key] = runs[label]["launches"]
+    for name in TpTwoRanks.KV:
+        tag = name.split()[0]
+        for r, c in enumerate(got["cases"][name]["launches"]):
+            paths[f"tp_70b_2rank_gloo_{tag}_kv_rank{r}"] = c
+    calls = runs.pop("collective_calls")
+    w = {label: dict(decode_tok_s=run["stats"].decode_tokens_per_s,
+                     wall_s=run["wall_s"], busy_ms=run.get("busy_ms"),
+                     profile_wall_ms=run.get("profile_wall_ms"))
+         for label, run in runs.items()}
+    log(f"tp: on {card}: world 1 -- " + "; ".join(
+        f"{label}: decode {v['decode_tok_s']:.1f} tok/s, wall "
+        f"{v['wall_s']:.3f} s, profiled wall / busy device ms a step "
+        f"{v['profile_wall_ms']} / {v['busy_ms']}" for label, v in w.items())
+        + "; 2 ranks (host-staged gloo on one card, not a fabric) decode "
+        "tok/s per rank " + ", ".join(
+            f"{name} {[round(x, 1) for x in c['decode_tok_s']]}"
+            for name, c in got["cases"].items()))
+    log("tp: part seconds " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in secs.items()))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(paths=paths, world1=w, two=got, bandwidth=bw, bands=bands,
+                collective_calls=calls, seconds=secs)
+
+
 # --- phase: the kernel-study harness (B10a-c, B1 fp32, B1's split) -------
 
 STUDY_SHAPE = (1, 32, 8192, 128)     # benchmarks/perf_1_32_8192_128
@@ -5476,6 +6036,10 @@ def check_split(rng, flush) -> dict:
     return out
 
 
+# compare's warm-up and timed iterations at each config of study_path.
+STUDY_COMPARE_WARMUP, STUDY_COMPARE_ITERS = 1, 3
+
+
 def _harness_calls(warmup, iters, inner):
     """Calls utils.bench.measure makes of its function."""
     return max(warmup, 1) + iters * inner
@@ -5503,10 +6067,12 @@ def study_path() -> dict:
     for causal in (False, True):
         for cfg in cfgs:
             results.append(cli.compare_config(
-                cfg, dtype="bfloat16", causal=causal, warmup=3, iters=5,
+                cfg, dtype="bfloat16", causal=causal,
+                warmup=STUDY_COMPARE_WARMUP, iters=STUDY_COMPARE_ITERS,
                 device=torch.device("cuda")))
     results.append(cli.compare_config(
-        (1, 8, 2048, 128), dtype="float32", causal=False, warmup=3, iters=5,
+        (1, 8, 2048, 128), dtype="float32", causal=False,
+        warmup=STUDY_COMPARE_WARMUP, iters=STUDY_COMPARE_ITERS,
         device=torch.device("cuda")))
     for res in results:
         d = res["config"][3]
@@ -5529,7 +6095,8 @@ def study_path() -> dict:
     if cli.main(["perf", "--causal", "--bwd"]) != 0:
         raise AssertionError("cli perf failed")
     got = read_counts()
-    call = _harness_calls(3, 5, 5) + 1      # bench_attention + one output
+    call = _harness_calls(STUDY_COMPARE_WARMUP, STUDY_COMPARE_ITERS,
+                          5) + 1            # bench_attention + one output
     verify_calls = 1 + _harness_calls(5, 5, 5)
     perf_fwd, perf_bwd = _harness_calls(3, 5, 5), _harness_calls(3, 5, 16)
     fixed_runs = 2 * 2          # d64 at D = 64, d32 at D = 32, both modes
@@ -6031,7 +6598,9 @@ def fp32_api() -> dict:
 # --- phase: the probes (P1, P2, P3) on their kernels -----------------------
 
 # Calls of fn per time_ms(fn, flush) at its defaults (warm-up + timed).
-TIMED_CALLS = 3 + 25
+# CUDA-event iterations of each probe row (the warm-up is time_ms's 3).
+PROBE_ITERS = 10
+TIMED_CALLS = 3 + PROBE_ITERS
 
 
 def probe_p1(flush) -> dict:
@@ -6047,7 +6616,8 @@ def probe_p1(flush) -> dict:
     from flash_attention_tpu_torch.utils.metrics import verify_low_precision
 
     reset_counts()
-    rows = p1.run(timer=lambda fn: time_ms(fn, flush), keep_outputs=True,
+    rows = p1.run(timer=lambda fn: time_ms(fn, flush, PROBE_ITERS),
+                  keep_outputs=True,
                   out=log)
     torch.cuda.synchronize()
     got = read_counts()
@@ -6129,7 +6699,8 @@ def probe_p2(flush) -> dict:
     from flash_attention_tpu_torch.scripts import probe_paged_int8 as p2
 
     reset_counts()
-    rows = p2.run(timer=lambda fn: time_ms(fn, flush), keep_outputs=True,
+    rows = p2.run(timer=lambda fn: time_ms(fn, flush, PROBE_ITERS),
+                  keep_outputs=True,
                   out=log)
     torch.cuda.synchronize()
     got = read_counts()
@@ -6170,7 +6741,8 @@ def probe_p3(flush) -> dict:
     from flash_attention_tpu_torch.scripts import probe_lmhead_argmax as p3
 
     reset_counts()
-    rows = p3.run(timer=lambda fn: time_ms(fn, flush), keep_outputs=True,
+    rows = p3.run(timer=lambda fn: time_ms(fn, flush, PROBE_ITERS),
+                  keep_outputs=True,
                   out=log)
     torch.cuda.synchronize()
     got = read_counts()
@@ -6666,16 +7238,23 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     rdir = tempfile.mkdtemp(prefix="chip_smoke_ring_ranks_")
-    two = RingTwoRanks(rdir)
+    tdir = tempfile.mkdtemp(prefix="chip_smoke_tp_ranks_")
+    two = tp_two = None
     try:
-        return run_phases(card, two)
+        two = RingTwoRanks(rdir)
+        tp_two = TpTwoRanks(tdir)
+        return run_phases(card, two, tp_two)
     finally:
-        two.kill()
+        for ranks in (two, tp_two):
+            if ranks is not None:
+                ranks.kill()
         shutil.rmtree(rdir, ignore_errors=True)
+        shutil.rmtree(tdir, ignore_errors=True)
 
 
-def run_phases(card: str, two: RingTwoRanks) -> int:
-    """Every phase after the ring ranks' start (main)."""
+def run_phases(card: str, two: RingTwoRanks, tp_two: TpTwoRanks) -> int:
+    """Every phase after the ring's and the tp phase's ranks' start
+    (main)."""
     from flash_attention_tpu_torch.ops import _cuda
 
     t0 = time.perf_counter()
@@ -6733,6 +7312,9 @@ def run_phases(card: str, two: RingTwoRanks) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     rg = timed("ring", lambda: ring(two))
+    gc.collect()
+    torch.cuda.empty_cache()
+    tpr = timed("tp", lambda: tp(tp_two))
     gc.collect()
     torch.cuda.empty_cache()
     q8 = timed("serve_8b", serve_8b_phase)
@@ -6996,6 +7578,7 @@ def run_phases(card: str, two: RingTwoRanks) -> int:
         matmul_entry("B7 int4", name="int4_matmul (B7)", route="cuda",
                      replaces="flash_attention_tpu/ops/quant_matmul.py:214",
                      host_us_per_call=results["host B7 int4"]["host_us"],
+                     at_tp_local_shapes=results["B7 int4 tp"],
                      launches=l4["int4"] + lg["int4"]
                      + mpaths["serve_mixtral_int4"]["int4"]
                      + mpaths["serve_mixtral_int4_forced"]["int4"],
@@ -7127,6 +7710,19 @@ def run_phases(card: str, two: RingTwoRanks) -> int:
         if counter is not None:
             got = {path: c[counter] for path, c in spc["paths"].items()
                    if c[counter]}
+            entry["launches"] += sum(got.values())
+            entry["launches_by_path"].update(got)
+    # The tp phase's launches: world 1 (NCCL, with and without the mesh,
+    # plain and n-gram) and each of the two gloo ranks, under each
+    # kernel's own counter.
+    for entry in kernels:
+        counter = {"flash_fwd (B1)": "flash", "paged_decode (B4)": "paged",
+                   "int4_matmul (B7)": "int4",
+                   "paged_decode (B4 int8/fp8)": "paged_quant"}.get(
+                       entry["name"])
+        if counter is not None:
+            got = {path: c[counter] for path, c in tpr["paths"].items()
+                   if c.get(counter)}
             entry["launches"] += sum(got.values())
             entry["launches_by_path"].update(got)
     # The 2-rank ring's launches, each rank counting its own.

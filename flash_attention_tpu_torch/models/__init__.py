@@ -6,6 +6,7 @@ from flash_attention_tpu_torch.models.llama import (
     init_params,
     loss_fn,
     make_train_step,
+    param_shardings,
 )
 from flash_attention_tpu_torch.models.moe import (
     MoEConfig,
@@ -20,6 +21,7 @@ __all__ = [
     "forward",
     "loss_fn",
     "make_train_step",
+    "param_shardings",
     "MoEConfig",
     "init_moe_params",
     "moe_forward",

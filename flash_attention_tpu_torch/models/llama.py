@@ -20,6 +20,17 @@ matmuls, as the JAX package leaves them to XLA (or B8 under
 FA_TPU_DENSE_PALLAS_MM), quantized weights (models/quantized.py) run the
 B6 / B7 kernels. A layer with a `router` is an MoE layer
 (models/moe.py), whose expert products run the grouped kernel B9.
+
+Tensor parallelism (`tp_axis=`, Megatron's layout as in the JAX
+package): `serving_param_shardings` splits q / k / v and wo over heads,
+the MLP over ffn and lm_head over the vocab; each rank runs the serving
+paths on its shard (head counts come from the local weights and caches)
+and one sum all-reduce after each row-parallel product plus one tiled
+all-gather of the logits (parallel/collectives.py) stitch the result
+back. `tp_axis` is the tensor-parallel process group (`mesh.get_group(
+"tp")`) where JAX names a mesh axis inside `shard_map`; None is one
+device. Every rank of the group makes the same call on the same
+replicated inputs (SPMD).
 """
 
 from __future__ import annotations
@@ -47,6 +58,10 @@ from flash_attention_tpu_torch.ops.flash import (
 )
 from flash_attention_tpu_torch.ops.paged import paged_flash_decode
 from flash_attention_tpu_torch.ops.quant_matmul import dense_matmul
+from flash_attention_tpu_torch.parallel.collectives import (
+    all_gather_tiled,
+    all_reduce_sum,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,7 +163,119 @@ def init_params(cfg: LlamaConfig, seed: int = 0, *, device="cuda") -> dict:
             "lm_head": lm_head}
 
 
+def serving_param_shardings(cfg: LlamaConfig, tp_size: int) -> dict:
+    """Specs for TP serving (Engine under a mesh; port of the JAX
+    function): Megatron's column / row split, where each decode product
+    is local to a shard and one all-reduce a block stitches the residual
+    stream back: attention q / k / v and wo over heads (tp must divide
+    n_kv_heads, so each shard owns whole KV-head groups and its slice of
+    the paged pools), the MLP's gate / up / down over ffn, lm_head over
+    the vocab (the logits all-gather at the end). Embeddings and norms
+    replicate. A spec is a tuple of mesh-axis names and None per dim,
+    JAX's `tuple(PartitionSpec(...))`; the tree has the parameters'
+    structure. An MoE config (n_experts) gets JAX's expert layout (the
+    stacks' expert dim over tp, the router replicated); the model raises
+    on it under tp (expert parallelism, ROADMAP multi-device 2d)."""
+    if cfg.n_kv_heads % tp_size:
+        raise ValueError(
+            f"tp={tp_size} must divide n_kv_heads={cfg.n_kv_heads}")
+    layer = {
+        "attn_norm": (),
+        "wq": (None, "tp", None),
+        "wk": (None, "tp", None),
+        "wv": (None, "tp", None),
+        "wo": ("tp", None, None),
+        "mlp_norm": (),
+        "w_gate": (None, "tp"),
+        "w_up": (None, "tp"),
+        "w_down": ("tp", None),
+    }
+    n_experts = getattr(cfg, "n_experts", 0)
+    if n_experts:
+        if n_experts % tp_size:
+            raise ValueError(
+                f"tp={tp_size} must divide n_experts={n_experts}")
+        layer = {**layer, "router": (),
+                 "w_gate": ("tp",), "w_up": ("tp",), "w_down": ("tp",)}
+    return {
+        "embed": (),
+        "layers": [layer] * cfg.n_layers,
+        "final_norm": (),
+        "lm_head": (None, "tp"),
+    }
+
+
+def param_shardings(cfg: LlamaConfig, tp_size: int | None = None) -> dict:
+    """Training specs (port of the JAX function): tp over heads / ffn,
+    fsdp over the other large dim. When tp does not divide n_kv_heads
+    (GQA with few KV heads on a wide tp axis), the KV projections
+    replicate their head dim, as in JAX."""
+    kv_tp = "tp" if (tp_size is None or cfg.n_kv_heads % tp_size == 0) \
+        else None
+    layer = {
+        "attn_norm": (),
+        "wq": ("fsdp", "tp", None),
+        "wk": ("fsdp", kv_tp, None),
+        "wv": ("fsdp", kv_tp, None),
+        "wo": ("tp", None, "fsdp"),
+        "mlp_norm": (),
+        "w_gate": ("fsdp", "tp"),
+        "w_up": ("fsdp", "tp"),
+        "w_down": ("tp", "fsdp"),
+    }
+    return {
+        "embed": ("tp", "fsdp"),
+        "layers": [layer] * cfg.n_layers,
+        "final_norm": (),
+        "lm_head": ("fsdp", "tp"),
+    }
+
+
 # --- building blocks -----------------------------------------------------
+
+
+class _PsumReduce(torch.autograd.Function):
+    """Megatron's reduce-from-region: forward sums over the group;
+    backward passes the cotangent unchanged (the reduced output is the
+    same on every rank, so each rank's local branch receives it as it
+    is)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None
+
+
+class _TpCopy(torch.autograd.Function):
+    """Megatron's copy-to-region: forward is the identity; backward sums
+    the cotangent over the group (a replicated activation consumed by
+    every rank's local products has the sum of their partials as its
+    gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return all_reduce_sum(ct, ctx.group), None
+
+
+def _psum(x, tp_axis):
+    """Row-parallel reduction: the identity for tp_axis None, else a sum
+    over the group (forward all-reduce, backward identity)."""
+    return x if tp_axis is None else _PsumReduce.apply(x, tp_axis)
+
+
+def tp_copy(x, tp_axis):
+    """Identity forward; backward all-reduces over `tp_axis`. Placed
+    where a replicated activation enters a tensor-parallel region, so the
+    gradients of the local products stay exact."""
+    return x if tp_axis is None else _TpCopy.apply(x, tp_axis)
 
 
 def _mm(spec, x, w):
@@ -223,10 +350,13 @@ def rope(x, positions, theta):
     return out.reshape(x.shape).to(x.dtype)
 
 
-def _attention_block(layer, x, cfg, positions, attn_impl=None):
+def _attention_block(layer, x, cfg, positions, attn_impl=None,
+                     tp_axis=None):
     """Full-sequence attention block (prefill). Returns
-    (out [B, T, dim], (k, v)) with k, v [B, Hkv, T, D]."""
-    h = rmsnorm(x, layer["attn_norm"], cfg.norm_eps)
+    (out [B, T, dim], (k, v)) with k, v [B, Hkv, T, D]. Under tp the
+    heads are this rank's shard and the wo product sums over the
+    group."""
+    h = tp_copy(rmsnorm(x, layer["attn_norm"], cfg.norm_eps), tp_axis)
     q = _mm("btd,dhk->bhtk", h, layer["wq"])
     k = _mm("btd,dhk->bhtk", h, layer["wk"])
     v = _mm("btd,dhk->bhtk", h, layer["wv"]).contiguous()
@@ -236,10 +366,10 @@ def _attention_block(layer, x, cfg, positions, attn_impl=None):
         attn_impl = functools.partial(flash_attention, causal=True,
                                       window=cfg.window)
     o = attn_impl(q, k, v)
-    return _mm("bhtk,hkd->btd", o, layer["wo"]), (k, v)
+    return _psum(_mm("bhtk,hkd->btd", o, layer["wo"]), tp_axis), (k, v)
 
 
-def _mlp_block(layer, x, cfg):
+def _mlp_block(layer, x, cfg, tp_axis=None):
     """FFN block. A layer carrying a `router` key is a mixture-of-experts
     layer (models/moe.py; `cfg` is then a MoEConfig): this is what lets
     every path (forward, prefill_kv, decode_step_paged_multi, prefill,
@@ -247,7 +377,15 @@ def _mlp_block(layer, x, cfg):
     routing dispatches by size: at least GROUPED_MIN_TOKENS tokens
     (FA_TPU_GROUPED_MIN_TOKENS, read per call) sort by expert and run the
     grouped kernel B9, smaller dispatches -- every decode step -- the
-    drop-free one-hot cubes (capacity = n)."""
+    drop-free one-hot cubes (capacity = n). Under tp the ffn is this
+    rank's shard and w_down's product sums over the group; an MoE layer
+    raises there (its expert-sharded stacks come with expert
+    parallelism, ROADMAP multi-device 2d)."""
+    if "router" in layer and tp_axis is not None:
+        raise NotImplementedError(
+            "an MoE layer under tensor parallelism needs expert-sharded "
+            "stacks, which come with expert parallelism (ROADMAP "
+            "multi-device 2d)")
     if "router" in layer:
         from flash_attention_tpu_torch.models.moe import (
             dropless_dispatch_path, moe_mlp, moe_mlp_grouped,
@@ -259,10 +397,11 @@ def _mlp_block(layer, x, cfg):
                 return moe_mlp_grouped(layer, x, cfg)[0]
             return moe_mlp(layer, x, cfg, capacity=n)[0]
         return moe_mlp(layer, x, cfg)[0]
-    h = rmsnorm(x, layer["mlp_norm"], cfg.norm_eps)
+    h = tp_copy(rmsnorm(x, layer["mlp_norm"], cfg.norm_eps), tp_axis)
     gate = _mm("btd,df->btf", h, layer["w_gate"])
     up = _mm("btd,df->btf", h, layer["w_up"])
-    return _mm("btf,fd->btd", F.silu(gate) * up, layer["w_down"])
+    return _psum(_mm("btf,fd->btd", F.silu(gate) * up, layer["w_down"]),
+                 tp_axis)
 
 
 def forward(params, tokens, cfg: LlamaConfig, *, positions=None,
@@ -346,26 +485,34 @@ def make_train_step(cfg: LlamaConfig, *, remat: bool = False):
 # --- decode path ----------------------------------------------------------
 
 
-def _lm_head_logits(params, last):
-    return _mm("bd,dv->bv", last, params["lm_head"])
+def _lm_head_logits(params, last, tp_axis=None):
+    """The lm_head product; under tp the vocab is column-sharded and the
+    full logits row reassembles with a tiled all-gather on axis 1."""
+    logits = _mm("bd,dv->bv", last, params["lm_head"])
+    if tp_axis is not None:
+        logits = all_gather_tiled(logits, tp_axis, dim=1)
+    return logits
 
 
 @torch.no_grad()
-def prefill_kv(params, tokens, cfg: LlamaConfig, *, true_len=None):
+def prefill_kv(params, tokens, cfg: LlamaConfig, *, true_len=None,
+               tp_axis=None):
     """Prompt forward for paged serving: (logits at the last real token
     [B, vocab], ks, vs) with ks/vs [n_layers, B, Hkv, T, D]. `true_len`
     ([B] or int) marks the real prompt length of right-padded `tokens`;
-    padded KV positions are garbage the caller must not page in."""
+    padded KV positions are garbage the caller must not page in. Under
+    tp, ks / vs hold this rank's KV heads, as its pools do."""
     b, t = tokens.shape
     positions = torch.arange(t, dtype=torch.int32, device=tokens.device)
     x = params["embed"][tokens]
     ks, vs = [], []
     for layer in params["layers"]:
-        a, (k, v) = _attention_block(layer, x, cfg, positions)
+        a, (k, v) = _attention_block(layer, x, cfg, positions,
+                                     tp_axis=tp_axis)
         ks.append(k)
         vs.append(v)
         x = x + a
-        x = x + _mlp_block(layer, x, cfg)
+        x = x + _mlp_block(layer, x, cfg, tp_axis=tp_axis)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if true_len is None:
         last = x[:, -1]
@@ -374,7 +521,8 @@ def prefill_kv(params, tokens, cfg: LlamaConfig, *, true_len=None):
                               device=x.device) - 1
         idx = idx.expand(b)
         last = x[torch.arange(b, device=x.device), idx]
-    return _lm_head_logits(params, last), torch.stack(ks), torch.stack(vs)
+    return (_lm_head_logits(params, last, tp_axis), torch.stack(ks),
+            torch.stack(vs))
 
 
 def _lse_merge(o_a, lse_a, o_b, lse_b):
@@ -394,7 +542,7 @@ def _last_real_row(x, true_count):
 
 @torch.no_grad()
 def prefill_chunk_step(params, tokens, cfg: LlamaConfig, k_bufs, v_bufs,
-                       prefix_len, true_count):
+                       prefix_len, true_count, tp_axis=None):
     """One chunk of an incremental (chunked) prefill, batched across
     requests (each row at its own prefix depth).
 
@@ -409,8 +557,8 @@ def prefill_chunk_step(params, tokens, cfg: LlamaConfig, k_bufs, v_bufs,
     IN PLACE (row b's chunk KV lands at prefix_len[b]; the JAX version
     returns updated copies); prefix_len, true_count: [B] (or scalar)
     tokens already processed / real tokens in this chunk (logits are
-    read at row true_count - 1). Returns (logits [B, vocab], k_bufs,
-    v_bufs).
+    read at row true_count - 1). Under tp the buffers hold this rank's
+    KV heads. Returns (logits [B, vocab], k_bufs, v_bufs).
     """
     b, c = tokens.shape
     t_bucket = k_bufs.shape[3]
@@ -441,8 +589,9 @@ def prefill_chunk_step(params, tokens, cfg: LlamaConfig, k_bufs, v_bufs,
             q, k_bufs[li].to(q.dtype), v_bufs[li].to(q.dtype), seg,
             causal=False)
         o = _lse_merge(o_s, lse_s, o_p, lse_p)
-        x = x + _mm("bhtk,hkd->btd", o.to(x.dtype), layer["wo"])
-        x = x + _mlp_block(layer, x, cfg)
+        x = x + _psum(_mm("bhtk,hkd->btd", o.to(x.dtype), layer["wo"]),
+                      tp_axis)
+        x = x + _mlp_block(layer, x, cfg, tp_axis=tp_axis)
     # Per-row KV landing offsets: row b's chunk goes to positions
     # prefix_len[b] + [0, C) of every layer's buffer.
     bidx = torch.arange(b, device=dev)[:, None]
@@ -452,13 +601,13 @@ def prefill_chunk_step(params, tokens, cfg: LlamaConfig, k_bufs, v_bufs,
         bufs[:, bidx, :, cols, :] = torch.stack(new).permute(
             1, 3, 0, 2, 4).to(bufs.dtype)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return _lm_head_logits(params, _last_real_row(x, true_count)), \
-        k_bufs, v_bufs
+    return _lm_head_logits(params, _last_real_row(x, true_count),
+                           tp_axis), k_bufs, v_bufs
 
 
 @torch.no_grad()
 def prefill_window_chunk_step(params, tokens, cfg: LlamaConfig, k_roll,
-                              v_roll, prefix_len, true_count):
+                              v_roll, prefix_len, true_count, tp_axis=None):
     """One chunk of an incremental prefill for a sliding-window model,
     batched across requests.
 
@@ -475,8 +624,9 @@ def prefill_window_chunk_step(params, tokens, cfg: LlamaConfig, k_roll,
     appends.
 
     tokens: [B, C]; k_roll, v_roll: [L, B, Hkv, W_b, D] with W_b >=
-    window and >= C; prefix_len, true_count as in prefill_chunk_step.
-    Returns (logits [B, vocab], k_roll, v_roll) (new buffers).
+    window and >= C; prefix_len, true_count and tp_axis as in
+    prefill_chunk_step. Returns (logits [B, vocab], k_roll, v_roll) (new
+    buffers).
     """
     b, c = tokens.shape
     w_b = k_roll.shape[3]
@@ -512,15 +662,16 @@ def prefill_window_chunk_step(params, tokens, cfg: LlamaConfig, k_roll,
             q, k_roll[li].to(q.dtype), v_roll[li].to(q.dtype), seg,
             causal=True, offset=w_b, window=cfg.window)
         o = _lse_merge(o_s, lse_s, o_p, lse_p)
-        x = x + _mm("bhtk,hkd->btd", o.to(x.dtype), layer["wo"])
-        x = x + _mlp_block(layer, x, cfg)
+        x = x + _psum(_mm("bhtk,hkd->btd", o.to(x.dtype), layer["wo"]),
+                      tp_axis)
+        x = x + _mlp_block(layer, x, cfg, tp_axis=tp_axis)
     k_roll = torch.cat([k_roll[:, :, :, c:],
                         torch.stack(new_ks).to(k_roll.dtype)], dim=3)
     v_roll = torch.cat([v_roll[:, :, :, c:],
                         torch.stack(new_vs).to(v_roll.dtype)], dim=3)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return _lm_head_logits(params, _last_real_row(x, true_count)), \
-        k_roll, v_roll
+    return _lm_head_logits(params, _last_real_row(x, true_count),
+                           tp_axis), k_roll, v_roll
 
 
 def _tail_attention(q, kt, vt, tail_pos, scale):
@@ -542,13 +693,14 @@ def _tail_attention(q, kt, vt, tail_pos, scale):
 
 def decode_step_paged(params, token, cfg: LlamaConfig, k_pages, v_pages,
                       k_tails, v_tails, page_tables, paged_lens, tail_pos,
-                      k_scales=None, v_scales=None, paged_bases=None):
+                      k_scales=None, v_scales=None, paged_bases=None,
+                      tp_axis=None):
     """One decode step over token [B]; see decode_step_paged_multi.
     Returns (logits [B, vocab], k_tails, v_tails)."""
     logits, k_tails, v_tails = decode_step_paged_multi(
         params, token[:, None], cfg, k_pages, v_pages, k_tails, v_tails,
         page_tables, paged_lens, tail_pos, k_scales=k_scales,
-        v_scales=v_scales, paged_bases=paged_bases)
+        v_scales=v_scales, paged_bases=paged_bases, tp_axis=tp_axis)
     return logits[:, 0], k_tails, v_tails
 
 
@@ -556,7 +708,7 @@ def decode_step_paged(params, token, cfg: LlamaConfig, k_pages, v_pages,
 def decode_step_paged_multi(params, tokens, cfg: LlamaConfig, k_pages,
                             v_pages, k_tails, v_tails, page_tables,
                             paged_lens, tail_pos, k_scales=None,
-                            v_scales=None, paged_bases=None):
+                            v_scales=None, paged_bases=None, tp_axis=None):
     """T-token decode step over tokens [B, T].
 
     Position t of sequence b sits at paged_bases + paged_lens + tail_pos
@@ -582,6 +734,12 @@ def decode_step_paged_multi(params, tokens, cfg: LlamaConfig, k_pages,
     mark int8 / fp8 pages; they go to the paged kernel beside the pools
     (its default body, as the JAX step passes no fold_scales).
 
+    Under tp (`tp_axis` the group, with serving_param_shardings' shards
+    and pools, tails and scales holding this rank's KV heads) every
+    product and the attention run on the local heads; one all-reduce a
+    block and an all-gather of the logits on axis 2 reassemble the
+    result.
+
     Returns (logits [B, T, vocab], k_tails, v_tails).
     """
     if (k_scales is None) != (v_scales is None):
@@ -593,7 +751,7 @@ def decode_step_paged_multi(params, tokens, cfg: LlamaConfig, k_pages,
             f"window={cfg.window} must exceed the tail buffer "
             f"({k_tails[0].shape[2]}) so tail tokens stay visible")
     b, t_new = tokens.shape
-    hkv = k_tails[0].shape[1]
+    hkv = k_tails[0].shape[1]            # this rank's kv heads under tp
     group = cfg.n_heads // cfg.n_kv_heads
     hd = cfg.head_dim
     scale = 1.0 / math.sqrt(hd)
@@ -632,10 +790,12 @@ def decode_step_paged_multi(params, tokens, cfg: LlamaConfig, k_pages,
         o_t, lse_t = _tail_attention(qg, kt, vt, tail_pos, scale)
         o = _lse_merge(o_p, lse_p, o_t, lse_t)
         o = o.reshape(b, hkv * group, t_new, hd).to(x.dtype)
-        x = x + _mm("bhtk,hkd->btd", o, layer["wo"])
-        x = x + _mlp_block(layer, x, cfg)
+        x = x + _psum(_mm("bhtk,hkd->btd", o, layer["wo"]), tp_axis)
+        x = x + _mlp_block(layer, x, cfg, tp_axis=tp_axis)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = _mm("btd,dv->btv", x, params["lm_head"])
+    if tp_axis is not None:
+        logits = all_gather_tiled(logits, tp_axis, dim=2)
     return logits, k_tails, v_tails
 
 

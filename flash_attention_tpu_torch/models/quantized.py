@@ -24,7 +24,13 @@ scales [E, F]) and `Int4ExpertStack` (packed [E, K/2, F], scales
 [E, K/128, F]). They never reach `_mm`: models/moe.py `_expert_stack_mm`
 runs them through the grouped kernel B9 (ops/grouped.py) or, on the
 one-hot path, dequantizes them whole, as the JAX package does.
-`expand_param_shardings` arrives with the multi-device slice.
+
+Tensor parallelism: `expand_param_shardings` lays one logical spec per
+weight (models/llama.py `serving_param_shardings`) onto the packed
+leaves and their scales, and `parallel/mesh.py:shard_params` cuts each
+rank's slice. A sharded weight is a weight of its own, whose
+`orig_shape` is its LOCAL logical shape (the port holds no global
+array), so `_weight_einsum` needs no case for local widths.
 """
 
 from __future__ import annotations
@@ -159,7 +165,11 @@ EXPERT_STACK_TYPES = (QuantizedExpertStack, Int4ExpertStack)
 def _weight_einsum(w, spec, x):
     """Einsum plumbing shared by the weight classes (and the dense B8
     adapter in models/llama.py): normalise to a 2D [rows, contract] x
-    [contract, out] product and restore the logical layout."""
+    [contract, out] product and restore the logical layout. A
+    tensor-parallel shard carries its local orig_shape
+    (parallel/mesh.py shard_params), so the layout restored is the
+    shard's: the JAX function's branch for a local width under a global
+    orig_shape has no counterpart here."""
     ins, out = spec.split("->")
     xs, ws = ins.split(",")
     contract = [c for c in ws if c in xs]
@@ -380,6 +390,67 @@ def _init_quantized(cfg, seed, dtype, device, *, moe: bool) -> dict:
         layers.append(layer)
     return {"embed": embed, "layers": layers, "final_norm": ones(d),
             "lm_head": lm_head}
+
+
+def expand_param_shardings(params, pspecs):
+    """Leaf-level specs for a (possibly quantized) parameter tree (port of
+    the JAX function).
+
+    `pspecs` carries one logical spec per weight (a tuple of axis names
+    and None over orig_shape, e.g. llama.serving_param_shardings). A
+    quantized weight expands it onto its leaves: the axis named on the
+    contracted group shards the packed rows (and the int4 group scales),
+    the axis named on the output group shards the columns (and the
+    per-channel scales). The packed layout flattens each group with its
+    leading dim outermost, so a named axis is legal only on a group's
+    leading dim (true of every llama layout: wq / wk / wv heads, wo
+    heads, the mlp's ffn, lm_head's vocab); anything else raises
+    ValueError, as in JAX.
+
+    Returns a tree congruent with `params`: a quantized weight becomes
+    the same class holding specs (`q` / `scale`, `packed` / `scales`)
+    and its orig_shape, a tensor its spec."""
+
+    def expand(w, spec):
+        if isinstance(w, EXPERT_STACK_TYPES):
+            raise NotImplementedError(
+                "expert-stack shardings come with expert parallelism "
+                "(ROADMAP multi-device 2d)")
+        if not isinstance(w, QUANT_LEAF_TYPES):
+            return tuple(spec)
+        full = tuple(spec) + (None,) * (len(w.orig_shape) - len(spec))
+        cgrp, fgrp = full[: w.n_contract], full[w.n_contract:]
+        for grp in (cgrp, fgrp):
+            if any(a is not None for a in grp[1:]):
+                raise ValueError(
+                    "quantized weights shard only on each group's "
+                    f"leading dim; got {spec} for shape {w.orig_shape} "
+                    f"(n_contract={w.n_contract})")
+        k_ax = cgrp[0] if cgrp else None
+        f_ax = fgrp[0] if fgrp else None
+        if isinstance(w, Int4Weight):
+            return Int4Weight(packed=(k_ax, f_ax), scales=(k_ax, f_ax),
+                              orig_shape=w.orig_shape,
+                              n_contract=w.n_contract)
+        return QuantizedWeight(q=(k_ax, f_ax), scale=(f_ax,),
+                               orig_shape=w.orig_shape,
+                               n_contract=w.n_contract)
+
+    return map_with_specs(expand, params, pspecs)
+
+
+def map_with_specs(fn, params, specs):
+    """fn(leaf, spec) over a parameter tree (dicts and lists of tensors or
+    quantized weights) and a spec tree of its structure whose leaves are
+    spec tuples (or, where expanded, quantized weights holding them)."""
+    if isinstance(params, dict):
+        return {k: map_with_specs(fn, v, specs[k]) for k, v in params.items()}
+    if isinstance(params, list):
+        if len(params) != len(specs):
+            raise ValueError(f"{len(params)} entries against "
+                             f"{len(specs)} specs")
+        return [map_with_specs(fn, v, s) for v, s in zip(params, specs)]
+    return fn(params, specs)
 
 
 def _leaves(tree):

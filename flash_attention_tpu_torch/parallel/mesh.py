@@ -16,12 +16,14 @@ cards, gloo between CPU processes), and `make_mesh` lays the six named
 axes over its ranks as a `DeviceMesh`; `mesh.get_group(axis)` is the
 process group of an axis. `flash_attention_tpu_torch.scripts.
 launch_multihost` is the per-host launcher, and its `--simulate N` mode
-spawns N local ranks.
+spawns N local ranks. `shard_params` cuts this rank's slice of a
+parameter tree by its specs (tensor-parallel serving).
 """
 
 from __future__ import annotations
 
 import datetime
+import math
 import os
 
 import numpy as np
@@ -160,3 +162,88 @@ def make_mesh(*, dp=1, pp=1, fsdp=1, sp=1, tp=1, ep=1, devices=None,
         return init_device_mesh(device_type, dims, mesh_dim_names=AXES)
     return DeviceMesh(device_type, torch.tensor(ranks).reshape(dims),
                       mesh_dim_names=AXES)
+
+
+def _axis_slice(x, dim: int, axis, mesh):
+    """This rank's chunk of x along `dim` for mesh axis `axis` (x itself
+    for no axis or an axis of one rank)."""
+    if axis is None or mesh[axis].size() == 1:
+        return x
+    n = mesh[axis].size()
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of size {x.shape[dim]} does not split "
+                         f"over the {n} ranks of axis {axis!r}")
+    c = x.shape[dim] // n
+    return x.narrow(dim, mesh.get_local_rank(axis) * c, c)
+
+
+def _shard_leaf(x, spec, mesh, device):
+    """x's slice on `device`: a new tensor holding only the slice (a view
+    would keep the whole storage alive), or x moved as it is when the
+    spec cuts nothing here."""
+    y = x
+    for dim, axis in enumerate(spec):
+        y = _axis_slice(y, dim, axis, mesh)
+    if y is x:
+        return x.to(device)
+    return torch.empty(y.shape, dtype=y.dtype, device=device).copy_(y)
+
+
+def _shard_quantized(w, spec, mesh, device):
+    """A quantized weight's shard: its leaves cut by its expanded spec,
+    and its orig_shape the shard's logical shape (the leading dim of the
+    contracted group over the row axis, of the output group over the
+    column axis)."""
+    from flash_attention_tpu_torch.models.quantized import (
+        INT4_GROUP, Int4Weight,
+    )
+
+    int4 = isinstance(w, Int4Weight)
+    k_ax, f_ax = spec.packed if int4 else spec.q
+    shape = list(w.orig_shape)
+    for lead, axis in ((0, k_ax), (w.n_contract, f_ax)):
+        if axis is not None:
+            n = mesh[axis].size()
+            if shape[lead] % n:
+                raise ValueError(f"dim {lead} of {w.orig_shape} does not "
+                                 f"split over the {n} ranks of {axis!r}")
+            shape[lead] //= n
+    if int4 and k_ax is not None:
+        k_local = math.prod(shape[: w.n_contract])
+        if k_local % INT4_GROUP:
+            raise ValueError(
+                f"an int4 row shard must cut on a {INT4_GROUP}-row scale "
+                f"group: {w.orig_shape} gives {k_local} rows a rank")
+    if int4:
+        leaves = dict(packed=_shard_leaf(w.packed, spec.packed, mesh, device),
+                      scales=_shard_leaf(w.scales, spec.scales, mesh, device))
+    else:
+        leaves = dict(q=_shard_leaf(w.q, spec.q, mesh, device),
+                      scale=_shard_leaf(w.scale, spec.scale, mesh, device))
+    return type(w)(**leaves, orig_shape=tuple(shape),
+                   n_contract=w.n_contract)
+
+
+def shard_params(params, specs, mesh, *, device="cuda"):
+    """This rank's shard of a parameter tree (the counterpart of the JAX
+    engine's `device_put(x, NamedSharding(mesh, spec))`): every leaf cut
+    to this rank's coordinate on each mesh axis its spec names, and only
+    that slice moved to `device` (the whole tree may live on the host).
+
+    `specs` has the tree's structure with a spec tuple per tensor; a
+    quantized weight takes its expanded spec
+    (models/quantized.py `expand_param_shardings`), and its shard
+    carries the shard's logical orig_shape. An int4 shard over rows
+    must cut on a scale group's boundary."""
+    from flash_attention_tpu_torch.models.quantized import (
+        QUANT_LEAF_TYPES, map_with_specs,
+    )
+
+    dev = resolve_device(device)
+
+    def shard(x, spec):
+        if isinstance(x, QUANT_LEAF_TYPES):
+            return _shard_quantized(x, spec, mesh, dev)
+        return _shard_leaf(x, spec, mesh, dev)
+
+    return map_with_specs(shard, params, specs)

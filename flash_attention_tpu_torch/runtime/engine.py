@@ -58,10 +58,29 @@ Design (as in the JAX engine):
     device. Either way a step reads back once. The step is eager (no
     CUDA graph).
 
-Tensor-parallel serving (mesh) arrives with the multi-device slice and
-raises NotImplementedError here. MoE models serve
-through the same path (models/llama.py `_mlp_block`). The XLA warm-up
-helpers (precompile_*) have no counterpart: PyTorch compiles nothing.
+  * Tensor-parallel serving (`mesh`): Megatron's layout
+    (models/llama.py `serving_param_shardings`): each rank holds its
+    shard of the weights (parallel/mesh.py `shard_params`) and the KV
+    pools, tails, scale pools and prefill buffers of its n_kv_heads / tp
+    heads, and every model dispatch runs with the mesh's "tp" group as
+    `tp_axis` (one all-reduce a block, the logits all-gathered). The
+    engine is SPMD where JAX's is one controller over sharded arrays:
+    every rank of the group builds the Engine with the same arguments
+    and serves the same requests. Host scheduling never reads device
+    data, and every admission, page and budget decision is taken in
+    global numbers, so the ranks take the single-device engine's
+    decisions; the all-gathered logits are the same on every rank, and
+    each rank samples them with its own generator, seeded alike. No
+    token is broadcast: the engine issues no collective beyond the
+    model's. dp replicas in the mesh compute the same thing, as
+    shard_map replicates over the axes its specs do not name. Per-rank
+    figures differ from JAX's global ones: `cache.hbm_bytes` and the
+    KV byte counts are one rank's. Model drafts (`draft_params`) and MoE
+    models raise under a mesh.
+
+Without a mesh, MoE models serve through the same path (models/llama.py
+`_mlp_block`). The XLA warm-up helpers (precompile_*) have no
+counterpart: PyTorch compiles nothing.
 One departure from the JAX engine: an explicit `prefill_hbm_budget`
 outside the windowed chunked configuration raises ValueError (the JAX
 engine ignores it).
@@ -89,13 +108,16 @@ from flash_attention_tpu_torch.models.llama import (
     prefill_chunk_step,
     prefill_kv,
     prefill_window_chunk_step,
+    serving_param_shardings,
 )
+from flash_attention_tpu_torch.models.quantized import expand_param_shardings
 from flash_attention_tpu_torch.models.sampling import (
     apply_top_p,
     sample,
     speculative_sample,
 )
 from flash_attention_tpu_torch.ops.paged import DEFAULT_PAGE_SIZE
+from flash_attention_tpu_torch.parallel.mesh import shard_params
 from flash_attention_tpu_torch.runtime.kv_cache import LayeredPagedKVCache
 
 _req_counter = itertools.count()
@@ -239,10 +261,6 @@ class Engine:
                  draft_fn=None, draft_params=None, draft_cfg=None,
                  draft_max_seq=None, prefill_hbm_budget: int | None = None,
                  mesh=None, seed: int = 0, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Engine: mesh is not ported yet; it arrives with the "
-                "multi-device slice")
         self.device = resolve_device(device)
         cache_dtype = cache_dtype or cfg.dtype
         if (self.device.type == "cuda" and kv_quant_dtype is None
@@ -252,13 +270,14 @@ class Engine:
                 f"takes dense pools only in the model's dtype {cfg.dtype}")
         self.params = params
         self.cfg = cfg
+        self._init_mesh(mesh, draft_params)
         self.max_batch = max_batch
         if max_seq_len is None:
             max_seq_len = num_pages * page_size
         self.max_seq_len = max_seq_len
         self.max_pages = cdiv(max_seq_len, page_size)
         self.cache = LayeredPagedKVCache(
-            n_layers=cfg.n_layers, kv_heads=cfg.n_kv_heads,
+            n_layers=cfg.n_layers, kv_heads=self._kv_heads,
             head_dim=cfg.head_dim, num_pages=num_pages,
             page_size=page_size, max_seqs=max_batch, tail_size=tail_size,
             dtype=cache_dtype, quant_dtype=kv_quant_dtype,
@@ -306,7 +325,8 @@ class Engine:
                 # Each in-flight windowed task holds two [L, 1, Hkv,
                 # wbuf, D] buffers until it installs; admission budgets
                 # their bytes (default 4 GiB; at least one task always
-                # admits).
+                # admits). Global heads under a mesh: every rank takes
+                # the single-device engine's admission decisions.
                 itemsize = torch.empty((), dtype=cfg.dtype).element_size()
                 self._wbuf_task_bytes = (
                     2 * cfg.n_layers * cfg.n_kv_heads * self._wbuf
@@ -328,6 +348,32 @@ class Engine:
         self._prefill_hbm_budget = prefill_hbm_budget
         self._init_speculative(speculative_k, speculative_rounds, draft_fn,
                                draft_params, draft_cfg, draft_max_seq)
+
+    def _init_mesh(self, mesh, draft_params) -> None:
+        """Tensor-parallel state: the "tp" group (`_tp`, None without a
+        mesh), this rank's shard of the params and its kv-head count.
+        Raises where the JAX engine does (tp not dividing n_kv_heads,
+        through serving_param_shardings; model drafts), and for MoE
+        params (expert parallelism comes later)."""
+        self._tp = None
+        self._kv_heads = self.cfg.n_kv_heads
+        if mesh is None:
+            return
+        if draft_params is not None:
+            raise NotImplementedError(
+                "model-based drafts under TP serving: run the draft "
+                "replicated outside the mesh (future work)")
+        if any("router" in layer for layer in self.params["layers"]):
+            raise NotImplementedError(
+                "MoE models under a mesh need expert-sharded stacks, which "
+                "come with expert parallelism (ROADMAP multi-device 2d)")
+        tp = mesh["tp"].size()
+        specs = expand_param_shardings(
+            self.params, serving_param_shardings(self.cfg, tp))
+        self.params = shard_params(self.params, specs, mesh,
+                                   device=self.device)
+        self._tp = mesh.get_group("tp")
+        self._kv_heads = self.cfg.n_kv_heads // tp
 
     def _init_speculative(self, speculative_k, speculative_rounds, draft_fn,
                           draft_params, draft_cfg, draft_max_seq) -> None:
@@ -430,7 +476,7 @@ class Engine:
         return sum(max(1, t.request.n) for t in self.prefilling)
 
     def _zero_bufs(self, length: int):
-        shape = (self.cfg.n_layers, 1, self.cfg.n_kv_heads, length,
+        shape = (self.cfg.n_layers, 1, self._kv_heads, length,
                  self.cfg.head_dim)
         return (torch.zeros(shape, dtype=self.cfg.dtype, device=self.device),
                 torch.zeros(shape, dtype=self.cfg.dtype, device=self.device))
@@ -547,7 +593,7 @@ class Engine:
             t0 = time.perf_counter()
             logits, ks, vs = prefill_kv(
                 self.params, torch.from_numpy(padded).to(self.device),
-                self.cfg, true_len=t)
+                self.cfg, true_len=t, tp_axis=self._tp)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.stats.prefill_s += time.perf_counter() - t0
@@ -673,7 +719,7 @@ class Engine:
             logits, kb, vb = fn(
                 self.params, torch.from_numpy(chunk).to(self.device),
                 self.cfg, kb, vb, torch.from_numpy(starts).to(self.device),
-                torch.from_numpy(reals).to(self.device))
+                torch.from_numpy(reals).to(self.device), tp_axis=self._tp)
             self.stats.prefill_s += time.perf_counter() - t0
             self.stats.prefill_chunks += 1
             budget -= int(reals.max())
@@ -875,7 +921,8 @@ class Engine:
                 self.cache.v_pools, self.cache.k_tails,
                 self.cache.v_tails, tables, paged_lens, tpos + i,
                 k_scales=self.cache.k_scale_pools,
-                v_scales=self.cache.v_scale_pools, paged_bases=bases)
+                v_scales=self.cache.v_scale_pools, paged_bases=bases,
+                tp_axis=self._tp)
             self.stats.decode_steps += 1
             tok = self._sample_batch(logits, temps, top_ps)
             out.append(tok)
@@ -988,7 +1035,7 @@ class Engine:
                 self.params, tokens, self.cfg, cache.k_pools, cache.v_pools,
                 cache.k_tails, cache.v_tails, tables, paged_lens, tail_pos,
                 k_scales=cache.k_scale_pools, v_scales=cache.v_scale_pools,
-                paged_bases=bases)
+                paged_bases=bases, tp_axis=self._tp)
             self.stats.decode_steps += 1
             out, acc = speculative_sample(logits, tokens, temps, top_ps,
                                           self._gen, all_greedy=all_greedy)

@@ -59,9 +59,8 @@ from flash_attention_tpu_torch.utils.metrics import max_abs_error
 
 ATOL = 2e-5
 JAX_BLOCKS = JaxBlockSizes(block_q=128, block_kv=128)
-# Names the JAX package exports that wait for the multi-device slice.
-SHARDING_NAMES = {"param_shardings", "moe_param_shardings",
-                  "make_moe_train_step"}
+# Names the JAX package exports that wait for the MoE multi-device slice.
+SHARDING_NAMES = {"moe_param_shardings", "make_moe_train_step"}
 # The pipeline names of JAX `parallel/__init__.py`, which come with the
 # pipeline-training slice.
 PIPELINE_NAMES = {"make_pp_train_step", "make_pp_loss",

@@ -128,7 +128,8 @@ def test_multi_device_defaults_raise_without_a_card():
     (dict(draft_fn=lambda h, k: h[:k], speculative_k=2,
           speculative_rounds=2), ValueError, "draft model"),
     (dict(draft_params={}), ValueError, "requires speculative_k"),
-    (dict(mesh=object()), NotImplementedError, "slice"),
+    (dict(mesh=object(), speculative_k=2, draft_params={},
+          draft_cfg=CFG), NotImplementedError, "drafts under TP"),
     (dict(prefill_hbm_budget=1 << 30, prefill_chunk=32), ValueError,
      "prefill_hbm_budget"),
 ], ids=["speculative_k", "draft_fn", "draft_params", "mesh",
@@ -138,8 +139,10 @@ def test_engine_unported_features_raise(kw, exc, match):
     decoding (n-gram and draft-model drafts, rounds) are ported, with the
     JAX engine's guards: speculation beside decode_chunk > 1, rounds over
     a host draft_fn, and a draft model without speculative_k raise
-    ValueError. Meshes raise NotImplementedError; a rolling-buffer budget
-    on a model without a window is refused (the JAX engine ignores it)."""
+    ValueError. A mesh with a draft model raises NotImplementedError, as
+    in the JAX engine (tensor-parallel serving is tests/test_torch_tp.py's);
+    a rolling-buffer budget on a model without a window is refused (the
+    JAX engine ignores it)."""
     params = init_params(CFG, seed=0, device="cpu")
     with pytest.raises(exc, match=match):
         Engine(params, CFG, num_pages=4, page_size=16, device="cpu", **kw)
