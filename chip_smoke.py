@@ -508,8 +508,21 @@ def device_ms(fn, flush: L2Flush, iters: int = 25, warmup: int = 3) -> float:
 
 
 def randn(rng, shape, dtype, std=1.0):
+    """N(0, std^2) on the card in `dtype`, drawn on the host from a numpy
+    Generator, or on the card from a torch.Generator there (the long
+    checks: their host draws took seconds)."""
+    if isinstance(rng, torch.Generator):
+        return (torch.randn(shape, generator=rng, device="cuda")
+                * std).to(dtype)
     return torch.from_numpy(
         rng.normal(0.0, std, shape).astype(np.float32)).to("cuda", dtype)
+
+
+def card_rng(offset: int) -> torch.Generator:
+    """A card generator seeded from SEED + offset."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + offset)
+    return gen
 
 
 def fp32_copy(params) -> dict:
@@ -2446,18 +2459,11 @@ def state_fingerprint(tr) -> list:
     equal fingerprints mean equal state, without a second copy of it on
     the card or the host."""
     from flash_attention_tpu_torch.models.llama import param_leaves
+    from flash_attention_tpu_torch.scripts.pp_worker import fingerprint
 
-    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
-    out = []
-    for t in (param_leaves(tr.params)
-              + param_leaves(tr.optimizer.state_dict()["state"])):
-        t = t.detach().reshape(-1)
-        if t.is_floating_point():
-            t = t.view(ints[t.element_size()])
-        x = t.long()
-        w = torch.arange(x.numel(), device=x.device) % 65521 + 1
-        out.append((int(x.sum()), int((x * w).sum())))
-    return out
+    return [fingerprint(t) for t in (
+        param_leaves(tr.params)
+        + param_leaves(tr.optimizer.state_dict()["state"]))]
 
 
 def train(what, cfg, batch, seq, steps, compare_layers=None) -> dict:
@@ -2584,9 +2590,10 @@ def train(what, cfg, batch, seq, steps, compare_layers=None) -> dict:
     return launches
 
 
-def profile_train_step(tr, tokens) -> None:
+def profile_train_step(tr, tokens, what="train step") -> dict:
     """Where a train step's time goes: torch.profiler over one step,
-    device time by kernel and the device's busy share."""
+    device time by kernel and the device's busy share (report_profile's
+    dict)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -2596,7 +2603,7 @@ def profile_train_step(tr, tokens) -> None:
         tr.train_step(tokens)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    report_profile(prof, wall, 1, "train step")
+    return report_profile(prof, wall, 1, what)
 
 
 def check_variants(rng) -> None:
@@ -3919,9 +3926,11 @@ def check_bwd_branches(rng, flush, results):
     whose dq must be exactly 0. Each: the 3x gate on dq, dk and dv
     against the plain versions (by kv group), identical bits on a
     rerun; the first two timed beside their bounds, the plain backward
-    and SDPA's backward with the same boolean mask."""
+    and SDPA's backward with the same boolean mask. Inputs come from the
+    check's own generator on the card (rng is unused)."""
     from flash_attention_tpu_torch.ops.flash import SegmentIds
 
+    rng = card_rng(51)
     t, hq, hkv, d, win = 8192, 32, 8, 128, MISTRAL_WINDOW
     ids = packed_ids()
     dead_q = ids.clone()
@@ -4994,7 +5003,8 @@ def tp_collectives(cfg, decode_steps, positions=1) -> dict:
     """The collectives of one tp run: per dispatch (a monolithic prefill
     of a request's bucket, or a decode step of max_batch rows x
     `positions`) 2 all-reduces a layer of its [rows, dim] activations and
-    one all-gather of its logits' rows, [rows, vocab] out; bf16."""
+    one all-gather of its logits' rows, [rows, vocab] out; bf16; no
+    permute."""
     from flash_attention_tpu_torch.runtime.engine import _bucket
 
     n_req, rows = len(TP_PROMPT_LENS), ENGINE_70B["max_batch"] * positions
@@ -5004,7 +5014,8 @@ def tp_collectives(cfg, decode_steps, positions=1) -> dict:
                                bytes=2 * cfg.n_layers * act_rows * cfg.dim * 2),
             "all-gather": dict(calls=dispatches,
                                bytes=(n_req + decode_steps * rows)
-                               * cfg.vocab_size * 2)}
+                               * cfg.vocab_size * 2),
+            "collective-permute": dict(calls=0, bytes=0)}
 
 
 def _record_logits(seen):
@@ -5416,6 +5427,393 @@ def tp(two: TpTwoRanks) -> dict:
                 collective_calls=calls, seconds=secs)
 
 
+# --- phase 6d: pipeline training (Llama-3-8B, full width) -----------------
+
+# Depth of the trained 8B tree: 4 of its 32 layers at full width (218.1 M
+# params a layer, embed and lm_head 525.3 M each: 1.923 B params, 15.4 GB
+# of bf16 params, grads and two AdamW moments at pp = 1, 11.9 GB a rank
+# at pp = 2), so world 1 and then two ranks fit on the card in turn.
+PP_LAYERS = 4
+PP_M = 4                        # microbatches of 1 x PP_SEQ
+PP_SEQ = 2048
+PP_RANKS = 2
+PP_GPIPE_STEPS = 2               # the second gives the steady peak memory
+PP_1F1B_STEPS = 3
+PP_TIMED_STEPS = 2
+PP_SPAWN_TIMEOUT_S = 1500       # the ranks live from the build to the pp phase
+
+
+def pp_cfg():
+    from flash_attention_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig.llama3_8b(n_layers=PP_LAYERS, dtype=torch.bfloat16)
+
+
+def pp_tokens(cfg) -> np.ndarray:
+    """[PP_M, 1, PP_SEQ + 1]: one batch of PP_M rows from a seeded token
+    shard read through BatchLoader, cut by `microbatched`."""
+    import pathlib
+
+    from flash_attention_tpu_torch.utils.data import (
+        BatchLoader, TokenShardDataset, microbatched, write_token_shard,
+    )
+
+    rng = np.random.default_rng(SEED + 40)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pp_data_") as tmp:
+        write_token_shard(pathlib.Path(tmp) / "000.tok", rng.integers(
+            0, cfg.vocab_size, 2 * PP_M * (PP_SEQ + 1)))
+        loader = BatchLoader(TokenShardDataset(tmp, seq_len=PP_SEQ + 1),
+                             batch=PP_M, seed=SEED)
+        batch = next(loader)
+        loader.close()
+    return np.asarray(next(microbatched(iter([batch]), PP_M)))
+
+
+def pp_hops(schedule, m, s) -> tuple:
+    """The permutes of one step, forward and backward: GPipe one after
+    each of its M + S - 1 ticks a direction but the last; 1F1B one after
+    each half-tick at which a rank with a neighbour that way runs."""
+    if s == 1:
+        return 0, 0
+    if schedule == "gpipe":
+        return m + s - 2, m + s - 2
+    return (len({2 * j + q for j in range(m) for q in range(s - 1)}),
+            len({2 * j + 2 * s - 1 - q for j in range(m)
+                 for q in range(1, s)}))
+
+
+def pp_launches(schedule, m, s, r) -> dict:
+    """B1 / B2 / B3 launches of one step on pipeline rank r of s: a
+    backward (B2 + B3) a layer a microbatch; B1 a layer a microbatch for
+    the forward, and again for GPipe's remat recompute or 1F1B's
+    backward recompute (1F1B's last rank runs no forward tick)."""
+    n = PP_LAYERS // s
+    fwd = 2 if schedule == "gpipe" or r < s - 1 else 1
+    return dict(flash=fwd * n * m, bwd_dq=n * m, bwd_dkv=n * m)
+
+
+def pp_collectives(cfg, schedule, m, s, r) -> dict:
+    """Counted collectives of one step on rank r of s (tp = dp = 1):
+    all-reduces of the loss over pp and dp, the shared gradients over pp
+    and every gradient over dp (groups of one still call); permutes of
+    [1, PP_SEQ, dim] bf16 activations, bytes as this rank sends."""
+    d, hd, f, v = cfg.dim, cfg.head_dim, cfg.ffn_dim, cfg.vocab_size
+    layer = (2 * d + d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+             + cfg.n_heads * hd * d + 3 * d * f)
+    stage, shared = layer * PP_LAYERS // s * 2, (2 * v * d + d) * 2
+    act = PP_SEQ * d * 2
+    fwd, bwd = pp_hops(schedule, m, s)
+    sends = (fwd if r < s - 1 else 0) + (bwd if r > 0 else 0)
+    return {"all-reduce": dict(calls=17, bytes=8 + 2 * shared + stage),
+            "all-gather": dict(calls=0, bytes=0),
+            "collective-permute": dict(calls=fwd + bwd, bytes=sends * act)}
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _pp_timed(tr, tokens, what) -> dict:
+    """PP_TIMED_STEPS more steps (median ms a step, the peak memory over
+    them) and one profiled step (busy share)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(PP_TIMED_STEPS):
+        t0 = time.perf_counter()
+        tr.train_step(tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_train_step(tr, tokens, f"{what} step")
+    out = dict(ms=statistics.median(times) * 1e3, peak_gib=peak / 2 ** 30,
+               busy_ms=prof.get("busy"), profile_wall_ms=prof.get("wall"))
+    # The profiler slows the host: the busy ms over the profiled step's
+    # wall and over the unprofiled median.
+    out["busy_share"] = (None if not prof else
+                         round(prof["busy"] / prof["wall"], 4))
+    out["busy_of_median"] = (None if not prof else
+                             round(prof["busy"] / out["ms"], 4))
+    log(f"{what}: {out['ms']:.1f} ms a step (median of {PP_TIMED_STEPS}), "
+        f"peak max_memory_allocated over them {out['peak_gib']:.2f} GiB, "
+        f"device busy {out['busy_ms']} ms = {out['busy_share']} of the "
+        f"profiled step's wall, {out['busy_of_median']} of the median")
+    return out
+
+
+def pp_world1(cfg, tokens, mesh) -> dict:
+    """World 1 over NCCL (`mesh`, make_mesh(pp=1)): the dense
+    Trainer(remat=True) step on the first microbatch against one step of
+    each schedule at M = 1 (loss and every updated parameter bit for
+    bit); then each schedule from the same seed at M = PP_M, its
+    launches and collectives exact; ms a step, peak memory and busy
+    share beside the dense step on the same PP_M x PP_SEQ tokens. Every
+    Trainer is freed before the next is built. Returns the M = PP_M
+    losses and fingerprints (the two ranks' reference), the figures and
+    the launches by path."""
+    import functools
+
+    from flash_attention_tpu_torch.models.trainer import (
+        Trainer, TrainerConfig,
+    )
+    from flash_attention_tpu_torch.parallel import collectives
+    from flash_attention_tpu_torch.scripts.pp_worker import (
+        fingerprints, tree_fingerprints,
+    )
+
+    opt = functools.partial(torch.optim.AdamW, lr=1e-4, weight_decay=1e-4)
+    tc = TrainerConfig(remat=True)
+
+    def build(**kw):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, opt, trainer_cfg=tc, seed=SEED, **kw)
+        torch.cuda.synchronize()
+        log(f"pp world 1: Trainer({kw.get('pp_schedule', 'dense')}) built "
+            f"in {time.perf_counter() - t0:.2f} s")
+        return tr
+
+    out, paths = {}, {}
+    tr = build()
+    reset_counts()
+    loss_ref = float(tr.train_step(tokens[0]))
+    fp_ref = tree_fingerprints(tr.params)
+    out["dense"] = _pp_timed(tr, tokens.reshape(PP_M, -1),
+                             f"pp[dense {PP_M} x {PP_SEQ}]")
+    paths["pp_8b_dense_world1"] = read_counts()
+    del tr
+    for schedule in ("gpipe", "1f1b"):
+        kw = dict(mesh=mesh, family="pipeline", pp_schedule=schedule)
+        what = f"pp world 1 (NCCL) [{schedule}]"
+        tr = build(**kw)
+        reset_counts()
+        collectives.reset_collective_counts()
+        loss1 = float(tr.train_step(tokens[:1]))
+        got = (_nonzero(read_counts()), collectives.collective_counts())
+        want = (pp_launches(schedule, 1, 1, 0),
+                pp_collectives(cfg, schedule, 1, 1, 0))
+        same = loss1 == loss_ref and fingerprints(*tr.params) == fp_ref
+        log(f"{what} M = 1: loss {loss1!r} vs the dense step's "
+            f"{loss_ref!r}; loss and every updated parameter bit-identical "
+            f"{same}; launches {got[0]}, collectives {got[1]}")
+        if not same or got != want:
+            raise AssertionError(f"{what}: M = 1 differs from the dense "
+                                 f"step or its counts are off (want {want})")
+        launches = read_counts()
+        del tr
+        tr = build(**kw)
+        reset_counts()
+        collectives.reset_collective_counts()
+        torch.cuda.reset_peak_memory_stats()
+        loss = float(tr.train_step(tokens))
+        first_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        got = (_nonzero(read_counts()), collectives.collective_counts())
+        want = (pp_launches(schedule, PP_M, 1, 0),
+                pp_collectives(cfg, schedule, PP_M, 1, 0))
+        log(f"{what} M = {PP_M}: loss {loss!r}; launches {got[0]}, "
+            f"collectives {got[1]} (want {want}); peak over the first "
+            f"step {first_peak:.2f} GiB")
+        if got != want or not math.isfinite(loss):
+            raise AssertionError(f"{what}: M = {PP_M} counts off")
+        out[schedule] = dict(loss=loss, fp=fingerprints(*tr.params),
+                             collectives=got[1], launches=got[0],
+                             **_pp_timed(tr, tokens, f"{what} M = {PP_M}"))
+        end = read_counts()
+        paths[f"pp_8b_{schedule}_world1_nccl"] = {
+            k: launches[k] + end[k] for k in end}
+        del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["paths"] = paths
+    return out
+
+
+class PpTwoRanks:
+    """Two ranks on the one card over gloo (every collective staged
+    through host memory), pp = 2, spawned by the port's launcher running
+    pp_worker: each builds the Trainer (family="pipeline", pp_cfg, SEED,
+    bf16, AdamW lr 1e-4 weight_decay 1e-4) and keeps its 2 layers and the
+    shared params, then runs PP_GPIPE_STEPS GPipe (remat) and PP_1F1B_STEPS
+    1F1B steps on pp_tokens from fresh Trainers, gathering the updated
+    tree after each first step. The ranks start with the build (process
+    start, torch import, group and mesh; no card work) and run after
+    `go()`. `finish()` holds each first step's loss and gathered
+    parameters bit-identical to world 1's (`pp_world1`), the ranks'
+    shared params identical, each rank's launches and collectives exact,
+    and the losses finite and falling."""
+
+    SCHEDULES = {"gpipe": PP_GPIPE_STEPS, "1f1b": PP_1F1B_STEPS}
+
+    def __init__(self, tmp, tokens):
+        import pathlib
+
+        self.tmp = pathlib.Path(tmp)
+        self.t_go = None
+        base = dict(kind="step", cfg=dict(preset="llama3_8b",
+                                          n_layers=PP_LAYERS,
+                                          dtype="bfloat16"),
+                    mesh=dict(pp=PP_RANKS), remat=True,
+                    params=dict(seed=SEED), fingerprint=True,
+                    optimizer=dict(kind="adamw", lr=1e-4, weight_decay=1e-4),
+                    tokens=torch.from_numpy(tokens))
+        cases = [dict(base, name=name, schedule=name, steps=steps)
+                 for name, steps in self.SCHEDULES.items()]
+        torch.save({"cases": cases}, self.tmp / "pp_cases.pt")
+        self.go_file = self.tmp / "pp_go"
+        root = pathlib.Path(__file__).resolve().parent
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "flash_attention_tpu_torch.scripts.launch_multihost",
+             "--simulate", str(PP_RANKS), "--device", "cuda",
+             "--rendezvous-dir", str(self.tmp), "--timeout",
+             str(PP_SPAWN_TIMEOUT_S), "--", "-m",
+             "flash_attention_tpu_torch.scripts.pp_worker",
+             str(self.tmp / "pp_cases.pt"), str(self.tmp / "pp_out.pt"),
+             "--backend", "gloo", "--start-after", str(self.go_file)],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, start_new_session=True)
+
+    def go(self):
+        torch.cuda.synchronize()
+        self.go_file.touch()
+        self.t_go = time.perf_counter()
+
+    def kill(self):
+        """Stop the launcher and its ranks (one process group)."""
+        import os
+        import signal
+
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.communicate()
+
+    def finish(self, cfg, world1) -> dict:
+        try:
+            log_text, _ = self.proc.communicate(
+                timeout=PP_SPAWN_TIMEOUT_S + 60)
+        finally:
+            self.kill()
+        done = time.perf_counter()
+        if self.proc.returncode:
+            raise AssertionError(f"pp: the 2-rank spawn failed "
+                                 f"({self.proc.returncode}):\n"
+                                 f"{log_text[-6000:]}")
+        out = torch.load(self.tmp / "pp_out.pt", weights_only=True)
+        if (out["world"], out["backend"]) != (PP_RANKS, "gloo") \
+                or not out["device"].startswith("cuda"):
+            raise AssertionError(f"pp: the spawn ran {out['world']} ranks on "
+                                 f"{out['backend']} / {out['device']}")
+        names = {f"{mod.__name__.rsplit('.', 1)[1]}.{attr}": key
+                 for key, (mod, attr) in _counters().items()}
+        result = dict(after_go_s=done - self.t_go, cases={})
+        for name, steps in self.SCHEDULES.items():
+            ranks = out["cases"][name]
+            what = f"pp 2 ranks (gloo, one card) [{name}]"
+            ref = world1[name]
+            for r, got in enumerate(ranks):
+                launches = [_nonzero({names[k]: v for k, v in step.items()
+                                      if k in names})
+                            for step in got["launches"]]
+                want_l = pp_launches(name, PP_M, PP_RANKS, r)
+                want_c = pp_collectives(cfg, name, PP_M, PP_RANKS, r)
+                same = (got["losses"][0] == ref["loss"]
+                        and got["fingerprints"] == ref["fp"])
+                log(f"{what} rank {r}: losses {got['losses']} (world 1 "
+                    f"{ref['loss']!r}); first step's loss and gathered "
+                    f"parameters bit-identical to world 1's {same}; "
+                    f"launches a step {launches}, collectives of the first "
+                    f"step {got['collectives'][0]} (want {want_c}); wall s "
+                    f"a step {[round(x, 3) for x in got['seconds']]} "
+                    f"(host-staged gloo on one card, not a fabric); peak "
+                    f"over the first step {got['peak_bytes'] / 2 ** 30:.2f} "
+                    f"GiB, over the later ones "
+                    f"{got['steady_peak_bytes'] / 2 ** 30:.2f} GiB; "
+                    f"Trainer build {got['build_s']:.2f} s, gather and "
+                    f"fingerprints {got['gather_s']:.2f} s")
+                if not same:
+                    raise AssertionError(f"{what} rank {r}: differs from "
+                                         f"world 1's M = {PP_M} step")
+                if any(step != want_l for step in launches) or any(
+                        c != want_c for c in got["collectives"]):
+                    raise AssertionError(f"{what} rank {r}: launches or "
+                                         f"collectives off (want {want_l})")
+            if ranks[0]["shared"] != ranks[1]["shared"]:
+                raise AssertionError(f"{what}: the ranks' shared params "
+                                     f"differ")
+            losses = ranks[0]["losses"]
+            if not all(math.isfinite(x) for x in losses) or (
+                    steps > 1 and not losses[-1] < losses[0]):
+                raise AssertionError(f"{what}: loss not finite and falling: "
+                                     f"{losses}")
+            result["cases"][name] = dict(
+                losses=losses,
+                seconds=[g["seconds"] for g in ranks],
+                peak_gib=[g["peak_bytes"] / 2 ** 30 for g in ranks],
+                steady_peak_gib=[g["steady_peak_bytes"] / 2 ** 30
+                                 for g in ranks],
+                collectives=[g["collectives"][0] for g in ranks],
+                launches=[{names[k]: sum(step[k] for step in g["launches"])
+                           for k in g["launches"][0] if k in names}
+                          for g in ranks])
+        log(f"pp 2 ranks on one card (host-staged gloo, not a fabric): "
+            f"started with the build, {result['after_go_s']:.1f} s from the "
+            f"go to their results (kernel load, Trainer builds, steps, "
+            f"gathers)")
+        return result
+
+
+def pp(two: PpTwoRanks) -> dict:
+    """Pipeline training of LlamaConfig.llama3_8b at full width
+    (PP_LAYERS layers, bf16, AdamW, SEED): pp_world1 over a one-process
+    NCCL group, then the two gloo ranks started with the build (`two`).
+    Returns the launches by path, the figures and the part seconds."""
+    import torch.distributed as dist
+
+    from flash_attention_tpu_torch.parallel.mesh import (
+        initialize_distributed, make_mesh,
+    )
+
+    card = card_line()
+    cfg = pp_cfg()
+    tokens = pp_tokens(cfg)
+    secs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pp_") as tmp:
+        t = time.perf_counter()
+        initialize_distributed(f"file://{tmp}/store", 1, 0)
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"pp: the world of one runs "
+                                     f"{dist.get_backend()}, not NCCL")
+            w1 = pp_world1(cfg, tokens, make_mesh(pp=1))
+            secs["world1"] = time.perf_counter() - t
+        finally:
+            dist.destroy_process_group()
+    t = time.perf_counter()
+    two.go()
+    got = two.finish(cfg, w1)
+    secs["two_ranks_after_go"] = time.perf_counter() - t
+    paths = dict(w1["paths"])
+    for name, case in got["cases"].items():
+        for r, c in enumerate(case["launches"]):
+            paths[f"pp_8b_{name}_2rank_gloo_rank{r}"] = c
+    log(f"pp: on {card}: world 1 -- " + "; ".join(
+        f"{k}: {w1[k]['ms']:.1f} ms a step, peak {w1[k]['peak_gib']:.2f} "
+        f"GiB, busy share {w1[k]['busy_share']}"
+        for k in ("dense", "gpipe", "1f1b")) + "; 2 ranks (host-staged "
+        "gloo on one card, not a fabric) -- " + "; ".join(
+        f"{k}: wall s a step {[[round(x, 3) for x in s] for s in c['seconds']]}"
+        f", peak GiB first step {[round(x, 2) for x in c['peak_gib']]}, "
+        f"later steps {[round(x, 2) for x in c['steady_peak_gib']]}"
+        for k, c in got["cases"].items()))
+    log("pp: part seconds " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in secs.items()))
+    return dict(paths=paths, world1={k: {f: v for f, v in w1[k].items()
+                                         if f != "fp"}
+                                     for k in ("dense", "gpipe", "1f1b")},
+                two=got, seconds=secs)
+
+
 # --- phase: the kernel-study harness (B10a-c, B1 fp32, B1's split) -------
 
 STUDY_SHAPE = (1, 32, 8192, 128)     # benchmarks/perf_1_32_8192_128
@@ -5754,7 +6152,8 @@ def check_flash_long(rng, flush, results):
     B10c at (1, 32, 8192, 128), bf16: the 3x gate against the fp32
     reference (by kv group; B1's LSE within 1e-3), each timed beside its
     bound, plain version and SDPA; then B1 at ragged lengths across its
-    tile edges (LONG_RAGGED, bf16 and fp16) under the same gate."""
+    tile edges (LONG_RAGGED, bf16 and fp16) under the same gate. Inputs
+    come from the check's own generator on the card (rng is unused)."""
     from flash_attention_tpu_torch.ops import flash, variants
     from flash_attention_tpu_torch.utils.metrics import (
         max_abs_error, verify_low_precision,
@@ -5763,6 +6162,7 @@ def check_flash_long(rng, flush, results):
     b, h, n, d = STUDY_SHAPE
     sc = d ** -0.5
     kw = dict(causal=True, scale=sc, offset=0)
+    rng = card_rng(50)
     for hkv in (h, STUDY_GQA_KV):
         q = randn(rng, (b, h, n, d), torch.bfloat16)
         k = randn(rng, (b, hkv, n, d), torch.bfloat16)
@@ -7239,22 +7639,25 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
     rdir = tempfile.mkdtemp(prefix="chip_smoke_ring_ranks_")
     tdir = tempfile.mkdtemp(prefix="chip_smoke_tp_ranks_")
-    two = tp_two = None
+    pdir = tempfile.mkdtemp(prefix="chip_smoke_pp_ranks_")
+    two = tp_two = pp_two = None
     try:
         two = RingTwoRanks(rdir)
         tp_two = TpTwoRanks(tdir)
-        return run_phases(card, two, tp_two)
+        pp_two = PpTwoRanks(pdir, pp_tokens(pp_cfg()))
+        return run_phases(card, two, tp_two, pp_two)
     finally:
-        for ranks in (two, tp_two):
+        for ranks in (two, tp_two, pp_two):
             if ranks is not None:
                 ranks.kill()
-        shutil.rmtree(rdir, ignore_errors=True)
-        shutil.rmtree(tdir, ignore_errors=True)
+        for d in (rdir, tdir, pdir):
+            shutil.rmtree(d, ignore_errors=True)
 
 
-def run_phases(card: str, two: RingTwoRanks, tp_two: TpTwoRanks) -> int:
-    """Every phase after the ring's and the tp phase's ranks' start
-    (main)."""
+def run_phases(card: str, two: RingTwoRanks, tp_two: TpTwoRanks,
+               pp_two: PpTwoRanks) -> int:
+    """Every phase after the ring's, the tp phase's and the pp phase's
+    ranks' start (main)."""
     from flash_attention_tpu_torch.ops import _cuda
 
     t0 = time.perf_counter()
@@ -7315,6 +7718,9 @@ def run_phases(card: str, two: RingTwoRanks, tp_two: TpTwoRanks) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tpr = timed("tp", lambda: tp(tp_two))
+    gc.collect()
+    torch.cuda.empty_cache()
+    ppr = timed("pp", lambda: pp(pp_two))
     gc.collect()
     torch.cuda.empty_cache()
     q8 = timed("serve_8b", serve_8b_phase)
@@ -7722,6 +8128,17 @@ def run_phases(card: str, two: RingTwoRanks, tp_two: TpTwoRanks) -> int:
                        entry["name"])
         if counter is not None:
             got = {path: c[counter] for path, c in tpr["paths"].items()
+                   if c.get(counter)}
+            entry["launches"] += sum(got.values())
+            entry["launches_by_path"].update(got)
+    # The pp phase's launches: world 1 (the dense reference, GPipe and
+    # 1F1B over NCCL) and each of the two gloo ranks, under each
+    # kernel's own counter.
+    for entry in kernels:
+        counter = {"flash_fwd (B1)": "flash", "flash_bwd_dq (B2)": "bwd_dq",
+                   "flash_bwd_dkv (B3)": "bwd_dkv"}.get(entry["name"])
+        if counter is not None:
+            got = {path: c[counter] for path, c in ppr["paths"].items()
                    if c.get(counter)}
             entry["launches"] += sum(got.values())
             entry["launches_by_path"].update(got)

@@ -1,16 +1,31 @@
 """Training loop with checkpoint/resume (port of
-`flash_attention_tpu/models/trainer.py`, `family="dense"` on one
-device).
+`flash_attention_tpu/models/trainer.py`: `family="dense"` on one device
+and `family="pipeline"` over a mesh).
 
-The Trainer owns (params, optimizer, step): it runs `make_train_step`,
-checkpoints `{"params", "opt_state", "step"}` through
+The Trainer owns (params, optimizer, step): it runs the family's train
+step in place, checkpoints `{"params", "opt_state", "step"}` through
 utils/checkpoint.py every `ckpt_every` steps, and in `__init__` resumes
 from the newest checkpoint of `ckpt_dir`.
+
+  * ``dense``    -- `make_train_step` on one device; tokens [B, T].
+  * ``pipeline`` -- parallel/pipeline.py's GPipe (`pp_schedule="gpipe"`,
+                   `remat` per layer) or 1F1B (`"1f1b"`) over a mesh with
+                   a pp axis (and dp; tp composes); `self.params` is this
+                   rank's `(stages, shared)` and tokens are [M, B, T]
+                   (utils/data.py `microbatched`). SPMD: every rank draws
+                   the same global tree from `seed`, splits it and keeps
+                   its slab. A checkpoint is the JAX package's global
+                   layout: every rank gathers its slabs and optimizer
+                   moments, the mesh's first rank writes them, and a
+                   restore cuts each rank's slab again, so
+                   `merge_pipeline_params(*state["params"])` reads one
+                   into a plain tree.
 
 The JAX Trainer takes an optax transformation, a stateless spec. A torch
 optimizer binds to tensors, so this one takes a factory,
 `params_iterable -> torch.optim.Optimizer`, and calls it on the
-parameters it creates, e.g.
+parameters it creates (a pipeline rank: its local leaves, so the state
+lies where its parameter lies), e.g.
 `functools.partial(torch.optim.AdamW, lr=1e-4, weight_decay=1e-4)`.
 Pass `weight_decay` explicitly: optax.adamw's default is 1e-4,
 torch.optim.AdamW's 1e-2; the update rules otherwise agree (decoupled
@@ -24,7 +39,9 @@ import time
 from typing import Callable, Iterable, Iterator
 
 import torch
+import torch.distributed as dist
 
+from flash_attention_tpu_torch.config import resolve_device
 from flash_attention_tpu_torch.models.llama import (
     init_params,
     make_train_step,
@@ -48,78 +65,169 @@ class TrainerConfig:
 
 class Trainer:
     """Owns (params, optimizer, step_num); runs the train step in place
-    and checkpoints/resumes. Only `family="dense"` on one device is
-    ported: the pipeline and MoE families and `mesh=` raise
-    NotImplementedError until their slices land."""
+    and checkpoints/resumes. `family="dense"` runs on one device (its
+    `mesh=` / `tp_size=` sharding, ROADMAP multi-device 2f, raises
+    NotImplementedError, as does `family="moe"`, 2d); `family="pipeline"`
+    needs `mesh` with a pp axis and takes `pp_schedule` "gpipe" or
+    "1f1b"."""
 
     def __init__(self, cfg,
                  optimizer: Callable[[Iterable], torch.optim.Optimizer], *,
                  trainer_cfg: TrainerConfig | None = None, mesh=None,
                  tp_size: int | None = None, seed: int = 0,
-                 family: str = "dense", device="cuda"):
+                 family: str = "dense", pp_schedule: str = "gpipe",
+                 device="cuda"):
         if family not in ("dense", "pipeline", "moe"):
             raise ValueError(
                 f"unknown family {family!r} "
                 "(expected dense | pipeline | moe)")
-        if family == "pipeline":
-            raise NotImplementedError(
-                "family='pipeline' arrives with the multi-device slice")
         if family == "moe":
             raise NotImplementedError(
                 "family='moe' (MoE training: expert-parallel mesh, "
-                "capacity routing) arrives with the multi-device slice")
-        if mesh is not None or tp_size is not None:
+                "capacity routing) arrives with the multi-device slice 2d "
+                "(ROADMAP section A item 2)")
+        if family == "dense" and (mesh is not None or tp_size is not None):
             raise NotImplementedError(
-                "sharded training (mesh=, tp_size=) arrives with the "
-                "multi-device slice")
+                "sharded dense training (mesh=, tp_size=) arrives with the "
+                "multi-device slice 2f (ROADMAP section A item 2)")
+        if family == "pipeline":
+            if mesh is None or "pp" not in (mesh.mesh_dim_names or ()):
+                raise ValueError("family='pipeline' needs a mesh with a "
+                                 "'pp' axis (and 'dp'; optionally 'tp')")
+            if pp_schedule not in ("gpipe", "1f1b"):
+                raise ValueError(f"unknown pp_schedule {pp_schedule!r} "
+                                 "(expected gpipe | 1f1b)")
         self.cfg = cfg
         self.tc = trainer_cfg or TrainerConfig()
+        self.mesh = mesh
         self.family = family
         self.step_num = 0
-        self.params = init_params(cfg, seed, device=device)
+        self.device = resolve_device(device)
+        if family == "pipeline":
+            self._init_pipeline(seed, pp_schedule)
+        else:
+            self.params = init_params(cfg, seed, device=self.device)
+            self._step_fn = make_train_step(cfg, remat=self.tc.remat)
         for leaf in param_leaves(self.params):
             leaf.requires_grad_(True)
         self.optimizer = optimizer(param_leaves(self.params))
-        self._step_fn = make_train_step(cfg, remat=self.tc.remat)
 
         if self.tc.ckpt_dir is not None:
             last = latest_step(self.tc.ckpt_dir)
             if last is not None:
                 self.restore(last)
 
+    def _init_pipeline(self, seed, pp_schedule) -> None:
+        from flash_attention_tpu_torch.parallel.mesh import shard_params
+        from flash_attention_tpu_torch.parallel.pipeline import (
+            make_pp_train_step, make_pp_train_step_1f1b,
+            pipeline_shardings, split_pipeline_params,
+        )
+
+        mesh = self.mesh
+        self._step_fn = (
+            make_pp_train_step(mesh, self.cfg, remat=self.tc.remat)
+            if pp_schedule == "gpipe" else
+            make_pp_train_step_1f1b(mesh, self.cfg))
+        self._tp_axis = "tp" if mesh["tp"].size() > 1 else None
+        stages, shared = split_pipeline_params(
+            init_params(self.cfg, seed, device=self.device),
+            mesh["pp"].size())
+        st_s, sh_s = pipeline_shardings(mesh, stages, shared,
+                                        tp_axis=self._tp_axis)
+        self.params = (shard_params(stages, st_s, mesh, device=self.device),
+                       shard_params(shared, sh_s, mesh, device=self.device))
+
     # --- checkpointing --------------------------------------------------
 
     def _state(self):
-        return {"params": self.params,
-                "opt_state": self.optimizer.state_dict(),
+        """The state to save: this process's trees, or for a pipeline
+        the global layout gathered over the mesh (a collective: every
+        rank calls)."""
+        if self.family != "pipeline":
+            return {"params": self.params,
+                    "opt_state": self.optimizer.state_dict(),
+                    "step": self.step_num}
+        from flash_attention_tpu_torch.parallel.mesh import gather_params
+        from flash_attention_tpu_torch.parallel.pipeline import (
+            pipeline_shardings,
+        )
+
+        opt = self.optimizer.state_dict()
+        st_s, sh_s, o_s = pipeline_shardings(
+            self.mesh, *self.params, opt, optimizer=self.optimizer,
+            tp_axis=self._tp_axis)
+        return {"params": (gather_params(self.params[0], st_s, self.mesh),
+                           gather_params(self.params[1], sh_s, self.mesh)),
+                "opt_state": gather_params(opt, o_s, self.mesh),
                 "step": self.step_num}
+
+    def _writes(self) -> bool:
+        return (self.family != "pipeline"
+                or dist.get_rank() == int(self.mesh.mesh.flatten()[0]))
+
+    def _barrier(self) -> None:
+        """Every rank of the mesh waits for the others (one barrier an
+        axis): no rank looks for a checkpoint before it is written."""
+        if self.family == "pipeline":
+            for axis in self.mesh.mesh_dim_names:
+                dist.barrier(group=self.mesh.get_group(axis))
 
     def save(self) -> None:
         if self.tc.ckpt_dir is None:
             return
-        save_checkpoint(self.tc.ckpt_dir, self.step_num, self._state(),
-                        max_to_keep=self.tc.max_to_keep)
+        state = self._state()
+        if self._writes():
+            save_checkpoint(self.tc.ckpt_dir, self.step_num, state,
+                            max_to_keep=self.tc.max_to_keep)
+        self._barrier()
 
     def restore(self, step: int | None = None) -> int:
-        step, state = restore_checkpoint(
-            self.tc.ckpt_dir, step=step, template=self._state())
+        if self.family == "pipeline":
+            step, state = restore_checkpoint(self.tc.ckpt_dir, step=step)
+            params, opt = self._pipeline_slab(state)
+        else:
+            step, state = restore_checkpoint(
+                self.tc.ckpt_dir, step=step, template=self._state())
+            params, opt = state["params"], state["opt_state"]
         # Copy into the live tensors, which the optimizer is bound to.
         with torch.no_grad():
             for live, saved in zip(param_leaves(self.params),
-                                   param_leaves(state["params"]),
-                                   strict=True):
+                                   param_leaves(params), strict=True):
                 live.copy_(saved)
         # load_state_dict moves the moments to their parameters' devices.
-        self.optimizer.load_state_dict(state["opt_state"])
+        self.optimizer.load_state_dict(opt)
         self.step_num = int(state["step"])
         return self.step_num
+
+    def _pipeline_slab(self, state):
+        """This rank's slab of a global pipeline checkpoint: its stage
+        and shared params, and its optimizer state."""
+        from flash_attention_tpu_torch.parallel.mesh import shard_params
+        from flash_attention_tpu_torch.parallel.pipeline import (
+            pipeline_shardings,
+        )
+
+        stages, shared = state["params"]
+        opt = state["opt_state"]
+        st_s, sh_s, o_s = pipeline_shardings(
+            self.mesh, stages, shared, opt, tp_axis=self._tp_axis)
+        params = (shard_params(stages, st_s, self.mesh, device=self.device),
+                  shard_params(shared, sh_s, self.mesh, device=self.device))
+        opt = dict(opt, state=shard_params(opt["state"], o_s["state"],
+                                           self.mesh, device="cpu"))
+        return params, opt
 
     # --- loop -------------------------------------------------------------
 
     def train_step(self, tokens) -> torch.Tensor:
-        """One step on tokens [B, T] (numpy or tensor); the loss comes
-        back as a 0-d device tensor (no host sync)."""
-        loss = self._step_fn(self.params, self.optimizer, tokens)
+        """One step on tokens [B, T] ([M, B, T] for a pipeline; numpy or
+        tensor); the loss comes back as a 0-d device tensor (no host
+        sync)."""
+        if self.family == "pipeline":
+            loss = self._step_fn(*self.params, self.optimizer, tokens)
+        else:
+            loss = self._step_fn(self.params, self.optimizer, tokens)
         self.step_num += 1
         if (self.tc.ckpt_dir is not None
                 and self.step_num % self.tc.ckpt_every == 0):

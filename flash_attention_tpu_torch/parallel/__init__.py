@@ -1,7 +1,14 @@
-"""Multi-device: the process group and mesh, and ring attention
-(sequence parallelism) over B1 / B2 / B3."""
+"""Multi-device: the process group and mesh, ring attention (sequence
+parallelism) over B1 / B2 / B3, and pipeline training (GPipe, 1F1B)."""
 
 from flash_attention_tpu_torch.parallel.mesh import make_mesh, mesh_shape_for
+from flash_attention_tpu_torch.parallel.pipeline import (
+    make_pp_loss,
+    make_pp_train_step,
+    merge_pipeline_params,
+    pipeline_shardings,
+    split_pipeline_params,
+)
 from flash_attention_tpu_torch.parallel.ring import (
     make_ring_attention,
     ring_attention,
@@ -16,4 +23,9 @@ __all__ = [
     "make_ring_attention",
     "zigzag_order",
     "zigzag_inverse",
+    "make_pp_train_step",
+    "make_pp_loss",
+    "split_pipeline_params",
+    "merge_pipeline_params",
+    "pipeline_shardings",
 ]

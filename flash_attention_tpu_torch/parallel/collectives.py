@@ -1,13 +1,17 @@
-"""The tensor-parallel collectives, issued and counted in one place.
+"""The multi-device collectives, issued and counted in one place.
 
 Tensor-parallel serving (models/llama.py `tp_axis=`) stitches its shards
 back together with two collectives: a sum all-reduce of the residual
 stream after each row-parallel product, and a tiled all-gather of the
-vocab-sharded logits. Both go through this module, which counts what it
-issues: per kind, the calls and the bytes, the way the JAX package's
-`parallel/scaling.py:hlo_collective_bytes` counts the result shapes of
-a compiled program's collectives (an all-reduce its buffer, an
-all-gather its OUTPUT). Eager PyTorch has no compiled program to read,
+vocab-sharded logits. Pipeline training (parallel/pipeline.py) adds two
+more: `ppermute`, the non-wrapping shift that hands activations to the
+next stage and cotangents to the one before, and `all_reduce_max`, the
+vocab-parallel cross-entropy's shift. All of them go through this
+module, which counts what it issues: per kind, the calls and the bytes,
+the way the JAX package's `parallel/scaling.py:hlo_collective_bytes`
+counts the result shapes of a compiled program's collectives (an
+all-reduce its buffer, an all-gather its OUTPUT, a collective-permute
+what this rank sends). Eager PyTorch has no compiled program to read,
 so the scaling model (parallel/scaling.py `collective_bytes`) reads
 these counters instead. `collective_counts()` reads them and
 `reset_collective_counts()` zeros them, like the kernels' launch
@@ -28,25 +32,31 @@ import torch.distributed as dist
 
 ALL_REDUCE = "all-reduce"
 ALL_GATHER = "all-gather"
+PERMUTE = "collective-permute"
 
 all_reduce_calls = 0
 all_reduce_bytes = 0
 all_gather_calls = 0
 all_gather_bytes = 0
+permute_calls = 0
+permute_bytes = 0
 
 
 def collective_counts() -> dict:
-    """{"all-reduce": {"calls", "bytes"}, "all-gather": {...}} since the
-    last reset."""
+    """{"all-reduce": {"calls", "bytes"}, "all-gather": {...},
+    "collective-permute": {...}} since the last reset."""
     return {ALL_REDUCE: dict(calls=all_reduce_calls, bytes=all_reduce_bytes),
-            ALL_GATHER: dict(calls=all_gather_calls, bytes=all_gather_bytes)}
+            ALL_GATHER: dict(calls=all_gather_calls, bytes=all_gather_bytes),
+            PERMUTE: dict(calls=permute_calls, bytes=permute_bytes)}
 
 
 def reset_collective_counts() -> None:
     global all_reduce_calls, all_reduce_bytes
     global all_gather_calls, all_gather_bytes
+    global permute_calls, permute_bytes
     all_reduce_calls = all_reduce_bytes = 0
     all_gather_calls = all_gather_bytes = 0
+    permute_calls = permute_bytes = 0
 
 
 def _staged(x: torch.Tensor, group) -> bool:
@@ -57,16 +67,63 @@ def _staged(x: torch.Tensor, group) -> bool:
     return x.is_cuda and backend == "gloo"
 
 
-def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum of `x` over the ranks of `group`, as a new tensor (x is
-    left as it is). Counts one call and x's bytes."""
+def _all_reduce(x: torch.Tensor, group, op) -> torch.Tensor:
     global all_reduce_calls, all_reduce_bytes
     staged = _staged(x, group)
     y = x.cpu() if staged else x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(y, op=op, group=group)
     all_reduce_calls += 1
     all_reduce_bytes += x.numel() * x.element_size()
     return y.to(x.device) if staged else y
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of `x` over the ranks of `group`, as a new tensor (x is
+    left as it is). Counts one call and x's bytes."""
+    return _all_reduce(x, group, dist.ReduceOp.SUM)
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of `x` over the ranks of `group` (JAX's
+    `lax.pmax`), as a new tensor with no autograd history: it is only
+    ever a shift that cancels in the result. Counts one "all-reduce"
+    call and x's bytes."""
+    return _all_reduce(x.detach(), group, dist.ReduceOp.MAX)
+
+
+def ppermute(x: torch.Tensor, group, pairs) -> torch.Tensor:
+    """JAX's `lax.ppermute`: every (src, dst) of `pairs` (ranks of
+    `group`) sends src's `x` to dst. Returns what this rank received, or
+    zeros like `x` when no pair names it as a destination; every rank
+    calls with an `x` of the same shape and dtype. Built from
+    `batch_isend_irecv`; a pair (r, r) is a copy. Counts one
+    "collective-permute" call and the bytes this rank sends."""
+    global permute_calls, permute_bytes
+    me = dist.get_rank(group)
+    sends = [dst for src, dst in pairs if src == me]
+    srcs = [src for src, dst in pairs if dst == me]
+    if len(srcs) > 1 or len(set(dst for _, dst in pairs)) < len(pairs):
+        raise ValueError(f"ppermute pairs {pairs} give a rank two sources")
+    staged = _staged(x, group)
+    xs = x.detach()
+    xs = (xs.cpu() if staged else xs).contiguous()
+    out = torch.zeros_like(xs)
+    ops = []
+    for dst in sends:
+        if dst == me:
+            out.copy_(xs)
+        else:
+            ops.append(dist.P2POp(dist.isend, xs,
+                                  dist.get_global_rank(group, dst), group))
+    if srcs and srcs[0] != me:
+        ops.append(dist.P2POp(dist.irecv, out,
+                              dist.get_global_rank(group, srcs[0]), group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    permute_calls += 1
+    permute_bytes += len(sends) * x.numel() * x.element_size()
+    return out.to(x.device) if staged else out
 
 
 def all_gather_tiled(x: torch.Tensor, group, dim: int) -> torch.Tensor:

@@ -17,7 +17,9 @@ axes over its ranks as a `DeviceMesh`; `mesh.get_group(axis)` is the
 process group of an axis. `flash_attention_tpu_torch.scripts.
 launch_multihost` is the per-host launcher, and its `--simulate N` mode
 spawns N local ranks. `shard_params` cuts this rank's slice of a
-parameter tree by its specs (tensor-parallel serving).
+parameter tree by its specs (tensor-parallel serving, the pipeline's
+stages); `gather_params` puts the global tree back together from the
+slices (the pipeline's checkpoint).
 """
 
 from __future__ import annotations
@@ -247,3 +249,31 @@ def shard_params(params, specs, mesh, *, device="cuda"):
         return _shard_leaf(x, spec, mesh, dev)
 
     return map_with_specs(shard, params, specs)
+
+
+def gather_params(local, specs, mesh):
+    """The inverse of `shard_params` for dense trees: every tensor of
+    `local` (this rank's slice) all-gathered along each dim its spec
+    names, over that axis's group, in rank order, so every rank gets the
+    global tensor (detached) on the slice's device; a tensor whose spec
+    names no axis comes back as it is. Dicts and lists are walked beside
+    `specs`; any other leaf (an optimizer's hyperparameters and
+    parameter ids) comes back as it is. The gathers go through
+    parallel/collectives.py `all_gather_tiled` (counted; an axis of one
+    rank still calls)."""
+    from flash_attention_tpu_torch.parallel.collectives import (
+        all_gather_tiled,
+    )
+
+    if isinstance(local, dict):
+        return {k: gather_params(v, specs[k], mesh) for k, v in local.items()}
+    if isinstance(local, list):
+        return [gather_params(v, s, mesh) for v, s in zip(local, specs,
+                                                          strict=True)]
+    if not isinstance(local, torch.Tensor):
+        return local
+    out = local.detach()
+    for dim, axis in enumerate(specs):
+        if axis is not None:
+            out = all_gather_tiled(out, mesh.get_group(axis), dim)
+    return out

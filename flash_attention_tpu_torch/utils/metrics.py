@@ -4,8 +4,11 @@
 error, and the low-precision gate (kernel error within 3x a
 same-precision baseline's error against an fp32 reference).
 
-Inputs may be torch tensors (any device) or numpy arrays; all math runs
-in float32 numpy on the host.
+Inputs may be torch tensors (any device) or numpy arrays; the math runs
+in float32, in numpy on the host, except the max-abs errors of two
+tensors on one device (`max_abs_error`, `verify_low_precision`), which
+are taken there: the same float32 subtractions and a max, so the same
+number, without copying large outputs to the host.
 """
 
 from __future__ import annotations
@@ -45,8 +48,19 @@ def symmetric_relative_error(a, b, eps: float = EPS) -> np.ndarray:
     return np.abs(a - b) / (np.abs(a) + np.abs(b) + eps)
 
 
+def _abs_max(x) -> float:
+    """max |x| in float32, on x's device for a tensor."""
+    if isinstance(x, torch.Tensor):
+        return float(x.detach().to(torch.float32).abs().max())
+    return float(np.max(np.abs(_np32(x))))
+
+
 def max_abs_error(a, b) -> float:
     """max |a - b| in float32."""
+    if (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+            and a.device == b.device):
+        return _abs_max(a.detach().to(torch.float32)
+                        - b.detach().to(torch.float32))
     return float(np.max(np.abs(_np32(a) - _np32(b))))
 
 
@@ -150,11 +164,8 @@ def verify_low_precision(candidate, reference_hi, baseline_lo, *,
     at the reference's magnitude. Returns (passed, kernel_err,
     baseline_err)."""
     info = _float_info(candidate)
-    cand = _np32(candidate)
-    ref = _np32(reference_hi)
-    base = _np32(baseline_lo)
-    kernel_err = float(np.max(np.abs(cand - ref)))
-    baseline_err = float(np.max(np.abs(base - ref)))
-    ulp = (info[0] if info else 0.0) * float(np.max(np.abs(ref)))
+    kernel_err = max_abs_error(candidate, reference_hi)
+    baseline_err = max_abs_error(baseline_lo, reference_hi)
+    ulp = (info[0] if info else 0.0) * _abs_max(reference_hi)
     bound = factor * max(baseline_err, ulp) + atol
     return kernel_err <= bound, kernel_err, baseline_err

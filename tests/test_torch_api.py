@@ -61,11 +61,6 @@ ATOL = 2e-5
 JAX_BLOCKS = JaxBlockSizes(block_q=128, block_kv=128)
 # Names the JAX package exports that wait for the MoE multi-device slice.
 SHARDING_NAMES = {"moe_param_shardings", "make_moe_train_step"}
-# The pipeline names of JAX `parallel/__init__.py`, which come with the
-# pipeline-training slice.
-PIPELINE_NAMES = {"make_pp_train_step", "make_pp_loss",
-                  "split_pipeline_params", "merge_pipeline_params",
-                  "pipeline_shardings"}
 
 HKV, PAGES, PS, D = 2, 8, 128, 64
 GOOD_TABLE = [[0, 1], [2, 3]]
@@ -258,7 +253,7 @@ def _jax_exports():
             for name in getattr(
                 flash_attention_tpu if not mod else
                 getattr(flash_attention_tpu, mod), "__all__")
-            if name not in SHARDING_NAMES | PIPELINE_NAMES
+            if name not in SHARDING_NAMES
             and name != "__version__"]
 
 

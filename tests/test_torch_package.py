@@ -280,10 +280,9 @@ def test_unported_attention_options_raise():
 
 
 @pytest.mark.parametrize("kw, slice_name", [
-    (dict(family="pipeline"), "multi-device"),
     (dict(family="moe"), "multi-device"),
     (dict(mesh=object()), "multi-device"),
-], ids=["pipeline", "moe", "mesh"])
+], ids=["moe", "mesh"])
 def test_trainer_unported_families_raise(kw, slice_name):
     with pytest.raises(NotImplementedError, match=f"{slice_name} slice"):
         Trainer(CFG, torch.optim.SGD, device="cpu", **kw)
