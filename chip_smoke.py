@@ -115,7 +115,33 @@ Phases, each fatal on failure:
              within the teacher-forced band of the unsharded tree,
              launches and collectives exact per rank, wall times
              (host-staged gloo, not a fabric); B7 at the shards' local
-             shapes runs in phase 2 (check_b7_tp_shapes);
+             shapes runs in phase 2 (check_b7_tp_shapes). Then
+             MoEConfig.mixtral_8x7b (dropless, bf16, MOE_TP_LAYERS
+             layers) under make_mesh(tp=1) against the engine without a
+             mesh, at the default dispatch and with the grouped route
+             forced (4 requests of 300-4200 tokens, 16 greedy tokens):
+             transcripts identical, B1 / B4 / B9 launches and the
+             collectives exact; and the two ranks each holding 4 of the
+             8 experts, their transcripts identical and within the
+             teacher-forced band (plain attention, plain per-expert MoE),
+             rank 1's B9 launches on its band's row offset;
+  6d. pp     pipeline training (parallel/pipeline.py) of
+             LlamaConfig.llama3_8b at full width, cut to PP_LAYERS
+             layers: world 1 over NCCL bit-identical to the dense
+             Trainer step, then two gloo ranks at pp = 2 bit-identical
+             to world 1's M = 4 step;
+  6e. ep     expert-parallel training (models/moe.py
+             make_moe_train_step) of MoEConfig.mixtral_8x7b (capacity
+             routing, bf16) at full width, cut to EP_LAYERS layers: world
+             1 over NCCL, one SGD step bit-identical to moe_loss_fn +
+             autograd.grad + SGD with no collective, then
+             Trainer(family="moe") with AdamW (falling loss, router
+             metrics, an exact resume from its checkpoint); then two
+             gloo ranks at ep = 2, one token row each: losses and
+             replicated leaves identical, every gradient (the expert
+             stacks concatenated over the ranks) within the
+             low-precision gate of the fp32 mean of the two rows'
+             gradients, all-to-all and all-reduce calls and bytes exact;
   7. serve8b the Engine on LlamaConfig.llama3_8b at full width, cut to
              LLAMA_8B_LAYERS of its 32 layers for the time limit, on
              int4 (B7) and int8 (B6) weights drawn on the card by
@@ -4999,23 +5025,26 @@ def tp_launches(cfg, decode_steps, kv_quant=False) -> dict:
     return want
 
 
-def tp_collectives(cfg, decode_steps, positions=1) -> dict:
-    """The collectives of one tp run: per dispatch (a monolithic prefill
-    of a request's bucket, or a decode step of max_batch rows x
-    `positions`) 2 all-reduces a layer of its [rows, dim] activations and
-    one all-gather of its logits' rows, [rows, vocab] out; bf16; no
-    permute."""
+def tp_collectives(cfg, decode_steps, positions=1, lens=TP_PROMPT_LENS,
+                   max_batch=ENGINE_70B["max_batch"]) -> dict:
+    """The collectives of one tp run of requests of `lens` tokens: per
+    dispatch (a monolithic prefill of a request's bucket, or a decode
+    step of max_batch rows x `positions`) 2 all-reduces a layer of its
+    [rows, dim] activations (attention, then the MLP or the MoE block)
+    and one all-gather of its logits' rows, [rows, vocab] out; bf16; no
+    permute, no all-to-all."""
     from flash_attention_tpu_torch.runtime.engine import _bucket
 
-    n_req, rows = len(TP_PROMPT_LENS), ENGINE_70B["max_batch"] * positions
+    n_req, rows = len(lens), max_batch * positions
     dispatches = decode_steps + n_req
-    act_rows = sum(_bucket(t) for t in TP_PROMPT_LENS) + decode_steps * rows
+    act_rows = sum(_bucket(t) for t in lens) + decode_steps * rows
     return {"all-reduce": dict(calls=2 * cfg.n_layers * dispatches,
                                bytes=2 * cfg.n_layers * act_rows * cfg.dim * 2),
             "all-gather": dict(calls=dispatches,
                                bytes=(n_req + decode_steps * rows)
                                * cfg.vocab_size * 2),
-            "collective-permute": dict(calls=0, bytes=0)}
+            "collective-permute": dict(calls=0, bytes=0),
+            "all-to-all": dict(calls=0, bytes=0)}
 
 
 def _record_logits(seen):
@@ -5213,6 +5242,104 @@ def tp_bandwidth(params, cfg, runs, card) -> dict:
     return out
 
 
+# Mixtral-8x7B under tensor parallelism (slice 2d): the bf16 dropless
+# tree at full width, 2 of its 32 layers (2.82 GB of expert stacks a
+# layer, 6.2 GB in all: the main process and each of the two ranks hold
+# one), 4 greedy requests of which the 4200-token one's prefill (a bucket
+# of 8192 rows) takes B9 at the default threshold.
+MOE_TP_LAYERS = 2
+MOE_TP_PROMPT_LENS = [300, 600, 1000, 4200]
+MOE_TP_NEW = 16
+ENGINE_MOE = dict(max_batch=4, num_pages=40, page_size=256, tail_size=16)
+FORCED_GROUPED = {"FA_TPU_GROUPED_MIN_TOKENS": "1"}
+
+
+def moe_tp_cfg():
+    from flash_attention_tpu_torch.models.moe import MoEConfig
+
+    return MoEConfig.mixtral_8x7b(routing="dropless", dtype=torch.bfloat16,
+                                  n_layers=MOE_TP_LAYERS)
+
+
+def moe_tp_prompts(cfg) -> list:
+    rng = np.random.default_rng(SEED + 50)
+    return [rng.integers(0, cfg.vocab_size, t).tolist()
+            for t in MOE_TP_PROMPT_LENS]
+
+
+def moe_tp_launches(cfg, decode_steps, forced) -> dict:
+    """The launches of one MoE tp run of the MOE_TP_PROMPT_LENS requests:
+    B1 a layer a prefill, B4 a layer a decode step, B9 3 a layer for each
+    dispatch of the grouped route (prefills of a bucket >= 4096 at the
+    default threshold, every prefill and decode step when forced); no
+    weight product kernel on a bf16 tree. The same on every rank: each
+    runs B9 on its band of experts."""
+    from flash_attention_tpu_torch.runtime.engine import _bucket
+
+    n = cfg.n_layers
+    grouped = (len(MOE_TP_PROMPT_LENS) + decode_steps if forced else
+               sum(_bucket(t) >= 4096 for t in MOE_TP_PROMPT_LENS))
+    return dict(flash=n * len(MOE_TP_PROMPT_LENS), paged=n * decode_steps,
+                grouped=3 * n * grouped)
+
+
+def moe_tp_collectives(cfg, decode_steps) -> dict:
+    return tp_collectives(cfg, decode_steps, lens=MOE_TP_PROMPT_LENS,
+                          max_batch=ENGINE_MOE["max_batch"])
+
+
+def moe_tp_world1(params, cfg, prompts, mesh) -> dict:
+    """The engine on the Mixtral tree under make_mesh(tp=1) over a
+    one-process NCCL group against the same engine without a mesh, at
+    the default dispatch and with the grouped route forced: transcripts
+    identical, launches equal and exact (moe_tp_launches), collectives
+    exact (2 all-reduces a layer and one all-gather a dispatch; none
+    without a mesh). Profiles 8 decode steps of each default engine.
+    Returns the runs."""
+    from flash_attention_tpu_torch.runtime.engine import Request
+    from flash_attention_tpu_torch.scripts.tp_worker import environ
+
+    waves = [[(p, MOE_TP_NEW) for p in prompts]]
+    runs = {}
+    for forced in (False, True):
+        tag = "forced grouped" if forced else "default dispatch"
+        with environ(FORCED_GROUPED if forced else {}):
+            for label, extra in (("no mesh", {}),
+                                 ("mesh tp=1", dict(mesh=mesh))):
+                what = (f"tp[mixtral bf16 {MOE_TP_LAYERS} layers, {label}, "
+                        f"{tag}]")
+                eng, run = serve_stack(
+                    what, params, cfg, waves, dict(ENGINE_MOE, **extra),
+                    lambda st: moe_tp_launches(cfg, st.decode_steps,
+                                               forced))
+                st = run["stats"]
+                want = (moe_tp_collectives(cfg, st.decode_steps) if extra
+                        else {k: dict(calls=0, bytes=0)
+                              for k in run["collectives"]})
+                log(f"{what}: collectives {run['collectives']} (want "
+                    f"{want})")
+                if run["collectives"] != want:
+                    raise AssertionError(f"{what}: collective counts off")
+                if not forced:
+                    prof = profile_decode(eng, prompts, Request,
+                                          f"{what} decode steps")
+                    run["busy_ms"] = prof.get("busy")
+                    run["profile_wall_ms"] = prof.get("wall")
+                runs[f"{label}, {tag}"] = run
+                del eng
+                gc.collect()
+                torch.cuda.empty_cache()
+        a, b = runs[f"no mesh, {tag}"], runs[f"mesh tp=1, {tag}"]
+        same_t = a["transcripts"] == b["transcripts"]
+        same_l = a["launches"] == b["launches"]
+        log(f"tp world 1 (NCCL) Mixtral [{tag}]: mesh vs no mesh: "
+            f"transcripts identical {same_t}, launches equal {same_l}")
+        if not (same_t and same_l):
+            raise AssertionError(f"tp world 1 Mixtral [{tag}]: the mesh "
+                                 f"differs from the engine without it")
+    return runs
+
+
 class TpTwoRanks:
     """Two ranks on the one card over gloo (every collective staged
     through host memory), spawned by the port's launcher running
@@ -5222,12 +5349,19 @@ class TpTwoRanks:
     on bf16 KV and again on int8 KV pools sharded over tp, after one
     warm-up request each. The ranks start with the build (process start,
     torch import, group and mesh; no card work) and run after `go()`.
+    Then each draws the bf16 Mixtral tree (moe_tp_cfg, SEED) and keeps
+    its 4 of the 8 experts (16 q / 4 kv heads, vocab 16000) to serve the
+    MOE_TP_PROMPT_LENS requests at the default dispatch and with the
+    grouped route forced, recording B9's band offsets.
     `finish()` holds the two ranks' transcripts identical, each rank's
-    launches (tp_launches) and collectives (tp_collectives) exact, and
+    launches (tp_launches, moe_tp_launches) and collectives
+    (tp_collectives, moe_tp_collectives) exact, rank 0's B9 offsets 0
+    and rank 1's positive where its band has rows before it, and
     returns the transcripts, counts and wall times (host-staged gloo on
     one card, not a fabric)."""
 
     KV = {"bf16 KV": None, "int8 KV": "int8"}
+    MOE = {"moe default": {}, "moe forced": FORCED_GROUPED}
 
     def __init__(self, tmp):
         import pathlib
@@ -5245,6 +5379,18 @@ class TpTwoRanks:
                       requests=[dict(prompt=p, max_new_tokens=TP_NEW)
                                 for p in prompts], warmup=True)
                  for name, kv in self.KV.items()]
+        moe_cfg = moe_tp_cfg()
+        cases += [dict(name=name, cfg=dict(preset="mixtral_8x7b",
+                                           n_layers=MOE_TP_LAYERS,
+                                           routing="dropless",
+                                           dtype="bfloat16"),
+                       params=dict(seed=SEED, weights="dense"),
+                       mesh=dict(tp=TP_RANKS, dp=-1), env=env,
+                       engine=dict(ENGINE_MOE, seed=SEED),
+                       requests=[dict(prompt=p, max_new_tokens=MOE_TP_NEW)
+                                 for p in moe_tp_prompts(moe_cfg)],
+                       warmup=True, record_bases=True)
+                  for name, env in self.MOE.items()]
         torch.save({"cases": cases}, self.tmp / "tp_cases.pt")
         self.go_file = self.tmp / "tp_go"
         root = pathlib.Path(__file__).resolve().parent
@@ -5324,6 +5470,49 @@ class TpTwoRanks:
                 decode_tok_s=[g["stats"]["decode_tokens"]
                               / g["stats"]["decode_s"] for g in ranks],
                 collectives=ranks[0]["collectives"])
+        moe_cfg = moe_tp_cfg()
+        for name, env in self.MOE.items():
+            ranks = out["cases"][name]
+            what = f"tp 2 ranks (gloo, one card) [Mixtral {name}]"
+            if ranks[0]["transcripts"] != ranks[1]["transcripts"]:
+                raise AssertionError(f"{what}: the ranks' transcripts differ")
+            launches = []
+            for r, got in enumerate(ranks):
+                st = got["stats"]
+                mine = {names[k]: v for k, v in got["launches"].items()
+                        if k in names}
+                want = dict(dict.fromkeys(mine, 0),
+                            **moe_tp_launches(moe_cfg, st["decode_steps"],
+                                              bool(env)))
+                cw = moe_tp_collectives(moe_cfg, st["decode_steps"])
+                bases = got["bases"]
+                positive = sum(b > 0 for b in bases)
+                log(f"{what} rank {r}: launches "
+                    f"{ {k: v for k, v in mine.items() if v} }, collectives "
+                    f"{got['collectives']} (want {cw}); B9 band offsets "
+                    f"{len(bases)} launches, {positive} positive, range "
+                    f"{min(bases)}-{max(bases)}; decode "
+                    f"{st['decode_tokens']} tokens in {st['decode_steps']} "
+                    f"steps, {st['decode_s']:.4f} s; wall {got['seconds']:.3f}"
+                    f" s (host-staged gloo on one card, not a fabric)")
+                if mine != want or got["collectives"] != cw:
+                    raise AssertionError(f"{what} rank {r}: launches or "
+                                         f"collectives off (want {want})")
+                if len(bases) != want["grouped"] or (
+                        set(bases) != {0} if r == 0 else
+                        min(bases) < 0 or not positive):
+                    raise AssertionError(f"{what} rank {r}: B9 band offsets "
+                                         f"off the rank's band")
+                launches.append(mine)
+            result["cases"][name] = dict(
+                transcripts=[t[2] for t in ranks[0]["transcripts"]],
+                launches=launches,
+                seconds=[g["seconds"] for g in ranks],
+                decode_tok_s=[g["stats"]["decode_tokens"]
+                              / g["stats"]["decode_s"] for g in ranks],
+                collectives=ranks[0]["collectives"],
+                bases_positive=[sum(b > 0 for b in g["bases"])
+                                for g in ranks])
         log(f"tp 2 ranks on one card (host-staged gloo, not a fabric): "
             f"started with the build, {result['after_go_s']:.1f} s from the "
             f"go to their results (kernel load, tree draw, warm-ups, runs)")
@@ -5333,15 +5522,19 @@ class TpTwoRanks:
 def tp(two: TpTwoRanks) -> dict:
     """Tensor-parallel serving of LlamaConfig.llama3_70b at full width
     (LLAMA_70B_TP_LAYERS layers, int4 weights from SEED drawn on the
-    card): tp_world1 over a one-process NCCL group, tp_bandwidth, then
-    the two ranks started with the build (`two`), whose transcripts must
-    pass the teacher-forced band against the unsharded tree here (int8 KV
-    with its widened band); their transcripts equal to world 1's are
-    counted, not gated (bf16 all-reduce order can move a near-tie).
+    card): tp_world1 over a one-process NCCL group, then Mixtral-8x7B
+    (moe_tp_cfg, bf16 from SEED) through moe_tp_world1 on the same mesh,
+    tp_bandwidth, then the two ranks started with the build (`two`),
+    whose transcripts must pass the teacher-forced band against the
+    unsharded trees here (int8 KV with its widened band; plain attention
+    and the plain per-expert MoE for Mixtral); their transcripts equal
+    to world 1's are counted, not gated (bf16 all-reduce order can move a
+    near-tie).
     Returns the launch counts by path, the runs' figures and the part
     seconds."""
     import torch.distributed as dist
 
+    from flash_attention_tpu_torch.models.moe import init_moe_params
     from flash_attention_tpu_torch.models.quantized import (
         init_quantized_params, logical_param_count, params_nbytes,
     )
@@ -5369,8 +5562,24 @@ def tp(two: TpTwoRanks) -> dict:
             if dist.get_backend() != "nccl":
                 raise AssertionError(f"tp: the world of one runs "
                                      f"{dist.get_backend()}, not NCCL")
-            runs = tp_world1(params, cfg, prompts, make_mesh(tp=1))
+            mesh = make_mesh(tp=1)
+            runs = tp_world1(params, cfg, prompts, mesh)
             secs["world1"] = time.perf_counter() - t
+            t = time.perf_counter()
+            moe_cfg = moe_tp_cfg()
+            moe = init_moe_params(moe_cfg, seed=SEED)
+            torch.cuda.synchronize()
+            log(f"tp: mixtral_8x7b ({moe_cfg.n_layers} layers, dim "
+                f"{moe_cfg.dim}, {moe_cfg.n_heads}q/{moe_cfg.n_kv_heads}kv x "
+                f"{moe_cfg.head_dim}, ffn {moe_cfg.ffn_dim}, "
+                f"{moe_cfg.n_experts} experts top-{moe_cfg.top_k}, vocab "
+                f"{moe_cfg.vocab_size}, dropless) "
+                f"{logical_param_count(moe) / 1e9:.3f} B params, "
+                f"{params_nbytes(moe) / 1e9:.3f} GB of bf16 weights, seed "
+                f"{SEED}, drawn in {time.perf_counter() - t:.2f} s")
+            moe_prompts = moe_tp_prompts(moe_cfg)
+            moe_runs = moe_tp_world1(moe, moe_cfg, moe_prompts, mesh)
+            secs["moe_world1"] = time.perf_counter() - t
         finally:
             dist.destroy_process_group()
     bw = tp_bandwidth(params, cfg, runs, card)
@@ -5392,6 +5601,24 @@ def tp(two: TpTwoRanks) -> dict:
             kv_dtype=None if kv is None else torch.int8)
     bands["world 1"] = teacher_forced(params, cfg, prompts, ref,
                                       "tp world 1 [no mesh]")
+    moe_ref = moe_runs["no mesh, default dispatch"]["transcripts"]
+    checked = {}
+    for name in TpTwoRanks.MOE:
+        tr = got["cases"][name]["transcripts"]
+        same = sum(a == b for a, b in zip(tr, moe_ref))
+        log(f"tp 2 ranks [Mixtral {name}]: {same} of {len(moe_ref)} "
+            f"transcripts equal to world 1's default-dispatch engine "
+            f"(reported)")
+        got["cases"][name]["equal_to_world1"] = same
+        key = repr(tr)
+        if key not in checked:
+            checked[key] = teacher_forced(
+                moe, moe_cfg, moe_prompts, tr,
+                f"tp 2 ranks [Mixtral {name}]", mlp=moe_mlp_plain)
+        bands[f"Mixtral {name}"] = checked[key]
+    del moe
+    gc.collect()
+    torch.cuda.empty_cache()
     secs["bands"] = time.perf_counter() - t
     paths = {}
     for label, key in (("no mesh", "tp_70b_world1"),
@@ -5405,6 +5632,14 @@ def tp(two: TpTwoRanks) -> dict:
         tag = name.split()[0]
         for r, c in enumerate(got["cases"][name]["launches"]):
             paths[f"tp_70b_2rank_gloo_{tag}_kv_rank{r}"] = c
+    for label, run in moe_runs.items():
+        key = label.replace("no mesh", "world1").replace(
+            "mesh tp=1", "world1_nccl_mesh").replace(", ", "_").replace(
+            " dispatch", "").replace(" grouped", "")
+        paths[f"tp_mixtral_{key}"] = run["launches"]
+    for name in TpTwoRanks.MOE:
+        for r, c in enumerate(got["cases"][name]["launches"]):
+            paths[f"tp_mixtral_2rank_gloo_{name.split()[1]}_rank{r}"] = c
     calls = runs.pop("collective_calls")
     w = {label: dict(decode_tok_s=run["stats"].decode_tokens_per_s,
                      wall_s=run["wall_s"], busy_ms=run.get("busy_ms"),
@@ -5418,13 +5653,28 @@ def tp(two: TpTwoRanks) -> dict:
         "tok/s per rank " + ", ".join(
             f"{name} {[round(x, 1) for x in c['decode_tok_s']]}"
             for name, c in got["cases"].items()))
+    mw = {label: dict(decode_tok_s=run["stats"].decode_tokens_per_s,
+                      wall_s=run["wall_s"], busy_ms=run.get("busy_ms"),
+                      profile_wall_ms=run.get("profile_wall_ms"),
+                      peak_gib=run["peak_bytes"] / 2 ** 30)
+          for label, run in moe_runs.items()}
+    log(f"tp: Mixtral on {card}: world 1 -- " + "; ".join(
+        f"{label}: decode {v['decode_tok_s']:.1f} tok/s, wall "
+        f"{v['wall_s']:.3f} s, profiled wall / busy device ms a step "
+        f"{v['profile_wall_ms']} / {v['busy_ms']}, peak {v['peak_gib']:.2f} "
+        f"GiB" for label, v in mw.items())
+        + "; 2 ranks (host-staged gloo on one card, not a fabric) decode "
+        "tok/s per rank " + ", ".join(
+            f"{name} {[round(x, 1) for x in got['cases'][name]['decode_tok_s']]}"
+            for name in TpTwoRanks.MOE))
     log("tp: part seconds " + ", ".join(f"{k} {v:.1f}"
                                          for k, v in secs.items()))
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(paths=paths, world1=w, two=got, bandwidth=bw, bands=bands,
-                collective_calls=calls, seconds=secs)
+    return dict(paths=paths, world1=w, moe_world1=mw, two=got,
+                bandwidth=bw, bands=bands, collective_calls=calls,
+                seconds=secs)
 
 
 # --- phase 6d: pipeline training (Llama-3-8B, full width) -----------------
@@ -5506,7 +5756,8 @@ def pp_collectives(cfg, schedule, m, s, r) -> dict:
     sends = (fwd if r < s - 1 else 0) + (bwd if r > 0 else 0)
     return {"all-reduce": dict(calls=17, bytes=8 + 2 * shared + stage),
             "all-gather": dict(calls=0, bytes=0),
-            "collective-permute": dict(calls=fwd + bwd, bytes=sends * act)}
+            "collective-permute": dict(calls=fwd + bwd, bytes=sends * act),
+            "all-to-all": dict(calls=0, bytes=0)}
 
 
 def _nonzero(counts: dict) -> dict:
@@ -5811,6 +6062,461 @@ def pp(two: PpTwoRanks) -> dict:
     return dict(paths=paths, world1={k: {f: v for f, v in w1[k].items()
                                          if f != "fp"}
                                      for k in ("dense", "gpipe", "1f1b")},
+                two=got, seconds=secs)
+
+
+# --- phase 6e: expert-parallel training (Mixtral-8x7B, full width) --------
+
+# Depth of the trained Mixtral tree: 2 of its 32 layers at full width
+# (capacity routing, bf16: 3.2 B params, 6.3 GB), for the time limit; the
+# Trainer's tree 1 (1.7 B params; with AdamW's two moments and the
+# gradients 13.5 GB): its checkpoint of params and moments (19 GB at 2
+# layers) took 22.2 s to save and 12.6 s to restore on an H100 80GB HBM3
+# at 700 W.
+EP_LAYERS = 2
+EP_TRAINER_LAYERS = 1
+EP_SEQ = 1024
+EP_ROWS = 2                     # one token row a rank in the 2-rank step
+EP_RANKS = 2
+EP_LR = 1e-2                    # the SGD steps
+EP_TRAIN_STEPS = 3
+EP_SPAWN_TIMEOUT_S = 1700       # the ranks live from the build to the ep phase
+
+
+def ep_cfg(layers=EP_LAYERS):
+    from flash_attention_tpu_torch.models.moe import MoEConfig
+
+    return MoEConfig.mixtral_8x7b(dtype=torch.bfloat16, n_layers=layers)
+
+
+def ep_tokens(cfg) -> torch.Tensor:
+    rng = np.random.default_rng(SEED + 60)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (EP_ROWS, EP_SEQ + 1)))
+
+
+def ep_launches(layers=EP_LAYERS) -> dict:
+    """B1 / B2 / B3 launches of one remat step: a forward B1 a layer and
+    its recompute, a backward B2 + B3 a layer."""
+    return dict(flash=2 * layers, bwd_dq=layers, bwd_dkv=layers)
+
+
+def ep_collectives(cfg, ranks) -> dict:
+    """Collectives of one remat step on a rank of `ranks` at ep = ranks,
+    dp = 1, one token row a rank: 6 all-to-alls of the [E, C, d] cube a
+    layer (2 forward, 2 recomputed, 2 backward); one all-reduce of the
+    loss and the four metrics (fp32) and one a non-expert gradient over
+    ep (the router's fp32, the rest in the model's dtype; the expert
+    stacks reduce over dp, a group of one); none of either at world
+    1."""
+    from flash_attention_tpu_torch.models.moe import expert_capacity
+
+    zero = dict(calls=0, bytes=0)
+    out = {"all-reduce": zero, "all-gather": zero,
+           "collective-permute": zero, "all-to-all": zero}
+    if ranks == 1:
+        return out
+    d, hd, e = cfg.dim, cfg.head_dim, cfg.n_experts
+    isz = torch.empty((), dtype=cfg.dtype).element_size()
+    cube = e * expert_capacity(EP_SEQ, cfg) * d * isz
+    layer = (2 * d + d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+             + cfg.n_heads * hd * d) * isz + d * e * 4
+    dense = layer * EP_LAYERS + (2 * cfg.vocab_size * d + d) * isz
+    return dict(out, **{
+        "all-reduce": dict(calls=1 + 7 * EP_LAYERS + 3, bytes=20 + dense),
+        "all-to-all": dict(calls=6 * EP_LAYERS, bytes=6 * EP_LAYERS * cube)})
+
+
+def named_leaves(tree, prefix=""):
+    """(name, tensor) in param_leaves order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from named_leaves(tree[k], f"{prefix}{k}.")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from named_leaves(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def _detached_clone(tree, dtype=None):
+    if isinstance(tree, dict):
+        return {k: _detached_clone(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_detached_clone(v, dtype) for v in tree]
+    out = tree.detach().clone() if dtype is None else tree.detach().to(dtype)
+    return out.requires_grad_(True)
+
+
+def ep_world1(cfg, tokens, mesh) -> dict:
+    """World 1 over NCCL (`mesh`, make_mesh(ep=1)): one SGD step of
+    make_moe_train_step (remat) on the EP_ROWS x EP_SEQ tokens against
+    moe_loss_fn + torch.autograd.grad + the same SGD update on a copy:
+    loss, metrics and every updated leaf bit-identical; B1 / B2 / B3
+    launches exact, no collective. Then Trainer(family="moe", mesh,
+    remat, AdamW lr 1e-4 weight_decay 1e-4) on the EP_TRAINER_LAYERS
+    tree for EP_TRAIN_STEPS steps on the one batch with a checkpoint
+    after step 2: the loss falls, the router metrics in last_metrics; a
+    second Trainer from another seed resumes at step 2 and its step 3
+    loss equals the first's exactly; ms a step, peak memory over step 3
+    (no checkpoint) and over all three, one profiled step's busy
+    share (the resumed Trainer's step 4, its checkpoints off)."""
+    import functools
+
+    from flash_attention_tpu_torch.models.llama import param_leaves
+    from flash_attention_tpu_torch.models.moe import (
+        init_moe_params, make_moe_train_step, moe_loss_fn,
+    )
+    from flash_attention_tpu_torch.models.trainer import (
+        Trainer, TrainerConfig,
+    )
+    from flash_attention_tpu_torch.parallel import collectives
+
+    out = {}
+    tok = tokens.cuda()
+    params = init_moe_params(cfg, seed=SEED)
+    a, b = _detached_clone(params), _detached_clone(params)
+    del params
+    step = make_moe_train_step(mesh, cfg, remat=True)
+    opt = torch.optim.SGD(param_leaves(a), lr=EP_LR)
+    torch.cuda.synchronize()
+    reset_counts()
+    collectives.reset_collective_counts()
+    t0 = time.perf_counter()
+    loss, metrics = step(a, opt, tok)
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3
+    out["launches"] = read_counts()
+    got = (_nonzero(out["launches"]), collectives.collective_counts())
+    want = (ep_launches(), ep_collectives(cfg, 1))
+    want_loss, want_m = moe_loss_fn(b, tok, cfg, remat=True)
+    leaves = param_leaves(b)
+    for p, g in zip(leaves, torch.autograd.grad(want_loss, leaves)):
+        p.grad = g
+    torch.optim.SGD(leaves, lr=EP_LR).step()
+    same = (torch.equal(loss, want_loss.detach())
+            and all(torch.equal(metrics[k], v.detach())
+                    for k, v in want_m.items())
+            and all(torch.equal(x, y) for x, y in zip(param_leaves(a),
+                                                       leaves)))
+    what = "ep world 1 (NCCL)"
+    log(f"{what}: one SGD step of make_moe_train_step (remat) on "
+        f"{EP_ROWS} x {EP_SEQ}: loss {float(loss)!r}, metrics "
+        f"{ {k: round(float(v), 6) for k, v in metrics.items()} }; loss, "
+        f"metrics and every updated leaf bit-identical to moe_loss_fn + "
+        f"autograd.grad + SGD {same}; launches {got[0]}, collectives "
+        f"{got[1]} (want {want}); {out['step_ms']:.1f} ms")
+    if not same or got != want:
+        raise AssertionError(f"{what}: the step differs from the plain "
+                             f"step or its counts are off")
+    out["loss"] = float(loss)
+    del a, b, opt, step, leaves, want_loss, want_m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    opt = functools.partial(torch.optim.AdamW, lr=1e-4, weight_decay=1e-4)
+    tcfg = ep_cfg(EP_TRAINER_LAYERS)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ep_ckpt_") as ck:
+        tc = TrainerConfig(ckpt_dir=ck, ckpt_every=2, remat=True,
+                           log_every=10 ** 9)
+        t0 = time.perf_counter()
+        tr = Trainer(tcfg, opt, trainer_cfg=tc, mesh=mesh, seed=SEED,
+                     family="moe")
+        torch.cuda.synchronize()
+        out["trainer_build_s"] = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, times = [], []
+        for i in range(EP_TRAIN_STEPS):
+            if i == EP_TRAIN_STEPS - 1:
+                peak_all = torch.cuda.max_memory_allocated() / 2 ** 30
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            losses.append(float(tr.train_step(tok)))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        trainer_counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        peak_all = max(peak_all, peak)
+        metrics = {k: float(v) for k, v in tr.last_metrics.items()}
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        tr = Trainer(tcfg, opt, trainer_cfg=tc, mesh=mesh, seed=SEED + 1,
+                     family="moe")
+        torch.cuda.synchronize()
+        out["resume_s"] = time.perf_counter() - t0
+        resumed_step = tr.step_num
+        resumed = float(tr.train_step(tok))
+        tr.tc.ckpt_dir = None       # the profiled step 4 saves nothing
+        prof = profile_train_step(tr, tok, f"{what} Trainer(moe) step")
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    ms = times[-1] * 1e3            # step 2 saves the checkpoint
+    log(f"{what} Trainer(family='moe', AdamW, remat, {EP_TRAINER_LAYERS} "
+        f"layer): losses {losses}, last_metrics {metrics}; ms a step "
+        f"{[round(x * 1e3, 1) for x in times]} (step 2 saves the "
+        f"checkpoint); peak max_memory_allocated over step 3 {peak:.2f} "
+        f"GiB, over the 3 steps {peak_all:.2f} GiB; resumed at step "
+        f"{resumed_step} (Trainer build and restore {out['resume_s']:.2f} "
+        f"s): step 3 loss {resumed!r} vs {losses[2]!r}; launches over the "
+        f"{EP_TRAIN_STEPS} steps {_nonzero(trainer_counts)}; busy "
+        f"{prof.get('busy')} of {prof.get('wall')} ms in the profiled step")
+    want_counts = {k: EP_TRAIN_STEPS * v
+                   for k, v in ep_launches(EP_TRAINER_LAYERS).items()}
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+            and "dropped_frac" in metrics and resumed_step == 2
+            and resumed == losses[2]
+            and _nonzero(trainer_counts) == want_counts):
+        raise AssertionError(f"{what}: the Trainer's loss did not fall, its "
+                             f"metrics or resume are off, or its launches "
+                             f"differ from {want_counts}")
+    out.update(trainer_losses=losses, trainer_ms=ms, trainer_peak_gib=peak,
+               trainer_peak_all_gib=peak_all, trainer_step_ms=[
+                   x * 1e3 for x in times],
+               busy_ms=prof.get("busy"), profile_wall_ms=prof.get("wall"),
+               trainer_launches=trainer_counts)
+    return out
+
+
+def ep_reference(cfg, tokens) -> dict:
+    """The 2-rank step's expectation (JAX tests/test_moe.py:108): the mean
+    over the EP_ROWS token rows of moe_loss_fn's gradients (remat), each
+    row routed alone, in bf16 (the same-precision baseline) and on an
+    fp32 copy of the tree (the reference). Returns {"lo", "hi"}: [(name,
+    gradient)] in param_leaves order, and the rows' mean loss."""
+    from flash_attention_tpu_torch.models.llama import param_leaves
+    from flash_attention_tpu_torch.models.moe import (
+        init_moe_params, moe_loss_fn,
+    )
+
+    tok = tokens.cuda()
+    params = init_moe_params(cfg, seed=SEED)
+    out = {}
+    for name in ("lo", "hi"):
+        if name == "lo":
+            tree = params
+            for leaf in param_leaves(tree):
+                leaf.requires_grad_(True)
+        else:
+            tree = _detached_clone(params, torch.float32)
+            del params
+        leaves = param_leaves(tree)
+        acc, losses = None, []
+        for r in range(EP_ROWS):
+            loss, _ = moe_loss_fn(tree, tok[r:r + 1], cfg, remat=True)
+            grads = torch.autograd.grad(loss, leaves)
+            losses.append(float(loss.detach()))
+            if acc is None:
+                acc = list(grads)
+            else:
+                for a_, g in zip(acc, grads):
+                    a_.add_(g)
+            del grads, loss
+        out[name] = [(n, a_ / EP_ROWS) for (n, _), a_ in
+                     zip(named_leaves(tree), acc)]
+        out[f"{name}_loss"] = sum(losses) / EP_ROWS
+        del tree, leaves, acc
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+class EpTwoRanks:
+    """Two ranks on the one card over gloo (every collective staged
+    through host memory), ep = 2, spawned by the port's launcher running
+    pp_worker: each draws the bf16 Mixtral tree (ep_cfg, SEED) and keeps
+    its 4 of the 8 experts, then takes one SGD step (remat) of
+    make_moe_train_step on one token row of ep_tokens and writes its
+    reduced gradients (a tree of its shard) beside the results. The
+    ranks start with the build and run after `go()`. `finish(ref)` holds
+    the ranks' losses identical, their replicated leaves bit-identical,
+    each rank's launches and collectives exact (ep_launches,
+    ep_collectives), and every gradient -- the expert stacks
+    concatenated over the ranks -- within the low-precision gate of the
+    fp32 reference `ref` (error <= 3x the bf16 baseline's, floored at an
+    ulp)."""
+
+    def __init__(self, tmp, tokens):
+        import pathlib
+
+        self.tmp = pathlib.Path(tmp)
+        self.t_go = None
+        cases = [dict(name="step", kind="moe_step",
+                      cfg=dict(preset="mixtral_8x7b", n_layers=EP_LAYERS,
+                               dtype="bfloat16"),
+                      mesh=dict(ep=EP_RANKS), remat=True,
+                      params=dict(seed=SEED), gather=False,
+                      optimizer=dict(kind="sgd", lr=EP_LR),
+                      tokens=tokens, save_grads=str(self.tmp / "grads"))]
+        torch.save({"cases": cases}, self.tmp / "ep_cases.pt")
+        self.go_file = self.tmp / "ep_go"
+        root = pathlib.Path(__file__).resolve().parent
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "flash_attention_tpu_torch.scripts.launch_multihost",
+             "--simulate", str(EP_RANKS), "--device", "cuda",
+             "--rendezvous-dir", str(self.tmp), "--timeout",
+             str(EP_SPAWN_TIMEOUT_S), "--", "-m",
+             "flash_attention_tpu_torch.scripts.pp_worker",
+             str(self.tmp / "ep_cases.pt"), str(self.tmp / "ep_out.pt"),
+             "--backend", "gloo", "--start-after", str(self.go_file)],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, start_new_session=True)
+
+    def go(self):
+        torch.cuda.synchronize()
+        self.go_file.touch()
+        self.t_go = time.perf_counter()
+
+    def kill(self):
+        """Stop the launcher and its ranks (one process group)."""
+        import os
+        import signal
+
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.communicate()
+
+    def finish(self, cfg, ref) -> dict:
+        from flash_attention_tpu_torch.models.moe import EXPERT_KEYS
+        from flash_attention_tpu_torch.utils.metrics import (
+            verify_low_precision,
+        )
+
+        try:
+            log_text, _ = self.proc.communicate(
+                timeout=EP_SPAWN_TIMEOUT_S + 60)
+        finally:
+            self.kill()
+        done = time.perf_counter()
+        if self.proc.returncode:
+            raise AssertionError(f"ep: the 2-rank spawn failed "
+                                 f"({self.proc.returncode}):\n"
+                                 f"{log_text[-6000:]}")
+        out = torch.load(self.tmp / "ep_out.pt", weights_only=True)
+        if (out["world"], out["backend"]) != (EP_RANKS, "gloo") \
+                or not out["device"].startswith("cuda"):
+            raise AssertionError(f"ep: the spawn ran {out['world']} ranks on "
+                                 f"{out['backend']} / {out['device']}")
+        names = {f"{mod.__name__.rsplit('.', 1)[1]}.{attr}": key
+                 for key, (mod, attr) in _counters().items()}
+        ranks = out["cases"]["step"]
+        what = "ep 2 ranks (gloo, one card)"
+        want_c = ep_collectives(cfg, EP_RANKS)
+        launches = []
+        for r, got in enumerate(ranks):
+            mine = _nonzero({names[k]: v for k, v in got["launches"][0].items()
+                             if k in names})
+            log(f"{what} rank {r}: loss {got['losses'][0]!r}, metrics "
+                f"{got['metrics'][0]}; launches {mine}, collectives "
+                f"{got['collectives'][0]} (want {want_c}); wall "
+                f"{got['seconds'][0]:.3f} s (host-staged gloo on one card, "
+                f"not a fabric); peak {got['peak_bytes'] / 2 ** 30:.2f} GiB; "
+                f"tree draw and shard {got['build_s']:.2f} s, gradients "
+                f"saved in {got['gather_s']:.2f} s")
+            if mine != ep_launches() or got["collectives"][0] != want_c:
+                raise AssertionError(f"{what} rank {r}: launches or "
+                                     f"collectives off")
+            launches.append(mine)
+        if ranks[0]["losses"] != ranks[1]["losses"] or \
+                ranks[0]["metrics"] != ranks[1]["metrics"]:
+            raise AssertionError(f"{what}: the ranks' losses differ")
+        if ranks[0]["replicated"] != ranks[1]["replicated"]:
+            raise AssertionError(f"{what}: the ranks' replicated leaves "
+                                 f"differ")
+        shards = [torch.load(self.tmp / f"grads.rank{r}.pt", mmap=True,
+                             weights_only=True) for r in range(EP_RANKS)]
+        leaves = [dict(named_leaves(g)) for g in shards]
+        worst, failed = (0.0, ""), []
+        for (name, hi), (_, lo) in zip(ref["hi"], ref["lo"]):
+            if name.rsplit(".", 1)[-1] in EXPERT_KEYS:
+                got = torch.cat([lv[name] for lv in leaves]).cuda()
+            else:
+                got = leaves[0][name].cuda()
+                if not torch.equal(got.cpu(), leaves[1][name]):
+                    failed.append(f"{name} (ranks differ)")
+            ok, kerr, berr = verify_low_precision(got, hi, lo)
+            ratio = kerr / berr if berr else 0.0
+            if ratio > worst[0]:
+                worst = (ratio, f"{name}: 2-rank err {kerr:.3e}, bf16 "
+                                f"baseline err {berr:.3e}")
+            if not (ok and bool(torch.isfinite(got.float()).all())):
+                failed.append(name)
+            del got
+        log(f"check {what}: every gradient against the fp32 mean of the "
+            f"two rows' moe_loss_fn gradients (world 1), 3x the bf16 "
+            f"mean's error (floored at an ulp): {len(ref['hi'])} leaves, "
+            f"failed {failed}; worst ratio {worst[0]:.3f} ({worst[1]}); "
+            f"loss {ranks[0]['losses'][0]!r} vs the rows' mean "
+            f"{ref['lo_loss']!r} (bf16) / {ref['hi_loss']!r} (fp32)")
+        if failed:
+            raise AssertionError(f"{what}: gradients off the gate: {failed}")
+        return dict(after_go_s=done - self.t_go, launches=launches,
+                    seconds=[g["seconds"][0] for g in ranks],
+                    peak_gib=[g["peak_bytes"] / 2 ** 30 for g in ranks],
+                    collectives=ranks[0]["collectives"][0],
+                    loss=ranks[0]["losses"][0], worst_ratio=worst[0])
+
+
+def ep(two: EpTwoRanks) -> dict:
+    """Expert-parallel training of MoEConfig.mixtral_8x7b at full width
+    (EP_LAYERS layers, bf16, capacity routing, SEED): ep_world1 over a
+    one-process NCCL group, then the gradients' reference (ep_reference)
+    and the two gloo ranks started with the build (`two`). Returns the
+    launches by path, the figures and the part seconds."""
+    import torch.distributed as dist
+
+    from flash_attention_tpu_torch.parallel.mesh import (
+        initialize_distributed, make_mesh,
+    )
+
+    card = card_line()
+    cfg = ep_cfg()
+    tokens = ep_tokens(cfg)
+    secs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ep_") as tmp:
+        t = time.perf_counter()
+        initialize_distributed(f"file://{tmp}/store", 1, 0)
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"ep: the world of one runs "
+                                     f"{dist.get_backend()}, not NCCL")
+            w1 = ep_world1(cfg, tokens, make_mesh(ep=1))
+            secs["world1"] = time.perf_counter() - t
+        finally:
+            dist.destroy_process_group()
+    t = time.perf_counter()
+    ref = ep_reference(cfg, tokens)
+    secs["reference"] = time.perf_counter() - t
+    t = time.perf_counter()
+    two.go()
+    got = two.finish(cfg, ref)
+    secs["two_ranks_after_go"] = time.perf_counter() - t
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths = {"ep_mixtral_world1_nccl_step": w1["launches"],
+             "ep_mixtral_world1_nccl_trainer": w1["trainer_launches"]}
+    for r, c in enumerate(got["launches"]):
+        paths[f"ep_mixtral_2rank_gloo_rank{r}"] = c
+    log(f"ep: on {card}: world 1 -- the {EP_LAYERS}-layer step "
+        f"{w1['step_ms']:.1f} ms; Trainer(moe) at {EP_TRAINER_LAYERS} layer "
+        f"{w1['trainer_ms']:.1f} ms a step ({EP_ROWS} x {EP_SEQ} tokens, "
+        f"remat, AdamW; {EP_ROWS * EP_SEQ / w1['trainer_ms'] * 1e3:.1f} "
+        f"tokens/s), peak {w1['trainer_peak_gib']:.2f} GiB, busy "
+        f"{w1['busy_ms']} ms of a profiled {w1['profile_wall_ms']} ms step "
+        f"(share {None if not w1['busy_ms'] else round(w1['busy_ms'] / w1['profile_wall_ms'], 4)}); 2 ranks (host-staged "
+        f"gloo on one card, not a fabric) -- wall s of the step "
+        f"{[round(x, 3) for x in got['seconds']]}, peak GiB "
+        f"{[round(x, 2) for x in got['peak_gib']]}, all-to-all "
+        f"{got['collectives']['all-to-all']} a rank")
+    log("ep: part seconds " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in secs.items()))
+    return dict(paths=paths, world1={k: v for k, v in w1.items()
+                                     if "launches" not in k},
                 two=got, seconds=secs)
 
 
@@ -7640,24 +8346,26 @@ def main() -> int:
     rdir = tempfile.mkdtemp(prefix="chip_smoke_ring_ranks_")
     tdir = tempfile.mkdtemp(prefix="chip_smoke_tp_ranks_")
     pdir = tempfile.mkdtemp(prefix="chip_smoke_pp_ranks_")
-    two = tp_two = pp_two = None
+    edir = tempfile.mkdtemp(prefix="chip_smoke_ep_ranks_")
+    two = tp_two = pp_two = ep_two = None
     try:
         two = RingTwoRanks(rdir)
         tp_two = TpTwoRanks(tdir)
         pp_two = PpTwoRanks(pdir, pp_tokens(pp_cfg()))
-        return run_phases(card, two, tp_two, pp_two)
+        ep_two = EpTwoRanks(edir, ep_tokens(ep_cfg()))
+        return run_phases(card, two, tp_two, pp_two, ep_two)
     finally:
-        for ranks in (two, tp_two, pp_two):
+        for ranks in (two, tp_two, pp_two, ep_two):
             if ranks is not None:
                 ranks.kill()
-        for d in (rdir, tdir, pdir):
+        for d in (rdir, tdir, pdir, edir):
             shutil.rmtree(d, ignore_errors=True)
 
 
 def run_phases(card: str, two: RingTwoRanks, tp_two: TpTwoRanks,
-               pp_two: PpTwoRanks) -> int:
-    """Every phase after the ring's, the tp phase's and the pp phase's
-    ranks' start (main)."""
+               pp_two: PpTwoRanks, ep_two: EpTwoRanks) -> int:
+    """Every phase after the ring's, the tp, pp and ep phases' ranks'
+    start (main)."""
     from flash_attention_tpu_torch.ops import _cuda
 
     t0 = time.perf_counter()
@@ -7721,6 +8429,9 @@ def run_phases(card: str, two: RingTwoRanks, tp_two: TpTwoRanks,
     gc.collect()
     torch.cuda.empty_cache()
     ppr = timed("pp", lambda: pp(pp_two))
+    gc.collect()
+    torch.cuda.empty_cache()
+    epr = timed("ep", lambda: ep(ep_two))
     gc.collect()
     torch.cuda.empty_cache()
     q8 = timed("serve_8b", serve_8b_phase)
@@ -8119,13 +8830,14 @@ def run_phases(card: str, two: RingTwoRanks, tp_two: TpTwoRanks,
             entry["launches"] += sum(got.values())
             entry["launches_by_path"].update(got)
     # The tp phase's launches: world 1 (NCCL, with and without the mesh,
-    # plain and n-gram) and each of the two gloo ranks, under each
-    # kernel's own counter.
+    # plain and n-gram on the 70B tree, default and forced dispatch on
+    # Mixtral's) and each of the two gloo ranks, under each kernel's own
+    # counter.
     for entry in kernels:
         counter = {"flash_fwd (B1)": "flash", "paged_decode (B4)": "paged",
                    "int4_matmul (B7)": "int4",
-                   "paged_decode (B4 int8/fp8)": "paged_quant"}.get(
-                       entry["name"])
+                   "paged_decode (B4 int8/fp8)": "paged_quant",
+                   "grouped_matmul (B9)": "grouped"}.get(entry["name"])
         if counter is not None:
             got = {path: c[counter] for path, c in tpr["paths"].items()
                    if c.get(counter)}
@@ -8139,6 +8851,16 @@ def run_phases(card: str, two: RingTwoRanks, tp_two: TpTwoRanks,
                    "flash_bwd_dkv (B3)": "bwd_dkv"}.get(entry["name"])
         if counter is not None:
             got = {path: c[counter] for path, c in ppr["paths"].items()
+                   if c.get(counter)}
+            entry["launches"] += sum(got.values())
+            entry["launches_by_path"].update(got)
+    # The ep phase's launches: world 1 (the step and the Trainer over
+    # NCCL) and each of the two gloo ranks.
+    for entry in kernels:
+        counter = {"flash_fwd (B1)": "flash", "flash_bwd_dq (B2)": "bwd_dq",
+                   "flash_bwd_dkv (B3)": "bwd_dkv"}.get(entry["name"])
+        if counter is not None:
+            got = {path: c[counter] for path, c in epr["paths"].items()
                    if c.get(counter)}
             entry["launches"] += sum(got.values())
             entry["launches_by_path"].update(got)

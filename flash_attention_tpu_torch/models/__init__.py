@@ -11,8 +11,10 @@ from flash_attention_tpu_torch.models.llama import (
 from flash_attention_tpu_torch.models.moe import (
     MoEConfig,
     init_moe_params,
+    make_moe_train_step,
     moe_forward,
     moe_loss_fn,
+    moe_param_shardings,
 )
 
 __all__ = [
@@ -26,4 +28,6 @@ __all__ = [
     "init_moe_params",
     "moe_forward",
     "moe_loss_fn",
+    "make_moe_train_step",
+    "moe_param_shardings",
 ]

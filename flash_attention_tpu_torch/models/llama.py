@@ -174,8 +174,8 @@ def serving_param_shardings(cfg: LlamaConfig, tp_size: int) -> dict:
     replicate. A spec is a tuple of mesh-axis names and None per dim,
     JAX's `tuple(PartitionSpec(...))`; the tree has the parameters'
     structure. An MoE config (n_experts) gets JAX's expert layout (the
-    stacks' expert dim over tp, the router replicated); the model raises
-    on it under tp (expert parallelism, ROADMAP multi-device 2d)."""
+    stacks' expert dim over tp, the router replicated; tp must divide
+    n_experts): each rank serves its band of experts."""
     if cfg.n_kv_heads % tp_size:
         raise ValueError(
             f"tp={tp_size} must divide n_kv_heads={cfg.n_kv_heads}")
@@ -370,22 +370,18 @@ def _attention_block(layer, x, cfg, positions, attn_impl=None,
 
 
 def _mlp_block(layer, x, cfg, tp_axis=None):
-    """FFN block. A layer carrying a `router` key is a mixture-of-experts
-    layer (models/moe.py; `cfg` is then a MoEConfig): this is what lets
-    every path (forward, prefill_kv, decode_step_paged_multi, prefill,
-    decode_step) run MoE models without a parallel code path. Dropless
-    routing dispatches by size: at least GROUPED_MIN_TOKENS tokens
-    (FA_TPU_GROUPED_MIN_TOKENS, read per call) sort by expert and run the
-    grouped kernel B9, smaller dispatches -- every decode step -- the
-    drop-free one-hot cubes (capacity = n). Under tp the ffn is this
-    rank's shard and w_down's product sums over the group; an MoE layer
-    raises there (its expert-sharded stacks come with expert
-    parallelism, ROADMAP multi-device 2d)."""
-    if "router" in layer and tp_axis is not None:
-        raise NotImplementedError(
-            "an MoE layer under tensor parallelism needs expert-sharded "
-            "stacks, which come with expert parallelism (ROADMAP "
-            "multi-device 2d)")
+    """FFN block (JAX `llama.py:347-387`). A layer carrying a `router` key
+    is a mixture-of-experts layer (models/moe.py; `cfg` is then a
+    MoEConfig): this is what lets every path (forward, prefill_kv,
+    decode_step_paged_multi, prefill, decode_step) run MoE models without
+    a parallel code path. Dropless routing dispatches by size: at least
+    GROUPED_MIN_TOKENS tokens (FA_TPU_GROUPED_MIN_TOKENS, read per call)
+    sort by expert and run the grouped kernel B9, smaller dispatches --
+    every decode step -- the drop-free one-hot cubes (capacity = n).
+    Under tp the ffn is this rank's shard and w_down's product sums over
+    the group; an MoE layer's stacks hold this rank's band of experts
+    (serving_param_shardings) and every route passes the group as
+    `expert_shard_axis`: one all-reduce a block either way."""
     if "router" in layer:
         from flash_attention_tpu_torch.models.moe import (
             dropless_dispatch_path, moe_mlp, moe_mlp_grouped,
@@ -394,9 +390,11 @@ def _mlp_block(layer, x, cfg, tp_axis=None):
         if getattr(cfg, "routing", "capacity") == "dropless":
             n = x.shape[0] * x.shape[1]
             if dropless_dispatch_path(n) == "grouped":
-                return moe_mlp_grouped(layer, x, cfg)[0]
-            return moe_mlp(layer, x, cfg, capacity=n)[0]
-        return moe_mlp(layer, x, cfg)[0]
+                return moe_mlp_grouped(layer, x, cfg,
+                                       expert_shard_axis=tp_axis)[0]
+            return moe_mlp(layer, x, cfg, expert_shard_axis=tp_axis,
+                           capacity=n)[0]
+        return moe_mlp(layer, x, cfg, expert_shard_axis=tp_axis)[0]
     h = tp_copy(rmsnorm(x, layer["mlp_norm"], cfg.norm_eps), tp_axis)
     gate = _mm("btd,df->btf", h, layer["w_gate"])
     up = _mm("btd,df->btf", h, layer["w_up"])

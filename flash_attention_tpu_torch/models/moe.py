@@ -1,4 +1,4 @@
-"""Mixture-of-Experts model family, single-device serving path (port of
+"""Mixture-of-Experts model family (port of
 `flash_attention_tpu/models/moe.py`).
 
 Each layer's dense MLP becomes a router (fp32 [d, E]) and per-expert
@@ -20,12 +20,24 @@ Two routings, as in the JAX package:
     (ops/grouped.py) three times; a smaller one, every decode step among
     them, runs the capacity cubes with capacity = n, which drop nothing.
 
-`moe_loss_fn` trains on one device: next-token cross-entropy plus the
-router's load-balance and z losses, differentiable through capacity
-routing (the one-hot einsums; the dropless path's B9 has no backward, in
-the JAX package as here). Expert-parallel placements (`ep_axis`,
-`expert_shard_axis`) raise: they arrive with the multi-device slice,
-with `make_moe_train_step` and `moe_param_shardings`.
+`moe_loss_fn` trains: next-token cross-entropy plus the router's
+load-balance and z losses, differentiable through capacity routing (the
+one-hot einsums; the dropless path's B9 has no backward, in the JAX
+package as here).
+
+Multi-device placements, each with a process group as its axis (as
+models/llama.py's `tp_axis`):
+
+  * `ep_axis` (training, `make_moe_train_step`): tokens and expert stacks
+    both sharded over ep; each rank routes its own tokens, one tiled
+    all-to-all hands every rank all ranks' slots for its experts, and a
+    second one hands the results back (parallel/collectives.py
+    `all_to_all_tiled`, two a layer forward, two backward);
+  * `expert_shard_axis` (tensor-parallel serving, `Engine(mesh=)`):
+    tokens replicated, expert stacks sharded; every rank routes alike,
+    computes only its band of experts (the one-hot cubes' band, or B9's
+    `base` row offset into the sorted rows) and one all-reduce stitches
+    the combine: one collective a block, as the dense Megatron split.
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ import math
 import os
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
@@ -43,6 +56,7 @@ from flash_attention_tpu_torch.models.llama import (
     LlamaConfig,
     _attention_block,
     _mm,
+    _psum,
     rmsnorm,
 )
 from flash_attention_tpu_torch.models.quantized import (
@@ -55,9 +69,12 @@ from flash_attention_tpu_torch.ops.grouped import (
     grouped_matmul,
     grouped_quant_matmul,
 )
+from flash_attention_tpu_torch.parallel.collectives import (
+    all_reduce_sum,
+    all_to_all_tiled,
+)
 
-_MULTI_DEVICE = ("expert-parallel placement (ep_axis / expert_shard_axis) "
-                 "arrives with the multi-device slice")
+EXPERT_KEYS = ("w_gate", "w_up", "w_down")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,6 +152,19 @@ def init_moe_params(cfg: MoEConfig, seed: int = 0, *,
         })
     return {"embed": embed, "layers": layers, "final_norm": ones(d),
             "lm_head": lm_head}
+
+
+def moe_param_shardings(cfg: MoEConfig) -> dict:
+    """Spec tuples for the expert-parallel layout (JAX `moe.py:123-140`):
+    the expert stacks shard their leading E dim over "ep", every other
+    leaf replicates. A spec is a tuple of mesh-axis names and None per
+    dim, JAX's `tuple(PartitionSpec(...))`, in the tree's structure: what
+    parallel/mesh.py `shard_params` and `gather_params` take."""
+    layer = {"attn_norm": (), "wq": (), "wk": (), "wv": (), "wo": (),
+             "mlp_norm": (), "router": (),
+             **{k: ("ep",) for k in EXPERT_KEYS}}
+    return {"embed": (), "layers": [layer] * cfg.n_layers,
+            "final_norm": (), "lm_head": ()}
 
 
 def _one_hot(idx, n: int, dtype):
@@ -225,14 +255,34 @@ def dropless_dispatch_path(n_tokens: int) -> str:
     return "grouped" if n_tokens >= thr else "onehot"
 
 
+def _band(layer, group) -> tuple[int, int]:
+    """[start, stop) of this rank's band of experts in the expert-sharded
+    stacks (JAX `axis_index(axis) * e_local`)."""
+    e_local = layer["w_gate"].shape[0]
+    start = dist.get_rank(group) * e_local
+    return start, start + e_local
+
+
 def moe_mlp(layer, x, cfg: MoEConfig, ep_axis=None, expert_shard_axis=None,
             capacity=None):
-    """Capacity-routed expert MLP, every expert on this device. x:
-    [B, T, d]. Returns (y, aux). `capacity` overrides the
-    capacity-factor formula; capacity=n (the token count) drops
-    nothing: the dropless path's small-dispatch route."""
-    if ep_axis is not None or expert_shard_axis is not None:
-        raise NotImplementedError(_MULTI_DEVICE)
+    """Capacity-routed expert MLP (JAX `moe.py:226-287`). x: [B, T, d].
+    Returns (y, aux). `capacity` overrides the capacity-factor formula;
+    capacity=n (the token count) drops nothing: the dropless path's
+    small-dispatch route.
+
+    Three placements:
+      * both axes None: every expert on this device;
+      * `ep_axis` (a process group; training): this rank's tokens and its
+        E / ep experts; the [E, C, d] dispatch cube goes through a tiled
+        all-to-all to [E / ep, ep C, d] (all ranks' slots for this rank's
+        experts) before the expert products, and back after them;
+      * `expert_shard_axis` (a process group; tensor-parallel serving):
+        tokens replicated, stacks sharded; every rank routes over all
+        experts, keeps its band of the dispatch and combine cubes and
+        one all-reduce sums the combine.
+    The two axes together raise ValueError, as in JAX."""
+    if ep_axis is not None and expert_shard_axis is not None:
+        raise ValueError("ep_axis and expert_shard_axis are exclusive")
     b, t, d = x.shape
     n = b * t
     flat = rmsnorm(x, layer["mlp_norm"], cfg.norm_eps).reshape(n, d)
@@ -242,11 +292,24 @@ def moe_mlp(layer, x, cfg: MoEConfig, ep_axis=None, expert_shard_axis=None,
     else:
         capacity = max(8, -(-int(capacity) // 8) * 8)
     dispatch, combine, aux = route_tokens(logits, cfg.top_k, capacity)
-    xs = torch.einsum("nec,nd->ecd", dispatch.to(flat.dtype), flat)
+    dispatch = dispatch.to(flat.dtype)
+    combine = combine.to(flat.dtype)
+    if expert_shard_axis is not None:
+        # Routing covered every expert (replicated math): this rank's band.
+        start, stop = _band(layer, expert_shard_axis)
+        dispatch = dispatch[:, start:stop]
+        combine = combine[:, start:stop]
+    xs = torch.einsum("nec,nd->ecd", dispatch, flat)      # [E, C, d]
+    if ep_axis is not None:
+        xs = all_to_all_tiled(xs, ep_axis, split_axis=0, concat_axis=1)
     g = _expert_stack_mm(xs, layer["w_gate"])
     u = _expert_stack_mm(xs, layer["w_up"])
     ys = _expert_stack_mm(F.silu(g) * u, layer["w_down"])
-    y = torch.einsum("nec,ecd->nd", combine.to(flat.dtype), ys)
+    if ep_axis is not None:
+        ys = all_to_all_tiled(ys, ep_axis, split_axis=1, concat_axis=0)
+    y = torch.einsum("nec,ecd->nd", combine, ys)
+    if expert_shard_axis is not None:
+        y = _psum(y, expert_shard_axis)
     return y.reshape(b, t, d), aux
 
 
@@ -286,14 +349,19 @@ def _expert_stack_mm(xs, w, group_sizes=None, base=None):
 
 
 def moe_mlp_grouped(layer, x, cfg: MoEConfig, expert_shard_axis=None):
-    """Dropless expert MLP by sort-by-expert + the grouped kernel B9.
+    """Dropless expert MLP by sort-by-expert + the grouped kernel B9
+    (JAX `moe.py:327-397`).
 
     x: [B, T, d]. Returns (y, aux) like moe_mlp. Every top-k assignment
     computes; one stable argsort over the n*k expert ids orders the rows,
     the combine gathers through the inverse permutation. Nothing leaves
-    the device: group sizes and offsets are device tensors."""
-    if expert_shard_axis is not None:
-        raise NotImplementedError(_MULTI_DEVICE)
+    the device: group sizes and offsets are device tensors.
+
+    `expert_shard_axis` (a process group; tensor-parallel serving, JAX
+    :363-385): tokens replicated, stacks sharded. Every rank sorts alike;
+    B9 runs on this rank's band only -- `base`, the band's first row in
+    the sorted rows, and the band's group sizes -- and gives 0 on every
+    row outside it; one all-reduce sums the combine."""
     b, t, d = x.shape
     n = b * t
     k = cfg.top_k
@@ -307,15 +375,24 @@ def moe_mlp_grouped(layer, x, cfg: MoEConfig, expert_shard_axis=None):
     # bincount without a host sync (torch.bincount reads the max).
     group_sizes = _one_hot(flat_e, cfg.n_experts, torch.int32).sum(dim=0)
 
-    g = _expert_stack_mm(xs, layer["w_gate"], group_sizes)
-    u = _expert_stack_mm(xs, layer["w_up"], group_sizes)
+    base = None
+    if expert_shard_axis is not None:
+        start, stop = _band(layer, expert_shard_axis)
+        base = group_sizes[:start].sum(dtype=torch.int32)    # 0-d, device
+        group_sizes = group_sizes[start:stop]
+
+    g = _expert_stack_mm(xs, layer["w_gate"], group_sizes, base)
+    u = _expert_stack_mm(xs, layer["w_up"], group_sizes, base)
     a = F.silu(g) * u
-    yd = _expert_stack_mm(a.to(flat.dtype), layer["w_down"], group_sizes)
+    yd = _expert_stack_mm(a.to(flat.dtype), layer["w_down"], group_sizes,
+                          base)
 
     inv = torch.empty_like(perm)                          # flat -> sorted
     inv[perm] = torch.arange(n * k, device=perm.device)
     ys = yd[inv.reshape(n, k)]                            # [n, k, d]
     y = (ys * gates.to(ys.dtype)[..., None]).sum(dim=1)
+    if expert_shard_axis is not None:
+        y = _psum(y, expert_shard_axis)
     probs = torch.softmax(logits, dim=-1)
     aux = {
         "load_balance": cfg.n_experts * (
@@ -333,10 +410,11 @@ def moe_forward(params, tokens, cfg: MoEConfig, *, positions=None,
     """Logits [B, T, vocab] and the mean aux dict over layers
     (load_balance, router_z, dropped_frac). Dropless routing runs
     moe_mlp_grouped at every dispatch size, as in the JAX package (the
-    serving paths dispatch by size in `_mlp_block`). `remat` recomputes
-    each layer in the backward pass (torch.utils.checkpoint)."""
-    if ep_axis is not None:
-        raise NotImplementedError(_MULTI_DEVICE)
+    serving paths dispatch by size in `_mlp_block`); under `ep_axis` (a
+    process group) every layer runs moe_mlp's expert-parallel placement,
+    dropless routing included (JAX :409-412). `remat` recomputes each
+    layer in the backward pass (torch.utils.checkpoint), its all-to-alls
+    with it."""
     t = tokens.shape[1]
     if positions is None:
         positions = torch.arange(t, dtype=torch.int32, device=tokens.device)
@@ -346,10 +424,10 @@ def moe_forward(params, tokens, cfg: MoEConfig, *, positions=None,
     def layer_fn(x, layer):
         a, _ = _attention_block(layer, x, cfg, positions)
         x = x + a
-        if cfg.routing == "dropless":
+        if cfg.routing == "dropless" and ep_axis is None:
             y, aux = moe_mlp_grouped(layer, x, cfg)
         else:
-            y, aux = moe_mlp(layer, x, cfg)
+            y, aux = moe_mlp(layer, x, cfg, ep_axis=ep_axis)
         return x + y, aux
 
     for layer in params["layers"]:
@@ -370,7 +448,8 @@ def moe_loss_fn(params, tokens, cfg: MoEConfig, *, ep_axis=None,
     load_balance + router_z_coef x router_z over tokens [B, T]. Returns
     (loss, metrics) with metrics {"ce", "load_balance", "router_z",
     "dropped_frac"}, each a 0-d tensor. Differentiable through capacity
-    routing, the training routing (the MoEConfig default)."""
+    routing, the training routing (the MoEConfig default). `ep_axis`: as
+    moe_forward (tokens are this rank's shard)."""
     tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
     logits, aux = moe_forward(params, tokens[:, :-1], cfg, ep_axis=ep_axis,
                               remat=remat)
@@ -380,3 +459,83 @@ def moe_loss_fn(params, tokens, cfg: MoEConfig, *, ep_axis=None,
     loss = (ce + cfg.load_balance_coef * aux["load_balance"]
             + cfg.router_z_coef * aux["router_z"])
     return loss, {"ce": ce, **aux}
+
+
+def make_moe_train_step(mesh, cfg: MoEConfig, *, remat: bool = False):
+    """Expert- and data-parallel training step over a mesh with dp and ep
+    axes (JAX `moe.py:440-492`): tokens split over (dp, ep), expert
+    stacks over ep (`moe_param_shardings`), every other leaf replicated.
+
+    Returns `step(params, optimizer, tokens) -> (loss, metrics)`. Every
+    rank calls it with the global tokens [B, T] (B divisible by dp x ep)
+    and cuts its own rows; `params` is this rank's shard
+    (parallel/mesh.py `shard_params` with `moe_param_shardings`) and
+    `optimizer` a torch optimizer over `param_leaves(params)`, which must
+    require grad. The step updates the shard and the optimizer state in
+    place, as the dense and pipeline steps do; the JAX step takes an
+    optax optimizer in its maker and returns new (params, opt_state,
+    loss, metrics). loss and metrics ("ce",
+    "load_balance", "router_z", "dropped_frac") are 0-d tensors on the
+    parameters' device, the same on every rank (no host sync).
+
+    Reductions, as JAX's: the loss and metrics summed over (dp, ep) in one
+    all-reduce and divided by dp x ep; each gradient divided by dp x ep
+    after a sum over dp for the expert stacks (each ep rank holds other
+    experts, whose gradients the all-to-all's backward already gathered
+    from every ep rank's tokens) and over (dp, ep) for every other leaf.
+    A reduction over a group of one rank is the identity and is not
+    issued, so a world of one calls no collective (JAX: `data > 1`).
+    ep must divide n_experts, else ValueError."""
+    from flash_attention_tpu_torch.parallel.mesh import axes_group
+
+    dp, ep = mesh["dp"].size(), mesh["ep"].size()
+    if cfg.n_experts % ep:
+        raise ValueError(f"ep={ep} must divide n_experts={cfg.n_experts}")
+    data = dp * ep
+    shard = mesh.get_local_rank("dp") * ep + mesh.get_local_rank("ep")
+    ep_axis = mesh.get_group("ep") if ep > 1 else None
+    dp_group = mesh.get_group("dp") if dp > 1 else None
+    data_group = axes_group(mesh, ("dp", "ep")) if data > 1 else None
+
+    def step(params, optimizer, tokens):
+        tok = torch.as_tensor(tokens, device=params["embed"].device).long()
+        if tok.shape[0] % data:
+            raise ValueError(f"batch {tok.shape[0]} does not split over "
+                             f"dp x ep = {data}")
+        c = tok.shape[0] // data
+        optimizer.zero_grad(set_to_none=True)
+        loss, metrics = moe_loss_fn(params, tok[shard * c:(shard + 1) * c],
+                                    cfg, ep_axis=ep_axis, remat=remat)
+        loss.backward()
+        names = ("ce", "load_balance", "router_z", "dropped_frac")
+        vals = torch.stack([loss.detach().float(),
+                            *(metrics[k].detach().float() for k in names)])
+        if data_group is not None:
+            vals = all_reduce_sum(vals, data_group) / data
+            _reduce_moe_grads(params, dp_group, data_group, data)
+        optimizer.step()
+        return vals[0], dict(zip(names, vals[1:].unbind()))
+
+    return step
+
+
+def _reduce_moe_grads(params, dp_group, data_group, data: int) -> None:
+    """Each gradient summed over its group (expert stacks over dp, the rest
+    over (dp, ep); a group of one is skipped) and divided by `data`,
+    written back to `.grad`, in param_leaves order on every rank."""
+    def leaves(tree, expert=False):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], k in EXPERT_KEYS)
+        elif isinstance(tree, list):
+            for v in tree:
+                yield from leaves(v)
+        else:
+            yield tree, expert
+
+    for p, expert in leaves(params):
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        group = dp_group if expert else data_group
+        if group is not None:
+            g = all_reduce_sum(g, group)
+        p.grad = g / data

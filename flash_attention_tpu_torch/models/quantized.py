@@ -405,7 +405,10 @@ def expand_param_shardings(params, pspecs):
     leading dim outermost, so a named axis is legal only on a group's
     leading dim (true of every llama layout: wq / wk / wv heads, wo
     heads, the mlp's ffn, lm_head's vocab); anything else raises
-    ValueError, as in JAX.
+    ValueError, as in JAX. A dense MoE expert stack [E, ...] takes its
+    spec as it is; a quantized one (QuantizedExpertStack, Int4ExpertStack)
+    raises ValueError, the JAX function's limit (it cannot map a spec onto
+    an expert stack).
 
     Returns a tree congruent with `params`: a quantized weight becomes
     the same class holding specs (`q` / `scale`, `packed` / `scales`)
@@ -413,9 +416,12 @@ def expand_param_shardings(params, pspecs):
 
     def expand(w, spec):
         if isinstance(w, EXPERT_STACK_TYPES):
-            raise NotImplementedError(
-                "expert-stack shardings come with expert parallelism "
-                "(ROADMAP multi-device 2d)")
+            raise ValueError(
+                f"{type(w).__name__}: a quantized expert stack takes no "
+                "sharding spec. The JAX package's expand_param_shardings "
+                "(models/quantized.py:519-541) cannot map a spec onto an "
+                "expert stack either, so quantized MoE trees are not "
+                "served under a mesh; shard a dense [E, ...] stack")
         if not isinstance(w, QUANT_LEAF_TYPES):
             return tuple(spec)
         full = tuple(spec) + (None,) * (len(w.orig_shape) - len(spec))

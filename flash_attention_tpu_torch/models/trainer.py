@@ -1,6 +1,6 @@
 """Training loop with checkpoint/resume (port of
-`flash_attention_tpu/models/trainer.py`: `family="dense"` on one device
-and `family="pipeline"` over a mesh).
+`flash_attention_tpu/models/trainer.py`: `family="dense"` on one device,
+`family="pipeline"` and `family="moe"` over a mesh).
 
 The Trainer owns (params, optimizer, step): it runs the family's train
 step in place, checkpoints `{"params", "opt_state", "step"}` through
@@ -20,6 +20,16 @@ from the newest checkpoint of `ckpt_dir`.
                    restore cuts each rank's slab again, so
                    `merge_pipeline_params(*state["params"])` reads one
                    into a plain tree.
+  * ``moe``      -- models/moe.py `make_moe_train_step` over a mesh with
+                   an ep axis (and dp; JAX :155-176, :212-215): every rank
+                   draws the same `init_moe_params` tree from `seed` and
+                   keeps its shard (`moe_param_shardings`: the expert
+                   stacks over ep); tokens [B, T] split over (dp, ep).
+                   The last step's router metrics ("ce", "load_balance",
+                   "router_z", "dropped_frac") land in `last_metrics`. A
+                   checkpoint is the JAX package's global tree (the
+                   expert stacks and their moments gathered over ep),
+                   written and restored as the pipeline's.
 
 The JAX Trainer takes an optax transformation, a stateless spec. A torch
 optimizer binds to tensors, so this one takes a factory,
@@ -67,9 +77,9 @@ class Trainer:
     """Owns (params, optimizer, step_num); runs the train step in place
     and checkpoints/resumes. `family="dense"` runs on one device (its
     `mesh=` / `tp_size=` sharding, ROADMAP multi-device 2f, raises
-    NotImplementedError, as does `family="moe"`, 2d); `family="pipeline"`
-    needs `mesh` with a pp axis and takes `pp_schedule` "gpipe" or
-    "1f1b"."""
+    NotImplementedError); `family="pipeline"` needs `mesh` with a pp axis
+    and takes `pp_schedule` "gpipe" or "1f1b"; `family="moe"` needs
+    `mesh` with an ep axis (ValueError otherwise, as in JAX)."""
 
     def __init__(self, cfg,
                  optimizer: Callable[[Iterable], torch.optim.Optimizer], *,
@@ -81,11 +91,10 @@ class Trainer:
             raise ValueError(
                 f"unknown family {family!r} "
                 "(expected dense | pipeline | moe)")
-        if family == "moe":
-            raise NotImplementedError(
-                "family='moe' (MoE training: expert-parallel mesh, "
-                "capacity routing) arrives with the multi-device slice 2d "
-                "(ROADMAP section A item 2)")
+        if family == "moe" and (
+                mesh is None or "ep" not in (mesh.mesh_dim_names or ())):
+            raise ValueError("family='moe' needs a mesh with 'dp' and "
+                             "'ep' axes")
         if family == "dense" and (mesh is not None or tp_size is not None):
             raise NotImplementedError(
                 "sharded dense training (mesh=, tp_size=) arrives with the "
@@ -102,9 +111,12 @@ class Trainer:
         self.mesh = mesh
         self.family = family
         self.step_num = 0
+        self.last_metrics: dict | None = None
         self.device = resolve_device(device)
         if family == "pipeline":
             self._init_pipeline(seed, pp_schedule)
+        elif family == "moe":
+            self._init_moe(seed)
         else:
             self.params = init_params(cfg, seed, device=self.device)
             self._step_fn = make_train_step(cfg, remat=self.tc.remat)
@@ -138,38 +150,75 @@ class Trainer:
         self.params = (shard_params(stages, st_s, mesh, device=self.device),
                        shard_params(shared, sh_s, mesh, device=self.device))
 
+    def _init_moe(self, seed) -> None:
+        from flash_attention_tpu_torch.models.moe import (
+            init_moe_params, make_moe_train_step, moe_param_shardings,
+        )
+        from flash_attention_tpu_torch.parallel.mesh import shard_params
+
+        self._step_fn = make_moe_train_step(self.mesh, self.cfg,
+                                            remat=self.tc.remat)
+        self.params = shard_params(
+            init_moe_params(self.cfg, seed, device=self.device),
+            moe_param_shardings(self.cfg), self.mesh, device=self.device)
+
     # --- checkpointing --------------------------------------------------
 
+    def _sharded(self) -> bool:
+        return self.family in ("pipeline", "moe")
+
+    def _moe_specs(self, opt=None, params=None):
+        """The MoE tree's specs, and with `opt` (a state_dict of
+        self.optimizer's structure) its optimizer state's."""
+        from flash_attention_tpu_torch.models.moe import moe_param_shardings
+        from flash_attention_tpu_torch.parallel.mesh import (
+            optimizer_state_specs, spec_leaves,
+        )
+
+        specs = moe_param_shardings(self.cfg)
+        if opt is None:
+            return specs
+        leaves = param_leaves(self.params if params is None else params)
+        return specs, optimizer_state_specs(
+            opt, leaves, spec_leaves(specs),
+            self.optimizer if params is None else None)
+
     def _state(self):
-        """The state to save: this process's trees, or for a pipeline
-        the global layout gathered over the mesh (a collective: every
-        rank calls)."""
-        if self.family != "pipeline":
+        """The state to save: this process's trees, or for a pipeline or
+        an MoE mesh the global layout gathered over the mesh (a
+        collective: every rank calls)."""
+        if not self._sharded():
             return {"params": self.params,
                     "opt_state": self.optimizer.state_dict(),
                     "step": self.step_num}
         from flash_attention_tpu_torch.parallel.mesh import gather_params
-        from flash_attention_tpu_torch.parallel.pipeline import (
-            pipeline_shardings,
-        )
 
         opt = self.optimizer.state_dict()
-        st_s, sh_s, o_s = pipeline_shardings(
-            self.mesh, *self.params, opt, optimizer=self.optimizer,
-            tp_axis=self._tp_axis)
-        return {"params": (gather_params(self.params[0], st_s, self.mesh),
-                           gather_params(self.params[1], sh_s, self.mesh)),
+        if self.family == "moe":
+            specs, o_s = self._moe_specs(opt)
+            params = gather_params(self.params, specs, self.mesh)
+        else:
+            from flash_attention_tpu_torch.parallel.pipeline import (
+                pipeline_shardings,
+            )
+
+            st_s, sh_s, o_s = pipeline_shardings(
+                self.mesh, *self.params, opt, optimizer=self.optimizer,
+                tp_axis=self._tp_axis)
+            params = (gather_params(self.params[0], st_s, self.mesh),
+                      gather_params(self.params[1], sh_s, self.mesh))
+        return {"params": params,
                 "opt_state": gather_params(opt, o_s, self.mesh),
                 "step": self.step_num}
 
     def _writes(self) -> bool:
-        return (self.family != "pipeline"
+        return (not self._sharded()
                 or dist.get_rank() == int(self.mesh.mesh.flatten()[0]))
 
     def _barrier(self) -> None:
         """Every rank of the mesh waits for the others (one barrier an
         axis): no rank looks for a checkpoint before it is written."""
-        if self.family == "pipeline":
+        if self._sharded():
             for axis in self.mesh.mesh_dim_names:
                 dist.barrier(group=self.mesh.get_group(axis))
 
@@ -183,9 +232,9 @@ class Trainer:
         self._barrier()
 
     def restore(self, step: int | None = None) -> int:
-        if self.family == "pipeline":
+        if self._sharded():
             step, state = restore_checkpoint(self.tc.ckpt_dir, step=step)
-            params, opt = self._pipeline_slab(state)
+            params, opt = self._slab(state)
         else:
             step, state = restore_checkpoint(
                 self.tc.ckpt_dir, step=step, template=self._state())
@@ -200,20 +249,29 @@ class Trainer:
         self.step_num = int(state["step"])
         return self.step_num
 
-    def _pipeline_slab(self, state):
-        """This rank's slab of a global pipeline checkpoint: its stage
-        and shared params, and its optimizer state."""
+    def _slab(self, state):
+        """This rank's slab of a global checkpoint: its params (a
+        pipeline's stage and shared params, an MoE mesh's expert band and
+        the replicated leaves) and its optimizer state."""
         from flash_attention_tpu_torch.parallel.mesh import shard_params
-        from flash_attention_tpu_torch.parallel.pipeline import (
-            pipeline_shardings,
-        )
 
-        stages, shared = state["params"]
         opt = state["opt_state"]
-        st_s, sh_s, o_s = pipeline_shardings(
-            self.mesh, stages, shared, opt, tp_axis=self._tp_axis)
-        params = (shard_params(stages, st_s, self.mesh, device=self.device),
-                  shard_params(shared, sh_s, self.mesh, device=self.device))
+        if self.family == "moe":
+            specs, o_s = self._moe_specs(opt, params=state["params"])
+            params = shard_params(state["params"], specs, self.mesh,
+                                  device=self.device)
+        else:
+            from flash_attention_tpu_torch.parallel.pipeline import (
+                pipeline_shardings,
+            )
+
+            stages, shared = state["params"]
+            st_s, sh_s, o_s = pipeline_shardings(
+                self.mesh, stages, shared, opt, tp_axis=self._tp_axis)
+            params = (shard_params(stages, st_s, self.mesh,
+                                   device=self.device),
+                      shard_params(shared, sh_s, self.mesh,
+                                   device=self.device))
         opt = dict(opt, state=shard_params(opt["state"], o_s["state"],
                                            self.mesh, device="cpu"))
         return params, opt
@@ -223,9 +281,12 @@ class Trainer:
     def train_step(self, tokens) -> torch.Tensor:
         """One step on tokens [B, T] ([M, B, T] for a pipeline; numpy or
         tensor); the loss comes back as a 0-d device tensor (no host
-        sync)."""
+        sync). An MoE step also sets `last_metrics`."""
         if self.family == "pipeline":
             loss = self._step_fn(*self.params, self.optimizer, tokens)
+        elif self.family == "moe":
+            loss, self.last_metrics = self._step_fn(
+                self.params, self.optimizer, tokens)
         else:
             loss = self._step_fn(self.params, self.optimizer, tokens)
         self.step_num += 1

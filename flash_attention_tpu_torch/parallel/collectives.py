@@ -6,12 +6,14 @@ stream after each row-parallel product, and a tiled all-gather of the
 vocab-sharded logits. Pipeline training (parallel/pipeline.py) adds two
 more: `ppermute`, the non-wrapping shift that hands activations to the
 next stage and cotangents to the one before, and `all_reduce_max`, the
-vocab-parallel cross-entropy's shift. All of them go through this
-module, which counts what it issues: per kind, the calls and the bytes,
-the way the JAX package's `parallel/scaling.py:hlo_collective_bytes`
-counts the result shapes of a compiled program's collectives (an
-all-reduce its buffer, an all-gather its OUTPUT, a collective-permute
-what this rank sends). Eager PyTorch has no compiled program to read,
+vocab-parallel cross-entropy's shift. Expert parallelism (models/moe.py
+`ep_axis=`) adds `all_to_all_tiled`, which swaps token slots against
+expert shards twice an MoE layer. All of them go through this module,
+which counts what it issues: per kind, the calls and the bytes, the way
+the JAX package's `parallel/scaling.py:hlo_collective_bytes` counts the
+result shapes of a compiled program's collectives (an all-reduce its
+buffer, an all-gather its OUTPUT, a collective-permute what this rank
+sends, an all-to-all its output, which is the size of its input). Eager PyTorch has no compiled program to read,
 so the scaling model (parallel/scaling.py `collective_bytes`) reads
 these counters instead. `collective_counts()` reads them and
 `reset_collective_counts()` zeros them, like the kernels' launch
@@ -33,6 +35,7 @@ import torch.distributed as dist
 ALL_REDUCE = "all-reduce"
 ALL_GATHER = "all-gather"
 PERMUTE = "collective-permute"
+ALL_TO_ALL = "all-to-all"
 
 all_reduce_calls = 0
 all_reduce_bytes = 0
@@ -40,23 +43,29 @@ all_gather_calls = 0
 all_gather_bytes = 0
 permute_calls = 0
 permute_bytes = 0
+all_to_all_calls = 0
+all_to_all_bytes = 0
 
 
 def collective_counts() -> dict:
     """{"all-reduce": {"calls", "bytes"}, "all-gather": {...},
-    "collective-permute": {...}} since the last reset."""
+    "collective-permute": {...}, "all-to-all": {...}} since the last
+    reset."""
     return {ALL_REDUCE: dict(calls=all_reduce_calls, bytes=all_reduce_bytes),
             ALL_GATHER: dict(calls=all_gather_calls, bytes=all_gather_bytes),
-            PERMUTE: dict(calls=permute_calls, bytes=permute_bytes)}
+            PERMUTE: dict(calls=permute_calls, bytes=permute_bytes),
+            ALL_TO_ALL: dict(calls=all_to_all_calls, bytes=all_to_all_bytes)}
 
 
 def reset_collective_counts() -> None:
     global all_reduce_calls, all_reduce_bytes
     global all_gather_calls, all_gather_bytes
     global permute_calls, permute_bytes
+    global all_to_all_calls, all_to_all_bytes
     all_reduce_calls = all_reduce_bytes = 0
     all_gather_calls = all_gather_bytes = 0
     permute_calls = permute_bytes = 0
+    all_to_all_calls = all_to_all_bytes = 0
 
 
 def _staged(x: torch.Tensor, group) -> bool:
@@ -145,3 +154,57 @@ def all_gather_tiled(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     all_gather_bytes += out.numel() * out.element_size()
     out = out.movedim(0, dim).contiguous()
     return out.to(x.device) if staged else out
+
+
+def _all_to_all(x: torch.Tensor, group, split_axis: int,
+                concat_axis: int) -> torch.Tensor:
+    """The tiled all-to-all itself (no autograd): `x` cut into n chunks
+    along `split_axis`, chunk j sent to rank j, the chunks received
+    concatenated along `concat_axis` in rank order."""
+    global all_to_all_calls, all_to_all_bytes
+    n = dist.get_world_size(group)
+    if x.shape[split_axis] % n:
+        raise ValueError(f"dim {split_axis} of size {x.shape[split_axis]} "
+                         f"does not split over {n} ranks")
+    staged = _staged(x, group)
+    xm = x.movedim(split_axis, 0)
+    xm = xm.reshape(n, xm.shape[0] // n, *xm.shape[1:])
+    xm = (xm.cpu() if staged else xm).contiguous()
+    out = torch.empty_like(xm)
+    dist.all_to_all_single(out, xm, group=group)
+    all_to_all_calls += 1
+    all_to_all_bytes += x.numel() * x.element_size()
+    # out[j] is rank j's chunk with the split dim in front: put the split
+    # dim back, then lay the n chunks along concat_axis, rank-major.
+    y = out.movedim(1, split_axis + 1).movedim(0, concat_axis)
+    shape = list(x.shape)
+    shape[split_axis] //= n
+    shape[concat_axis] *= n
+    y = y.reshape(shape)
+    return y.to(x.device) if staged else y
+
+
+class _AllToAll(torch.autograd.Function):
+    """The tiled all-to-all; its transpose is the same call with the two
+    axes swapped."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.args = (group, concat_axis, split_axis)
+        return _all_to_all(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _AllToAll.apply(ct, *ctx.args), None, None, None
+
+
+def all_to_all_tiled(x: torch.Tensor, group, split_axis: int,
+                     concat_axis: int) -> torch.Tensor:
+    """JAX's `lax.all_to_all(x, axis, split_axis, concat_axis,
+    tiled=True)`: x split into n equal chunks along `split_axis` (n the
+    group's size), chunk j sent to rank j, the chunks this rank receives
+    concatenated along `concat_axis` in rank order. One
+    `all_to_all_single` over the chunks made contiguous. Differentiable:
+    the backward is the same call with the axes swapped (counted too).
+    Counts one "all-to-all" call and x's bytes (the output's size)."""
+    return _AllToAll.apply(x, group, split_axis, concat_axis)

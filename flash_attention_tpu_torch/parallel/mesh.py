@@ -14,12 +14,15 @@ One process is one rank and one device. `initialize_distributed()`
 joins the processes into one `torch.distributed` world (NCCL between
 cards, gloo between CPU processes), and `make_mesh` lays the six named
 axes over its ranks as a `DeviceMesh`; `mesh.get_group(axis)` is the
-process group of an axis. `flash_attention_tpu_torch.scripts.
+process group of an axis, and `axes_group(mesh, axes)` the group of
+several axes flattened into one (JAX's collective over a tuple of axis
+names, e.g. `psum(x, ("dp", "ep"))`). `flash_attention_tpu_torch.scripts.
 launch_multihost` is the per-host launcher, and its `--simulate N` mode
 spawns N local ranks. `shard_params` cuts this rank's slice of a
 parameter tree by its specs (tensor-parallel serving, the pipeline's
-stages); `gather_params` puts the global tree back together from the
-slices (the pipeline's checkpoint).
+stages, expert-sharded stacks); `gather_params` puts the global tree
+back together from the slices (the pipeline's and the expert-parallel
+trainer's checkpoints).
 """
 
 from __future__ import annotations
@@ -166,6 +169,35 @@ def make_mesh(*, dp=1, pp=1, fsdp=1, sp=1, tp=1, ep=1, devices=None,
                       mesh_dim_names=AXES)
 
 
+def axes_group(mesh, axes):
+    """The process group of `axes` (a name, or a tuple of names) flattened
+    into one: the ranks that share this rank's coordinates on every other
+    axis, ordered as the mesh lays them (the first axis outermost). One
+    axis is `mesh.get_group(axis)`; a tuple makes its groups once per
+    mesh, every rank of the world creating every group in the same order
+    (`dist.new_group` is collective), and keeps them on the mesh."""
+    if isinstance(axes, str):
+        return mesh.get_group(axes)
+    axes = tuple(axes)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    cache = mesh.__dict__.setdefault("_axes_groups", {})
+    if axes not in cache:
+        names = list(mesh.mesh_dim_names)
+        dims = [names.index(a) for a in axes]
+        rest = [i for i in range(len(names)) if i not in dims]
+        grid = mesh.mesh.permute(*rest, *dims)
+        grid = grid.reshape(-1, math.prod(grid.shape[len(rest):]))
+        me = dist.get_rank()
+        mine = None
+        for ranks in grid.tolist():
+            group = dist.new_group(ranks)
+            if me in ranks:
+                mine = group
+        cache[axes] = mine
+    return cache[axes]
+
+
 def _axis_slice(x, dim: int, axis, mesh):
     """This rank's chunk of x along `dim` for mesh axis `axis` (x itself
     for no axis or an axis of one rank)."""
@@ -231,6 +263,8 @@ def shard_params(params, specs, mesh, *, device="cuda"):
     engine's `device_put(x, NamedSharding(mesh, spec))`): every leaf cut
     to this rank's coordinate on each mesh axis its spec names, and only
     that slice moved to `device` (the whole tree may live on the host).
+    An MoE expert stack [E, ...] with ("ep",) or ("tp",) keeps this
+    rank's band of E / n experts, as any tensor does.
 
     `specs` has the tree's structure with a spec tuple per tensor; a
     quantized weight takes its expanded spec
@@ -277,3 +311,37 @@ def gather_params(local, specs, mesh):
         if axis is not None:
             out = all_gather_tiled(out, mesh.get_group(axis), dim)
     return out
+
+
+def spec_leaves(specs) -> list:
+    """The spec tuples of a spec tree in `param_leaves` order (dict keys
+    sorted, list entries in order): a tuple is a leaf here."""
+    if isinstance(specs, dict):
+        return [t for key in sorted(specs) for t in spec_leaves(specs[key])]
+    if isinstance(specs, list):
+        return [t for item in specs for t in spec_leaves(item)]
+    return [specs]
+
+
+def optimizer_state_specs(opt_state, leaves, leaf_specs, optimizer=None):
+    """Spec tuples for a torch optimizer's `state_dict()` by the structural
+    rule of JAX's `optax.tree_map_params`: each state tensor of its
+    parameter's shape (a moment) takes that parameter's spec, every other
+    leaf (a step count) is replicated. `leaves` / `leaf_specs` are the
+    parameters and their specs in the order the optimizer was built over
+    them; state ids name `optimizer`'s param groups in order when it is
+    given, else `leaves` in order."""
+    if optimizer is None:
+        by_id = list(range(len(leaves)))
+    else:
+        where = {id(t): i for i, t in enumerate(leaves)}
+        by_id = [where[id(p)] for group in optimizer.param_groups
+                 for p in group["params"]]
+    state = {}
+    for pid, entry in opt_state["state"].items():
+        leaf, spec = leaves[by_id[pid]], leaf_specs[by_id[pid]]
+        state[pid] = {
+            name: spec if (isinstance(v, torch.Tensor)
+                           and tuple(v.shape) == tuple(leaf.shape)) else ()
+            for name, v in entry.items()}
+    return {"state": state, "param_groups": opt_state["param_groups"]}

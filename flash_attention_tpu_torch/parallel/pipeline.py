@@ -65,6 +65,10 @@ from flash_attention_tpu_torch.parallel.collectives import (
     all_reduce_sum,
     ppermute,
 )
+from flash_attention_tpu_torch.parallel.mesh import (
+    optimizer_state_specs,
+    spec_leaves,
+)
 
 SHARED_KEYS = ("embed", "final_norm", "lm_head")
 
@@ -139,24 +143,9 @@ def pipeline_shardings(mesh, stages, shared, opt_state=None, *,
     out = (stage_tree, shared_tree)
     if opt_state is None:
         return out
-    leaves = llama.param_leaves((stages, shared))
-    specs = ([stage_tree[k] for k in sorted(stages)]
-             + [shared_tree[k] for k in sorted(shared)])
-    if optimizer is None:
-        by_id = list(range(len(leaves)))
-    else:
-        where = {id(t): i for i, t in enumerate(leaves)}
-        by_id = [where[id(p)] for group in optimizer.param_groups
-                 for p in group["params"]]
-    state = {}
-    for pid, entry in opt_state["state"].items():
-        leaf, spec = leaves[by_id[pid]], specs[by_id[pid]]
-        state[pid] = {
-            name: spec if (isinstance(v, torch.Tensor)
-                           and tuple(v.shape) == tuple(leaf.shape)) else ()
-            for name, v in entry.items()}
-    return out + ({"state": state,
-                   "param_groups": opt_state["param_groups"]},)
+    return out + (optimizer_state_specs(
+        opt_state, llama.param_leaves((stages, shared)),
+        spec_leaves(stage_tree) + spec_leaves(shared_tree), optimizer),)
 
 
 # --- the stage and its tail ----------------------------------------------

@@ -109,7 +109,8 @@ def predict_dp_decode(n_hosts: int, *, dispatch_overhead: float = 0.02
 def collective_bytes(fn, *args, **kw) -> dict:
     """The bytes of the collectives that one call fn(*args, **kw) issues
     through parallel/collectives.py, by kind ("all-reduce": the buffers,
-    "all-gather": the outputs), kinds it did not issue left out: the
+    "all-gather" and "all-to-all": the outputs, "collective-permute":
+    what this rank sends), kinds it did not issue left out: the
     counterpart of the JAX `hlo_collective_bytes` of a compiled step."""
     before = collectives.collective_counts()
     fn(*args, **kw)

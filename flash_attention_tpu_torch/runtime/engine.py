@@ -75,10 +75,15 @@ Design (as in the JAX engine):
     model's. dp replicas in the mesh compute the same thing, as
     shard_map replicates over the axes its specs do not name. Per-rank
     figures differ from JAX's global ones: `cache.hbm_bytes` and the
-    KV byte counts are one rank's. Model drafts (`draft_params`) and MoE
-    models raise under a mesh.
+    KV byte counts are one rank's. Model drafts (`draft_params`) raise
+    under a mesh. An MoE tree shards by the same function's expert
+    layout (the router replicated, each rank a band of n_experts / tp
+    experts; tp must divide n_experts): every route of the FFN computes
+    the band and one all-reduce sums it. A quantized expert stack under a
+    mesh raises ValueError, as in JAX (its `expand_param_shardings`
+    cannot map a spec onto one).
 
-Without a mesh, MoE models serve through the same path (models/llama.py
+MoE models serve through the same path as dense ones (models/llama.py
 `_mlp_block`). The XLA warm-up helpers (precompile_*) have no
 counterpart: PyTorch compiles nothing.
 One departure from the JAX engine: an explicit `prefill_hbm_budget`
@@ -351,10 +356,11 @@ class Engine:
 
     def _init_mesh(self, mesh, draft_params) -> None:
         """Tensor-parallel state: the "tp" group (`_tp`, None without a
-        mesh), this rank's shard of the params and its kv-head count.
-        Raises where the JAX engine does (tp not dividing n_kv_heads,
-        through serving_param_shardings; model drafts), and for MoE
-        params (expert parallelism comes later)."""
+        mesh), this rank's shard of the params and its kv-head count
+        (JAX `runtime/engine.py:469-481`). Raises where the JAX engine
+        does: tp not dividing n_kv_heads or n_experts (through
+        serving_param_shardings), quantized expert stacks (through
+        expand_param_shardings), model drafts."""
         self._tp = None
         self._kv_heads = self.cfg.n_kv_heads
         if mesh is None:
@@ -363,10 +369,6 @@ class Engine:
             raise NotImplementedError(
                 "model-based drafts under TP serving: run the draft "
                 "replicated outside the mesh (future work)")
-        if any("router" in layer for layer in self.params["layers"]):
-            raise NotImplementedError(
-                "MoE models under a mesh need expert-sharded stacks, which "
-                "come with expert parallelism (ROADMAP multi-device 2d)")
         tp = mesh["tp"].size()
         specs = expand_param_shardings(
             self.params, serving_param_shardings(self.cfg, tp))

@@ -1,4 +1,5 @@
-"""Pipeline-training worker: one rank of an SPMD GPipe / 1F1B run.
+"""Pipeline- and expert-parallel training worker: one rank of an SPMD
+GPipe / 1F1B or MoE run.
 
     python -m flash_attention_tpu_torch.scripts.launch_multihost \\
         --simulate N --device cpu -- \\
@@ -15,9 +16,10 @@ through host memory). `--start-after FILE` holds the ranks, once joined
 and with their meshes made, until FILE exists.
 
 Every case names `cfg` (LlamaConfig keyword arguments; "preset" a
-LlamaConfig constructor, default "tiny"; "dtype" a torch dtype name),
-`mesh` (make_mesh keyword arguments) and `optimizer` ({"kind": "sgd" |
-"adamw", "lr", "weight_decay"}). Its `kind`:
+LlamaConfig constructor, default "tiny", or a MoEConfig one, "tiny_moe"
+or "mixtral_8x7b"; "dtype" a torch dtype name), `mesh` (make_mesh
+keyword arguments) and `optimizer` ({"kind": "sgd" | "adamw", "lr",
+"weight_decay"}). Its `kind`:
 
   step     `steps` optimizer steps of `schedule` ("gpipe" | "1f1b", with
            `remat`) on `tokens` [M, B, T]. `params` names a global tree
@@ -35,12 +37,31 @@ LlamaConfig constructor, default "tiny"; "dtype" a torch dtype name),
            CPU); "build_s" and "gather_s" (the gather and fingerprints).
   loss     make_pp_loss on `tokens` with the tree `params`: "loss",
            "collectives".
-  trainer  Trainer(family="pipeline", pp_schedule=`schedule`) from
-           `seed` fed `batches` [n, M, B, T] in turn: `steps` steps with
-           a checkpoint every `ckpt_every` under `ckpt_dir`, then a
-           second Trainer from `resume_seed` that resumes from the
-           newest checkpoint and runs the steps after it: "losses",
-           "resumed_step", "resumed_losses".
+  trainer  Trainer(family=`family`, default "pipeline", pp_schedule=
+           `schedule`) from `seed` fed `batches` ([n, M, B, T], or [n, B,
+           T] for "moe") in turn: `steps` steps with a checkpoint every
+           `ckpt_every` under `ckpt_dir`, then a second Trainer from
+           `resume_seed` that resumes from the newest checkpoint and runs
+           the steps after it: "losses", "resumed_step",
+           "resumed_losses", and for "moe" the first Trainer's
+           "last_metrics".
+  moe_step `steps` optimizer steps of models/moe.py make_moe_train_step
+           (with `remat`) on `tokens` [B, T] (B over dp x ep). `params`
+           names a global MoE tree of the file or is {"seed": s}
+           (init_moe_params on the device); each rank keeps its shard
+           (moe_param_shardings). Its result per rank: "losses",
+           "metrics" (floats a step), per step "launches", "collectives"
+           and "seconds", "peak_bytes" over the first step; after the
+           first step the gathered global tree ("params" on the CPU, or
+           with `fingerprint` its "fingerprints"; none with `gather`
+           False), the replicated leaves' local fingerprints
+           ("replicated") and, with `save_grads` (a path prefix), this
+           rank's reduced gradients written to `<prefix>.rank<r>.pt` (a
+           tree of its shard); "gather_s" the seconds of those.
+  moe_mlp  models/moe.py moe_mlp(ep_axis=) over the mesh's ep group on
+           this rank's (dp, ep) rows of `x` [B, T, d], layer 0 of the
+           tree `params` cut by moe_param_shardings: "y" and "aux" on
+           the CPU, "collectives".
 """
 
 from __future__ import annotations
@@ -232,19 +253,134 @@ def _trainer_run(case, mesh, device) -> dict:
     tc = TrainerConfig(ckpt_dir=case["ckpt_dir"],
                        ckpt_every=case["ckpt_every"], log_every=10 ** 9,
                        remat=case.get("remat", False))
-    kw = dict(trainer_cfg=tc, mesh=mesh, family="pipeline",
-              pp_schedule=case["schedule"], device=device)
+    family = case.get("family", "pipeline")
+    kw = dict(trainer_cfg=tc, mesh=mesh, family=family, device=device,
+              pp_schedule=case.get("schedule", "gpipe"))
     opt = _optimizer(case["optimizer"])
     batches = case["batches"]
     t1 = Trainer(cfg, opt, seed=case["seed"], **kw)
     losses = t1.fit(iter(batches), steps=case["steps"], log=lambda s: None)
+    metrics = ({k: float(v) for k, v in t1.last_metrics.items()}
+               if t1.last_metrics is not None else None)
     del t1
     t2 = Trainer(cfg, opt, seed=case["resume_seed"], **kw)
     resumed_step = t2.step_num
     resumed = t2.fit(iter(batches[resumed_step:]),
                      steps=case["steps"] - resumed_step, log=lambda s: None)
     return dict(losses=losses, resumed_step=resumed_step,
-                resumed_losses=resumed)
+                resumed_losses=resumed, last_metrics=metrics)
+
+
+def _map(fn, tree):
+    """fn over the tensors of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _cloned(tree):
+    return _map(lambda t: t.detach().clone(), tree)
+
+
+def _moe_shard(case, cfg, mesh, trees, device):
+    """This rank's shard of the case's MoE tree (its own tensors)."""
+    from flash_attention_tpu_torch.models.moe import (
+        init_moe_params, moe_param_shardings,
+    )
+    from flash_attention_tpu_torch.parallel.mesh import shard_params
+
+    src = case["params"]
+    whole = (trees[src] if isinstance(src, str) else
+             init_moe_params(cfg, src["seed"], device=device))
+    local = shard_params(whole, moe_param_shardings(cfg), mesh,
+                         device=device)
+    return _cloned(local) if isinstance(src, str) else local
+
+
+def _moe_step_run(case, mesh, trees, device) -> dict:
+    from flash_attention_tpu_torch.models.llama import param_leaves
+    from flash_attention_tpu_torch.models.moe import (
+        EXPERT_KEYS, make_moe_train_step, moe_param_shardings,
+    )
+    from flash_attention_tpu_torch.parallel import collectives
+    from flash_attention_tpu_torch.parallel.mesh import gather_params
+
+    cfg = _config(case["cfg"])
+    t0 = time.perf_counter()
+    params = _moe_shard(case, cfg, mesh, trees, device)
+    for leaf in param_leaves(params):
+        leaf.requires_grad_(True)
+    optimizer = _optimizer(case["optimizer"])(param_leaves(params))
+    step = make_moe_train_step(mesh, cfg, remat=case.get("remat", False))
+    _sync(device)
+    out = dict(losses=[], metrics=[], launches=[], collectives=[],
+               seconds=[], build_s=time.perf_counter() - t0)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    for i in range(case.get("steps", 1)):
+        _sync(device)
+        launches0, coll0 = launch_counts(), collectives.collective_counts()
+        t0 = time.perf_counter()
+        loss, metrics = step(params, optimizer, case["tokens"])
+        loss = float(loss)
+        _sync(device)
+        out["seconds"].append(time.perf_counter() - t0)
+        launches1, coll1 = launch_counts(), collectives.collective_counts()
+        out["losses"].append(loss)
+        out["metrics"].append({k: float(v) for k, v in metrics.items()})
+        out["launches"].append({k: launches1[k] - launches0[k]
+                                for k in launches1})
+        out["collectives"].append({
+            kind: {f: coll1[kind][f] - coll0[kind][f] for f in coll1[kind]}
+            for kind in coll1})
+        if i:
+            continue
+        out["peak_bytes"] = _peak(device)
+        t0 = time.perf_counter()
+        if case.get("save_grads"):
+            r = dist.get_rank()
+            torch.save(_map(lambda t: t.grad.cpu(), params),
+                       f"{case['save_grads']}.rank{r}.pt")
+        if case.get("gather", True):
+            whole = gather_params(params, moe_param_shardings(cfg), mesh)
+            if case.get("fingerprint"):
+                out["fingerprints"] = tree_fingerprints(whole)
+            else:
+                out["params"] = _map(lambda t: t.detach().cpu().clone(),
+                                     whole)
+            del whole
+        out["replicated"] = {
+            name: fp for name, fp in tree_fingerprints(params).items()
+            if name.rsplit(".", 1)[-1] not in EXPERT_KEYS}
+        out["gather_s"] = time.perf_counter() - t0
+    return out
+
+
+def _moe_mlp_run(case, mesh, trees, device) -> dict:
+    from flash_attention_tpu_torch.models.moe import (
+        moe_mlp, moe_param_shardings,
+    )
+    from flash_attention_tpu_torch.parallel import collectives
+    from flash_attention_tpu_torch.parallel.mesh import shard_params
+
+    cfg = _config(case["cfg"])
+    dp, ep = mesh["dp"].size(), mesh["ep"].size()
+    layer = shard_params(trees[case["params"]]["layers"][0],
+                         moe_param_shardings(cfg)["layers"][0], mesh,
+                         device=device)
+    x = case["x"].to(device)
+    c = x.shape[0] // (dp * ep)
+    r = mesh.get_local_rank("dp") * ep + mesh.get_local_rank("ep")
+    coll0 = collectives.collective_counts()
+    with torch.no_grad():
+        y, aux = moe_mlp(layer, x[r * c:(r + 1) * c], cfg,
+                         ep_axis=mesh.get_group("ep") if ep > 1 else None)
+    coll1 = collectives.collective_counts()
+    return dict(y=y.cpu(), aux={k: float(v) for k, v in aux.items()},
+                collectives={kind: {f: coll1[kind][f] - coll0[kind][f]
+                                    for f in coll1[kind]} for kind in coll1})
 
 
 def run(cases: list, trees: dict, device: torch.device,
@@ -276,6 +412,10 @@ def run(cases: list, trees: dict, device: torch.device,
             mine = _step_run(case, mesh, trees, device)
         elif kind == "loss":
             mine = _loss_run(case, mesh, trees, device)
+        elif kind == "moe_step":
+            mine = _moe_step_run(case, mesh, trees, device)
+        elif kind == "moe_mlp":
+            mine = _moe_mlp_run(case, mesh, trees, device)
         else:
             mine = _trainer_run(case, mesh, device)
         gathered = [None] * dist.get_world_size() if rank == 0 else None

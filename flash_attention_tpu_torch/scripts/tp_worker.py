@@ -19,17 +19,25 @@ their times.
 An "engine" case (the default kind) serves its requests through the
 `Engine`, every rank with the same arguments (the SPMD rule):
   cfg       LlamaConfig keyword arguments; "preset" names a LlamaConfig
-            constructor (default "tiny"), "dtype" a torch dtype name;
+            constructor (default "tiny"), or a MoEConfig one ("tiny_moe",
+            "mixtral_8x7b", with "routing" and the other MoEConfig
+            fields), "dtype" a torch dtype name;
   params    a name in the file's "params" (a parameter tree, quantized
             leaves included), or {"seed": s, "weights": "int4" | "int8"
             | "dense"} to draw the tree on the device
-            (init_quantized_params / init_params; drawn once per recipe);
+            (init_quantized_params / init_params, for an MoE config
+            init_quantized_moe_params / init_moe_params; drawn once per
+            recipe);
   mesh      make_mesh keyword arguments ({"tp": 2, "dp": -1}), or None
             for the engine without a mesh;
   engine    Engine keyword arguments ("kv_quant_dtype" a dtype name);
   requests  Request keyword arguments, in submission order, or
   waves     lists of them, each served to the end before the next;
-  warmup    serve one 3-token request first (not counted).
+  warmup    serve one 3-token request first (not counted);
+  env       environment variables set for the case (engine build and
+            run), e.g. {"FA_TPU_GROUPED_MIN_TOKENS": "1"};
+  record_bases  keep the `base` row offset of every grouped-kernel (B9)
+            call of the counted run: "bases", as integers read after it.
 Its result per rank: "transcripts" [(request index, branch, tokens,
 finish reason)], "launches" (every kernel and body launch counter of
 the ops modules, as deltas over the counted run), "collectives"
@@ -39,11 +47,18 @@ chunks, decode and prefill seconds).
 
 A "collective_bytes" case runs parallel/scaling.py
 `tp_decode_collective_bytes(cfg, tp, batch)` and returns its bytes.
+
+A "moe_block" case runs one MoE FFN block under the mesh's tp group as
+`expert_shard_axis`: layer 0 of the tree `params` cut by
+serving_param_shardings, on the replicated activations `x` [B, T, d];
+`route` "grouped" (moe_mlp_grouped) or "onehot" (moe_mlp, capacity =
+B T). Its result: "y" on the CPU, "collectives", "launches".
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -69,21 +84,29 @@ def launch_counts() -> dict:
             for attr in sorted(vars(mod)) if attr.endswith("_launches")}
 
 
+MOE_PRESETS = ("tiny_moe", "mixtral_8x7b")
+
+
 def _config(spec: dict):
     from flash_attention_tpu_torch.models.llama import LlamaConfig
+    from flash_attention_tpu_torch.models.moe import MoEConfig
 
     kw = dict(spec)
     preset = kw.pop("preset", "tiny")
     kw["dtype"] = getattr(torch, kw.get("dtype", "bfloat16"))
-    return getattr(LlamaConfig, preset)(**kw)
+    cls = MoEConfig if preset in MOE_PRESETS else LlamaConfig
+    return getattr(cls, preset)(**kw)
 
 
 def _params(case, cfg, trees: dict, cache: dict, device):
     """The case's parameter tree: a named tree of the cases file, or one
     drawn on the device from its recipe (kept for the cases after)."""
     from flash_attention_tpu_torch.models.llama import init_params
+    from flash_attention_tpu_torch.models.moe import (
+        MoEConfig, init_moe_params,
+    )
     from flash_attention_tpu_torch.models.quantized import (
-        init_quantized_params,
+        init_quantized_moe_params, init_quantized_params,
     )
 
     src = case["params"]
@@ -92,12 +115,14 @@ def _params(case, cfg, trees: dict, cache: dict, device):
     key = (repr(sorted(case["cfg"].items())), src["seed"], src["weights"])
     if key not in cache:
         cache.clear()
+        moe = isinstance(cfg, MoEConfig)
         if src["weights"] == "dense":
-            cache[key] = init_params(cfg, seed=src["seed"], device=device)
+            draw = init_moe_params if moe else init_params
+            cache[key] = draw(cfg, seed=src["seed"], device=device)
         else:
             dt = "int4" if src["weights"] == "int4" else torch.int8
-            cache[key] = init_quantized_params(cfg, src["seed"], dt,
-                                               device=device)
+            draw = init_quantized_moe_params if moe else init_quantized_params
+            cache[key] = draw(cfg, src["seed"], dt, device=device)
     return cache[key]
 
 
@@ -106,7 +131,28 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+@contextlib.contextmanager
+def environ(env: dict):
+    """`env` set in os.environ within the block, the old values back
+    after it."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update({k: str(v) for k, v in env.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
 def _engine_run(case, mesh, trees, cache, device) -> dict:
+    with environ(case.get("env", {})):
+        return _engine_case(case, mesh, trees, cache, device)
+
+
+def _engine_case(case, mesh, trees, cache, device) -> dict:
     from flash_attention_tpu_torch.parallel import collectives
     from flash_attention_tpu_torch.runtime.engine import Engine, Request
 
@@ -123,15 +169,17 @@ def _engine_run(case, mesh, trees, cache, device) -> dict:
              for wave in case.get("waves", [case.get("requests")])]
     order = {r.request_id: i
              for i, r in enumerate(r for wave in waves for r in wave)}
+    bases = []
     _sync(device)
     launches0, coll0 = launch_counts(), collectives.collective_counts()
     t0 = time.perf_counter()
-    comps = [c for wave in waves for c in eng.run(wave)]
+    with _recording_bases(bases if case.get("record_bases") else None):
+        comps = [c for wave in waves for c in eng.run(wave)]
     _sync(device)
     secs = time.perf_counter() - t0
     launches1, coll1 = launch_counts(), collectives.collective_counts()
     st = eng.stats
-    return dict(
+    out = dict(
         transcripts=sorted((order[c.request_id], c.branch, list(c.tokens),
                             c.finish_reason) for c in comps),
         launches={k: launches1[k] - launches0[k] for k in launches1},
@@ -142,6 +190,60 @@ def _engine_run(case, mesh, trees, cache, device) -> dict:
                    prefill_chunks=st.prefill_chunks, decode_s=st.decode_s,
                    prefill_s=st.prefill_s, spec_accepted=st.spec_accepted,
                    prefix_cached_tokens=st.prefix_cached_tokens))
+    if case.get("record_bases"):
+        out["bases"] = [int(b) for b in bases]
+    return out
+
+
+@contextlib.contextmanager
+def _recording_bases(bases):
+    """Within the block, keep (in `bases`, unless it is None) the `base`
+    of every grouped expert product, B9's band offset: a device tensor,
+    read after the run."""
+    from flash_attention_tpu_torch.models import moe
+
+    if bases is None:
+        yield
+        return
+    inner = moe._expert_stack_mm
+
+    def recorded(xs, w, group_sizes=None, base=None):
+        if group_sizes is not None:
+            bases.append(0 if base is None else base)
+        return inner(xs, w, group_sizes, base)
+
+    moe._expert_stack_mm = recorded
+    try:
+        yield
+    finally:
+        moe._expert_stack_mm = inner
+
+
+def _moe_block(case, mesh, trees, device) -> dict:
+    from flash_attention_tpu_torch.models.llama import serving_param_shardings
+    from flash_attention_tpu_torch.models.moe import moe_mlp, moe_mlp_grouped
+    from flash_attention_tpu_torch.parallel import collectives
+    from flash_attention_tpu_torch.parallel.mesh import shard_params
+
+    cfg = _config(case["cfg"])
+    tp = mesh["tp"].size()
+    layer = shard_params(trees[case["params"]]["layers"][0],
+                         serving_param_shardings(cfg, tp)["layers"][0],
+                         mesh, device=device)
+    x = case["x"].to(device)
+    group = mesh.get_group("tp")
+    launches0, coll0 = launch_counts(), collectives.collective_counts()
+    with torch.no_grad():
+        if case["route"] == "grouped":
+            y, _ = moe_mlp_grouped(layer, x, cfg, expert_shard_axis=group)
+        else:
+            y, _ = moe_mlp(layer, x, cfg, expert_shard_axis=group,
+                           capacity=x.shape[0] * x.shape[1])
+    launches1, coll1 = launch_counts(), collectives.collective_counts()
+    return dict(y=y.cpu(),
+                launches={k: launches1[k] - launches0[k] for k in launches1},
+                collectives={kind: {f: coll1[kind][f] - coll0[kind][f]
+                                    for f in coll1[kind]} for kind in coll1})
 
 
 def _wait_for(path: str, timeout_s: float = 3600.0) -> None:
@@ -185,6 +287,8 @@ def run(cases: list, trees: dict, device: torch.device,
             mine = tp_decode_collective_bytes(
                 _config(case["cfg"]), case["tp"], case["batch"],
                 device=device)
+        elif case.get("kind") == "moe_block":
+            mine = _moe_block(case, meshes[_mesh_key(case)], trees, device)
         else:
             mine = _engine_run(case, meshes.get(_mesh_key(case)), trees,
                                cache, device)

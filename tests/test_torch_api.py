@@ -59,8 +59,8 @@ from flash_attention_tpu_torch.utils.metrics import max_abs_error
 
 ATOL = 2e-5
 JAX_BLOCKS = JaxBlockSizes(block_q=128, block_kv=128)
-# Names the JAX package exports that wait for the MoE multi-device slice.
-SHARDING_NAMES = {"moe_param_shardings", "make_moe_train_step"}
+# Names the JAX package exports that the port does not have yet: none.
+SHARDING_NAMES = set()
 
 HKV, PAGES, PS, D = 2, 8, 128, 64
 GOOD_TABLE = [[0, 1], [2, 3]]

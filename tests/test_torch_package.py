@@ -220,23 +220,6 @@ def test_unported_model_features_raise():
     assert eng.cfg is moe and "router" in eng.params["layers"][0]
 
 
-@pytest.mark.parametrize("kw", [dict(ep_axis="ep"),
-                                dict(expert_shard_axis="tp")],
-                         ids=["ep_axis", "expert_shard_axis"])
-def test_moe_placements_raise(kw):
-    """Expert-parallel placements arrive with the multi-device slice."""
-    from flash_attention_tpu_torch.models import moe
-
-    cfg = moe.MoEConfig.tiny_moe(dtype=torch.float32)
-    layer = moe.init_moe_params(cfg, seed=0, device="cpu")["layers"][0]
-    x = torch.zeros(1, 4, cfg.dim)
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
-        moe.moe_mlp(layer, x, cfg, **kw)
-    if "expert_shard_axis" in kw:
-        with pytest.raises(NotImplementedError, match="multi-device slice"):
-            moe.moe_mlp_grouped(layer, x, cfg, **kw)
-
-
 def test_unported_attention_options_raise():
     """Bare int8 codes (without scales) are refused; windows and segment
     ids run forward and backward (with their argument checks: the
@@ -280,9 +263,8 @@ def test_unported_attention_options_raise():
 
 
 @pytest.mark.parametrize("kw, slice_name", [
-    (dict(family="moe"), "multi-device"),
     (dict(mesh=object()), "multi-device"),
-], ids=["moe", "mesh"])
+], ids=["mesh"])
 def test_trainer_unported_families_raise(kw, slice_name):
     with pytest.raises(NotImplementedError, match=f"{slice_name} slice"):
         Trainer(CFG, torch.optim.SGD, device="cpu", **kw)

@@ -340,7 +340,8 @@ def _expected_collectives(case, rank):
             nbytes += M * (3 * b * (T - 1) * 4 + act)
     return {"all-reduce": dict(calls=calls, bytes=nbytes),
             "all-gather": dict(calls=0, bytes=0),
-            "collective-permute": dict(calls=fwd + bwd, bytes=sends * act)}
+            "collective-permute": dict(calls=fwd + bwd, bytes=sends * act),
+            "all-to-all": dict(calls=0, bytes=0)}
 
 
 @pytest.mark.parametrize("case", list(STEP_CASES))

@@ -140,7 +140,8 @@ def test_collective_bytes_counts_buffers_and_outputs(group):
     assert collectives.collective_counts() == {
         "all-reduce": {"calls": 2, "bytes": 6 * 2048 * 2},
         "all-gather": {"calls": 1, "bytes": 8 * 16 * 4},
-        "collective-permute": {"calls": 0, "bytes": 0}}
+        "collective-permute": {"calls": 0, "bytes": 0},
+        "all-to-all": {"calls": 0, "bytes": 0}}
     assert ts.collective_bytes(lambda: None) == {}
     collectives.reset_collective_counts()
     assert all(v == {"calls": 0, "bytes": 0}

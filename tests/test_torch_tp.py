@@ -31,7 +31,7 @@ models/quantized.py `expand_param_shardings`, parallel/mesh.py
     test's bounds (tests/test_scaling.py:52-70).
   * In a gloo world of one, the engine under `make_mesh(tp=1)` gives the
     engine without a mesh's transcripts with the same counts, and raises
-    with draft params and with MoE params.
+    with draft params and with quantized MoE params.
 """
 
 import os
@@ -53,7 +53,7 @@ from flash_attention_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from flash_attention_tpu.runtime import engine as jeng
 from flash_attention_tpu_torch.models import llama as tl
 from flash_attention_tpu_torch.models import quantized as tq
-from flash_attention_tpu_torch.models.moe import MoEConfig, init_moe_params
+from flash_attention_tpu_torch.models.moe import MoEConfig
 from flash_attention_tpu_torch.parallel import collectives
 from flash_attention_tpu_torch.parallel import mesh as pmesh
 from flash_attention_tpu_torch.runtime import engine as teng
@@ -341,25 +341,21 @@ def test_world_of_one_engine_equals_the_engine_without_a_mesh(
 
 def test_engine_under_a_mesh_raises_for_draft_and_moe(world_of_one, trees):
     """Model drafts under a mesh raise NotImplementedError, as in JAX
-    (runtime/engine.py:407-410), and so do MoE params (expert
-    parallelism comes later)."""
+    (runtime/engine.py:407-410); an MoE tree with quantized expert stacks
+    raises ValueError (JAX's expand_param_shardings cannot map a spec
+    onto an expert stack; dense MoE trees serve, tests/test_torch_moe_tp.py)."""
+    from flash_attention_tpu_torch.models.quantized import (
+        init_quantized_moe_params,
+    )
+
     with pytest.raises(NotImplementedError, match="drafts under TP"):
         teng.Engine(trees[1]["dense"], TCFG, mesh=world_of_one,
                     device="cpu", speculative_k=2,
                     draft_params=trees[1]["dense"], draft_cfg=TCFG)
     mcfg = MoEConfig.tiny_moe(dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        teng.Engine(init_moe_params(mcfg, seed=0, device="cpu"), mcfg,
-                    mesh=world_of_one, device="cpu")
-
-
-def test_moe_layer_raises_under_tp(world_of_one):
-    mcfg = MoEConfig.tiny_moe(dtype=torch.float32)
-    params = init_moe_params(mcfg, seed=0, device="cpu")
-    x = torch.zeros((1, 2, mcfg.dim))
-    with pytest.raises(NotImplementedError, match="expert"):
-        tl._mlp_block(params["layers"][0], x, mcfg,
-                      tp_axis=world_of_one.get_group("tp"))
+    with pytest.raises(ValueError, match="expert stack"):
+        teng.Engine(init_quantized_moe_params(mcfg, 0, "int4", device="cpu"),
+                    mcfg, mesh=world_of_one, device="cpu")
 
 
 # --- specs -----------------------------------------------------------------

@@ -172,9 +172,3 @@ def test_moe_loss_fn_matches_jax(moe_jax, remat):
                                    rtol=1e-5, atol=1e-7, err_msg=key)
     assert float(mt["dropped_frac"]) > 0       # capacity drops some
     _assert_grads(gt, gj)
-
-
-def test_moe_loss_fn_placements_raise():
-    tp = tm.init_moe_params(TMOE, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
-        tm.moe_loss_fn(tp, _tokens(4, TMOE.vocab_size), TMOE, ep_axis="ep")
